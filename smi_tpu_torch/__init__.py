@@ -1,0 +1,60 @@
+"""smi_tpu_torch — the PyTorch/CUDA port of smi_tpu for the NVIDIA H100.
+
+This slice carries the flagship workload: the distributed 4-point Jacobi
+stencil with Dirichlet edges on a 2-D rank grid, its halo exchange, and
+the hand-written CUDA sweep kernels (one sweep per launch, and k sweeps
+per memory pass). Entry points run on CUDA unless the caller passes
+``device="cpu"``; on a CPU tensor each kernel wrapper runs its plain
+PyTorch version instead.
+"""
+
+from smi_tpu_torch.convert import block_from_numpy, grid_to_numpy
+from smi_tpu_torch.kernels.stencil import (
+    fused_sweep,
+    fused_sweep_plain,
+    jacobi_step_block_fused,
+    make_fused_stencil_fn,
+)
+from smi_tpu_torch.kernels.stencil_temporal import (
+    make_temporal_stencil_fn,
+    pick_temporal_depth,
+    temporal_pass,
+    temporal_supported,
+    temporal_sweeps,
+    temporal_sweeps_plain,
+)
+from smi_tpu_torch.models.stencil import (
+    initial_grid,
+    jacobi_step_block,
+    jacobi_step_block_overlapped,
+    make_stencil_fn,
+    reference_stencil,
+    run_stencil,
+)
+from smi_tpu_torch.parallel.halo import (
+    Halos,
+    halo_exchange_2d,
+    halo_exchange_2d_corners,
+    halo_exchange_2d_corners_finish,
+    halo_exchange_2d_corners_start,
+    halo_exchange_finish,
+    halo_exchange_start,
+    pad_with_halos,
+    shift_along,
+)
+from smi_tpu_torch.parallel.mesh import Communicator, make_communicator
+
+__all__ = [
+    "Communicator", "make_communicator",
+    "Halos", "shift_along", "halo_exchange_2d", "halo_exchange_start",
+    "halo_exchange_finish", "halo_exchange_2d_corners",
+    "halo_exchange_2d_corners_start", "halo_exchange_2d_corners_finish",
+    "pad_with_halos",
+    "jacobi_step_block", "jacobi_step_block_overlapped", "make_stencil_fn",
+    "run_stencil", "reference_stencil", "initial_grid",
+    "fused_sweep", "fused_sweep_plain", "jacobi_step_block_fused",
+    "make_fused_stencil_fn",
+    "temporal_pass", "temporal_sweeps", "temporal_sweeps_plain",
+    "make_temporal_stencil_fn", "pick_temporal_depth", "temporal_supported",
+    "block_from_numpy", "grid_to_numpy",
+]

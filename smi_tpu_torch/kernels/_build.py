@@ -1,0 +1,169 @@
+"""Build and load the package's CUDA kernels.
+
+Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface, loaded with ``ctypes``. The
+libraries go to ``build/torch_kernels/`` beside the package, keyed by a
+hash of the source and the flags, so a changed source builds anew and an
+unchanged one loads at once. All sources compile at the same time, one
+``nvcc`` each.
+
+Nothing here runs on import: the first :func:`library` call builds. A
+missing ``nvcc`` raises; there is no fallback to the plain versions.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch, and
+:func:`check` raises when it is not 0 — a launch the driver refused (too
+much shared memory, a bad grid) never runs and no later synchronise
+would report it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, List
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers, shared memory, spills: in the log
+)
+
+#: kernel name -> launches made through its wrapper (the plain CPU
+#: versions launch nothing and count nothing)
+LAUNCHES: Dict[str, int] = {"stencil_sweep": 0, "stencil_temporal": 0}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def find_nvcc() -> str:
+    """The ``nvcc`` to build with; raises when there is none."""
+    nvcc = shutil.which("nvcc")
+    if nvcc is None:
+        home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+        candidate = Path(home) / "bin" / "nvcc"
+        if candidate.is_file():
+            nvcc = str(candidate)
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found (neither on PATH nor under $CUDA_HOME/bin or "
+            "/usr/local/cuda/bin): the CUDA kernels cannot be built"
+        )
+    return nvcc
+
+
+def nvcc_command(nvcc: str, source: Path, output: Path) -> List[str]:
+    return [nvcc, *NVCC_FLAGS, "-o", str(output), str(source)]
+
+
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` builds to: keyed by source and flags."""
+    source = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(
+        source.read_bytes() + "\0".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_kernels(names=None) -> Dict[str, float]:
+    """Compile every named source that is not built yet, all at once,
+    and load each. Returns the wall seconds each build waited for."""
+    names = list(LAUNCHES) if names is None else list(names)
+    with _lock:
+        todo = [n for n in names if n not in _libs]
+        pending = {}
+        started = time.perf_counter()
+        for name in todo:
+            out = library_path(name)
+            if out.is_file():
+                continue
+            out.parent.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = nvcc_command(find_nvcc(), CSRC / f"{name}.cu", tmp)
+            pending[name] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), tmp, out)
+        waited = {}
+        failures = []
+        for name, (proc, tmp, out) in pending.items():
+            log, _ = proc.communicate()
+            waited[name] = time.perf_counter() - started
+            out.with_suffix(".log").write_text(log)
+            if proc.returncode != 0:
+                failures.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
+                continue
+            os.replace(tmp, out)
+        if failures:
+            raise RuntimeError("nvcc failed for " + "\n".join(failures))
+        for name in todo:
+            _libs[name] = _declare(name, ctypes.CDLL(str(library_path(name))))
+        return waited
+
+
+def build_log(name: str) -> str:
+    """What ``nvcc`` printed for the current build of ``name``, or ''
+    when it was loaded from an earlier build without a log."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.is_file() else ""
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built at first use."""
+    if name not in _libs:
+        build_kernels([name])
+    return _libs[name]
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+#: C signature of each entry point: (symbol, argument types)
+SIGNATURES = {
+    "stencil_sweep": (
+        "smi_stencil_sweep",
+        # x, top, bottom, left, right, out, h, w, row0, col0, gh, gw, stream
+        [_P] * 6 + [_I] * 6 + [_P],
+    ),
+    "stencil_temporal": (
+        "smi_stencil_temporal",
+        # x, top, bottom, left, right, out, h, w, row0, col0, gh, gw,
+        # depth, tile_h, tile_w, stream
+        [_P] * 6 + [_I] * 9 + [_P],
+    ),
+}
+
+
+def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
+    symbol, argtypes = SIGNATURES[name]
+    fn = getattr(lib, symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def entry(name: str):
+    """The declared C entry point of kernel ``name``."""
+    return getattr(library(name), SIGNATURES[name][0])
+
+
+def check(name: str, status: int) -> None:
+    """Raise when a launch returned a CUDA error."""
+    if status != 0:
+        raise RuntimeError(
+            f"{name} kernel launch failed with cudaError {status}"
+        )

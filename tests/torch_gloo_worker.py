@@ -1,0 +1,107 @@
+"""One rank of a gloo process group driving smi_tpu_torch on CPU tensors.
+
+Spawned by ``tests/test_torch_halo.py``; it imports torch and the port,
+never jax, so each child starts quickly. Every rank checks its own halo
+slabs against slices of the zero-padded global grid; rank 0 reports the
+gathered results of the distributed stencil tiers on ``results``.
+"""
+
+import traceback
+from datetime import timedelta
+
+import numpy as np
+
+
+def expected_slabs(g: np.ndarray, coords, block_shape, depth: int):
+    """What a non-wrapping exchange must deliver to the rank at
+    ``coords``: slices of the global grid padded with ``depth`` zeros."""
+    d = depth
+    h, w = block_shape
+    r0, c0 = coords[0] * h, coords[1] * w
+    gp = np.pad(g, d)
+    return {
+        "top": gp[r0:r0 + d, c0 + d:c0 + d + w],
+        "bottom": gp[r0 + h + d:r0 + h + 2 * d, c0 + d:c0 + d + w],
+        "left": gp[r0 + d:r0 + d + h, c0:c0 + d],
+        "right": gp[r0 + d:r0 + d + h, c0 + w + d:c0 + w + 2 * d],
+        "corner_top": gp[r0:r0 + d, c0:c0 + w + 2 * d],
+        "corner_bottom": gp[r0 + h + d:r0 + h + 2 * d, c0:c0 + w + 2 * d],
+    }
+
+
+def _check(name, got, want):
+    got = got.numpy()
+    if not np.array_equal(got, want):
+        raise AssertionError(f"{name}: got {got!r}, want {want!r}")
+
+
+def _check_halos(comm, g, block, depth):
+    import smi_tpu_torch as st
+
+    want = expected_slabs(g, comm.coords, tuple(block.shape), depth)
+    halos = st.halo_exchange_2d(block, comm, depth=depth)
+    split = st.halo_exchange_finish(
+        st.halo_exchange_start(block, comm, depth=depth))
+    corners = st.halo_exchange_2d_corners(block, comm, depth=depth)
+    for side in ("top", "bottom", "left", "right"):
+        _check(f"d={depth} {side}", getattr(halos, side), want[side])
+        _check(f"d={depth} split {side}", getattr(split, side), want[side])
+    _check(f"d={depth} corner top", corners.top, want["corner_top"])
+    _check(f"d={depth} corner bottom", corners.bottom, want["corner_bottom"])
+    _check(f"d={depth} corner left", corners.left, want["left"])
+    _check(f"d={depth} corner right", corners.right, want["right"])
+
+
+def run(rank, world, port, shape, grid, halo_grid, iterations, depth,
+        results):
+    """Initialise gloo, check the halos of ``halo_grid``, run the stencil
+    tiers on ``grid``, report."""
+    try:
+        import torch.distributed as dist
+
+        import smi_tpu_torch as st
+
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+            world_size=world, timeout=timedelta(seconds=60),
+        )
+        try:
+            comm = st.make_communicator(shape=shape, axis_names=("sx", "sy"),
+                                        device="cpu")
+            gh, gw = grid.shape
+            probe = st.block_from_numpy(halo_grid, comm)
+            for d in (1, 2, depth):
+                _check_halos(comm, halo_grid, probe, d)
+            # ring=True wraps: rank (r, c) receives (r-1 mod px, c)'s block
+            px, py = comm.axis_sizes
+            rx, cy = comm.coords
+            h, w = probe.shape
+            src = ((rx - 1) % px) * h, cy * w
+            _check("ring shift", st.shift_along(probe, comm, "sx", +1,
+                                                ring=True),
+                   halo_grid[src[0]:src[0] + h, src[1]:src[1] + w])
+
+            block = st.block_from_numpy(grid, comm)
+            out = {}
+            tiers = {
+                "plain": st.make_stencil_fn(comm, iterations),
+                "overlapped": st.make_stencil_fn(comm, iterations,
+                                                 overlap=True),
+                "fused": st.make_fused_stencil_fn(comm, iterations, gh, gw),
+                "temporal": st.make_temporal_stencil_fn(
+                    comm, iterations, gh, gw, depth=depth),
+            }
+            for name, fn in tiers.items():
+                out[name] = st.grid_to_numpy(fn(block), comm)
+            out["run_stencil"] = st.run_stencil(
+                grid, iterations, comm=comm).numpy()
+            if rank == 0:
+                results.put((rank, "ok", out))
+            dist.barrier()
+        finally:
+            dist.destroy_process_group()
+        if rank != 0:
+            results.put((rank, "ok", None))
+    except BaseException:  # report every failure to the parent, then exit
+        results.put((rank, "error", traceback.format_exc()))
+        raise
