@@ -1,14 +1,30 @@
 """smi_tpu_torch — the PyTorch/CUDA port of smi_tpu for the NVIDIA H100.
 
-This slice carries the flagship workload: the distributed 4-point Jacobi
-stencil with Dirichlet edges on a 2-D rank grid, its halo exchange, and
-the hand-written CUDA sweep kernels (one sweep per launch, and k sweeps
-per memory pass). Entry points run on CUDA unless the caller passes
-``device="cpu"``; on a CPU tensor each kernel wrapper runs its plain
-PyTorch version instead.
+Two slices are ported. The first carries the flagship workload: the
+distributed 4-point Jacobi stencil with Dirichlet edges on a 2-D rank
+grid, its halo exchange, and the hand-written CUDA sweep kernels (one
+sweep per launch, and k sweeps per memory pass). The second is ring
+attention's forward: sequence-parallel attention over a rank ring
+(``ring_shift`` moves K/V), with hand-written CUDA flash kernels for the
+whole-extent forward and for one ring step's fold (causal, sliding
+window, grouped K/V heads; f32 and bf16). Entry points run on CUDA
+unless the caller passes ``device="cpu"``; on a CPU tensor each kernel
+wrapper runs its plain PyTorch version instead.
 """
 
-from smi_tpu_torch.convert import block_from_numpy, grid_to_numpy
+from smi_tpu_torch.convert import (
+    block_from_numpy,
+    grid_to_numpy,
+    sequence_shard_from_numpy,
+    sequence_to_numpy,
+)
+from smi_tpu_torch.kernels.flash import (
+    flash_attend_fused,
+    flash_attend_fused_plain,
+    flash_block_attend,
+    flash_block_attend_plain,
+    flash_supported,
+)
 from smi_tpu_torch.kernels.stencil import (
     fused_sweep,
     fused_sweep_plain,
@@ -23,6 +39,12 @@ from smi_tpu_torch.kernels.stencil_temporal import (
     temporal_sweeps,
     temporal_sweeps_plain,
 )
+from smi_tpu_torch.models.ring_attention import (
+    make_ring_attention_fn,
+    reference_attention,
+    reference_attention_rows,
+    ring_attention_shard,
+)
 from smi_tpu_torch.models.stencil import (
     initial_grid,
     jacobi_step_block,
@@ -31,6 +53,7 @@ from smi_tpu_torch.models.stencil import (
     reference_stencil,
     run_stencil,
 )
+from smi_tpu_torch.parallel.channels import ring_shift
 from smi_tpu_torch.parallel.halo import (
     Halos,
     halo_exchange_2d,
@@ -57,4 +80,10 @@ __all__ = [
     "temporal_pass", "temporal_sweeps", "temporal_sweeps_plain",
     "make_temporal_stencil_fn", "pick_temporal_depth", "temporal_supported",
     "block_from_numpy", "grid_to_numpy",
+    "ring_shift",
+    "flash_attend_fused", "flash_attend_fused_plain", "flash_block_attend",
+    "flash_block_attend_plain", "flash_supported",
+    "ring_attention_shard", "make_ring_attention_fn", "reference_attention",
+    "reference_attention_rows",
+    "sequence_shard_from_numpy", "sequence_to_numpy",
 ]

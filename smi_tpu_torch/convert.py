@@ -1,8 +1,9 @@
-"""The stencil's state carried between the host and the rank grid.
+"""State carried between the host and the rank grid.
 
-The stencil has no weights: its state is the grid. These two functions
-are how a caller (and the parity tests) hands the same global float32
-grid to this package and reads it back.
+Neither the stencil nor attention has weights. The stencil's state is
+the grid; attention's is q, k and v, sharded on the sequence. These
+functions are how a caller (and the parity tests) hands the same global
+float32 arrays to this package and reads them back.
 """
 
 from __future__ import annotations
@@ -49,3 +50,41 @@ def grid_to_numpy(block: torch.Tensor, comm: Communicator) -> np.ndarray:
     dist.all_gather(parts, block)
     rows = [torch.cat(parts[r * py:(r + 1) * py], dim=1) for r in range(px)]
     return torch.cat(rows, dim=0).cpu().numpy()
+
+
+def sequence_shard_from_numpy(x: np.ndarray, comm: Communicator,
+                              dtype=torch.float32) -> torch.Tensor:
+    """This rank's rows of a global float32 ``(S, H, D)`` array, sharded
+    on the sequence over the communicator's first axis (the ring-attention
+    axis), as a contiguous tensor of ``dtype`` on ``comm.device``."""
+    x = np.asarray(x)
+    if x.dtype != np.float32:
+        raise TypeError(
+            f"the array must be float32, got {x.dtype}: build the state as "
+            f"float32 so every package sees the same values"
+        )
+    if x.ndim != 3:
+        raise ValueError(f"the array must be (S, H, D), got shape {x.shape}")
+    n, r = comm.shape[0], comm.coords[0]
+    if x.shape[0] % n:
+        raise ValueError(
+            f"sequence length {x.shape[0]} not divisible by {n} ranks"
+        )
+    s_local = x.shape[0] // n
+    shard = np.ascontiguousarray(x[r * s_local:(r + 1) * s_local])
+    return torch.from_numpy(shard).to(device=comm.device, dtype=dtype)
+
+
+def sequence_to_numpy(shard: torch.Tensor, comm: Communicator) -> np.ndarray:
+    """Gather every rank's ``(S_local, H, D)`` shard along the first axis
+    into the global sequence, on every rank; float32 (bf16 widened)."""
+    shard = shard.detach()
+    if shard.dtype == torch.bfloat16:
+        shard = shard.float()
+    axis = comm.axis_names[0]
+    if comm.shape[0] == 1:
+        return shard.cpu().numpy()
+    shard = shard.contiguous()
+    parts = [torch.empty_like(shard) for _ in range(comm.shape[0])]
+    dist.all_gather(parts, shard, group=comm.groups[axis])
+    return torch.cat(parts, dim=0).cpu().numpy()

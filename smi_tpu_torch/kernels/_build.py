@@ -5,7 +5,9 @@ shared library with a plain C interface, loaded with ``ctypes``. The
 libraries go to ``build/torch_kernels/`` beside the package, keyed by a
 hash of the source and the flags, so a changed source builds anew and an
 unchanged one loads at once. All sources compile at the same time, one
-``nvcc`` each.
+``nvcc`` each. A source may export several kernels (``flash_fwd.cu``
+exports the fused and the carried flash forward); each kernel has its
+own launch count.
 
 Nothing here runs on import: the first :func:`library` call builds. A
 missing ``nvcc`` raises; there is no fallback to the plain versions.
@@ -38,9 +40,9 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",  # registers, shared memory, spills: in the log
 )
 
-#: kernel name -> launches made through its wrapper (the plain CPU
-#: versions launch nothing and count nothing)
-LAUNCHES: Dict[str, int] = {"stencil_sweep": 0, "stencil_temporal": 0}
+#: sources whose bar is a tolerance, not bit identity: built with FMA
+#: contraction (the stencil sources keep ``-fmad=false``)
+FMA_SOURCES = frozenset({"flash_fwd"})
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -67,15 +69,22 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def nvcc_flags(name: str) -> tuple:
+    """The flags ``csrc/<name>.cu`` builds with."""
+    if name in FMA_SOURCES:
+        return tuple(f for f in NVCC_FLAGS if f != "-fmad=false")
+    return NVCC_FLAGS
+
+
 def nvcc_command(nvcc: str, source: Path, output: Path) -> List[str]:
-    return [nvcc, *NVCC_FLAGS, "-o", str(output), str(source)]
+    return [nvcc, *nvcc_flags(source.stem), "-o", str(output), str(source)]
 
 
 def library_path(name: str) -> Path:
     """Where ``csrc/<name>.cu`` builds to: keyed by source and flags."""
     source = CSRC / f"{name}.cu"
     digest = hashlib.sha256(
-        source.read_bytes() + "\0".join(NVCC_FLAGS).encode()
+        source.read_bytes() + "\0".join(nvcc_flags(name)).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
@@ -83,7 +92,7 @@ def library_path(name: str) -> Path:
 def build_kernels(names=None) -> Dict[str, float]:
     """Compile every named source that is not built yet, all at once,
     and load each. Returns the wall seconds each build waited for."""
-    names = list(LAUNCHES) if names is None else list(names)
+    names = list(SOURCES) if names is None else list(names)
     with _lock:
         todo = [n for n in names if n not in _libs]
         pending = {}
@@ -131,8 +140,9 @@ def library(name: str) -> ctypes.CDLL:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
-#: C signature of each entry point: (symbol, argument types)
+#: C signature of each kernel's entry point: (symbol, argument types)
 SIGNATURES = {
     "stencil_sweep": (
         "smi_stencil_sweep",
@@ -145,20 +155,50 @@ SIGNATURES = {
         # depth, tile_h, tile_w, stream
         [_P] * 6 + [_I] * 9 + [_P],
     ),
+    "flash_fused": (
+        "smi_flash_fused",
+        # q, k, v, out, m, l, dtype, h, h_kv, s_q, s_k, d, q_off, k_off,
+        # causal, window, scale, block_q, block_k, stream
+        [_P] * 6 + [_I] * 10 + [_F] + [_I] * 2 + [_P],
+    ),
+    "flash_block": (
+        "smi_flash_block",
+        # q, k, v, m_in, l_in, acc_in, m_out, l_out, acc_out, dtype, h,
+        # h_kv, s_q, s_k, d, q_off, k_off, causal, window, scale, block_q,
+        # block_k, stream
+        [_P] * 9 + [_I] * 10 + [_F] + [_I] * 2 + [_P],
+    ),
 }
 
+#: kernels whose entry point lives in a source of another name
+_SOURCE_OF = {"flash_fused": "flash_fwd", "flash_block": "flash_fwd"}
 
-def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
-    symbol, argtypes = SIGNATURES[name]
-    fn = getattr(lib, symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+
+def source_of(kernel: str) -> str:
+    """The ``csrc/`` source (without ``.cu``) that exports ``kernel``."""
+    return _SOURCE_OF.get(kernel, kernel)
+
+
+#: every source, each built into one library
+SOURCES = sorted({source_of(k) for k in SIGNATURES})
+
+#: kernel name -> launches made through its wrapper (the plain CPU
+#: versions launch nothing and count nothing)
+LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}
+
+
+def _declare(source: str, lib: ctypes.CDLL) -> ctypes.CDLL:
+    for kernel, (symbol, argtypes) in SIGNATURES.items():
+        if source_of(kernel) == source:
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
 
 
-def entry(name: str):
-    """The declared C entry point of kernel ``name``."""
-    return getattr(library(name), SIGNATURES[name][0])
+def entry(kernel: str):
+    """The declared C entry point of ``kernel``."""
+    return getattr(library(source_of(kernel)), SIGNATURES[kernel][0])
 
 
 def check(name: str, status: int) -> None:

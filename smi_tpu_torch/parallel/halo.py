@@ -66,12 +66,13 @@ def _issue(comm: Communicator,
     and receives the matching slab from the rank as far down, with tag
     ``s`` (the JAX package's one stream per direction). Every rank issues
     the shifts in the same order, so sends and receives between a pair
-    of ranks match in order as well as by tag.
+    of ranks match in order as well as by tag. ``direction`` is any
+    nonzero step; the halo exchanges use +1 and -1.
     """
     by_axis, outs = {}, []
     for tag, (x, axis_name, direction) in enumerate(shifts):
-        if direction not in (1, -1):
-            raise ValueError(f"direction must be +1 or -1, got {direction}")
+        if direction == 0:
+            raise ValueError("direction must be nonzero")
         dst = comm.neighbour(axis_name, direction, ring)
         src = comm.neighbour(axis_name, -direction, ring)
         if src == comm.rank:  # a wrapping axis of one rank
@@ -110,6 +111,8 @@ def shift_along(
     zeros; with it the shift wraps.
     """
     check_backend(backend)
+    if direction not in (1, -1):
+        raise ValueError(f"direction must be +1 or -1, got {direction}")
     return _issue(comm, [(x, axis_name, direction)], ring).wait()[0]
 
 

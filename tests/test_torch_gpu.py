@@ -7,11 +7,15 @@ file imports no JAX, and ``--noconftest`` skips ``tests/conftest.py``,
 which does, so it runs where only PyTorch is installed.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
 
 import smi_tpu_torch as st
+from smi_tpu_torch.kernels import _build
+from smi_tpu_torch.kernels import flash as kflash
 
 pytestmark = pytest.mark.gpu
 
@@ -54,3 +58,96 @@ def test_temporal_stencil_matches_the_serial_reference(cuda_comm, iters,
         st.block_from_numpy(g, cuda_comm))
     np.testing.assert_array_equal(st.grid_to_numpy(out, cuda_comm),
                                   st.reference_stencil(g, iters))
+
+
+# ------------------------------------------------------ flash attention --
+
+
+@pytest.fixture
+def cuda_sp():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return st.make_communicator(shape=(1,), axis_names=("sp",),
+                                device="cuda")
+
+
+def _heads(seed, h, s, d, dtype, device):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn((h, s, d), generator=gen).to(device=device,
+                                                     dtype=dtype)
+
+
+def _worst_row_rel(got, want):
+    """Worst ``||got - want|| / ||want||`` over the rows (last axis)."""
+    got, want = got.float(), want.float()
+    err = (got - want).norm(dim=-1)
+    ref = want.norm(dim=-1)
+    return torch.where(ref > 0, err / ref, err).max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("window,h_kv", [(None, 4), (24, 2)])
+def test_flash_kernels_equal_their_plain_versions(cuda_sp, dtype, fused,
+                                                  window, h_kv):
+    """S=64 (one ragged tile past 32 or 64 keys when offset), carried
+    state from a previous fold, global offsets. ``chip_smoke.py``'s bars:
+    m and l within 1e-5 in either dtype, out/acc within 2e-5 in f32 and
+    by the worst row's relative error, 1e-2, in bf16."""
+    h, s, d = 4, 64, 128
+    dev = cuda_sp.device
+    q = _heads(1, h, s, d, dtype, dev)
+    k, v = (_heads(i, h_kv, s, d, dtype, dev) for i in (2, 3))
+    scale = 1.0 / math.sqrt(d)
+    before = dict(_build.LAUNCHES)
+    if fused:
+        got = kflash.flash_attend_fused(q, k, v, 0, 0, True, scale,
+                                        window=window)
+        want = kflash.flash_attend_fused_plain(q, k, v, 0, 0, True, scale,
+                                               window=window)
+        name, parts = "flash_fused", ("out", "m", "l")
+    else:
+        fresh = (torch.full((h, 1, s), kflash.NEG_INF, device=dev),
+                 torch.zeros((h, 1, s), device=dev),
+                 torch.zeros((h, s, d), device=dev))
+        carry = kflash.flash_block_attend_plain(q, k, v, *fresh, 64, 0, True,
+                                                scale, window=window)
+        got = kflash.flash_block_attend(q, k, v, *carry, 64, 40, True, scale,
+                                        window=window)
+        want = kflash.flash_block_attend_plain(q, k, v, *carry, 64, 40, True,
+                                               scale, window=window)
+        name, parts = "flash_block", ("m", "l", "acc")
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[name] == before[name] + 1
+    for part, a, b in zip(parts, got, want):
+        if part in ("m", "l"):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+        elif dtype == torch.float32:
+            torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-5)
+        else:
+            assert _worst_row_rel(a, b) <= 1e-2, part
+
+
+def test_flash_kernel_refuses_an_f64_cuda_input(cuda_sp):
+    q = torch.zeros((2, 64, 128), dtype=torch.float64, device=cuda_sp.device)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        kflash.flash_attend_fused(q, q, q, 0, 0, True, 0.1)
+
+
+def test_auto_tier_raises_on_a_shape_the_kernel_cannot_take(cuda_sp):
+    q = torch.zeros((64, 2, 512), device=cuda_sp.device)
+    fn = st.make_ring_attention_fn(cuda_sp, causal=True)
+    with pytest.raises(ValueError, match="use_flash=False"):
+        fn(q, q, q)
+
+
+def test_ring_attention_on_the_card_matches_the_reference(cuda_sp):
+    rng = np.random.RandomState(5)
+    q, k, v = (rng.randn(128, 4, 128).astype(np.float32) for _ in range(3))
+    shards = [st.sequence_shard_from_numpy(x, cuda_sp) for x in (q, k, v)]
+    before = _build.LAUNCHES["flash_fused"]
+    out = st.make_ring_attention_fn(cuda_sp, causal=True)(*shards)
+    assert _build.LAUNCHES["flash_fused"] == before + 1
+    np.testing.assert_allclose(st.sequence_to_numpy(out, cuda_sp),
+                               st.reference_attention(q, k, v, causal=True),
+                               rtol=2e-5, atol=2e-5)

@@ -10,11 +10,7 @@ kernels in interpret mode) and to the serial numpy reference.
 """
 
 import math
-import multiprocessing as mp
-import queue
-import socket
 import sys
-import time
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -30,54 +26,12 @@ from smi_tpu.models import stencil
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 import torch_gloo_worker  # noqa: E402
 
-#: wall-clock budget of one spawned group, well inside the 300 s watchdog
-JOIN_TIMEOUT_S = 150
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
 
 def _run_group(shape, grid, halo_grid, iterations, depth):
-    """Spawn the ranks, collect every report, join them all."""
-    ctx = mp.get_context("spawn")
-    results = ctx.Queue()
-    world = math.prod(shape)
-    port = _free_port()
-    procs = [
-        ctx.Process(
-            target=torch_gloo_worker.run,
-            args=(r, world, port, shape, grid, halo_grid, iterations, depth,
-                  results),
-        )
-        for r in range(world)
-    ]
-    for p in procs:
-        p.start()
-    try:
-        reports = {}
-        deadline = time.monotonic() + JOIN_TIMEOUT_S
-        while len(reports) < world:
-            left = deadline - time.monotonic()
-            try:
-                rank, status, payload = results.get(timeout=max(left, 1))
-            except queue.Empty:
-                pytest.fail(f"{world - len(reports)} rank(s) did not report "
-                            f"within {JOIN_TIMEOUT_S} s")
-            if status != "ok":
-                pytest.fail(f"rank {rank} failed:\n{payload}")
-            reports[rank] = payload
-        for p in procs:
-            p.join(timeout=30)
-        assert [p.exitcode for p in procs] == [0] * world
-        return reports[0]
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.terminate()
-                p.join(timeout=10)
+    """Spawn the ranks; rank 0's report (the gathered tiers)."""
+    return torch_gloo_worker.run_group(
+        torch_gloo_worker.run, math.prod(shape),
+        (shape, grid, halo_grid, iterations, depth))[0]
 
 
 @pytest.mark.parametrize(

@@ -329,7 +329,8 @@ def test_cpu_calls_launch_nothing():
     st.fused_sweep(*_sweep_args())
     st.temporal_sweeps(*_temporal_args())
     assert _build.LAUNCHES == before
-    assert set(before) == {"stencil_sweep", "stencil_temporal"}
+    assert set(before) == {"stencil_sweep", "stencil_temporal",
+                           "flash_fused", "flash_block"}
 
 
 # --------------------------------------------------------------- loader --
@@ -342,6 +343,18 @@ def test_nvcc_command_targets_sm90a_without_fast_math(tmp_path):
     assert "-fmad=false" in cmd and "-O3" in cmd and "-std=c++17" in cmd
     assert "-shared" in cmd and "-fPIC" in cmd
     assert "fast_math" not in line and "fast-math" not in line
+
+
+def test_only_the_flash_source_contracts_fma(tmp_path):
+    """The stencil sources keep ``-fmad=false`` for bit identity; the
+    flash source's bar is a tolerance, so it builds with FMA."""
+    for name in _build.SOURCES:
+        cmd = _build.nvcc_command("nvcc", tmp_path / f"{name}.cu",
+                                  tmp_path / "k.so")
+        assert ("-fmad=false" in cmd) == (name != "flash_fwd"), name
+        assert "-gencode" in cmd and "fast_math" not in " ".join(cmd)
+    assert _build.SOURCES == ["flash_fwd", "stencil_sweep",
+                              "stencil_temporal"]
 
 
 def test_missing_nvcc_raises_and_never_falls_back(monkeypatch, tmp_path):
@@ -373,10 +386,10 @@ def test_build_dir_is_ignored_by_git():
 
 @pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
 def test_sources_declare_the_bound_entry_points(name):
-    source = (_build.CSRC / f"{name}.cu").read_text()
+    source = (_build.CSRC / f"{_build.source_of(name)}.cu").read_text()
     symbol, argtypes = _build.SIGNATURES[name]
     match = re.search(r'extern "C" int ' + symbol + r"\(([^)]*)\)", source)
-    assert match, f"{symbol} not exported by {name}.cu"
+    assert match, f"{symbol} not exported by {_build.source_of(name)}.cu"
     assert len(match.group(1).split(",")) == len(argtypes)
     assert "return static_cast<int>(cudaGetLastError());" in source
     # the note names the TPU kernel it replaces and what bounds it

@@ -1,15 +1,69 @@
 """One rank of a gloo process group driving smi_tpu_torch on CPU tensors.
 
-Spawned by ``tests/test_torch_halo.py``; it imports torch and the port,
-never jax, so each child starts quickly. Every rank checks its own halo
-slabs against slices of the zero-padded global grid; rank 0 reports the
-gathered results of the distributed stencil tiers on ``results``.
+Spawned by ``tests/test_torch_halo.py`` (the stencil: :func:`run`) and
+``tests/test_torch_ring_attention.py`` (ring attention:
+:func:`run_attention`) through :func:`run_group`; it imports torch and
+the port, never jax, so each child starts quickly. Every rank checks its
+own halo slabs against slices of the zero-padded global grid; rank 0
+reports the gathered results of the distributed stencil tiers on
+``results``. In the attention group every rank reports its own shard.
 """
 
+import multiprocessing as mp
+import queue
+import socket
+import time
 import traceback
 from datetime import timedelta
 
 import numpy as np
+
+#: wall-clock budget of one spawned group, well inside the 300 s watchdog
+JOIN_TIMEOUT_S = 150
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_group(target, world: int, args, timeout: float = JOIN_TIMEOUT_S):
+    """Spawn ``world`` ranks of ``target(rank, world, port, *args,
+    results)``, collect every rank's report, join them all. Returns
+    ``{rank: payload}``; raises AssertionError when a rank fails, does
+    not report in time or exits non-zero."""
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=target,
+                         args=(r, world, port, *args, results))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    try:
+        reports = {}
+        deadline = time.monotonic() + timeout
+        while len(reports) < world:
+            left = deadline - time.monotonic()
+            try:
+                rank, status, payload = results.get(timeout=max(left, 1))
+            except queue.Empty:
+                raise AssertionError(
+                    f"{world - len(reports)} rank(s) did not report within "
+                    f"{timeout} s") from None
+            if status != "ok":
+                raise AssertionError(f"rank {rank} failed:\n{payload}")
+            reports[rank] = payload
+        for p in procs:
+            p.join(timeout=30)
+        assert [p.exitcode for p in procs] == [0] * world
+        return reports
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
 
 
 def expected_slabs(g: np.ndarray, coords, block_shape, depth: int):
@@ -102,6 +156,47 @@ def run(rank, world, port, shape, grid, halo_grid, iterations, depth,
             dist.destroy_process_group()
         if rank != 0:
             results.put((rank, "ok", None))
+    except BaseException:  # report every failure to the parent, then exit
+        results.put((rank, "error", traceback.format_exc()))
+        raise
+
+
+def run_attention(rank, world, port, q, k, v, window, results):
+    """Initialise gloo, run both ring-attention tiers on a ``world``-rank
+    ``sp`` ring over the global float32 ``(S, H, D)`` q/k/v, check
+    ``ring_shift`` by 1, -1 and 2, report this rank's shards."""
+    try:
+        import torch.distributed as dist
+
+        import smi_tpu_torch as st
+
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+            world_size=world, timeout=timedelta(seconds=60),
+        )
+        try:
+            comm = st.make_communicator(shape=(world,), axis_names=("sp",),
+                                        device="cpu")
+            qs, ks, vs = (st.sequence_shard_from_numpy(x, comm)
+                          for x in (q, k, v))
+            s_local = qs.shape[0]
+            for offset in (1, -1, 2):
+                src = (rank - offset) % world
+                _check(f"ring_shift offset {offset}",
+                       st.ring_shift(ks, comm, offset=offset),
+                       k[src * s_local:(src + 1) * s_local])
+            out = {}
+            for name, use_flash in (("flash", True), ("plain", False)):
+                fn = st.make_ring_attention_fn(comm, causal=True,
+                                               window=window,
+                                               use_flash=use_flash)
+                shard = fn(qs, ks, vs)
+                out[name] = shard.numpy()
+                out[f"{name} gathered"] = st.sequence_to_numpy(shard, comm)
+            results.put((rank, "ok", out))
+            dist.barrier()
+        finally:
+            dist.destroy_process_group()
     except BaseException:  # report every failure to the parent, then exit
         results.put((rank, "error", traceback.format_exc()))
         raise
