@@ -40,25 +40,64 @@ built in phase 2 with the stencil sources), with TF32 off throughout:
    at its default, at the four shapes of phase 7, each held to float64
    ``reference_attention_rows`` on 256 rows (the first and the last among
    them), each run making one fused launch and no carried launch;
-10. an emulated 4-rank ring over S=8192 in one process, causal f32, causal
-   bf16 and GQA 8:1 window 4096 bf16: ``make_ring_attention_fn`` runs on
-   each rank's shards with ``ring_shift`` stood in by a shift that hands
-   each rank its left neighbour's block, so the ring schedule itself
-   runs; each rank's output equals its rows of the fused output, in 16
-   carried launches per ring;
+10. an emulated 4-rank ring over S=8192, causal f32, causal bf16 and GQA
+   8:1 window 4096 bf16: one thread per rank runs
+   ``make_ring_attention_fn`` on its shards, with ``ring_shift`` stood in
+   by a shift that swaps blocks between the threads at a barrier, so the
+   ring schedule itself runs; each rank's output equals its rows of the
+   fused output, in 16 carried launches per ring;
 11. each flash kernel's time at those shapes beside its bound, its plain
    version's time and ``scaled_dot_product_attention``'s.
 
-Bars: f32 out/acc within 2e-5 (``rtol = atol``); m and l within 1e-5 in
-either dtype (both sides add exact products in f32); bf16 out/acc by the
-worst row's relative error ``||got - want|| / ||want||``, within 1e-2,
-and each bf16 kernel check also reads a control (the plain version with
-one live key tile dropped), which must land above that bar.
+Then training (``smi_tpu_torch/kernels/csrc/flash_bwd.cu``, also built in
+phase 2):
+
+12. each backward kernel (dq; dk and dv) against its plain version, from
+   a fused forward's statistics and a random dout: the four shapes of
+   phase 7 and the 4-layer stack's S=32768 window-4096 attention; one
+   rank's steps of the 4-rank rings (2048 rows at q_off=6144): past,
+   diagonal and future blocks (the future block's gradients must be
+   zeros, ``array_equal``) in f32 and bf16, and the GQA window edge;
+13. the ring's backward: on the 1-rank ring, autograd through
+   ``make_ring_attention_fn``'s default tier (one launch of each kernel)
+   against the kernels' plain versions and, up to S=8192, against
+   autograd through the plain tier; the three rings of phase 10 with
+   ``_flash_forward`` and ``_flash_ring_backward`` run by one thread per
+   rank, each rank's gradients equal to its rows of the 1-rank ones, in
+   16 launches of each backward kernel per ring; and ``remat_reps``;
+14. the main path at full width: ``make_train_step`` on a 1x1 ``(dp,
+   sp)`` grid, ``BlockConfig(embed=1024, heads=8, head_dim=128)``, B=1,
+   S=8192, causal, 1 layer, bf16 compute (3 steps; the loss falls; 1
+   fused, 1 dq and 1 dk/dv launch per step) and f32 compute, each
+   parameter's gradient against the plain tier's (``use_flash=False``);
+   host wall, tokens/s and the attention kernels' share of the step;
+15. the 4-layer stack at S=32768, window 4096, bf16, per-block recompute:
+   3 steps, the loss falls, 8 fused, 4 dq and 4 dk/dv launches per
+   step, the peak of ``torch.cuda.max_memory_allocated``;
+16. each backward kernel's time at the shapes of phases 12-15 beside its
+   bound, its plain version's time and the backward of
+   ``scaled_dot_product_attention`` (forward plus backward less forward).
+
+Bars: f32 out/acc/gradients within 2e-5 (``rtol = atol``); m and l within
+1e-5 in either dtype (both sides add exact products in f32); bf16
+out/acc/gradients by the worst row's relative error ``||got - want|| /
+||want||``, within 1e-2, and each bf16 kernel check also reads a control
+(the plain version with one live 64-row tile dropped), which must land
+above that bar. bf16 gradient rows whose reference norm is at most 1e-3
+of the median row's (0 in exact arithmetic) are left out of the reading
+and counted. The train step's gradients are held per parameter by
+``||g - g'|| / ||g'||``: 1e-2 in bf16, with the plain tier less one key
+tile as the control, which must read above it on ``wqkv`` and ``wo``;
+2e-5 in f32. Autograd through the plain tier rounds dP to bf16 (the
+backward of its cast) where the kernels keep it in f32, so bf16
+gradients are held to it per tensor at 1e-2, and to the kernels' plain
+versions by rows.
 
 Any failure raises and exits non-zero. The line before the last is the
 per-kernel JSON record; the last line is the device JSON.
 """
 
+import contextlib
 import json
 import math
 import subprocess
@@ -229,19 +268,6 @@ def main() -> int:
     # ---- 6. times ----------------------------------------------------
     log("[6 times]")
 
-    def time_ms(fn, reps):
-        for _ in range(3):
-            fn()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
-
     def bound(h, w, k, halo_elems):
         nbytes = 4 * (2 * h * w + halo_elems)
         ops = 4 * h * w * k
@@ -306,7 +332,8 @@ def main() -> int:
         log(f"  depth {k} at {N}x{N}: {ms:.4f} ms per pass, "
             f"{ms / k:.5f} ms per sweep")
 
-    records += flash_phases(dev, gen, time_ms, max_err)
+    records += flash_phases(dev, gen, max_err)
+    records += backward_phases(dev, gen, max_err)
 
     log(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
@@ -315,17 +342,50 @@ def main() -> int:
     return 0
 
 
-FLASH_SRC = "smi_tpu_torch/kernels/csrc/flash_fwd.cu"
-REPLACES = {"flash_fused": "smi_tpu/kernels/flash.py:492",
-            "flash_block": "smi_tpu/kernels/flash.py:436"}
-F32_TOL, STAT_TOL = 2e-5, 1e-5   # f32 out/acc; m and l in either dtype
-BF16_ROW_REL = 1e-2   # bf16 out/acc: worst per-row relative error
-CONTROL_TILE = 64     # keys a control drops: one bf16 key tile
+
+
+def time_ms(fn, reps):
+    """Mean CUDA-event time of ``fn`` over ``reps`` calls, after three
+    warm-up calls."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def timed(fn, min_reps=1):
+    """:func:`time_ms` over about 0.3 s of calls (3 to 50)."""
+    import torch
+
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    reps = max(3, min(50, int(0.3 / max(time.perf_counter() - t0, 1e-4))))
+    return time_ms(fn, max(min_reps, reps))
+
+
+def flash_bound(ops, nbytes, bf16):
+    """The least time of ``ops`` operations and ``nbytes`` bytes of
+    device memory at the data sheet's rates: ``(ms, what binds)``."""
+    t_ops = ops / (BF16_FLOPS if bf16 else F32_FLOPS) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
 
 
 def live_pairs(s_q, s_k, q_off, k_off, causal, window=None):
-    """Query-key pairs the mask leaves live: the work a forward needs
-    (4·D operations each), counted from the global positions."""
+    """Query-key pairs the mask leaves live, counted from the global
+    positions: the work of a forward (4·D operations each) and of the
+    backward kernels (6·D for dq, 8·D for dk/dv)."""
     import numpy as np
 
     q_pos = q_off + np.arange(s_q, dtype=np.int64)
@@ -338,33 +398,323 @@ def live_pairs(s_q, s_k, q_off, k_off, causal, window=None):
     return int(np.clip(hi - lo + 1, 0, None).sum())
 
 
-class EmulatedShift:
-    """``ring_shift`` for one process that plays each rank of an n-rank
-    ring in turn. Every rank runs the same steps, so a rank receives the
-    block its left neighbour holds: the shard of the origin just before
-    the one handed in. The handed-in block is found by value among the
-    ranks' head-major K and V shards."""
+def sdpa_kwargs(q, k, causal, window):
+    """``scaled_dot_product_attention``'s arguments for head-major
+    ``(H, S, D)`` q/k: ``is_causal``, or the boolean-mask form for a
+    window, and ``enable_gqa`` for grouped K/V heads."""
+    import torch
 
-    def __init__(self, blocks, n):
-        self.blocks, self.n, self.calls = blocks, n, 0
+    kw = {"is_causal": causal}
+    if window is not None:
+        pos = torch.arange(q.shape[1], device=q.device)
+        kw = {"attn_mask": (pos[None, :] <= pos[:, None])
+              & (pos[None, :] > pos[:, None] - window)}
+    if k.shape[0] != q.shape[0]:
+        kw["enable_gqa"] = True
+    return kw
 
-    def __call__(self, x, comm, offset=1, axis_name=None, backend="xla"):
+
+def aten_ops(call, word):
+    """The ``aten::_`` ops whose names hold ``word`` that ``call``
+    dispatched to, by the profiler's CPU trace: a label, not a check."""
+    import torch
+
+    try:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            call()
+            torch.cuda.synchronize()
+        ops = sorted({e.key for e in prof.key_averages()
+                      if word in e.key and "aten::_" in e.key})
+        return ", ".join(ops) or "not identified"
+    except Exception as exc:  # the profiler is a label, not a check
+        return f"not identified ({type(exc).__name__})"
+
+
+def device_profile(call):
+    """``call`` once under ``torch.profiler`` with CUDA activity: the
+    kernels' device time by name from the trace, or None where the trace
+    shows no device time. A reading for the breakdown, not a check."""
+    import torch
+
+    try:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name[e.name] = (by_name.get(e.name, 0.0)
+                                   + e.time_range.elapsed_us() / 1e3)
+        return by_name or None
+    except Exception as exc:  # a reading, not a check
+        log(f"  profiler: no device trace ({type(exc).__name__}: {exc})")
+        return None
+
+
+def sdpa_failed(exc):
+    import torch
+
+    torch.cuda.empty_cache()
+    return None, f"none ({type(exc).__name__}: {str(exc)[:120]})"
+
+
+def sdpa_forward(q, k, v, causal, window):
+    """One ``scaled_dot_product_attention`` call on (1, H, S, D): its time
+    and the aten op it dispatched to; None where it fails."""
+    import torch
+    import torch.nn.functional as F
+
+    kw = sdpa_kwargs(q, k, causal, window)
+
+    def call():
+        return F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                              **kw)
+
+    try:
+        call()
+        torch.cuda.synchronize()
+    except (RuntimeError, torch.cuda.OutOfMemoryError) as exc:
+        return sdpa_failed(exc)
+    return timed(call), aten_ops(call, "attention")
+
+
+def sdpa_backward(q, k, v, dout, causal, window):
+    """``scaled_dot_product_attention``'s backward (dq, dk and dv at once)
+    on (1, H, S, D): forward plus backward less forward, and the aten ops
+    of the backward; None where it fails."""
+    import torch
+    import torch.nn.functional as F
+
+    kw = sdpa_kwargs(q, k, causal, window)
+    leaves = [x[None].detach().clone().requires_grad_() for x in (q, k, v)]
+    grad = dout[None]
+
+    def forward():
+        return F.scaled_dot_product_attention(*leaves, **kw)
+
+    def both():
+        for t in leaves:
+            t.grad = None
+        forward().backward(grad)
+
+    try:
+        both()
+        torch.cuda.synchronize()
+    except (RuntimeError, torch.cuda.OutOfMemoryError) as exc:
+        return sdpa_failed(exc)
+    ms = timed(both) - timed(forward)
+    return ms, aten_ops(both, "backward")
+
+
+FLASH_SRC = "smi_tpu_torch/kernels/csrc/flash_fwd.cu"
+BWD_SRC = "smi_tpu_torch/kernels/csrc/flash_bwd.cu"
+REPLACES = {"flash_fused": "smi_tpu/kernels/flash.py:492",
+            "flash_block": "smi_tpu/kernels/flash.py:436",
+            "flash_bwd_dq": "smi_tpu/kernels/flash.py:735",
+            "flash_bwd_dkdv": "smi_tpu/kernels/flash.py:873"}
+F32_TOL, STAT_TOL = 2e-5, 1e-5   # f32 out/acc/grads; m and l in either dtype
+BF16_ROW_REL = 1e-2   # bf16 out/acc/grads: worst per-row relative error
+CONTROL_TILE = 64     # rows a control drops: one bf16 key tile
+#: bf16 gradient rows whose reference norm is at most this times the
+#: median row's are left out of the worst-row reading: their gradient is
+#: 0 in exact arithmetic (causal query row 0: dP = delta, so dq = 0)
+GRAD_FLOOR = 1e-3
+
+#: the 1-rank shapes: (name, S, H_kv, dtype, causal, window)
+FUSED_CASES = [
+    (f"S={SEQ} causal f32", SEQ, HEADS, "float32", True, None),
+    (f"S={SEQ} causal bf16", SEQ, HEADS, "bfloat16", True, None),
+    (f"S={SEQ // 2} non-causal f32", SEQ // 2, HEADS, "float32", False,
+     None),
+    (f"S={SEQ_LONG} GQA 8:1 window {WINDOW} bf16", SEQ_LONG, 1, "bfloat16",
+     True, WINDOW),
+]
+#: the 4-layer stack's attention (PERF.json's `_l4` row: no GQA)
+STACK_CASE = (f"S={SEQ_LONG} window {WINDOW} bf16", SEQ_LONG, HEADS,
+              "bfloat16", True, WINDOW)
+#: the emulated 4-rank rings over S=SEQ: (name, dtype, H_kv, window)
+RING_CASES = [
+    (f"S={SEQ} causal f32", "float32", HEADS, None),
+    (f"S={SEQ} causal bf16", "bfloat16", HEADS, None),
+    (f"S={SEQ} GQA 8:1 window {WINDOW} bf16", "bfloat16", 1, WINDOW),
+]
+
+EMBED = 1024          # PERF.json's transformer rows: E=1024, H=8, D=128
+STACK = 4             # the `_l4` rows' depth
+LR = {1: 1e-3, STACK: 1e-4}   # by depth: the loss falls over 3 steps
+#: ||g - g'|| / ||g'|| of each parameter's gradient, the train step
+#: against the plain tier's; the control must read above the bf16 bar
+STEP_BAR = {"bfloat16": 1e-2, "float32": 2e-5}
+
+
+class Bars:
+    """The checks shared by the phases: each records the largest absolute
+    error of its kernel's checks in ``max_err`` and raises when a reading
+    is outside its bar."""
+
+    def __init__(self, max_err):
+        self.max_err = max_err
+
+    def note(self, key, got, want):
         import torch
 
-        self.calls += 1
-        for shards in self.blocks:
-            for origin, t in enumerate(shards):
-                if t.shape == x.shape and torch.equal(t, x):
-                    return shards[(origin - offset) % self.n]
-        raise AssertionError("ring_shift was handed a block no rank holds")
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        if key is not None:
+            self.max_err[key] = max(self.max_err.get(key, 0.0), err)
+        return err
+
+    def close(self, what, key, got, want, tol):
+        """|got - want| <= tol + tol*|want| everywhere, as
+        ``np.testing.assert_allclose(rtol=tol, atol=tol)``."""
+        err = self.note(key, got, want)
+        diff = (got.float() - want.float()).abs()
+        bad = int((diff > tol + tol * want.float().abs()).sum())
+        if bad:
+            raise AssertionError(f"{what}: {bad} element(s) outside {tol}, "
+                                 f"max abs err {err}")
+        log(f"  {what}: within {tol} (max abs err {err:.3g})")
+
+    @staticmethod
+    def row_rel(got, want, floor=None):
+        """Worst ||got - want|| / ||want|| over the rows (last axis), and
+        how many rows a ``floor`` left out: those with ||want|| at most
+        ``floor`` times the median row norm. Without a floor a row with
+        ||want|| = 0 reads its absolute error."""
+        import torch
+
+        got, want = got.float(), want.float()
+        err = (got - want).norm(dim=-1)
+        ref = want.norm(dim=-1)
+        if floor is None:
+            return torch.where(ref > 0, err / ref, err).max().item(), 0
+        keep = ref > floor * ref.median()
+        return (err[keep] / ref[keep]).max().item(), int((~keep).sum())
+
+    def rows(self, what, key, got, want, control=None, bar=None,
+             floor=None):
+        """bf16: every row within ``bar`` (BF16_ROW_REL) of the plain
+        version; a ``control`` (the plain version with one live tile
+        dropped) must read above the bar, or the bar is blind."""
+        bar = BF16_ROW_REL if bar is None else bar
+        err = self.note(key, got, want)
+        rel, excluded = self.row_rel(got, want, floor)
+        if rel > bar:
+            raise AssertionError(f"{what}: worst row relative error {rel} "
+                                 f"above {bar} (max abs err {err})")
+        msg = (f"  {what}: worst row rel err {rel:.3g} <= {bar} "
+               f"(max abs err {err:.3g}")
+        msg += (f"; {excluded} of {got[..., 0].numel()} row(s) under the "
+                f"floor)" if floor else ")")
+        if control is not None:
+            ctl, _ = self.row_rel(control, want, floor)
+            if ctl <= bar:
+                raise AssertionError(f"{what}: the control reads {ctl}, "
+                                     f"inside the bar {bar}")
+            msg += f"; control, one tile dropped: {ctl:.3g}"
+        log(msg)
+
+    def grads(self, what, keys, dtype, got, want, controls=None):
+        """dq, dk, dv: f32 at F32_TOL everywhere, bf16 by the worst row
+        above the GRAD_FLOOR, each beside its control."""
+        import torch
+
+        for i, (name, a, b) in enumerate(zip(("dq", "dk", "dv"), got,
+                                             want)):
+            key = keys[min(i, len(keys) - 1)]
+            if dtype == torch.float32:
+                self.close(f"{what} {name}", key, a, b, F32_TOL)
+            else:
+                self.rows(f"{what} {name}", key, a, b,
+                          None if controls is None else controls[i],
+                          floor=GRAD_FLOOR)
 
 
-def flash_phases(dev, gen, time_ms, max_err):
+class ThreadRing:
+    """An n-rank ring played by n threads of one process, one per rank, so
+    the ring code itself runs on the card. :meth:`shift` stands in for
+    ``ring_shift``: each rank leaves its block in its slot, the ranks meet
+    at a barrier, each takes the block of the rank ``offset`` places to
+    its left, and they meet again before a slot is reused. Every rank
+    makes the same shifts in the same order, as on a real ring."""
+
+    def __init__(self, n):
+        import threading
+
+        self.n, self.calls = n, 0
+        self.slots = [None] * n
+        self.barrier = threading.Barrier(n, timeout=600)
+        self.lock = threading.Lock()
+
+    def shift(self, x, comm, offset=1, axis_name=None, backend="xla"):
+        r = comm.coords[comm._axis(axis_name or comm.axis_names[0])]
+        self.slots[r] = x
+        self.barrier.wait()
+        got = self.slots[(r - offset) % self.n]
+        self.barrier.wait()
+        with self.lock:
+            self.calls += 1
+        return got
+
+    def run(self, fn):
+        """``fn(rank)`` on every rank's thread; the results in rank order.
+        A failure aborts the barrier, so no rank waits for ever, and is
+        raised here."""
+        import threading
+
+        out, errors = [None] * self.n, []
+
+        def body(r):
+            try:
+                out[r] = fn(r)
+            except BaseException as exc:  # raised again below
+                errors.append(exc)
+                self.barrier.abort()
+
+        threads = [threading.Thread(target=body, args=(r,))
+                   for r in range(self.n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            first = [e for e in errors
+                     if not isinstance(e, threading.BrokenBarrierError)]
+            raise (first or errors)[0]
+        return out
+
+
+@contextlib.contextmanager
+def patched(module, **attrs):
+    """Set ``module``'s attributes for the ``with`` block, then put the
+    old ones back."""
+    old = {name: getattr(module, name) for name in attrs}
+    for name, value in attrs.items():
+        setattr(module, name, value)
+    try:
+        yield
+    finally:
+        for name, value in old.items():
+            setattr(module, name, value)
+
+
+def recording(fn, calls):
+    """``fn`` that also appends each call's arguments to ``calls``."""
+    def wrapped(*args, **kw):
+        calls.append((args, kw))
+        return fn(*args, **kw)
+    return wrapped
+
+
+def flash_phases(dev, gen, max_err):
     """Phases 7-11: ring attention's forward. Returns the flash kernels'
     records for the kernels line."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
 
     import smi_tpu_torch as st
     from smi_tpu_torch.kernels import _build
@@ -384,48 +734,8 @@ def flash_phases(dev, gen, time_ms, max_err):
         return torch.randn((s, h, HEAD_DIM), generator=gen, device=dev,
                            dtype=f32).to(dtype)
 
-    def note(key, got, want):
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        max_err[key] = max(max_err.get(key, 0.0), err)
-        return err
-
-    def expect_close(what, key, got, want, tol):
-        """|got - want| <= tol + tol*|want| everywhere, as
-        ``np.testing.assert_allclose(rtol=tol, atol=tol)``."""
-        err = note(key, got, want)
-        diff = (got.float() - want.float()).abs()
-        bad = int((diff > tol + tol * want.float().abs()).sum())
-        if bad:
-            raise AssertionError(f"{what}: {bad} element(s) outside {tol}, "
-                                 f"max abs err {err}")
-        log(f"  {what}: within {tol} (max abs err {err:.3g})")
-
-    def row_rel(got, want):
-        """Worst ||got - want|| / ||want|| over the rows (last axis)."""
-        got, want = got.float(), want.float()
-        err = (got - want).norm(dim=-1)
-        ref = want.norm(dim=-1)
-        return torch.where(ref > 0, err / ref, err).max().item()
-
-    def expect_rows(what, key, got, want, control=None):
-        """bf16 out/acc: every row within BF16_ROW_REL of the plain
-        version; a ``control`` (the plain version with one live key tile
-        dropped) must read above the bar, or the bar is blind."""
-        err = note(key, got, want)
-        rel = row_rel(got, want)
-        if rel > BF16_ROW_REL:
-            raise AssertionError(f"{what}: worst row relative error {rel} "
-                                 f"above {BF16_ROW_REL} (max abs err {err})")
-        msg = (f"  {what}: worst row rel err {rel:.3g} <= {BF16_ROW_REL} "
-               f"(max abs err {err:.3g})")
-        if control is not None:
-            ctl = row_rel(control, want)
-            if ctl <= BF16_ROW_REL:
-                raise AssertionError(f"{what}: the control reads {ctl}, "
-                                     f"inside the bar {BF16_ROW_REL}")
-            msg += f"; control, one key tile dropped: {ctl:.3g}"
-        log(msg)
+    bars = Bars(max_err)
+    expect_close, expect_rows = bars.close, bars.rows
 
     def dropped_tile(q, k, v, carry, q_off, k_off, causal, window):
         """The plain fold with the middle key tile left out: what a
@@ -452,15 +762,9 @@ def flash_phases(dev, gen, time_ms, max_err):
 
     # ---- 7. fused kernel vs its plain version -------------------------
     log("[7 fused flash kernel vs plain]")
-    fused_cases = [
-        (f"S={SEQ} causal f32", SEQ, HEADS, f32, True, None),
-        (f"S={SEQ} causal bf16", SEQ, HEADS, bf16, True, None),
-        (f"S={SEQ // 2} non-causal f32", SEQ // 2, HEADS, f32, False, None),
-        (f"S={SEQ_LONG} GQA 8:1 window {WINDOW} bf16", SEQ_LONG, 1, bf16,
-         True, WINDOW),
-    ]
     fused_inputs = {}
-    for name, s, h_kv, dtype, causal, window in fused_cases:
+    for name, s, h_kv, dt, causal, window in FUSED_CASES:
+        dtype = getattr(torch, dt)
         q, k, v = heads(HEADS, s, dtype), heads(h_kv, s, dtype), \
             heads(h_kv, s, dtype)
         fused_inputs[name] = (q, k, v, causal, window)
@@ -482,13 +786,8 @@ def flash_phases(dev, gen, time_ms, max_err):
         f"{RING}-rank ring over S={SEQ}")
     s_loc = SEQ // RING
     q_off = (RING - 1) * s_loc
-    ring_cases = [   # the emulated rings of phase 10
-        (f"S={SEQ} causal f32", f32, HEADS, None),
-        (f"S={SEQ} causal bf16", bf16, HEADS, None),
-        (f"S={SEQ} GQA 8:1 window {WINDOW} bf16", bf16, 1, WINDOW),
-    ]
     block_cases = []   # (name, its ring, the carry's k_off, k_off)
-    for ring in ring_cases:
+    for ring in RING_CASES:
         ring_name, window = ring[0], ring[3]
         if window is None:
             block_cases += [
@@ -500,8 +799,9 @@ def flash_phases(dev, gen, time_ms, max_err):
             block_cases.append((f"window edge k_off={s_loc} {ring_name}",
                                 ring, 2 * s_loc, s_loc))
     block_inputs = {}
-    for name, (ring_name, dtype, h_kv, window), carry_off, k_off in \
+    for name, (ring_name, dt, h_kv, window), carry_off, k_off in \
             block_cases:
+        dtype = getattr(torch, dt)
         key = ("flash_block", ring_name)
         q = heads(HEADS, s_loc, dtype)
         k, v = heads(h_kv, s_loc, dtype), heads(h_kv, s_loc, dtype)
@@ -530,7 +830,8 @@ def flash_phases(dev, gen, time_ms, max_err):
     log("[9 ring attention main path]")
     comm = st.make_communicator(shape=(1,), axis_names=("sp",))
     main_launches = {}
-    for name, s, h_kv, dtype, causal, window in fused_cases:
+    for name, s, h_kv, dt, causal, window in FUSED_CASES:
+        dtype = getattr(torch, dt)
         q, k, v = seq(s, HEADS, dtype), seq(s, h_kv, dtype), \
             seq(s, h_kv, dtype)
         fn = st.make_ring_attention_fn(comm, causal=causal, window=window)
@@ -568,47 +869,40 @@ def flash_phases(dev, gen, time_ms, max_err):
 
     # ---- 10. the emulated ring ----------------------------------------
     log(f"[10 emulated {RING}-rank ring: make_ring_attention_fn on each "
-        f"rank's shards in one process, ring_shift stood in]")
+        f"rank's shards, one thread per rank, ring_shift stood in]")
     ring_runs = {}
-    for ring_name, dtype, h_kv, window in ring_cases:
+    for ring_name, dt, h_kv, window in RING_CASES:
+        dtype = getattr(torch, dt)
         q, k, v = seq(SEQ, HEADS, dtype), seq(SEQ, h_kv, dtype), \
             seq(SEQ, h_kv, dtype)
         whole = st.make_ring_attention_fn(comm, causal=True,
                                           window=window)(q, k, v)
-        shards = [[x[r * s_loc:(r + 1) * s_loc] for r in range(RING)]
-                  for x in (q, k, v)]
-        shift = EmulatedShift(
-            [[x.transpose(0, 1).contiguous() for x in shards[i]]
-             for i in (1, 2)], RING)
+        ring = ThreadRing(RING)
         calls = []
 
-        def recorded(*args, **kw):
-            calls.append((args, kw))
-            return kflash.flash_block_attend(*args, **kw)
+        def rank(r):
+            rows = slice(r * s_loc, (r + 1) * s_loc)
+            return st.make_ring_attention_fn(
+                st.Communicator(shape=(RING,), axis_names=("sp",), rank=r,
+                                device=dev),
+                causal=True, window=window)(q[rows], k[rows], v[rows])
 
-        real = ra.ring_shift, ra.flash_block_attend
-        ra.ring_shift, ra.flash_block_attend = shift, recorded
-        try:
+        with patched(ra, ring_shift=ring.shift,
+                     flash_block_attend=recording(
+                         kflash.flash_block_attend, calls)):
             torch.cuda.synchronize()
             _build.reset_launches()
-            outs = [st.make_ring_attention_fn(
-                        st.Communicator(shape=(RING,), axis_names=("sp",),
-                                        rank=r, device=dev),
-                        causal=True, window=window)(
-                        *(shards[i][r] for i in range(3)))
-                    for r in range(RING)]
+            outs = ring.run(rank)
             torch.cuda.synchronize()
             launches = dict(_build.LAUNCHES)
-        finally:
-            ra.ring_shift, ra.flash_block_attend = real
-        log(f"  {ring_name}: launches {launches}, {shift.calls} shifts")
+        log(f"  {ring_name}: launches {launches}, {ring.calls} shifts")
         if (launches["flash_block"] != RING * RING
                 or launches["flash_fused"] != 0
-                or shift.calls != 2 * RING * (RING - 1)):
+                or ring.calls != 2 * RING * (RING - 1)):
             raise AssertionError(f"{ring_name}: expected {RING * RING} "
                                  f"carried launches and "
                                  f"{2 * RING * (RING - 1)} shifts, got "
-                                 f"{launches}, {shift.calls}")
+                                 f"{launches}, {ring.calls}")
         for r, o in enumerate(outs):
             what = f"rank {r} vs its rows of the fused output"
             rows = whole[r * s_loc:(r + 1) * s_loc]
@@ -617,26 +911,10 @@ def flash_phases(dev, gen, time_ms, max_err):
             else:
                 expect_rows(what, ("ring", ring_name), o, rows)
         ring_runs[ring_name] = (launches["flash_block"], calls)
-        del q, k, v, whole, shards, shift, outs
+        del q, k, v, whole, outs
 
     # ---- 11. times ----------------------------------------------------
     log("[11 flash times]")
-
-    def reps_for(fn):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        return max(3, min(50, int(0.3 / max(time.perf_counter() - t0,
-                                            1e-4))))
-
-    def timed(fn, min_reps=1):
-        return time_ms(fn, max(min_reps, reps_for(fn)))
-
-    def bound(ops, nbytes, dtype):
-        t_ops = ops / (F32_FLOPS if dtype == f32 else BF16_FLOPS) * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                     else "bytes")
 
     def block_work(args, window):
         """Operations and bytes of one carried fold: q/k/v are read only
@@ -649,54 +927,19 @@ def flash_phases(dev, gen, time_ms, max_err):
         qkv = q.element_size() * (q.numel() + 2 * k.numel())
         return 4 * h * d * pairs, carry + (qkv if pairs else 0)
 
-    def sdpa(q, k, v, causal, window):
-        """One ``scaled_dot_product_attention`` call on (1, H, S, D), its
-        time and the aten op it dispatched to; None where it fails."""
-        s = q.shape[1]
-        kw = {"is_causal": causal}
-        if window is not None:
-            pos = torch.arange(s, device=dev)
-            keep = ((pos[None, :] <= pos[:, None])
-                    & (pos[None, :] > pos[:, None] - WINDOW))
-            kw = {"attn_mask": keep}
-        if k.shape[0] != q.shape[0]:
-            kw["enable_gqa"] = True
-
-        def call():
-            return F.scaled_dot_product_attention(
-                q[None], k[None], v[None], **kw)
-
-        try:
-            call()
-            torch.cuda.synchronize()
-        except (RuntimeError, torch.cuda.OutOfMemoryError) as exc:
-            return None, f"none ({type(exc).__name__}: {str(exc)[:120]})"
-        backend = "not identified"
-        try:
-            from torch.profiler import ProfilerActivity, profile
-            with profile(activities=[ProfilerActivity.CPU]) as prof:
-                call()
-                torch.cuda.synchronize()
-            ops = sorted({e.key for e in prof.key_averages()
-                          if "attention" in e.key and "aten::_" in e.key})
-            backend = ", ".join(ops) or backend
-        except Exception as exc:  # the profiler is a label, not a check
-            backend = f"not identified ({type(exc).__name__})"
-        return timed(call), backend
-
     records = []
     for name, (q, k, v, causal, window) in fused_inputs.items():
         h, s, d = q.shape
         item = q.element_size()
         pairs = live_pairs(s, s, 0, 0, causal, window)
-        b_ms, b_by = bound(4 * h * d * pairs,
-                           item * (2 * h * s * d + 2 * k.numel())
-                           + 2 * 4 * h * s, q.dtype)
+        b_ms, b_by = flash_bound(4 * h * d * pairs,
+                                 item * (2 * h * s * d + 2 * k.numel())
+                                 + 2 * 4 * h * s, q.dtype == bf16)
         args = (q, k, v, 0, 0, causal, scale)
         ms = timed(lambda: kflash.flash_attend_fused(*args, window=window))
         plain_ms = time_ms(
             lambda: kflash.flash_attend_fused_plain(*args, window=window), 2)
-        lib_ms, backend = sdpa(q, k, v, causal, window)
+        lib_ms, backend = sdpa_forward(q, k, v, causal, window)
         tflops = 4 * h * d * pairs / ms / 1e9
         log(f"  fused {name}: {ms:.4f} ms ({tflops:.4g} TFLOP/s), bound "
             f"{b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, sdpa "
@@ -712,17 +955,17 @@ def flash_phases(dev, gen, time_ms, max_err):
         })
     for name, (args, window) in block_inputs.items():
         ops, nbytes = block_work(args, window)
-        b_ms, b_by = bound(ops, nbytes, args[0].dtype)
+        b_ms, b_by = flash_bound(ops, nbytes, args[0].dtype == bf16)
         ms = timed(lambda: kflash.flash_block_attend(*args, window=window))
         plain_ms = time_ms(
             lambda: kflash.flash_block_attend_plain(*args, window=window), 2)
         log(f"  carried step, {name}: {ms:.4f} ms, bound {b_ms:.4f} ms "
             f"({b_by}), plain {plain_ms:.4f} ms")
-    for ring_name, dtype, h_kv, window in ring_cases:
+    for ring_name, dt, h_kv, window in RING_CASES:
         launches, calls = ring_runs[ring_name]
         work = [block_work(a, kw.get("window")) for a, kw in calls]
-        b_ms, b_by = bound(sum(w[0] for w in work), sum(w[1] for w in work),
-                           dtype)
+        b_ms, b_by = flash_bound(sum(w[0] for w in work),
+                                 sum(w[1] for w in work), dt == "bfloat16")
         ms = timed(lambda: [kflash.flash_block_attend(*a, **kw)
                             for a, kw in calls])
         plain_ms = time_ms(lambda: [kflash.flash_block_attend_plain(*a, **kw)
@@ -739,6 +982,499 @@ def flash_phases(dev, gen, time_ms, max_err):
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None,
         })
+    return records
+
+
+def backward_phases(dev, gen, max_err):
+    """Phases 12-16: the flash backward kernels, the ring's backward and
+    the transformer's train step. Returns the backward kernels' records
+    for the kernels line."""
+    import torch
+
+    import smi_tpu_torch as st
+    from smi_tpu_torch.kernels import _build
+    from smi_tpu_torch.kernels import flash as kflash
+    from smi_tpu_torch.models import ring_attention as ra
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    scale = 1.0 / math.sqrt(HEAD_DIM)
+    bars = Bars(max_err)
+    s_loc = SEQ // RING
+    q_off = (RING - 1) * s_loc
+
+    def randn(*shape, dtype=f32):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=f32).to(dtype)
+
+    def kernels(args, window):
+        return (kflash.flash_block_backward_dq(*args, window=window),
+                *kflash.flash_block_backward_dkdv(*args, window=window))
+
+    def plain(args, window):
+        return (kflash.flash_block_backward_dq_plain(*args, window=window),
+                *kflash.flash_block_backward_dkdv_plain(*args,
+                                                        window=window))
+
+    def dropped(args, window):
+        """The plain versions with one live 64-row tile left out: dq
+        without the middle key tile, dk and dv without the middle query
+        tile. What a kernel that skipped a live tile would return."""
+        q, k, v, dout, m, linv, delta, qo, ko, causal, sc = args
+        s_q, s_k = q.shape[1], k.shape[1]
+        kj = s_k // 2 // CONTROL_TILE * CONTROL_TILE
+        qj = s_q // 2 // CONTROL_TILE * CONTROL_TILE
+        dq = dk = dv = 0
+        for lo, hi in ((0, kj), (kj + CONTROL_TILE, s_k)):
+            if lo < hi:
+                dq = dq + kflash.flash_block_backward_dq_plain(
+                    q, k[:, lo:hi], v[:, lo:hi], dout, m, linv, delta, qo,
+                    ko + lo, causal, sc, window=window)
+        for lo, hi in ((0, qj), (qj + CONTROL_TILE, s_q)):
+            if lo < hi:
+                a, b = kflash.flash_block_backward_dkdv_plain(
+                    q[:, lo:hi], k, v, dout[:, lo:hi], m[..., lo:hi],
+                    linv[..., lo:hi], delta[..., lo:hi], qo + lo, ko,
+                    causal, sc, window=window)
+                dk, dv = dk + a, dv + b
+        return dq, dk, dv
+
+    def keys(name):
+        return (("flash_bwd_dq", name), ("flash_bwd_dkdv", name))
+
+    # ---- 12. backward kernels vs their plain versions -----------------
+    log("[12 flash backward kernels vs plain] from a fused forward's "
+        "statistics and a random dout")
+    bwd_inputs = {}   # 1-rank shape -> (args, window)
+    for name, s, h_kv, dt, causal, window in FUSED_CASES + [STACK_CASE]:
+        dtype = getattr(torch, dt)
+        q = randn(HEADS, s, HEAD_DIM, dtype=dtype)
+        k, v = (randn(h_kv, s, HEAD_DIM, dtype=dtype) for _ in range(2))
+        dout = randn(HEADS, s, HEAD_DIM, dtype=dtype)
+        out, m, l = kflash.flash_attend_fused(q, k, v, 0, 0, causal, scale,
+                                              window=window)
+        args = (q, k, v, dout, m, *kflash.backward_rows(out, l, dout), 0, 0,
+                causal, scale)
+        bwd_inputs[name] = (args, window)
+        got = kernels(args, window)
+        want = plain(args, window)
+        control = dropped(args, window) if dtype == bf16 else None
+        bars.grads(name, keys(name), dtype, got, want, control)
+        del out, got, want, control
+
+    ring_steps = {}   # ring -> the steps' (args, window), for the record
+    for ring_name, dt, h_kv, window in RING_CASES:
+        dtype = getattr(torch, dt)
+        q = randn(HEADS, s_loc, HEAD_DIM, dtype=dtype)
+        dout = randn(HEADS, s_loc, HEAD_DIM, dtype=dtype)
+        k_all, v_all = (randn(h_kv, SEQ, HEAD_DIM, dtype=dtype)
+                        for _ in range(2))
+        out, m, l = kflash.flash_attend_fused(q, k_all, v_all, q_off, 0,
+                                              True, scale, window=window)
+        rows = kflash.backward_rows(out, l, dout)
+        steps = ([("past block", s_loc), ("diagonal", q_off),
+                  ("future", SEQ)] if window is None
+                 else [("window edge", s_loc)])
+        for step_name, k_off in steps:
+            what = f"{step_name} k_off={k_off} of the ring {ring_name}"
+            if k_off < SEQ:
+                k, v = (x[:, k_off:k_off + s_loc].contiguous()
+                        for x in (k_all, v_all))
+            else:
+                k, v = (randn(h_kv, s_loc, HEAD_DIM, dtype=dtype)
+                        for _ in range(2))
+            args = (q, k, v, dout, m, *rows, q_off, k_off, True, scale)
+            got = kernels(args, window)
+            if k_off >= SEQ:
+                torch.cuda.synchronize()
+                nonzero = [int(torch.count_nonzero(t)) for t in got]
+                if any(nonzero):
+                    raise AssertionError(f"{what}: nonzero gradients "
+                                         f"{nonzero}")
+                for key in keys(ring_name):
+                    max_err[key] = max(max_err.get(key, 0.0), 0.0)
+                log(f"  {what}: dq, dk and dv array_equal to zeros")
+                continue
+            control = dropped(args, window) if dtype == bf16 else None
+            bars.grads(what, keys(ring_name), dtype, got,
+                       plain(args, window), control)
+            ring_steps.setdefault(ring_name, []).append((args, window))
+            del got, control
+
+    # ---- 13. the ring's backward --------------------------------------
+    log("[13 ring attention backward]")
+    comm = st.make_communicator(shape=(1,), axis_names=("sp",))
+
+    def seq(s, h, dtype):
+        return randn(s, h, HEAD_DIM, dtype=dtype)
+
+    def ring_grads(q, k, v, w, causal, window, **kw):
+        """Autograd's q/k/v gradients of sum(out * w) on the 1-rank ring."""
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = st.make_ring_attention_fn(comm, causal=causal, window=window,
+                                        **kw)(*leaves)
+        (out.float() * w).sum().backward()
+        return [t.grad for t in leaves]
+
+    def plain_backward(q, k, v, w, causal, window):
+        """The same gradients from the kernels' plain versions, forward
+        and backward, without autograd: the oracle where autograd through
+        the plain tier would hold H·S² probabilities."""
+        qT, kT, vT = (x.transpose(0, 1).contiguous() for x in (q, k, v))
+        out, m, l = kflash.flash_attend_fused_plain(qT, kT, vT, 0, 0, causal,
+                                                    scale, window=window)
+        doutT = w.transpose(0, 1).to(q.dtype).contiguous()
+        args = (qT, kT, vT, doutT, m, *kflash.backward_rows(out, l, doutT),
+                0, 0, causal, scale)
+        return [g.transpose(0, 1).to(x.dtype)
+                for g, x in zip(plain(args, window), (q, k, v))]
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    main_launches = {}
+    for name, s, h_kv, dt, causal, window in FUSED_CASES:
+        dtype = getattr(torch, dt)
+        q, k, v = seq(s, HEADS, dtype), seq(s, h_kv, dtype), \
+            seq(s, h_kv, dtype)
+        w = seq(s, HEADS, f32)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        got = ring_grads(q, k, v, w, causal, window)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        main_launches[name] = launches
+        log(f"  1-rank {name}: launches {launches}")
+        want_counts = {"flash_fused": 1, "flash_block": 0,
+                       "flash_bwd_dq": 1, "flash_bwd_dkdv": 1}
+        if any(launches[n] != c for n, c in want_counts.items()):
+            raise AssertionError(f"{name}: expected {want_counts}, got "
+                                 f"{launches}")
+        for g, x in zip(got, (q, k, v)):
+            if (g.shape != x.shape or g.dtype != x.dtype
+                    or not bool(torch.isfinite(g).all())):
+                raise AssertionError(f"{name}: a gradient is not a finite "
+                                     f"{tuple(x.shape)} {x.dtype} tensor")
+        bars.grads(f"1-rank {name} vs the plain versions", (None,), dtype,
+                   got, plain_backward(q, k, v, w, causal, window))
+        if s <= SEQ:
+            # autograd through the plain tier rounds dP to bf16 (the
+            # backward of its cast); the kernels, like the reference's
+            # custom VJP, keep dP in f32: bf16 is held per tensor
+            want = ring_grads(q, k, v, w, causal, window, use_flash=False)
+            if dtype == f32:
+                bars.grads(f"1-rank {name} vs the plain tier's autograd",
+                           (None,), dtype, got, want)
+            else:
+                for gname, a, b in zip(("dq", "dk", "dv"), got, want):
+                    r = rel(a, b)
+                    worst, excl = Bars.row_rel(a, b, GRAD_FLOOR)
+                    if r > STEP_BAR["bfloat16"]:
+                        raise AssertionError(
+                            f"{name} {gname} vs the plain tier's autograd: "
+                            f"||g - g'|| / ||g'|| = {r}")
+                    log(f"  1-rank {name} {gname} vs the plain tier's "
+                        f"autograd: ||g - g'||/||g'|| {r:.3g} <= "
+                        f"{STEP_BAR['bfloat16']} (worst row {worst:.3g}, "
+                        f"{excl} row(s) under the floor)")
+            del want
+        del q, k, v, w, got
+
+    ring_runs = {}
+    shifts = 2 * RING * (RING - 1) * 2 + 2 * RING * RING
+    for ring_name, dt, h_kv, window in RING_CASES:
+        dtype = getattr(torch, dt)
+        q, k, v = seq(SEQ, HEADS, dtype), seq(SEQ, h_kv, dtype), \
+            seq(SEQ, h_kv, dtype)
+        w = seq(SEQ, HEADS, f32)
+        whole = ring_grads(q, k, v, w, True, window)
+        ring = ThreadRing(RING)
+        calls = {"flash_bwd_dq": [], "flash_bwd_dkdv": []}
+
+        def rank(r):
+            """One rank's forward and backward: the ring functions the
+            flash tier's autograd.Function calls, on this rank's shards."""
+            c = st.Communicator(shape=(RING,), axis_names=("sp",), rank=r,
+                                device=dev)
+            rows = slice(r * s_loc, (r + 1) * s_loc)
+            out, m, l = ra._flash_forward(q[rows], k[rows], v[rows], c, True,
+                                          "sp", window)
+            return ra._flash_ring_backward(q[rows], k[rows], v[rows], out, m,
+                                           l, w[rows], c, True, "sp", window)
+
+        with patched(ra, ring_shift=ring.shift,
+                     flash_block_backward_dq=recording(
+                         kflash.flash_block_backward_dq,
+                         calls["flash_bwd_dq"]),
+                     flash_block_backward_dkdv=recording(
+                         kflash.flash_block_backward_dkdv,
+                         calls["flash_bwd_dkdv"])):
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            grads = ring.run(rank)
+            torch.cuda.synchronize()
+            launches = dict(_build.LAUNCHES)
+        log(f"  emulated {RING}-rank ring {ring_name}: launches {launches}, "
+            f"{ring.calls} shifts")
+        n2 = RING * RING
+        if (launches["flash_bwd_dq"] != n2 or launches["flash_bwd_dkdv"] != n2
+                or launches["flash_block"] != n2
+                or launches["flash_fused"] != 0 or ring.calls != shifts):
+            raise AssertionError(f"{ring_name}: expected {n2} launches of "
+                                 f"each backward kernel and {shifts} "
+                                 f"shifts, got {launches}, {ring.calls}")
+        for r, g in enumerate(grads):
+            rows = slice(r * s_loc, (r + 1) * s_loc)
+            bars.grads(f"rank {r} vs its rows of the 1-rank gradients",
+                       (None,), dtype, g, [x[rows] for x in whole])
+        ring_runs[ring_name] = (launches, calls)
+        del q, k, v, w, whole, grads
+
+    q, k, v = (seq(s_loc, HEADS, f32) for _ in range(3))
+    w = seq(s_loc, HEADS, f32)
+    saved = ring_grads(q, k, v, w, True, None, reps=2)
+    remat = ring_grads(q, k, v, w, True, None, reps=2, remat_reps=True)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(saved, remat))
+    bars.grads(f"remat_reps, 2 reps S={s_loc} f32, vs saved residuals "
+               f"(array_equal: {same})", (None,), f32, remat, saved)
+    del q, k, v, w, saved, remat
+
+    # ---- 14. the train step at full width -----------------------------
+    grid = st.make_communicator(shape=(1, 1), axis_names=("dp", "sp"))
+
+    def train(cfg, params, x, y, layers, steps, use_flash=None):
+        """``steps`` of ``make_train_step`` from fresh weights: the losses,
+        the first step's gradients, each step's launches and host wall."""
+        model = st.params_from_numpy(params, cfg)
+        step = st.make_train_step(grid, cfg, lr=LR[layers],
+                                  use_flash=use_flash, layers=layers)
+        losses, counts, walls, grads = [], [], [], None
+        for i in range(steps):
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            loss = float(step(model, x, y))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            counts.append(dict(_build.LAUNCHES))
+            losses.append(loss)
+            if i == 0:
+                grads = {n: p.grad.clone()
+                         for n, p in model.named_parameters()}
+        return losses, grads, counts, walls, (model, step)
+
+    def expect_steps(what, losses, counts, layers):
+        want = {"flash_fused": 2 * layers if layers > 1 else 1,
+                "flash_block": 0, "flash_bwd_dq": layers,
+                "flash_bwd_dkdv": layers}
+        for i, c in enumerate(counts):
+            if any(c[n] != k for n, k in want.items()):
+                raise AssertionError(f"{what} step {i}: expected {want}, "
+                                     f"got {c}")
+        if not all(math.isfinite(x) for x in losses) or not all(
+                b < a for a, b in zip(losses, losses[1:])):
+            raise AssertionError(f"{what}: the loss does not fall: {losses}")
+        log(f"  {what}: losses {losses}, each step's launches {want}")
+
+    def drop_key_tile():
+        """The plain tier with the middle key tile of every fold left out:
+        the control of the train step's gradients."""
+        real = kflash.flash_block_attend_plain
+
+        def fold(q, k, v, m, l, acc, qo, ko, causal, sc, precision=None,
+                 window=None):
+            j0 = k.shape[1] // 2 // CONTROL_TILE * CONTROL_TILE
+            carry = (m, l, acc)
+            for lo, hi in ((0, j0), (j0 + CONTROL_TILE, k.shape[1])):
+                if lo < hi:
+                    carry = real(q, k[:, lo:hi], v[:, lo:hi], *carry, qo,
+                                 ko + lo, causal, sc, window=window)
+            return carry
+        return patched(ra, flash_block_attend_plain=fold)
+
+    def attention_share(model, step, x, y):
+        """One step with a CUDA event pair around every flash launch: the
+        kernels' event time by name and the step's, on the one stream."""
+        real, pairs = kflash._launch, []
+
+        def launch(kernel, *args):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            real(kernel, *args)
+            b.record()
+            pairs.append((kernel, a, b))
+
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        with patched(kflash, _launch=launch):
+            torch.cuda.synchronize()
+            a.record()
+            step(model, x, y)
+            b.record()
+            torch.cuda.synchronize()
+        per = {}
+        for kernel, s0, s1 in pairs:
+            per[kernel] = per.get(kernel, 0.0) + s0.elapsed_time(s1)
+        return per, a.elapsed_time(b)
+
+    def report(what, tokens, walls, live, x, y):
+        """The step's host wall and tokens/s, the three flash kernels'
+        share of one step's event time, and one step's device trace."""
+        per, step_ms = attention_share(*live, x, y)
+        wall = sum(walls[1:]) / len(walls[1:])
+        attn = sum(per.values())
+        log(f"  {what}: {wall * 1e3:.3f} ms host wall per step (steps 2-"
+            f"{len(walls)}), {tokens / wall:.6g} tokens/s; instrumented step "
+            f"{step_ms:.3f} ms of events, attention kernels {attn:.3f} ms "
+            f"({100 * attn / step_ms:.1f} %): "
+            + ", ".join(f"{n} {t:.3f} ms" for n, t in sorted(per.items())))
+        model, step = live
+        trace = device_profile(lambda: step(model, x, y))
+        if trace is not None:
+            busy = sum(trace.values())
+            kinds = {"flash kernels": 0.0, "matrix products": 0.0,
+                     "elementwise, reductions, copies": 0.0}
+            for n, t in trace.items():
+                kind = ("flash kernels" if "flash_" in n else
+                        "matrix products" if any(w in n.lower() for w in (
+                            "gemm", "nvjet", "xmma", "cutlass")) else
+                        "elementwise, reductions, copies")
+                kinds[kind] += t
+            top = sorted(trace.items(), key=lambda kv: -kv[1])[:8]
+            log(f"  {what}, one step under the profiler: kernels busy "
+                f"{busy:.3f} ms on the card, {100 * busy / (wall * 1e3):.1f} "
+                f"% of the host wall per step ({len(trace)} kernel names): "
+                + ", ".join(f"{k} {t:.3f} ms" for k, t in kinds.items())
+                + "; most time: " + "; ".join(f"{n[:60]} {t:.3f} ms"
+                                              for n, t in top))
+        return wall
+
+    log(f"[14 train step: E={EMBED}, H={HEADS}, D={HEAD_DIM}, B=1, S={SEQ}, "
+        f"causal, 1 layer, on a 1x1 (dp, sp) grid]")
+    step_counts = {}
+    x, y = randn(1, SEQ, EMBED), randn(1, SEQ, EMBED)
+    for cd in ("bfloat16", "float32"):
+        cfg = st.BlockConfig(embed=EMBED, heads=HEADS, head_dim=HEAD_DIM,
+                             compute_dtype=cd)
+        params = st.init_params(cfg, seed=SEED)
+        steps = 3 if cd == "bfloat16" else 1
+        losses, grads, counts, walls, live = train(cfg, params, x, y, 1,
+                                                   steps)
+        expect_steps(f"{cd} compute, flash tier", losses, counts, 1)
+        _, want, _, _, _ = train(cfg, params, x, y, 1, 1, use_flash=False)
+        control = None
+        if cd == "bfloat16":
+            step_counts[1] = counts[0]
+            with drop_key_tile():
+                _, control, _, _, _ = train(cfg, params, x, y, 1, 1,
+                                            use_flash=False)
+        bar = STEP_BAR[cd]
+        for n, g in grads.items():
+            r = rel(g, want[n])
+            if r > bar:
+                raise AssertionError(f"{cd} step: {n}'s gradient reads "
+                                     f"{r} against the plain tier, above "
+                                     f"{bar}")
+            msg = f"  {cd} {n}: ||g - g'||/||g'|| {r:.3g} <= {bar}"
+            if control is not None:
+                c = rel(control[n], want[n])
+                # the attention's own weights must see a dropped key tile
+                if n in ("wqkv", "wo") and c <= bar:
+                    raise AssertionError(f"{n}: the control reads {c}, "
+                                         f"inside the bar {bar}")
+                msg += f"; control, one key tile dropped: {c:.3g}"
+            log(msg)
+        if cd == "bfloat16":
+            wall_1 = report(f"{cd} step", SEQ, walls, live, x, y)
+        del grads, want, control, live
+
+    # ---- 15. the 4-layer stack ----------------------------------------
+    log(f"[15 {STACK}-layer stack: S={SEQ_LONG}, window {WINDOW}, bf16, "
+        f"per-block recompute]")
+    cfg = st.BlockConfig(embed=EMBED, heads=HEADS, head_dim=HEAD_DIM,
+                         window=WINDOW, compute_dtype="bfloat16")
+    x, y = randn(1, SEQ_LONG, EMBED), randn(1, SEQ_LONG, EMBED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, _, counts, walls, live = train(
+        cfg, st.init_stack_params(cfg, STACK, seed=SEED), x, y, STACK, 3)
+    peak = torch.cuda.max_memory_allocated()
+    expect_steps(f"{STACK}-layer stack", losses, counts, STACK)
+    step_counts[STACK] = counts[0]
+    log(f"  torch.cuda.max_memory_allocated over the 3 steps: {peak} bytes "
+        f"({peak / 2**30:.3f} GiB)")
+    wall_4 = report(f"{STACK}-layer stack step", SEQ_LONG, walls, live,
+                    x, y)
+    del x, y, live
+
+    # ---- 16. times ----------------------------------------------------
+    log("[16 flash backward times]")
+
+    def work(kernel, args, window):
+        """Operations and bytes of one backward launch: the inputs are
+        read only where a pair is live; the f32 gradients are written."""
+        q, k = args[0], args[1]
+        h, s_q, d = q.shape
+        pairs = live_pairs(s_q, k.shape[1], args[7], args[8], args[9],
+                           window)
+        ins = q.element_size() * (2 * q.numel() + 2 * k.numel()) \
+            + 3 * 4 * h * s_q
+        dq = kernel == "flash_bwd_dq"
+        outs = 4 * (q.numel() if dq else 2 * k.numel())
+        return (6 if dq else 8) * d * h * pairs, outs + (ins if pairs else 0)
+
+    fns = {"flash_bwd_dq": (kflash.flash_block_backward_dq,
+                            kflash.flash_block_backward_dq_plain),
+           "flash_bwd_dkdv": (kflash.flash_block_backward_dkdv,
+                              kflash.flash_block_backward_dkdv_plain)}
+    records = []
+
+    def record(kernel, name, err_key, launches, calls, lib_ms):
+        ops = nbytes = 0
+        for args, window in calls:
+            o, b = work(kernel, args, window)
+            ops, nbytes = ops + o, nbytes + b
+        b_ms, b_by = flash_bound(ops, nbytes,
+                                 calls[0][0][0].dtype == bf16)
+        fn, fn_plain = fns[kernel]
+        ms = timed(lambda: [fn(*a, window=w) for a, w in calls])
+        plain_ms = time_ms(lambda: [fn_plain(*a, window=w)
+                                    for a, w in calls], 1)
+        log(f"  {kernel} {name}: {ms:.4f} ms ({ops / ms / 1e9:.4g} TFLOP/s), "
+            f"bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, "
+            f"launches on its main path {launches}")
+        records.append({
+            "name": f"{kernel} {name}", "route": "cuda", "source": BWD_SRC,
+            "replaces": REPLACES[kernel], "launches": launches,
+            "max_abs_err": max_err[(kernel, err_key)],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms,
+        })
+
+    for name, s, h_kv, dt, causal, window in FUSED_CASES + [STACK_CASE]:
+        args, _ = bwd_inputs[name]
+        q, k, v, dout = args[:4]
+        lib_ms, backend = sdpa_backward(q, k, v, dout, causal, window)
+        log(f"  {name}: sdpa backward (dq, dk and dv) "
+            f"{lib_ms if lib_ms is None else f'{lib_ms:.4f}'} ms "
+            f"[{backend}]")
+        if name == STACK_CASE[0]:
+            path, counts = f"[{STACK}-layer stack step]", step_counts[STACK]
+        elif name == f"S={SEQ} causal bf16":
+            path, counts = "[train step]", step_counts[1]
+        else:
+            path, counts = "[1-rank ring backward]", main_launches[name]
+        for kernel in fns:
+            record(kernel, f"{name} H={HEADS} D={HEAD_DIM} {path}", name,
+                   counts[kernel], [(args, window)], lib_ms)
+    for ring_name, dt, h_kv, window in RING_CASES:
+        launches, calls = ring_runs[ring_name]
+        for kernel in fns:
+            steps = [(a, kw.get("window")) for a, kw in calls[kernel]]
+            record(kernel, f"{ring_name} [{RING}-rank ring, "
+                   f"{len(steps)} steps, H={HEADS} D={HEAD_DIM}]", ring_name,
+                   launches[kernel], steps, None)
+    log(f"  train step {SEQ / wall_1:.6g} tokens/s, {STACK}-layer stack "
+        f"{SEQ_LONG / wall_4:.6g} tokens/s (host wall, steps 2-3)")
     return records
 
 

@@ -1,20 +1,27 @@
 """smi_tpu_torch — the PyTorch/CUDA port of smi_tpu for the NVIDIA H100.
 
-Two slices are ported. The first carries the flagship workload: the
+Three slices are ported. The first carries the flagship workload: the
 distributed 4-point Jacobi stencil with Dirichlet edges on a 2-D rank
 grid, its halo exchange, and the hand-written CUDA sweep kernels (one
 sweep per launch, and k sweeps per memory pass). The second is ring
 attention's forward: sequence-parallel attention over a rank ring
 (``ring_shift`` moves K/V), with hand-written CUDA flash kernels for the
 whole-extent forward and for one ring step's fold (causal, sliding
-window, grouped K/V heads; f32 and bf16). Entry points run on CUDA
-unless the caller passes ``device="cpu"``; on a CPU tensor each kernel
-wrapper runs its plain PyTorch version instead.
+window, grouped K/V heads; f32 and bf16). The third trains: the flash
+tier's backward on hand-written FlashAttention-2 kernels (dq, and dk/dv
+with the GQA group reduced in the kernel), and the long-context
+transformer block and its train step over a ``(dp, sp)`` grid, bf16
+compute with f32 master weights. Entry points run on CUDA unless the
+caller passes ``device="cpu"``; on a CPU tensor each kernel wrapper runs
+its plain PyTorch version instead.
 """
 
 from smi_tpu_torch.convert import (
     block_from_numpy,
+    data_shard_from_numpy,
     grid_to_numpy,
+    params_from_numpy,
+    params_to_numpy,
     sequence_shard_from_numpy,
     sequence_to_numpy,
 )
@@ -23,6 +30,10 @@ from smi_tpu_torch.kernels.flash import (
     flash_attend_fused_plain,
     flash_block_attend,
     flash_block_attend_plain,
+    flash_block_backward_dkdv,
+    flash_block_backward_dkdv_plain,
+    flash_block_backward_dq,
+    flash_block_backward_dq_plain,
     flash_supported,
 )
 from smi_tpu_torch.kernels.stencil import (
@@ -52,6 +63,17 @@ from smi_tpu_torch.models.stencil import (
     make_stencil_fn,
     reference_stencil,
     run_stencil,
+)
+from smi_tpu_torch.models.transformer import (
+    BlockConfig,
+    TransformerBlock,
+    TransformerStack,
+    block_shard,
+    init_params,
+    init_stack_params,
+    make_train_step,
+    reference_block,
+    stack_shard,
 )
 from smi_tpu_torch.parallel.channels import ring_shift
 from smi_tpu_torch.parallel.halo import (
@@ -83,7 +105,13 @@ __all__ = [
     "ring_shift",
     "flash_attend_fused", "flash_attend_fused_plain", "flash_block_attend",
     "flash_block_attend_plain", "flash_supported",
+    "flash_block_backward_dq", "flash_block_backward_dq_plain",
+    "flash_block_backward_dkdv", "flash_block_backward_dkdv_plain",
     "ring_attention_shard", "make_ring_attention_fn", "reference_attention",
     "reference_attention_rows",
     "sequence_shard_from_numpy", "sequence_to_numpy",
+    "BlockConfig", "TransformerBlock", "TransformerStack", "init_params",
+    "init_stack_params", "block_shard", "stack_shard", "make_train_step",
+    "reference_block",
+    "data_shard_from_numpy", "params_from_numpy", "params_to_numpy",
 ]

@@ -1,7 +1,8 @@
 """State carried between the host and the rank grid.
 
-Neither the stencil nor attention has weights. The stencil's state is
-the grid; attention's is q, k and v, sharded on the sequence. These
+The stencil's state is the grid; attention's is q, k and v, sharded on
+the sequence; the transformer's is its weights, replicated, and its
+``(B, S, E)`` data, sharded on the batch and the sequence. These
 functions are how a caller (and the parity tests) hands the same global
 float32 arrays to this package and reads them back.
 """
@@ -12,6 +13,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from smi_tpu_torch.models import transformer as tf
 from smi_tpu_torch.parallel.mesh import Communicator
 
 
@@ -88,3 +90,69 @@ def sequence_to_numpy(shard: torch.Tensor, comm: Communicator) -> np.ndarray:
     parts = [torch.empty_like(shard) for _ in range(comm.shape[0])]
     dist.all_gather(parts, shard, group=comm.groups[axis])
     return torch.cat(parts, dim=0).cpu().numpy()
+
+
+def _check_float32(x: np.ndarray, what: str) -> np.ndarray:
+    x = np.asarray(x)
+    if x.dtype != np.float32:
+        raise TypeError(
+            f"{what} must be float32, got {x.dtype}: build the state as "
+            f"float32 so every package sees the same values"
+        )
+    return x
+
+
+def data_shard_from_numpy(x: np.ndarray, comm: Communicator,
+                          dtype=torch.float32) -> torch.Tensor:
+    """This rank's ``(B/dp, S/sp, E)`` shard of a global float32
+    ``(B, S, E)`` array on a ``(dp, sp)`` grid: the batch over the first
+    axis, the sequence over the second, as a contiguous tensor of
+    ``dtype`` on ``comm.device``."""
+    x = _check_float32(x, "the data")
+    if x.ndim != 3 or len(comm.shape) != 2:
+        raise ValueError(f"need a (B, S, E) array on a (dp, sp) grid, got "
+                         f"shape {x.shape} on grid {comm.shape}")
+    (dp, sp), (i, j) = comm.shape, comm.coords
+    b, s, _ = x.shape
+    if b % dp or s % sp:
+        raise ValueError(f"(B, S) = {(b, s)} not divisible by the grid "
+                         f"{(dp, sp)}")
+    b_loc, s_loc = b // dp, s // sp
+    shard = np.ascontiguousarray(x[i * b_loc:(i + 1) * b_loc,
+                                   j * s_loc:(j + 1) * s_loc])
+    return torch.from_numpy(shard).to(device=comm.device, dtype=dtype)
+
+
+def params_from_numpy(params, config, device=None):
+    """A :class:`~smi_tpu_torch.models.transformer.TransformerBlock` from
+    one block's float32 parameters, or a ``TransformerStack`` from the
+    stacked ``(layers, ...)`` ones (the JAX package's ``init_params`` and
+    ``init_stack_params`` trees, as numpy), on ``device`` (CUDA by
+    default). The weights are copied."""
+    leaves = {n: _check_float32(params[n], f"parameter {n}")
+              for n in tf.PARAM_NAMES}
+    e, hd, hidden = (config.embed, config.heads * config.head_dim,
+                     config.mlp_ratio * config.embed)
+    shapes = {"wqkv": (e, hd + 2 * config._kv * config.head_dim),
+              "wo": (hd, e), "w1": (e, hidden), "w2": (hidden, e)}
+    stacked = leaves["wqkv"].ndim == 3
+    depth = leaves["wqkv"].shape[:1] if stacked else ()
+    for n, x in leaves.items():
+        if x.shape != depth + shapes[n]:
+            raise ValueError(f"parameter {n} has shape {x.shape}, the "
+                             f"config needs {depth + shapes[n]}")
+    if stacked:
+        return tf.TransformerStack(config, params=leaves, device=device)
+    return tf.TransformerBlock(config, params=leaves, device=device)
+
+
+def params_to_numpy(model) -> dict:
+    """A block's or a stack's parameters as float32 numpy arrays, in the
+    JAX package's layout (a stack's leaves stacked ``(layers, ...)``)."""
+    blocks = getattr(model, "blocks", None)
+    if blocks is None:
+        return {n: p.detach().cpu().numpy().copy()
+                for n, p in model.weights().items()}
+    return {n: np.stack([b.weights()[n].detach().cpu().numpy()
+                         for b in blocks])
+            for n in tf.PARAM_NAMES}

@@ -7,7 +7,7 @@ hash of the source and the flags, so a changed source builds anew and an
 unchanged one loads at once. All sources compile at the same time, one
 ``nvcc`` each. A source may export several kernels (``flash_fwd.cu``
 exports the fused and the carried flash forward); each kernel has its
-own launch count.
+own launch count (``flash_bwd.cu`` exports the two backward kernels).
 
 Nothing here runs on import: the first :func:`library` call builds. A
 missing ``nvcc`` raises; there is no fallback to the plain versions.
@@ -42,15 +42,24 @@ NVCC_FLAGS = (
 
 #: sources whose bar is a tolerance, not bit identity: built with FMA
 #: contraction (the stencil sources keep ``-fmad=false``)
-FMA_SOURCES = frozenset({"flash_fwd"})
+FMA_SOURCES = frozenset({"flash_fwd", "flash_bwd"})
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _count_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def count_launch(kernel: str) -> None:
+    """Add one to ``kernel``'s launch count; wrappers call it right after
+    a launch that CUDA accepted (threads may launch at once)."""
+    with _count_lock:
+        LAUNCHES[kernel] += 1
 
 
 def find_nvcc() -> str:
@@ -168,10 +177,23 @@ SIGNATURES = {
         # block_k, stream
         [_P] * 9 + [_I] * 10 + [_F] + [_I] * 2 + [_P],
     ),
+    "flash_bwd_dq": (
+        "smi_flash_bwd_dq",
+        # q, k, v, dout, m, linv, delta, dq, dtype, h, h_kv, s_q, s_k, d,
+        # q_off, k_off, causal, window, scale, block_q, block_k, stream
+        [_P] * 8 + [_I] * 10 + [_F] + [_I] * 2 + [_P],
+    ),
+    "flash_bwd_dkdv": (
+        "smi_flash_bwd_dkdv",
+        # q, k, v, dout, m, linv, delta, dk, dv, dtype, h, h_kv, s_q, s_k,
+        # d, q_off, k_off, causal, window, scale, block_q, block_k, stream
+        [_P] * 9 + [_I] * 10 + [_F] + [_I] * 2 + [_P],
+    ),
 }
 
 #: kernels whose entry point lives in a source of another name
-_SOURCE_OF = {"flash_fused": "flash_fwd", "flash_block": "flash_fwd"}
+_SOURCE_OF = {"flash_fused": "flash_fwd", "flash_block": "flash_fwd",
+              "flash_bwd_dq": "flash_bwd", "flash_bwd_dkdv": "flash_bwd"}
 
 
 def source_of(kernel: str) -> str:

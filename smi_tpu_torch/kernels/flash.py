@@ -1,7 +1,7 @@
-"""Flash-attention forward for the ring-attention schedule.
+"""Flash attention for the ring-attention schedule, forward and backward.
 
-PyTorch counterpart of the forward half of :mod:`smi_tpu.kernels.flash`.
-Two kernels with the JAX package's contracts and layouts:
+PyTorch counterpart of :mod:`smi_tpu.kernels.flash`. Four kernels with
+the JAX package's contracts and layouts:
 
 - :func:`flash_attend_fused` attends the whole K/V extent in one launch
   and returns ``(out, m, l)``: the normalised output in q's dtype and the
@@ -10,12 +10,18 @@ Two kernels with the JAX package's contracts and layouts:
 - :func:`flash_block_attend` folds one K/V block into the carried
   ``(m, l, acc)`` with global ``q_off``/``k_off`` positions: one launch
   per ring step.
+- :func:`flash_block_backward_dq` and :func:`flash_block_backward_dkdv`
+  are the FlashAttention-2 backward of one K/V block: dq, and (dk, dv)
+  with the GQA group reduced in the kernel, recomputed from the saved
+  ``m``, ``linv = 1/l`` and ``delta = rowsum(dout * out)``. One launch of
+  each per ring step.
 
-Both launch ``csrc/flash_fwd.cu`` for CUDA tensors and run their plain
-PyTorch versions (:func:`flash_attend_fused_plain`,
-:func:`flash_block_attend_plain`) only for CPU tensors. Layouts are
-head-major: q ``(H, Sq, D)``, k/v ``(H_kv, Sk, D)`` with ``H_kv`` dividing
-``H`` (grouped-query attention), acc ``(H, Sq, D)`` f32.
+The forward pair launches ``csrc/flash_fwd.cu``, the backward pair
+``csrc/flash_bwd.cu``, for CUDA tensors; each runs its plain PyTorch
+version (the ``*_plain`` functions) only for CPU tensors. Layouts are
+head-major: q and dout ``(H, Sq, D)``, k/v ``(H_kv, Sk, D)`` with ``H_kv``
+dividing ``H`` (grouped-query attention), acc, dq ``(H, Sq, D)`` f32, dk
+and dv ``(H_kv, Sk, D)`` f32.
 
 Masked scores count as ``-inf`` in both the kernel and its plain
 version, so a masked key adds exactly nothing: a row with no live key
@@ -26,11 +32,14 @@ live key's correction zeroes; the two agree on every row that has a
 live key, and on the final output of every ring.)
 
 f32 runs in full f32 (no TF32), as the reference runs at HIGHEST
-precision; bf16 multiplies in bf16 with f32 accumulation, and the
-probabilities are rounded to V's dtype before the P·V product.
-``precision`` is accepted so the signatures match and changes nothing.
-The TPU tile targets, chunk budgets and the 128-lane statistics layout
-have no counterpart: :func:`_plan` sizes the tile to Hopper shared memory.
+precision; bf16 multiplies in bf16 with f32 accumulation, and rounds
+where the reference rounds: the probabilities to V's dtype before P·V,
+and in the backward dS to K's dtype before dS·K, P^T to dout's dtype
+before P^T·dout and dS^T to q's dtype before dS^T·Q. ``precision`` is
+accepted so the signatures match and changes nothing. The TPU tile
+targets, chunk budgets and the 128-lane statistics layout have no
+counterpart: :func:`_plan` and :func:`_bwd_plan` size the tiles to Hopper
+shared memory.
 """
 
 from __future__ import annotations
@@ -45,6 +54,8 @@ NEG_INF = -1e30
 
 KERNEL_FUSED = "flash_fused"
 KERNEL_BLOCK = "flash_block"
+KERNEL_BWD_DQ = "flash_bwd_dq"
+KERNEL_BWD_DKDV = "flash_bwd_dkdv"
 
 #: dynamic shared memory one H100 block may use (227 KB)
 SMEM_BYTES_LIMIT = 232_448
@@ -105,18 +116,62 @@ def _plan(d: int, dtype) -> Optional[Tuple[int, int]]:
     return BLOCK_Q, _TILE[dtype][0]
 
 
+#: the dkdv kernel's query rows per tile and keys per block (``kTileQ``,
+#: ``kRows`` in ``csrc/flash_bwd.cu``); its dq kernel owns BLOCK_Q query
+#: rows and walks the forward's key tiles
+BWD_TILE_Q, BWD_BLOCK_K = 32, 64
+
+
+def bwd_smem_bytes(kernel: str, d: int, dtype) -> int:
+    """Dynamic shared memory of one backward block, as ``Layout`` in
+    ``csrc/flash_bwd.cu`` sums it. dq: the Q and dO tiles (64 rows) and
+    one K and one V tile; dkdv: the K and V block (64 rows), one Q and
+    one dO tile (32 rows) and their three statistic rows. Rows are padded
+    by 16 bytes; f32 adds each warp's ``16 x (n + 4)`` f32 staging buffer
+    (n = the tile's rows)."""
+    block_k, pad = _TILE[dtype]
+    item = torch.empty((), dtype=dtype).element_size()
+    f32 = dtype == torch.float32
+    if kernel == KERNEL_BWD_DQ:
+        tiles = (2 * BLOCK_Q + 2 * block_k) * (d + pad) * item
+        return tiles + (4 * 16 * (block_k + 4) * 4 if f32 else 0)
+    tiles = (2 * BWD_BLOCK_K + 2 * BWD_TILE_Q) * (d + pad) * item
+    stage = 4 * 16 * (BWD_TILE_Q + 4) * 4 if f32 else 0
+    return tiles + 3 * BWD_TILE_Q * 4 + stage
+
+
+def _bwd_plan(kernel: str, d: int, dtype) -> Optional[Tuple[int, int]]:
+    """``(block_q, block_k)`` of a backward kernel for head dim ``d`` (dq:
+    query rows per block, key rows per tile; dkdv: query rows per tile,
+    keys per block), or None where it has no instantiation or would not
+    fit shared memory."""
+    if dtype not in _TILE or d not in HEAD_DIMS:
+        return None
+    if bwd_smem_bytes(kernel, d, dtype) > SMEM_BYTES_LIMIT:
+        return None
+    if kernel == KERNEL_BWD_DQ:
+        return BLOCK_Q, _TILE[dtype][0]
+    return BWD_TILE_Q, BWD_BLOCK_K
+
+
 def flash_supported(s_q: int, s_k: int, d: int, dtype) -> bool:
-    """Whether the CUDA kernel takes these shapes: f32 or bf16, a head
-    dim it is instantiated for, and non-empty extents (ragged tiles are
-    masked in the kernel, so any length goes)."""
-    return s_q >= 1 and s_k >= 1 and _plan(d, dtype) is not None
+    """Whether the CUDA kernels, forward and backward, take these shapes:
+    f32 or bf16, a head dim they are instantiated for, and non-empty
+    extents (ragged tiles are masked in the kernels, so any length
+    goes)."""
+    return (s_q >= 1 and s_k >= 1 and _plan(d, dtype) is not None
+            and _bwd_plan(KERNEL_BWD_DQ, d, dtype) is not None
+            and _bwd_plan(KERNEL_BWD_DKDV, d, dtype) is not None)
 
 
-def check_operands(what: str, q, k, v, state=()) -> Tuple[int, int, int, int]:
-    """Raise unless q/k/v (and the carried ``state``, name-tensor pairs)
-    are contiguous tensors of the kernel's dtypes and layouts on one
+def check_operands(what: str, q, k, v, state=(),
+                   dout=None) -> Tuple[int, int, int, int]:
+    """Raise unless q/k/v (with ``dout`` in q's dtype and layout, and the
+    f32 ``state``, name-tensor pairs: the carry or the saved statistics)
+    are contiguous tensors of the kernels' dtypes and layouts on one
     device. Returns ``(h, h_kv, s_q, s_k)``."""
-    named = (("q", q), ("k", k), ("v", v), *state)
+    grads = () if dout is None else (("dout", dout),)
+    named = (("q", q), ("k", k), ("v", v), *grads, *state)
     for name, t in named:
         if not torch.is_tensor(t):
             raise TypeError(f"{what}: {name} must be a tensor")
@@ -128,7 +183,7 @@ def check_operands(what: str, q, k, v, state=()) -> Tuple[int, int, int, int]:
     if q.dtype not in _TILE:
         raise TypeError(f"{what}: q must be float32 or bfloat16, got "
                         f"{q.dtype}")
-    for name, t in (("k", k), ("v", v)):
+    for name, t in (("k", k), ("v", v), *grads):
         if t.dtype != q.dtype:
             raise TypeError(f"{what}: {name} must be {q.dtype} like q, got "
                             f"{t.dtype}")
@@ -141,8 +196,10 @@ def check_operands(what: str, q, k, v, state=()) -> Tuple[int, int, int, int]:
     h, s_q, d = q.shape
     h_kv, s_k, _ = k.shape
     _gqa_group(h, h_kv)
-    shapes = {"k": (h_kv, s_k, d), "v": (h_kv, s_k, d), "m": (h, 1, s_q),
-              "l": (h, 1, s_q), "acc": (h, s_q, d)}
+    row = (h, 1, s_q)
+    shapes = {"k": (h_kv, s_k, d), "v": (h_kv, s_k, d), "dout": (h, s_q, d),
+              "m": row, "l": row, "linv": row, "delta": row,
+              "acc": (h, s_q, d)}
     for name, t in named[1:]:
         if tuple(t.shape) != shapes[name]:
             raise ValueError(f"{what}: {name} must have shape "
@@ -235,8 +292,8 @@ def flash_attend_fused_plain(q, k, v, q_off, k_off, causal: bool,
     return out, m, l
 
 
-def _launch(kernel: str, q, pointers, ints, scale: float) -> None:
-    block_q, block_k = _plan(q.shape[2], q.dtype)
+def _launch(kernel: str, q, pointers, ints, scale: float, plan) -> None:
+    block_q, block_k = plan
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = _build.entry(kernel)(
@@ -244,7 +301,7 @@ def _launch(kernel: str, q, pointers, ints, scale: float) -> None:
             float(scale), block_q, block_k, stream,
         )
     _build.check(kernel, status)
-    _build.LAUNCHES[kernel] += 1
+    _build.count_launch(kernel)
 
 
 def _int32(what: str, name: str, x) -> int:
@@ -252,6 +309,16 @@ def _int32(what: str, name: str, x) -> int:
     if not -(1 << 31) <= x < (1 << 31):
         raise ValueError(f"{what}: {name}={x} does not fit 32 bits")
     return x
+
+
+def _shape_ints(what, q, k, q_off, k_off, causal, window):
+    """The C entry points' ``h, h_kv, s_q, s_k, d, q_off, k_off, causal,
+    window`` (window 0: none)."""
+    h, s_q, d = q.shape
+    h_kv, s_k, _ = k.shape
+    return (h, h_kv, s_q, s_k, d, _int32(what, "q_off", q_off),
+            _int32(what, "k_off", k_off), int(causal),
+            _int32(what, "window", window or 0))
 
 
 def flash_attend_fused(q, k, v, q_off, k_off, causal: bool, scale: float,
@@ -262,18 +329,17 @@ def flash_attend_fused(q, k, v, q_off, k_off, causal: bool, scale: float,
     ``(H, 1, Sq)`` f32 rows. Launches ``csrc/flash_fwd.cu`` for CUDA
     tensors and raises on shapes or dtypes it does not take."""
     _validate_window(causal, window)
-    h, h_kv, s_q, s_k = check_operands("flash_attend_fused", q, k, v)
+    what = "flash_attend_fused"
+    h, _, s_q, _ = check_operands(what, q, k, v)
     if q.device.type == "cpu":
         return flash_attend_fused_plain(q, k, v, q_off, k_off, causal, scale,
                                         precision, window)
-    what = "flash_attend_fused"
     out = torch.empty_like(q)
     m = torch.empty((h, 1, s_q), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
     _launch(KERNEL_FUSED, q, (q, k, v, out, m, l),
-            (h, h_kv, s_q, s_k, q.shape[2], _int32(what, "q_off", q_off),
-             _int32(what, "k_off", k_off), int(causal),
-             _int32(what, "window", window or 0)), scale)
+            _shape_ints(what, q, k, q_off, k_off, causal, window), scale,
+            _plan(q.shape[2], q.dtype))
     return out, m, l
 
 
@@ -286,17 +352,157 @@ def flash_block_attend(q, k, v, m, l, acc, q_off, k_off, causal: bool,
     the results are new tensors. Launches ``csrc/flash_fwd.cu`` for CUDA
     tensors and raises on shapes or dtypes it does not take."""
     _validate_window(causal, window)
-    h, h_kv, s_q, s_k = check_operands(
-        "flash_block_attend", q, k, v, (("m", m), ("l", l), ("acc", acc)))
+    what = "flash_block_attend"
+    check_operands(what, q, k, v, (("m", m), ("l", l), ("acc", acc)))
     if q.device.type == "cpu":
         return flash_block_attend_plain(q, k, v, m, l, acc, q_off, k_off,
                                         causal, scale, precision, window)
-    what = "flash_block_attend"
     m_out, l_out, acc_out = (torch.empty_like(m), torch.empty_like(l),
                              torch.empty_like(acc))
     _launch(KERNEL_BLOCK, q, (q, k, v, m, l, acc, m_out, l_out, acc_out),
-            (h, h_kv, s_q, s_k, q.shape[2], _int32(what, "q_off", q_off),
-             _int32(what, "k_off", k_off), int(causal),
-             _int32(what, "window", window or 0)), scale)
+            _shape_ints(what, q, k, q_off, k_off, causal, window), scale,
+            _plan(q.shape[2], q.dtype))
     return m_out, l_out, acc_out
+
+
+# ---------------------------------------------------------------------
+# Backward (FlashAttention-2): the probabilities are recomputed from the
+# saved statistics, so nothing quadratic is stored. dq accumulates over
+# key tiles per query block; dk/dv over query tiles per key block, for
+# every query head of the K/V head's group. The ring-level backward
+# (the gradients riding the ring home) is models/ring_attention.py.
+# ---------------------------------------------------------------------
+
+
+def _bwd_chunks(q, kf, vf, dout, m, linv, delta, q_off, k_off, causal,
+                scale, window):
+    """Yield ``(r0, r1, p, ds)`` over chunks of query rows under
+    :data:`PLAIN_SCORE_ELEMS` scores: the recomputed probabilities
+    ``P = exp(S - m) * linv`` and ``dS = P * (dout V^T - delta)``, f32
+    ``(H, r, Sk)``, 0 where masked (by a select: ``exp(S - m)`` is inf
+    on a row that no key reached). ``kf``/``vf`` are K and V widened to
+    f32 and repeated over the GQA group."""
+    h, s_q, _ = q.shape
+    s_k = kf.shape[1]
+    rows = max(1, PLAIN_SCORE_ELEMS // (h * s_k))
+    for r0 in range(0, s_q, rows):
+        r1 = min(s_q, r0 + rows)
+        s = torch.matmul(q[:, r0:r1].float(), kf.transpose(1, 2)) * scale
+        p = torch.exp(s - m[:, 0, r0:r1, None]) * linv[:, 0, r0:r1, None]
+        del s
+        dead = _dead_keys(r1 - r0, s_k, q_off + r0, k_off, causal, window,
+                          q.device)
+        p = p.masked_fill(dead, 0.0)
+        dp = torch.matmul(dout[:, r0:r1].float(), vf.transpose(1, 2))
+        yield r0, r1, p, p * (dp - delta[:, 0, r0:r1, None])
+
+
+def _repeat_kv(k, v, group: int):
+    return (x.float().repeat_interleave(group, dim=0) for x in (k, v))
+
+
+def backward_rows(out, l, dout):
+    """The backward kernels' row operands from a forward's ``out`` and
+    ``l`` and the output gradient ``dout`` (head-major, ``(H, Sq, D)``):
+    ``linv = 1/l``, with rows that no key reached mapped to 1, and
+    ``delta = rowsum(dout * out)`` from ``out`` in q's dtype (in bf16 the
+    rounded output, as the reference forms it); both ``(H, 1, Sq)`` f32."""
+    linv = 1.0 / torch.where(l == 0.0, torch.ones_like(l), l)
+    delta = (dout.float() * out.float()).sum(-1)[:, None]
+    return linv, delta.contiguous()
+
+
+def flash_block_backward_dq_plain(q, k, v, dout, m, linv, delta, q_off,
+                                  k_off, causal: bool, scale: float,
+                                  precision=None,
+                                  window: Optional[int] = None):
+    """:func:`flash_block_backward_dq` in PyTorch ops: the kernel's plain
+    version. Returns dq ``(H, Sq, D)`` f32; dS is rounded to K's dtype
+    before ``dS K``, as the reference rounds it."""
+    _validate_window(causal, window)
+    kf, vf = _repeat_kv(k, v, q.shape[0] // k.shape[0])
+    parts = [torch.matmul(ds.to(k.dtype).float(), kf) * scale
+             for _, _, _, ds in _bwd_chunks(q, kf, vf, dout, m, linv, delta,
+                                            int(q_off), int(k_off), causal,
+                                            scale, window)]
+    return torch.cat(parts, dim=1).contiguous()
+
+
+def flash_block_backward_dkdv_plain(q, k, v, dout, m, linv, delta, q_off,
+                                    k_off, causal: bool, scale: float,
+                                    precision=None,
+                                    window: Optional[int] = None):
+    """:func:`flash_block_backward_dkdv` in PyTorch ops: the kernel's
+    plain version. Returns ``(dk, dv)``, ``(H_kv, Sk, D)`` f32, summed
+    over each K/V head's group of query heads; P^T is rounded to dout's
+    dtype before ``P^T dout`` and dS^T to q's before ``dS^T Q``."""
+    _validate_window(causal, window)
+    h, _, d = q.shape
+    h_kv, s_k, _ = k.shape
+    group = h // h_kv
+    kf, vf = _repeat_kv(k, v, group)
+    dk = torch.zeros((h, s_k, d), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for r0, r1, p, ds in _bwd_chunks(q, kf, vf, dout, m, linv, delta,
+                                     int(q_off), int(k_off), causal, scale,
+                                     window):
+        dv += torch.matmul(p.to(dout.dtype).float().transpose(1, 2),
+                           dout[:, r0:r1].float())
+        dk += torch.matmul(ds.to(q.dtype).float().transpose(1, 2),
+                           q[:, r0:r1].float())
+    return ((dk * scale).view(h_kv, group, s_k, d).sum(1).contiguous(),
+            dv.view(h_kv, group, s_k, d).sum(1).contiguous())
+
+
+def _bwd_operands(what, q, k, v, dout, m, linv, delta, causal, window):
+    _validate_window(causal, window)
+    return check_operands(what, q, k, v,
+                          (("m", m), ("linv", linv), ("delta", delta)),
+                          dout=dout)
+
+
+def flash_block_backward_dq(q, k, v, dout, m, linv, delta, q_off, k_off,
+                            causal: bool, scale: float, precision=None,
+                            window: Optional[int] = None):
+    """dq contribution of one K/V block: ``(H, Sq, D)`` f32.
+
+    ``dout`` is ``(H, Sq, D)`` in q's dtype; ``m``, ``linv = 1/l`` (rows
+    no key reached map to 1) and ``delta = rowsum(dout * out)`` are the
+    saved ``(H, 1, Sq)`` f32 rows. ``k``/``v`` may carry fewer (grouped)
+    heads. Launches ``csrc/flash_bwd.cu`` for CUDA tensors and raises on
+    shapes or dtypes it does not take."""
+    what = "flash_block_backward_dq"
+    _bwd_operands(what, q, k, v, dout, m, linv, delta, causal, window)
+    if q.device.type == "cpu":
+        return flash_block_backward_dq_plain(q, k, v, dout, m, linv, delta,
+                                             q_off, k_off, causal, scale,
+                                             precision, window)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    _launch(KERNEL_BWD_DQ, q, (q, k, v, dout, m, linv, delta, dq),
+            _shape_ints(what, q, k, q_off, k_off, causal, window), scale,
+            _bwd_plan(KERNEL_BWD_DQ, q.shape[2], q.dtype))
+    return dq
+
+
+def flash_block_backward_dkdv(q, k, v, dout, m, linv, delta, q_off, k_off,
+                              causal: bool, scale: float, precision=None,
+                              window: Optional[int] = None):
+    """``(dk, dv)`` of one K/V block from this rank's queries, each
+    ``(H_kv, Sk, D)`` f32: the GQA group is reduced in the kernel.
+
+    Operands as :func:`flash_block_backward_dq`. Launches
+    ``csrc/flash_bwd.cu`` for CUDA tensors and raises on shapes or dtypes
+    it does not take."""
+    what = "flash_block_backward_dkdv"
+    _bwd_operands(what, q, k, v, dout, m, linv, delta, causal, window)
+    if q.device.type == "cpu":
+        return flash_block_backward_dkdv_plain(q, k, v, dout, m, linv, delta,
+                                               q_off, k_off, causal, scale,
+                                               precision, window)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    _launch(KERNEL_BWD_DKDV, q, (q, k, v, dout, m, linv, delta, dk, dv),
+            _shape_ints(what, q, k, q_off, k_off, causal, window), scale,
+            _bwd_plan(KERNEL_BWD_DKDV, q.shape[2], q.dtype))
+    return dk, dv
 

@@ -88,7 +88,7 @@ def fused_sweep(block, top, bottom, left, right, row0: int, col0: int,
             h, w, row0, col0, gh, gw, stream,
         )
     _build.check(KERNEL, status)
-    _build.LAUNCHES[KERNEL] += 1
+    _build.count_launch(KERNEL)
     return out
 
 

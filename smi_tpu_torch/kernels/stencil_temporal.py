@@ -142,7 +142,7 @@ def temporal_sweeps(block, top, bottom, left, right, row0: int, col0: int,
             h, w, row0, col0, gh, gw, k, th, tw, stream,
         )
     _build.check(KERNEL, status)
-    _build.LAUNCHES[KERNEL] += 1
+    _build.count_launch(KERNEL)
     return out
 
 

@@ -1,4 +1,4 @@
-"""Ring attention: sequence-parallel attention over a rank ring (forward).
+"""Ring attention: sequence-parallel attention over a rank ring.
 
 PyTorch counterpart of :mod:`smi_tpu.models.ring_attention`. Each rank
 holds its ``(S_local, H, D)`` query shard and its ``(S_local, H_kv, D)``
@@ -14,7 +14,11 @@ Two tiers, as in the JAX package:
   kernel attends the whole extent in one launch; on a longer ring each
   step is one launch of the carried kernel. Head dims the kernel has no
   instantiation for are zero-padded up to one it has, with the scale of
-  the original head dim. Its backward is not ported yet and raises.
+  the original head dim. Its backward is a ``torch.autograd.Function``
+  over the FlashAttention-2 kernels: the probabilities are recomputed
+  from the saved ``(m, l)``, K/V make one more ring circuit carrying
+  their ``(dk, dv)`` home, and dq accumulates locally; one launch of
+  each backward kernel per ring step.
 - the plain tier (the JAX package's jnp tier): the same ring over the
   kernels' plain version (``flash_block_attend_plain``, torch ops),
   differentiable by autograd. Both tiers share one fold and one mask
@@ -30,19 +34,25 @@ quietly.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
+from torch.utils.checkpoint import checkpoint
 
 from smi_tpu_torch.kernels.flash import (
     HEAD_DIMS,
+    backward_rows,
     fresh_state,
     flash_attend_fused,
     flash_block_attend,
     flash_block_attend_plain,
+    flash_block_backward_dkdv,
+    flash_block_backward_dq,
     flash_supported,
 )
 from smi_tpu_torch.parallel.channels import ring_shift
@@ -137,26 +147,68 @@ def _flash_forward(q, k, v, comm, causal, axis, window, scale=None):
                          window, scale)
 
 
+def _flash_ring_backward(q, k, v, out, m, l, dout, comm, causal, axis,
+                         window, scale=None):
+    """FlashAttention-2 backward over the ring: ``(dq, dk, dv)`` in the
+    inputs' dtypes.
+
+    The probabilities are recomputed blockwise from the saved ``(m, l)``
+    (nothing quadratic is stored). K/V make one more ring circuit, this
+    time carrying their ``(dk, dv)`` accumulators: after ``n`` fold+shift
+    steps each block is home with the contributions of every rank's
+    queries on board. dq accumulates locally. ``delta`` comes from the
+    saved output in q's dtype, as the reference forms it."""
+    a = comm._axis(axis)
+    s_local, h, d = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    q_off = comm.coords[a] * s_local
+    qT, kT, vT = (x.transpose(0, 1).contiguous() for x in (q, k, v))
+    doutT = dout.transpose(0, 1).to(q.dtype).contiguous()
+    # statistics stay (H, 1, S) rows end to end, as the kernels read them
+    linv, delta = backward_rows(out.transpose(0, 1), l, doutT)
+    shift = functools.partial(ring_shift, comm=comm, offset=1,
+                              axis_name=axis)
+
+    def fold(src, k_cur, v_cur, carry):
+        dk, dv, dq = carry
+        k_off = src * s_local
+        dq_c = flash_block_backward_dq(qT, k_cur, v_cur, doutT, m, linv,
+                                       delta, q_off, k_off, causal, scale,
+                                       window=window)
+        dk_c, dv_c = flash_block_backward_dkdv(qT, k_cur, v_cur, doutT, m,
+                                               linv, delta, q_off, k_off,
+                                               causal, scale, window=window)
+        # the accumulators travel with their block; after n shifts both
+        # are back at the block's owner
+        return (shift(dk + dk_c), shift(dv + dv_c),
+                dq_c if dq is None else dq + dq_c)
+
+    zeros = torch.zeros(kT.shape, dtype=torch.float32, device=q.device)
+    dk, dv, dq = _ring_schedule(fold, comm, axis, kT, vT,
+                                (zeros, zeros, None))
+    return (dq.transpose(0, 1).to(q.dtype), dk.transpose(0, 1).to(k.dtype),
+            dv.transpose(0, 1).to(v.dtype))
+
+
 class _FlashRingAttention(torch.autograd.Function):
-    """The flash tier under autograd. Its backward (the FA-2 kernels
-    and the gradients' ring circuit) is the next slice of the port; until
-    then differentiating it raises rather than quietly differentiating
-    the plain tier."""
+    """The flash tier under autograd: the forward saves ``q, k, v, out,
+    m, l``; the backward is :func:`_flash_ring_backward` on the backward
+    kernels. It is not itself differentiable (no double backward)."""
 
     @staticmethod
     def forward(ctx, q, k, v, comm, causal, axis, window, scale):
-        out, _, _ = _flash_forward(q, k, v, comm, causal, axis, window,
+        out, m, l = _flash_forward(q, k, v, comm, causal, axis, window,
                                    scale=scale)
+        ctx.save_for_backward(q, k, v, out, m, l)
+        ctx.ring = (comm, causal, axis, window, scale)
         return out
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, dout):
-        raise NotImplementedError(
-            "the flash tier's backward is not ported yet: it needs the "
-            "_bwd_dq_kernel/_bwd_dkdv_kernel ports (ROADMAP.md Queue 2 "
-            "items 12-13, Queue 1 item 10); differentiate with "
-            "use_flash=False"
-        )
+        grads = _flash_ring_backward(*ctx.saved_tensors, dout, *ctx.ring)
+        return (*grads, None, None, None, None, None)
 
 
 def ring_attention_shard(
@@ -218,23 +270,32 @@ def make_ring_attention_fn(
     use_flash: Optional[bool] = None,
     reps: int = 1,
     window: Optional[int] = None,
+    remat_reps: bool = False,
 ):
     """``fn(q, k, v)``: sequence-parallel attention over the
     communicator's first axis, on this rank's shards.
 
     ``reps > 1`` chains that many applications (the output fed back as
-    the next query), the JAX package's timing harness. Its
-    ``remat_reps`` matters only under differentiation and comes with the
-    backward.
+    the next query), the JAX package's timing harness. ``remat_reps``
+    recomputes each rep under differentiation
+    (``torch.utils.checkpoint``) instead of saving every rep's residuals;
+    as in the JAX package it applies only when ``reps > 1``.
     """
     axis = comm.axis_names[0]
 
+    def once(q, k, v):
+        return ring_attention_shard(
+            q, k, v, comm, causal=causal, axis_name=axis,
+            precision=precision, use_flash=use_flash, window=window,
+        )
+
+    chained = once
+    if remat_reps and reps > 1:
+        chained = functools.partial(checkpoint, once, use_reentrant=False)
+
     def fn(q, k, v):
         for _ in range(reps):
-            q = ring_attention_shard(
-                q, k, v, comm, causal=causal, axis_name=axis,
-                precision=precision, use_flash=use_flash, window=window,
-            )
+            q = chained(q, k, v)
         return q
 
     return fn

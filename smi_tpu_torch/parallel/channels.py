@@ -3,8 +3,11 @@
 PyTorch counterpart of :mod:`smi_tpu.parallel.channels`, of which only
 :func:`ring_shift` is ported so far: the K/V hop of the ring-attention
 schedule. It rides the halo module's wrapping exchange (one
-``batch_isend_irecv`` pair on the axis subgroup). The channels,
-streams and tenant ports of the JAX module come with the SMI API.
+``batch_isend_irecv`` pair on the axis subgroup) and is differentiable,
+as ``ppermute`` is in JAX: the gradient makes the opposite hop, so the
+plain tier's autograd carries K/V gradients back around the ring. The
+channels, streams and tenant ports of the JAX module come with the SMI
+API.
 """
 
 from __future__ import annotations
@@ -15,6 +18,26 @@ import torch
 
 from smi_tpu_torch.parallel.halo import _issue, check_backend
 from smi_tpu_torch.parallel.mesh import Communicator
+
+
+def _shift(x, comm, name, step):
+    return _issue(comm, [(x, name, step)], ring=True).wait()[0]
+
+
+class _RingShift(torch.autograd.Function):
+    """The hop under autograd: the gradient of the value rank r received
+    from rank r - step goes back from r to r - step."""
+
+    @staticmethod
+    def forward(ctx, x, comm, name, step):
+        ctx.hop = (comm, name, step)
+        return _shift(x, comm, name, step)
+
+    @staticmethod
+    def backward(ctx, grad):
+        comm, name, step = ctx.hop
+        n = comm.shape[comm._axis(name)]
+        return _shift(grad, comm, name, n - step), None, None, None
 
 
 def ring_shift(
@@ -35,4 +58,4 @@ def ring_shift(
     step = offset % n
     if step == 0:
         return x
-    return _issue(comm, [(x, name, step)], ring=True).wait()[0]
+    return _RingShift.apply(x, comm, name, step)

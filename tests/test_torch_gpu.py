@@ -151,3 +151,117 @@ def test_ring_attention_on_the_card_matches_the_reference(cuda_sp):
     np.testing.assert_allclose(st.sequence_to_numpy(out, cuda_sp),
                                st.reference_attention(q, k, v, causal=True),
                                rtol=2e-5, atol=2e-5)
+
+
+# ------------------------------------------------ flash backward --
+
+
+def _bwd_args(dev, dtype, h, h_kv, s, q_off, k_off, causal, window):
+    """One block's backward operands: the statistics of a fused forward
+    over keys ``[0, q_off + s)`` and a random dout; the block's K/V are
+    those keys at ``k_off``, or fresh ones past them (a future block)."""
+    d = 128
+    scale = 1.0 / math.sqrt(d)
+    q, dout = (_heads(i, h, s, d, dtype, dev) for i in (1, 2))
+    k_all, v_all = (_heads(i, h_kv, q_off + s, d, dtype, dev)
+                    for i in (3, 4))
+    out, m, l = kflash.flash_attend_fused(q, k_all, v_all, q_off, 0, causal,
+                                          scale, window=window)
+    if k_off + s <= k_all.shape[1]:
+        k, v = (x[:, k_off:k_off + s].contiguous() for x in (k_all, v_all))
+    else:
+        k, v = (_heads(i, h_kv, s, d, dtype, dev) for i in (5, 6))
+    return (q, k, v, dout, m, *kflash.backward_rows(out, l, dout), q_off,
+            k_off, causal, scale)
+
+
+def _worst_row_above_floor(got, want, floor=1e-3):
+    """Worst row relative error over rows whose reference norm exceeds
+    ``floor`` times the median row's (``chip_smoke.py``'s GRAD_FLOOR)."""
+    got, want = got.float(), want.float()
+    ref = want.norm(dim=-1)
+    keep = ref > floor * ref.median()
+    return ((got - want).norm(dim=-1)[keep] / ref[keep]).max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,h_kv,s,q_off,k_off,causal,window", [
+    (4, 4, 96, 0, 0, True, None),      # the diagonal, ragged tiles
+    (4, 2, 64, 128, 64, True, None),   # a past block, GQA 2:1
+    (4, 1, 96, 96, 48, True, 40),      # the window's edge, GQA 4:1
+    (2, 2, 80, 0, 0, False, None),     # no mask
+])
+def test_flash_backward_kernels_equal_their_plain_versions(
+        cuda_sp, dtype, h, h_kv, s, q_off, k_off, causal, window):
+    """dq and (dk, dv) against the plain versions: within 2e-5 in f32,
+    by the worst row's relative error, 1e-2, in bf16; one launch each."""
+    args = _bwd_args(cuda_sp.device, dtype, h, h_kv, s, q_off, k_off,
+                     causal, window)
+    before = dict(_build.LAUNCHES)
+    got = (kflash.flash_block_backward_dq(*args, window=window),
+           *kflash.flash_block_backward_dkdv(*args, window=window))
+    torch.cuda.synchronize()
+    for name in ("flash_bwd_dq", "flash_bwd_dkdv"):
+        assert _build.LAUNCHES[name] == before[name] + 1
+    want = (kflash.flash_block_backward_dq_plain(*args, window=window),
+            *kflash.flash_block_backward_dkdv_plain(*args, window=window))
+    assert got[1].shape == (h_kv, s, 128)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-5)
+        else:
+            assert _worst_row_above_floor(a, b) <= 1e-2, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_of_a_future_block_is_zeros(cuda_sp, dtype):
+    args = _bwd_args(cuda_sp.device, dtype, 4, 2, 64, 0, 128, True, None)
+    for t in (kflash.flash_block_backward_dq(*args),
+              *kflash.flash_block_backward_dkdv(*args)):
+        assert torch.count_nonzero(t) == 0
+
+
+@pytest.fixture
+def cuda_grid():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return st.make_communicator(shape=(1, 1), axis_names=("dp", "sp"),
+                                device="cuda")
+
+
+@pytest.mark.parametrize("compute_dtype,bar", [("float32", 2e-5),
+                                               ("bfloat16", 1e-2)])
+@pytest.mark.parametrize("layers", [1, 2])
+def test_train_step_on_the_card_matches_the_plain_tier(cuda_grid,
+                                                       compute_dtype, bar,
+                                                       layers):
+    """One step on the kernels: each parameter's gradient within ``bar``
+    of the plain tier's by ``||g - g'|| / ||g'||`` (B=2, GQA 2:1, window
+    48), and per step one fused forward per layer (two under the stack's
+    recompute) and one launch of each backward kernel per layer."""
+    cfg = st.BlockConfig(embed=128, heads=2, head_dim=128, kv_heads=1,
+                         window=48, compute_dtype=compute_dtype)
+    params = (st.init_stack_params(cfg, layers, seed=3) if layers > 1
+              else st.init_params(cfg, seed=3))
+    rng = np.random.RandomState(4)
+    x, y = (torch.from_numpy(rng.randn(2, 96, 128).astype(np.float32))
+            .to("cuda") for _ in range(2))
+    grads = {}
+    for use_flash in (None, False):
+        model = st.params_from_numpy(params, cfg)
+        step = st.make_train_step(cuda_grid, cfg, use_flash=use_flash,
+                                  layers=layers)
+        before = dict(_build.LAUNCHES)
+        loss = step(model, x, y)
+        torch.cuda.synchronize()
+        made = {n: _build.LAUNCHES[n] - before[n] for n in before}
+        if use_flash is None:
+            assert made["flash_fused"] == (2 * layers if layers > 1 else 1)
+            assert made["flash_bwd_dq"] == made["flash_bwd_dkdv"] == layers
+        else:
+            assert set(made.values()) == {0}
+        assert math.isfinite(float(loss))
+        grads[use_flash] = {n: p.grad for n, p in model.named_parameters()}
+    for n, g in grads[None].items():
+        want = grads[False][n]
+        assert ((g - want).norm() / want.norm()).item() <= bar, n

@@ -15,6 +15,8 @@ holds each against its plain version.
 """
 
 import re
+import sys
+import threading
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -330,7 +332,8 @@ def test_cpu_calls_launch_nothing():
     st.temporal_sweeps(*_temporal_args())
     assert _build.LAUNCHES == before
     assert set(before) == {"stencil_sweep", "stencil_temporal",
-                           "flash_fused", "flash_block"}
+                           "flash_fused", "flash_block", "flash_bwd_dq",
+                           "flash_bwd_dkdv"}
 
 
 # --------------------------------------------------------------- loader --
@@ -347,14 +350,38 @@ def test_nvcc_command_targets_sm90a_without_fast_math(tmp_path):
 
 def test_only_the_flash_source_contracts_fma(tmp_path):
     """The stencil sources keep ``-fmad=false`` for bit identity; the
-    flash source's bar is a tolerance, so it builds with FMA."""
+    flash sources' (forward and backward) bar is a tolerance, so they
+    build with FMA."""
     for name in _build.SOURCES:
         cmd = _build.nvcc_command("nvcc", tmp_path / f"{name}.cu",
                                   tmp_path / "k.so")
-        assert ("-fmad=false" in cmd) == (name != "flash_fwd"), name
+        assert ("-fmad=false" in cmd) == (not name.startswith("flash_")), \
+            name
         assert "-gencode" in cmd and "fast_math" not in " ".join(cmd)
-    assert _build.SOURCES == ["flash_fwd", "stencil_sweep",
+    assert _build.SOURCES == ["flash_bwd", "flash_fwd", "stencil_sweep",
                               "stencil_temporal"]
+
+
+def test_launch_counts_add_up_across_threads():
+    """Wrappers may launch from several threads at once (an emulated ring
+    runs one thread per rank): every launch is counted."""
+    threads, per_thread, name = 16, 2000, "flash_bwd_dq"
+    before = _build.LAUNCHES[name]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        workers = [threading.Thread(target=lambda: [
+            _build.count_launch(name) for _ in range(per_thread)])
+            for _ in range(threads)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=60)
+        assert not any(w.is_alive() for w in workers)
+        assert _build.LAUNCHES[name] == before + threads * per_thread
+    finally:
+        sys.setswitchinterval(interval)
+        _build.LAUNCHES[name] = before
 
 
 def test_missing_nvcc_raises_and_never_falls_back(monkeypatch, tmp_path):

@@ -2,11 +2,13 @@
 
 Spawned by ``tests/test_torch_halo.py`` (the stencil: :func:`run`) and
 ``tests/test_torch_ring_attention.py`` (ring attention:
-:func:`run_attention`) through :func:`run_group`; it imports torch and
-the port, never jax, so each child starts quickly. Every rank checks its
-own halo slabs against slices of the zero-padded global grid; rank 0
-reports the gathered results of the distributed stencil tiers on
-``results``. In the attention group every rank reports its own shard.
+:func:`run_attention`) and ``tests/test_torch_transformer.py`` (the train
+step: :func:`run_train_step`) through :func:`run_group`; it imports
+torch and the port, never jax, so each child starts quickly. Every rank
+checks its own halo slabs against slices of the zero-padded global grid;
+rank 0 reports the gathered results of the distributed stencil tiers on
+``results``. In the attention and training groups every rank reports its
+own shards and gradients.
 """
 
 import multiprocessing as mp
@@ -106,6 +108,15 @@ def _check_halos(comm, g, block, depth):
     _check(f"d={depth} corner right", corners.right, want["right"])
 
 
+def _init_gloo(rank, world, port):
+    import torch.distributed as dist
+
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+        world_size=world, timeout=timedelta(seconds=60),
+    )
+
+
 def run(rank, world, port, shape, grid, halo_grid, iterations, depth,
         results):
     """Initialise gloo, check the halos of ``halo_grid``, run the stencil
@@ -115,10 +126,7 @@ def run(rank, world, port, shape, grid, halo_grid, iterations, depth,
 
         import smi_tpu_torch as st
 
-        dist.init_process_group(
-            "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-            world_size=world, timeout=timedelta(seconds=60),
-        )
+        _init_gloo(rank, world, port)
         try:
             comm = st.make_communicator(shape=shape, axis_names=("sx", "sy"),
                                         device="cpu")
@@ -161,19 +169,17 @@ def run(rank, world, port, shape, grid, halo_grid, iterations, depth,
         raise
 
 
-def run_attention(rank, world, port, q, k, v, window, results):
+def run_attention(rank, world, port, q, k, v, window, w, results):
     """Initialise gloo, run both ring-attention tiers on a ``world``-rank
     ``sp`` ring over the global float32 ``(S, H, D)`` q/k/v, check
-    ``ring_shift`` by 1, -1 and 2, report this rank's shards."""
+    ``ring_shift`` by 1, -1 and 2, report this rank's output shards and
+    its gradients of ``sum(out * w)``."""
     try:
         import torch.distributed as dist
 
         import smi_tpu_torch as st
 
-        dist.init_process_group(
-            "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-            world_size=world, timeout=timedelta(seconds=60),
-        )
+        _init_gloo(rank, world, port)
         try:
             comm = st.make_communicator(shape=(world,), axis_names=("sp",),
                                         device="cpu")
@@ -185,15 +191,53 @@ def run_attention(rank, world, port, q, k, v, window, results):
                 _check(f"ring_shift offset {offset}",
                        st.ring_shift(ks, comm, offset=offset),
                        k[src * s_local:(src + 1) * s_local])
+            ws = st.sequence_shard_from_numpy(w, comm)
             out = {}
             for name, use_flash in (("flash", True), ("plain", False)):
                 fn = st.make_ring_attention_fn(comm, causal=True,
                                                window=window,
                                                use_flash=use_flash)
-                shard = fn(qs, ks, vs)
-                out[name] = shard.numpy()
+                leaves = [x.clone().requires_grad_() for x in (qs, ks, vs)]
+                shard = fn(*leaves)
+                (shard * ws).sum().backward()
+                out[name] = shard.detach().numpy()
                 out[f"{name} gathered"] = st.sequence_to_numpy(shard, comm)
+                out[f"{name} grads"] = [t.grad.numpy() for t in leaves]
             results.put((rank, "ok", out))
+            dist.barrier()
+        finally:
+            dist.destroy_process_group()
+    except BaseException:  # report every failure to the parent, then exit
+        results.put((rank, "error", traceback.format_exc()))
+        raise
+
+
+def run_train_step(rank, world, port, shape, config, params, x, y, lr,
+                   results):
+    """Initialise gloo, take one train step on a ``shape`` (dp, sp) grid
+    with the flash tier (its kernels' plain versions on CPU tensors) from
+    the float32 ``params`` on the global ``(B, S, E)`` data, report the
+    loss, this rank's summed gradients and its updated parameters."""
+    try:
+        import torch.distributed as dist
+
+        import smi_tpu_torch as st
+
+        _init_gloo(rank, world, port)
+        try:
+            comm = st.make_communicator(shape=shape,
+                                        axis_names=("dp", "sp"),
+                                        device="cpu")
+            model = st.params_from_numpy(params, config, device="cpu")
+            step = st.make_train_step(comm, config, lr=lr, use_flash=True)
+            loss = step(model, st.data_shard_from_numpy(x, comm),
+                        st.data_shard_from_numpy(y, comm))
+            results.put((rank, "ok", {
+                "loss": float(loss),
+                "grads": {n: p.grad.numpy()
+                          for n, p in model.weights().items()},
+                "params": st.params_to_numpy(model),
+            }))
             dist.barrier()
         finally:
             dist.destroy_process_group()
