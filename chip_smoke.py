@@ -78,6 +78,25 @@ phase 2):
    bound, its plain version's time and the backward of
    ``scaled_dot_product_attention`` (forward plus backward less forward).
 
+Then the explicit-copy stencil pipeline
+(``smi_tpu_torch/kernels/csrc/stencil_pipeline.cu``, also built in phase 2):
+
+17. the pipeline kernel against its plain version, ``torch.equal``: the
+   8192x8192 extended state with zero halos and the 4096x2048 block at
+   ``BLOCK_AT`` with random corner-complete halos, at k = 8, 16 and 32,
+   in f32 and bf16, with buffering 1 and 3;
+18. the path at full width: ``make_communicator(shape=(1, 1))`` and
+   ``make_pipeline_stencil_fn`` on 8192x8192 with 16*k+3 sweeps at each
+   k, f32 and bf16, the launch counts set to 0 before each run and read
+   after it (both ``stencil_pipeline`` and ``stencil_sweep`` launched);
+   f32 ``torch.equal`` to the plain torch stencil, bf16 to the same path
+   on the kernels' plain versions, and bf16's largest difference to f32
+   printed; then 1024x1024 at k=16 against the numpy serial reference;
+19. one pass's time at 8192x8192, k = 8, 16 and 32, beside its bound,
+   its plain version's time and the temporal kernel's at the same depth
+   (no single PyTorch call does k sweeps), and buffering 1 against 3 at
+   one window shape: the overlap the ring buys.
+
 Bars: f32 out/acc/gradients within 2e-5 (``rtol = atol``); m and l within
 1e-5 in either dtype (both sides add exact products in f32); bf16
 out/acc/gradients by the worst row's relative error ``||got - want|| /
@@ -334,6 +353,7 @@ def main() -> int:
 
     records += flash_phases(dev, gen, max_err)
     records += backward_phases(dev, gen, max_err)
+    records += pipeline_phases(dev, gen)
 
     log(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
@@ -1475,6 +1495,203 @@ def backward_phases(dev, gen, max_err):
                    launches[kernel], steps, None)
     log(f"  train step {SEQ / wall_1:.6g} tokens/s, {STACK}-layer stack "
         f"{SEQ_LONG / wall_4:.6g} tokens/s (host wall, steps 2-3)")
+    return records
+
+
+PIPE_SRC = "smi_tpu_torch/kernels/csrc/stencil_pipeline.cu"
+PIPE_REPLACES = "smi_tpu/kernels/stencil_pipeline.py:185"
+PIPE_DEPTHS = (8, 16, 32)
+
+
+def pipeline_phases(dev, gen):
+    """Phases 17-19: the explicit-copy stencil pipeline. Returns its
+    records for the kernels line."""
+    import numpy as np
+    import torch
+
+    import smi_tpu_torch as st
+    from smi_tpu_torch.kernels import _build
+    from smi_tpu_torch.kernels import stencil as kstencil
+    from smi_tpu_torch.kernels import stencil_pipeline as kpipe
+    from smi_tpu_torch.kernels import stencil_temporal as ktemporal
+
+    dtypes = kpipe.COMPUTE_DTYPES
+    max_err = {}   # (compute dtype, depth) -> max abs err of its checks
+
+    def extended(h, w, k, halos):
+        """A random ``(h+2k, w+2k)`` extended state; zeros in its border
+        unless ``halos`` (random corner-complete halos)."""
+        ext = torch.rand((h + 2 * k, w + 2 * k), generator=gen, device=dev)
+        if not halos:
+            ext[:k], ext[h + k:] = 0.0, 0.0
+            ext[:, :k], ext[:, w + k:] = 0.0, 0.0
+        return ext
+
+    # ---- 17. the pipeline kernel vs its plain version -----------------
+    log("[17 pipeline kernel vs plain] torch.equal, every depth, dtype and "
+        "buffering")
+    for k in PIPE_DEPTHS:
+        for (h, w), at, halos in (((N, N), (0, 0), False),
+                                  (BLOCK, BLOCK_AT, True)):
+            ext = extended(h, w, k, halos)
+            for cd in dtypes:
+                want = kpipe.pipeline_sweeps_plain(ext, *at, N, N, k, cd)
+                for buffering in (1, kpipe.PIPELINE_SLOTS):
+                    got = kpipe.pipeline_sweeps(ext, *at, N, N, k,
+                                                compute_dtype=cd,
+                                                buffering=buffering)
+                    torch.cuda.synchronize()
+                    err = (got - want).abs().max().item()
+                    max_err[(cd, k)] = max(max_err.get((cd, k), 0.0), err)
+                    what = (f"{h}x{w} at {at} k={k} {cd} buffering "
+                            f"{buffering}, {'random' if halos else 'zero'} "
+                            f"halos, plan {kpipe._plan(h, w, k, buffering)}")
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"{what}: kernel != plain, max "
+                                             f"abs err {err}")
+                    log(f"  {what}: torch.equal")
+                del want, got
+            del ext
+
+    # ---- 18. the path at full width -----------------------------------
+    log("[18 pipeline main path] make_pipeline_stencil_fn on a 1x1 grid")
+    comm = st.make_communicator(shape=(1, 1), axis_names=("sx", "sy"))
+
+    @contextlib.contextmanager
+    def plain_kernels():
+        """The path with both kernel wrappers on their plain versions."""
+        def sweeps(ext, row0, col0, gh, gw, depth, stripe=None,
+                   compute_dtype="float32", buffering=3, out=None):
+            h, w = ext.shape[0] - 2 * depth, ext.shape[1] - 2 * depth
+            interior = out[depth:depth + h, depth:depth + w]
+            interior.copy_(kpipe.pipeline_sweeps_plain(
+                ext, row0, col0, gh, gw, depth, compute_dtype))
+            return interior
+
+        with patched(kpipe, pipeline_sweeps=sweeps), \
+                patched(kstencil, fused_sweep=kstencil.fused_sweep_plain):
+            yield
+
+    g = st.initial_grid(N, N)
+    g[:, -1] = 2.0
+    block = st.block_from_numpy(g, comm)
+    launches = {}
+    for k in PIPE_DEPTHS:
+        iters = 16 * k + 3
+        outs = {}
+        for cd in dtypes:
+            fn = st.make_pipeline_stencil_fn(comm, iters, N, N, depth=k,
+                                             compute_dtype=cd)
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            out = fn(block)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            made = dict(_build.LAUNCHES)
+            launches[(cd, k)] = made["stencil_pipeline"]
+            log(f"  {N}x{N} k={k} {cd}, {iters} sweeps: {wall * 1e3:.3f} ms "
+                f"host wall ({N * N * iters / wall:.4g} cells/s), launches "
+                f"{made}")
+            if made["stencil_pipeline"] <= 0 or made["stencil_sweep"] <= 0:
+                raise AssertionError(f"k={k} {cd}: the path did not launch "
+                                     f"both stencil_pipeline and "
+                                     f"stencil_sweep: {made}")
+            if (tuple(out.shape) != (N, N) or out.dtype != torch.float32
+                    or not bool(torch.isfinite(out).all())):
+                raise AssertionError(f"k={k} {cd}: not a finite {N}x{N} "
+                                     f"f32 grid")
+            if cd == "float32":
+                want, against = (st.make_stencil_fn(comm, iters)(block),
+                                 "the plain torch stencil")
+            else:
+                with plain_kernels():
+                    _build.reset_launches()
+                    want = fn(block)
+                    if any(_build.LAUNCHES.values()):
+                        raise AssertionError("the plain path launched a "
+                                             "kernel")
+                against = "the same path on the plain versions"
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                err = (out - want).abs().max().item()
+                raise AssertionError(f"k={k} {cd}: path != {against}, max "
+                                     f"abs err {err}")
+            log(f"  k={k} {cd}: torch.equal to {against}")
+            outs[cd] = out
+            del want
+        log(f"  k={k}: bf16 path vs f32 path, max abs diff "
+            f"{(outs['bfloat16'] - outs['float32']).abs().max().item()}")
+        del outs
+    small = st.initial_grid(1024, 1024)
+    small[:, -1] = 2.0
+    iters = 16 * 16 + 3
+    out_s = st.make_pipeline_stencil_fn(comm, iters, 1024, 1024, depth=16)(
+        st.block_from_numpy(small, comm))
+    if not np.array_equal(st.grid_to_numpy(out_s, comm),
+                          st.reference_stencil(small, iters)):
+        raise AssertionError("1024x1024 pipeline path != numpy "
+                             "reference_stencil")
+    log(f"  1024x1024 k=16, {iters} sweeps: array_equal to the numpy "
+        f"reference_stencil")
+    del block, out_s
+
+    # ---- 19. times -----------------------------------------------------
+    log(f"[19 pipeline times] {N}x{N}, one pass (CUDA events)")
+
+    def launch(ext, out, k, cd, buffering, stripe, band):
+        """One launch at an explicit plan (the overlap measurement: both
+        bufferings at one window shape); not counted."""
+        _build.check(kpipe.KERNEL, _build.entry(kpipe.KERNEL)(
+            ext.data_ptr(), out.data_ptr(), N, N, 0, 0, N, N, k, stripe,
+            band, int(cd == "bfloat16"), buffering,
+            torch.cuda.current_stream().cuda_stream))
+
+    records = []
+    for k in PIPE_DEPTHS:
+        ext = extended(N, N, k, False)
+        out = torch.empty_like(ext)
+        nbytes = 4 * (ext.numel() + N * N)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 4 * N * N * k / F32_FLOPS * 1e3
+        b_ms, b_by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                           else "operations")
+        zt = torch.zeros(k, N + 2 * k, device=dev)
+        zs = torch.zeros(N, k, device=dev)
+        xt = ext[k:k + N, k:k + N].contiguous()
+        targs = (xt, zt, zt, zs, zs, 0, 0, N, N, k)
+        temporal_ms = time_ms(lambda: ktemporal.temporal_sweeps(*targs), 20)
+        stripe, band = kpipe._plan(N, N, k, kpipe.PIPELINE_SLOTS)
+        sync_plan = kpipe._plan(N, N, k, 1)
+        for cd in dtypes:
+            ms = time_ms(lambda: kpipe.pipeline_sweeps(
+                ext, 0, 0, N, N, k, compute_dtype=cd, out=out), 20)
+            sync_same = time_ms(lambda: launch(ext, out, k, cd, 1, stripe,
+                                               band), 20)
+            ring_same = time_ms(lambda: launch(ext, out, k, cd, 3, stripe,
+                                               band), 20)
+            sync_own = time_ms(lambda: kpipe.pipeline_sweeps(
+                ext, 0, 0, N, N, k, compute_dtype=cd, buffering=1, out=out),
+                20)
+            plain_ms = time_ms(lambda: kpipe.pipeline_sweeps_plain(
+                ext, 0, 0, N, N, k, cd), 3)
+            log(f"  k={k} {cd}: ring {ms:.4f} ms per pass (stripe {stripe}, "
+                f"band {band}; {N * N * k / ms * 1e3:.4g} cell-sweeps/s), "
+                f"bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, "
+                f"temporal kernel at k={k} {temporal_ms:.4f} ms; at the "
+                f"ring's window: buffering 1 {sync_same:.4f} ms, buffering 3 "
+                f"{ring_same:.4f} ms (sync/ring {sync_same / ring_same:.4f}); "
+                f"buffering 1 at its own plan {sync_plan}: {sync_own:.4f} "
+                f"ms; no single PyTorch call does k sweeps (library none)")
+            records.append({
+                "name": f"stencil_pipeline {N}x{N} k={k} {cd}",
+                "route": "cuda", "source": PIPE_SRC,
+                "replaces": PIPE_REPLACES, "launches": launches[(cd, k)],
+                "max_abs_err": max_err[(cd, k)], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None,
+            })
+        del ext, out, xt
     return records
 
 

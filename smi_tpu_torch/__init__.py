@@ -1,6 +1,6 @@
 """smi_tpu_torch — the PyTorch/CUDA port of smi_tpu for the NVIDIA H100.
 
-Three slices are ported. The first carries the flagship workload: the
+Four slices are ported. The first carries the flagship workload: the
 distributed 4-point Jacobi stencil with Dirichlet edges on a 2-D rank
 grid, its halo exchange, and the hand-written CUDA sweep kernels (one
 sweep per launch, and k sweeps per memory pass). The second is ring
@@ -11,9 +11,12 @@ window, grouped K/V heads; f32 and bf16). The third trains: the flash
 tier's backward on hand-written FlashAttention-2 kernels (dq, and dk/dv
 with the GQA group reduced in the kernel), and the long-context
 transformer block and its train step over a ``(dp, sp)`` grid, bf16
-compute with f32 master weights. Entry points run on CUDA unless the
-caller passes ``device="cpu"``; on a CPU tensor each kernel wrapper runs
-its plain PyTorch version instead.
+compute with f32 master weights. The fourth closes the stencil family:
+the explicit-copy pipeline, k sweeps per pass streamed through shared
+memory by TMA on a ring of mbarrier slots, in f32 and with bf16
+neighbour arithmetic. Entry points run on CUDA unless the caller passes
+``device="cpu"``; on a CPU tensor each kernel wrapper runs its plain
+PyTorch version instead.
 """
 
 from smi_tpu_torch.convert import (
@@ -41,6 +44,14 @@ from smi_tpu_torch.kernels.stencil import (
     fused_sweep_plain,
     jacobi_step_block_fused,
     make_fused_stencil_fn,
+)
+from smi_tpu_torch.kernels.stencil_pipeline import (
+    make_pipeline_stencil_fn,
+    pick_pipeline_stripe_explained,
+    pipeline_pass,
+    pipeline_supported,
+    pipeline_sweeps,
+    pipeline_sweeps_plain,
 )
 from smi_tpu_torch.kernels.stencil_temporal import (
     make_temporal_stencil_fn,
@@ -101,6 +112,9 @@ __all__ = [
     "make_fused_stencil_fn",
     "temporal_pass", "temporal_sweeps", "temporal_sweeps_plain",
     "make_temporal_stencil_fn", "pick_temporal_depth", "temporal_supported",
+    "pipeline_pass", "pipeline_sweeps", "pipeline_sweeps_plain",
+    "make_pipeline_stencil_fn", "pipeline_supported",
+    "pick_pipeline_stripe_explained",
     "block_from_numpy", "grid_to_numpy",
     "ring_shift",
     "flash_attend_fused", "flash_attend_fused_plain", "flash_block_attend",

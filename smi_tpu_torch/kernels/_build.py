@@ -164,6 +164,12 @@ SIGNATURES = {
         # depth, tile_h, tile_w, stream
         [_P] * 6 + [_I] * 9 + [_P],
     ),
+    "stencil_pipeline": (
+        "smi_stencil_pipeline",
+        # ext, out, h, w, row0, col0, gh, gw, depth, stripe, band, bf16,
+        # buffering, stream
+        [_P] * 2 + [_I] * 11 + [_P],
+    ),
     "flash_fused": (
         "smi_flash_fused",
         # q, k, v, out, m, l, dtype, h, h_kv, s_q, s_k, d, q_off, k_off,

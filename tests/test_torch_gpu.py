@@ -265,3 +265,60 @@ def test_train_step_on_the_card_matches_the_plain_tier(cuda_grid,
     for n, g in grads[None].items():
         want = grads[False][n]
         assert ((g - want).norm() / want.norm()).item() <= bar, n
+
+
+# ------------------------------------------------ stencil pipeline --
+
+
+@pytest.mark.parametrize("buffering", [1, 3])
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h,w,depth,stripe,at,grid", [
+    (24, 128, 8, None, (0, 0), (24, 128)),           # one window
+    (72, 384, 16, 24, (8, 128), (200, 1024)),        # a ragged band
+    (4096, 1024, 8, None, (0, 0), (4096, 1024)),     # several windows a block
+])
+def test_pipeline_kernel_equals_its_plain_version(cuda_comm, buffering,
+                                                  compute_dtype, h, w,
+                                                  depth, stripe, at, grid):
+    """Random extended state (the halos in its border): the kernel is
+    torch.equal to its plain version in both compute dtypes, one launch,
+    and out's border is not written."""
+    k = depth
+    gen = torch.Generator(device="cuda").manual_seed(h + k)
+    ext = torch.rand((h + 2 * k, w + 2 * k), generator=gen, device="cuda")
+    out = torch.full_like(ext, float("nan"))
+    before = _build.LAUNCHES["stencil_pipeline"]
+    got = st.pipeline_sweeps(ext, *at, *grid, k, stripe=stripe,
+                             compute_dtype=compute_dtype,
+                             buffering=buffering, out=out)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["stencil_pipeline"] == before + 1
+    want = st.pipeline_sweeps_plain(ext, *at, *grid, k, compute_dtype)
+    assert torch.equal(got, want)
+    assert bool(torch.isnan(out[:k]).all() and torch.isnan(out[:, :k]).all())
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_pipeline_stencil_on_the_card(cuda_comm, compute_dtype):
+    """19 sweeps at depth 8 (two passes, then the remainder on the
+    single-sweep kernel): f32 equals the serial reference, bf16 stays
+    within the reference's 0.05 per pass and is not f32."""
+    g = _grid(64, 256)
+    before = dict(_build.LAUNCHES)
+    out = st.make_pipeline_stencil_fn(cuda_comm, 19, 64, 256, depth=8,
+                                      compute_dtype=compute_dtype)(
+        st.block_from_numpy(g, cuda_comm))
+    made = {n: _build.LAUNCHES[n] - before[n] for n in before}
+    assert made["stencil_pipeline"] == 2 and made["stencil_sweep"] == 3
+    got, ref = st.grid_to_numpy(out, cuda_comm), st.reference_stencil(g, 19)
+    if compute_dtype == "float32":
+        np.testing.assert_array_equal(got, ref)
+    else:
+        assert np.abs(got - ref).max() <= 2 * 0.05
+        assert not np.array_equal(got, ref)
+
+
+def test_pipeline_refuses_a_non_f32_cuda_block(cuda_comm):
+    block = st.block_from_numpy(_grid(64, 256), cuda_comm).double()
+    with pytest.raises(ValueError, match="float32"):
+        st.make_pipeline_stencil_fn(cuda_comm, 8, 64, 256, depth=8)(block)

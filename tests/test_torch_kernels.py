@@ -332,8 +332,8 @@ def test_cpu_calls_launch_nothing():
     st.temporal_sweeps(*_temporal_args())
     assert _build.LAUNCHES == before
     assert set(before) == {"stencil_sweep", "stencil_temporal",
-                           "flash_fused", "flash_block", "flash_bwd_dq",
-                           "flash_bwd_dkdv"}
+                           "stencil_pipeline", "flash_fused", "flash_block",
+                           "flash_bwd_dq", "flash_bwd_dkdv"}
 
 
 # --------------------------------------------------------------- loader --
@@ -358,8 +358,8 @@ def test_only_the_flash_source_contracts_fma(tmp_path):
         assert ("-fmad=false" in cmd) == (not name.startswith("flash_")), \
             name
         assert "-gencode" in cmd and "fast_math" not in " ".join(cmd)
-    assert _build.SOURCES == ["flash_bwd", "flash_fwd", "stencil_sweep",
-                              "stencil_temporal"]
+    assert _build.SOURCES == ["flash_bwd", "flash_fwd", "stencil_pipeline",
+                              "stencil_sweep", "stencil_temporal"]
 
 
 def test_launch_counts_add_up_across_threads():

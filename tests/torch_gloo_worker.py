@@ -1,9 +1,10 @@
 """One rank of a gloo process group driving smi_tpu_torch on CPU tensors.
 
-Spawned by ``tests/test_torch_halo.py`` (the stencil: :func:`run`) and
-``tests/test_torch_ring_attention.py`` (ring attention:
-:func:`run_attention`) and ``tests/test_torch_transformer.py`` (the train
-step: :func:`run_train_step`) through :func:`run_group`; it imports
+Spawned by ``tests/test_torch_halo.py`` (the stencil: :func:`run`),
+``tests/test_torch_stencil_pipeline.py`` (the pipeline tier:
+:func:`run_pipeline`), ``tests/test_torch_ring_attention.py`` (ring
+attention: :func:`run_attention`) and ``tests/test_torch_transformer.py``
+(the train step: :func:`run_train_step`) through :func:`run_group`; it imports
 torch and the port, never jax, so each child starts quickly. Every rank
 checks its own halo slabs against slices of the zero-padded global grid;
 rank 0 reports the gathered results of the distributed stencil tiers on
@@ -164,6 +165,37 @@ def run(rank, world, port, shape, grid, halo_grid, iterations, depth,
             dist.destroy_process_group()
         if rank != 0:
             results.put((rank, "ok", None))
+    except BaseException:  # report every failure to the parent, then exit
+        results.put((rank, "error", traceback.format_exc()))
+        raise
+
+
+def run_pipeline(rank, world, port, shape, grid, iterations, depth,
+                 results):
+    """Initialise gloo, run the pipeline tier on ``grid`` in both compute
+    dtypes (the halos refreshed into each rank's extended border), and
+    report the gathered grids from rank 0."""
+    try:
+        import torch.distributed as dist
+
+        import smi_tpu_torch as st
+
+        _init_gloo(rank, world, port)
+        try:
+            comm = st.make_communicator(shape=shape, axis_names=("sx", "sy"),
+                                        device="cpu")
+            gh, gw = grid.shape
+            block = st.block_from_numpy(grid, comm)
+            out = {
+                cd: st.grid_to_numpy(st.make_pipeline_stencil_fn(
+                    comm, iterations, gh, gw, depth=depth,
+                    compute_dtype=cd)(block), comm)
+                for cd in ("float32", "bfloat16")
+            }
+            results.put((rank, "ok", out if rank == 0 else None))
+            dist.barrier()
+        finally:
+            dist.destroy_process_group()
     except BaseException:  # report every failure to the parent, then exit
         results.put((rank, "error", traceback.format_exc()))
         raise
