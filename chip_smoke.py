@@ -97,6 +97,42 @@ Then the explicit-copy stencil pipeline
    (no single PyTorch call does k sweeps), and buffering 1 against 3 at
    one window shape: the overlap the ring buys.
 
+Then the Streaming Message Interface on the ring tier
+(``smi_tpu_torch/kernels/csrc/ring.cu``, also built in phase 2), every
+rank a thread of a ``LocalWorld`` on the one card, 8 ranks unless said:
+
+20. each ring kernel ``torch.equal`` to its plain version on every rank,
+   every credit domain drained (credits granted = received = consumed),
+   and unequal to the plain version without rank 1's contribution:
+   all-reduce of 1,048,576 f32 a rank (ADD) and int32 (MAX), all-gather
+   of 512 KiB a rank, reduce-scatter of 8 x 512 KiB a rank, the
+   neighbour stream of 512 KiB in 16 chunks in both directions; the four
+   at 2 and 3 ranks at a width-130 payload in f32, bf16 and int8 and at
+   1000 elements; and without flow control where nothing can be
+   overwritten (2 ranks; a stream of two chunks);
+21. the SMI API through ``smi_kernel(world, backend="ring")``: bcast,
+   reduce (ADD, MAX), allreduce, scatter and gather at root 5 on
+   1,048,576 floats a rank, a transfer 0->5 (three hops the short way
+   round) and a stream 5->6 with a summing consumer and ``buffer_size=
+   2048``, two collectives on ports of different flag domains back to
+   back; each result equal to numpy (f32 ADD within 1e-6 relative),
+   zeros off-root, and equal to the same call with ``backend="xla"``
+   (exactly, but for f32 ADD: another association); the launch counts
+   set to 0 before and held to the calls made;
+22. ``make_kmeans_fn`` on 8 ranks (65,536 points, k=8, 2 dims, 10
+   iterations, 40 all-reduce launches) against ``reference_kmeans``
+   (rtol 1e-3, atol 1e-4) and ``make_gesummv_fn`` on 2 ranks (n=1024,
+   alpha 1.5, beta 0.5) against ``reference_gesummv`` (rtol 2e-3;
+   ``torch.matmul`` in full f32);
+23. the 8192x8192 stencil on the 2x4 world (4096x2048 a rank), 8 sweeps
+   with ``backend="ring"``: 32 neighbour-stream launches, each playing
+   every line of its axis; ``torch.equal`` to ``backend="xla"`` and to
+   the plain stencil on the 1x1 grid;
+24. each ring kernel's time (CUDA events around the one grid) at phase
+   20's first shapes beside its bound (the device-memory bytes of the
+   ring schedule), its plain version's time and one stacked PyTorch call
+   that computes the same values and that the port never calls.
+
 Bars: f32 out/acc/gradients within 2e-5 (``rtol = atol``); m and l within
 1e-5 in either dtype (both sides add exact products in f32); bf16
 out/acc/gradients by the worst row's relative error ``||got - want|| /
@@ -119,6 +155,7 @@ per-kernel JSON record; the last line is the device JSON.
 import contextlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -178,10 +215,27 @@ def main() -> int:
     log(f"[2 build] {_build.SOURCES} built and loaded in "
         f"{time.perf_counter() - t0:.1f} s")
     for name in _build.SOURCES:
-        for line in _build.build_log(name).splitlines():
-            if ("registers" in line or "spill" in line
-                    or "entry function" in line):
-                log(f"  {name}: {line.strip()}")
+        lines = [line.strip() for line in _build.build_log(name).splitlines()
+                 if ("registers" in line or "spill" in line
+                     or "entry function" in line)]
+        entries = sum("entry function" in line for line in lines)
+        if entries <= 8:
+            for line in lines:
+                log(f"  {name}: {line}")
+            continue
+        # a source of many template instances: the extremes
+        found = {key: [int(m) for line in lines
+                       for m in re.findall(pattern, line)]
+                 for key, pattern in (
+                     ("registers", r"Used (\d+) registers"),
+                     ("stack", r"(\d+) bytes stack frame"),
+                     ("spill stores", r"(\d+) bytes spill stores"),
+                     ("spill loads", r"(\d+) bytes spill loads"))}
+        log(f"  {name}: {entries} entry functions; registers "
+            f"{min(found['registers'])}-{max(found['registers'])}, stack "
+            f"frame at most {max(found['stack'])} bytes, spill stores at "
+            f"most {max(found['spill stores'])} bytes, spill loads at most "
+            f"{max(found['spill loads'])} bytes")
 
     max_err = {}   # (kernel, shape, depth) -> max abs err of its check
 
@@ -354,6 +408,7 @@ def main() -> int:
     records += flash_phases(dev, gen, max_err)
     records += backward_phases(dev, gen, max_err)
     records += pipeline_phases(dev, gen)
+    records += ring_phases(dev, gen)
 
     log(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
@@ -1692,6 +1747,430 @@ def pipeline_phases(dev, gen):
                 "library_ms": None,
             })
         del ext, out, xt
+    return records
+
+
+RING_SRC = "smi_tpu_torch/kernels/csrc/ring.cu"
+RING_REPLACES = {"ring_neighbour_stream": "smi_tpu/kernels/ring.py:838",
+                 "ring_all_gather": "smi_tpu/kernels/ring.py:388",
+                 "ring_all_reduce": "smi_tpu/kernels/ring.py:495",
+                 "ring_reduce_scatter": "smi_tpu/kernels/ring.py:718"}
+RING_KERNELS = tuple(RING_REPLACES)
+SMI_RANKS = 8             # the reference's 8-device cluster
+SMI_ELEMS = 1 << 20       # 4 MiB of f32 a rank: the priced all-reduce payload
+HALF_MIB = 1 << 17        # 512 KiB of f32: the microbenchmarks' message
+STREAM_CHUNKS = 16
+API_ROOT = 5
+
+
+def ring_phases(dev, gen):
+    """Phases 20-24: the SMI API on the ring tier, eight ranks on the
+    card. Returns the ring kernels' records for the kernels line."""
+    import numpy as np
+    import torch
+
+    import smi_tpu_torch as st
+    from smi_tpu_torch.kernels import _build
+    from smi_tpu_torch.kernels import ring as kring
+
+    f32, i32 = torch.float32, torch.int32
+    worlds = {}
+
+    def world(n):
+        if n not in worlds:
+            worlds[n] = st.LocalWorld(n)
+        return worlds[n]
+
+    def rnd(shape, dtype):
+        if dtype.is_floating_point:
+            return torch.rand(shape, generator=gen, device=dev,
+                              dtype=f32).add_(0.5).to(dtype)
+        return torch.randint(-100, 100, shape, generator=gen, device=dev,
+                             dtype=i32).to(dtype)
+
+    # what each kernel is called with, and its plain version per ring
+    calls = {
+        "ring_all_reduce": (
+            lambda x, c, kw: kring.ring_all_reduce(x, c, **kw),
+            lambda xs, kw: kring.ring_all_reduce_plain(
+                xs, kw.get("op", "add"))),
+        "ring_all_gather": (
+            lambda x, c, kw: kring.ring_all_gather(x, c, **kw),
+            lambda xs, kw: kring.ring_all_gather_plain(xs)),
+        "ring_reduce_scatter": (
+            lambda x, c, kw: kring.ring_reduce_scatter(x, c, **kw),
+            lambda xs, kw: kring.ring_reduce_scatter_plain(
+                xs, kw.get("op", "add"))),
+        "ring_neighbour_stream": (
+            lambda x, c, kw: kring.neighbour_stream(x, c, **kw),
+            lambda xs, kw: kring.neighbour_stream_plain(
+                xs, kw.get("direction", 1))),
+    }
+    max_err = {k: 0.0 for k in RING_KERNELS}
+    checked = [0]
+
+    def check(kernel, n, shape, dtype, **kw):
+        """One launch against the plain version: equal on every rank,
+        every credit domain drained, and the plain version less rank 1's
+        contribution not equal."""
+        w = world(n)
+        xs = [rnd(shape, dtype) for _ in range(n)]
+        call, plain = calls[kernel]
+        got = w.run(lambda c: call(xs[c.rank], c, kw))
+        record = kring.last_record(w)
+        plain_kw = {k: v for k, v in kw.items()
+                    if k in ("op", "direction")}
+        want = plain(xs, plain_kw)
+        what = (f"{kernel} n={n} {tuple(shape)} {str(dtype)[6:]} "
+                f"{kw or ''}")
+        for r in range(n):
+            err = (got[r].double() - want[r].double()).abs().max().item()
+            max_err[kernel] = max(max_err[kernel], err)
+            if not torch.equal(got[r], want[r]):
+                raise AssertionError(f"{what}: rank {r} kernel != plain, "
+                                     f"max abs err {err}")
+        if not kring.drained(record):
+            raise AssertionError(
+                f"{what}: credits did not drain: granted "
+                f"{int(record['granted'].sum())}, consumed "
+                f"{int(record['consumed'].sum())}, received "
+                f"{int(record['credits_received'].sum())}")
+        dropped = list(xs)
+        dropped[1] = torch.zeros_like(xs[1])
+        control = plain(dropped, plain_kw)
+        if all(torch.equal(got[r], control[r]) for r in range(n)):
+            raise AssertionError(f"{what}: equal to the plain version "
+                                 f"without rank 1's contribution")
+        checked[0] += 1
+        return (f"{what}: equal on {n} ranks, {record['blocks']} blocks a "
+                f"rank, credits granted = consumed = "
+                f"{int(record['granted'].sum())}")
+
+    # ---- 20. each ring kernel vs its plain version --------------------
+    log("[20 ring kernels vs plain]")
+    n = SMI_RANKS
+    full = [
+        ("ring_all_reduce", (SMI_ELEMS,), f32, {}),
+        ("ring_all_reduce", (SMI_ELEMS,), i32, {"op": "max"}),
+        ("ring_all_gather", (HALF_MIB,), f32, {}),
+        ("ring_reduce_scatter", (n * HALF_MIB,), f32, {}),
+        ("ring_neighbour_stream", (STREAM_CHUNKS, HALF_MIB // STREAM_CHUNKS),
+         f32, {}),
+        ("ring_neighbour_stream", (STREAM_CHUNKS, HALF_MIB // STREAM_CHUNKS),
+         f32, {"direction": -1, "stream": 1}),
+    ]
+    for kernel, shape, dtype, kw in full:
+        log("  " + check(kernel, n, shape, dtype, **kw))
+    for m in (2, 3):
+        small = []
+        for dtype in (f32, torch.bfloat16, torch.int8):
+            small += [
+                ("ring_all_reduce", (3, 130), dtype, {}),
+                ("ring_all_gather", (3, 130), dtype, {}),
+                ("ring_reduce_scatter", (2 * m, 130), dtype, {"op": "min"}),
+                ("ring_neighbour_stream", (5, 130), dtype, {}),
+                ("ring_neighbour_stream", (5, 130), dtype,
+                 {"direction": -1}),
+            ]
+        small += [
+            ("ring_all_reduce", (1000,), f32, {"op": "max"}),
+            ("ring_all_gather", (1000,), f32, {}),
+            ("ring_reduce_scatter", (m, 1000), f32, {}),
+            ("ring_neighbour_stream", (4, 250), f32, {}),
+        ]
+        for kernel, shape, dtype, kw in small:
+            check(kernel, m, shape, dtype, **kw)
+        log(f"  n={m}: {len(small)} cases (width 130 in f32, bf16 and "
+            f"int8, both directions, 1000 elements) equal and drained")
+    # without credits only what cannot be overwritten is safe: one step
+    # (n=2), and a stream of two chunks, one a slot
+    for kernel, m, shape in (("ring_all_reduce", 2, (SMI_ELEMS,)),
+                             ("ring_all_gather", 2, (HALF_MIB,)),
+                             ("ring_reduce_scatter", 2, (2 * HALF_MIB,)),
+                             ("ring_neighbour_stream", n, (2, HALF_MIB // 2))):
+        log("  " + check(kernel, m, shape, f32, flow_control=False))
+    log(f"  {checked[0]} launches checked, each with its "
+        f"dropped-contribution control unequal")
+
+    launches = {k: 0 for k in RING_KERNELS}
+
+    def counted(what, expect):
+        """Read the launch counts of a path just driven; each must be
+        what the path's calls add up to."""
+        got = {k: _build.LAUNCHES[k] for k in RING_KERNELS}
+        log(f"  {what}: launches {got}")
+        if got != expect:
+            raise AssertionError(f"{what}: launches {got}, expected "
+                                 f"{expect}")
+        for k, v in got.items():
+            launches[k] += v
+
+    # ---- 21. the SMI API at full width --------------------------------
+    log("[21 SMI API through smi_kernel, 8 ranks]")
+    w8 = world(n)
+    rng = np.random.default_rng(SEED)
+    x_np = (rng.random(n * SMI_ELEMS, dtype=np.float32) + 0.5)
+    xi_np = rng.integers(-1000, 1000, n * SMI_ELEMS, dtype=np.int32)
+    per = x_np.reshape(n, SMI_ELEMS)
+    per_i = xi_np.reshape(n, SMI_ELEMS)
+
+    def api(backend):
+        @st.smi_kernel(w8, in_specs="smi", out_specs="smi", backend=backend)
+        def run(ctx, x, xi):
+            ch = ctx.open_channel(port=0, src=0, dst=API_ROOT,
+                                  count=SMI_ELEMS, dtype="float")
+            ch_s = ctx.open_channel(port=1, src=API_ROOT, dst=API_ROOT + 1,
+                                    count=SMI_ELEMS, dtype="float",
+                                    buffer_size=2048)
+            streamed, total = ctx.stream(
+                ch_s, x, consumer=lambda c, chunk: c + chunk.sum(),
+                init_carry=torch.zeros((), device=x.device))
+            return (
+                ctx.bcast(x, root=API_ROOT),
+                ctx.reduce(x, op="add", root=API_ROOT),
+                ctx.reduce(xi, op="max", root=API_ROOT),
+                ctx.allreduce(x),
+                ctx.allreduce(xi),
+                ctx.scatter(x, root=API_ROOT),
+                ctx.gather(x[:HALF_MIB], root=API_ROOT)[None],
+                ctx.transfer(ch, x),
+                streamed, total[None],
+                # two collectives back to back in different flag domains
+                ctx.bcast(xi, root=1, port=1),
+                ctx.reduce(xi, op="min", root=2, port=2),
+            )
+        return run
+
+    names = ("bcast", "reduce add", "reduce max", "allreduce f32",
+             "allreduce i32", "scatter", "gather", "transfer", "stream",
+             "stream total", "bcast port 1", "reduce min port 2")
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    ring_out = api("ring")(x_np, xi_np)
+    wall = time.perf_counter() - t0
+    counted(f"ring tier ({wall * 1e3:.1f} ms host wall)",
+            {"ring_all_reduce": 7, "ring_reduce_scatter": 1,
+             "ring_all_gather": 1, "ring_neighbour_stream": 4})
+    xla_out = api("xla")(x_np, xi_np)
+    if any(_build.LAUNCHES[k] != launches[k] for k in RING_KERNELS):
+        raise AssertionError("the xla tier launched a ring kernel")
+
+    def rows(t):
+        return t.reshape(n, -1)
+
+    def zeros_off(what, t, root):
+        for r in range(n):
+            if r != root and bool(rows(t)[r].any()):
+                raise AssertionError(f"{what}: rank {r} is not zeros")
+
+    def dev_of(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def expect(what, got, want, rtol=0.0):
+        want = dev_of(want)
+        if rtol:
+            ok = torch.allclose(got, want, rtol=rtol, atol=0.0)
+        else:
+            ok = torch.equal(got, want)
+        if not ok:
+            raise AssertionError(
+                f"{what} != numpy, max abs err "
+                f"{(got.double() - want.double()).abs().max().item()}")
+
+    ring = dict(zip(names, ring_out))
+    xla = dict(zip(names, xla_out))
+    sum64 = per.astype(np.float64).sum(0)
+    for r in range(n):
+        expect(f"bcast rank {r}", rows(ring["bcast"])[r], per[API_ROOT])
+        expect(f"allreduce f32 rank {r}", rows(ring["allreduce f32"])[r],
+               sum64.astype(np.float32), rtol=1e-6)
+        expect(f"allreduce i32 rank {r}", rows(ring["allreduce i32"])[r],
+               per_i.sum(0, dtype=np.int32))
+        expect(f"scatter rank {r}", rows(ring["scatter"])[r],
+               per[API_ROOT][r * HALF_MIB:(r + 1) * HALF_MIB])
+        expect(f"bcast port 1 rank {r}", rows(ring["bcast port 1"])[r],
+               per_i[1])
+    expect("reduce add at root", rows(ring["reduce add"])[API_ROOT],
+           sum64.astype(np.float32), rtol=1e-6)
+    expect("reduce max at root", rows(ring["reduce max"])[API_ROOT],
+           per_i.max(0))
+    expect("reduce min at root", rows(ring["reduce min port 2"])[2],
+           per_i.min(0))
+    expect("gather at root", rows(ring["gather"])[API_ROOT],
+           per[:, :HALF_MIB].reshape(-1))
+    expect("transfer at dst", rows(ring["transfer"])[API_ROOT], per[0])
+    expect("stream at dst", rows(ring["stream"])[API_ROOT + 1],
+           per[API_ROOT])
+    expect("stream consumer at dst", ring["stream total"][API_ROOT + 1],
+           np.float32(per[API_ROOT].astype(np.float64).sum()), rtol=1e-5)
+    for what, root in (("reduce add", API_ROOT), ("reduce max", API_ROOT),
+                       ("gather", API_ROOT), ("transfer", API_ROOT),
+                       ("stream", API_ROOT + 1),
+                       ("reduce min port 2", 2)):
+        zeros_off(what, ring[what], root)
+    for what in names:
+        if what in ("reduce add", "allreduce f32", "stream total"):
+            # another association of the same f32 sum
+            if not torch.allclose(ring[what], xla[what], rtol=1e-6,
+                                  atol=0.0):
+                raise AssertionError(f"{what}: ring and xla tiers differ "
+                                     f"beyond 1e-6")
+        elif not torch.equal(ring[what], xla[what]):
+            raise AssertionError(f"{what}: ring tier != xla tier")
+    log(f"  12 results equal to numpy (f32 ADD within 1e-6 relative), "
+        f"zeros off-root, and to the xla tier (exactly but for f32 ADD); "
+        f"transfer 0->{API_ROOT} made 3 hops in direction -1, stream "
+        f"{API_ROOT}->{API_ROOT + 1} moved "
+        f"{-(-SMI_ELEMS // 2072)} chunks of 2072 elements in one launch")
+    del ring, xla, ring_out, xla_out
+
+    # ---- 22. the applications ----------------------------------------
+    log("[22 k-means on 8 ranks, GESUMMV on 2]")
+    points, k, dims, iters = 65536, 8, 2, 10
+    prng = np.random.RandomState(0)
+    pts = prng.rand(points, dims).astype(np.float32)
+    init = pts[:k].copy()
+    kmeans = st.make_kmeans_fn(w8, iters, backend="ring")
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    means = kmeans(pts, init)
+    torch.cuda.synchronize()
+    kmeans_wall = time.perf_counter() - t0
+    counted(f"k-means {points} points k={k} {iters} iterations "
+            f"({kmeans_wall * 1e3:.1f} ms host wall, "
+            f"{points * iters / kmeans_wall:.4g} point-iterations/s)",
+            {"ring_all_reduce": 4 * iters, "ring_reduce_scatter": 0,
+             "ring_all_gather": 0, "ring_neighbour_stream": 0})
+    np.testing.assert_allclose(means.cpu().numpy(),
+                               st.reference_kmeans(pts, init, iters),
+                               rtol=1e-3, atol=1e-4)
+    log("  k-means within rtol 1e-3, atol 1e-4 of reference_kmeans")
+    size = 1024
+    grng = np.random.RandomState(0)
+    a = grng.rand(size, size).astype(np.float32)
+    b = grng.rand(size, size).astype(np.float32)
+    xv = grng.rand(size).astype(np.float32)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on for torch.matmul")
+    gesummv = st.make_gesummv_fn(world(2), size, 1.5, 0.5, buffer_size=2048,
+                                 backend="ring")
+    _build.reset_launches()
+    y = gesummv(np.stack([a, b]), xv)
+    counted(f"GESUMMV n={size}",
+            {"ring_all_reduce": 0, "ring_reduce_scatter": 0,
+             "ring_all_gather": 0, "ring_neighbour_stream": 1})
+    np.testing.assert_allclose(y.cpu().numpy(),
+                               st.reference_gesummv(a, b, xv, 1.5, 0.5),
+                               rtol=2e-3)
+    log("  GESUMMV within rtol 2e-3 of reference_gesummv (torch.matmul "
+        "in full f32: TF32 off)")
+
+    # ---- 23. the stencil across ranks on the card ---------------------
+    log("[23 8192x8192 stencil on the 2x4 world]")
+    sweeps = 8
+    grid = st.initial_grid(N, N)
+    grid[:, -1] = 2.0
+    grid[N // 2, :] = 0.5
+    w24 = st.LocalWorld((2, 4), ("sx", "sy"))
+
+    def stencil(backend):
+        blocks = w24.run(lambda c: st.make_stencil_fn(
+            c, sweeps, backend=backend)(st.block_from_numpy(grid, c)))
+        return torch.cat([torch.cat(blocks[r * 4:(r + 1) * 4], dim=1)
+                          for r in range(2)], dim=0)
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    ring_grid = stencil("ring")
+    wall = time.perf_counter() - t0
+    counted(f"{sweeps} sweeps, backend ring ({wall * 1e3:.1f} ms host wall)",
+            {"ring_all_reduce": 0, "ring_reduce_scatter": 0,
+             "ring_all_gather": 0, "ring_neighbour_stream": 4 * sweeps})
+    log("  four shifts a sweep, one launch each: a launch plays every "
+        "line of its axis at once (the two sy rings of four ranks, or "
+        "the four sx rings of two)")
+    xla_grid = stencil("xla")
+    if not torch.equal(ring_grid, xla_grid):
+        raise AssertionError("2x4 stencil: ring tier != xla tier")
+    del xla_grid
+    comm11 = st.make_communicator(shape=(1, 1), axis_names=("sx", "sy"))
+    one = st.make_stencil_fn(comm11, sweeps)(st.block_from_numpy(grid,
+                                                                  comm11))
+    torch.cuda.synchronize()
+    if not torch.equal(ring_grid, one):
+        raise AssertionError(
+            f"2x4 stencil over the ring tier != the 1x1 plain stencil, max "
+            f"abs err {(ring_grid - one).abs().max().item()}")
+    log("  torch.equal to backend xla and to the 1x1 plain stencil")
+    del ring_grid, one
+
+    # ---- 24. times -----------------------------------------------------
+    log("[24 ring kernel times, 8 ranks]")
+    records = []
+
+    def kernel_ms(fn, reps=10):
+        times = []
+        for _ in range(reps + 2):
+            w8.run(fn)
+            times.append(kring.last_record(w8)["ms"])
+        return sum(times[2:]) / reps   # two warm-up launches
+
+    def bound(nbytes):
+        return nbytes / HBM_BYTES_PER_S * 1e3
+
+    p_ar, p_half = 4 * SMI_ELEMS, 4 * HALF_MIB
+    timed_cases = [
+        # kernel, name, shape, ring-schedule bytes over all ranks,
+        # in+out bytes, library call
+        ("ring_all_reduce", f"n={n} {SMI_ELEMS} f32 add", (SMI_ELEMS,),
+         n * (4 + 5 * (n - 1)) * p_ar, n * 2 * p_ar,
+         lambda xs: torch.stack(xs).sum(0)),
+        ("ring_all_gather", f"n={n} {HALF_MIB} f32 a rank", (HALF_MIB,),
+         n * 4 * n * p_half, n * (1 + n) * p_half,
+         lambda xs: torch.cat(xs)),
+        ("ring_reduce_scatter", f"n={n} {n}x{HALF_MIB} f32 a rank",
+         (n * HALF_MIB,), n * (4 + 5 * (n - 1)) * p_half,
+         n * (n + 1) * p_half, None),
+        ("ring_neighbour_stream",
+         f"n={n} {HALF_MIB} f32 in {STREAM_CHUNKS} chunks",
+         (STREAM_CHUNKS, HALF_MIB // STREAM_CHUNKS), n * 4 * p_half,
+         n * 2 * p_half, lambda xs: torch.roll(torch.stack(xs), 1, 0)),
+    ]
+    for kernel, name, shape, sched_bytes, io_bytes, library in timed_cases:
+        xs = [rnd(shape, f32) for _ in range(n)]
+        call, plain = calls[kernel]
+        ms = kernel_ms(lambda c: call(xs[c.rank], c, {}))
+        plain_ms = time_ms(lambda: plain(xs, {}), 5)
+        lib_ms = time_ms(lambda: library(xs), 20) if library else None
+        b_ms = bound(sched_bytes)
+        log(f"  {kernel} {name}: {ms:.4f} ms "
+            f"({sched_bytes / 1e6:.1f} MB of device-memory traffic in the "
+            f"ring schedule, {sched_bytes / ms / 1e9:.4g} TB/s), bound "
+            f"{b_ms:.4f} ms (those bytes; inputs and outputs once: "
+            f"{bound(io_bytes):.4f} ms), plain {plain_ms:.4f} ms, stacked "
+            f"library call "
+            + (f"{lib_ms:.4f} ms" if lib_ms is not None else "none")
+            + f"; launches on phases 21-23: {launches[kernel]}")
+        records.append({
+            "name": f"{kernel} {name}", "route": "cuda", "source": RING_SRC,
+            "replaces": RING_REPLACES[kernel],
+            "launches": launches[kernel], "max_abs_err": max_err[kernel],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": "bytes", "library_ms": lib_ms,
+        })
+    # one collective through the API, host wall: the rendezvous' cost
+    xs = [rnd((SMI_ELEMS,), f32) for _ in range(n)]
+    t0 = time.perf_counter()
+    for _ in range(5):
+        w8.run(lambda c: st.allreduce(xs[c.rank], c, backend="ring"))
+    api_ms = (time.perf_counter() - t0) / 5 * 1e3
+    log(f"  one allreduce of {SMI_ELEMS} f32 a rank through LocalWorld.run: "
+        f"{api_ms:.3f} ms host wall ({n * 4 * SMI_ELEMS / api_ms / 1e6:.4g} "
+        f"GB/s payload bytes x ranks); k-means "
+        f"{points * iters / kmeans_wall:.4g} point-iterations/s")
     return records
 
 

@@ -1,6 +1,6 @@
 """smi_tpu_torch — the PyTorch/CUDA port of smi_tpu for the NVIDIA H100.
 
-Four slices are ported. The first carries the flagship workload: the
+Five slices are ported. The first carries the flagship workload: the
 distributed 4-point Jacobi stencil with Dirichlet edges on a 2-D rank
 grid, its halo exchange, and the hand-written CUDA sweep kernels (one
 sweep per launch, and k sweeps per memory pass). The second is ring
@@ -14,7 +14,12 @@ transformer block and its train step over a ``(dp, sp)`` grid, bf16
 compute with f32 master weights. The fourth closes the stencil family:
 the explicit-copy pipeline, k sweeps per pass streamed through shared
 memory by TMA on a ring of mbarrier slots, in f32 and with bf16
-neighbour arithmetic. Entry points run on CUDA unless the caller passes
+neighbour arithmetic. The fifth is the Streaming Message Interface
+itself: ``smi_kernel`` and ``SmiContext``, the rooted collectives and the
+P2P channels, on a ``LocalWorld`` (an n-rank grid of threads on one
+card), with the ring backend on four hand-written CUDA kernels whose
+ranks write into each other's buffers under credit flow control, and the
+k-means and GESUMMV applications. Entry points run on CUDA unless the caller passes
 ``device="cpu"``; on a CPU tensor each kernel wrapper runs its plain
 PyTorch version instead.
 """
@@ -27,6 +32,19 @@ from smi_tpu_torch.convert import (
     params_to_numpy,
     sequence_shard_from_numpy,
     sequence_to_numpy,
+    shards_from_numpy,
+    shards_to_numpy,
+)
+from smi_tpu_torch.kernels.ring import (
+    RING_STREAMS,
+    neighbour_stream,
+    neighbour_stream_plain,
+    ring_all_gather,
+    ring_all_gather_plain,
+    ring_all_reduce,
+    ring_all_reduce_plain,
+    ring_reduce_scatter,
+    ring_reduce_scatter_plain,
 )
 from smi_tpu_torch.kernels.flash import (
     flash_attend_fused,
@@ -61,6 +79,18 @@ from smi_tpu_torch.kernels.stencil_temporal import (
     temporal_sweeps,
     temporal_sweeps_plain,
 )
+from smi_tpu_torch.models.gesummv import (
+    make_gesummv_fn,
+    reference_gesummv,
+    run_gesummv,
+)
+from smi_tpu_torch.models.kmeans import (
+    assign_points,
+    kmeans_iteration,
+    make_kmeans_fn,
+    reference_kmeans,
+    run_kmeans,
+)
 from smi_tpu_torch.models.ring_attention import (
     make_ring_attention_fn,
     reference_attention,
@@ -86,7 +116,45 @@ from smi_tpu_torch.models.transformer import (
     reference_block,
     stack_shard,
 )
-from smi_tpu_torch.parallel.channels import ring_shift
+from smi_tpu_torch.ops.operations import (
+    OP_REGISTRY,
+    Broadcast,
+    Gather,
+    Pop,
+    Push,
+    Reduce,
+    Scatter,
+    SmiOperation,
+)
+from smi_tpu_torch.ops.program import (
+    Device,
+    Program,
+    ProgramMapping,
+    allocate_ports,
+    combined_program,
+)
+from smi_tpu_torch.ops.serialization import (
+    parse_program,
+    parse_topology_file,
+    serialize_program,
+)
+from smi_tpu_torch.ops.types import (
+    SMI_ADD,
+    SMI_MAX,
+    SMI_MIN,
+    SmiDtype,
+    SmiOp,
+    dtype_to_torch,
+)
+from smi_tpu_torch.parallel.channels import P2PChannel, ring_shift
+from smi_tpu_torch.parallel.collectives import (
+    allreduce,
+    bcast,
+    gather,
+    reduce,
+    scatter,
+)
+from smi_tpu_torch.parallel.context import SmiContext, smi_kernel
 from smi_tpu_torch.parallel.halo import (
     Halos,
     halo_exchange_2d,
@@ -98,10 +166,29 @@ from smi_tpu_torch.parallel.halo import (
     pad_with_halos,
     shift_along,
 )
+from smi_tpu_torch.parallel.local import LocalWorld
 from smi_tpu_torch.parallel.mesh import Communicator, make_communicator
+from smi_tpu_torch.utils.watchdog import Deadline, WatchdogTimeout
 
 __all__ = [
-    "Communicator", "make_communicator",
+    "SmiDtype", "SmiOp", "SMI_ADD", "SMI_MAX", "SMI_MIN", "dtype_to_torch",
+    "SmiOperation", "Push", "Pop", "Broadcast", "Reduce", "Scatter",
+    "Gather", "OP_REGISTRY",
+    "Program", "Device", "ProgramMapping", "allocate_ports",
+    "combined_program",
+    "parse_program", "serialize_program", "parse_topology_file",
+    "Communicator", "make_communicator", "LocalWorld",
+    "P2PChannel", "SmiContext", "smi_kernel",
+    "bcast", "reduce", "allreduce", "scatter", "gather",
+    "Deadline", "WatchdogTimeout",
+    "RING_STREAMS", "neighbour_stream", "neighbour_stream_plain",
+    "ring_all_gather", "ring_all_gather_plain", "ring_all_reduce",
+    "ring_all_reduce_plain", "ring_reduce_scatter",
+    "ring_reduce_scatter_plain",
+    "assign_points", "kmeans_iteration", "make_kmeans_fn", "run_kmeans",
+    "reference_kmeans",
+    "make_gesummv_fn", "run_gesummv", "reference_gesummv",
+    "shards_from_numpy", "shards_to_numpy",
     "Halos", "shift_along", "halo_exchange_2d", "halo_exchange_start",
     "halo_exchange_finish", "halo_exchange_2d_corners",
     "halo_exchange_2d_corners_start", "halo_exchange_2d_corners_finish",

@@ -2,16 +2,16 @@
 
 The stencil's state is the grid; attention's is q, k and v, sharded on
 the sequence; the transformer's is its weights, replicated, and its
-``(B, S, E)`` data, sharded on the batch and the sequence. These
-functions are how a caller (and the parity tests) hands the same global
-float32 arrays to this package and reads them back.
+``(B, S, E)`` data, sharded on the batch and the sequence; an SMI
+kernel's are whatever arrays its specs shard or replicate over a world.
+These functions are how a caller (and the parity tests) hands the same
+global arrays to this package and reads them back.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from smi_tpu_torch.models import transformer as tf
 from smi_tpu_torch.parallel.mesh import Communicator
@@ -47,10 +47,9 @@ def grid_to_numpy(block: torch.Tensor, comm: Communicator) -> np.ndarray:
     px, py = comm.axis_sizes
     if comm.size == 1:
         return block.detach().cpu().numpy()
-    block = block.contiguous()
-    parts = [torch.empty_like(block) for _ in range(comm.size)]
-    dist.all_gather(parts, block)
-    rows = [torch.cat(parts[r * py:(r + 1) * py], dim=1) for r in range(px)]
+    parts = comm.all_gather(block.contiguous()[None])
+    rows = [torch.cat(tuple(parts[r * py:(r + 1) * py]), dim=1)
+            for r in range(px)]
     return torch.cat(rows, dim=0).cpu().numpy()
 
 
@@ -86,10 +85,7 @@ def sequence_to_numpy(shard: torch.Tensor, comm: Communicator) -> np.ndarray:
     axis = comm.axis_names[0]
     if comm.shape[0] == 1:
         return shard.cpu().numpy()
-    shard = shard.contiguous()
-    parts = [torch.empty_like(shard) for _ in range(comm.shape[0])]
-    dist.all_gather(parts, shard, group=comm.groups[axis])
-    return torch.cat(parts, dim=0).cpu().numpy()
+    return comm.all_gather(shard.contiguous(), axis).cpu().numpy()
 
 
 def _check_float32(x: np.ndarray, what: str) -> np.ndarray:
@@ -156,3 +152,26 @@ def params_to_numpy(model) -> dict:
     return {n: np.stack([b.weights()[n].detach().cpu().numpy()
                          for b in blocks])
             for n in tf.PARAM_NAMES}
+
+
+def shards_from_numpy(array: np.ndarray, world, spec) -> list:
+    """One tensor per rank of ``world`` from a global array, on the
+    world's device: a copy each for ``spec=None`` (the JAX side's
+    ``P()``), else the leading dimension cut over the spec's axis (its
+    ``P(axis)``), as :func:`smi_tpu_torch.parallel.context.smi_kernel`
+    shards its arguments."""
+    return world.shard(torch.from_numpy(np.ascontiguousarray(array)), spec)
+
+
+def shards_to_numpy(shards, spec, world=None) -> np.ndarray:
+    """The global array of per-rank outputs: rank 0's for ``spec=None``,
+    else the shards concatenated along the leading dimension — all of
+    them in rank order on a 1-D grid, or, given the ``world``, those of
+    rank 0's line of the spec's axis."""
+    if spec is None:
+        out = shards[0]
+    elif world is not None:
+        out = world.assemble(list(shards), spec)
+    else:
+        out = torch.cat(list(shards), dim=0)
+    return out.detach().cpu().numpy()

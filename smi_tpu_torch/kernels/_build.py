@@ -7,7 +7,8 @@ hash of the source and the flags, so a changed source builds anew and an
 unchanged one loads at once. All sources compile at the same time, one
 ``nvcc`` each. A source may export several kernels (``flash_fwd.cu``
 exports the fused and the carried flash forward); each kernel has its
-own launch count (``flash_bwd.cu`` exports the two backward kernels).
+own launch count (``flash_bwd.cu`` exports the two backward kernels,
+``ring.cu`` the four ring kernels).
 
 Nothing here runs on import: the first :func:`library` call builds. A
 missing ``nvcc`` raises; there is no fallback to the plain versions.
@@ -149,6 +150,7 @@ def library(name: str) -> ctypes.CDLL:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 
 #: C signature of each kernel's entry point: (symbol, argument types)
@@ -195,11 +197,33 @@ SIGNATURES = {
         # d, q_off, k_off, causal, window, scale, block_q, block_k, stream
         [_P] * 9 + [_I] * 10 + [_F] + [_I] * 2 + [_P],
     ),
+    # the ring kernels share: table, ranks, rank_base, n, elems,
+    # slot_stride, dtype ... flow_control, blocks, stream
+    "ring_neighbour_stream": (
+        "smi_ring_neighbour_stream",
+        # ... dtype, chunks, direction, flow_control, blocks, stream
+        [_P] + [_I] * 3 + [_L] * 2 + [_I] * 5 + [_P],
+    ),
+    "ring_all_gather": (
+        "smi_ring_all_gather",
+        [_P] + [_I] * 3 + [_L] * 2 + [_I] * 3 + [_P],
+    ),
+    "ring_all_reduce": (
+        "smi_ring_all_reduce",
+        # ... dtype, op, flow_control, blocks, stream
+        [_P] + [_I] * 3 + [_L] * 2 + [_I] * 4 + [_P],
+    ),
+    "ring_reduce_scatter": (
+        "smi_ring_reduce_scatter",
+        [_P] + [_I] * 3 + [_L] * 2 + [_I] * 4 + [_P],
+    ),
 }
 
 #: kernels whose entry point lives in a source of another name
 _SOURCE_OF = {"flash_fused": "flash_fwd", "flash_block": "flash_fwd",
-              "flash_bwd_dq": "flash_bwd", "flash_bwd_dkdv": "flash_bwd"}
+              "flash_bwd_dq": "flash_bwd", "flash_bwd_dkdv": "flash_bwd",
+              "ring_neighbour_stream": "ring", "ring_all_gather": "ring",
+              "ring_all_reduce": "ring", "ring_reduce_scatter": "ring"}
 
 
 def source_of(kernel: str) -> str:

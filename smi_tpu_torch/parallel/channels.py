@@ -1,27 +1,307 @@
-"""Point-to-point moves along a communicator axis.
+"""Transient point-to-point streaming channels (Push/Pop).
 
-PyTorch counterpart of :mod:`smi_tpu.parallel.channels`, of which only
-:func:`ring_shift` is ported so far: the K/V hop of the ring-attention
-schedule. It rides the halo module's wrapping exchange (one
-``batch_isend_irecv`` pair on the axis subgroup) and is differentiable,
-as ``ppermute`` is in JAX: the gradient makes the opposite hop, so the
-plain tier's autograd carries K/V gradients back around the ring. The
-channels, streams and tenant ports of the JAX module come with the SMI
-API.
+PyTorch counterpart of :mod:`smi_tpu.parallel.channels`. A reference
+channel is opened per message with ``SMI_Open_{send,receive}_channel``;
+``SMI_Push``/``SMI_Pop`` then move one element per call, with a
+credit-based rendezvous bounding in-flight packets. As in the JAX
+package, the two endpoint loops are one SPMD call that every rank makes:
+
+- opening a channel is metadata only (:class:`P2PChannel`);
+- ``transfer()`` moves the message from ``src`` to ``dst``: at ``dst`` it
+  returns the message, at every other rank zeros;
+- ``stream()`` moves it in chunks of the channel's buffer size (the
+  "asynchronicity degree") and applies a consumer per chunk;
+  ``consecutive_reads`` (the reference's ``READS_LIMIT``) bounds how many
+  chunks move per step before the stream yields;
+- ``backend="ring"`` moves the message over the credit-flow-controlled
+  neighbour-stream kernel (:mod:`smi_tpu_torch.kernels.ring`), hop by hop
+  through intermediate ranks the shorter way round, each hop one launch
+  in the port's flag domain; the consumer then runs per chunk.
+
+:func:`ring_shift` is the rank-pipeline move, differentiable as
+``ppermute`` is in JAX. The JAX module's verified transport
+(``transfer_verified``, ``stream_verified``, ``verify_frames``), tenant
+ports and ``stream_concurrent`` are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Callable, List, Optional, Tuple, Union
 
 import torch
 
-from smi_tpu_torch.parallel.halo import _issue, check_backend
+from smi_tpu_torch.ops.operations import Reduce, pipeline_depth_packets
+from smi_tpu_torch.ops.types import (
+    SmiDtype,
+    SmiOp,
+    dtype_to_torch,
+    elements_per_packet,
+)
+from smi_tpu_torch.parallel.backend import (
+    check_backend,
+    combine_fn,
+    identity_for,
+    reduction_fn,
+)
 from smi_tpu_torch.parallel.mesh import Communicator
+from smi_tpu_torch.utils.watchdog import Deadline
+
+
+@dataclasses.dataclass(frozen=True)
+class P2PChannel:
+    """Descriptor of one transient P2P message channel.
+
+    Mirrors ``SMI_Channel``: message element count, the two endpoint
+    ranks (flattened, row-major), the logical port, and the pipelining
+    depth.
+    """
+
+    comm: Communicator
+    port: int
+    src: int
+    dst: int
+    count: int
+    dtype: SmiDtype = SmiDtype.FLOAT
+    buffer_size: Optional[int] = None  # elements; None = default depth
+    rendezvous: bool = True
+    #: Chunk-burst bound per pipelining step (reference ``READS_LIMIT``):
+    #: a streamed transfer moves at most this many chunks per step
+    #: before yielding the stream.
+    consecutive_reads: int = 8
+
+    def __post_init__(self):
+        object.__setattr__(self, "dtype", SmiDtype.parse(self.dtype))
+        size = self.comm.size
+        for name, r in (("src", self.src), ("dst", self.dst)):
+            if not (0 <= r < size):
+                raise ValueError(f"{name}={r} out of range for comm size {size}")
+        if self.src == self.dst:
+            raise ValueError("src and dst must differ for a P2P channel")
+        if self.count <= 0:
+            raise ValueError(f"message count must be positive, got {self.count}")
+        if self.consecutive_reads < 1:
+            raise ValueError(
+                f"consecutive_reads must be >= 1, got {self.consecutive_reads}"
+            )
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return dtype_to_torch(self.dtype)
+
+    @property
+    def chunk_elements(self) -> int:
+        """Elements per in-flight chunk: buffer_size elements → whole
+        packets (rounded as the reference rounds) → elements. Never below
+        one packet."""
+        packets = pipeline_depth_packets(self.buffer_size, self.dtype)
+        return packets * elements_per_packet(self.dtype)
+
+    def _ring_stream(self) -> int:
+        """Flag domain of this channel's port: distinct ports never share
+        one, up to the tier's domain count."""
+        from smi_tpu_torch.kernels.ring import RING_STREAMS
+
+        return self.port % RING_STREAMS
+
+    def _data(self, data) -> torch.Tensor:
+        data = torch.as_tensor(data, device=self.comm.device)
+        data = data.to(self.torch_dtype)
+        if data.dim() < 1 or data.shape[0] != self.count:
+            raise ValueError(
+                f"message length "
+                f"{data.shape[0] if data.dim() else '()'} != channel "
+                f"count {self.count}"
+            )
+        return data
+
+    def _hops(self) -> Tuple[int, int]:
+        """(direction, hop count) of the shorter way around the ring."""
+        n = self.comm.size
+        right = (self.dst - self.src) % n
+        left = (self.src - self.dst) % n
+        return (1, right) if right <= left else (-1, left)
+
+    def burst_schedule(self) -> List[int]:
+        """Element counts moved per pipelining step under rendezvous:
+        steps of ``consecutive_reads`` whole chunks, then leftover single
+        chunks, then the element tail."""
+        chunk = min(self.chunk_elements, self.count)
+        burst = self.consecutive_reads * chunk
+        n_bursts = self.count // burst
+        schedule = [burst] * n_bursts
+        remaining = self.count - n_bursts * burst
+        schedule += [chunk] * (remaining // chunk)
+        tail = remaining % chunk
+        if tail:
+            schedule.append(tail)
+        return schedule
+
+    def _ring_payload(self, data: torch.Tensor, chunked: bool) -> torch.Tensor:
+        """Masked, zero-padded, ``(n_chunks, chunk, ...)``-shaped payload
+        for the ring tier (one row = one in-flight unit)."""
+        masked = (data if self.comm.rank == self.src
+                  else torch.zeros_like(data))
+        if not chunked:
+            return masked[None]
+        chunk = min(self.chunk_elements, self.count)
+        n_chunks = -(-self.count // chunk)
+        pad = n_chunks * chunk - self.count
+        if pad:
+            masked = torch.cat(
+                [masked, masked.new_zeros((pad,) + tuple(masked.shape[1:]))]
+            )
+        return masked.reshape((n_chunks, chunk) + tuple(data.shape[1:]))
+
+    def _ring_move(self, chunked_payload: torch.Tensor,
+                   deadline: Optional[Deadline] = None) -> torch.Tensor:
+        """Drive a ``(rows, ...)`` payload hop by hop to ``dst`` over the
+        neighbour-stream kernel (the shorter way around the ring), in
+        this channel's flag domain: one launch per hop, the deadline
+        checked before each."""
+        from smi_tpu_torch.kernels import ring as _ring
+
+        direction, hops = self._hops()
+        out = chunked_payload
+        for hop in range(hops):
+            if deadline is not None:
+                deadline.check(
+                    f"ring hop {hop + 1}/{hops} of port-{self.port} "
+                    f"channel {self.src}->{self.dst}"
+                )
+            out = _ring.neighbour_stream(
+                out, self.comm, direction=direction,
+                stream=self._ring_stream(),
+            )
+        return out
+
+    def _ring_transfer(self, data: torch.Tensor, chunked: bool,
+                       deadline: Optional[Deadline] = None) -> torch.Tensor:
+        """Move the masked message hop by hop. Intermediate ranks forward
+        zeros of their own, so only ``dst`` ends up with the payload."""
+        out = self._ring_move(self._ring_payload(data, chunked), deadline)
+        return out.reshape((-1,) + tuple(data.shape[1:]))[: self.count]
+
+    def _permute(self, data: torch.Tensor) -> torch.Tensor:
+        return self.comm.permute(data, [(self.src, self.dst)])
+
+    def transfer(self, data, backend: str = "xla",
+                 deadline: Optional[Deadline] = None) -> torch.Tensor:
+        """Fused Push+Pop: send ``data`` (valid at ``src``) to ``dst``.
+
+        Every rank calls this at the same program point; returns the
+        message at ``dst`` and zeros elsewhere. ``backend="ring"`` sends
+        over the neighbour-stream kernel instead of the transport's
+        point-to-point move. ``deadline`` bounds the host-side dispatch.
+        """
+        data = self._data(data)
+        if deadline is not None:
+            deadline.check(f"transfer on port-{self.port} channel")
+        if check_backend(backend) == "ring":
+            return self._ring_transfer(data, chunked=False,
+                                       deadline=deadline)
+        return self._permute(data)
+
+    def stream(self, data, consumer: Optional[Callable] = None,
+               init_carry=None, backend: str = "xla",
+               deadline: Optional[Deadline] = None):
+        """Streamed transfer: move the message chunk by chunk.
+
+        With no ``consumer`` this behaves like :meth:`transfer` but
+        bounds in-flight data to a burst of chunks. With a
+        ``consumer(carry, chunk) -> carry``, the consumer is applied to
+        each received chunk in order. Each step moves up to
+        ``consecutive_reads`` chunks (:meth:`burst_schedule`); the
+        consumer still sees individual chunks. Without ``rendezvous``
+        (eager) the whole message moves at once and the consumer sees it
+        whole. ``backend="ring"`` moves all chunks through the
+        neighbour-stream kernel, two in flight under its credits, and
+        then applies the consumer per chunk.
+
+        Returns ``(received, carry)``; ``received`` is the reassembled
+        message (valid at ``dst``).
+        """
+        data = self._data(data)
+        check_backend(backend)
+        if deadline is not None:
+            deadline.check(f"stream on port-{self.port} channel")
+        if not self.rendezvous:
+            out = self.transfer(data, backend=backend, deadline=deadline)
+            carry = init_carry if consumer is None else consumer(init_carry,
+                                                                 out)
+            return out, carry
+
+        chunk = min(self.chunk_elements, self.count)
+
+        def consume_chunks(carry, received):
+            """Apply the consumer chunk-wise to received rows."""
+            if consumer is None:
+                return carry
+            rows = received.shape[0]
+            for i in range(rows // chunk):
+                carry = consumer(carry, received[i * chunk:(i + 1) * chunk])
+            if rows % chunk:
+                carry = consumer(carry, received[rows - rows % chunk:])
+            return carry
+
+        if backend == "ring":
+            received = self._ring_transfer(data, chunked=True,
+                                           deadline=deadline)
+            return received, consume_chunks(init_carry, received)
+
+        carry, parts, used = init_carry, [], 0
+        for step, size in enumerate(self.burst_schedule()):
+            if deadline is not None and step:
+                deadline.check(f"stream step on port-{self.port} channel")
+            got = self._permute(data[used:used + size])
+            carry = consume_chunks(carry, got)
+            parts.append(got)
+            used += size
+        received = parts[0] if len(parts) == 1 else torch.cat(parts)
+        return received, carry
+
+    def stream_reduce(self, data, op: Union[str, SmiOp] = SmiOp.ADD,
+                      lanes: Optional[int] = None, backend: str = "xla",
+                      deadline: Optional[Deadline] = None):
+        """Streamed reduction: pop each arriving chunk and fold it into
+        ``lanes`` independent partial accumulators, combined at the end
+        (chunk *k* folds into partial ``k % lanes`` — the reference's
+        shift register of partial sums). The default comes from the op
+        model (:attr:`Reduce.accumulation_lanes`).
+
+        Returns ``(received, total)``: the reassembled message and the
+        reduction over all its elements (both valid at ``dst``; the
+        reduction of the zero buffer elsewhere).
+        """
+        op = SmiOp.parse(op)
+        if lanes is None:
+            lanes = Reduce(self.port, self.dtype).accumulation_lanes
+        if lanes < 1:
+            raise ValueError(f"lanes must be >= 1, got {lanes}")
+        data = self._data(data)
+        combine = combine_fn(op)
+        chunk_reduce = reduction_fn(op)
+        partials0 = torch.full(
+            (lanes,) + tuple(data.shape[1:]),
+            identity_for(op, data.dtype), dtype=data.dtype,
+            device=data.device)
+
+        def consumer(carry, chunk_data):
+            partials, i = carry
+            partials = partials.clone()
+            partials[i % lanes] = combine(partials[i % lanes],
+                                          chunk_reduce(chunk_data, axis=0))
+            return partials, i + 1
+
+        received, (partials, _) = self.stream(
+            data, consumer=consumer, init_carry=(partials0, 0),
+            backend=backend, deadline=deadline,
+        )
+        return received, chunk_reduce(partials, axis=0)
 
 
 def _shift(x, comm, name, step):
-    return _issue(comm, [(x, name, step)], ring=True).wait()[0]
+    return comm.exchange_start([(x, name, step)], ring=True).wait()[0]
 
 
 class _RingShift(torch.autograd.Function):
@@ -50,11 +330,21 @@ def ring_shift(
     """Shift ``x`` to rank ``(r + offset) % size`` along a comm axis:
     rank r receives rank ``(r - offset) % size``'s ``x``. On a one-rank
     axis (or an offset that is a whole number of turns) it returns ``x``.
-    ``backend="ring"`` raises until the neighbour-stream kernel is
-    ported."""
-    check_backend(backend)
+    ``backend="ring"`` makes the same move over the neighbour-stream
+    kernel, one hop per offset step (a zero-size payload moves nothing
+    on either tier); that path carries no gradient."""
     name = axis_name or comm.axis_names[0]
     n = comm.shape[comm._axis(name)]
+    if check_backend(backend) == "ring" and x.numel():
+        from smi_tpu_torch.kernels import ring as _ring
+
+        _ring.require_world(comm)
+        direction = 1 if offset >= 0 else -1
+        out = x[None]
+        for _ in range(abs(offset) % n):
+            out = _ring.neighbour_stream(out, comm, name,
+                                         direction=direction)
+        return out[0]
     step = offset % n
     if step == 0:
         return x

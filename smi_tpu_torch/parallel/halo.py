@@ -2,10 +2,12 @@
 
 PyTorch counterpart of :mod:`smi_tpu.parallel.halo`. There each halo is a
 non-wrapping masked ``lax.ppermute`` inside ``shard_map``; here each is a
-point-to-point send/receive pair on the axis subgroup, issued together
-through ``torch.distributed.batch_isend_irecv`` so that the four
-directions are in flight at once. Edge ranks receive zeros, and
-``ring=True`` wraps, as in the JAX package.
+shift through the communicator's transport: a point-to-point send/receive
+pair on the axis subgroup, the four directions in flight at once, or the
+rendezvous of a ``LocalWorld``. Edge ranks receive zeros, and
+``ring=True`` wraps, as in the JAX package. ``backend="ring"`` moves each
+slab over the neighbour-stream kernel instead, one flag domain per
+direction.
 
 The split ``*_start``/``*_finish`` forms are real overlap windows: start
 issues the transfers and keeps the ``Work`` handles, finish waits on
@@ -16,84 +18,58 @@ which matches ``ppermute`` with an empty permutation.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
-import torch.distributed as dist
 
-from smi_tpu_torch.parallel.mesh import Communicator
+from smi_tpu_torch.parallel.backend import check_backend
+from smi_tpu_torch.parallel.mesh import Communicator, Exchange, Shift
 
-_BACKENDS = ("xla", "ring")
-
-
-def check_backend(backend: str) -> str:
-    """``"xla"`` names the collective-library path (``torch.distributed``
-    here), as in the JAX package; the explicit neighbour-RDMA tier is
-    not ported yet."""
-    if backend not in _BACKENDS:
-        raise ValueError(f"unknown backend {backend!r}; expected one of "
-                         f"{_BACKENDS}")
-    if backend == "ring":
-        raise NotImplementedError(
-            'backend="ring" needs the neighbour-stream RDMA kernel, '
-            "which is not ported yet (ROADMAP.md Queue 2 item 5)"
-        )
-    return backend
+#: in-flight transfers (:func:`halo_exchange_start`)
+HaloExchange = Exchange
 
 
-class HaloExchange:
-    """In-flight transfers (:func:`halo_exchange_start`): the receive
-    buffers plus the ``Work`` handles still writing them."""
+def _ring_shift_along(x: torch.Tensor, comm: Communicator, axis_name: str,
+                      direction: int, ring: bool,
+                      stream: int) -> torch.Tensor:
+    """One shift over the neighbour-stream kernel: the slab as one flat
+    chunk; the kernel's ring wraps, so without ``ring`` the edge rank's
+    received slab (its wrapped neighbour's) is zeroed."""
+    from smi_tpu_torch.kernels import ring as kring
 
-    def __init__(self, ops, works, outs: List[torch.Tensor]):
-        self._ops = ops  # holds the send buffers until the wait
-        self._works = works
-        self._outs = outs
+    got = kring.neighbour_stream(
+        x.reshape(1, -1), comm, axis_name, direction=direction,
+        stream=stream,
+    ).reshape(x.shape)
+    if ring:
+        return got
+    a = comm._axis(axis_name)
+    edge = 0 if direction == 1 else comm.shape[a] - 1
+    return torch.zeros_like(got) if comm.coords[a] == edge else got
 
-    def wait(self) -> List[torch.Tensor]:
-        for work in self._works:
-            work.wait()
-        self._ops = self._works = []
-        return self._outs
 
+def _issue(comm: Communicator, shifts: Sequence[Shift], ring: bool,
+           backend: str = "xla") -> Exchange:
+    """Start every shift ``(x, axis_name, direction)``.
 
-def _issue(comm: Communicator,
-           shifts: Sequence[Tuple[torch.Tensor, str, int]],
-           ring: bool) -> HaloExchange:
-    """Start every shift ``(x, axis_name, direction)`` at once.
-
-    Shift ``s`` sends ``x`` to the rank ``direction`` steps up its axis
-    and receives the matching slab from the rank as far down, with tag
-    ``s`` (the JAX package's one stream per direction). Every rank issues
-    the shifts in the same order, so sends and receives between a pair
-    of ranks match in order as well as by tag. ``direction`` is any
-    nonzero step; the halo exchanges use +1 and -1.
+    On the collective-library tier all shifts are in flight at once
+    (:meth:`Communicator.exchange_start`). On the ring tier shift ``s``
+    is one neighbour-stream launch on stream slot ``s`` — the JAX
+    package's one flag domain per direction — and has landed when this
+    returns; a zero-size slab moves nothing on either tier.
     """
-    by_axis, outs = {}, []
-    for tag, (x, axis_name, direction) in enumerate(shifts):
-        if direction == 0:
-            raise ValueError("direction must be nonzero")
-        dst = comm.neighbour(axis_name, direction, ring)
-        src = comm.neighbour(axis_name, -direction, ring)
-        if src == comm.rank:  # a wrapping axis of one rank
-            outs.append(x.clone(memory_format=torch.contiguous_format))
-            continue
-        out = torch.zeros_like(x, memory_format=torch.contiguous_format)
-        outs.append(out)
-        group = comm.groups[axis_name] if comm.groups else None
-        ops = by_axis.setdefault(axis_name, [])
-        if dst is not None:
-            ops.append(dist.P2POp(dist.isend, x.contiguous(), dst,
-                                  group=group, tag=tag))
-        if src is not None:
-            ops.append(dist.P2POp(dist.irecv, out, src,
-                                  group=group, tag=tag))
-    # one batch per axis subgroup (a batch may not mix groups), all in
-    # flight together
-    ops = [op for axis_ops in by_axis.values() for op in axis_ops]
-    works = [work for axis_ops in by_axis.values() if axis_ops
-             for work in dist.batch_isend_irecv(axis_ops)]
-    return HaloExchange(ops, works, outs)
+    if check_backend(backend) == "xla":
+        return comm.exchange_start(shifts, ring)
+    outs = []
+    for slot, (x, axis_name, direction) in enumerate(shifts):
+        if direction not in (1, -1):
+            raise ValueError(f"direction must be +1 or -1, got {direction}")
+        if x.numel() == 0:
+            outs.append(x.clone())
+        else:
+            outs.append(_ring_shift_along(x, comm, axis_name, direction,
+                                          ring, slot))
+    return Exchange([], [], outs)
 
 
 def shift_along(
@@ -103,17 +79,21 @@ def shift_along(
     direction: int,
     ring: bool = False,
     backend: str = "xla",
+    stream: int = 0,
 ) -> torch.Tensor:
     """Move ``x`` to the rank ``direction`` steps up ``axis_name``.
 
     ``direction=+1`` sends towards higher ranks (rank r receives r-1's
     data); ``-1`` the opposite. Without ``ring`` edge ranks receive
-    zeros; with it the shift wraps.
+    zeros; with it the shift wraps. ``backend="ring"`` moves the slab
+    over the neighbour-stream kernel; ``stream`` selects its flag domain
+    (shifts that may run at once must not share one).
     """
-    check_backend(backend)
     if direction not in (1, -1):
         raise ValueError(f"direction must be +1 or -1, got {direction}")
-    return _issue(comm, [(x, axis_name, direction)], ring).wait()[0]
+    if check_backend(backend) == "ring" and x.numel():
+        return _ring_shift_along(x, comm, axis_name, direction, ring, stream)
+    return comm.exchange_start([(x, axis_name, direction)], ring).wait()[0]
 
 
 class Halos(NamedTuple):
@@ -147,7 +127,6 @@ def halo_exchange_start(
     backend: str = "xla",
 ) -> HaloExchange:
     """Issue the four neighbour transfers and return without waiting."""
-    check_backend(backend)
     row_axis, col_axis = _axes(comm, "halo_exchange_2d")
     d = depth
     return _issue(comm, [
@@ -155,7 +134,7 @@ def halo_exchange_start(
         (block[:d, :], row_axis, -1),    # bottom halo of the rank above
         (block[:, -d:], col_axis, +1),   # left halo of the right rank
         (block[:, :d], col_axis, -1),    # right halo of the left rank
-    ], ring)
+    ], ring, backend)
 
 
 def halo_exchange_finish(exchange: HaloExchange) -> Halos:
@@ -202,19 +181,18 @@ def halo_exchange_2d_corners_start(
     the top/bottom rows *including* the just-received side halos (width
     ``W+2·depth``), so diagonal values arrive through the vertical
     neighbour. Phase 2 is left in flight."""
-    check_backend(backend)
     row_axis, col_axis = _axes(comm, "halo_exchange_2d_corners")
     d = depth
     left, right = _issue(comm, [
         (block[:, -d:], col_axis, +1),
         (block[:, :d], col_axis, -1),
-    ], ring).wait()
+    ], ring, backend).wait()
     ext_top = torch.cat([left[:d], block[:d], right[:d]], dim=1)
     ext_bottom = torch.cat([left[-d:], block[-d:], right[-d:]], dim=1)
     pending = _issue(comm, [
         (ext_bottom, row_axis, +1),
         (ext_top, row_axis, -1),
-    ], ring)
+    ], ring, backend)
     return CornerHaloExchange(left=left, right=right, pending=pending)
 
 

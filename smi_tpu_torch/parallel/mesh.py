@@ -1,11 +1,21 @@
-"""Communicator = a row-major rank grid over ``torch.distributed``.
+"""Communicator = a row-major rank grid, and the transport under it.
 
 PyTorch counterpart of :mod:`smi_tpu.parallel.mesh`. There the
 communicator is a ``jax.sharding.Mesh`` and a rank exists only inside
-``shard_map``. Here every rank is its own process: the communicator
-records the grid ``shape``, its ``axis_names``, this process's ``rank``
-and ``coords`` (row-major, first axis slowest, as in the JAX package),
-the ``device`` its tensors live on, and one process subgroup per axis.
+``shard_map``. Here every rank is its own process (or, on a
+:class:`~smi_tpu_torch.parallel.local.LocalWorld`, its own thread of one
+process): the communicator records the grid ``shape``, its
+``axis_names``, this rank's ``rank`` and ``coords`` (row-major, first
+axis slowest, as in the JAX package), the ``device`` its tensors live on,
+and its transport: one process subgroup per axis, or the world.
+
+The collective-library tier (``backend="xla"``) reaches the transport
+only through the communicator's few primitives — :meth:`Communicator.
+exchange_start` (shifts along axes), :meth:`~Communicator.permute`,
+:meth:`~Communicator.all_reduce`, :meth:`~Communicator.all_gather` and
+:meth:`~Communicator.reduce_scatter` — each over one axis or over the
+whole grid. ``torch.distributed`` implements them here; the world's
+rendezvous implements them in :mod:`smi_tpu_torch.parallel.local`.
 
 Backends follow the tensors: gloo for CPU tensors, NCCL for CUDA tensors
 with one GPU per rank. A 1x1 grid (the one-card configuration) needs no
@@ -20,12 +30,17 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
+from smi_tpu_torch.ops.types import SmiOp
+
 DEFAULT_AXIS = "smi"
+
+#: a shift of the exchange primitive: ``(x, axis_name, direction)``
+Shift = Tuple[torch.Tensor, str, int]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -41,15 +56,36 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+class Exchange:
+    """In-flight shifts (:meth:`Communicator.exchange_start`): the receive
+    buffers plus the ``Work`` handles still writing them."""
+
+    def __init__(self, ops, works, outs: List[torch.Tensor]):
+        self._ops = ops  # holds the send buffers until the wait
+        self._works = works
+        self._outs = outs
+
+    def wait(self) -> List[torch.Tensor]:
+        for work in self._works:
+            work.wait()
+        self._ops = self._works = []
+        return self._outs
+
+
+_DIST_OPS = {SmiOp.ADD: "SUM", SmiOp.MAX: "MAX", SmiOp.MIN: "MIN"}
+
+
 @dataclasses.dataclass(frozen=True)
 class Communicator:
-    """An SMI communicator over a rank grid of processes.
+    """An SMI communicator over a rank grid of processes or threads.
 
     ``axis_names`` are in row-major significance order: the first axis
     is the slowest-varying in the flattened rank, as in
     :class:`smi_tpu.parallel.mesh.Communicator`. ``groups`` maps each
     axis name to the subgroup of the ranks that share this rank's other
-    coordinates (None on a single-rank grid).
+    coordinates (None on a single-rank grid). ``world`` is the
+    :class:`~smi_tpu_torch.parallel.local.LocalWorld` whose thread this
+    rank is (None for a rank that is a process).
     """
 
     shape: Tuple[int, ...]
@@ -57,6 +93,9 @@ class Communicator:
     rank: int
     device: torch.device
     groups: Optional[Dict[str, object]] = dataclasses.field(
+        default=None, compare=False, repr=False
+    )
+    world: Optional[object] = dataclasses.field(
         default=None, compare=False, repr=False
     )
 
@@ -97,6 +136,145 @@ class Communicator:
                 f"{self.axis_names}"
             ) from None
 
+    def line(self, axis_name: Optional[str] = None) -> List[int]:
+        """The global ranks this rank does a collective with: the whole
+        grid in rank order (``axis_name=None``), or the ranks that
+        differ from this one only along ``axis_name``, in coordinate
+        order."""
+        if axis_name is None:
+            return list(range(self.size))
+        a = self._axis(axis_name)
+        coords = list(self.coords)
+        line = []
+        for pos in range(self.shape[a]):
+            coords[a] = pos
+            line.append(_ravel(coords, self.shape))
+        return line
+
+    # -- the transport seam (the collective-library tier) --------------
+
+    def _group(self, axis_name: Optional[str]):
+        """The process group of a collective over ``axis_name`` (None:
+        the default group, which the grid spans)."""
+        if axis_name is None or not self.groups:
+            return None
+        self._axis(axis_name)
+        return self.groups[axis_name]
+
+    def exchange_start(self, shifts: Sequence[Shift],
+                       ring: bool) -> Exchange:
+        """Start every shift ``(x, axis_name, direction)`` at once.
+
+        Shift ``s`` sends ``x`` to the rank ``direction`` steps up its
+        axis and receives the matching slab from the rank as far down,
+        with tag ``s`` (the JAX package's one stream per direction).
+        Every rank issues the shifts in the same order, so sends and
+        receives between a pair of ranks match in order as well as by
+        tag. ``direction`` is any nonzero step. Without ``ring`` a rank
+        with no source receives zeros.
+        """
+        for _, _, direction in shifts:
+            if direction == 0:
+                raise ValueError("direction must be nonzero")
+        if self.world is not None:
+            return self.world.exchange(self, shifts, ring)
+        by_axis, outs = {}, []
+        for tag, (x, axis_name, direction) in enumerate(shifts):
+            dst = self.neighbour(axis_name, direction, ring)
+            src = self.neighbour(axis_name, -direction, ring)
+            if src == self.rank:  # a wrapping axis of one rank
+                outs.append(x.clone(memory_format=torch.contiguous_format))
+                continue
+            out = torch.zeros_like(x, memory_format=torch.contiguous_format)
+            outs.append(out)
+            group = self._group(axis_name)
+            ops = by_axis.setdefault(axis_name, [])
+            if dst is not None:
+                ops.append(dist.P2POp(dist.isend, x.contiguous(), dst,
+                                      group=group, tag=tag))
+            if src is not None:
+                ops.append(dist.P2POp(dist.irecv, out, src,
+                                      group=group, tag=tag))
+        # one batch per axis subgroup (a batch may not mix groups), all
+        # in flight together
+        ops = [op for axis_ops in by_axis.values() for op in axis_ops]
+        works = [work for axis_ops in by_axis.values() if axis_ops
+                 for work in dist.batch_isend_irecv(axis_ops)]
+        return Exchange(ops, works, outs)
+
+    def permute(self, x: torch.Tensor,
+                perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
+        """``x`` of global rank ``src`` delivered to ``dst`` for every
+        ``(src, dst)`` pair; a rank that is no pair's ``dst`` gets zeros
+        (``lax.ppermute`` over the flattened grid)."""
+        if self.world is not None:
+            return self.world.permute(self, x, perm)
+        out = torch.zeros_like(x, memory_format=torch.contiguous_format)
+        ops = []
+        for tag, (src, dst) in enumerate(perm):
+            if src == dst == self.rank:
+                out.copy_(x)
+            elif src == self.rank:
+                ops.append(dist.P2POp(dist.isend, x.contiguous(), dst,
+                                      tag=tag))
+            elif dst == self.rank:
+                ops.append(dist.P2POp(dist.irecv, out, src, tag=tag))
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        return out
+
+    def all_reduce(self, x: torch.Tensor, op=SmiOp.ADD,
+                   axis_name: Optional[str] = None) -> torch.Tensor:
+        """ADD/MAX/MIN of every rank's ``x`` over the axis (None: the
+        whole grid), on every rank."""
+        op = SmiOp.parse(op)
+        if len(self.line(axis_name)) == 1:
+            return x
+        if self.world is not None:
+            return self.world.all_reduce(self, x, op, axis_name)
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, op=getattr(dist.ReduceOp, _DIST_OPS[op]),
+                        group=self._group(axis_name))
+        return out
+
+    def all_gather(self, x: torch.Tensor,
+                   axis_name: Optional[str] = None) -> torch.Tensor:
+        """Every rank's ``x`` concatenated along the leading dimension in
+        rank order (``lax.all_gather(..., tiled=True)``)."""
+        n = len(self.line(axis_name))
+        if n == 1:
+            return x
+        if self.world is not None:
+            return self.world.all_gather(self, x, axis_name)
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x, group=self._group(axis_name))
+        return torch.cat(parts, dim=0)
+
+    def reduce_scatter(self, x: torch.Tensor, op=SmiOp.ADD,
+                       axis_name: Optional[str] = None) -> torch.Tensor:
+        """Block ``r`` of the leading dimension reduced over the axis,
+        on the rank at position ``r`` (``lax.psum_scatter(...,
+        tiled=True)`` for ADD)."""
+        op = SmiOp.parse(op)
+        line = self.line(axis_name)
+        n = len(line)
+        if x.shape[0] % n:
+            raise ValueError(
+                f"reduce-scatter leading dim {x.shape[0]} not divisible "
+                f"by {n} ranks"
+            )
+        if n == 1:
+            return x
+        if self.world is not None:
+            return self.world.reduce_scatter(self, x, op, axis_name)
+        # gloo has no reduce-scatter: reduce everything, keep one block
+        count = x.shape[0] // n
+        pos = line.index(self.rank)
+        full = self.all_reduce(x, op, axis_name)
+        return full[pos * count:(pos + 1) * count].clone()
+
 
 def _unravel(rank: int, shape: Sequence[int]) -> Tuple[int, ...]:
     coords = []
@@ -128,27 +306,13 @@ def _axis_lines(shape: Sequence[int], axis: int):
     return lines
 
 
-def make_communicator(
-    n_devices: Optional[int] = None,
-    shape: Optional[Sequence[int]] = None,
-    axis_names: Optional[Sequence[str]] = None,
-    device=None,
-) -> Communicator:
-    """Build a communicator over the ranks of the default process group.
-
-    ``shape``/``axis_names`` give a multi-dimensional grid (e.g.
-    ``(2, 4)`` with ``("sx", "sy")`` for the stencil); the default is a
-    1-D grid named ``"smi"`` over ``n_devices`` ranks (the world size if
-    omitted). Without an initialised process group the world is one
-    rank. ``device`` defaults to CUDA; on a CUDA grid each rank takes
-    the card ``rank % device_count``.
-    """
-    dev = resolve_device(device)
-    initialised = dist.is_available() and dist.is_initialized()
-    world = dist.get_world_size() if initialised else 1
-    rank = dist.get_rank() if initialised else 0
+def grid_axes(n_devices, shape, axis_names, default_size: int):
+    """``(shape, axis_names)`` as tuples: a 1-D grid named ``"smi"`` over
+    ``n_devices`` ranks (``default_size`` if omitted) unless ``shape``
+    says otherwise; unnamed axes of a multi-axis grid are ``smi0``,
+    ``smi1``, ..."""
     if shape is None:
-        shape = (n_devices if n_devices is not None else world,)
+        shape = (n_devices if n_devices is not None else default_size,)
     shape = tuple(int(n) for n in shape)
     if axis_names is None:
         axis_names = (
@@ -161,6 +325,31 @@ def make_communicator(
             f"{len(axis_names)} axis names {axis_names} for a "
             f"{len(shape)}-axis grid {shape}"
         )
+    return shape, axis_names
+
+
+def make_communicator(
+    n_devices: Optional[int] = None,
+    shape: Optional[Sequence[int]] = None,
+    axis_names: Optional[Sequence[str]] = None,
+    device=None,
+) -> Communicator:
+    """Build a communicator over the ranks of the default process group
+    (for ranks that are threads on one device, build a
+    :class:`~smi_tpu_torch.parallel.local.LocalWorld` instead).
+
+    ``shape``/``axis_names`` give a multi-dimensional grid (e.g.
+    ``(2, 4)`` with ``("sx", "sy")`` for the stencil); the default is a
+    1-D grid named ``"smi"`` over ``n_devices`` ranks (the world size if
+    omitted). Without an initialised process group the world is one
+    rank. ``device`` defaults to CUDA; on a CUDA grid each rank takes
+    the card ``rank % device_count``.
+    """
+    dev = resolve_device(device)
+    initialised = dist.is_available() and dist.is_initialized()
+    world = dist.get_world_size() if initialised else 1
+    rank = dist.get_rank() if initialised else 0
+    shape, axis_names = grid_axes(n_devices, shape, axis_names, world)
     if math.prod(shape) != world:
         raise ValueError(
             f"grid shape {shape} needs {math.prod(shape)} ranks, the "

@@ -322,3 +322,186 @@ def test_pipeline_refuses_a_non_f32_cuda_block(cuda_comm):
     block = st.block_from_numpy(_grid(64, 256), cuda_comm).double()
     with pytest.raises(ValueError, match="float32"):
         st.make_pipeline_stencil_fn(cuda_comm, 8, 64, 256, depth=8)(block)
+
+
+# ------------------------------------------------------- the ring tier --
+
+
+@pytest.fixture
+def cuda_world():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    worlds = {}
+
+    def make(n):
+        if n not in worlds:
+            worlds[n] = st.LocalWorld(n)
+        return worlds[n]
+
+    return make
+
+
+def _ring_inputs(n, shape, dtype, seed):
+    gen = torch.Generator().manual_seed(seed)
+    if dtype.is_floating_point:
+        xs = [torch.randn(shape, generator=gen).to(dtype) for _ in range(n)]
+    else:
+        xs = [torch.randint(-100, 100, shape, generator=gen).to(dtype)
+              for _ in range(n)]
+    return [x.cuda() for x in xs]
+
+
+def _check_ring(world, call, plain, xs):
+    """The kernel equals its plain version on every rank, every credit
+    domain drained, and the plain version without rank 1's contribution
+    is not equal."""
+    from smi_tpu_torch.kernels import ring as kring
+
+    name = call(None, None, probe=True)
+    before = _build.LAUNCHES[name]
+    got = world.run(lambda c: call(xs[c.rank], c))
+    assert _build.LAUNCHES[name] == before + 1
+    record = kring.last_record(world)
+    assert kring.drained(record), record
+    want = plain(xs)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    dropped = list(xs)
+    dropped[1] = torch.zeros_like(xs[1])
+    control = plain(dropped)
+    assert not all(torch.equal(g, c) for g, c in zip(got, control))
+    return record
+
+
+RING_DTYPES = [torch.float32, torch.int32, torch.bfloat16, torch.int8,
+               torch.int16, torch.float64]
+
+
+@pytest.mark.parametrize("n", [2, 3, 8])
+@pytest.mark.parametrize("dtype", RING_DTYPES, ids=str)
+@pytest.mark.parametrize("op", ["add", "max"])
+def test_ring_all_reduce_kernel_equals_plain(cuda_world, n, dtype, op):
+    from smi_tpu_torch.kernels import ring as kring
+
+    xs = _ring_inputs(n, (3, 130), dtype, seed=n)
+    record = _check_ring(
+        cuda_world(n),
+        lambda x, c, probe=False: "ring_all_reduce" if probe
+        else kring.ring_all_reduce(x, c, op=op),
+        lambda ys: kring.ring_all_reduce_plain(ys, op), xs)
+    # n-1 credits a block: slot 1 at the start, then one a step but the last
+    assert int(record["granted"].sum()) == n * (n - 1)
+
+
+@pytest.mark.parametrize("n", [2, 3, 8])
+@pytest.mark.parametrize("shape", [(1000,), (2, 130), (1, 33000)])
+def test_ring_all_gather_kernel_equals_plain(cuda_world, n, shape):
+    from smi_tpu_torch.kernels import ring as kring
+
+    xs = _ring_inputs(n, shape, torch.float32, seed=10 + n)
+    _check_ring(
+        cuda_world(n),
+        lambda x, c, probe=False: "ring_all_gather" if probe
+        else kring.ring_all_gather(x, c, stream=1),
+        kring.ring_all_gather_plain, xs)
+
+
+@pytest.mark.parametrize("n", [2, 3, 8])
+@pytest.mark.parametrize("dtype,op", [(torch.float32, "add"),
+                                      (torch.int8, "min"),
+                                      (torch.bfloat16, "add")], ids=str)
+def test_ring_reduce_scatter_kernel_equals_plain(cuda_world, n, dtype, op):
+    from smi_tpu_torch.kernels import ring as kring
+
+    xs = _ring_inputs(n, (2 * n, 130), dtype, seed=20 + n)
+    _check_ring(
+        cuda_world(n),
+        lambda x, c, probe=False: "ring_reduce_scatter" if probe
+        else kring.ring_reduce_scatter(x, c, op=op, stream=2),
+        lambda ys: kring.ring_reduce_scatter_plain(ys, op), xs)
+
+
+@pytest.mark.parametrize("n", [2, 3, 8])
+@pytest.mark.parametrize("direction", [1, -1])
+@pytest.mark.parametrize("chunks", [1, 2, 5])
+def test_neighbour_stream_kernel_equals_plain(cuda_world, n, direction,
+                                              chunks):
+    from smi_tpu_torch.kernels import ring as kring
+
+    xs = _ring_inputs(n, (chunks, 130), torch.float32, seed=30 + n)
+    record = _check_ring(
+        cuda_world(n),
+        lambda x, c, probe=False: "ring_neighbour_stream" if probe
+        else kring.neighbour_stream(x, c, direction=direction, stream=3),
+        lambda ys: kring.neighbour_stream_plain(ys, direction), xs)
+    # no grant for the last two chunks
+    assert int(record["granted"].sum()) == n * max(0, chunks - 2)
+
+
+def test_ring_kernels_without_flow_control(cuda_world):
+    """No barrier, no credits; safe where nothing can be overwritten: one
+    step (two ranks) and a stream of two chunks."""
+    from smi_tpu_torch.kernels import ring as kring
+
+    xs = _ring_inputs(2, (4, 1000), torch.float32, seed=40)
+    for call, plain in (
+            (lambda x, c, probe=False: "ring_all_reduce" if probe
+             else kring.ring_all_reduce(x, c, flow_control=False),
+             kring.ring_all_reduce_plain),
+            (lambda x, c, probe=False: "ring_all_gather" if probe
+             else kring.ring_all_gather(x, c, flow_control=False),
+             kring.ring_all_gather_plain),
+            (lambda x, c, probe=False: "ring_reduce_scatter" if probe
+             else kring.ring_reduce_scatter(x, c, flow_control=False),
+             kring.ring_reduce_scatter_plain)):
+        record = _check_ring(cuda_world(2), call, plain, xs)
+        assert not record["granted"].any() and not record["barrier"].any()
+    xs = _ring_inputs(8, (2, 1000), torch.float32, seed=41)
+    _check_ring(
+        cuda_world(8),
+        lambda x, c, probe=False: "ring_neighbour_stream" if probe
+        else kring.neighbour_stream(x, c, flow_control=False),
+        kring.neighbour_stream_plain, xs)
+
+
+def test_sub_rings_of_a_grid_share_one_launch():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from smi_tpu_torch.kernels import ring as kring
+
+    world = st.LocalWorld((2, 4), ("sx", "sy"))
+    xs = _ring_inputs(8, (5, 77), torch.int32, seed=50)
+    for axis in ("sx", "sy"):
+        before = _build.LAUNCHES["ring_all_reduce"]
+        got = world.run(lambda c: kring.ring_all_reduce(xs[c.rank], c, axis))
+        assert _build.LAUNCHES["ring_all_reduce"] == before + 1
+        assert kring.drained(kring.last_record(world))
+        for line in world.lines(axis):
+            want = kring.ring_all_reduce_plain([xs[r] for r in line])
+            for r, w in zip(line, want):
+                assert torch.equal(got[r], w)
+
+
+def test_smi_api_on_the_card_matches_the_xla_tier(cuda_world):
+    world = cuda_world(8)
+    x = np.arange(8 * 4096, dtype=np.int32)
+
+    def app(backend):
+        @st.smi_kernel(world, in_specs="smi", out_specs="smi",
+                       backend=backend)
+        def run(ctx, v):
+            ch = ctx.open_channel(port=0, src=0, dst=5, count=v.shape[0],
+                                  dtype="int")
+            return (ctx.bcast(v, root=5), ctx.reduce(v, op="max", root=2),
+                    ctx.scatter(v, root=3), ctx.gather(v[:16], root=7),
+                    ctx.transfer(ch, v), ctx.stream(ch, v)[0])
+        return run(x)
+
+    _build.reset_launches()
+    ring = app("ring")
+    assert _build.LAUNCHES["ring_all_reduce"] == 2
+    assert _build.LAUNCHES["ring_neighbour_stream"] == 6   # 3 hops, twice
+    for r, w in zip(ring, app("xla")):
+        assert torch.equal(r, w)
+    assert torch.equal(ring[0].view(8, -1)[1].cpu(),
+                       torch.from_numpy(x[5 * 4096:6 * 4096]))

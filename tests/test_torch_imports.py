@@ -14,7 +14,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "smi_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "smi_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "smi_tpu", "networkx"}
 
 _PROBE = """
 import json, sys
@@ -36,6 +36,15 @@ def test_fresh_import_loads_no_jax_and_builds_nothing():
     loaded = {m.split(".")[0] for m in report["new"]}
     assert not loaded & FORBIDDEN, sorted(loaded & FORBIDDEN)
     assert "smi_tpu_torch" in loaded
+    # the SMI API's modules load with the package — the ring kernels'
+    # wrapper too, which needs no nvcc until a CUDA tensor reaches it
+    for module in ("ops.types", "ops.operations", "ops.program",
+                   "ops.serialization", "parallel.backend",
+                   "parallel.local", "parallel.collectives",
+                   "parallel.channels", "parallel.context",
+                   "utils.watchdog", "kernels.ring", "models.kmeans",
+                   "models.gesummv"):
+        assert f"smi_tpu_torch.{module}" in report["new"], module
     assert report["libs"] == 0
     assert set(report["launches"].values()) == {0}
 
@@ -62,8 +71,9 @@ def test_package_lists_its_kernel_sources_as_package_data():
     text = (ROOT / "pyproject.toml").read_text()
     assert '"smi_tpu_torch" = ["kernels/csrc/*.cu"]' in text
     assert sorted(p.name for p in (PACKAGE / "kernels" / "csrc").glob("*.cu")
-                  ) == ["flash_bwd.cu", "flash_fwd.cu", "stencil_pipeline.cu",
-                        "stencil_sweep.cu", "stencil_temporal.cu"]
+                  ) == ["flash_bwd.cu", "flash_fwd.cu", "ring.cu",
+                        "stencil_pipeline.cu", "stencil_sweep.cu",
+                        "stencil_temporal.cu"]
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(monkeypatch):

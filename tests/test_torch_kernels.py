@@ -333,7 +333,9 @@ def test_cpu_calls_launch_nothing():
     assert _build.LAUNCHES == before
     assert set(before) == {"stencil_sweep", "stencil_temporal",
                            "stencil_pipeline", "flash_fused", "flash_block",
-                           "flash_bwd_dq", "flash_bwd_dkdv"}
+                           "flash_bwd_dq", "flash_bwd_dkdv",
+                           "ring_neighbour_stream", "ring_all_gather",
+                           "ring_all_reduce", "ring_reduce_scatter"}
 
 
 # --------------------------------------------------------------- loader --
@@ -349,17 +351,18 @@ def test_nvcc_command_targets_sm90a_without_fast_math(tmp_path):
 
 
 def test_only_the_flash_source_contracts_fma(tmp_path):
-    """The stencil sources keep ``-fmad=false`` for bit identity; the
-    flash sources' (forward and backward) bar is a tolerance, so they
-    build with FMA."""
+    """The stencil sources and the ring source (a reduction is held bit
+    for bit) keep ``-fmad=false``; the flash sources' (forward and
+    backward) bar is a tolerance, so they build with FMA."""
     for name in _build.SOURCES:
         cmd = _build.nvcc_command("nvcc", tmp_path / f"{name}.cu",
                                   tmp_path / "k.so")
         assert ("-fmad=false" in cmd) == (not name.startswith("flash_")), \
             name
         assert "-gencode" in cmd and "fast_math" not in " ".join(cmd)
-    assert _build.SOURCES == ["flash_bwd", "flash_fwd", "stencil_pipeline",
-                              "stencil_sweep", "stencil_temporal"]
+    assert _build.SOURCES == ["flash_bwd", "flash_fwd", "ring",
+                              "stencil_pipeline", "stencil_sweep",
+                              "stencil_temporal"]
 
 
 def test_launch_counts_add_up_across_threads():

@@ -3,8 +3,11 @@
 Spawned by ``tests/test_torch_halo.py`` (the stencil: :func:`run`),
 ``tests/test_torch_stencil_pipeline.py`` (the pipeline tier:
 :func:`run_pipeline`), ``tests/test_torch_ring_attention.py`` (ring
-attention: :func:`run_attention`) and ``tests/test_torch_transformer.py``
-(the train step: :func:`run_train_step`) through :func:`run_group`; it imports
+attention: :func:`run_attention`), ``tests/test_torch_transformer.py``
+(the train step: :func:`run_train_step`) and
+``tests/test_torch_collectives.py`` (the SMI collectives and channels on
+the collective-library tier: :func:`run_collectives`) through
+:func:`run_group`; it imports
 torch and the port, never jax, so each child starts quickly. Every rank
 checks its own halo slabs against slices of the zero-padded global grid;
 rank 0 reports the gathered results of the distributed stencil tiers on
@@ -270,6 +273,60 @@ def run_train_step(rank, world, port, shape, config, params, x, y, lr,
                           for n, p in model.weights().items()},
                 "params": st.params_to_numpy(model),
             }))
+            dist.barrier()
+        finally:
+            dist.destroy_process_group()
+    except BaseException:  # report every failure to the parent, then exit
+        results.put((rank, "error", traceback.format_exc()))
+        raise
+
+
+def collective_suite(comm, x):
+    """The rooted collectives and a channel on the ``"xla"`` tier, on
+    this rank's ``(8, 3)`` float32 ``x``: ``{name: tensor}``. Runs on any
+    communicator of four ranks (a gloo group here, a ``LocalWorld`` in
+    the test that holds the two against each other)."""
+    import torch
+
+    import smi_tpu_torch as st
+
+    ctx = st.SmiContext(comm)
+    ch = ctx.open_channel(port=0, src=0, dst=3, count=8, dtype="float")
+    ch_s = ctx.open_channel(port=1, src=1, dst=2, count=8, dtype="float",
+                            buffer_size=1)
+    flat = x[:, 0].contiguous()
+    streamed, total = ctx.stream(ch_s, flat,
+                                 consumer=lambda c, chunk: c + chunk.sum(),
+                                 init_carry=torch.zeros(()))
+    return {
+        "bcast": ctx.bcast(x, root=2),
+        "reduce add": ctx.reduce(x, op="add", root=1),
+        "reduce max": ctx.reduce(x, op="max", root=3, chunks=2),
+        "allreduce": ctx.allreduce(x),
+        "scatter": ctx.scatter(x, root=0),
+        "gather": ctx.gather(x, root=3),
+        "gather chunked": ctx.gather(x, all_ranks=True, chunks=3),
+        "transfer": ctx.transfer(ch, flat),
+        "stream": streamed,
+        "stream total": total,
+        "ring_shift": ctx.ring_shift(x, offset=1),
+    }
+
+
+def run_collectives(rank, world, port, x, results):
+    """Initialise gloo, run :func:`collective_suite` on this rank's row
+    of ``x``, report the results as numpy arrays."""
+    try:
+        import torch
+        import torch.distributed as dist
+
+        import smi_tpu_torch as st
+
+        _init_gloo(rank, world, port)
+        try:
+            comm = st.make_communicator(world, device="cpu")
+            out = collective_suite(comm, torch.from_numpy(x[rank]))
+            results.put((rank, "ok", {k: v.numpy() for k, v in out.items()}))
             dist.barrier()
         finally:
             dist.destroy_process_group()
