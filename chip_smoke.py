@@ -106,8 +106,12 @@ rank a thread of a ``LocalWorld`` on the one card, 8 ranks unless said:
    and unequal to the plain version without rank 1's contribution:
    all-reduce of 1,048,576 f32 a rank (ADD) and int32 (MAX), all-gather
    of 512 KiB a rank, reduce-scatter of 8 x 512 KiB a rank, the
-   neighbour stream of 512 KiB in 16 chunks in both directions; the four
-   at 2 and 3 ranks at a width-130 payload in f32, bf16 and int8 and at
+   neighbour stream of 512 KiB in 16 chunks in both directions, of 507
+   chunks of 2072 elements against the ring's direction (the channel's
+   shape in phase 21), and of one-chunk 2048- and 4096-element slabs on
+   the ``sx`` and ``sy`` sub-rings of the 2x4 world, every line of an
+   axis in one launch, on stream slots 0-3 (the halo's shapes in phase
+   23); the four at 2 and 3 ranks at a width-130 payload in f32, bf16 and int8 and at
    1000 elements; and without flow control where nothing can be
    overwritten (2 ranks; a stream of two chunks);
 21. the SMI API through ``smi_kernel(world, backend="ring")``: bcast,
@@ -129,9 +133,11 @@ rank a thread of a ``LocalWorld`` on the one card, 8 ranks unless said:
    every line of its axis; ``torch.equal`` to ``backend="xla"`` and to
    the plain stencil on the 1x1 grid;
 24. each ring kernel's time (CUDA events around the one grid) at phase
-   20's first shapes beside its bound (the device-memory bytes of the
-   ring schedule), its plain version's time and one stacked PyTorch call
-   that computes the same values and that the port never calls.
+   20's first shapes beside its bound (all ranks' inputs read once and
+   outputs written once, over the memory rate; the bytes the ring
+   schedule moves on top of that are logged), its plain version's time
+   and one stacked PyTorch call that computes the same values and that
+   the port never calls.
 
 Bars: f32 out/acc/gradients within 2e-5 (``rtol = atol``); m and l within
 1e-5 in either dtype (both sides add exact products in f32); bf16
@@ -1809,20 +1815,33 @@ def ring_phases(dev, gen):
     max_err = {k: 0.0 for k in RING_KERNELS}
     checked = [0]
 
-    def check(kernel, n, shape, dtype, **kw):
+    def check(kernel, n, shape, dtype, w=None, **kw):
         """One launch against the plain version: equal on every rank,
         every credit domain drained, and the plain version less rank 1's
-        contribution not equal."""
-        w = world(n)
+        contribution not equal. ``w`` is the world (a flat ring of ``n``
+        by default); with ``axis_name`` in ``kw`` the launch plays every
+        line of that axis and the plain version runs once a line."""
+        w = w or world(n)
+        n = w.size
         xs = [rnd(shape, dtype) for _ in range(n)]
-        call, plain = calls[kernel]
+        call, plain_ring = calls[kernel]
         got = w.run(lambda c: call(xs[c.rank], c, kw))
         record = kring.last_record(w)
         plain_kw = {k: v for k, v in kw.items()
                     if k in ("op", "direction")}
+        lines = w.lines(kw.get("axis_name"))
+
+        def plain(xs, plain_kw):
+            outs = [None] * n
+            for line in lines:
+                for r, out in zip(line, plain_ring([xs[r] for r in line],
+                                                   plain_kw)):
+                    outs[r] = out
+            return outs
+
         want = plain(xs, plain_kw)
-        what = (f"{kernel} n={n} {tuple(shape)} {str(dtype)[6:]} "
-                f"{kw or ''}")
+        what = (f"{kernel} {len(lines)} ring(s) of {len(lines[0])} "
+                f"{tuple(shape)} {str(dtype)[6:]} {kw or ''}")
         for r in range(n):
             err = (got[r].double() - want[r].double()).abs().max().item()
             max_err[kernel] = max(max_err[kernel], err)
@@ -1861,6 +1880,18 @@ def ring_phases(dev, gen):
     ]
     for kernel, shape, dtype, kw in full:
         log("  " + check(kernel, n, shape, dtype, **kw))
+    # the shapes the main path gives the stream kernel: the channel's 507
+    # chunks of 2072 elements against the ring's direction, and the
+    # stencil's one-chunk halo slabs on the sub-rings of the 2x4 world,
+    # every line of an axis in one launch, on stream slots 0-3
+    log("  " + check("ring_neighbour_stream", n, (507, 2072), f32,
+                     direction=-1))
+    w24 = st.LocalWorld((2, 4), ("sx", "sy"))
+    for axis, width, slots in (("sx", 2048, (0, 1)), ("sy", 4096, (2, 3))):
+        for direction, slot in zip((1, -1), slots):
+            log("  " + check("ring_neighbour_stream", 8, (1, width), f32,
+                             w=w24, axis_name=axis, direction=direction,
+                             stream=slot))
     for m in (2, 3):
         small = []
         for dtype in (f32, torch.bfloat16, torch.int8):
@@ -2073,7 +2104,6 @@ def ring_phases(dev, gen):
     grid = st.initial_grid(N, N)
     grid[:, -1] = 2.0
     grid[N // 2, :] = 0.5
-    w24 = st.LocalWorld((2, 4), ("sx", "sy"))
 
     def stencil(backend):
         blocks = w24.run(lambda c: st.make_stencil_fn(
@@ -2123,37 +2153,39 @@ def ring_phases(dev, gen):
 
     p_ar, p_half = 4 * SMI_ELEMS, 4 * HALF_MIB
     timed_cases = [
-        # kernel, name, shape, ring-schedule bytes over all ranks,
-        # in+out bytes, library call
+        # kernel, name, shape, bytes of all ranks' inputs and outputs
+        # (each once: the bound), bytes the ring schedule moves in device
+        # memory (ring.cu's note; logged, not a bound), library call
         ("ring_all_reduce", f"n={n} {SMI_ELEMS} f32 add", (SMI_ELEMS,),
-         n * (4 + 5 * (n - 1)) * p_ar, n * 2 * p_ar,
+         n * 2 * p_ar, n * (3 * n - 1) * p_ar,
          lambda xs: torch.stack(xs).sum(0)),
         ("ring_all_gather", f"n={n} {HALF_MIB} f32 a rank", (HALF_MIB,),
-         n * 4 * n * p_half, n * (1 + n) * p_half,
+         n * (1 + n) * p_half, n * 4 * n * p_half,
          lambda xs: torch.cat(xs)),
+        # rank r's block is a view of the stacked sum: [r*c:(r+1)*c]
         ("ring_reduce_scatter", f"n={n} {n}x{HALF_MIB} f32 a rank",
-         (n * HALF_MIB,), n * (4 + 5 * (n - 1)) * p_half,
-         n * (n + 1) * p_half, None),
+         (n * HALF_MIB,), n * (n + 1) * p_half,
+         n * (3 * n - 1) * p_half,
+         lambda xs: torch.stack(xs).sum(0).chunk(n)),
         ("ring_neighbour_stream",
          f"n={n} {HALF_MIB} f32 in {STREAM_CHUNKS} chunks",
-         (STREAM_CHUNKS, HALF_MIB // STREAM_CHUNKS), n * 4 * p_half,
-         n * 2 * p_half, lambda xs: torch.roll(torch.stack(xs), 1, 0)),
+         (STREAM_CHUNKS, HALF_MIB // STREAM_CHUNKS), n * 2 * p_half,
+         n * 4 * p_half, lambda xs: torch.roll(torch.stack(xs), 1, 0)),
     ]
-    for kernel, name, shape, sched_bytes, io_bytes, library in timed_cases:
+    for kernel, name, shape, io_bytes, sched_bytes, library in timed_cases:
         xs = [rnd(shape, f32) for _ in range(n)]
         call, plain = calls[kernel]
         ms = kernel_ms(lambda c: call(xs[c.rank], c, {}))
         plain_ms = time_ms(lambda: plain(xs, {}), 5)
-        lib_ms = time_ms(lambda: library(xs), 20) if library else None
-        b_ms = bound(sched_bytes)
-        log(f"  {kernel} {name}: {ms:.4f} ms "
-            f"({sched_bytes / 1e6:.1f} MB of device-memory traffic in the "
-            f"ring schedule, {sched_bytes / ms / 1e9:.4g} TB/s), bound "
-            f"{b_ms:.4f} ms (those bytes; inputs and outputs once: "
-            f"{bound(io_bytes):.4f} ms), plain {plain_ms:.4f} ms, stacked "
-            f"library call "
-            + (f"{lib_ms:.4f} ms" if lib_ms is not None else "none")
-            + f"; launches on phases 21-23: {launches[kernel]}")
+        lib_ms = time_ms(lambda: library(xs), 20)
+        b_ms = bound(io_bytes)
+        log(f"  {kernel} {name}: {ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({io_bytes / 1e6:.1f} MB: all ranks' inputs and outputs "
+            f"once), {ms / b_ms:.1f}x; the ring schedule moves "
+            f"{sched_bytes / 1e6:.1f} MB in device memory "
+            f"({sched_bytes / ms / 1e9:.4g} TB/s); plain {plain_ms:.4f} "
+            f"ms, stacked library call {lib_ms:.4f} ms; launches on "
+            f"phases 21-23: {launches[kernel]}")
         records.append({
             "name": f"{kernel} {name}", "route": "cuda", "source": RING_SRC,
             "replaces": RING_REPLACES[kernel],

@@ -197,25 +197,25 @@ SIGNATURES = {
         # d, q_off, k_off, causal, window, scale, block_q, block_k, stream
         [_P] * 9 + [_I] * 10 + [_F] + [_I] * 2 + [_P],
     ),
-    # the ring kernels share: table, ranks, rank_base, n, elems,
-    # slot_stride, dtype ... flow_control, blocks, stream
+    # the ring kernels share: table, ranks, n, elems, slot_stride,
+    # dtype ... flow_control, blocks, stream
     "ring_neighbour_stream": (
         "smi_ring_neighbour_stream",
         # ... dtype, chunks, direction, flow_control, blocks, stream
-        [_P] + [_I] * 3 + [_L] * 2 + [_I] * 5 + [_P],
+        [_P] + [_I] * 2 + [_L] * 2 + [_I] * 5 + [_P],
     ),
     "ring_all_gather": (
         "smi_ring_all_gather",
-        [_P] + [_I] * 3 + [_L] * 2 + [_I] * 3 + [_P],
+        [_P] + [_I] * 2 + [_L] * 2 + [_I] * 3 + [_P],
     ),
     "ring_all_reduce": (
         "smi_ring_all_reduce",
         # ... dtype, op, flow_control, blocks, stream
-        [_P] + [_I] * 3 + [_L] * 2 + [_I] * 4 + [_P],
+        [_P] + [_I] * 2 + [_L] * 2 + [_I] * 4 + [_P],
     ),
     "ring_reduce_scatter": (
         "smi_ring_reduce_scatter",
-        [_P] + [_I] * 3 + [_L] * 2 + [_I] * 4 + [_P],
+        [_P] + [_I] * 2 + [_L] * 2 + [_I] * 4 + [_P],
     ),
 }
 

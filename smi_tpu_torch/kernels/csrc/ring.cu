@@ -16,13 +16,12 @@
 // signal and every wait of it.
 //
 // Design. One launch plays every rank that lives in this process: the
-// grid is (blocks_per_rank, ranks), rank = rank_base + blockIdx.y, and a
+// grid is (blocks_per_rank, ranks), rank = blockIdx.y, and a
 // table in device memory gives each rank its input, its output, its two
 // comm slots, its flag words, its position in its ring and where in the
 // table its left and right neighbours are (a launch may hold several
 // rings, one per line of a grid axis; a rank only ever sees its own
-// line). With ranks == 1 and neighbour pointers from another process or
-// card the same code is the one-rank-per-launch form. The payload is cut
+// line). The payload is cut
 // into blocks_per_rank contiguous slices (multiples of 16 bytes); block b
 // of rank r runs the whole protocol on slice b and talks only to block b
 // of ranks r-1 and r+1, with its own flag words, so no grid-wide
@@ -48,27 +47,39 @@
 // flow_control == 0 there is no entry barrier and there are no credits;
 // the receive flags stay, they are the completion of the copy.
 //
-// Bound on the H100 (3.35 TB/s): bytes. With P the bytes of one rank's
-// payload slice set (the unit that circulates) and n ranks, a rank of the
-// all-reduce reads and writes, in device memory: the copy of its input
-// into slot 0 (2P); per step the copy of its live slot into the
-// neighbour's (2P) and the fold of its input into the arrival (3P); the
-// copy of the last slot to the output (2P): (4 + 5(n-1)) P a rank, 39 P
-// at n = 8 — at 4 MiB a rank, 1.31 GB over the card, 0.39 ms. The
-// reduce-scatter moves the same with P one block of the input. The
-// all-gather copies in (4P: output and slot 0) and per step forwards
-// (2P) and copies out (2P): 4 n P. The stream moves each chunk into the
-// neighbour's slot (2P) and out of its own (2P): 4P a rank for P the
-// whole message. The arithmetic (one operation per element and step) is
-// far below the card's rate. The comm slots of eight ranks at 4 MiB (64
+// Bound on the H100 (3.35 TB/s): bytes, each input read once and each
+// output written once. With P the bytes of the unit that circulates and n
+// ranks, over all ranks: all-reduce 2nP (n inputs of P, n outputs of P;
+// 67 MB at 4 MiB a rank and n = 8, 0.020 ms); reduce-scatter n(n+1)P
+// (inputs of nP, outputs of P); all-gather n(1+n)P; the stream 2nP for P
+// the whole message. The arithmetic (one operation per element and step)
+// is far below the card's rate.
+//
+// What the ring schedule moves on top of that bound ("schedule traffic",
+// logged beside the time, not a bound: all ranks' data lies on one card,
+// so one pass over it would do). A rank of the all-reduce writes its
+// input into the neighbour's slot (2P); on each of the n-2 later steps it
+// reads the arrival and its input and writes their fold straight into the
+// neighbour's slot (3P); the last arrival is folded with the input into
+// the output (3P): (3n-1) P a rank, 23P at n = 8. The reduce-scatter
+// moves the same with P one block of the input. The all-gather copies in
+// (4P: output and slot 0) and per step forwards (2P) and copies out (2P):
+// 4nP. The stream moves each chunk into the neighbour's slot (2P) and out
+// of its own (2P): 4P a rank. The comm slots of eight ranks at 4 MiB (64
 // MiB) do not fit the 50 MB L2, so this traffic reaches device memory.
 //
 // Arithmetic: combine(arrival, own), in the element type: +, max, min;
 // bf16 adds in f32 and rounds to nearest even; 8- and 16-bit integers
 // wrap. After step s rank r holds ((x[r-s-1] o x[r-s]) o ...) o x[r]: a
 // left fold that ends at the rank's own input, a different association on
-// every rank, exactly the TPU kernel's. Built with -fmad=false; there is
-// nothing to contract, and the plain version replays the same fold.
+// every rank, exactly the TPU kernel's. A slot holds the arrival as it
+// was sent; the rank's own input is folded in as the partial goes onward
+// (or into the output), the same values in the same order as folding on
+// arrival. All-reduce and reduce-scatter are the false and true instances
+// of one template, reduce_kernel<T, OP, REDUCE_SCATTER>: two entry
+// functions per element type and operation, one body. Built with
+// -fmad=false; there is nothing to contract, and the plain version
+// replays the same fold.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -103,7 +114,6 @@ struct RankEntry {  // eight 8-byte words, as the host's int64 table
 
 struct Params {
   const RankEntry* table;
-  int rank_base;
   int n;                  // ranks of one ring
   long long elems;        // elements of the circulating unit
   long long slot_stride;  // bytes from slot 0 to slot 1
@@ -254,15 +264,16 @@ __device__ __forceinline__ T combine(T a, T b) {
   }
 }
 
-// acc[i] = combine(acc[i], own[i]) over n elements
+// dst[i] = combine(arrival[i], own[i]) over n elements
 template <typename T, int OP>
-__device__ void combine_into(T* acc, const T* own, long long n) {
+__device__ void combine_to(T* dst, const T* arrival, const T* own,
+                           long long n) {
   constexpr int V = 16 / sizeof(T);
   long long done = 0;
-  if (aligned(acc, own, 16)) {
+  if (aligned(arrival, own, 16) && aligned(dst, own, 16)) {
     const long long nvec = n / V;
     for (long long i = threadIdx.x; i < nvec; i += blockDim.x) {
-      uint4 a = __ldcg(reinterpret_cast<const uint4*>(acc) + i);
+      uint4 a = __ldcg(reinterpret_cast<const uint4*>(arrival) + i);
       const uint4 b = __ldcg(reinterpret_cast<const uint4*>(own) + i);
       T ta[V], tb[V];
       memcpy(ta, &a, 16);
@@ -270,12 +281,12 @@ __device__ void combine_into(T* acc, const T* own, long long n) {
 #pragma unroll
       for (int k = 0; k < V; ++k) ta[k] = combine<T, OP>(ta[k], tb[k]);
       memcpy(&a, ta, 16);
-      __stcg(reinterpret_cast<uint4*>(acc) + i, a);
+      __stcg(reinterpret_cast<uint4*>(dst) + i, a);
     }
     done = nvec * V;
   }
   for (long long i = done + threadIdx.x; i < n; i += blockDim.x)
-    store_cg(acc + i, combine<T, OP>(load_cg(acc + i), load_cg(own + i)));
+    store_cg(dst + i, combine<T, OP>(load_cg(arrival + i), load_cg(own + i)));
 }
 
 // This block's slice of a unit of `elems` elements of `esize` bytes:
@@ -349,7 +360,7 @@ struct Proto {
 
 __global__ void __launch_bounds__(kThreads)
     neighbour_stream_kernel(Params p, int esize) {
-  const RankEntry& me = p.table[p.rank_base + blockIdx.y];
+  const RankEntry& me = p.table[blockIdx.y];
   const Slice sl = slice_of(p.elems, esize);
   if (sl.n == 0) return;
   const long long lo = sl.lo * esize, nb = sl.n * esize;
@@ -377,7 +388,7 @@ __global__ void __launch_bounds__(kThreads)
 
 __global__ void __launch_bounds__(kThreads)
     all_gather_kernel(Params p, int esize) {
-  const RankEntry& me = p.table[p.rank_base + blockIdx.y];
+  const RankEntry& me = p.table[blockIdx.y];
   const Slice sl = slice_of(p.elems, esize);
   if (sl.n == 0) return;
   const long long lo = sl.lo * esize, nb = sl.n * esize;
@@ -409,10 +420,12 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // REDUCE_SCATTER: the input is n units, the partial of unit (pos-1) starts
-// and unit (pos-s-2) is folded in at step s; else the one unit every step.
+// and unit (pos-s-2) is folded into the arrival of step s; else the one
+// unit every step. The fold of step s is done as the partial leaves at step
+// s+1, straight into the neighbour's slot, and the last one into the output.
 template <typename T, int OP, bool REDUCE_SCATTER>
 __global__ void __launch_bounds__(kThreads) reduce_kernel(Params p) {
-  const RankEntry& me = p.table[p.rank_base + blockIdx.y];
+  const RankEntry& me = p.table[blockIdx.y];
   const Slice sl = slice_of(p.elems, sizeof(T));
   if (sl.n == 0) return;
   const int n = p.n, pos = static_cast<int>(me.pos);
@@ -429,23 +442,23 @@ __global__ void __launch_bounds__(kThreads) reduce_kernel(Params p) {
   };
   Proto pr(p, me);
   pr.barrier();
-  copy_bytes(reinterpret_cast<char*>(slot[0]),
-             reinterpret_cast<const char*>(own((pos - 1 + n) % n)), nb);
-  __syncthreads();
   if (pr.flow) pr.grant(pr.left, 1);
   for (int s = 0; s < n - 1; ++s) {
     const int cur = s & 1, nxt = cur ^ 1;
     if (pr.flow) pr.take_credit(nxt);
-    copy_bytes(reinterpret_cast<char*>(right_slot[nxt]),
-               reinterpret_cast<const char*>(slot[cur]), nb);
+    if (s == 0) {
+      copy_bytes(reinterpret_cast<char*>(right_slot[nxt]),
+                 reinterpret_cast<const char*>(own((pos - 1 + n) % n)), nb);
+    } else {
+      combine_to<T, OP>(right_slot[nxt], slot[cur],
+                        own((pos - s - 1 + 2 * n) % n), sl.n);
+    }
     pr.sent(pr.right, nxt);
     pr.arrived(nxt);
     if (pr.flow && s < n - 2) pr.grant(pr.left, cur);
-    combine_into<T, OP>(slot[nxt], own((pos - s - 2 + 2 * n) % n), sl.n);
-    __syncthreads();
   }
-  copy_bytes(reinterpret_cast<char*>(reinterpret_cast<T*>(me.out) + sl.lo),
-             reinterpret_cast<const char*>(slot[(n - 1) & 1]), nb);
+  combine_to<T, OP>(reinterpret_cast<T*>(me.out) + sl.lo, slot[(n - 1) & 1],
+                    own(pos), sl.n);
   pr.finish();
 }
 
@@ -509,19 +522,19 @@ int launch_resident(const void* kernel, int blocks, int ranks, void** args,
 
 }  // namespace
 
-// The common arguments: `table` (RankEntry rows in device memory), the
-// ranks this launch plays and the table row of the first, the ring size,
+// The common arguments: `table` (RankEntry rows in device memory, one for
+// each rank this launch plays), the number of ranks, the ring size,
 // the elements of the unit, the byte stride between a rank's two slots,
 // the dtype code, flow control on or off, blocks per rank, the stream.
 
 extern "C" int smi_ring_neighbour_stream(
-    const void* table, int ranks, int rank_base, int n, long long elems,
+    const void* table, int ranks, int n, long long elems,
     long long slot_stride, int dtype, int chunks, int direction,
     int flow_control, int blocks, void* stream) {
   int esize = esize_of(dtype);
   if (esize == 0 || chunks < 1 || (direction != 1 && direction != -1))
     return cudaErrorInvalidValue;
-  Params p{static_cast<const RankEntry*>(table), rank_base, n, elems,
+  Params p{static_cast<const RankEntry*>(table), n, elems,
            slot_stride, chunks, direction, flow_control};
   void* args[] = {&p, &esize};
   return launch_resident((const void*)neighbour_stream_kernel,
@@ -530,12 +543,12 @@ extern "C" int smi_ring_neighbour_stream(
 }
 
 extern "C" int smi_ring_all_gather(
-    const void* table, int ranks, int rank_base, int n, long long elems,
+    const void* table, int ranks, int n, long long elems,
     long long slot_stride, int dtype, int flow_control, int blocks,
     void* stream) {
   int esize = esize_of(dtype);
   if (esize == 0) return cudaErrorInvalidValue;
-  Params p{static_cast<const RankEntry*>(table), rank_base, n, elems,
+  Params p{static_cast<const RankEntry*>(table), n, elems,
            slot_stride, 1, 1, flow_control};
   void* args[] = {&p, &esize};
   return launch_resident((const void*)all_gather_kernel,
@@ -544,12 +557,12 @@ extern "C" int smi_ring_all_gather(
 }
 
 extern "C" int smi_ring_all_reduce(
-    const void* table, int ranks, int rank_base, int n, long long elems,
+    const void* table, int ranks, int n, long long elems,
     long long slot_stride, int dtype, int op, int flow_control, int blocks,
     void* stream) {
   ReduceFn kernel = reduce_for<false>(dtype, op);
   if (kernel == nullptr) return cudaErrorInvalidValue;
-  Params p{static_cast<const RankEntry*>(table), rank_base, n, elems,
+  Params p{static_cast<const RankEntry*>(table), n, elems,
            slot_stride, 1, 1, flow_control};
   void* args[] = {&p};
   return launch_resident((const void*)kernel, blocks, ranks,
@@ -557,12 +570,12 @@ extern "C" int smi_ring_all_reduce(
 }
 
 extern "C" int smi_ring_reduce_scatter(
-    const void* table, int ranks, int rank_base, int n, long long elems,
+    const void* table, int ranks, int n, long long elems,
     long long slot_stride, int dtype, int op, int flow_control, int blocks,
     void* stream) {
   ReduceFn kernel = reduce_for<true>(dtype, op);
   if (kernel == nullptr) return cudaErrorInvalidValue;
-  Params p{static_cast<const RankEntry*>(table), rank_base, n, elems,
+  Params p{static_cast<const RankEntry*>(table), n, elems,
            slot_stride, 1, 1, flow_control};
   void* args[] = {&p};
   return launch_resident((const void*)kernel, blocks, ranks,

@@ -15,10 +15,11 @@ axis at once — on the world's stream, waits for it, and hands each rank
 its output. The comm slots and the flag words are tensors the world owns,
 one set per stream slot (:data:`RING_STREAMS`; collectives on different
 ports must not share a flag domain), grown only at a rendezvous and
-zeroed before each launch, when no kernel is in flight. After the launch
-the leader reads every block's credit record; :func:`last_record` returns
-it and :func:`drained` says whether every credit that was granted was
-consumed, which the Pallas interpreter checks for the JAX kernels.
+zeroed before each launch, when no kernel is in flight. Every block
+leaves its credit record in its flag words; :func:`last_record` reads it
+back when asked and :func:`drained` says whether every credit that was
+granted was consumed, which the Pallas interpreter checks for the JAX
+kernels.
 
 Beside each kernel stands its plain PyTorch version, a function of all
 the ring's inputs that replays the schedule step by step — the same
@@ -109,19 +110,22 @@ def ring_all_gather_plain(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
 
 
 def _circulate(first, own, n: int, op) -> List[torch.Tensor]:
-    """The circulating-partial schedule: slot 0 starts as ``first(r)``;
-    at step s every rank sends its live slot right and folds ``own(r,
-    s)`` into what arrives: ``combine(arrival, own)``."""
+    """The circulating-partial schedule: at step 0 every rank writes
+    ``first(r)`` into its right neighbour's slot 1; at step s it writes
+    ``combine(arrival, own(r, s-1))``, the arrival of step s-1 with its
+    own contribution folded in, into the neighbour's other slot; the last
+    arrival and ``own(r, n-2)`` fold into the output."""
     combine = combine_fn(op)
-    slots = [[first(r).clone(), None] for r in range(n)]
+    slots = [[None, None] for _ in range(n)]
     for s in range(n - 1):
         slot, nslot = s % 2, (s + 1) % 2
-        sent = [slots[r][slot] for r in range(n)]
+        if s == 0:
+            sent = [first(r).clone() for r in range(n)]
+        else:
+            sent = [combine(slots[r][slot], own(r, s - 1)) for r in range(n)]
         for r in range(n):
-            slots[(r + 1) % n][nslot] = sent[r].clone()
-        for r in range(n):
-            slots[r][nslot] = combine(slots[r][nslot], own(r, s))
-    return [slots[r][(n - 1) % 2] for r in range(n)]
+            slots[(r + 1) % n][nslot] = sent[r]
+    return [combine(slots[r][(n - 1) % 2], own(r, n - 2)) for r in range(n)]
 
 
 def ring_all_reduce_plain(xs: Sequence[torch.Tensor],
@@ -179,6 +183,9 @@ def _ring_state(world, stream: int, slot_bytes: int) -> dict:
             device=world.device)
         state["table"] = torch.zeros((n, 8), dtype=torch.int64,
                                      device=world.device)
+        state["rows"] = None   # what the table on the card holds
+        state["events"] = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
         state["slot_bytes"] = 0
     if slot_bytes > state["slot_bytes"]:
         state["slots"] = None   # free before growing
@@ -203,46 +210,57 @@ def _launch(kernel: str, world, axis_name, stream: int, xs, outs,
     state = _ring_state(world, stream, slot_bytes)
     stride = state["slot_bytes"]
     flags, slots = state["flags"], state["slots"]
-    flags.zero_()
+    flags[:, :blocks].zero_()
     rows = [None] * n_world
     for line in lines:
         for pos, r in enumerate(line):
-            rows[r] = [xs[r].data_ptr(), outs[r].data_ptr(),
+            rows[r] = (xs[r].data_ptr(), outs[r].data_ptr(),
                        slots[r].data_ptr(), flags[r].data_ptr(), pos,
-                       line[(pos + 1) % n], line[(pos - 1) % n], 0]
-    state["table"].copy_(torch.tensor(rows, dtype=torch.int64))
-    begin = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
+                       line[(pos + 1) % n], line[(pos - 1) % n], 0)
+    if rows != state["rows"]:   # the allocator hands the same blocks back
+        state["table"].copy_(torch.tensor(rows, dtype=torch.int64))
+        state["rows"] = rows
+    begin, end = state["events"]
     begin.record()
     with torch.cuda.device(world.device):
         status = _build.entry(kernel)(
-            state["table"].data_ptr(), n_world, 0, n, unit_elems, stride,
+            state["table"].data_ptr(), n_world, n, unit_elems, stride,
             DTYPE_CODES[dtype], *extra, int(flow_control), blocks,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(kernel, status)
     _build.count_launch(kernel)
     end.record()
-    # .cpu() waits for the launch: a trapped spin is raised here
-    record = flags[:, :blocks, :7].cpu()
-    world.ring_state["last_record"] = {
+    # the rendezvous waits for the world's stream before it releases the
+    # ranks: a trapped spin is raised there
+    world.ring_state["last_launch"] = {
         "kernel": kernel, "stream": stream, "flow_control": flow_control,
         "ranks": n_world, "ring": n, "blocks": blocks,
-        "ms": begin.elapsed_time(end),
-        "granted": record[:, :, _GRANTED],
-        "consumed": record[:, :, _CONSUMED],
-        "credits_received": record[:, :, _CREDIT] + record[:, :, _CREDIT + 1],
-        "barrier": record[:, :, _BARRIER],
     }
 
 
 def last_record(world) -> Optional[dict]:
     """The credit record of the world's last kernel launch (None before
-    one, and on a CPU world): per rank and block, the credits it
-    ``granted``, the credits it ``consumed``, the credit signals it
-    received, and its barrier word; and ``ms``, the grid's time from
-    launch to completion by CUDA events on the world's stream."""
-    return world.ring_state.get("last_record")
+    one, and on a CPU world), read from the card now — so before the next
+    launch on the same stream slot zeroes it: per rank and block, the
+    credits it ``granted``, the credits it ``consumed``, the credit
+    signals it received, and its barrier word; and ``ms``, the grid's
+    time from launch to completion by CUDA events on the world's
+    stream."""
+    launch = world.ring_state.get("last_launch")
+    if launch is None:
+        return None
+    state = world.ring_state[("stream", launch["stream"])]
+    record = state["flags"][:, :launch["blocks"], :7].cpu()
+    begin, end = state["events"]
+    return dict(
+        launch,
+        ms=begin.elapsed_time(end),
+        granted=record[:, :, _GRANTED],
+        consumed=record[:, :, _CONSUMED],
+        credits_received=record[:, :, _CREDIT] + record[:, :, _CREDIT + 1],
+        barrier=record[:, :, _BARRIER],
+    )
 
 
 def drained(record: dict) -> bool:

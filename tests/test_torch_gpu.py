@@ -482,6 +482,21 @@ def test_sub_rings_of_a_grid_share_one_launch():
                 assert torch.equal(got[r], w)
 
 
+def test_pointer_table_follows_the_tensors_brought(cuda_world):
+    """The table on the card is rewritten only when a pointer in it
+    changed: the same tensors twice, then others while the first live."""
+    from smi_tpu_torch.kernels import ring as kring
+
+    world = cuda_world(3)
+    first = _ring_inputs(3, (7, 130), torch.float32, seed=60)
+    second = _ring_inputs(3, (7, 130), torch.float32, seed=61)
+    for xs in (first, first, second, first):
+        got = world.run(lambda c: kring.ring_all_reduce(xs[c.rank], c))
+        assert kring.drained(kring.last_record(world))
+        for g, w in zip(got, kring.ring_all_reduce_plain(xs)):
+            assert torch.equal(g, w)
+
+
 def test_smi_api_on_the_card_matches_the_xla_tier(cuda_world):
     world = cuda_world(8)
     x = np.arange(8 * 4096, dtype=np.int32)
