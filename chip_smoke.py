@@ -139,6 +139,30 @@ rank a thread of a ``LocalWorld`` on the one card, 8 ranks unless said:
    and one stacked PyTorch call that computes the same values and that
    the port never calls.
 
+Then the chunked ring all-reduce (``smi_ring_all_reduce_chunked`` in
+``ring.cu``) and SMI's benchmark suite on the port:
+
+25. the chunked kernel ``torch.equal`` to its plain version and to the
+   unchunked kernel on every rank, every chunk's credit domain drained,
+   and unequal to the plain version without rank 1's contribution: 8
+   ranks at 1,048,576 f32 a rank as (1024, 1024) with chunks 2, 4 and 8
+   (ADD), int32 MAX and bf16 ADD at chunks 4, the overlap benchmark's
+   1-D 65,536 f32 at chunks 4, 1000 rows at chunks 3 (zero-row padding);
+   2 and 3 ranks at width 130 in f32, bf16 and int8; the ``sx`` and
+   ``sy`` sub-rings of the 2x4 world, each axis in one launch;
+26. every benchmark of ``smi_tpu_torch.benchmarks`` through
+   ``run_benchmark`` on an 8-rank world, the micro benchmarks under
+   ``xla`` and ``ring``, the application benchmarks under ``xla`` (each
+   verifies its result first), at the JAX defaults' widths with fewer
+   runs (``SUITE_RUNS``) and a shallower pipeline, ping-pong and message
+   chain (``SUITE_CUTS``); the launch counts set to 0 before ``overlap``
+   on ``ring`` and read after it (the chunked kernel must have run); per
+   ring benchmark the host wall beside its kernels' event time;
+27. the chunked kernel's time at 4 MiB a rank, chunks 2, 4 and 8 (CUDA
+   events around the one grid), beside the unchunked kernel's on the
+   same payload, its bound (all ranks' inputs and outputs once), its
+   plain version's time and ``torch.stack(xs).sum(0)``.
+
 Bars: f32 out/acc/gradients within 2e-5 (``rtol = atol``); m and l within
 1e-5 in either dtype (both sides add exact products in f32); bf16
 out/acc/gradients by the worst row's relative error ``||got - want|| /
@@ -415,6 +439,7 @@ def main() -> int:
     records += backward_phases(dev, gen, max_err)
     records += pipeline_phases(dev, gen)
     records += ring_phases(dev, gen)
+    records += suite_phases(dev, gen)
 
     log(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
@@ -2203,6 +2228,206 @@ def ring_phases(dev, gen):
         f"{api_ms:.3f} ms host wall ({n * 4 * SMI_ELEMS / api_ms / 1e6:.4g} "
         f"GB/s payload bytes x ranks); k-means "
         f"{points * iters / kmeans_wall:.4g} point-iterations/s")
+    return records
+
+
+CHUNKED_REPLACES = "smi_tpu/kernels/ring.py:542"
+#: phase 26: timed runs per benchmark, and the depth cut from the JAX
+#: defaults (pingpongs and messages 100, rounds 16); widths stay
+SUITE_RUNS = 3
+SUITE_CUTS = {"latency": {"pingpongs": 20}, "injection": {"messages": 20},
+              "pipeline": {"rounds": 4}, "pipeline_double_rail": {"rounds": 4}}
+
+
+def suite_phases(dev, gen):
+    """Phases 25-27: the chunked ring all-reduce and the benchmark suite
+    on eight ranks of the card. Returns the chunked kernel's records."""
+    import torch
+
+    import smi_tpu_torch as st
+    from smi_tpu_torch.benchmarks.micro import BENCHMARKS, run_benchmark
+    from smi_tpu_torch.kernels import _build
+    from smi_tpu_torch.kernels import ring as kring
+
+    f32, kernel = torch.float32, "ring_all_reduce_chunked"
+    n = SMI_RANKS
+    worlds = {}
+
+    def world(m):
+        if m not in worlds:
+            worlds[m] = st.LocalWorld(m)
+        return worlds[m]
+
+    def rnd(shape, dtype):
+        if dtype.is_floating_point:
+            return torch.rand(shape, generator=gen, device=dev,
+                              dtype=f32).add_(0.5).to(dtype)
+        return torch.randint(-100, 100, shape, generator=gen, device=dev,
+                             dtype=torch.int32).to(dtype)
+
+    max_err = [0.0]
+
+    def check(w, shape, dtype, chunks, op="add", axis=None):
+        """One chunked launch against its plain version and the unchunked
+        kernel, per line of ``axis``: equal on every rank, every credit
+        domain drained, the control without rank 1 unequal."""
+        xs = [rnd(shape, dtype) for _ in range(w.size)]
+        before = _build.LAUNCHES[kernel]
+        got = w.run(lambda c: kring.ring_all_reduce(
+            xs[c.rank], c, axis, op=op, chunks=chunks))
+        record = kring.last_record(w)
+        if _build.LAUNCHES[kernel] != before + 1:
+            raise AssertionError(f"{kernel}: not one launch")
+        unchunked = w.run(lambda c: kring.ring_all_reduce(xs[c.rank], c,
+                                                          axis, op=op))
+
+        def plain(ys):
+            outs = [None] * w.size
+            for line in w.lines(axis):
+                for r, o in zip(line, kring.ring_all_reduce_chunked_plain(
+                        [ys[r] for r in line], chunks, op)):
+                    outs[r] = o
+            return outs
+
+        want = plain(xs)
+        what = (f"{len(w.lines(axis))} ring(s) of {len(w.lines(axis)[0])} "
+                f"{tuple(shape)} {str(dtype)[6:]} {op} chunks={chunks}")
+        for r in range(w.size):
+            err = (got[r].double() - want[r].double()).abs().max().item()
+            max_err[0] = max(max_err[0], err)
+            if not torch.equal(got[r], want[r]):
+                raise AssertionError(f"{what}: rank {r} kernel != plain, "
+                                     f"max abs err {err}")
+            if not torch.equal(got[r], unchunked[r]):
+                raise AssertionError(f"{what}: rank {r} != the unchunked "
+                                     f"kernel")
+        if not kring.drained(record):
+            raise AssertionError(f"{what}: credits did not drain: {record}")
+        if record["chunks"] != min(chunks, shape[0]):
+            raise AssertionError(f"{what}: {record['chunks']} chunks ran")
+        dropped = list(xs)
+        dropped[1] = torch.zeros_like(xs[1])
+        control = plain(dropped)
+        if all(torch.equal(got[r], control[r]) for r in range(w.size)):
+            raise AssertionError(f"{what}: equal to the plain version "
+                                 f"without rank 1's contribution")
+        return (f"{what}: equal to plain and unchunked on {w.size} ranks, "
+                f"{record['chunks']} x {record['blocks']} credit domains a "
+                f"rank drained, {int(record['granted'].sum())} credits")
+
+    # ---- 25. the chunked kernel vs its plain version -------------------
+    log("[25 chunked ring all-reduce vs plain and unchunked]")
+    side = int(SMI_ELEMS ** 0.5)   # SMI_ELEMS as (1024, 1024)
+    for shape, dtype, chunks, op in (
+            ((side, side), f32, 2, "add"), ((side, side), f32, 4, "add"),
+            ((side, side), f32, 8, "add"),
+            ((side, side), torch.int32, 4, "max"),
+            ((side, side), torch.bfloat16, 4, "add"),
+            ((65536,), f32, 4, "add"), ((1000, 256), f32, 3, "add")):
+        log("  " + check(world(n), shape, dtype, chunks, op))
+    small = 0
+    for m in (2, 3):
+        for dtype in (f32, torch.bfloat16, torch.int8):
+            for chunks, op in ((2, "add"), (3, "min")):
+                check(world(m), (5, 130), dtype, chunks, op)
+                small += 1
+    log(f"  n=2 and 3: {small} cases (5 x 130 in f32, bf16 and int8, "
+        f"chunks 2 ADD with a pad row and 3 MIN) equal and drained")
+    w24 = st.LocalWorld((2, 4), ("sx", "sy"))
+    for axis in ("sx", "sy"):
+        log("  " + check(w24, (9, 2048), f32, 4, axis=axis))
+
+    # ---- 26. the benchmark suite on the card ---------------------------
+    log(f"[26 the benchmark suite, {n} ranks, {SUITE_RUNS} runs each]")
+    w8 = world(n)
+    event_ms = [0.0]
+    launch = kring._launch
+
+    def timed_launch(*args, **kwargs):
+        # the grid's event time, summed: the rendezvous synchronises the
+        # world's stream right after, so waiting here costs nothing
+        launch(*args, **kwargs)
+        _, w, _, stream = args[:4]
+        begin, end = w.ring_state[("stream", stream)]["events"]
+        end.synchronize()
+        event_ms[0] += begin.elapsed_time(end)
+
+    launches = {}
+    t_suite = time.perf_counter()
+    kring._launch = timed_launch
+    try:
+        for backend in ("xla", "ring"):
+            for name in sorted(BENCHMARKS):
+                if name.startswith("app_") and backend == "ring":
+                    continue
+                params = dict(SUITE_CUTS.get(name, {}), runs=SUITE_RUNS)
+                torch.cuda.synchronize()
+                _build.reset_launches()
+                event_ms[0] = 0.0
+                t0 = time.perf_counter()
+                m = run_benchmark(name, w8, backend=backend, **params)
+                wall = (time.perf_counter() - t0) * 1e3
+                got = {k: v for k, v in _build.LAUNCHES.items() if v}
+                extra = {k: m.config[k] for k in ("sweep",
+                                                  "serialized_mean_usec")
+                         if k in m.config}
+                if extra:
+                    log(f"    {m.name}: {extra}")
+                if backend == "ring":
+                    log(f"    {m.name}: {wall:.1f} ms host wall for the "
+                        f"benchmark, ring kernels {event_ms[0]:.3f} ms of "
+                        f"events ({100 * event_ms[0] / wall:.2f} %), "
+                        f"launches {got}")
+                    if not got:
+                        raise AssertionError(f"{m.name}: no ring kernel "
+                                             f"ran")
+                elif any(k.startswith("ring_") for k in got):
+                    raise AssertionError(f"{m.name}: the xla tier "
+                                         f"launched a ring kernel")
+                if name == "overlap" and backend == "ring":
+                    launches = dict(_build.LAUNCHES)
+                    if launches[kernel] <= 0:
+                        raise AssertionError("overlap on ring: the chunked "
+                                             "kernel was not launched")
+    finally:
+        kring._launch = launch
+    log(f"  the suite: {time.perf_counter() - t_suite:.1f} s; overlap on "
+        f"ring made {launches[kernel]} chunked and "
+        f"{launches['ring_all_reduce']} unchunked launches")
+
+    # ---- 27. times -------------------------------------------------------
+    log("[27 chunked ring all-reduce times, 8 ranks]")
+    records = []
+
+    def kernel_ms(fn, reps=10):
+        times = []
+        for _ in range(reps + 2):
+            w8.run(fn)
+            times.append(kring.last_record(w8)["ms"])
+        return sum(times[2:]) / reps   # two warm-up launches
+
+    xs = [rnd((side, side), f32) for _ in range(n)]
+    io_bytes = n * 2 * 4 * SMI_ELEMS
+    b_ms = io_bytes / HBM_BYTES_PER_S * 1e3
+    lib_ms = time_ms(lambda: torch.stack(xs).sum(0), 20)
+    for chunks in (2, 4, 8):
+        base_ms = kernel_ms(lambda c: kring.ring_all_reduce(xs[c.rank], c))
+        ms = kernel_ms(lambda c: kring.ring_all_reduce(xs[c.rank], c,
+                                                       chunks=chunks))
+        plain_ms = time_ms(
+            lambda: kring.ring_all_reduce_chunked_plain(xs, chunks), 5)
+        log(f"  chunks={chunks}: {ms:.4f} ms, unchunked {base_ms:.4f} ms "
+            f"({base_ms / ms:.3f}x), bound {b_ms:.4f} ms ({io_bytes / 1e6:.1f}"
+            f" MB: all ranks' inputs and outputs once), {ms / b_ms:.1f}x; "
+            f"plain {plain_ms:.4f} ms, stacked library call {lib_ms:.4f} "
+            f"ms; launches on overlap's ring run: {launches[kernel]}")
+        records.append({
+            "name": f"{kernel} n={n} {side}x{side} f32 add chunks={chunks}",
+            "route": "cuda", "source": RING_SRC,
+            "replaces": CHUNKED_REPLACES, "launches": launches[kernel],
+            "max_abs_err": max_err[0], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": "bytes", "library_ms": lib_ms,
+        })
     return records
 
 

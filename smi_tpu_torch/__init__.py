@@ -1,6 +1,6 @@
 """smi_tpu_torch — the PyTorch/CUDA port of smi_tpu for the NVIDIA H100.
 
-Five slices are ported. The first carries the flagship workload: the
+Six slices are ported. The first carries the flagship workload: the
 distributed 4-point Jacobi stencil with Dirichlet edges on a 2-D rank
 grid, its halo exchange, and the hand-written CUDA sweep kernels (one
 sweep per launch, and k sweeps per memory pass). The second is ring
@@ -17,9 +17,12 @@ memory by TMA on a ring of mbarrier slots, in f32 and with bf16
 neighbour arithmetic. The fifth is the Streaming Message Interface
 itself: ``smi_kernel`` and ``SmiContext``, the rooted collectives and the
 P2P channels, on a ``LocalWorld`` (an n-rank grid of threads on one
-card), with the ring backend on four hand-written CUDA kernels whose
-ranks write into each other's buffers under credit flow control, and the
-k-means and GESUMMV applications. Entry points run on CUDA unless the caller passes
+card), with the ring backend on hand-written CUDA kernels whose ranks
+write into each other's buffers under credit flow control, and the
+k-means and GESUMMV applications. The sixth adds the chunked ring
+all-reduce kernel, ``stream_concurrent`` and SMI's microbenchmark suite
+(``python -m smi_tpu_torch.benchmarks``), which ``import smi_tpu_torch``
+does not load. Entry points run on CUDA unless the caller passes
 ``device="cpu"``; on a CPU tensor each kernel wrapper runs its plain
 PyTorch version instead.
 """
@@ -42,6 +45,7 @@ from smi_tpu_torch.kernels.ring import (
     ring_all_gather,
     ring_all_gather_plain,
     ring_all_reduce,
+    ring_all_reduce_chunked_plain,
     ring_all_reduce_plain,
     ring_reduce_scatter,
     ring_reduce_scatter_plain,
@@ -146,7 +150,11 @@ from smi_tpu_torch.ops.types import (
     SmiOp,
     dtype_to_torch,
 )
-from smi_tpu_torch.parallel.channels import P2PChannel, ring_shift
+from smi_tpu_torch.parallel.channels import (
+    P2PChannel,
+    ring_shift,
+    stream_concurrent,
+)
 from smi_tpu_torch.parallel.collectives import (
     allreduce,
     bcast,
@@ -178,12 +186,13 @@ __all__ = [
     "combined_program",
     "parse_program", "serialize_program", "parse_topology_file",
     "Communicator", "make_communicator", "LocalWorld",
-    "P2PChannel", "SmiContext", "smi_kernel",
+    "P2PChannel", "stream_concurrent", "SmiContext", "smi_kernel",
     "bcast", "reduce", "allreduce", "scatter", "gather",
     "Deadline", "WatchdogTimeout",
     "RING_STREAMS", "neighbour_stream", "neighbour_stream_plain",
     "ring_all_gather", "ring_all_gather_plain", "ring_all_reduce",
-    "ring_all_reduce_plain", "ring_reduce_scatter",
+    "ring_all_reduce_plain", "ring_all_reduce_chunked_plain",
+    "ring_reduce_scatter",
     "ring_reduce_scatter_plain",
     "assign_points", "kmeans_iteration", "make_kmeans_fn", "run_kmeans",
     "reference_kmeans",

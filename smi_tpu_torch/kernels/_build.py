@@ -8,7 +8,7 @@ unchanged one loads at once. All sources compile at the same time, one
 ``nvcc`` each. A source may export several kernels (``flash_fwd.cu``
 exports the fused and the carried flash forward); each kernel has its
 own launch count (``flash_bwd.cu`` exports the two backward kernels,
-``ring.cu`` the four ring kernels).
+``ring.cu`` the five ring kernels).
 
 Nothing here runs on import: the first :func:`library` call builds. A
 missing ``nvcc`` raises; there is no fallback to the plain versions.
@@ -217,13 +217,19 @@ SIGNATURES = {
         "smi_ring_reduce_scatter",
         [_P] + [_I] * 2 + [_L] * 2 + [_I] * 4 + [_P],
     ),
+    "ring_all_reduce_chunked": (
+        "smi_ring_all_reduce_chunked",
+        # ... dtype, op, chunks, flow_control, blocks, stream
+        [_P] + [_I] * 2 + [_L] * 2 + [_I] * 5 + [_P],
+    ),
 }
 
 #: kernels whose entry point lives in a source of another name
 _SOURCE_OF = {"flash_fused": "flash_fwd", "flash_block": "flash_fwd",
               "flash_bwd_dq": "flash_bwd", "flash_bwd_dkdv": "flash_bwd",
               "ring_neighbour_stream": "ring", "ring_all_gather": "ring",
-              "ring_all_reduce": "ring", "ring_reduce_scatter": "ring"}
+              "ring_all_reduce": "ring", "ring_reduce_scatter": "ring",
+              "ring_all_reduce_chunked": "ring"}
 
 
 def source_of(kernel: str) -> str:

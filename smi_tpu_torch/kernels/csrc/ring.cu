@@ -6,6 +6,7 @@
 //   smi_ring_neighbour_stream  <- _neighbour_stream_kernel     (:838)
 //   smi_ring_all_gather        <- _ring_all_gather_kernel      (:388)
 //   smi_ring_all_reduce        <- _ring_all_reduce_kernel      (:495)
+//   smi_ring_all_reduce_chunked <- _ring_all_reduce_chunked_kernel (:542)
 //   smi_ring_reduce_scatter    <- _ring_reduce_scatter_kernel  (:718)
 // There each rank is a chip: a remote DMA writes one of two slots of the
 // neighbour's scratch buffer, a receive semaphore counts its arrival, and
@@ -53,7 +54,8 @@
 // 67 MB at 4 MiB a rank and n = 8, 0.020 ms); reduce-scatter n(n+1)P
 // (inputs of nP, outputs of P); all-gather n(1+n)P; the stream 2nP for P
 // the whole message. The arithmetic (one operation per element and step)
-// is far below the card's rate.
+// is far below the card's rate. The chunked all-reduce has the all-reduce's
+// bound and schedule traffic; it makes `chunks` times the handshakes a step.
 //
 // What the ring schedule moves on top of that bound ("schedule traffic",
 // logged beside the time, not a bound: all ranks' data lies on one card,
@@ -462,6 +464,82 @@ __global__ void __launch_bounds__(kThreads) reduce_kernel(Params p) {
   pr.finish();
 }
 
+// The chunked all-reduce (smi_tpu/kernels/ring.py:542
+// _ring_all_reduce_chunked_kernel, protocol credits.all_reduce_chunked_rank).
+// The input is `chunks` units of `elems` elements; unit c circulates on its
+// own slot pair, slots 2c and 2c+1 (Params::slot_stride apart), with its own
+// flag words: the block's row for chunk c is row c * blocks + blockIdx.x of
+// the rank's flag rows, so chunk 0 uses the unchunked kernel's row and holds
+// the barrier, and every chunk keeps its own receive and credit counters and
+// its own record. A step runs the model's three phases over the chunks:
+// A, every chunk's credit wait and send (the fold of the last arrival with
+// the rank's own unit written straight into the neighbour's slot, as
+// reduce_kernel does); B, every arrival in chunk order; C, the grants of the
+// slots that went onward, but on the last step. Per element that is the
+// unchunked schedule's fold, so the result is bit for bit reduce_kernel's.
+// All chunks of a slot parity wait for the same counts at a step: the s-th
+// step's credit and arrival are the (s/2+1)-th on their slot.
+template <typename T, int OP>
+__global__ void __launch_bounds__(kThreads) reduce_chunked_kernel(Params p) {
+  const RankEntry& me = p.table[blockIdx.y];
+  const Slice sl = slice_of(p.elems, sizeof(T));
+  if (sl.n == 0) return;
+  const int n = p.n, chunks = p.chunks;
+  const bool flow = p.flow_control != 0;
+  const long long nb = sl.n * sizeof(T);
+  const RankEntry& left = p.table[me.left];
+  const RankEntry& right = p.table[me.right];
+  auto slot = [&](const RankEntry& e, int c, int parity) {
+    return reinterpret_cast<T*>(e.slots + (2LL * c + parity) * p.slot_stride) +
+           sl.lo;
+  };
+  auto own = [&](int c) {
+    return reinterpret_cast<const T*>(me.in) + c * p.elems + sl.lo;
+  };
+  auto row = [&](const RankEntry& e, int c) {
+    return e.flags +
+           (static_cast<long long>(c) * gridDim.x + blockIdx.x) * kFlagWords;
+  };
+  unsigned granted = 0, consumed = 0;  // per chunk: every chunk does the same
+  if (flow) {
+    block_signal(row(left, 0) + kBarrier);
+    block_signal(row(right, 0) + kBarrier);
+    block_wait(row(me, 0) + kBarrier, 2);
+    for (int c = 0; c < chunks; ++c) block_signal(row(left, c) + kCredit + 1);
+    granted = 1;  // slot 1 of every pair starts empty
+  }
+  for (int s = 0; s < n - 1; ++s) {
+    const int cur = s & 1, nxt = cur ^ 1;
+    const unsigned expected = static_cast<unsigned>(s / 2 + 1);
+    for (int c = 0; c < chunks; ++c) {  // A: credits and sends
+      if (flow) block_wait(row(me, c) + kCredit + nxt, expected);
+      if (s == 0) {
+        copy_bytes(reinterpret_cast<char*>(slot(right, c, nxt)),
+                   reinterpret_cast<const char*>(own(c)), nb);
+      } else {
+        combine_to<T, OP>(slot(right, c, nxt), slot(me, c, cur), own(c), sl.n);
+      }
+      block_signal(row(right, c) + kRecv + nxt);
+    }
+    if (flow) ++consumed;
+    for (int c = 0; c < chunks; ++c)  // B: arrivals in chunk order
+      block_wait(row(me, c) + kRecv + nxt, expected);
+    if (flow && s < n - 2) {  // C: the slots that went onward are free
+      for (int c = 0; c < chunks; ++c) block_signal(row(left, c) + kCredit + cur);
+      ++granted;
+    }
+  }
+  for (int c = 0; c < chunks; ++c)
+    combine_to<T, OP>(reinterpret_cast<T*>(me.out) + c * p.elems + sl.lo,
+                      slot(me, c, (n - 1) & 1), own(c), sl.n);
+  if (threadIdx.x == 0) {
+    for (int c = 0; c < chunks; ++c) {
+      row(me, c)[kGranted] = granted;
+      row(me, c)[kConsumed] = consumed;
+    }
+  }
+}
+
 using ReduceFn = void (*)(Params);
 
 template <typename T, bool RS>
@@ -484,6 +562,28 @@ ReduceFn reduce_for(int dtype, int op) {
     case 3: return reduce_for_op<int8_t, RS>(op);
     case 4: return reduce_for_op<int16_t, RS>(op);
     case 5: return reduce_for_op<__nv_bfloat16, RS>(op);
+  }
+  return nullptr;
+}
+
+template <typename T>
+ReduceFn chunked_for_op(int op) {
+  switch (op) {
+    case kAdd: return reduce_chunked_kernel<T, kAdd>;
+    case kMax: return reduce_chunked_kernel<T, kMax>;
+    case kMin: return reduce_chunked_kernel<T, kMin>;
+  }
+  return nullptr;
+}
+
+ReduceFn chunked_for(int dtype, int op) {
+  switch (dtype) {
+    case 0: return chunked_for_op<int32_t>(op);
+    case 1: return chunked_for_op<float>(op);
+    case 2: return chunked_for_op<double>(op);
+    case 3: return chunked_for_op<int8_t>(op);
+    case 4: return chunked_for_op<int16_t>(op);
+    case 5: return chunked_for_op<__nv_bfloat16>(op);
   }
   return nullptr;
 }
@@ -564,6 +664,21 @@ extern "C" int smi_ring_all_reduce(
   if (kernel == nullptr) return cudaErrorInvalidValue;
   Params p{static_cast<const RankEntry*>(table), n, elems,
            slot_stride, 1, 1, flow_control};
+  void* args[] = {&p};
+  return launch_resident((const void*)kernel, blocks, ranks,
+                         args, static_cast<cudaStream_t>(stream));
+}
+
+// `elems` is one chunk's unit; `table` rows point at `chunks` units in and
+// out, 2 * chunks slots, and chunks * blocks flag rows a rank.
+extern "C" int smi_ring_all_reduce_chunked(
+    const void* table, int ranks, int n, long long elems,
+    long long slot_stride, int dtype, int op, int chunks, int flow_control,
+    int blocks, void* stream) {
+  ReduceFn kernel = chunked_for(dtype, op);
+  if (kernel == nullptr || chunks < 1) return cudaErrorInvalidValue;
+  Params p{static_cast<const RankEntry*>(table), n, elems,
+           slot_stride, chunks, 1, flow_control};
   void* args[] = {&p};
   return launch_resident((const void*)kernel, blocks, ranks,
                          args, static_cast<cudaStream_t>(stream));

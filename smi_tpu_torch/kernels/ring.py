@@ -1,12 +1,13 @@
 """Ring collectives and neighbour streaming with explicit flow control.
 
 PyTorch counterpart of :mod:`smi_tpu.kernels.ring`: the ``"ring"``
-backend of the rooted collectives and the P2P channels. The four
+backend of the rooted collectives and the P2P channels. The five
 hand-written CUDA kernels of ``csrc/ring.cu`` play the credit protocol of
 :mod:`smi_tpu.parallel.credits` between ranks that share one card: each
-rank writes its payload into one of two comm slots of its neighbour,
-counts the write on the neighbour's receive flag, and may reuse a slot
-only after the neighbour granted it back.
+rank writes its payload into one of two comm slots of its neighbour (one
+pair per chunk for the chunked all-reduce), counts the write on the
+neighbour's receive flag, and may reuse a slot only after the neighbour
+granted it back.
 
 Ranks are the threads of a :class:`~smi_tpu_torch.parallel.local.
 LocalWorld`. A wrapper is a rendezvous: every rank leaves its tensor, and
@@ -139,6 +140,78 @@ def ring_all_reduce_plain(xs: Sequence[torch.Tensor],
     return _circulate(lambda r: xs[r], lambda r, s: xs[r], n, op)
 
 
+def check_chunks(chunks: Optional[int]) -> int:
+    """``chunks`` as a pipeline depth: None is 1; anything but an int of
+    at least 1 raises."""
+    if chunks is None:
+        return 1
+    if not isinstance(chunks, int) or isinstance(chunks, bool):
+        raise TypeError(f"chunks must be an int, got {chunks!r}")
+    if chunks < 1:
+        raise ValueError(f"chunks must be >= 1, got {chunks}")
+    return chunks
+
+
+def chunk_rows(x: torch.Tensor, chunks: int) -> torch.Tensor:
+    """The chunked kernel's payload: the leading axis of ``x`` split into
+    ``chunks`` rows of ``ceil(rows / chunks)``, zero rows padding the
+    last (every rank pads alike, and the pad is sliced off, so MAX and
+    MIN are safe); a 1-D payload becomes ``(chunks, 1, per)``."""
+    rows = x.shape[0]
+    per = -(-rows // chunks)
+    pad = per * chunks - rows
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+    if x.dim() == 1:
+        return x.reshape(chunks, 1, per)
+    return x.reshape((chunks, per) + tuple(x.shape[1:]))
+
+
+def unchunk_rows(out: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`chunk_rows`: the pad dropped, ``like``'s
+    shape."""
+    return out.reshape((-1,) + tuple(like.shape[1:]))[:like.shape[0]] \
+        .reshape(like.shape)
+
+
+def _all_reduce_rows(xus: Sequence[torch.Tensor], op) -> List[torch.Tensor]:
+    """The chunked schedule on ``(chunks, ...)`` payloads, as
+    ``credits.all_reduce_chunked_rank`` plays it: chunk ``c`` on slots
+    ``2c + parity``; a step sends every chunk (the fold of the last
+    arrival with the rank's own chunk, as the kernel folds it on the way
+    out), then takes every arrival in chunk order."""
+    n = len(xus)
+    chunks = xus[0].shape[0]
+    combine = combine_fn(op)
+    slots = [[None] * (2 * chunks) for _ in range(n)]
+    for s in range(n - 1):
+        slot, nslot = s % 2, (s + 1) % 2
+        sent = [[xus[r][c].clone() if s == 0
+                 else combine(slots[r][2 * c + slot], xus[r][c])
+                 for c in range(chunks)] for r in range(n)]
+        for r in range(n):
+            for c in range(chunks):
+                slots[(r + 1) % n][2 * c + nslot] = sent[r][c]
+    last = (n - 1) % 2
+    return [torch.stack([combine(slots[r][2 * c + last], xus[r][c])
+                         for c in range(chunks)]) for r in range(n)]
+
+
+def ring_all_reduce_chunked_plain(xs: Sequence[torch.Tensor], chunks: int,
+                                  op: Union[str, SmiOp] = SmiOp.ADD
+                                  ) -> List[torch.Tensor]:
+    """The chunked all-reduce of the ring's inputs, chunk by chunk on
+    slot pairs: ``chunks`` clamped to the leading dimension, the rows
+    split and padded as :func:`chunk_rows` does. Per element the fold is
+    :func:`ring_all_reduce_plain`'s, so the two agree bit for bit."""
+    x = xs[0]
+    chunks = max(1, min(check_chunks(chunks), x.shape[0] if x.dim() else 1))
+    if chunks == 1:
+        return ring_all_reduce_plain(xs, op)
+    outs = _all_reduce_rows([chunk_rows(t, chunks) for t in xs], op)
+    return [unchunk_rows(o, x) for o in outs]
+
+
 def ring_reduce_scatter_plain(xs: Sequence[torch.Tensor],
                               op: Union[str, SmiOp] = SmiOp.ADD
                               ) -> List[torch.Tensor]:
@@ -171,46 +244,53 @@ def _blocks_per_rank(unit_bytes: int, ranks: int) -> int:
     return max(1, min(cap, -(-unit_bytes // SLICE_BYTES)))
 
 
-def _ring_state(world, stream: int, slot_bytes: int) -> dict:
-    """The persistent tensors of one stream slot, grown to hold two
-    ``slot_bytes`` slots a rank. Called by the leader at a rendezvous:
-    no kernel is in flight, so growing may free the old slots."""
+def _ring_state(world, stream: int, slot_bytes: int, chunks: int,
+                blocks: int) -> dict:
+    """The persistent tensors of one stream slot, grown to hold ``2 *
+    chunks`` slots of ``slot_bytes`` and ``chunks * blocks`` flag rows a
+    rank. Called by the leader at a rendezvous: no kernel is in flight,
+    so growing may free the old tensors."""
     state = world.ring_state.setdefault(("stream", stream), {})
     n = world.size
-    if "flags" not in state:
-        state["flags"] = torch.zeros(
-            (n, MAX_BLOCKS_PER_RANK, FLAG_WORDS), dtype=torch.int32,
-            device=world.device)
+    if "table" not in state:
+        state["flags"] = torch.zeros((n, 0, FLAG_WORDS), dtype=torch.int32,
+                                     device=world.device)
+        state["slots"] = torch.empty((n, 0), dtype=torch.uint8,
+                                     device=world.device)
         state["table"] = torch.zeros((n, 8), dtype=torch.int64,
                                      device=world.device)
         state["rows"] = None   # what the table on the card holds
         state["events"] = (torch.cuda.Event(enable_timing=True),
                            torch.cuda.Event(enable_timing=True))
-        state["slot_bytes"] = 0
-    if slot_bytes > state["slot_bytes"]:
+    rows = chunks * blocks
+    if rows > state["flags"].shape[1]:
+        state["flags"] = torch.zeros((n, rows, FLAG_WORDS),
+                                     dtype=torch.int32, device=world.device)
+    capacity = 2 * chunks * slot_bytes
+    if capacity > state["slots"].shape[1]:
         state["slots"] = None   # free before growing
-        state["slots"] = torch.empty((n, 2, slot_bytes), dtype=torch.uint8,
+        state["slots"] = torch.empty((n, capacity), dtype=torch.uint8,
                                      device=world.device)
-        state["slot_bytes"] = slot_bytes
     return state
 
 
 def _launch(kernel: str, world, axis_name, stream: int, xs, outs,
-            unit_elems: int, extra: tuple, flow_control: bool) -> None:
+            unit_elems: int, extra: tuple, flow_control: bool,
+            chunks: int = 1) -> None:
     """One launch that plays every rank of the world: every line of the
-    axis is a ring. ``unit_elems`` elements circulate; ``extra`` are the
-    kernel's own arguments between the dtype code and ``flow_control``."""
+    axis is a ring. ``unit_elems`` elements circulate on each of
+    ``chunks`` slot pairs; ``extra`` are the kernel's own arguments
+    between the dtype code and ``flow_control``."""
     n_world = world.size
     lines = world.lines(axis_name)
     n = len(lines[0])
     dtype = xs[0].dtype
     unit_bytes = unit_elems * dtype.itemsize
-    slot_bytes = _align(unit_bytes)
+    stride = _align(unit_bytes)
     blocks = _blocks_per_rank(unit_bytes, n_world)
-    state = _ring_state(world, stream, slot_bytes)
-    stride = state["slot_bytes"]
+    state = _ring_state(world, stream, stride, chunks, blocks)
     flags, slots = state["flags"], state["slots"]
-    flags[:, :blocks].zero_()
+    flags[:, :chunks * blocks].zero_()
     rows = [None] * n_world
     for line in lines:
         for pos, r in enumerate(line):
@@ -235,23 +315,25 @@ def _launch(kernel: str, world, axis_name, stream: int, xs, outs,
     # ranks: a trapped spin is raised there
     world.ring_state["last_launch"] = {
         "kernel": kernel, "stream": stream, "flow_control": flow_control,
-        "ranks": n_world, "ring": n, "blocks": blocks,
+        "ranks": n_world, "ring": n, "blocks": blocks, "chunks": chunks,
     }
 
 
 def last_record(world) -> Optional[dict]:
     """The credit record of the world's last kernel launch (None before
     one, and on a CPU world), read from the card now — so before the next
-    launch on the same stream slot zeroes it: per rank and block, the
-    credits it ``granted``, the credits it ``consumed``, the credit
-    signals it received, and its barrier word; and ``ms``, the grid's
-    time from launch to completion by CUDA events on the world's
-    stream."""
+    launch on the same stream slot zeroes it: per rank and flag row (a
+    block's, and for the chunked all-reduce a block's for each chunk,
+    chunk-major), the credits it ``granted``, the credits it
+    ``consumed``, the credit signals it received, and its barrier word;
+    and ``ms``, the grid's time from launch to completion by CUDA events
+    on the world's stream."""
     launch = world.ring_state.get("last_launch")
     if launch is None:
         return None
     state = world.ring_state[("stream", launch["stream"])]
-    record = state["flags"][:, :launch["blocks"], :7].cpu()
+    rows = launch["chunks"] * launch["blocks"]
+    record = state["flags"][:, :rows, :7].cpu()
     begin, end = state["events"]
     return dict(
         launch,
@@ -264,10 +346,11 @@ def last_record(world) -> Optional[dict]:
 
 
 def drained(record: dict) -> bool:
-    """Whether every credit domain drained: each block consumed exactly
-    the credits it received, as many were consumed as granted, and with
-    flow control each live block's barrier saw its two neighbours (none
-    without)."""
+    """Whether every credit domain drained: each flag row (a block's, or
+    a block's chunk's) consumed exactly the credits it received, as many
+    were consumed as granted, and with flow control each live block's
+    barrier saw its two neighbours (none without; a chunk's row past the
+    first holds no barrier)."""
     consumed, received = record["consumed"], record["credits_received"]
     if not torch.equal(consumed, received):
         return False
@@ -325,7 +408,7 @@ def _one_axis(axis_name) -> Optional[str]:
 
 def _run(kernel: str, x: torch.Tensor, comm: Communicator, axis_name,
          stream: int, flow_control: bool, params: tuple, plain, out_shape,
-         unit_elems: int, extra: tuple) -> torch.Tensor:
+         unit_elems: int, extra: tuple, chunks: int = 1) -> torch.Tensor:
     """The rendezvous of one ring call: every rank leaves ``x``; the
     leader runs ``plain`` per ring on CPU tensors, or launches ``kernel``
     once for the whole world on CUDA tensors."""
@@ -357,7 +440,7 @@ def _run(kernel: str, x: torch.Tensor, comm: Communicator, axis_name,
         outs = [torch.empty(out_shape, dtype=x.dtype, device=x.device)
                 for _ in xs]
         _launch(kernel, world, axis, stream, xs, outs, unit_elems, extra,
-                flow_control)
+                flow_control, chunks)
         return outs
 
     return world.rendezvous(
@@ -437,20 +520,30 @@ def ring_all_reduce(
     Each rank's partial makes a full circuit: after ``n-1`` hops every
     rank has folded in all ``n`` contributions, each in its own rotated
     order, so float sums agree across ranks up to reassociation.
-    ``chunks > 1`` is the software-pipelined kernel, which is not ported
-    yet.
+
+    ``chunks > 1`` splits the leading axis into that many pipeline rows
+    (:func:`chunk_rows`), each circulating on its own slot pair with its
+    own credits, in one launch of the chunked kernel; the result is bit
+    for bit the unchunked one. ``chunks`` is clamped to the leading
+    dimension; ``None`` is one unchunked launch (the JAX package's plan
+    engine, which may pick a depth there, is not ported).
     """
     _check_stream(stream)
     op = SmiOp.parse(op)
-    if chunks is not None and chunks > 1:
-        raise NotImplementedError(
-            f"ring_all_reduce(chunks={chunks}) needs the chunked ring "
-            "all-reduce kernel, which is not ported yet (ROADMAP.md "
-            "Queue 2 item 8)"
-        )
+    chunks = check_chunks(chunks)
     n = _ring_size(comm, axis_name)
     if n == 1 or x.numel() == 0:
         return x
+    chunks = min(chunks, x.shape[0] if x.dim() else 1)
+    if chunks > 1:
+        xu = chunk_rows(x, chunks)
+        out = _run(
+            "ring_all_reduce_chunked", xu, comm, axis_name, stream,
+            flow_control, (op, chunks), lambda xus: _all_reduce_rows(xus, op),
+            tuple(xu.shape), xu[0].numel(), (OP_CODES[op], chunks),
+            chunks=chunks,
+        )
+        return unchunk_rows(out, x)
     return _run(
         "ring_all_reduce", x, comm, axis_name, stream, flow_control, (op,),
         lambda xs: ring_all_reduce_plain(xs, op), tuple(x.shape),

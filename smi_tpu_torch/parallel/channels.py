@@ -20,14 +20,15 @@ package, the two endpoint loops are one SPMD call that every rank makes:
 
 :func:`ring_shift` is the rank-pipeline move, differentiable as
 ``ppermute`` is in JAX. The JAX module's verified transport
-(``transfer_verified``, ``stream_verified``, ``verify_frames``), tenant
-ports and ``stream_concurrent`` are not ported yet.
+(``transfer_verified``, ``stream_verified``, ``verify_frames``) and the
+tenant ports are not ported yet. :func:`stream_concurrent` moves several
+channels' messages in lockstep bursts on either tier.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional, Tuple, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -298,6 +299,58 @@ class P2PChannel:
             backend=backend, deadline=deadline,
         )
         return received, chunk_reduce(partials, axis=0)
+
+
+def stream_concurrent(channels: Sequence[P2PChannel], datas,
+                      backend: str = "xla") -> Tuple[torch.Tensor, ...]:
+    """Move several P2P messages chunk by chunk *in lockstep*.
+
+    The counterpart of the reference's concurrent channels sharing the
+    NoC (``bandwidth_0.cl``'s two app kernels pushing at once): every step
+    advances each channel by one burst of ``consecutive_reads`` chunks
+    (``READS_LIMIT``, the CK loop's fairness bound between sources,
+    ``cks.cl:73-81``) before any channel takes its next, then the element
+    tail. On the ``"xla"`` tier a burst is one point-to-point move of the
+    transport; ``backend="ring"`` interleaves the channels' bursts over
+    the neighbour-stream kernel, each channel in the flag domain of its
+    own port (:meth:`P2PChannel._ring_stream`).
+
+    All channels must agree on message count, chunk size and burst width
+    (the benchmark shape). Returns the received message per channel.
+    """
+    if len(channels) != len(datas):
+        raise ValueError("one data array per channel required")
+    if not channels:
+        return ()
+    counts = {ch.count for ch in channels}
+    chunks = {min(ch.chunk_elements, ch.count) for ch in channels}
+    reads = {ch.consecutive_reads for ch in channels}
+    if len(counts) != 1 or len(chunks) != 1 or len(reads) != 1:
+        raise ValueError(
+            "concurrent streaming requires equal message/chunk/burst "
+            f"sizes; got counts {sorted(counts)}, chunks {sorted(chunks)}, "
+            f"consecutive_reads {sorted(reads)}"
+        )
+    datas = [ch._data(d) for ch, d in zip(channels, datas)]
+    count, chunk, reads = counts.pop(), chunks.pop(), reads.pop()
+    parts = [[] for _ in channels]
+    if check_backend(backend) == "ring":
+        per = [ch._ring_payload(d, chunked=True)
+               for ch, d in zip(channels, datas)]
+        for b0 in range(0, per[0].shape[0], reads):
+            for i, ch in enumerate(channels):
+                parts[i].append(ch._ring_move(per[i][b0:b0 + reads]))
+        return tuple(
+            torch.cat(p).reshape((-1,) + tuple(d.shape[1:]))[:count]
+            for p, d in zip(parts, datas))
+    burst = chunk * reads
+    bounds = [(b, b + burst) for b in range(0, count - count % burst, burst)]
+    if count % burst:
+        bounds.append((count - count % burst, count))
+    for lo, hi in bounds:
+        for i, (ch, d) in enumerate(zip(channels, datas)):
+            parts[i].append(ch._permute(d[lo:hi]))
+    return tuple(p[0] if len(p) == 1 else torch.cat(p) for p in parts)
 
 
 def _shift(x, comm, name, step):

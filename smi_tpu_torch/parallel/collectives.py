@@ -24,9 +24,9 @@ a branch, not a ``where``.
 per-chunk collectives plus a reassembly — pure payload splitting, so the
 result is bit-identical to the unchunked call. On the ring tier the
 chunks of a scatter or a gather are a sequence of launches on one stream
-slot; a chunked ring bcast or reduce needs the chunked all-reduce
-kernel, which is not ported yet, and raises. ``chunks=None`` means one
-collective: the JAX package's plan engine, its ``precision=`` and
+slot, and a chunked bcast or reduce (and so allreduce) is one launch of
+the chunked all-reduce kernel, every chunk on its own slot pair.
+``chunks=None`` means one collective: the JAX package's plan engine, its ``precision=`` and
 ``hierarchical=`` knobs, the reduce-scatter + all-gather gate and
 ``all_to_all`` are not ported yet (ROADMAP.md Queue 1).
 """
@@ -37,6 +37,8 @@ from typing import Optional, Union
 
 import torch
 
+from smi_tpu_torch.kernels import ring as _kring
+from smi_tpu_torch.kernels.ring import check_chunks as _check_chunks
 from smi_tpu_torch.ops.types import SmiOp
 from smi_tpu_torch.parallel.backend import check_backend
 from smi_tpu_torch.parallel.mesh import Communicator
@@ -51,13 +53,6 @@ def _check_deadline(deadline: Optional[Deadline], family: str,
         deadline.check(f"ring {family} over {comm.size} ranks")
 
 
-def _ring():
-    # deferred: only the ring tier needs the kernels' module
-    from smi_tpu_torch.kernels import ring
-
-    return ring
-
-
 def _stream_for(port: Optional[int], program, family: str) -> int:
     """Stream slot of a collective's port — the runtime consumer of the
     program model's port->stream deal (``ops/program.py``): ring
@@ -70,7 +65,6 @@ def _stream_for(port: Optional[int], program, family: str) -> int:
     ports >= RING_STREAMS may alias; declare a program for the
     guarantee).
     """
-    from smi_tpu_torch.kernels.ring import RING_STREAMS
     from smi_tpu_torch.ops.operations import OUT_DATA
 
     if port is None:
@@ -79,15 +73,15 @@ def _stream_for(port: Optional[int], program, family: str) -> int:
         op = program.find(family, port)
         if op is not None:
             stream = program.stream_of(op, OUT_DATA)
-            if stream >= RING_STREAMS:
+            if stream >= _kring.RING_STREAMS:
                 raise ValueError(
                     f"{family} port {port} was dealt to stream {stream}, "
-                    f"beyond the ring tier's {RING_STREAMS} flag domains; "
-                    f"reduce the program's num_streams or the "
+                    f"beyond the ring tier's {_kring.RING_STREAMS} flag "
+                    f"domains; reduce the program's num_streams or the "
                     f"concurrent-collective count"
                 )
             return stream
-    return port % RING_STREAMS
+    return port % _kring.RING_STREAMS
 
 
 def _is_root(comm: Communicator, root: int) -> bool:
@@ -113,16 +107,6 @@ def _unsupported(name: str, value, item: str) -> None:
 # ---------------------------------------------------------------------------
 # Chunked software pipelining
 # ---------------------------------------------------------------------------
-
-
-def _check_chunks(chunks: Optional[int]) -> int:
-    if chunks is None:
-        return 1
-    if not isinstance(chunks, int) or isinstance(chunks, bool):
-        raise TypeError(f"chunks must be an int, got {chunks!r}")
-    if chunks < 1:
-        raise ValueError(f"chunks must be >= 1, got {chunks}")
-    return chunks
 
 
 def _chunk_bounds(total: int, chunks: int):
@@ -201,15 +185,6 @@ def _chunked_scatter(x: torch.Tensor, size: int, chunks: int, scatter_one):
     return torch.cat(parts, dim=0)
 
 
-def _ring_chunks_refused(chunks: int, family: str) -> None:
-    if chunks > 1:
-        raise NotImplementedError(
-            f"a chunked ring {family} (chunks={chunks}) needs the chunked "
-            "ring all-reduce kernel, which is not ported yet (ROADMAP.md "
-            "Queue 2 item 8); use chunks=1 or backend='xla'"
-        )
-
-
 # ---------------------------------------------------------------------------
 # The collectives
 # ---------------------------------------------------------------------------
@@ -232,10 +207,9 @@ def bcast(x: torch.Tensor, comm: Communicator, root: int = 0,
     contrib = _masked(x, _is_root(comm, root))
     if backend == "ring":
         _check_deadline(deadline, "broadcast", comm)
-        _ring_chunks_refused(chunks, "bcast")
-        return _ring().ring_all_reduce(
+        return _kring.ring_all_reduce(
             contrib, comm, op=SmiOp.ADD,
-            stream=_stream_for(port, program, "broadcast"),
+            stream=_stream_for(port, program, "broadcast"), chunks=chunks,
         )
     # on this tier the port is metadata only
     return _pipelined(contrib, chunks,
@@ -264,9 +238,9 @@ def reduce(x: torch.Tensor, comm: Communicator,
     root_here = _is_root(comm, root)
     if backend == "ring":
         _check_deadline(deadline, "reduce", comm)
-        _ring_chunks_refused(chunks, "reduce")
-        out = _ring().ring_all_reduce(
+        out = _kring.ring_all_reduce(
             x, comm, op=op, stream=_stream_for(port, program, "reduce"),
+            chunks=chunks,
         )
     else:
         out = _pipelined(x, chunks, lambda p: comm.all_reduce(p, op))
@@ -338,7 +312,7 @@ def scatter(x: torch.Tensor, comm: Communicator, root: int = 0,
         stream = _stream_for(port, program, "scatter")
         return _chunked_scatter(
             contrib, size, chunks,
-            lambda piece: _ring().ring_reduce_scatter(
+            lambda piece: _kring.ring_reduce_scatter(
                 piece, comm, op=SmiOp.ADD, stream=stream),
         )
     return _chunked_scatter(
@@ -367,7 +341,7 @@ def gather(x: torch.Tensor, comm: Communicator, root: int = 0,
         stream = _stream_for(port, program, "gather")
         out = _chunked_gather(
             x, size, chunks,
-            lambda piece: _ring().ring_all_gather(piece, comm,
+            lambda piece: _kring.ring_all_gather(piece, comm,
                                                   stream=stream),
         )
     else:

@@ -342,3 +342,72 @@ def test_stream_lanes_change_only_the_association():
     one, four = total(1), total(None)
     assert torch.allclose(one, four, rtol=1e-5)
     assert torch.allclose(four, x.sum(), rtol=1e-5)
+
+
+# ---- stream_concurrent --------------------------------------------------
+
+
+#: count, buffer size, consecutive reads, (src, dst) of each channel: a
+#: burst tail and an element tail; one burst; channels that hop apart
+CONCURRENT = [
+    (400, 7, 3, ((0, 1), (0, 1))),
+    (120, 33, 8, ((2, 5), (6, 1))),
+    (250, 7, 2, ((3, 4), (5, 4), (7, 1))),
+]
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("count,buffer_size,reads,pairs", CONCURRENT)
+def test_stream_concurrent_matches_the_jax_package(comm8, backend, count,
+                                                   buffer_size, reads, pairs):
+    from smi_tpu.parallel.channels import stream_concurrent as jax_concurrent
+
+    # integer-valued: the scaling is exact in either package
+    x = np.random.default_rng(count).integers(-50, 50, count).astype(
+        np.float32)
+
+    def body(make_channel, concurrent, scale):
+        def fn(ctx, v):
+            channels = [make_channel(comm=ctx.comm, port=p, src=s, dst=d,
+                                     count=count, buffer_size=buffer_size,
+                                     consecutive_reads=reads)
+                        for p, (s, d) in enumerate(pairs)]
+            datas = [scale(v, ctx, p) for p in range(len(pairs))]
+            return tuple(o[None] for o in concurrent(channels, datas,
+                                                     backend=backend))
+        return fn
+
+    want = smi.smi_kernel(comm8, in_specs=P(), out_specs=P("smi"))(body(
+        smi.P2PChannel, jax_concurrent,
+        lambda v, ctx, p: v * (p + 1) + ctx.rank().astype(v.dtype)))(
+        jnp.asarray(x))
+    got = st.smi_kernel(st.LocalWorld(N, device="cpu"), in_specs=None,
+                        out_specs="smi")(body(
+        st.P2PChannel, st.stream_concurrent,
+        lambda v, ctx, p: v * (p + 1) + ctx.rank()))(x)
+    for p, ((src, dst), g, w) in enumerate(zip(pairs, got, want)):
+        g = g.numpy()
+        np.testing.assert_array_equal(g, np.asarray(w))
+        np.testing.assert_array_equal(g[dst], x * (p + 1) + src)
+        assert not g[np.arange(N) != dst].any()
+
+
+def test_stream_concurrent_errors():
+    world = st.LocalWorld(2, device="cpu")
+
+    def run(fn):
+        return world.run(lambda c: fn([
+            st.P2PChannel(comm=c, port=0, src=0, dst=1, count=8),
+            st.P2PChannel(comm=c, port=1, src=0, dst=1, count=9),
+            st.P2PChannel(comm=c, port=2, src=0, dst=1, count=8),
+        ]))
+
+    with pytest.raises(ValueError, match="one data array per channel"):
+        run(lambda chs: st.stream_concurrent(chs[:2], [torch.zeros(8)]))
+    with pytest.raises(ValueError, match="equal message/chunk/burst"):
+        run(lambda chs: st.stream_concurrent(
+            chs[:2], [torch.zeros(8), torch.zeros(9)]))
+    with pytest.raises(ValueError, match="message length 5"):
+        run(lambda chs: st.stream_concurrent(
+            [chs[0], chs[2]], [torch.zeros(8), torch.zeros(5)]))
+    assert run(lambda chs: st.stream_concurrent([], [])) == [(), ()]

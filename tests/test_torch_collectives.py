@@ -50,18 +50,15 @@ SUITE = {
     "gather root 4": ("gather", dict(root=4), "f"),
     "gather root 0 chunks 4": ("gather", dict(root=0, chunks=4), "f"),
     "gather all ranks port 1": ("gather", dict(all_ranks=True, port=1), "f"),
-}
-#: chunked bcast/reduce: the ring tier needs the chunked kernel there
-XLA_ONLY = {
+    # chunked bcast/reduce/allreduce: on the ring tier one launch of the
+    # chunked kernel (6 rows: 3 chunks of 2, 4 chunks of 2 with a zero
+    # pad row, 2 chunks of 3)
     "bcast root 5 chunks 3": ("bcast", dict(root=5, chunks=3), "f"),
     "reduce add chunks 4": ("reduce", dict(op="add", root=1, chunks=4), "f"),
+    "reduce max chunks 4": ("reduce", dict(op="max", root=6, chunks=4), "f"),
     "allreduce chunks 2": ("allreduce", dict(chunks=2), "i"),
 }
 F32_ADD = {"reduce add root 5", "allreduce", "reduce add chunks 4"}
-
-
-def _cases(backend):
-    return dict(SUITE, **(XLA_ONLY if backend == "xla" else {}))
 
 
 def _inputs():
@@ -74,7 +71,7 @@ def _inputs():
 
 
 def _jax_suite(comm8, backend):
-    cases = _cases(backend)
+    cases = SUITE
 
     @smi.smi_kernel(comm8, in_specs=P("smi"), out_specs=P("smi"),
                     backend=backend)
@@ -102,7 +99,7 @@ def _port_fn(cases):
 
 
 def _port_suite(backend):
-    cases = _cases(backend)
+    cases = SUITE
     world = st.LocalWorld(N, device="cpu")
     app = st.smi_kernel(world, in_specs="smi", out_specs="smi",
                         backend=backend)(_port_fn(cases))
@@ -117,7 +114,7 @@ def suites(comm8):
 
 
 @pytest.mark.parametrize("backend,name", [
-    (b, name) for b in BACKENDS for name in _cases(b)
+    (b, name) for b in BACKENDS for name in SUITE
 ])
 def test_collective_matches_the_jax_package(suites, backend, name):
     got, want = (s[name] for s in suites[backend])
@@ -249,10 +246,6 @@ def _on_world(fn, n=4):
      NotImplementedError, "Queue 1 item 8"),
     (lambda c, x: st.bcast(x, c, hierarchical=True), NotImplementedError,
      "hierarchical"),
-    (lambda c, x: st.bcast(x, c, chunks=2, backend="ring"),
-     NotImplementedError, "Queue 2 item 8"),
-    (lambda c, x: st.reduce(x, c, chunks=2, backend="ring"),
-     NotImplementedError, "Queue 2 item 8"),
     (lambda c, x: pcoll.all_to_all(x, c), NotImplementedError,
      "all-to-all"),
     (lambda c, x: st.SmiContext(c).explain_plan(), NotImplementedError,

@@ -394,6 +394,55 @@ def test_ring_all_reduce_kernel_equals_plain(cuda_world, n, dtype, op):
 
 
 @pytest.mark.parametrize("n", [2, 3, 8])
+@pytest.mark.parametrize("dtype", RING_DTYPES, ids=str)
+@pytest.mark.parametrize("shape,chunks,op", [
+    ((12, 130), 3, "add"),   # rows that the chunks divide
+    ((10, 33), 4, "max"),    # 3 rows a chunk, two zero pad rows
+    ((3, 17), 8, "min"),     # clamped to 3 chunks
+    ((1000,), 4, "add"),     # 1-D: (4, 1, 250)
+])
+def test_ring_all_reduce_chunked_kernel_equals_plain(cuda_world, n, dtype,
+                                                     shape, chunks, op):
+    from smi_tpu_torch.kernels import ring as kring
+
+    world = cuda_world(n)
+    xs = _ring_inputs(n, shape, dtype, seed=70 + n)
+    record = _check_ring(
+        world,
+        lambda x, c, probe=False: "ring_all_reduce_chunked" if probe
+        else kring.ring_all_reduce(x, c, op=op, chunks=chunks, stream=1),
+        lambda ys: kring.ring_all_reduce_chunked_plain(ys, chunks, op), xs)
+    # every chunk's row of every block is a credit domain of its own
+    rows = min(chunks, shape[0]) * record["blocks"]
+    assert record["chunks"] == min(chunks, shape[0])
+    assert int(record["granted"].sum()) == n * (n - 1) * rows
+    # and bit for bit the unchunked kernel
+    plain = kring.ring_all_reduce_chunked_plain(xs, chunks, op)
+    unchunked = world.run(lambda c: kring.ring_all_reduce(xs[c.rank], c,
+                                                          op=op))
+    assert all(torch.equal(u, p) for u, p in zip(unchunked, plain))
+
+
+def test_chunked_sub_rings_of_a_grid_share_one_launch():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from smi_tpu_torch.kernels import ring as kring
+
+    world = st.LocalWorld((2, 4), ("sx", "sy"))
+    xs = _ring_inputs(8, (9, 77), torch.float32, seed=80)
+    for axis in ("sx", "sy"):
+        before = _build.LAUNCHES["ring_all_reduce_chunked"]
+        got = world.run(lambda c: kring.ring_all_reduce(xs[c.rank], c, axis,
+                                                        chunks=4))
+        assert _build.LAUNCHES["ring_all_reduce_chunked"] == before + 1
+        assert kring.drained(kring.last_record(world))
+        for line in world.lines(axis):
+            want = kring.ring_all_reduce_plain([xs[r] for r in line])
+            for r, w in zip(line, want):
+                assert torch.equal(got[r], w)
+
+
+@pytest.mark.parametrize("n", [2, 3, 8])
 @pytest.mark.parametrize("shape", [(1000,), (2, 130), (1, 33000)])
 def test_ring_all_gather_kernel_equals_plain(cuda_world, n, shape):
     from smi_tpu_torch.kernels import ring as kring

@@ -45,6 +45,10 @@ def test_fresh_import_loads_no_jax_and_builds_nothing():
                    "utils.watchdog", "kernels.ring", "models.kmeans",
                    "models.gesummv"):
         assert f"smi_tpu_torch.{module}" in report["new"], module
+    # the benchmark suite and the profiler helpers load only when asked
+    assert not [m for m in report["new"]
+                if m.startswith(("smi_tpu_torch.benchmarks",
+                                 "smi_tpu_torch.utils.tracing"))]
     assert report["libs"] == 0
     assert set(report["launches"].values()) == {0}
 

@@ -335,7 +335,8 @@ def test_cpu_calls_launch_nothing():
                            "stencil_pipeline", "flash_fused", "flash_block",
                            "flash_bwd_dq", "flash_bwd_dkdv",
                            "ring_neighbour_stream", "ring_all_gather",
-                           "ring_all_reduce", "ring_reduce_scatter"}
+                           "ring_all_reduce", "ring_reduce_scatter",
+                           "ring_all_reduce_chunked"}
 
 
 # --------------------------------------------------------------- loader --

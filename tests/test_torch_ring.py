@@ -109,6 +109,68 @@ def test_all_reduce_equals_the_interpreted_jax_kernel(eight_devices, n, shape,
     np.testing.assert_allclose(got[0], ref, rtol=1e-5, atol=1e-5)
 
 
+#: n, shape, dtype, op, chunks: rows that chunks divide and rows it does
+#: not (zero-row padding), chunks above the row count (clamped), 1-D
+#: payloads (``(chunks, 1, per)``), every op and five element types
+CHUNKED = [
+    (2, (6, 37), "float32", "add", 2), (3, (7, 37), "float32", "add", 3),
+    (4, (10, 33), "int32", "max", 4), (8, (8, 19), "float32", "add", 4),
+    (3, (5, 9), "int16", "min", 2), (2, (5, 7), "int8", "add", 3),
+    (3, (4, 130), "bfloat16", "add", 2), (4, (3, 17), "float32", "min", 8),
+    (2, (130,), "float32", "max", 4), (8, (64,), "int32", "add", 3),
+]
+
+
+@pytest.mark.parametrize("n,shape,dtype,op,chunks", CHUNKED)
+def test_chunked_all_reduce_equals_the_interpreted_jax_kernel(
+        eight_devices, n, shape, dtype, op, chunks):
+    x = _inputs(n, shape, dtype, seed=60 + n)
+    want = _jax_ring(eight_devices, n, lambda v, ma: jring.ring_all_reduce(
+        v, "smi", n, op=op, interpret=True, mesh_axes=ma, chunks=chunks),
+        x, dtype)
+    got = _port_ring(n, lambda t, c: kring.ring_all_reduce(
+        t, c, op=op, chunks=chunks), x, dtype)
+    np.testing.assert_array_equal(got, want)
+    # bit for bit the unchunked all-reduce, and the plain version's
+    unchunked = _port_ring(n, lambda t, c: kring.ring_all_reduce(t, c, op=op),
+                           x, dtype)
+    np.testing.assert_array_equal(got, unchunked)
+    plain = kring.ring_all_reduce_chunked_plain(
+        [_to_torch(x[r], dtype) for r in range(n)], chunks, op)
+    np.testing.assert_array_equal(got, np.stack([_to_numpy(p)
+                                                 for p in plain]))
+
+
+@pytest.mark.parametrize("axis", ["sx", "sy"])
+def test_chunked_sub_ring_equals_the_interpreted_jax_kernel(eight_devices,
+                                                            axis):
+    names, shape = ("sx", "sy"), (2, 4)
+    n_ring = shape[names.index(axis)]
+    x = _inputs(8, (5, 21), "float32", seed=70)
+    want = _jax_ring(eight_devices, 8, lambda v, ma: jring.ring_all_reduce(
+        v, axis, n_ring, interpret=True, mesh_axes=ma, chunks=2), x,
+        "float32", mesh_shape=shape, names=names)
+    got = _port_ring(8, lambda t, c: kring.ring_all_reduce(t, c, axis,
+                                                           chunks=2),
+                     x, "float32", shape=shape, names=names)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("rows,chunks,shape", [
+    (10, 3, (3, 4, 5)), (7, 4, (4, 2, 5)), (6, 2, (2, 3, 5)),
+    (3, 8, (8, 1, 5)),
+])
+def test_chunk_rows_pads_and_unchunk_rows_restores(rows, chunks, shape):
+    x = torch.arange(rows * 5.0).reshape(rows, 5) + 1
+    xu = kring.chunk_rows(x, chunks)
+    assert tuple(xu.shape) == shape
+    assert not xu.reshape(-1, 5)[rows:].any()   # the pad is zero rows
+    assert torch.equal(kring.unchunk_rows(xu, x), x)
+    flat = torch.arange(float(rows))
+    assert tuple(kring.chunk_rows(flat, chunks).shape) == (
+        chunks, 1, -(-rows // chunks))
+
+
 @pytest.mark.parametrize("n,shape,dtype", [
     (2, (37,), "float32"), (3, (2, 37), "float32"), (8, (1, 37), "float32"),
     (3, (3, 5), "int16"),
@@ -249,8 +311,10 @@ def test_wrapper_errors():
            lambda c: kring.ring_all_reduce(x, c, stream=kring.RING_STREAMS))
     raises(ValueError, "direction",
            lambda c: kring.neighbour_stream(x, c, direction=2))
-    raises(NotImplementedError, "Queue 2 item 8",
-           lambda c: kring.ring_all_reduce(x, c, chunks=2))
+    raises(ValueError, "chunks must be >= 1",
+           lambda c: kring.ring_all_reduce(x, c, chunks=0))
+    raises(TypeError, "chunks must be an int",
+           lambda c: kring.ring_all_reduce(x, c, chunks=2.0))
     raises(ValueError, "not divisible",
            lambda c: kring.ring_reduce_scatter(torch.zeros(3, 2), c))
     raises(TypeError, "dtype",
