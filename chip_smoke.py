@@ -147,7 +147,8 @@ Then the chunked ring all-reduce (``smi_ring_all_reduce_chunked`` in
    and unequal to the plain version without rank 1's contribution: 8
    ranks at 1,048,576 f32 a rank as (1024, 1024) with chunks 2, 4 and 8
    (ADD), int32 MAX and bf16 ADD at chunks 4, the overlap benchmark's
-   1-D 65,536 f32 at chunks 4, 1000 rows at chunks 3 (zero-row padding);
+   1-D 65,536, 16,384 and 4,096 f32 at chunks 4 (its sweep; the last one
+   block a rank), 1000 rows at chunks 3 (zero-row padding);
    2 and 3 ranks at width 130 in f32, bf16 and int8; the ``sx`` and
    ``sy`` sub-rings of the 2x4 world, each axis in one launch;
 26. every benchmark of ``smi_tpu_torch.benchmarks`` through
@@ -157,7 +158,11 @@ Then the chunked ring all-reduce (``smi_ring_all_reduce_chunked`` in
    runs (``SUITE_RUNS``) and a shallower pipeline, ping-pong and message
    chain (``SUITE_CUTS``); the launch counts set to 0 before ``overlap``
    on ``ring`` and read after it (the chunked kernel must have run); per
-   ring benchmark the host wall beside its kernels' event time;
+   ring benchmark the host wall beside its kernels' event time; then
+   every distinct ring launch the suite made (kernel, shape, dtype, op,
+   direction, axis, stream slot) held again on random inputs against its
+   plain version by phase 20's check (the chunked ones by phase 25's),
+   since the suite's own inputs are ones, alike on every rank;
 27. the chunked kernel's time at 4 MiB a rank, chunks 2, 4 and 8 (CUDA
    events around the one grid), beside the unchunked kernel's on the
    same payload, its bound (all ranks' inputs and outputs once), its
@@ -438,8 +443,9 @@ def main() -> int:
     records += flash_phases(dev, gen, max_err)
     records += backward_phases(dev, gen, max_err)
     records += pipeline_phases(dev, gen)
-    records += ring_phases(dev, gen)
-    records += suite_phases(dev, gen)
+    ring_records, ring_check = ring_phases(dev, gen)
+    records += ring_records
+    records += suite_phases(dev, gen, ring_check)
 
     log(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
@@ -1796,7 +1802,8 @@ API_ROOT = 5
 
 def ring_phases(dev, gen):
     """Phases 20-24: the SMI API on the ring tier, eight ranks on the
-    card. Returns the ring kernels' records for the kernels line."""
+    card. Returns the ring kernels' records for the kernels line, and
+    phase 20's check of one launch against its plain version."""
     import numpy as np
     import torch
 
@@ -1816,8 +1823,10 @@ def ring_phases(dev, gen):
         if dtype.is_floating_point:
             return torch.rand(shape, generator=gen, device=dev,
                               dtype=f32).add_(0.5).to(dtype)
-        return torch.randint(-100, 100, shape, generator=gen, device=dev,
-                             dtype=i32).to(dtype)
+        # nonzero, so that dropping even a 1-element input shows
+        v = torch.randint(-100, 99, shape, generator=gen, device=dev,
+                          dtype=i32)
+        return (v + (v >= 0)).to(dtype)
 
     # what each kernel is called with, and its plain version per ring
     calls = {
@@ -2228,7 +2237,7 @@ def ring_phases(dev, gen):
         f"{api_ms:.3f} ms host wall ({n * 4 * SMI_ELEMS / api_ms / 1e6:.4g} "
         f"GB/s payload bytes x ranks); k-means "
         f"{points * iters / kmeans_wall:.4g} point-iterations/s")
-    return records
+    return records, check
 
 
 CHUNKED_REPLACES = "smi_tpu/kernels/ring.py:542"
@@ -2239,9 +2248,10 @@ SUITE_CUTS = {"latency": {"pingpongs": 20}, "injection": {"messages": 20},
               "pipeline": {"rounds": 4}, "pipeline_double_rail": {"rounds": 4}}
 
 
-def suite_phases(dev, gen):
+def suite_phases(dev, gen, ring_check):
     """Phases 25-27: the chunked ring all-reduce and the benchmark suite
-    on eight ranks of the card. Returns the chunked kernel's records."""
+    on eight ranks of the card; ``ring_check`` is phase 20's check of one
+    ring launch. Returns the chunked kernel's records."""
     import torch
 
     import smi_tpu_torch as st
@@ -2323,7 +2333,8 @@ def suite_phases(dev, gen):
             ((side, side), f32, 8, "add"),
             ((side, side), torch.int32, 4, "max"),
             ((side, side), torch.bfloat16, 4, "add"),
-            ((65536,), f32, 4, "add"), ((1000, 256), f32, 3, "add")):
+            ((65536,), f32, 4, "add"), ((16384,), f32, 4, "add"),
+            ((4096,), f32, 4, "add"), ((1000, 256), f32, 3, "add")):
         log("  " + check(world(n), shape, dtype, chunks, op))
     small = 0
     for m in (2, 3):
@@ -2343,11 +2354,16 @@ def suite_phases(dev, gen):
     event_ms = [0.0]
     launch = kring._launch
 
+    shapes = {}   # every distinct ring launch of the suite, replayed below
+
     def timed_launch(*args, **kwargs):
         # the grid's event time, summed: the rendezvous synchronises the
         # world's stream right after, so waiting here costs nothing
         launch(*args, **kwargs)
-        _, w, _, stream = args[:4]
+        kernel_, w, axis, stream, xs, _, _, extra, flow = args[:9]
+        key = (kernel_, axis, stream, tuple(xs[0].shape), xs[0].dtype,
+               tuple(extra), flow)
+        shapes[key] = shapes.get(key, 0) + 1
         begin, end = w.ring_state[("stream", stream)]["events"]
         end.synchronize()
         event_ms[0] += begin.elapsed_time(end)
@@ -2384,6 +2400,9 @@ def suite_phases(dev, gen):
                 elif any(k.startswith("ring_") for k in got):
                     raise AssertionError(f"{m.name}: the xla tier "
                                          f"launched a ring kernel")
+                else:
+                    log(f"    {m.name}: {wall:.1f} ms host wall for the "
+                        f"benchmark, its verification included")
                 if name == "overlap" and backend == "ring":
                     launches = dict(_build.LAUNCHES)
                     if launches[kernel] <= 0:
@@ -2394,6 +2413,23 @@ def suite_phases(dev, gen):
     log(f"  the suite: {time.perf_counter() - t_suite:.1f} s; overlap on "
         f"ring made {launches[kernel]} chunked and "
         f"{launches['ring_all_reduce']} unchunked launches")
+    # the suite's inputs are ones and ranks alike; each launch shape it
+    # made is held again on random inputs against its plain version
+    ops = {code: op.name.lower() for op, code in kring.OP_CODES.items()}
+    for (kernel_, axis, stream, shape, dtype, extra,
+         flow), count in sorted(shapes.items(), key=str):
+        if kernel_ == kernel:
+            what = check(w8, shape, dtype, shape[0], ops[extra[0]], axis)
+        else:
+            kw = {"axis_name": axis, "stream": stream, "flow_control": flow}
+            if kernel_ in ("ring_all_reduce", "ring_reduce_scatter"):
+                kw["op"] = ops[extra[0]]
+            if kernel_ == "ring_neighbour_stream":
+                kw["direction"] = extra[1]
+            what = ring_check(kernel_, n, shape, dtype, w=w8, **kw)
+        log(f"    {count} launches of the suite: {what}")
+    log(f"  {len(shapes)} launch shapes of the suite's ring tier equal to "
+        f"their plain versions on random inputs")
 
     # ---- 27. times -------------------------------------------------------
     log("[27 chunked ring all-reduce times, 8 ranks]")

@@ -21,10 +21,10 @@ from smi_tpu_torch.benchmarks.stats import Measurement, timed_samples
 from smi_tpu_torch.parallel.local import LocalWorld
 
 #: ring attention's training benchmark holds the flash tier's gradients
-#: to the plain tier's autograd at this many tokens a rank (the JAX
-#: package caps the same check at 2048: the plain tier stores per-step
-#: quadratic probabilities), on a CPU world of the same ranks
-VERIFY_SEQ_PER_RANK = 256
+#: to the plain tier's autograd on a prefix of its timed inputs of at most
+#: this many tokens a rank, as the JAX package does (the plain tier stores
+#: per-step quadratic probabilities)
+VERIFY_SEQ_PER_RANK = 2048
 
 
 def _readback(outs) -> None:
@@ -151,15 +151,19 @@ def _attention_inputs(world: LocalWorld, seq_per_rank: int, heads: int,
                       head_dim: int):
     """Global float32 ``(S, H, D)`` q, k, v from ``RandomState(0)``, as
     the JAX benchmark makes them, and each rank's shards of them."""
-    from smi_tpu_torch.convert import sequence_shard_from_numpy
-
     s = world.size * seq_per_rank
     rng = np.random.RandomState(0)
     qkv = [rng.randn(s, heads, head_dim).astype(np.float32)
            for _ in range(3)]
-    shards = world.run(lambda c: [sequence_shard_from_numpy(a, c)
-                                  for a in qkv])
-    return qkv, shards
+    return qkv, _shards(world, qkv)
+
+
+def _shards(world: LocalWorld, arrays):
+    """Each rank's sequence shards of the global ``arrays``."""
+    from smi_tpu_torch.convert import sequence_shard_from_numpy
+
+    return world.run(lambda c: [sequence_shard_from_numpy(a, c)
+                                for a in arrays])
 
 
 def bench_ring_attention(
@@ -265,9 +269,10 @@ def bench_ring_attention_train(
 
     On the card the flash tier: its gradients (:func:`_flash_grads`, each
     rank on its own thread) are first held at 5e-4 to autograd through
-    the plain tier on a CPU world of the same ranks, at
-    :data:`VERIFY_SEQ_PER_RANK` tokens a rank; on a CPU world the tier is
-    the plain one and autograd runs (nothing to verify, as in the JAX
+    the plain tier on a CPU world of the same ranks, on the first
+    ``n * min(seq_per_rank, VERIFY_SEQ_PER_RANK)`` tokens of the timed
+    inputs, as the JAX package verifies; on a CPU world the tier is the
+    plain one and autograd runs (nothing to verify, as in the JAX
     package). Timed samples chain ``reps`` fwd+bwd pairs (the gradient
     of a ``reps``-chained loss).
     """
@@ -284,11 +289,13 @@ def bench_ring_attention_train(
                          f"{ra.HEAD_DIMS}")
     grads = _flash_grads if flash else _autograd_grads
 
+    qkv, shards = _attention_inputs(world, seq_per_rank, heads, head_dim)
     if flash:
-        seq_v = min(seq_per_rank, VERIFY_SEQ_PER_RANK)
-        _, on_card = _attention_inputs(world, seq_v, heads, head_dim)
+        prefix = [a[:n * min(seq_per_rank, VERIFY_SEQ_PER_RANK)]
+                  for a in qkv]
+        on_card = _shards(world, prefix)
         cpu_world = LocalWorld(n, device="cpu")
-        _, on_cpu = _attention_inputs(cpu_world, seq_v, heads, head_dim)
+        on_cpu = _shards(cpu_world, prefix)
         got = world.run(lambda c: _flash_grads(
             c, *on_card[c.rank], causal, window, 1))
         want = cpu_world.run(lambda c: _autograd_grads(
@@ -298,8 +305,8 @@ def bench_ring_attention_train(
                 np.testing.assert_allclose(
                     a.cpu().numpy(), b.numpy(), rtol=5e-4, atol=5e-4,
                     err_msg=f"rank {r} {nm}")
+        del got, want, on_card, on_cpu
 
-    _, shards = _attention_inputs(world, seq_per_rank, heads, head_dim)
     samples = timed_samples(
         lambda: _readback(world.run(lambda c: torch.sum(grads(
             c, *shards[c.rank], causal, window, reps)[0])[None])),

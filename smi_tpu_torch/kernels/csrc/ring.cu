@@ -77,9 +77,9 @@
 // every rank, exactly the TPU kernel's. A slot holds the arrival as it
 // was sent; the rank's own input is folded in as the partial goes onward
 // (or into the output), the same values in the same order as folding on
-// arrival. All-reduce and reduce-scatter are the false and true instances
-// of one template, reduce_kernel<T, OP, REDUCE_SCATTER>: two entry
-// functions per element type and operation, one body. Built with
+// arrival. All-reduce, chunked all-reduce and reduce-scatter are instances
+// of one template, reduce_kernel<T, OP, REDUCE_SCATTER>: three entry
+// functions over one body and one dispatch table. Built with
 // -fmad=false; there is nothing to contract, and the plain version
 // replays the same fold.
 
@@ -119,7 +119,7 @@ struct Params {
   int n;                  // ranks of one ring
   long long elems;        // elements of the circulating unit
   long long slot_stride;  // bytes from slot 0 to slot 1
-  int chunks;             // neighbour stream: chunks of the message
+  int chunks;             // chunks of the message, or of the all-reduce
   int direction;          // neighbour stream: +1 or -1
   int flow_control;
 };
@@ -310,18 +310,23 @@ __device__ __forceinline__ Slice slice_of(long long elems, int esize) {
 }
 
 // One block's end of the protocol: its flags, its neighbours' flags, and
-// the counts its waits expect next.
+// the counts its waits expect next. The chunked all-reduce gives chunk c
+// of a block flag row c * blocks + block (`c` below; chunk 0 is the row of
+// an unchunked launch): every chunk's row sees the same signals at the
+// same step, so chunk 0's counts stand for all of them.
 struct Proto {
   unsigned* mine;
   unsigned* left;
   unsigned* right;
+  long long chunk_stride;  // words from one chunk's flag row to the next
   unsigned recv_seen[2];
   unsigned credit_seen[2];
   unsigned granted, consumed;
   bool flow;
 
   __device__ Proto(const Params& p, const RankEntry& me)
-      : recv_seen{0, 0}, credit_seen{0, 0}, granted(0), consumed(0),
+      : chunk_stride(static_cast<long long>(gridDim.x) * kFlagWords),
+        recv_seen{0, 0}, credit_seen{0, 0}, granted(0), consumed(0),
         flow(p.flow_control != 0) {
     const long long off = static_cast<long long>(blockIdx.x) * kFlagWords;
     mine = me.flags + off;
@@ -336,26 +341,33 @@ struct Proto {
     block_signal(right + kBarrier);
     block_wait(mine + kBarrier, 2);
   }
-  // tell `writer` (the neighbour that writes our slots) that `slot` is free
-  __device__ void grant(unsigned* writer, int slot) {
-    block_signal(writer + kCredit + slot);
-    ++granted;
+  // tell `writer` (the neighbour that writes our slots) that chunk c's
+  // `slot` is free
+  __device__ void grant(unsigned* writer, int slot, int c = 0) {
+    block_signal(writer + c * chunk_stride + kCredit + slot);
+    if (c == 0) ++granted;
   }
-  // wait until the neighbour we write to has granted us its `slot`
-  __device__ void take_credit(int slot) {
-    block_wait(mine + kCredit + slot, ++credit_seen[slot]);
-    ++consumed;
+  // wait until the neighbour we write to has granted us chunk c's `slot`
+  __device__ void take_credit(int slot, int c = 0) {
+    if (c == 0) {
+      ++credit_seen[slot];
+      ++consumed;
+    }
+    block_wait(mine + c * chunk_stride + kCredit + slot, credit_seen[slot]);
   }
-  __device__ void sent(unsigned* reader, int slot) {
-    block_signal(reader + kRecv + slot);
+  __device__ void sent(unsigned* reader, int slot, int c = 0) {
+    block_signal(reader + c * chunk_stride + kRecv + slot);
   }
-  __device__ void arrived(int slot) {
-    block_wait(mine + kRecv + slot, ++recv_seen[slot]);
+  __device__ void arrived(int slot, int c = 0) {
+    if (c == 0) ++recv_seen[slot];
+    block_wait(mine + c * chunk_stride + kRecv + slot, recv_seen[slot]);
   }
-  __device__ void finish() {
+  __device__ void finish(int chunks = 1) {
     if (threadIdx.x == 0) {
-      mine[kGranted] = granted;
-      mine[kConsumed] = consumed;
+      for (int c = 0; c < chunks; ++c) {
+        mine[c * chunk_stride + kGranted] = granted;
+        mine[c * chunk_stride + kConsumed] = consumed;
+      }
     }
   }
 };
@@ -425,119 +437,60 @@ __global__ void __launch_bounds__(kThreads)
 // and unit (pos-s-2) is folded into the arrival of step s; else the one
 // unit every step. The fold of step s is done as the partial leaves at step
 // s+1, straight into the neighbour's slot, and the last one into the output.
+//
+// The chunked all-reduce (smi_tpu/kernels/ring.py:542
+// _ring_all_reduce_chunked_kernel, protocol credits.all_reduce_chunked_rank)
+// is the all-reduce with Params::chunks > 1: the input is `chunks` units,
+// unit c circulates on slot pair 2c, 2c+1 (Params::slot_stride apart) with
+// its own flag row, and a step runs the model's three phases over the
+// chunks: every chunk's credit and send, then every arrival in chunk order,
+// then, but on the last step, the grants of the slots that went onward. Per
+// element that is the unchunked fold, so the results agree bit for bit. The
+// reduce-scatter is launched with one chunk.
 template <typename T, int OP, bool REDUCE_SCATTER>
 __global__ void __launch_bounds__(kThreads) reduce_kernel(Params p) {
   const RankEntry& me = p.table[blockIdx.y];
   const Slice sl = slice_of(p.elems, sizeof(T));
   if (sl.n == 0) return;
-  const int n = p.n, pos = static_cast<int>(me.pos);
+  const int n = p.n, pos = static_cast<int>(me.pos), chunks = p.chunks;
   const long long nb = sl.n * sizeof(T);
-  const T* x = reinterpret_cast<const T*>(me.in) + sl.lo;
-  T* slot[2] = {reinterpret_cast<T*>(me.slots) + sl.lo,
-                reinterpret_cast<T*>(me.slots + p.slot_stride) + sl.lo};
   const RankEntry& right = p.table[me.right];
-  T* right_slot[2] = {
-      reinterpret_cast<T*>(right.slots) + sl.lo,
-      reinterpret_cast<T*>(right.slots + p.slot_stride) + sl.lo};
-  auto own = [&](int unit) {
-    return REDUCE_SCATTER ? x + unit * p.elems : x;
-  };
-  Proto pr(p, me);
-  pr.barrier();
-  if (pr.flow) pr.grant(pr.left, 1);
-  for (int s = 0; s < n - 1; ++s) {
-    const int cur = s & 1, nxt = cur ^ 1;
-    if (pr.flow) pr.take_credit(nxt);
-    if (s == 0) {
-      copy_bytes(reinterpret_cast<char*>(right_slot[nxt]),
-                 reinterpret_cast<const char*>(own((pos - 1 + n) % n)), nb);
-    } else {
-      combine_to<T, OP>(right_slot[nxt], slot[cur],
-                        own((pos - s - 1 + 2 * n) % n), sl.n);
-    }
-    pr.sent(pr.right, nxt);
-    pr.arrived(nxt);
-    if (pr.flow && s < n - 2) pr.grant(pr.left, cur);
-  }
-  combine_to<T, OP>(reinterpret_cast<T*>(me.out) + sl.lo, slot[(n - 1) & 1],
-                    own(pos), sl.n);
-  pr.finish();
-}
-
-// The chunked all-reduce (smi_tpu/kernels/ring.py:542
-// _ring_all_reduce_chunked_kernel, protocol credits.all_reduce_chunked_rank).
-// The input is `chunks` units of `elems` elements; unit c circulates on its
-// own slot pair, slots 2c and 2c+1 (Params::slot_stride apart), with its own
-// flag words: the block's row for chunk c is row c * blocks + blockIdx.x of
-// the rank's flag rows, so chunk 0 uses the unchunked kernel's row and holds
-// the barrier, and every chunk keeps its own receive and credit counters and
-// its own record. A step runs the model's three phases over the chunks:
-// A, every chunk's credit wait and send (the fold of the last arrival with
-// the rank's own unit written straight into the neighbour's slot, as
-// reduce_kernel does); B, every arrival in chunk order; C, the grants of the
-// slots that went onward, but on the last step. Per element that is the
-// unchunked schedule's fold, so the result is bit for bit reduce_kernel's.
-// All chunks of a slot parity wait for the same counts at a step: the s-th
-// step's credit and arrival are the (s/2+1)-th on their slot.
-template <typename T, int OP>
-__global__ void __launch_bounds__(kThreads) reduce_chunked_kernel(Params p) {
-  const RankEntry& me = p.table[blockIdx.y];
-  const Slice sl = slice_of(p.elems, sizeof(T));
-  if (sl.n == 0) return;
-  const int n = p.n, chunks = p.chunks;
-  const bool flow = p.flow_control != 0;
-  const long long nb = sl.n * sizeof(T);
-  const RankEntry& left = p.table[me.left];
-  const RankEntry& right = p.table[me.right];
+  // slot `parity` of chunk c's pair in rank e's buffer
   auto slot = [&](const RankEntry& e, int c, int parity) {
     return reinterpret_cast<T*>(e.slots + (2LL * c + parity) * p.slot_stride) +
            sl.lo;
   };
-  auto own = [&](int c) {
-    return reinterpret_cast<const T*>(me.in) + c * p.elems + sl.lo;
+  // what this rank folds in: its chunk c, or the reduce-scatter's block
+  auto own = [&](int c, int block) {
+    return reinterpret_cast<const T*>(me.in) +
+           (REDUCE_SCATTER ? block : c) * p.elems + sl.lo;
   };
-  auto row = [&](const RankEntry& e, int c) {
-    return e.flags +
-           (static_cast<long long>(c) * gridDim.x + blockIdx.x) * kFlagWords;
-  };
-  unsigned granted = 0, consumed = 0;  // per chunk: every chunk does the same
-  if (flow) {
-    block_signal(row(left, 0) + kBarrier);
-    block_signal(row(right, 0) + kBarrier);
-    block_wait(row(me, 0) + kBarrier, 2);
-    for (int c = 0; c < chunks; ++c) block_signal(row(left, c) + kCredit + 1);
-    granted = 1;  // slot 1 of every pair starts empty
-  }
+  Proto pr(p, me);
+  pr.barrier();
+  if (pr.flow)
+    for (int c = 0; c < chunks; ++c) pr.grant(pr.left, 1, c);
   for (int s = 0; s < n - 1; ++s) {
     const int cur = s & 1, nxt = cur ^ 1;
-    const unsigned expected = static_cast<unsigned>(s / 2 + 1);
-    for (int c = 0; c < chunks; ++c) {  // A: credits and sends
-      if (flow) block_wait(row(me, c) + kCredit + nxt, expected);
+    for (int c = 0; c < chunks; ++c) {
+      if (pr.flow) pr.take_credit(nxt, c);
       if (s == 0) {
         copy_bytes(reinterpret_cast<char*>(slot(right, c, nxt)),
-                   reinterpret_cast<const char*>(own(c)), nb);
+                   reinterpret_cast<const char*>(own(c, (pos - 1 + n) % n)),
+                   nb);
       } else {
-        combine_to<T, OP>(slot(right, c, nxt), slot(me, c, cur), own(c), sl.n);
+        combine_to<T, OP>(slot(right, c, nxt), slot(me, c, cur),
+                          own(c, (pos - s - 1 + 2 * n) % n), sl.n);
       }
-      block_signal(row(right, c) + kRecv + nxt);
+      pr.sent(pr.right, nxt, c);
     }
-    if (flow) ++consumed;
-    for (int c = 0; c < chunks; ++c)  // B: arrivals in chunk order
-      block_wait(row(me, c) + kRecv + nxt, expected);
-    if (flow && s < n - 2) {  // C: the slots that went onward are free
-      for (int c = 0; c < chunks; ++c) block_signal(row(left, c) + kCredit + cur);
-      ++granted;
-    }
+    for (int c = 0; c < chunks; ++c) pr.arrived(nxt, c);
+    if (pr.flow && s < n - 2)
+      for (int c = 0; c < chunks; ++c) pr.grant(pr.left, cur, c);
   }
   for (int c = 0; c < chunks; ++c)
     combine_to<T, OP>(reinterpret_cast<T*>(me.out) + c * p.elems + sl.lo,
-                      slot(me, c, (n - 1) & 1), own(c), sl.n);
-  if (threadIdx.x == 0) {
-    for (int c = 0; c < chunks; ++c) {
-      row(me, c)[kGranted] = granted;
-      row(me, c)[kConsumed] = consumed;
-    }
-  }
+                      slot(me, c, (n - 1) & 1), own(c, pos), sl.n);
+  pr.finish(chunks);
 }
 
 using ReduceFn = void (*)(Params);
@@ -562,28 +515,6 @@ ReduceFn reduce_for(int dtype, int op) {
     case 3: return reduce_for_op<int8_t, RS>(op);
     case 4: return reduce_for_op<int16_t, RS>(op);
     case 5: return reduce_for_op<__nv_bfloat16, RS>(op);
-  }
-  return nullptr;
-}
-
-template <typename T>
-ReduceFn chunked_for_op(int op) {
-  switch (op) {
-    case kAdd: return reduce_chunked_kernel<T, kAdd>;
-    case kMax: return reduce_chunked_kernel<T, kMax>;
-    case kMin: return reduce_chunked_kernel<T, kMin>;
-  }
-  return nullptr;
-}
-
-ReduceFn chunked_for(int dtype, int op) {
-  switch (dtype) {
-    case 0: return chunked_for_op<int32_t>(op);
-    case 1: return chunked_for_op<float>(op);
-    case 2: return chunked_for_op<double>(op);
-    case 3: return chunked_for_op<int8_t>(op);
-    case 4: return chunked_for_op<int16_t>(op);
-    case 5: return chunked_for_op<__nv_bfloat16>(op);
   }
   return nullptr;
 }
@@ -618,6 +549,17 @@ int launch_resident(const void* kernel, int blocks, int ranks, void** args,
                                     args, 0, stream);
   if (err != cudaSuccess) return err;
   return static_cast<int>(cudaGetLastError());
+}
+
+int launch_reduce(ReduceFn kernel, const void* table, int ranks, int n,
+                  long long elems, long long slot_stride, int chunks,
+                  int flow_control, int blocks, void* stream) {
+  if (kernel == nullptr || chunks < 1) return cudaErrorInvalidValue;
+  Params p{static_cast<const RankEntry*>(table), n, elems,
+           slot_stride, chunks, 1, flow_control};
+  void* args[] = {&p};
+  return launch_resident((const void*)kernel, blocks, ranks, args,
+                         static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -660,13 +602,8 @@ extern "C" int smi_ring_all_reduce(
     const void* table, int ranks, int n, long long elems,
     long long slot_stride, int dtype, int op, int flow_control, int blocks,
     void* stream) {
-  ReduceFn kernel = reduce_for<false>(dtype, op);
-  if (kernel == nullptr) return cudaErrorInvalidValue;
-  Params p{static_cast<const RankEntry*>(table), n, elems,
-           slot_stride, 1, 1, flow_control};
-  void* args[] = {&p};
-  return launch_resident((const void*)kernel, blocks, ranks,
-                         args, static_cast<cudaStream_t>(stream));
+  return launch_reduce(reduce_for<false>(dtype, op), table, ranks, n, elems,
+                       slot_stride, 1, flow_control, blocks, stream);
 }
 
 // `elems` is one chunk's unit; `table` rows point at `chunks` units in and
@@ -675,24 +612,14 @@ extern "C" int smi_ring_all_reduce_chunked(
     const void* table, int ranks, int n, long long elems,
     long long slot_stride, int dtype, int op, int chunks, int flow_control,
     int blocks, void* stream) {
-  ReduceFn kernel = chunked_for(dtype, op);
-  if (kernel == nullptr || chunks < 1) return cudaErrorInvalidValue;
-  Params p{static_cast<const RankEntry*>(table), n, elems,
-           slot_stride, chunks, 1, flow_control};
-  void* args[] = {&p};
-  return launch_resident((const void*)kernel, blocks, ranks,
-                         args, static_cast<cudaStream_t>(stream));
+  return launch_reduce(reduce_for<false>(dtype, op), table, ranks, n, elems,
+                       slot_stride, chunks, flow_control, blocks, stream);
 }
 
 extern "C" int smi_ring_reduce_scatter(
     const void* table, int ranks, int n, long long elems,
     long long slot_stride, int dtype, int op, int flow_control, int blocks,
     void* stream) {
-  ReduceFn kernel = reduce_for<true>(dtype, op);
-  if (kernel == nullptr) return cudaErrorInvalidValue;
-  Params p{static_cast<const RankEntry*>(table), n, elems,
-           slot_stride, 1, 1, flow_control};
-  void* args[] = {&p};
-  return launch_resident((const void*)kernel, blocks, ranks,
-                         args, static_cast<cudaStream_t>(stream));
+  return launch_reduce(reduce_for<true>(dtype, op), table, ranks, n, elems,
+                       slot_stride, 1, flow_control, blocks, stream);
 }

@@ -280,7 +280,8 @@ def _launch(kernel: str, world, axis_name, stream: int, xs, outs,
     """One launch that plays every rank of the world: every line of the
     axis is a ring. ``unit_elems`` elements circulate on each of
     ``chunks`` slot pairs; ``extra`` are the kernel's own arguments
-    between the dtype code and ``flow_control``."""
+    between the dtype code and ``flow_control``, and the chunked
+    all-reduce takes ``chunks`` after them."""
     n_world = world.size
     lines = world.lines(axis_name)
     n = len(lines[0])
@@ -305,7 +306,9 @@ def _launch(kernel: str, world, axis_name, stream: int, xs, outs,
     with torch.cuda.device(world.device):
         status = _build.entry(kernel)(
             state["table"].data_ptr(), n_world, n, unit_elems, stride,
-            DTYPE_CODES[dtype], *extra, int(flow_control), blocks,
+            DTYPE_CODES[dtype], *extra,
+            *((chunks,) if kernel == "ring_all_reduce_chunked" else ()),
+            int(flow_control), blocks,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(kernel, status)
@@ -540,8 +543,7 @@ def ring_all_reduce(
         out = _run(
             "ring_all_reduce_chunked", xu, comm, axis_name, stream,
             flow_control, (op, chunks), lambda xus: _all_reduce_rows(xus, op),
-            tuple(xu.shape), xu[0].numel(), (OP_CODES[op], chunks),
-            chunks=chunks,
+            tuple(xu.shape), xu[0].numel(), (OP_CODES[op],), chunks=chunks,
         )
         return unchunk_rows(out, x)
     return _run(
