@@ -168,6 +168,32 @@ Then the chunked ring all-reduce (``smi_ring_all_reduce_chunked`` in
    same payload, its bound (all ranks' inputs and outputs once), its
    plain version's time and ``torch.stack(xs).sum(0)``.
 
+Then the single-card surface (``smi_tpu_torch/benchmarks/surface.py``)
+and its roll-chain kernel (``smi_tpu_torch/kernels/csrc/roll_chain.cu``,
+also built in phase 2):
+
+28. the roll-chain kernel against its plain version (``torch.equal``) on
+   random f32 inputs: 512x2048 at one and two chains and 256x2048 at two,
+   each body (``lane``, ``sublane``, ``add``), at lengths 1, 3, 1000 and
+   4097 (net shifts that are not 0) and the timed 1024 and 4096, with
+   the R=1 control unequal to its input; the plan (tile, blocks,
+   threads, shared memory) and the compiler's registers and spills are
+   printed;
+29. the whole surface on the card through ``surface.main`` at the JAX
+   package's shapes, with only the harness's depth cut (``SURFACE_RUNS``,
+   ``SURFACE_MIN_DELTA``): every record printed, each section's wall
+   logged, every value finite and above 0, the names those of the root
+   ``PERF.json`` (read, never written); the launch counts set to 0 before
+   the run and read after it, and the roll-chain, flash forward and
+   backward and both stencil kernels launched;
+30. the roll kernel's time at 512x2048, R=4096, one and two chains, each
+   body (CUDA events per launch), beside its plain version's, one
+   ``torch.roll`` by the same net shift (the library time of lane and
+   sublane; add has none), and its bounds: device memory
+   (4 MiB in and out once) or operations, and the shared-memory term (8
+   B an element a step over 128 B a clock on each of 132 SMs at
+   ``nvidia-smi``'s maximum SM clock).
+
 Bars: f32 out/acc/gradients within 2e-5 (``rtol = atol``); m and l within
 1e-5 in either dtype (both sides add exact products in f32); bf16
 out/acc/gradients by the worst row's relative error ``||got - want|| /
@@ -446,6 +472,7 @@ def main() -> int:
     ring_records, ring_check = ring_phases(dev, gen)
     records += ring_records
     records += suite_phases(dev, gen, ring_check)
+    records += surface_phases(dev, gen)
 
     log(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
@@ -2466,6 +2493,169 @@ def suite_phases(dev, gen, ring_check):
         })
     return records
 
+
+ROLL_SRC = "smi_tpu_torch/kernels/csrc/roll_chain.cu"
+ROLL_REPLACES = "smi_tpu/benchmarks/surface.py:562"
+#: phase 28: (shape, chains) and the lengths checked; 1000, 3 and 4097
+#: leave a net shift, 1024 and 4096 are the timed lengths
+ROLL_CASES = (((512, 2048), 1), ((512, 2048), 2), ((256, 2048), 2))
+ROLL_LENGTHS = (1, 3, 1000, 4097, 1024, 4096)
+#: phase 29: the surface's harness depth (the JAX defaults: 3 runs a
+#: point, escalate until 1 s apart); widths and lengths stay
+SURFACE_RUNS = 1
+SURFACE_MIN_DELTA = 0.1
+SMEM_BYTES_PER_CLK = 128   # a Hopper SM: 32 banks of 4 B
+SMS = 132
+
+
+def surface_phases(dev, gen):
+    """Phases 28-30: the roll-chain kernel and the single-card surface.
+    Returns the roll kernel's records."""
+    import os
+    import tempfile
+
+    import torch
+
+    from smi_tpu_torch.benchmarks import surface
+    from smi_tpu_torch.kernels import _build
+    from smi_tpu_torch.kernels import roll
+
+    bodies = tuple(roll.BODIES)
+
+    def chains(shape, ilp):
+        return tuple(torch.randn(shape, generator=gen, device=dev)
+                     for _ in range(ilp))
+
+    # ---- 28. the roll-chain kernel vs its plain version -----------------
+    log("[28 roll-chain kernel vs plain]")
+    for line in _build.build_log("roll_chain").splitlines():
+        if any(w in line for w in ("registers", "smem", "spill",
+                                   "entry function")):
+            log(f"  roll_chain: {line.strip()}")
+    max_err = {}
+    for shape, ilp in ROLL_CASES:
+        for body in bodies:
+            xs = chains(shape, ilp)
+            for length in ROLL_LENGTHS:
+                got = roll.roll_chain(xs, length, body)
+                want = roll.roll_chain_plain(xs, length, body)
+                torch.cuda.synchronize()
+                err = max((g - w).abs().max().item()
+                          for g, w in zip(got, want))
+                max_err[(body, ilp)] = max(max_err.get((body, ilp), 0.0), err)
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    raise AssertionError(
+                        f"roll_chain {body} {shape} x{ilp} R={length}: "
+                        f"kernel != plain, max abs err {err}")
+            control = roll.roll_chain(xs, 1, body)
+            if any(torch.equal(c, x) for c, x in zip(control, xs)):
+                raise AssertionError(f"roll_chain {body} {shape} x{ilp}: "
+                                     f"R=1 equals its input")
+            log(f"  {body} {shape[0]}x{shape[1]} x{ilp} chain(s), plan "
+                f"{roll.plan(*shape, ilp, body)}: equal at R in "
+                f"{ROLL_LENGTHS}; the R=1 control differs from its input")
+
+    # ---- 29. the whole surface on the card -------------------------------
+    log(f"[29 the single-card surface, runs {SURFACE_RUNS}, min delta "
+        f"{SURFACE_MIN_DELTA} s]")
+    with open("PERF.json") as f:
+        want_names = {m["metric"] for m in json.load(f)["metrics"]}
+    walls = {}
+
+    def walled(name, section):
+        def run(bench, quick=False):
+            t0 = time.perf_counter()
+            out = section(bench, quick=quick)
+            walls[name] = time.perf_counter() - t0
+            log(f"  section {name}: {walls[name]:.1f} s, {len(out)} "
+                f"records")
+            return out
+        return run
+
+    sections = {n: walled(n, f) for n, f in surface.SECTIONS.items()}
+    # each record is printed as a JSON line as it is measured
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "surface.json")
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        with patched(surface, RUNS=SURFACE_RUNS,
+                     MIN_DELTA=SURFACE_MIN_DELTA, SECTIONS=sections):
+            rc = surface.main(["--fresh", "-o", path])
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        with open(path) as f:
+            artifact = json.load(f)
+    log(f"  surface: exit {rc}, {sum(walls.values()):.1f} s in sections; "
+        f"device {artifact['device']}; rooflines {artifact['rooflines']}")
+    log(f"  launches {({k: v for k, v in launches.items() if v})}")
+    if rc != 0:
+        raise AssertionError(f"surface.main exited {rc}")
+    metrics = artifact["metrics"]
+    names = [m["metric"] for m in metrics]
+    if len(names) != len(want_names) or set(names) != want_names:
+        raise AssertionError(f"surface names differ from PERF.json's: "
+                             f"{sorted(set(names) ^ want_names)}")
+    bad = [m for m in metrics
+           if not (math.isfinite(m["value"]) and m["value"] > 0)]
+    if bad:
+        raise AssertionError(f"surface values not finite and > 0: {bad}")
+    for kernel in ("roll_chain", "flash_fused", "flash_bwd_dq",
+                   "flash_bwd_dkdv", "stencil_temporal", "stencil_sweep"):
+        if launches[kernel] <= 0:
+            raise AssertionError(f"the surface did not launch {kernel}")
+
+    # ---- 30. times -------------------------------------------------------
+    log("[30 roll-chain kernel times]")
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits", "-i", "0"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip())
+    rows, cols = surface.CARD_SHAPES.roll
+    length = surface.CARD_SHAPES.roll_lengths[1]
+    elems = rows * cols
+    smem_ms = (8 * elems * length
+               / (SMEM_BYTES_PER_CLK * SMS * clock_mhz * 1e6) * 1e3)
+    records = []
+    for body in bodies:
+        for ilp in (1, 2):
+            xs = chains((rows // ilp, cols), ilp)
+            ms = time_ms(lambda: roll.roll_chain(xs, length, body), 20)
+            plain_ms = time_ms(
+                lambda: roll.roll_chain_plain(xs, length, body), 2)
+            ops = elems * length if body == "add" else 0
+            b_ms, b_by = flash_bound(ops, 2 * 4 * elems, False)
+            # lane and sublane equal one torch.roll by R mod n a chain; add
+            # has no such call (x + R rounds unlike R additions of 1.0)
+            lib_ms, lib_call, shift = None, None, ""
+            if body != "add":
+                axis = 1 if body == "lane" else 0
+                n = xs[0].shape[axis]
+                lib_ms = time_ms(
+                    lambda: [torch.roll(x, length % n, axis) for x in xs],
+                    20)
+                lib_call = f"torch.roll by R mod n ({length % n}), one a chain"
+                shift = f"; {lib_call} {lib_ms:.4f} ms"
+            log(f"  {body} x{ilp} {rows // ilp}x{cols} R={length}: "
+                f"{ms:.4f} ms ({ms * 1e9 / (elems * length):.4f} ps/elem), "
+                f"bound {max(b_ms, smem_ms):.4f} ms by "
+                f"{'smem' if smem_ms >= b_ms else b_by} (device memory or "
+                f"operations {b_ms:.4f} ms by {b_by}; shared memory "
+                f"{smem_ms:.4f} ms at {clock_mhz:.0f} MHz), plain "
+                f"{plain_ms:.4f} ms{shift}; launches on the surface run: "
+                f"{launches['roll_chain']}")
+            records.append({
+                "name": f"roll_chain {body} {rows // ilp}x{cols} x{ilp} "
+                        f"R={length}",
+                "route": "cuda", "source": ROLL_SRC,
+                "replaces": ROLL_REPLACES,
+                "launches": launches["roll_chain"],
+                "max_abs_err": max_err[(body, ilp)], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "smem_bound_ms": smem_ms, "library_ms": lib_ms,
+                "library_call": lib_call,
+            })
+    return records
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -8,7 +8,8 @@ unchanged one loads at once. All sources compile at the same time, one
 ``nvcc`` each. A source may export several kernels (``flash_fwd.cu``
 exports the fused and the carried flash forward); each kernel has its
 own launch count (``flash_bwd.cu`` exports the two backward kernels,
-``ring.cu`` the five ring kernels).
+``ring.cu`` the five ring kernels, ``roll_chain.cu`` the surface's
+roll-chain probe).
 
 Nothing here runs on import: the first :func:`library` call builds. A
 missing ``nvcc`` raises; there is no fallback to the plain versions.
@@ -221,6 +222,12 @@ SIGNATURES = {
         "smi_ring_all_reduce_chunked",
         # ... dtype, op, chunks, flow_control, blocks, stream
         [_P] + [_I] * 2 + [_L] * 2 + [_I] * 5 + [_P],
+    ),
+    "roll_chain": (
+        "smi_roll_chain",
+        # ins, outs, chains, rows, cols, length, body, tile_rows,
+        # tile_cols, stream
+        [_P] * 2 + [_I] * 7 + [_P],
     ),
 }
 

@@ -569,3 +569,46 @@ def test_smi_api_on_the_card_matches_the_xla_tier(cuda_world):
         assert torch.equal(r, w)
     assert torch.equal(ring[0].view(8, -1)[1].cpu(),
                        torch.from_numpy(x[5 * 4096:6 * 4096]))
+
+
+# ------------------------------------------------------- roll chains --
+
+
+@pytest.fixture
+def cuda_dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("length", [1, 3, 1000, 4097])
+@pytest.mark.parametrize("shape,ilp", [((512, 2048), 1), ((256, 2048), 2),
+                                       ((7, 300), 3)])
+@pytest.mark.parametrize("body", ["lane", "sublane", "add"])
+def test_roll_chain_kernel_equals_its_plain_version(cuda_dev, body, shape,
+                                                    ilp, length):
+    """Random inputs at lengths whose net shift is not 0 (a multiple of
+    the rolled axis would give back the input), with the R=1 control
+    unequal to the input."""
+    from smi_tpu_torch.kernels import roll
+
+    gen = torch.Generator(device=cuda_dev).manual_seed(length + ilp)
+    xs = tuple(torch.randn(shape, generator=gen, device=cuda_dev)
+               for _ in range(ilp))
+    before = _build.LAUNCHES["roll_chain"]
+    got = roll.roll_chain(xs, length, body)
+    assert _build.LAUNCHES["roll_chain"] == before + 1
+    for g, w in zip(got, roll.roll_chain_plain(xs, length, body)):
+        assert torch.equal(g, w)
+    control = roll.roll_chain(xs, 1, body)
+    assert not any(torch.equal(c, x) for c, x in zip(control, xs))
+
+
+def test_roll_chain_kernel_refuses_an_axis_too_long(cuda_dev):
+    from smi_tpu_torch.kernels import roll
+
+    with pytest.raises(ValueError, match="16384 elements"):
+        roll.roll_chain((torch.zeros(2, 20000, device=cuda_dev),), 1, "lane")
+    with pytest.raises(TypeError, match="float32"):
+        roll.roll_chain((torch.zeros(2, 8, device=cuda_dev,
+                                     dtype=torch.float64),), 1, "add")

@@ -336,7 +336,7 @@ def test_cpu_calls_launch_nothing():
                            "flash_bwd_dq", "flash_bwd_dkdv",
                            "ring_neighbour_stream", "ring_all_gather",
                            "ring_all_reduce", "ring_reduce_scatter",
-                           "ring_all_reduce_chunked"}
+                           "ring_all_reduce_chunked", "roll_chain"}
 
 
 # --------------------------------------------------------------- loader --
@@ -362,8 +362,8 @@ def test_only_the_flash_source_contracts_fma(tmp_path):
             name
         assert "-gencode" in cmd and "fast_math" not in " ".join(cmd)
     assert _build.SOURCES == ["flash_bwd", "flash_fwd", "ring",
-                              "stencil_pipeline", "stencil_sweep",
-                              "stencil_temporal"]
+                              "roll_chain", "stencil_pipeline",
+                              "stencil_sweep", "stencil_temporal"]
 
 
 def test_launch_counts_add_up_across_threads():
@@ -425,6 +425,8 @@ def test_sources_declare_the_bound_entry_points(name):
     assert "return static_cast<int>(cudaGetLastError());" in source
     # the note names the TPU kernel it replaces and what bounds it
     head = source[:source.index("#include")]
-    assert "Replaces" in head and "smi_tpu/kernels/" in head
+    # (the roll-chain probe's TPU kernel lives in the JAX surface)
+    assert "Replaces" in head and re.search(r"smi_tpu/(kernels|benchmarks)/",
+                                            head)
     assert "Bound on the H100" in head and "Design" in head
     assert "use_fast_math" not in source
