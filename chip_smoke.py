@@ -3,7 +3,11 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` and ``nvidia-smi``; without a card it exits non-zero
-and prints no result. The phases:
+and prints no result. ``--earlier RING_CU`` builds an earlier
+``ring.cu`` with the same C entry points and launch plan beside the
+tree's and times it in turns with the tree's ring kernels in phases 24
+and 27 (earlier, tree, tree, earlier; outputs equal bit for bit); the
+ring records then carry ``earlier_ms``, else null. The phases:
 
 1. the device, with the card's name and power limit from ``nvidia-smi``;
 2. the build of every CUDA kernel of the path from ``smi_tpu_torch/kernels/csrc``;
@@ -132,12 +136,21 @@ rank a thread of a ``LocalWorld`` on the one card, 8 ranks unless said:
    with ``backend="ring"``: 32 neighbour-stream launches, each playing
    every line of its axis; ``torch.equal`` to ``backend="xla"`` and to
    the plain stencil on the 1x1 grid;
-24. each ring kernel's time (CUDA events around the one grid) at phase
-   20's first shapes beside its bound (all ranks' inputs read once and
-   outputs written once, over the memory rate; the bytes the ring
-   schedule moves on top of that are logged), its plain version's time
-   and one stacked PyTorch call that computes the same values and that
-   the port never calls.
+24. the handshake probe: each ring kernel at one block a rank on 4 KiB
+   units (16 chunks for the stream), its time over the n-1 steps (the
+   stream's chunks) in us a step, and the all-reduce's on rings of 2 and
+   4 ranks, which part a step from the launch's fixed cost; then each
+   ring kernel's time at phase 20's first shapes beside its bound (all ranks' inputs read once and outputs written once, over the
+   memory rate; the bytes the ring schedule moves on top of that are
+   logged with their rate), its plain version's time and one stacked
+   PyTorch call that computes the same values and that the port never
+   calls. A ring time ``ms`` is the device time of one grid
+   (``ring_kernel_ms``: the launch replayed back to back behind a wait,
+   CUDA events between the replays, the median), and the library call's
+   is timed the same way; ``launch_ms`` beside it is one launch through
+   the wrapper on an idle card, by the wrapper's own events (the median
+   of a few), so the host's cost of a launch, which a user pays on every
+   collective, is in it.
 
 Then the chunked ring all-reduce (``smi_ring_all_reduce_chunked`` in
 ``ring.cu``) and SMI's benchmark suite on the port:
@@ -151,6 +164,11 @@ Then the chunked ring all-reduce (``smi_ring_all_reduce_chunked`` in
    block a rank), 1000 rows at chunks 3 (zero-row padding);
    2 and 3 ranks at width 130 in f32, bf16 and int8; the ``sx`` and
    ``sy`` sub-rings of the 2x4 world, each axis in one launch;
+25b. each of the five ring entries launched ``STRESS_LAUNCHES`` times at
+   two shapes, phase 20's first (phase 25's for the chunked entry) and
+   one block a rank (a chunk) on 4 KiB units, fresh random inputs each
+   launch, every launch ``torch.equal`` to its plain version on every
+   rank with every credit domain drained: a race shows rarely;
 26. every benchmark of ``smi_tpu_torch.benchmarks`` through
    ``run_benchmark`` on an 8-rank world, the micro benchmarks under
    ``xla`` and ``ring``, the application benchmarks under ``xla`` (each
@@ -163,10 +181,12 @@ Then the chunked ring all-reduce (``smi_ring_all_reduce_chunked`` in
    direction, axis, stream slot) held again on random inputs against its
    plain version by phase 20's check (the chunked ones by phase 25's),
    since the suite's own inputs are ones, alike on every rank;
-27. the chunked kernel's time at 4 MiB a rank, chunks 2, 4 and 8 (CUDA
-   events around the one grid), beside the unchunked kernel's on the
-   same payload, its bound (all ranks' inputs and outputs once), its
-   plain version's time and ``torch.stack(xs).sum(0)``.
+27. the chunked kernel's handshake probe (4 KiB a chunk, chunks 4, one
+   block a chunk, us a step), then its time at 4 MiB a rank, chunks 2, 4
+   and 8 (device time and one launch, as in phase 24), beside the
+   unchunked kernel's on the same payload, the schedule traffic's rate,
+   its bound (all ranks' inputs and outputs once), its plain version's
+   time and ``torch.stack(xs).sum(0)`` (device time).
 
 Then the single-card surface (``smi_tpu_torch/benchmarks/surface.py``)
 and its roll-chain kernel (``smi_tpu_torch/kernels/csrc/roll_chain.cu``,
@@ -214,6 +234,7 @@ per-kernel JSON record; the last line is the device JSON.
 """
 
 import contextlib
+import dataclasses
 import json
 import math
 import re
@@ -237,8 +258,18 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument(
+        "--earlier", metavar="RING_CU",
+        help="an earlier ring.cu with the same C entry points, timed in "
+             "turns with the tree's ring kernels in phases 24 and 27 "
+             "(earlier_ms in the kernels line; null without it)")
+    args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -272,9 +303,15 @@ def main() -> int:
 
     # ---- 2. build ----------------------------------------------------
     t0 = time.perf_counter()
+    earlier = EarlierRing(args.earlier) if args.earlier else None
     _build.build_kernels()
     log(f"[2 build] {_build.SOURCES} built and loaded in "
         f"{time.perf_counter() - t0:.1f} s")
+    if earlier is not None:
+        built = earlier.load()
+        log(f"  earlier ring.cu {args.earlier} built by {time.perf_counter() - t0:.1f} s: " + "; ".join(
+                line.strip() for line in built.splitlines()
+                if "Used" in line)[:600])
     for name in _build.SOURCES:
         lines = [line.strip() for line in _build.build_log(name).splitlines()
                  if ("registers" in line or "spill" in line
@@ -469,9 +506,9 @@ def main() -> int:
     records += flash_phases(dev, gen, max_err)
     records += backward_phases(dev, gen, max_err)
     records += pipeline_phases(dev, gen)
-    ring_records, ring_check = ring_phases(dev, gen)
+    ring_records, ring_check = ring_phases(dev, gen, earlier)
     records += ring_records
-    records += suite_phases(dev, gen, ring_check)
+    records += suite_phases(dev, gen, ring_check, earlier)
     records += surface_phases(dev, gen)
 
     log(json.dumps({"kernels": records}))
@@ -839,6 +876,81 @@ def patched(module, **attrs):
     finally:
         for name, value in old.items():
             setattr(module, name, value)
+
+
+class EarlierRing:
+    """An earlier ``ring.cu`` with the same five C entry points and the
+    tree's launch plan (:func:`kring.launch_plan`), given as ``--earlier
+    PATH`` (it is no file of the tree), built beside the tree's kernels
+    into ``build/probe/earlier/`` and swapped in for the times of phases
+    24 and 27, where :func:`in_turns` holds it against the tree's
+    kernels."""
+
+    def __init__(self, path):
+        from pathlib import Path
+
+        from smi_tpu_torch.kernels import _build
+
+        out_dir = Path(__file__).resolve().parent / "build" / "probe" / \
+            "earlier"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        # one library a source: a process loads a path only once
+        self.lib_path = out_dir / f"lib{Path(path).stem}.so"
+        # ring.cu's own flags, so that only the source differs
+        cmd = [_build.find_nvcc(), *_build.nvcc_flags("ring"), "-o",
+               str(self.lib_path), str(Path(path).resolve())]
+        self.proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+        self.lib = None
+
+    def load(self):
+        """Wait for the build and load the library; raises if it
+        failed."""
+        import ctypes
+
+        from smi_tpu_torch.kernels import _build
+
+        out, _ = self.proc.communicate()
+        if self.proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the earlier ring.cu:\n{out}")
+        self.lib = _build._declare("ring", ctypes.CDLL(str(self.lib_path)))
+        return out
+
+    @contextlib.contextmanager
+    def swapped(self):
+        """The ring wrappers launch the earlier kernels in the block."""
+        from smi_tpu_torch.kernels import _build
+
+        tree = _build._libs["ring"]
+        _build._libs["ring"] = self.lib
+        try:
+            yield
+        finally:
+            _build._libs["ring"] = tree
+
+
+def in_turns(measure, earlier):
+    """``(tree, earlier)``: ``measure()``, a :func:`ring_kernel_ms`, on
+    the tree's ring kernels and, with an :class:`EarlierRing`, on it, in
+    turns (earlier, tree, tree, earlier), the outputs of the two equal
+    bit for bit. Each is a :class:`RingTime` whose times are the mean of
+    its two turns and whose record is its own last launch's. Without an
+    :class:`EarlierRing` the earlier one is None."""
+    import torch
+
+    if earlier is None:
+        return measure(), None
+    with earlier.swapped():
+        e1 = measure()
+    t1 = measure()
+    t2 = measure()
+    with earlier.swapped():
+        e2 = measure()
+    for g, w in zip(t1.outs, e1.outs):
+        if not torch.equal(g, w):
+            raise AssertionError("the earlier ring.cu and the tree's give "
+                                 "different outputs")
+    return t2.mean_with(t1), e2.mean_with(e1)
 
 
 def recording(fn, calls):
@@ -1825,12 +1937,92 @@ SMI_ELEMS = 1 << 20       # 4 MiB of f32 a rank: the priced all-reduce payload
 HALF_MIB = 1 << 17        # 512 KiB of f32: the microbenchmarks' message
 STREAM_CHUNKS = 16
 API_ROOT = 5
+PROBE_ELEMS = 1024        # 4 KiB of f32: one block a rank (or a chunk)
 
 
-def ring_phases(dev, gen):
+RING_REPS = 21
+RING_HOLD_CYCLES = 40_000_000   # the card waits while the host enqueues
+
+
+RING_LAUNCHES = 5
+
+
+def device_ms(fn, reps=RING_REPS):
+    """The device time of the work ``fn`` enqueues on the current
+    stream: one call to warm up, then ``reps`` calls back to back behind
+    a wait of ``RING_HOLD_CYCLES``, so the card runs them one after the
+    other and the host's enqueue time is hidden; a CUDA event between
+    calls, and the median of the ``reps`` times. Raises if the wait ended
+    before the host had enqueued every call."""
+    import statistics
+
+    import torch
+
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    fn()
+    torch.cuda._sleep(RING_HOLD_CYCLES)
+    marks[0].record()
+    for mark in marks[1:]:
+        fn()
+        mark.record()
+    if marks[0].query():
+        raise AssertionError("the card ran out of its wait before the "
+                             "host had enqueued the calls")
+    marks[-1].synchronize()
+    return statistics.median(a.elapsed_time(b)
+                             for a, b in zip(marks, marks[1:]))
+
+
+@dataclasses.dataclass
+class RingTime:
+    """One ring launch timed: ``ms`` its device time (:func:`device_ms`
+    of the launch replayed), ``launch_ms`` one launch through the wrapper
+    on an idle card (the median of ``RING_LAUNCHES`` by the wrapper's
+    events, the host's launch cost included), and the outputs and credit
+    record of the last such launch."""
+    ms: float
+    launch_ms: float
+    outs: list
+    record: dict
+
+    def mean_with(self, other):
+        return RingTime((self.ms + other.ms) / 2,
+                        (self.launch_ms + other.launch_ms) / 2,
+                        self.outs, self.record)
+
+
+def ring_kernel_ms(world, fn):
+    """The :class:`RingTime` of the one grid that ``world.run(fn)``
+    launches. The launch (its arguments as the rendezvous made them) is
+    replayed for :func:`device_ms` on the world's stream; a replay zeroes
+    the flags (a fill of a few KiB, inside the time) and rewrites the
+    same outputs, as every launch does."""
+    import statistics
+
+    import torch
+
+    from smi_tpu_torch.kernels import ring as kring
+
+    calls = []
+    launch = kring._launch
+    with patched(kring, _launch=recording(launch, calls)):
+        outs = world.run(fn)
+    (args, kw), = calls
+    with torch.cuda.device(world.device), torch.cuda.stream(world.stream):
+        ms = device_ms(lambda: launch(*args, **kw))
+    launches = []
+    for _ in range(RING_LAUNCHES):
+        outs = world.run(fn)
+        record = kring.last_record(world)
+        launches.append(record["ms"])
+    return RingTime(ms, statistics.median(launches), outs, record)
+
+
+def ring_phases(dev, gen, earlier=None):
     """Phases 20-24: the SMI API on the ring tier, eight ranks on the
     card. Returns the ring kernels' records for the kernels line, and
-    phase 20's check of one launch against its plain version."""
+    phase 20's check of one launch against its plain version. With an
+    :class:`EarlierRing`, phase 24 times it in turns with the tree's."""
     import numpy as np
     import torch
 
@@ -2202,15 +2394,48 @@ def ring_phases(dev, gen):
     log("[24 ring kernel times, 8 ranks]")
     records = []
 
-    def kernel_ms(fn, reps=10):
-        times = []
-        for _ in range(reps + 2):
-            w8.run(fn)
-            times.append(kring.last_record(w8)["ms"])
-        return sum(times[2:]) / reps   # two warm-up launches
-
     def bound(nbytes):
         return nbytes / HBM_BYTES_PER_S * 1e3
+
+    # the handshake's own price: one block a rank, 4 KiB units, so the
+    # copies are a few loads a thread; us a step over the n-1 steps of a
+    # collective, or over the stream's chunks. The all-reduce on rings of
+    # 2, 4 and 8 ranks parts a step from the launch's fixed cost.
+    step_us, ring_of = {}, {}
+    for m in (2, 4):
+        xs = [rnd((PROBE_ELEMS,), f32) for _ in range(m)]
+        t, e = in_turns(lambda: ring_kernel_ms(
+            world(m), lambda c: kring.ring_all_reduce(xs[c.rank], c)),
+            earlier)
+        ring_of[m] = (t.ms, e and e.ms)
+    for kernel, shape, steps in (
+            ("ring_all_reduce", (PROBE_ELEMS,), n - 1),
+            ("ring_all_gather", (PROBE_ELEMS,), n - 1),
+            ("ring_reduce_scatter", (n * PROBE_ELEMS,), n - 1),
+            ("ring_neighbour_stream", (STREAM_CHUNKS, PROBE_ELEMS),
+             STREAM_CHUNKS)):
+        xs = [rnd(shape, f32) for _ in range(n)]
+        call = calls[kernel][0]
+        t, e = in_turns(
+            lambda: ring_kernel_ms(w8, lambda c: call(xs[c.rank], c, {})),
+            earlier)
+        ms, e_ms, blocks = t.ms, e and e.ms, t.record["blocks"]
+        step_us[kernel] = (ms * 1e3 / steps,
+                           None if e_ms is None else e_ms * 1e3 / steps)
+        if kernel == "ring_all_reduce":
+            ring_of[n] = (ms, e_ms)
+        log(f"  handshake probe {kernel} {tuple(shape)} f32, {blocks} "
+            f"block(s) a rank: {ms:.4f} ms, {step_us[kernel][0]:.3f} us a "
+            f"step over {steps}" + ("" if e_ms is None else
+                                    f"; earlier {e_ms:.4f} ms, "
+                                    f"{step_us[kernel][1]:.3f} us a step"))
+    for i, what in ((0, "tree"), (1, "earlier")):
+        if ring_of[n][i] is not None:
+            t2, t4, t8 = (ring_of[m][i] * 1e3 for m in (2, 4, n))
+            log(f"  handshake probe ring_all_reduce ({PROBE_ELEMS},) f32 on "
+                f"rings of 2 / 4 / {n} ranks ({what}): {t2:.3f} / {t4:.3f} "
+                f"/ {t8:.3f} us; {(t8 - t2) / (n - 2):.3f} us a step beyond "
+                f"the first, {t2 - (t8 - t2) / (n - 2):.3f} us fixed")
 
     p_ar, p_half = 4 * SMI_ELEMS, 4 * HALF_MIB
     timed_cases = [
@@ -2221,7 +2446,7 @@ def ring_phases(dev, gen):
          n * 2 * p_ar, n * (3 * n - 1) * p_ar,
          lambda xs: torch.stack(xs).sum(0)),
         ("ring_all_gather", f"n={n} {HALF_MIB} f32 a rank", (HALF_MIB,),
-         n * (1 + n) * p_half, n * 4 * n * p_half,
+         n * (1 + n) * p_half, n * (3 * n - 1) * p_half,
          lambda xs: torch.cat(xs)),
         # rank r's block is a view of the stacked sum: [r*c:(r+1)*c]
         ("ring_reduce_scatter", f"n={n} {n}x{HALF_MIB} f32 a rank",
@@ -2236,23 +2461,33 @@ def ring_phases(dev, gen):
     for kernel, name, shape, io_bytes, sched_bytes, library in timed_cases:
         xs = [rnd(shape, f32) for _ in range(n)]
         call, plain = calls[kernel]
-        ms = kernel_ms(lambda c: call(xs[c.rank], c, {}))
+        t, e = in_turns(
+            lambda: ring_kernel_ms(w8, lambda c: call(xs[c.rank], c, {})),
+            earlier)
+        ms, e_ms = t.ms, e and e.ms
         plain_ms = time_ms(lambda: plain(xs, {}), 5)
-        lib_ms = time_ms(lambda: library(xs), 20)
+        lib_ms = device_ms(lambda: library(xs))
         b_ms = bound(io_bytes)
-        log(f"  {kernel} {name}: {ms:.4f} ms, bound {b_ms:.4f} ms "
+        log(f"  {kernel} {name}: {ms:.4f} ms (one launch through the "
+            f"wrapper {t.launch_ms:.4f} ms), bound {b_ms:.4f} ms "
             f"({io_bytes / 1e6:.1f} MB: all ranks' inputs and outputs "
             f"once), {ms / b_ms:.1f}x; the ring schedule moves "
             f"{sched_bytes / 1e6:.1f} MB in device memory "
             f"({sched_bytes / ms / 1e9:.4g} TB/s); plain {plain_ms:.4f} "
             f"ms, stacked library call {lib_ms:.4f} ms; launches on "
-            f"phases 21-23: {launches[kernel]}")
+            f"phases 21-23: {launches[kernel]}" + (
+                "" if e is None else
+                f"; earlier {e_ms:.4f} ms ({e_ms / ms:.3f}x), one launch "
+                f"{e.launch_ms:.4f} ms"))
         records.append({
             "name": f"{kernel} {name}", "route": "cuda", "source": RING_SRC,
             "replaces": RING_REPLACES[kernel],
             "launches": launches[kernel], "max_abs_err": max_err[kernel],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": "bytes", "library_ms": lib_ms,
+            "ms": ms, "launch_ms": t.launch_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": "bytes", "library_ms": lib_ms,
+            "earlier_ms": e_ms, "earlier_launch_ms": e and e.launch_ms,
+            "step_us": step_us[kernel][0],
+            "earlier_step_us": step_us[kernel][1],
         })
     # one collective through the API, host wall: the rendezvous' cost
     xs = [rnd((SMI_ELEMS,), f32) for _ in range(n)]
@@ -2268,6 +2503,8 @@ def ring_phases(dev, gen):
 
 
 CHUNKED_REPLACES = "smi_tpu/kernels/ring.py:542"
+#: phase 25b: launches of each ring entry at each of its two shapes
+STRESS_LAUNCHES = 200
 #: phase 26: timed runs per benchmark, and the depth cut from the JAX
 #: defaults (pingpongs and messages 100, rounds 16); widths stay
 SUITE_RUNS = 3
@@ -2275,10 +2512,12 @@ SUITE_CUTS = {"latency": {"pingpongs": 20}, "injection": {"messages": 20},
               "pipeline": {"rounds": 4}, "pipeline_double_rail": {"rounds": 4}}
 
 
-def suite_phases(dev, gen, ring_check):
-    """Phases 25-27: the chunked ring all-reduce and the benchmark suite
-    on eight ranks of the card; ``ring_check`` is phase 20's check of one
-    ring launch. Returns the chunked kernel's records."""
+def suite_phases(dev, gen, ring_check, earlier=None):
+    """Phases 25-27: the chunked ring all-reduce, every ring entry's
+    repeated launches and the benchmark suite on eight ranks of the
+    card; ``ring_check`` is phase 20's check of one ring launch. Returns
+    the chunked kernel's records. With an :class:`EarlierRing`, phase 27
+    times it in turns with the tree's."""
     import torch
 
     import smi_tpu_torch as st
@@ -2375,9 +2614,60 @@ def suite_phases(dev, gen, ring_check):
     for axis in ("sx", "sy"):
         log("  " + check(w24, (9, 2048), f32, 4, axis=axis))
 
+    # ---- 25b. every ring entry, launched again and again ----------------
+    log(f"[25b every ring entry {STRESS_LAUNCHES} times a shape, fresh "
+        f"inputs]")
+    w8 = world(n)
+    entries = {
+        # entry: (call, plain, phase 20's first shape (phase 25's for the
+        # chunked entry: 4 MiB in two chunks), one block a rank (4 KiB a
+        # chunk, one block a chunk, for the chunked entry))
+        "ring_all_reduce": (
+            kring.ring_all_reduce, kring.ring_all_reduce_plain,
+            (SMI_ELEMS,), (PROBE_ELEMS,)),
+        "ring_all_reduce_chunked": (
+            lambda x, c: kring.ring_all_reduce(x, c, chunks=x.shape[0]),
+            lambda ys: kring.ring_all_reduce_chunked_plain(ys,
+                                                           ys[0].shape[0]),
+            (2, SMI_ELEMS // 2), (4, PROBE_ELEMS)),
+        "ring_all_gather": (
+            kring.ring_all_gather, kring.ring_all_gather_plain,
+            (HALF_MIB,), (PROBE_ELEMS,)),
+        "ring_reduce_scatter": (
+            kring.ring_reduce_scatter, kring.ring_reduce_scatter_plain,
+            (n * HALF_MIB,), (n * PROBE_ELEMS,)),
+        "ring_neighbour_stream": (
+            kring.neighbour_stream, kring.neighbour_stream_plain,
+            (STREAM_CHUNKS, HALF_MIB // STREAM_CHUNKS),
+            (STREAM_CHUNKS, PROBE_ELEMS)),
+    }
+    for name, (call, plain, *shapes) in entries.items():
+        for shape in shapes:
+            t0 = time.perf_counter()
+            before = _build.LAUNCHES[name]
+            for i in range(STRESS_LAUNCHES):
+                xs = [rnd(shape, f32) for _ in range(n)]
+                got = w8.run(lambda c: call(xs[c.rank], c))
+                record = kring.last_record(w8)
+                want = plain(xs)
+                for r in range(n):
+                    if not torch.equal(got[r], want[r]):
+                        err = (got[r] - want[r]).abs().max().item()
+                        raise AssertionError(
+                            f"{name} {shape} launch {i}: rank {r} kernel != "
+                            f"plain, max abs err {err}")
+                if not kring.drained(record):
+                    raise AssertionError(f"{name} {shape} launch {i}: "
+                                         f"credits did not drain: {record}")
+            if _build.LAUNCHES[name] != before + STRESS_LAUNCHES:
+                raise AssertionError(f"{name}: not one launch a call")
+            log(f"  {name} {shape} f32, {record['chunks']} x "
+                f"{record['blocks']} blocks a rank: {STRESS_LAUNCHES} "
+                f"launches equal to the plain version and drained "
+                f"({time.perf_counter() - t0:.1f} s)")
+
     # ---- 26. the benchmark suite on the card ---------------------------
     log(f"[26 the benchmark suite, {n} ranks, {SUITE_RUNS} runs each]")
-    w8 = world(n)
     event_ms = [0.0]
     launch = kring._launch
 
@@ -2461,35 +2751,58 @@ def suite_phases(dev, gen, ring_check):
     # ---- 27. times -------------------------------------------------------
     log("[27 chunked ring all-reduce times, 8 ranks]")
     records = []
-
-    def kernel_ms(fn, reps=10):
-        times = []
-        for _ in range(reps + 2):
-            w8.run(fn)
-            times.append(kring.last_record(w8)["ms"])
-        return sum(times[2:]) / reps   # two warm-up launches
+    # the handshake's own price: 4 KiB a chunk, one block a chunk
+    xs = [rnd((4, PROBE_ELEMS), f32) for _ in range(n)]
+    t, e = in_turns(lambda: ring_kernel_ms(
+        w8, lambda c: kring.ring_all_reduce(xs[c.rank], c, chunks=4)),
+        earlier)
+    probe_ms, probe_e_ms = t.ms, e and e.ms
+    step_us = probe_ms * 1e3 / (n - 1)
+    e_step_us = None if probe_e_ms is None else probe_e_ms * 1e3 / (n - 1)
+    log(f"  handshake probe chunks=4 (4, {PROBE_ELEMS}) f32, "
+        f"{t.record['blocks']} block(s) a chunk: "
+        f"{probe_ms:.4f} ms, {step_us:.3f} us a step over {n - 1}" + (
+            "" if probe_e_ms is None else
+            f"; earlier {probe_e_ms:.4f} ms, {e_step_us:.3f} us a step"))
 
     xs = [rnd((side, side), f32) for _ in range(n)]
     io_bytes = n * 2 * 4 * SMI_ELEMS
+    sched_bytes = n * (3 * n - 1) * 4 * SMI_ELEMS
     b_ms = io_bytes / HBM_BYTES_PER_S * 1e3
-    lib_ms = time_ms(lambda: torch.stack(xs).sum(0), 20)
+    lib_ms = device_ms(lambda: torch.stack(xs).sum(0))
+    t, e = in_turns(lambda: ring_kernel_ms(
+        w8, lambda c: kring.ring_all_reduce(xs[c.rank], c)), earlier)
+    base_ms, base_e_ms = t.ms, e and e.ms
+    log(f"  unchunked on the same payload: {base_ms:.4f} ms "
+        f"({sched_bytes / base_ms / 1e9:.4g} TB/s of schedule traffic)" + (
+            "" if base_e_ms is None else f"; earlier {base_e_ms:.4f} ms"))
     for chunks in (2, 4, 8):
-        base_ms = kernel_ms(lambda c: kring.ring_all_reduce(xs[c.rank], c))
-        ms = kernel_ms(lambda c: kring.ring_all_reduce(xs[c.rank], c,
-                                                       chunks=chunks))
+        t, e = in_turns(lambda: ring_kernel_ms(
+            w8, lambda c: kring.ring_all_reduce(xs[c.rank], c,
+                                                chunks=chunks)), earlier)
+        ms, e_ms = t.ms, e and e.ms
         plain_ms = time_ms(
             lambda: kring.ring_all_reduce_chunked_plain(xs, chunks), 5)
-        log(f"  chunks={chunks}: {ms:.4f} ms, unchunked {base_ms:.4f} ms "
-            f"({base_ms / ms:.3f}x), bound {b_ms:.4f} ms ({io_bytes / 1e6:.1f}"
-            f" MB: all ranks' inputs and outputs once), {ms / b_ms:.1f}x; "
-            f"plain {plain_ms:.4f} ms, stacked library call {lib_ms:.4f} "
-            f"ms; launches on overlap's ring run: {launches[kernel]}")
+        log(f"  chunks={chunks}: {ms:.4f} ms (one launch through the "
+            f"wrapper {t.launch_ms:.4f} ms; {ms / base_ms:.3f}x the "
+            f"unchunked kernel; {sched_bytes / 1e6:.1f} MB of schedule "
+            f"traffic, {sched_bytes / ms / 1e9:.4g} TB/s), bound "
+            f"{b_ms:.4f} ms ({io_bytes / 1e6:.1f} MB: all ranks' inputs and "
+            f"outputs once), {ms / b_ms:.1f}x; plain {plain_ms:.4f} ms, "
+            f"stacked library call {lib_ms:.4f} ms; launches on overlap's "
+            f"ring run: {launches[kernel]}" + (
+                "" if e is None else
+                f"; earlier {e_ms:.4f} ms ({e_ms / ms:.3f}x), one launch "
+                f"{e.launch_ms:.4f} ms"))
         records.append({
             "name": f"{kernel} n={n} {side}x{side} f32 add chunks={chunks}",
             "route": "cuda", "source": RING_SRC,
             "replaces": CHUNKED_REPLACES, "launches": launches[kernel],
-            "max_abs_err": max_err[0], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": "bytes", "library_ms": lib_ms,
+            "max_abs_err": max_err[0], "ms": ms, "launch_ms": t.launch_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": "bytes",
+            "library_ms": lib_ms, "earlier_ms": e_ms,
+            "earlier_launch_ms": e and e.launch_ms, "unchunked_ms": base_ms,
+            "step_us": step_us, "earlier_step_us": e_step_us,
         })
     return records
 

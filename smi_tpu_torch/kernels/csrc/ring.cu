@@ -13,40 +13,46 @@
 // a credit semaphore, signalled by the reader, tells the writer that a
 // slot may be written again. The protocol is specified step by step in
 // smi_tpu/parallel/credits.py (neighbour_stream_rank, all_gather_rank,
-// all_reduce_rank, reduce_scatter_rank); the kernels here keep every
-// signal and every wait of it.
+// all_reduce_rank, all_reduce_chunked_rank, reduce_scatter_rank); the
+// kernels here keep every signal and every wait of it.
 //
 // Design. One launch plays every rank that lives in this process: the
-// grid is (blocks_per_rank, ranks), rank = blockIdx.y, and a
-// table in device memory gives each rank its input, its output, its two
-// comm slots, its flag words, its position in its ring and where in the
-// table its left and right neighbours are (a launch may hold several
-// rings, one per line of a grid axis; a rank only ever sees its own
-// line). The payload is cut
-// into blocks_per_rank contiguous slices (multiples of 16 bytes); block b
-// of rank r runs the whole protocol on slice b and talks only to block b
-// of ranks r-1 and r+1, with its own flag words, so no grid-wide
-// synchronisation exists. Blocks of different ranks wait for each other,
-// so the whole grid must be resident at once: every entry point refuses
-// a grid larger than cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs
-// and launches with cudaLaunchCooperativeKernel, which refuses it too.
+// grid is (blocks a rank, ranks), rank = blockIdx.y, and a table in device
+// memory gives each rank its input, its output, its comm slots, its flag
+// words, its position in its ring and where in the table its left and
+// right neighbours are (a launch may hold several rings, one per line of a
+// grid axis; a rank only ever sees its own line). The payload is cut into
+// contiguous slices (multiples of 16 bytes); block x of rank r runs the
+// whole protocol on its slice and talks only to block x of ranks r-1 and
+// r+1, through flag row x of each (kFlagWords words), so no grid-wide
+// synchronisation exists. The chunked all-reduce gives each chunk blocks
+// of its own: block x plays chunk x / blocks on slice x % blocks of that
+// chunk's unit, so a step costs one round of handshakes whatever the chunk
+// count. Blocks of different ranks wait for each other, so the whole grid
+// must be resident at once: every entry point refuses a grid larger than
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs and launches with
+// cudaLaunchCooperativeKernel, which refuses it too.
 //
 // A "DMA" is the block copying its slice into the neighbour's slot, 16
-// bytes a thread where source and destination are 16-byte aligned, by
-// words or bytes otherwise, so any shape and any element type moves. Then
-// all threads meet (__syncthreads), and thread 0 adds one to the
-// neighbour's receive flag with a release at system scope. The reader's
-// thread 0 spins on an acquire load at system scope until the flag has
-// reached the count this step expects, the block meets, and all threads
-// read the slot. Flags are counters that only grow; the host zeroes them
-// before a launch, when no kernel is in flight. A spin that lasts ten
-// seconds traps: a lost signal fails the launch, it cannot hang the card.
-// Credits work the same way (the reader grants a slot to its writer after
-// it has copied the slot out, or sent it onward), and each block counts
-// the credits it granted and the credits it consumed into its flag words
-// for the host to check that every credit domain drained. With
-// flow_control == 0 there is no entry barrier and there are no credits;
-// the receive flags stay, they are the completion of the copy.
+// bytes a load where source and destination are 16-byte aligned (by words
+// or bytes otherwise, so any shape and any element type moves), each
+// thread with kUnroll loads in flight. Then all threads meet
+// (__syncthreads) and thread 0 adds one to the neighbour's receive flag
+// with a release; the reader's thread 0 polls the flag with relaxed loads
+// until it has reached the count this step expects, acquires once, the
+// block meets, and all threads read the slot. Every flag operation is at
+// device scope (RING_SCOPE): one launch plays every rank, and every rank of it
+// lives on this card, so nothing has to be made visible to the host or to
+// another card. Flags are counters that only grow; the host zeroes them
+// before a launch, when no kernel is in flight. A wait that lasts ten
+// seconds traps (the clock is read once every kPollsPerClock polls): a
+// lost signal fails the launch, it cannot hang the card. Credits work the
+// same way (the reader grants a slot to its writer after it has copied the
+// slot out, or sent it onward), and each block counts the credits it
+// granted and the credits it consumed into its flag row for the host to
+// check that every credit domain drained. With flow_control == 0 there is
+// no entry barrier and there are no credits; the receive flags stay, they
+// are the completion of the copy.
 //
 // Bound on the H100 (3.35 TB/s): bytes, each input read once and each
 // output written once. With P the bytes of the unit that circulates and n
@@ -55,7 +61,7 @@
 // (inputs of nP, outputs of P); all-gather n(1+n)P; the stream 2nP for P
 // the whole message. The arithmetic (one operation per element and step)
 // is far below the card's rate. The chunked all-reduce has the all-reduce's
-// bound and schedule traffic; it makes `chunks` times the handshakes a step.
+// bound, schedule traffic and handshakes a step.
 //
 // What the ring schedule moves on top of that bound ("schedule traffic",
 // logged beside the time, not a bound: all ranks' data lies on one card,
@@ -63,12 +69,15 @@
 // input into the neighbour's slot (2P); on each of the n-2 later steps it
 // reads the arrival and its input and writes their fold straight into the
 // neighbour's slot (3P); the last arrival is folded with the input into
-// the output (3P): (3n-1) P a rank, 23P at n = 8. The reduce-scatter
-// moves the same with P one block of the input. The all-gather copies in
-// (4P: output and slot 0) and per step forwards (2P) and copies out (2P):
-// 4nP. The stream moves each chunk into the neighbour's slot (2P) and out
-// of its own (2P): 4P a rank. The comm slots of eight ranks at 4 MiB (64
-// MiB) do not fit the 50 MB L2, so this traffic reaches device memory.
+// the output (3P): (3n-1) P a rank, 23P at n = 8, whatever the chunk
+// count. The reduce-scatter moves the same with P one block of the input.
+// The all-gather reads each unit once where it lies and writes it twice:
+// its input to the output and to the neighbour's slot (3P), then on each
+// of n-2 steps the arrival onward and to the output (3P), and the last
+// arrival to the output (2P): (3n-1) P a rank. The stream moves each chunk
+// into the neighbour's slot (2P) and out of its own (2P): 4P a rank. The
+// comm slots of eight ranks at 4 MiB (64 MiB) do not fit the 50 MB L2, so
+// this traffic reaches device memory.
 //
 // Arithmetic: combine(arrival, own), in the element type: +, max, min;
 // bf16 adds in f32 and rounds to nearest even; 8- and 16-bit integers
@@ -90,10 +99,19 @@
 #include <cstring>
 #include <type_traits>
 
+// The scope of every flag operation of the protocol: the device. A launch
+// form whose ranks live in other processes or on other cards would set it.
+#define RING_SCOPE "gpu"
+
 namespace {
 
 constexpr int kThreads = 256;
+// at least four blocks an SM: 64 registers a thread at most, so that 512
+// blocks (MAX_BLOCKS in kernels/ring.py) are resident on 132 SMs
+constexpr int kMinBlocksPerSm = 4;
+constexpr int kUnroll = 4;  // independent loads in flight a thread
 constexpr uint64_t kWaitNs = 10ull * 1000 * 1000 * 1000;  // 10 s
+constexpr unsigned kPollsPerClock = 256;
 
 // flag words of one block of one rank (128 bytes apart)
 constexpr int kFlagWords = 32;
@@ -130,31 +148,49 @@ __device__ __forceinline__ uint64_t now_ns() {
   return t;
 }
 
-// thread 0, after the block has met: publish what the block wrote
+// Thread 0, right after the block met at __syncthreads: one release at
+// device scope. bar.sync orders every thread's slot writes (and reads)
+// before thread 0's next operation, and a release is cumulative: it makes
+// visible at its scope every write that precedes it in that order, not
+// only thread 0's. A reader that acquires the count therefore sees the
+// whole block's slice.
 __device__ __forceinline__ void flag_add(unsigned* flag) {
-  __threadfence_system();
-  asm volatile("red.release.sys.global.add.u32 [%0], %1;\n" ::"l"(flag),
-               "r"(1u)
+  asm volatile("red.release." RING_SCOPE ".global.add.u32 [%0], %1;\n"
+               :
+               : "l"(flag), "r"(1u)
                : "memory");
 }
 
+// Thread 0: poll with relaxed loads until the count is reached, then one
+// acquire load of the flag. The count only grows, so the acquire reads
+// the release that reached it or a later one of the same signaller (a
+// release too), and everything the signalling block wrote before it is
+// visible to this block after its next __syncthreads. An acquire load
+// orders what follows it; a fence.acq_rel would also wait for the
+// thread's own outstanding memory operations.
 __device__ __forceinline__ void flag_wait(const unsigned* flag,
                                           unsigned expected) {
   uint64_t start = 0;
-  for (;;) {
-    unsigned seen;
-    asm volatile("ld.acquire.sys.global.u32 %0, [%1];\n"
+  unsigned seen;
+  for (unsigned polls = 1;; ++polls) {
+    asm volatile("ld.relaxed." RING_SCOPE ".global.u32 %0, [%1];\n"
                  : "=r"(seen)
                  : "l"(flag)
                  : "memory");
     if (seen >= expected) break;
-    if (start == 0) {
-      start = now_ns();
-    } else if (now_ns() - start > kWaitNs) {
-      __trap();
+    if (polls % kPollsPerClock == 0) {
+      const uint64_t t = now_ns();
+      if (start == 0) {
+        start = t;
+      } else if (t - start > kWaitNs) {
+        __trap();
+      }
     }
   }
-  __threadfence_system();
+  asm volatile("ld.acquire." RING_SCOPE ".global.u32 %0, [%1];\n"
+               : "=r"(seen)
+               : "l"(flag)
+               : "memory");
 }
 
 // all threads call these
@@ -212,27 +248,54 @@ __device__ __forceinline__ bool aligned(const void* a, const void* b,
           to) == 0;
 }
 
-// the block copies nbytes: 16 bytes a thread where both ends allow it
-__device__ void copy_bytes(char* dst, const char* src, long long nbytes) {
-  long long done = 0;
-  if (aligned(dst, src, 16)) {
-    const long long nvec = nbytes / 16;
-    const uint4* s = reinterpret_cast<const uint4*>(src);
-    uint4* d = reinterpret_cast<uint4*>(dst);
-    for (long long i = threadIdx.x; i < nvec; i += blockDim.x)
-      __stcg(d + i, __ldcg(s + i));
-    done = nvec * 16;
-  } else if (aligned(dst, src, 4)) {
-    const long long nword = nbytes / 4;
-    const unsigned* s = reinterpret_cast<const unsigned*>(src);
-    unsigned* d = reinterpret_cast<unsigned*>(dst);
-    for (long long i = threadIdx.x; i < nword; i += blockDim.x)
-      __stcg(d + i, __ldcg(s + i));
-    done = nword * 4;
+// The block copies `count` words of type W from src to dst, and to dst2
+// where it is not null: each thread loads kUnroll words, a block's width
+// apart, before it stores any.
+template <typename W>
+__device__ __forceinline__ void copy_words(W* dst, W* dst2, const W* src,
+                                           long long count) {
+  const long long step = static_cast<long long>(blockDim.x) * kUnroll;
+  for (long long base = threadIdx.x; base < count; base += step) {
+    W v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long i = base + static_cast<long long>(u) * blockDim.x;
+      if (i < count) v[u] = __ldcg(src + i);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long i = base + static_cast<long long>(u) * blockDim.x;
+      if (i < count) {
+        __stcg(dst + i, v[u]);
+        if (dst2 != nullptr) __stcg(dst2 + i, v[u]);
+      }
+    }
   }
-  for (long long i = done + threadIdx.x; i < nbytes; i += blockDim.x)
-    __stcg(reinterpret_cast<unsigned char*>(dst) + i,
-           __ldcg(reinterpret_cast<const unsigned char*>(src) + i));
+}
+
+// the block copies nbytes to dst, and to dst2 where it is not null: 16
+// bytes a load where every end allows it, else words, and bytes for a tail
+__device__ void copy_bytes(char* dst, char* dst2, const char* src,
+                           long long nbytes) {
+  auto all_aligned = [&](uintptr_t to) {
+    return aligned(dst, src, to) && (dst2 == nullptr || aligned(dst2, src, to));
+  };
+  long long done = 0;
+  if (all_aligned(16)) {
+    done = nbytes / 16 * 16;
+    copy_words(reinterpret_cast<uint4*>(dst), reinterpret_cast<uint4*>(dst2),
+               reinterpret_cast<const uint4*>(src), nbytes / 16);
+  } else if (all_aligned(4)) {
+    done = nbytes / 4 * 4;
+    copy_words(reinterpret_cast<unsigned*>(dst),
+               reinterpret_cast<unsigned*>(dst2),
+               reinterpret_cast<const unsigned*>(src), nbytes / 4);
+  }
+  copy_words(reinterpret_cast<unsigned char*>(dst + done),
+             dst2 == nullptr ? nullptr
+                             : reinterpret_cast<unsigned char*>(dst2 + done),
+             reinterpret_cast<const unsigned char*>(src + done),
+             nbytes - done);
 }
 
 constexpr int kAdd = 0;
@@ -266,7 +329,9 @@ __device__ __forceinline__ T combine(T a, T b) {
   }
 }
 
-// dst[i] = combine(arrival[i], own[i]) over n elements
+// dst[i] = combine(arrival[i], own[i]) over n elements: where all three
+// are 16-byte aligned, each thread loads kUnroll pairs of 16 bytes before
+// it folds and stores any
 template <typename T, int OP>
 __device__ void combine_to(T* dst, const T* arrival, const T* own,
                            long long n) {
@@ -274,16 +339,33 @@ __device__ void combine_to(T* dst, const T* arrival, const T* own,
   long long done = 0;
   if (aligned(arrival, own, 16) && aligned(dst, own, 16)) {
     const long long nvec = n / V;
-    for (long long i = threadIdx.x; i < nvec; i += blockDim.x) {
-      uint4 a = __ldcg(reinterpret_cast<const uint4*>(arrival) + i);
-      const uint4 b = __ldcg(reinterpret_cast<const uint4*>(own) + i);
-      T ta[V], tb[V];
-      memcpy(ta, &a, 16);
-      memcpy(tb, &b, 16);
+    const uint4* a = reinterpret_cast<const uint4*>(arrival);
+    const uint4* b = reinterpret_cast<const uint4*>(own);
+    uint4* d = reinterpret_cast<uint4*>(dst);
+    const long long step = static_cast<long long>(blockDim.x) * kUnroll;
+    for (long long base = threadIdx.x; base < nvec; base += step) {
+      uint4 va[kUnroll], vb[kUnroll];
 #pragma unroll
-      for (int k = 0; k < V; ++k) ta[k] = combine<T, OP>(ta[k], tb[k]);
-      memcpy(&a, ta, 16);
-      __stcg(reinterpret_cast<uint4*>(dst) + i, a);
+      for (int u = 0; u < kUnroll; ++u) {
+        const long long i = base + static_cast<long long>(u) * blockDim.x;
+        if (i < nvec) {
+          va[u] = __ldcg(a + i);
+          vb[u] = __ldcg(b + i);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const long long i = base + static_cast<long long>(u) * blockDim.x;
+        if (i < nvec) {
+          T ta[V], tb[V];
+          memcpy(ta, &va[u], 16);
+          memcpy(tb, &vb[u], 16);
+#pragma unroll
+          for (int k = 0; k < V; ++k) ta[k] = combine<T, OP>(ta[k], tb[k]);
+          memcpy(&va[u], ta, 16);
+          __stcg(d + i, va[u]);
+        }
+      }
     }
     done = nvec * V;
   }
@@ -291,42 +373,41 @@ __device__ void combine_to(T* dst, const T* arrival, const T* own,
     store_cg(dst + i, combine<T, OP>(load_cg(arrival + i), load_cg(own + i)));
 }
 
-// This block's slice of a unit of `elems` elements of `esize` bytes:
-// slices are multiples of 16 bytes, the last one takes the tail.
+// Slice `part` of `parts` of a unit of `elems` elements of `esize` bytes:
+// slices are multiples of 16 bytes, the last one takes the tail, and a
+// part past the end is empty (tests/test_torch_ring.py::slice_of_model; the
+// card's tests hold each block's barrier to that model).
 struct Slice {
   long long lo;  // first element
   long long n;   // elements
 };
 
-__device__ __forceinline__ Slice slice_of(long long elems, int esize) {
+__device__ __forceinline__ Slice slice_of(long long elems, int esize,
+                                          int parts, int part) {
   const long long per16 = 16 / esize;
-  long long per = (elems + gridDim.x - 1) / gridDim.x;
+  long long per = (elems + parts - 1) / parts;
   per = (per + per16 - 1) / per16 * per16;
-  long long lo = static_cast<long long>(blockIdx.x) * per;
+  long long lo = static_cast<long long>(part) * per;
   if (lo > elems) lo = elems;
   long long n = elems - lo;
   if (n > per) n = per;
   return {lo, n};
 }
 
-// One block's end of the protocol: its flags, its neighbours' flags, and
-// the counts its waits expect next. The chunked all-reduce gives chunk c
-// of a block flag row c * blocks + block (`c` below; chunk 0 is the row of
-// an unchunked launch): every chunk's row sees the same signals at the
-// same step, so chunk 0's counts stand for all of them.
+// One block's end of the protocol: its flag row (row blockIdx.x of its
+// rank), the same row of its neighbours, and the counts its waits expect
+// next.
 struct Proto {
   unsigned* mine;
   unsigned* left;
   unsigned* right;
-  long long chunk_stride;  // words from one chunk's flag row to the next
   unsigned recv_seen[2];
   unsigned credit_seen[2];
   unsigned granted, consumed;
   bool flow;
 
   __device__ Proto(const Params& p, const RankEntry& me)
-      : chunk_stride(static_cast<long long>(gridDim.x) * kFlagWords),
-        recv_seen{0, 0}, credit_seen{0, 0}, granted(0), consumed(0),
+      : recv_seen{0, 0}, credit_seen{0, 0}, granted(0), consumed(0),
         flow(p.flow_control != 0) {
     const long long off = static_cast<long long>(blockIdx.x) * kFlagWords;
     mine = me.flags + off;
@@ -341,41 +422,34 @@ struct Proto {
     block_signal(right + kBarrier);
     block_wait(mine + kBarrier, 2);
   }
-  // tell `writer` (the neighbour that writes our slots) that chunk c's
-  // `slot` is free
-  __device__ void grant(unsigned* writer, int slot, int c = 0) {
-    block_signal(writer + c * chunk_stride + kCredit + slot);
-    if (c == 0) ++granted;
+  // tell `writer` (the neighbour that writes our slots) that `slot` is free
+  __device__ void grant(unsigned* writer, int slot) {
+    block_signal(writer + kCredit + slot);
+    ++granted;
   }
-  // wait until the neighbour we write to has granted us chunk c's `slot`
-  __device__ void take_credit(int slot, int c = 0) {
-    if (c == 0) {
-      ++credit_seen[slot];
-      ++consumed;
-    }
-    block_wait(mine + c * chunk_stride + kCredit + slot, credit_seen[slot]);
+  // wait until the neighbour we write to has granted us `slot`
+  __device__ void take_credit(int slot) {
+    ++consumed;
+    block_wait(mine + kCredit + slot, ++credit_seen[slot]);
   }
-  __device__ void sent(unsigned* reader, int slot, int c = 0) {
-    block_signal(reader + c * chunk_stride + kRecv + slot);
+  __device__ void sent(unsigned* reader, int slot) {
+    block_signal(reader + kRecv + slot);
   }
-  __device__ void arrived(int slot, int c = 0) {
-    if (c == 0) ++recv_seen[slot];
-    block_wait(mine + c * chunk_stride + kRecv + slot, recv_seen[slot]);
+  __device__ void arrived(int slot) {
+    block_wait(mine + kRecv + slot, ++recv_seen[slot]);
   }
-  __device__ void finish(int chunks = 1) {
+  __device__ void finish() {
     if (threadIdx.x == 0) {
-      for (int c = 0; c < chunks; ++c) {
-        mine[c * chunk_stride + kGranted] = granted;
-        mine[c * chunk_stride + kConsumed] = consumed;
-      }
+      mine[kGranted] = granted;
+      mine[kConsumed] = consumed;
     }
   }
 };
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
     neighbour_stream_kernel(Params p, int esize) {
   const RankEntry& me = p.table[blockIdx.y];
-  const Slice sl = slice_of(p.elems, esize);
+  const Slice sl = slice_of(p.elems, esize, gridDim.x, blockIdx.x);
   if (sl.n == 0) return;
   const long long lo = sl.lo * esize, nb = sl.n * esize;
   const long long unit = p.elems * esize;
@@ -388,22 +462,27 @@ __global__ void __launch_bounds__(kThreads)
     const int slot = c & 1;
     // both slots start granted (empty); wait from chunk 2 on
     if (pr.flow && c >= 2) pr.take_credit(slot);
-    copy_bytes(dst.slots + slot * p.slot_stride + lo, me.in + c * unit + lo,
-               nb);
+    copy_bytes(dst.slots + slot * p.slot_stride + lo, nullptr,
+               me.in + c * unit + lo, nb);
     pr.sent(dst_flags, slot);
     pr.arrived(slot);
-    copy_bytes(me.out + c * unit + lo, me.slots + slot * p.slot_stride + lo,
-               nb);
+    copy_bytes(me.out + c * unit + lo, nullptr,
+               me.slots + slot * p.slot_stride + lo, nb);
     // slot consumed: grant it back, unless no later chunk would wait
     if (pr.flow && c + 2 < p.chunks) pr.grant(upstream_flags, slot);
   }
   pr.finish();
 }
 
-__global__ void __launch_bounds__(kThreads)
+// all_gather_rank's steps, each unit read once where it lies: step 0
+// sends the rank's input (what the model writes into slot 0) and copies
+// it to the output on the way; a later step sends the arrival of the step
+// before onward and copies it out on the same pass, before the grant that
+// frees its slot; the last arrival only goes out.
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
     all_gather_kernel(Params p, int esize) {
   const RankEntry& me = p.table[blockIdx.y];
-  const Slice sl = slice_of(p.elems, esize);
+  const Slice sl = slice_of(p.elems, esize, gridDim.x, blockIdx.x);
   if (sl.n == 0) return;
   const long long lo = sl.lo * esize, nb = sl.n * esize;
   const long long unit = p.elems * esize;
@@ -411,25 +490,26 @@ __global__ void __launch_bounds__(kThreads)
   char* slot[2] = {me.slots + lo, me.slots + p.slot_stride + lo};
   const RankEntry& right = p.table[me.right];
   char* right_slot[2] = {right.slots + lo, right.slots + p.slot_stride + lo};
+  // where rank `src`'s unit goes in the output
+  auto out = [&](int src) { return me.out + src * unit + lo; };
   Proto pr(p, me);
   pr.barrier();
-  copy_bytes(me.out + pos * unit + lo, me.in + lo, nb);
-  copy_bytes(slot[0], me.in + lo, nb);
-  __syncthreads();
   if (pr.flow) pr.grant(pr.left, 1);  // slot 1 starts empty
   for (int s = 0; s < n - 1; ++s) {
     const int cur = s & 1, nxt = cur ^ 1;
     if (pr.flow) pr.take_credit(nxt);
-    copy_bytes(right_slot[nxt], slot[cur], nb);
+    if (s == 0) {
+      copy_bytes(right_slot[nxt], out(pos), me.in + lo, nb);
+    } else {  // slot[cur] holds rank pos-s's unit, arrived at step s-1
+      copy_bytes(right_slot[nxt], out((pos - s + n) % n), slot[cur], nb);
+    }
     pr.sent(pr.right, nxt);
     pr.arrived(nxt);
-    // our slot went onward: grant it upstream, except on the last step,
-    // whose credit nobody would consume
+    // our slot went onward and out: grant it upstream, except on the last
+    // step, whose credit nobody would consume
     if (pr.flow && s < n - 2) pr.grant(pr.left, cur);
-    const int src = (pos - s - 1 + n) % n;  // whose chunk arrived
-    copy_bytes(me.out + src * unit + lo, slot[nxt], nb);
-    __syncthreads();
   }
+  copy_bytes(out((pos + 1) % n), nullptr, slot[(n - 1) & 1], nb);
   pr.finish();
 }
 
@@ -441,56 +521,54 @@ __global__ void __launch_bounds__(kThreads)
 // The chunked all-reduce (smi_tpu/kernels/ring.py:542
 // _ring_all_reduce_chunked_kernel, protocol credits.all_reduce_chunked_rank)
 // is the all-reduce with Params::chunks > 1: the input is `chunks` units,
-// unit c circulates on slot pair 2c, 2c+1 (Params::slot_stride apart) with
-// its own flag row, and a step runs the model's three phases over the
-// chunks: every chunk's credit and send, then every arrival in chunk order,
-// then, but on the last step, the grants of the slots that went onward. Per
-// element that is the unchunked fold, so the results agree bit for bit. The
-// reduce-scatter is launched with one chunk.
+// and gridDim.x / chunks blocks play each. Block x plays chunk
+// c = x / blocks: unit c, slot pair 2c, 2c+1 (Params::slot_stride apart),
+// its own flag row, and per chunk the credit discipline of the unchunked
+// kernel, so every element folds in the same order and the results agree
+// bit for bit. The model's phases A/B/C interleave the chunks on the TPU's
+// one core; here the chunks run side by side. The reduce-scatter is
+// launched with one chunk.
 template <typename T, int OP, bool REDUCE_SCATTER>
-__global__ void __launch_bounds__(kThreads) reduce_kernel(Params p) {
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
+    reduce_kernel(Params p) {
   const RankEntry& me = p.table[blockIdx.y];
-  const Slice sl = slice_of(p.elems, sizeof(T));
+  const int blocks = gridDim.x / p.chunks;  // blocks a chunk
+  const int c = blockIdx.x / blocks;
+  const Slice sl = slice_of(p.elems, sizeof(T), blocks, blockIdx.x % blocks);
   if (sl.n == 0) return;
-  const int n = p.n, pos = static_cast<int>(me.pos), chunks = p.chunks;
+  const int n = p.n, pos = static_cast<int>(me.pos);
   const long long nb = sl.n * sizeof(T);
   const RankEntry& right = p.table[me.right];
   // slot `parity` of chunk c's pair in rank e's buffer
-  auto slot = [&](const RankEntry& e, int c, int parity) {
+  auto slot = [&](const RankEntry& e, int parity) {
     return reinterpret_cast<T*>(e.slots + (2LL * c + parity) * p.slot_stride) +
            sl.lo;
   };
   // what this rank folds in: its chunk c, or the reduce-scatter's block
-  auto own = [&](int c, int block) {
+  auto own = [&](int block) {
     return reinterpret_cast<const T*>(me.in) +
            (REDUCE_SCATTER ? block : c) * p.elems + sl.lo;
   };
   Proto pr(p, me);
   pr.barrier();
-  if (pr.flow)
-    for (int c = 0; c < chunks; ++c) pr.grant(pr.left, 1, c);
+  if (pr.flow) pr.grant(pr.left, 1);  // slot 1 starts empty
   for (int s = 0; s < n - 1; ++s) {
     const int cur = s & 1, nxt = cur ^ 1;
-    for (int c = 0; c < chunks; ++c) {
-      if (pr.flow) pr.take_credit(nxt, c);
-      if (s == 0) {
-        copy_bytes(reinterpret_cast<char*>(slot(right, c, nxt)),
-                   reinterpret_cast<const char*>(own(c, (pos - 1 + n) % n)),
-                   nb);
-      } else {
-        combine_to<T, OP>(slot(right, c, nxt), slot(me, c, cur),
-                          own(c, (pos - s - 1 + 2 * n) % n), sl.n);
-      }
-      pr.sent(pr.right, nxt, c);
+    if (pr.flow) pr.take_credit(nxt);
+    if (s == 0) {
+      copy_bytes(reinterpret_cast<char*>(slot(right, nxt)), nullptr,
+                 reinterpret_cast<const char*>(own((pos - 1 + n) % n)), nb);
+    } else {
+      combine_to<T, OP>(slot(right, nxt), slot(me, cur),
+                        own((pos - s - 1 + 2 * n) % n), sl.n);
     }
-    for (int c = 0; c < chunks; ++c) pr.arrived(nxt, c);
-    if (pr.flow && s < n - 2)
-      for (int c = 0; c < chunks; ++c) pr.grant(pr.left, cur, c);
+    pr.sent(pr.right, nxt);
+    pr.arrived(nxt);
+    if (pr.flow && s < n - 2) pr.grant(pr.left, cur);
   }
-  for (int c = 0; c < chunks; ++c)
-    combine_to<T, OP>(reinterpret_cast<T*>(me.out) + c * p.elems + sl.lo,
-                      slot(me, c, (n - 1) & 1), own(c, pos), sl.n);
-  pr.finish(chunks);
+  combine_to<T, OP>(reinterpret_cast<T*>(me.out) + c * p.elems + sl.lo,
+                    slot(me, (n - 1) & 1), own(pos), sl.n);
+  pr.finish();
 }
 
 using ReduceFn = void (*)(Params);
@@ -551,14 +629,16 @@ int launch_resident(const void* kernel, int blocks, int ranks, void** args,
   return static_cast<int>(cudaGetLastError());
 }
 
+// `blocks` a chunk: the grid is (chunks x blocks, ranks)
 int launch_reduce(ReduceFn kernel, const void* table, int ranks, int n,
                   long long elems, long long slot_stride, int chunks,
                   int flow_control, int blocks, void* stream) {
-  if (kernel == nullptr || chunks < 1) return cudaErrorInvalidValue;
+  if (kernel == nullptr || chunks < 1 || blocks < 1)
+    return cudaErrorInvalidValue;
   Params p{static_cast<const RankEntry*>(table), n, elems,
            slot_stride, chunks, 1, flow_control};
   void* args[] = {&p};
-  return launch_resident((const void*)kernel, blocks, ranks, args,
+  return launch_resident((const void*)kernel, chunks * blocks, ranks, args,
                          static_cast<cudaStream_t>(stream));
 }
 
@@ -606,8 +686,9 @@ extern "C" int smi_ring_all_reduce(
                        slot_stride, 1, flow_control, blocks, stream);
 }
 
-// `elems` is one chunk's unit; `table` rows point at `chunks` units in and
-// out, 2 * chunks slots, and chunks * blocks flag rows a rank.
+// `elems` is one chunk's unit and `blocks` the blocks of one chunk;
+// `table` rows point at `chunks` units in and out, 2 * chunks slots, and
+// chunks * blocks flag rows a rank (chunk-major).
 extern "C" int smi_ring_all_reduce_chunked(
     const void* table, int ranks, int n, long long elems,
     long long slot_stride, int dtype, int op, int chunks, int flow_control,

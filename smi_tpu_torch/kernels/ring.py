@@ -29,8 +29,10 @@ bit in every dtype. The wrappers run it for CPU tensors, launch the
 kernel for CUDA tensors, and raise on anything else.
 
 Nothing of Mosaic's layout is carried over: any shape streams (the
-kernels copy 16 bytes a thread where the slice is aligned and finish by
-words or bytes), and 8-bit payloads reduce like any other.
+kernels copy 16 bytes a load where the slice is aligned and finish by
+words or bytes), and 8-bit payloads reduce like any other. The flags are
+written and read at device scope: every rank of a launch lives on the
+one card.
 """
 
 from __future__ import annotations
@@ -59,7 +61,8 @@ _BARRIER, _RECV, _CREDIT, _GRANTED, _CONSUMED = 0, 1, 3, 5, 6
 
 #: a block's slice is at least this many bytes; at most
 #: :data:`MAX_BLOCKS_PER_RANK` blocks a rank, and few enough in all to be
-#: resident at once (the C entry point checks against the card)
+#: resident at once (``ring.cu`` holds four blocks an SM; the C entry
+#: point checks against the card)
 SLICE_BYTES = 16 * 1024
 MAX_BLOCKS_PER_RANK = 64
 MAX_BLOCKS = 512
@@ -237,19 +240,35 @@ def _align(nbytes: int, to: int = 256) -> int:
     return -(-nbytes // to) * to
 
 
-def _blocks_per_rank(unit_bytes: int, ranks: int) -> int:
-    """Blocks a rank's unit is cut over: slices of at least
-    :data:`SLICE_BYTES`, few enough blocks to be resident together."""
-    cap = max(1, min(MAX_BLOCKS_PER_RANK, MAX_BLOCKS // ranks))
-    return max(1, min(cap, -(-unit_bytes // SLICE_BYTES)))
+def max_chunks(ranks: int) -> int:
+    """The most chunks one launch of the chunked all-reduce takes on a
+    world of ``ranks``: every chunk has a block of its own, and a rank
+    has at most :data:`MAX_BLOCKS_PER_RANK` blocks, the world
+    :data:`MAX_BLOCKS`."""
+    return max(1, min(MAX_BLOCKS_PER_RANK, MAX_BLOCKS // ranks))
+
+
+def launch_plan(unit_bytes: int, ranks: int, chunks: int = 1):
+    """The grid of one launch on a world of ``ranks``: ``(blocks a chunk,
+    blocks a rank)``. Each of the ``chunks`` units of ``unit_bytes`` is
+    cut over blocks of its own, slices of at least :data:`SLICE_BYTES`,
+    and a rank's ``chunks`` x blocks stay within :func:`max_chunks`'s
+    caps; block ``x`` of a rank plays chunk ``x // blocks`` on flag row
+    ``x``."""
+    cap = max_chunks(ranks)
+    if not 1 <= chunks <= cap:
+        raise ValueError(f"{chunks} chunks: a launch on {ranks} ranks "
+                         f"takes 1 to {cap}")
+    blocks = max(1, min(cap // chunks, -(-unit_bytes // SLICE_BYTES)))
+    return blocks, chunks * blocks
 
 
 def _ring_state(world, stream: int, slot_bytes: int, chunks: int,
-                blocks: int) -> dict:
+                rows: int) -> dict:
     """The persistent tensors of one stream slot, grown to hold ``2 *
-    chunks`` slots of ``slot_bytes`` and ``chunks * blocks`` flag rows a
-    rank. Called by the leader at a rendezvous: no kernel is in flight,
-    so growing may free the old tensors."""
+    chunks`` slots of ``slot_bytes`` and ``rows`` flag rows a rank (one a
+    block, :func:`launch_plan`). Called by the leader at a rendezvous: no
+    kernel is in flight, so growing may free the old tensors."""
     state = world.ring_state.setdefault(("stream", stream), {})
     n = world.size
     if "table" not in state:
@@ -260,9 +279,6 @@ def _ring_state(world, stream: int, slot_bytes: int, chunks: int,
         state["table"] = torch.zeros((n, 8), dtype=torch.int64,
                                      device=world.device)
         state["rows"] = None   # what the table on the card holds
-        state["events"] = (torch.cuda.Event(enable_timing=True),
-                           torch.cuda.Event(enable_timing=True))
-    rows = chunks * blocks
     if rows > state["flags"].shape[1]:
         state["flags"] = torch.zeros((n, rows, FLAG_WORDS),
                                      dtype=torch.int32, device=world.device)
@@ -288,10 +304,10 @@ def _launch(kernel: str, world, axis_name, stream: int, xs, outs,
     dtype = xs[0].dtype
     unit_bytes = unit_elems * dtype.itemsize
     stride = _align(unit_bytes)
-    blocks = _blocks_per_rank(unit_bytes, n_world)
-    state = _ring_state(world, stream, stride, chunks, blocks)
+    blocks, flag_rows = launch_plan(unit_bytes, n_world, chunks)
+    state = _ring_state(world, stream, stride, chunks, flag_rows)
     flags, slots = state["flags"], state["slots"]
-    flags[:, :chunks * blocks].zero_()
+    flags[:, :flag_rows].zero_()
     rows = [None] * n_world
     for line in lines:
         for pos, r in enumerate(line):
@@ -301,6 +317,9 @@ def _launch(kernel: str, world, axis_name, stream: int, xs, outs,
     if rows != state["rows"]:   # the allocator hands the same blocks back
         state["table"].copy_(torch.tensor(rows, dtype=torch.int64))
         state["rows"] = rows
+    if "events" not in state:
+        state["events"] = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
     begin, end = state["events"]
     begin.record()
     with torch.cuda.device(world.device):
@@ -326,11 +345,12 @@ def last_record(world) -> Optional[dict]:
     """The credit record of the world's last kernel launch (None before
     one, and on a CPU world), read from the card now — so before the next
     launch on the same stream slot zeroes it: per rank and flag row (a
-    block's, and for the chunked all-reduce a block's for each chunk,
-    chunk-major), the credits it ``granted``, the credits it
-    ``consumed``, the credit signals it received, and its barrier word;
-    and ``ms``, the grid's time from launch to completion by CUDA events
-    on the world's stream."""
+    block's: ``chunks`` x ``blocks`` of them, chunk-major, ``blocks``
+    being the blocks of one chunk), the credits it ``granted``, the
+    credits it ``consumed``, the credit signals it received, and its
+    barrier word; and ``ms``, the grid's time from launch to completion
+    by CUDA events on the world's stream (the host's launch latency
+    included when the card was idle)."""
     launch = world.ring_state.get("last_launch")
     if launch is None:
         return None
@@ -349,11 +369,11 @@ def last_record(world) -> Optional[dict]:
 
 
 def drained(record: dict) -> bool:
-    """Whether every credit domain drained: each flag row (a block's, or
-    a block's chunk's) consumed exactly the credits it received, as many
-    were consumed as granted, and with flow control each live block's
-    barrier saw its two neighbours (none without; a chunk's row past the
-    first holds no barrier)."""
+    """Whether every credit domain drained: each flag row (a block's)
+    consumed exactly the credits it received, as many were consumed as
+    granted, and with flow control each live block's barrier saw its two
+    neighbours (none without; a block past the end of a small unit holds
+    no barrier)."""
     consumed, received = record["consumed"], record["credits_received"]
     if not torch.equal(consumed, received):
         return False
@@ -526,10 +546,11 @@ def ring_all_reduce(
 
     ``chunks > 1`` splits the leading axis into that many pipeline rows
     (:func:`chunk_rows`), each circulating on its own slot pair with its
-    own credits, in one launch of the chunked kernel; the result is bit
-    for bit the unchunked one. ``chunks`` is clamped to the leading
-    dimension; ``None`` is one unchunked launch (the JAX package's plan
-    engine, which may pick a depth there, is not ported).
+    own credits and its own blocks, in one launch of the chunked kernel;
+    the result is bit for bit the unchunked one. ``chunks`` is clamped to
+    the leading dimension and to :func:`max_chunks` of the world; ``None``
+    is one unchunked launch (the JAX package's plan engine, which may
+    pick a depth there, is not ported).
     """
     _check_stream(stream)
     op = SmiOp.parse(op)
@@ -537,7 +558,8 @@ def ring_all_reduce(
     n = _ring_size(comm, axis_name)
     if n == 1 or x.numel() == 0:
         return x
-    chunks = min(chunks, x.shape[0] if x.dim() else 1)
+    chunks = min(chunks, x.shape[0] if x.dim() else 1,
+                 max_chunks(comm.world.size))
     if chunks > 1:
         xu = chunk_rows(x, chunks)
         out = _run(

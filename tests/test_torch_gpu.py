@@ -513,6 +513,105 @@ def test_ring_kernels_without_flow_control(cuda_world):
         kring.neighbour_stream_plain, xs)
 
 
+@pytest.mark.parametrize("chunks", [2, 4, 8])
+def test_chunked_kernel_spreads_chunks_over_blocks(cuda_world, chunks):
+    """1 MiB f32 a rank on 8 ranks: chunk c on blocks of its own, 64
+    blocks a rank whatever the chunk count, every row drained, bit for
+    bit the unchunked kernel."""
+    from smi_tpu_torch.kernels import ring as kring
+
+    world = cuda_world(8)
+    xs = _ring_inputs(8, (64, 4096), torch.float32, seed=90 + chunks)
+    got = world.run(lambda c: kring.ring_all_reduce(xs[c.rank], c,
+                                                    chunks=chunks))
+    record = kring.last_record(world)
+    assert (record["chunks"], record["blocks"]) == (chunks, 64 // chunks)
+    assert kring.drained(record), record
+    assert int(record["granted"].sum()) == 8 * 7 * 64
+    assert bool((record["barrier"] == 2).all())
+    unchunked = world.run(lambda c: kring.ring_all_reduce(xs[c.rank], c))
+    assert all(torch.equal(g, u) for g, u in zip(got, unchunked))
+    plain = kring.ring_all_reduce_chunked_plain(xs, chunks)
+    assert all(torch.equal(g, w) for g, w in zip(got, plain))
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int16, torch.float32,
+                                   torch.float64])
+def test_live_blocks_follow_the_slicing(cuda_world, dtype):
+    """The kernel's own slicing (``ring.cu``'s ``slice_of``), over the
+    payloads of ``test_torch_ring.py``'s launch-plan cases: a block whose
+    16-byte-rounded slice starts inside its chunk's unit holds the
+    barrier with its two neighbours (2), one past the end returns at once
+    (0), and the values are the plain version's."""
+    from smi_tpu_torch.kernels import ring as kring
+
+    world = cuda_world(8)
+    esize = dtype.itemsize
+    for nbytes in (1, 16, 520, 4096, 16 * 1024 + 8, 131072, 1 << 20,
+                   4 << 20):
+        elems = max(1, nbytes // esize)
+        for chunks in (1, 3, 8):
+            xs = _ring_inputs(8, (elems,), dtype, seed=nbytes + chunks)
+            got = world.run(lambda c: kring.ring_all_reduce(
+                xs[c.rank], c, chunks=chunks))
+            record = kring.last_record(world)
+            assert kring.drained(record), (nbytes, chunks, record)
+            c, blocks = record["chunks"], record["blocks"]
+            unit = -(-elems // c)
+            per = -(-unit // blocks)
+            per = -(-per // (16 // esize)) * (16 // esize)
+            live = -(-unit // per)
+            barrier = record["barrier"].reshape(8, c, blocks)
+            assert bool((barrier[:, :, :live] == 2).all()), (nbytes, chunks)
+            assert not barrier[:, :, live:].any(), (nbytes, chunks)
+            want = kring.ring_all_reduce_chunked_plain(xs, chunks)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+#: one block a rank (one a chunk for the chunked entry): 4 KiB units
+ONE_BLOCK = {
+    "ring_all_reduce": ((1024,), {}),
+    "ring_all_reduce_chunked": ((4, 1024), {"chunks": 4}),
+    "ring_all_gather": ((1024,), {}),
+    "ring_reduce_scatter": ((8 * 1024,), {}),
+    "ring_neighbour_stream": ((16, 1024), {}),
+}
+
+
+@pytest.mark.parametrize("kernel", sorted(ONE_BLOCK))
+def test_ring_entry_repeats_equal_at_one_block_a_rank(cuda_world, kernel):
+    """A race shows rarely: 100 launches of one entry on 8 ranks, fresh
+    random inputs each, every one equal to the plain version and
+    drained."""
+    from smi_tpu_torch.kernels import ring as kring
+
+    shape, kw = ONE_BLOCK[kernel]
+    call, plain = {
+        "ring_all_reduce": (kring.ring_all_reduce,
+                            kring.ring_all_reduce_plain),
+        "ring_all_reduce_chunked": (
+            kring.ring_all_reduce,
+            lambda ys: kring.ring_all_reduce_chunked_plain(ys, 4)),
+        "ring_all_gather": (kring.ring_all_gather,
+                            kring.ring_all_gather_plain),
+        "ring_reduce_scatter": (kring.ring_reduce_scatter,
+                                kring.ring_reduce_scatter_plain),
+        "ring_neighbour_stream": (kring.neighbour_stream,
+                                  kring.neighbour_stream_plain),
+    }[kernel]
+    world = cuda_world(8)
+    before = _build.LAUNCHES[kernel]
+    for i in range(100):
+        xs = _ring_inputs(8, shape, torch.float32, seed=1000 + i)
+        got = world.run(lambda c: call(xs[c.rank], c, **kw))
+        record = kring.last_record(world)
+        assert record["blocks"] == 1
+        assert kring.drained(record), (i, record)
+        for g, w in zip(got, plain(xs)):
+            assert torch.equal(g, w), i
+    assert _build.LAUNCHES[kernel] == before + 100
+
+
 def test_sub_rings_of_a_grid_share_one_launch():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")

@@ -9,6 +9,8 @@ numpy inputs. The ``LocalWorld`` itself (threads, rendezvous, the
 transport seam) is tested here too; it spawns no process.
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -329,6 +331,89 @@ def test_wrapper_errors():
                         device=torch.device("cpu"))
     with pytest.raises(NotImplementedError, match="LocalWorld"):
         kring.ring_all_reduce(x, lone)
+
+
+# ---- the launch plan --------------------------------------------------
+
+#: bytes a rank, from one element to 4 MiB
+PLAN_BYTES = [1, 16, 520, 4096, 16 * 1024 + 8, 131072, 1 << 20, 4 << 20]
+
+
+def slice_of_model(elems, esize, blocks):
+    """A model of ``ring.cu``'s ``slice_of``: ``(first element,
+    elements)`` of each block's slice of a unit of ``elems`` elements of
+    ``esize`` bytes, a block past the end empty. The kernel's own slicing
+    is held to it on the card, where a live block's barrier sees its two
+    neighbours and an empty one returns at once (``test_torch_gpu.py``)."""
+    per16 = 16 // esize
+    per = -(-elems // blocks)
+    per = -(-per // per16) * per16
+    return [(min(b * per, elems), max(0, min(per, elems - b * per)))
+            for b in range(blocks)]
+
+
+@pytest.mark.parametrize("chunks", range(1, 9))
+@pytest.mark.parametrize("ranks", range(1, 9))
+def test_launch_plan_keeps_the_grid_resident_and_every_row_its_own(
+        ranks, chunks):
+    """Every payload and element size of a 1-D all-reduce on ``ranks``:
+    the blocks of a rank stay under both caps, each chunk's slices are
+    multiples of 16 bytes that cover its unit exactly, every (chunk,
+    block) has a flag row of its own, and the state holds every row and
+    every slot pair."""
+    for esize in (1, 2, 4, 8):
+        for nbytes in PLAN_BYTES:
+            elems = max(1, nbytes // esize)
+            c = min(chunks, elems, kring.max_chunks(ranks))
+            unit = -(-elems // c)   # one chunk's unit, as chunk_rows cuts it
+            blocks, per_rank = kring.launch_plan(unit * esize, ranks, c)
+            assert per_rank == c * blocks
+            assert per_rank <= kring.MAX_BLOCKS_PER_RANK
+            assert per_rank * ranks <= kring.MAX_BLOCKS
+            lo = 0
+            slices = slice_of_model(unit, esize, blocks)
+            live = [(first, n) for first, n in slices if n]
+            for i, (first, n) in enumerate(live):
+                assert first == lo and first * esize % 16 == 0
+                if i < len(live) - 1:
+                    assert n * esize % 16 == 0
+                lo += n
+            assert lo == unit
+            assert all(first == unit for first, n in slices if not n)
+            # block x of a rank plays chunk x // blocks on flag row x
+            rows = {(x // blocks, x % blocks): x for x in range(per_rank)}
+            assert sorted(rows) == [(k, b) for k in range(c)
+                                    for b in range(blocks)]
+            stride = kring._align(unit * esize)
+            world = SimpleNamespace(ring_state={}, size=ranks,
+                                    device=torch.device("meta"))
+            state = kring._ring_state(world, 0, stride, c, per_rank)
+            assert state["flags"].shape == (ranks, per_rank,
+                                            kring.FLAG_WORDS)
+            assert state["slots"].shape[1] >= 2 * c * stride
+
+
+def test_launch_plan_spreads_chunks_over_blocks_at_the_cap():
+    """4 MiB a rank on 8 ranks: the unchunked unit takes the 64 blocks a
+    rank may have, and chunks 2, 4 and 8 share them out, each block with
+    the same 64 KiB slice; more chunks than the cap are refused."""
+    assert kring.launch_plan(4 << 20, 8) == (64, 64)
+    for chunks in (2, 4, 8):
+        blocks, per_rank = kring.launch_plan((4 << 20) // chunks, 8, chunks)
+        assert (blocks, per_rank) == (64 // chunks, 64)
+    assert kring.launch_plan(4096, 8, 4) == (1, 4)
+    assert kring.max_chunks(8) == 64 and kring.max_chunks(16) == 32
+    with pytest.raises(ValueError, match="takes 1 to 64"):
+        kring.launch_plan(4096, 8, 65)
+
+
+def test_chunks_above_the_cap_clamp_and_keep_the_values():
+    world = st.LocalWorld(8, device="cpu")
+    xs = [torch.arange(100.0) * (r + 1) for r in range(8)]
+    got = world.run(lambda c: kring.ring_all_reduce(xs[c.rank], c,
+                                                    chunks=100))
+    want = kring.ring_all_reduce_plain(xs)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 # ---- the LocalWorld ---------------------------------------------------
