@@ -3,11 +3,15 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` and ``nvidia-smi``; without a card it exits non-zero
-and prints no result. ``--earlier RING_CU`` builds an earlier
-``ring.cu`` with the same C entry points and launch plan beside the
-tree's and times it in turns with the tree's ring kernels in phases 24
-and 27 (earlier, tree, tree, earlier; outputs equal bit for bit); the
-ring records then carry ``earlier_ms``, else null. The phases:
+and prints no result. ``--earlier PATH`` (repeatable) builds an earlier
+copy of a ``smi_tpu_torch/kernels/csrc`` source with the same C entry
+points beside the tree's, named by its stem (``ring.cu``,
+``flash_fwd.cu``), and times it in turns with the tree's kernels
+(earlier, tree, tree, earlier) on the tree's launch plan: an earlier
+``ring.cu`` in phases 24 and 27 with outputs equal bit for bit; an
+earlier ``flash_fwd.cu`` in phase 11, each side's outputs held to the
+plain version's bars (the two round differently). The records of those
+kernels then carry ``earlier_ms``, else null. The phases:
 
 1. the device, with the card's name and power limit from ``nvidia-smi``;
 2. the build of every CUDA kernel of the path from ``smi_tpu_torch/kernels/csrc``;
@@ -33,7 +37,9 @@ built in phase 2 with the stencil sources), with TF32 off throughout:
 7. the fused flash kernel against its plain version on the card, at the
    widths of the JAX package's attention rows (H=8, D=128): S=8192 causal
    in f32 and bf16, S=4096 non-causal f32, and S=32768 with one K/V head
-   and a 4096 window in bf16;
+   and a 4096 window in bf16; then two small ragged shapes at the other
+   head dims, in f32 and bf16 (``SMALL_CASES``: S=1000 at D=64 with GQA,
+   S=200 at D=256 with a window);
 8. the carried flash kernel against its plain version: one rank's steps
    of a 4-rank ring over S=8192 (2048 rows at q_off=6144) from a carry of
    an earlier fold, on a past block, the diagonal block and a future
@@ -51,7 +57,11 @@ built in phase 2 with the stencil sources), with TF32 off throughout:
    ring schedule itself runs; each rank's output equals its rows of the
    fused output, in 16 carried launches per ring;
 11. each flash kernel's time at those shapes beside its bound, its plain
-   version's time and ``scaled_dot_product_attention``'s.
+   version's time and ``scaled_dot_product_attention``'s, with TFLOP/s
+   of live work; a ring's 16 folds also by device time (enqueued behind
+   a wait, as the ring kernels are timed, so the host's cost of each
+   launch is left out); with an earlier ``flash_fwd.cu`` its time in
+   turns with the tree's, its outputs held to the plain version's bars.
 
 Then training (``smi_tpu_torch/kernels/csrc/flash_bwd.cu``, also built in
 phase 2):
@@ -265,10 +275,12 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
-        "--earlier", metavar="RING_CU",
-        help="an earlier ring.cu with the same C entry points, timed in "
-             "turns with the tree's ring kernels in phases 24 and 27 "
-             "(earlier_ms in the kernels line; null without it)")
+        "--earlier", metavar="PATH", action="append", default=[],
+        help="an earlier copy of a csrc/ source with the same C entry "
+             "points, named by its stem (ring.cu: phases 24 and 27; "
+             "flash_fwd.cu: phase 11), timed in turns with the tree's "
+             "kernels (earlier_ms in the kernels line; null without it); "
+             "repeat for several sources")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -303,13 +315,19 @@ def main(argv=None) -> int:
 
     # ---- 2. build ----------------------------------------------------
     t0 = time.perf_counter()
-    earlier = EarlierRing(args.earlier) if args.earlier else None
+    earlier = {}
+    for path in args.earlier:
+        source = EarlierSource(path)
+        if source.stem in earlier:
+            raise SystemExit(f"--earlier: two earlier {source.stem}.cu")
+        earlier[source.stem] = source
     _build.build_kernels()
     log(f"[2 build] {_build.SOURCES} built and loaded in "
         f"{time.perf_counter() - t0:.1f} s")
-    if earlier is not None:
-        built = earlier.load()
-        log(f"  earlier ring.cu {args.earlier} built by {time.perf_counter() - t0:.1f} s: " + "; ".join(
+    for source in earlier.values():
+        built = source.load()
+        log(f"  earlier {source.stem}.cu {source.path} built by "
+            f"{time.perf_counter() - t0:.1f} s: " + "; ".join(
                 line.strip() for line in built.splitlines()
                 if "Used" in line)[:600])
     for name in _build.SOURCES:
@@ -503,12 +521,12 @@ def main(argv=None) -> int:
         log(f"  depth {k} at {N}x{N}: {ms:.4f} ms per pass, "
             f"{ms / k:.5f} ms per sweep")
 
-    records += flash_phases(dev, gen, max_err)
+    records += flash_phases(dev, gen, max_err, earlier.get("flash_fwd"))
     records += backward_phases(dev, gen, max_err)
     records += pipeline_phases(dev, gen)
-    ring_records, ring_check = ring_phases(dev, gen, earlier)
+    ring_records, ring_check = ring_phases(dev, gen, earlier.get("ring"))
     records += ring_records
-    records += suite_phases(dev, gen, ring_check, earlier)
+    records += suite_phases(dev, gen, ring_check, earlier.get("ring"))
     records += surface_phases(dev, gen)
 
     log(json.dumps({"kernels": records}))
@@ -709,6 +727,15 @@ FUSED_CASES = [
     (f"S={SEQ_LONG} GQA 8:1 window {WINDOW} bf16", SEQ_LONG, 1, "bfloat16",
      True, WINDOW),
 ]
+#: phase 11: replays of a ring's folds for their device time (16 folds
+#: of host launch cost each must fit in the card's wait, RING_HOLD_CYCLES)
+FOLD_REPS = 7
+#: phase 7's small ragged shapes at the other head dims, in f32 and
+#: bf16: (name, S, H, H_kv, D, causal, window)
+SMALL_CASES = [
+    ("S=1000 D=64 GQA 2:1 causal", 1000, 4, 2, 64, True, None),
+    ("S=200 D=256 window 100", 200, 4, 4, 256, True, 100),
+]
 #: the 4-layer stack's attention (PERF.json's `_l4` row: no GQA)
 STACK_CASE = (f"S={SEQ_LONG} window {WINDOW} bf16", SEQ_LONG, HEADS,
               "bfloat16", True, WINDOW)
@@ -878,26 +905,32 @@ def patched(module, **attrs):
             setattr(module, name, value)
 
 
-class EarlierRing:
-    """An earlier ``ring.cu`` with the same five C entry points and the
-    tree's launch plan (:func:`kring.launch_plan`), given as ``--earlier
-    PATH`` (it is no file of the tree), built beside the tree's kernels
-    into ``build/probe/earlier/`` and swapped in for the times of phases
-    24 and 27, where :func:`in_turns` holds it against the tree's
-    kernels."""
+class EarlierSource:
+    """An earlier copy of a ``csrc/`` source with the tree's C entry
+    points, named by its stem (``ring.cu``, ``flash_fwd.cu``), given as
+    ``--earlier PATH`` (it is no file of the tree), built with the tree's
+    flags for that source into ``build/probe/earlier/`` beside the tree's
+    kernels and swapped in where the phases time it against the tree's.
+    It takes the tree's launch plan (:func:`kring.launch_plan`,
+    ``kflash._plan``)."""
 
     def __init__(self, path):
         from pathlib import Path
 
         from smi_tpu_torch.kernels import _build
 
+        self.path = path
+        self.stem = Path(path).stem
+        if self.stem not in _build.SOURCES:
+            raise SystemExit(f"--earlier {path}: {self.stem}.cu is no "
+                             f"source of the tree ({_build.SOURCES})")
         out_dir = Path(__file__).resolve().parent / "build" / "probe" / \
             "earlier"
         out_dir.mkdir(parents=True, exist_ok=True)
         # one library a source: a process loads a path only once
-        self.lib_path = out_dir / f"lib{Path(path).stem}.so"
-        # ring.cu's own flags, so that only the source differs
-        cmd = [_build.find_nvcc(), *_build.nvcc_flags("ring"), "-o",
+        self.lib_path = out_dir / f"lib{self.stem}.so"
+        # the source's own flags, so that only the source differs
+        cmd = [_build.find_nvcc(), *_build.nvcc_flags(self.stem), "-o",
                str(self.lib_path), str(Path(path).resolve())]
         self.proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True)
@@ -912,32 +945,44 @@ class EarlierRing:
 
         out, _ = self.proc.communicate()
         if self.proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for the earlier ring.cu:\n{out}")
-        self.lib = _build._declare("ring", ctypes.CDLL(str(self.lib_path)))
+            raise RuntimeError(f"nvcc failed for the earlier "
+                               f"{self.stem}.cu:\n{out}")
+        self.lib = _build._declare(self.stem, ctypes.CDLL(str(self.lib_path)))
         return out
 
     @contextlib.contextmanager
     def swapped(self):
-        """The ring wrappers launch the earlier kernels in the block."""
+        """The source's wrappers launch the earlier kernels in the
+        block."""
         from smi_tpu_torch.kernels import _build
 
-        tree = _build._libs["ring"]
-        _build._libs["ring"] = self.lib
+        tree = _build._libs[self.stem]
+        _build._libs[self.stem] = self.lib
         try:
             yield
         finally:
-            _build._libs["ring"] = tree
+            _build._libs[self.stem] = tree
 
 
-def in_turns(measure, earlier):
-    """``(tree, earlier)``: ``measure()``, a :func:`ring_kernel_ms`, on
-    the tree's ring kernels and, with an :class:`EarlierRing`, on it, in
-    turns (earlier, tree, tree, earlier), the outputs of the two equal
-    bit for bit. Each is a :class:`RingTime` whose times are the mean of
-    its two turns and whose record is its own last launch's. Without an
-    :class:`EarlierRing` the earlier one is None."""
+def same_outputs(tree_outs, earlier_outs):
+    """:func:`in_turns`' default check: the earlier source's outputs
+    equal the tree's bit for bit."""
     import torch
 
+    for g, w in zip(tree_outs, earlier_outs):
+        if not torch.equal(g, w):
+            raise AssertionError("the earlier source and the tree's give "
+                                 "different outputs")
+
+
+def in_turns(measure, earlier, check=same_outputs):
+    """``(tree, earlier)``: ``measure()`` on the tree's kernels and, with
+    an earlier source (:class:`EarlierSource`), on it, in turns (earlier,
+    tree, tree, earlier); ``check(tree outputs, earlier outputs)`` then
+    holds the two first turns' outputs. ``measure`` returns a
+    :class:`RingTime` or a :class:`KernelTime`; each side's times are the
+    mean of its two turns and its outputs and record its own last
+    turn's. Without an earlier source the earlier one is None."""
     if earlier is None:
         return measure(), None
     with earlier.swapped():
@@ -946,11 +991,22 @@ def in_turns(measure, earlier):
     t2 = measure()
     with earlier.swapped():
         e2 = measure()
-    for g, w in zip(t1.outs, e1.outs):
-        if not torch.equal(g, w):
-            raise AssertionError("the earlier ring.cu and the tree's give "
-                                 "different outputs")
+    check(t1.outs, e1.outs)
     return t2.mean_with(t1), e2.mean_with(e1)
+
+
+@dataclasses.dataclass
+class KernelTime:
+    """A kernel's :func:`timed` ms and the outputs of one call."""
+    ms: float
+    outs: object
+
+    @classmethod
+    def of(cls, call):
+        return cls(timed(call), call())
+
+    def mean_with(self, other):
+        return KernelTime((self.ms + other.ms) / 2, self.outs)
 
 
 def recording(fn, calls):
@@ -961,9 +1017,11 @@ def recording(fn, calls):
     return wrapped
 
 
-def flash_phases(dev, gen, max_err):
+def flash_phases(dev, gen, max_err, earlier=None):
     """Phases 7-11: ring attention's forward. Returns the flash kernels'
-    records for the kernels line."""
+    records for the kernels line. With an earlier ``flash_fwd.cu``
+    (:class:`EarlierSource`), phase 11 times it in turns with the
+    tree's, each side held to the plain version's bars."""
     import numpy as np
     import torch
 
@@ -977,8 +1035,8 @@ def flash_phases(dev, gen, max_err):
     f32, bf16 = torch.float32, torch.bfloat16
     scale = 1.0 / math.sqrt(HEAD_DIM)
 
-    def heads(h, s, dtype):
-        return torch.randn((h, s, HEAD_DIM), generator=gen, device=dev,
+    def heads(h, s, dtype, d=HEAD_DIM):
+        return torch.randn((h, s, d), generator=gen, device=dev,
                            dtype=f32).to(dtype)
 
     def seq(s, h, dtype):
@@ -992,11 +1050,12 @@ def flash_phases(dev, gen, max_err):
         """The plain fold with the middle key tile left out: what a
         kernel that skipped one live tile would return."""
         j0 = k.shape[1] // 2 // CONTROL_TILE * CONTROL_TILE
+        sc = 1.0 / math.sqrt(q.shape[2])
         for lo, hi in ((0, j0), (j0 + CONTROL_TILE, k.shape[1])):
             if lo < hi:
                 carry = kflash.flash_block_attend_plain(
                     q, k[:, lo:hi], v[:, lo:hi], *carry, q_off, k_off + lo,
-                    causal, scale, window=window)
+                    causal, sc, window=window)
         return carry
 
     def check_state(what, key, dtype, got, want, parts, control=None):
@@ -1013,24 +1072,36 @@ def flash_phases(dev, gen, max_err):
 
     # ---- 7. fused kernel vs its plain version -------------------------
     log("[7 fused flash kernel vs plain]")
+
+    def check_fused(name, q, k, v, causal, window):
+        h, s, d = q.shape
+        args = (q, k, v, 0, 0, causal, 1.0 / math.sqrt(d))
+        got = kflash.flash_attend_fused(*args, window=window)
+        want = kflash.flash_attend_fused_plain(*args, window=window)
+        control = None
+        if q.dtype == bf16:
+            _, l_c, acc_c = dropped_tile(
+                q, k, v, kflash.fresh_state(h, s, d, dev), 0, 0, causal,
+                window)
+            control = ra._flash_finalize(acc_c, l_c, q.dtype)
+        check_state(name, ("flash_fused", name), q.dtype, got, want,
+                    ("out", "m", "l"), control)
+
     fused_inputs = {}
     for name, s, h_kv, dt, causal, window in FUSED_CASES:
         dtype = getattr(torch, dt)
         q, k, v = heads(HEADS, s, dtype), heads(h_kv, s, dtype), \
             heads(h_kv, s, dtype)
         fused_inputs[name] = (q, k, v, causal, window)
-        args = (q, k, v, 0, 0, causal, scale)
-        got = kflash.flash_attend_fused(*args, window=window)
-        want = kflash.flash_attend_fused_plain(*args, window=window)
-        control = None
-        if dtype == bf16:
-            _, l_c, acc_c = dropped_tile(
-                q, k, v, kflash.fresh_state(HEADS, s, HEAD_DIM, dev), 0, 0,
-                causal, window)
-            control = ra._flash_finalize(acc_c, l_c, dtype)
-        check_state(name, ("flash_fused", name), dtype, got, want,
-                    ("out", "m", "l"), control)
-        del got, want, control
+        check_fused(name, q, k, v, causal, window)
+    # the redesign's edges: a ragged tail past the tiles, the other head
+    # dims' box counts (one and four 128-byte boxes a row)
+    for name, s, h, h_kv, d, causal, window in SMALL_CASES:
+        for dtype in (f32, bf16):
+            q, k, v = heads(h, s, dtype, d), heads(h_kv, s, dtype, d), \
+                heads(h_kv, s, dtype, d)
+            check_fused(f"{name} {str(dtype)[6:]}", q, k, v, causal, window)
+    del q, k, v
 
     # ---- 8. carried kernel vs its plain version -----------------------
     log(f"[8 carried flash kernel vs plain] one rank's steps of a "
@@ -1178,6 +1249,13 @@ def flash_phases(dev, gen, max_err):
         qkv = q.element_size() * (q.numel() + 2 * k.numel())
         return 4 * h * d * pairs, carry + (qkv if pairs else 0)
 
+    def earlier_note(ms, e_ms):
+        return "" if e_ms is None else \
+            f"; earlier {e_ms:.4f} ms ({e_ms / ms:.3f}x)"
+
+    def earlier_ms(e):
+        return None if e is None else e.ms
+
     records = []
     for name, (q, k, v, causal, window) in fused_inputs.items():
         h, s, d = q.shape
@@ -1187,22 +1265,30 @@ def flash_phases(dev, gen, max_err):
                                  item * (2 * h * s * d + 2 * k.numel())
                                  + 2 * 4 * h * s, q.dtype == bf16)
         args = (q, k, v, 0, 0, causal, scale)
-        ms = timed(lambda: kflash.flash_attend_fused(*args, window=window))
         plain_ms = time_ms(
             lambda: kflash.flash_attend_fused_plain(*args, window=window), 2)
+        want = kflash.flash_attend_fused_plain(*args, window=window)
+        t, e = in_turns(
+            lambda: KernelTime.of(
+                lambda: kflash.flash_attend_fused(*args, window=window)),
+            earlier,
+            lambda _, got: check_state(f"earlier flash_fwd.cu, {name}", None,
+                                       q.dtype, got, want, ("out", "m", "l")))
+        ms, e_ms = t.ms, earlier_ms(e)
+        del want
         lib_ms, backend = sdpa_forward(q, k, v, causal, window)
         tflops = 4 * h * d * pairs / ms / 1e9
         log(f"  fused {name}: {ms:.4f} ms ({tflops:.4g} TFLOP/s), bound "
             f"{b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, sdpa "
             f"{lib_ms if lib_ms is None else f'{lib_ms:.4f}'} ms "
-            f"[{backend}]")
+            f"[{backend}]{earlier_note(ms, e_ms)}")
         records.append({
             "name": f"flash_fused {name} H={h} D={d}", "route": "cuda",
             "source": FLASH_SRC, "replaces": REPLACES["flash_fused"],
             "launches": main_launches[name]["flash_fused"],
             "max_abs_err": max_err[("flash_fused", name)], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms,
+            "library_ms": lib_ms, "tflops": tflops, "earlier_ms": e_ms,
         })
     for name, (args, window) in block_inputs.items():
         ops, nbytes = block_work(args, window)
@@ -1215,15 +1301,61 @@ def flash_phases(dev, gen, max_err):
     for ring_name, dt, h_kv, window in RING_CASES:
         launches, calls = ring_runs[ring_name]
         work = [block_work(a, kw.get("window")) for a, kw in calls]
-        b_ms, b_by = flash_bound(sum(w[0] for w in work),
-                                 sum(w[1] for w in work), dt == "bfloat16")
-        ms = timed(lambda: [kflash.flash_block_attend(*a, **kw)
-                            for a, kw in calls])
+        ops = sum(w[0] for w in work)
+        b_ms, b_by = flash_bound(ops, sum(w[1] for w in work),
+                                 dt == "bfloat16")
         plain_ms = time_ms(lambda: [kflash.flash_block_attend_plain(*a, **kw)
                                     for a, kw in calls], 2)
+
+        wants = [kflash.flash_block_attend_plain(*a, **kw)
+                 for a, kw in calls]
+
+        def check_folds(side, outs):
+            """Every fold's m and l, and its output so far (acc / l),
+            stacked over the heads, against the plain folds' at the bars.
+            acc itself is logged beside them, not held: it is a running
+            sum over up to four blocks, and the elementwise f32 bar reads
+            its cancelling elements at the rounding of the sums, which
+            differs with the order of summation; its worst row's relative
+            error reads the carry."""
+            def parts(folds):
+                m, l, acc = (torch.cat(x) for x in zip(*folds))
+                safe_l = torch.where(l == 0, torch.ones_like(l), l)
+                return m, l, acc / safe_l.transpose(1, 2), acc
+
+            got, want = parts(outs), parts(wants)
+            what = f"{side}, the {len(calls)} folds of {ring_name}"
+            check_state(what, None, getattr(torch, dt), got[:3], want[:3],
+                        ("m", "l", "acc / l"))
+            err = bars.note(None, got[3], want[3])
+            rel, _ = bars.row_rel(got[3], want[3])
+            log(f"  {what} acc (logged, not held): max abs err {err:.3g}, "
+                f"worst row rel err {rel:.3g}, largest |acc| "
+                f"{want[3].abs().max().item():.4g}")
+
+        def call():
+            return [kflash.flash_block_attend(*a, **kw) for a, kw in calls]
+
+        check_folds("tree", call())
+        t, e = in_turns(lambda: KernelTime.of(call), earlier,
+                        lambda _, outs: check_folds("earlier flash_fwd.cu",
+                                                    outs))
+        ms, e_ms = t.ms, earlier_ms(e)
+        del wants
+        # the card's own time: the folds enqueued behind a wait, so the
+        # host's cost of each launch is hidden
+        dev_ms = device_ms(call, FOLD_REPS)
+        e_dev_ms = None
+        if earlier is not None:
+            with earlier.swapped():
+                e_dev_ms = device_ms(call, FOLD_REPS)
+        tflops = ops / ms / 1e9
         log(f"  carried, the {len(calls)} folds of the {RING}-rank ring "
-            f"{ring_name}: {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), plain "
-            f"{plain_ms:.4f} ms, no library call folds into a carry")
+            f"{ring_name}: {ms:.4f} ms ({tflops:.4g} TFLOP/s), bound "
+            f"{b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, no library "
+            f"call folds into a carry{earlier_note(ms, e_ms)}; device time "
+            f"{dev_ms:.4f} ms ({ops / dev_ms / 1e9:.4g} TFLOP/s)"
+            + ("" if e_dev_ms is None else f", earlier {e_dev_ms:.4f} ms"))
         records.append({
             "name": f"flash_block {RING}-rank ring {ring_name} H={HEADS} "
                     f"D={HEAD_DIM} ({len(calls)} folds)",
@@ -1231,7 +1363,8 @@ def flash_phases(dev, gen, max_err):
             "replaces": REPLACES["flash_block"], "launches": launches,
             "max_abs_err": max_err[("flash_block", ring_name)], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None,
+            "library_ms": None, "tflops": tflops, "earlier_ms": e_ms,
+            "device_ms": dev_ms, "earlier_device_ms": e_dev_ms,
         })
     return records
 
@@ -2022,7 +2155,8 @@ def ring_phases(dev, gen, earlier=None):
     """Phases 20-24: the SMI API on the ring tier, eight ranks on the
     card. Returns the ring kernels' records for the kernels line, and
     phase 20's check of one launch against its plain version. With an
-    :class:`EarlierRing`, phase 24 times it in turns with the tree's."""
+    earlier ``ring.cu`` (:class:`EarlierSource`), phase 24 times it in
+    turns with the tree's."""
     import numpy as np
     import torch
 
@@ -2516,8 +2650,9 @@ def suite_phases(dev, gen, ring_check, earlier=None):
     """Phases 25-27: the chunked ring all-reduce, every ring entry's
     repeated launches and the benchmark suite on eight ranks of the
     card; ``ring_check`` is phase 20's check of one ring launch. Returns
-    the chunked kernel's records. With an :class:`EarlierRing`, phase 27
-    times it in turns with the tree's."""
+    the chunked kernel's records. With an earlier ``ring.cu``
+    (:class:`EarlierSource`), phase 27 times it in turns with the
+    tree's."""
     import torch
 
     import smi_tpu_torch as st

@@ -60,15 +60,13 @@ KERNEL_BWD_DKDV = "flash_bwd_dkdv"
 #: dynamic shared memory one H100 block may use (227 KB)
 SMEM_BYTES_LIMIT = 232_448
 
-#: query rows per CUDA block: 4 warps of 16 rows (``kBlockQ``)
-BLOCK_Q = 64
-
-#: head dims the kernel is instantiated for
+#: head dims the kernels are instantiated for
 HEAD_DIMS = (64, 128, 256)
 
-#: dtype -> (key rows per tile, shared-memory row pad in elements), as
-#: ``TileOf`` in ``csrc/flash_fwd.cu``
-_TILE = {torch.float32: (32, 4), torch.bfloat16: (64, 8)}
+#: query rows per forward block (``BQ`` of ``Bf16Plan``/``F32Plan`` in
+#: ``csrc/flash_fwd.cu``): two consumer warpgroups of 64 rows in bf16,
+#: 256 threads of 8 rows in f32
+BLOCK_Q = 128
 
 #: dtype code of the C entry points
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -94,31 +92,46 @@ def _validate_window(causal: bool, window) -> None:
         raise ValueError(f"window must be >= 1, got {window}")
 
 
+def _block_k(d: int, dtype) -> int:
+    """Keys per forward tile: bf16 128 (64 at D=256), f32 64 (32 at
+    D=256), as ``BK`` in ``csrc/flash_fwd.cu``."""
+    full = 128 if dtype == torch.bfloat16 else 64
+    return full // 2 if d == 256 else full
+
+
 def smem_bytes(d: int, dtype) -> int:
-    """Dynamic shared memory of one block: the Q tile and one K and one
-    V tile, rows padded by 16 bytes, plus (f32 only) each warp's
-    ``16 x (block_k + 4)`` f32 probability buffer."""
-    block_k, pad = _TILE[dtype]
-    item = torch.empty((), dtype=dtype).element_size()
-    tiles = (BLOCK_Q + 2 * block_k) * (d + pad) * item
-    probs = 4 * 16 * (block_k + 4) * 4 if dtype == torch.float32 else 0
-    return tiles + probs
+    """Dynamic shared memory of one forward block, as ``kSmem`` in
+    ``csrc/flash_fwd.cu`` sums it. bf16: 1024 bytes to align the base to
+    the 128-byte swizzle's period, the Q tile, two stages of one K and
+    one V tile (unpadded: TMA swizzles) and 64 bytes of mbarriers. f32:
+    the Q tile and one K and one V tile, rows padded by 16 bytes, and the
+    ``BLOCK_Q x (block_k + 16)`` probability tile."""
+    block_k = _block_k(d, dtype)
+    if dtype == torch.bfloat16:
+        return 1024 + BLOCK_Q * d * 2 + 2 * 2 * block_k * d * 2 + 64
+    return 4 * ((BLOCK_Q + 2 * block_k) * (d + 4)
+                + BLOCK_Q * (block_k + 16))
 
 
 def _plan(d: int, dtype) -> Optional[Tuple[int, int]]:
-    """``(block_q, block_k)`` of the kernel for head dim ``d``, or None
-    where it has no instantiation or its tiles would not fit shared
+    """``(block_q, block_k)`` of the forward kernel for head dim ``d``, or
+    None where it has no instantiation or its tiles would not fit shared
     memory."""
-    if dtype not in _TILE or d not in HEAD_DIMS:
+    if dtype not in _DTYPE_CODE or d not in HEAD_DIMS:
         return None
     if smem_bytes(d, dtype) > SMEM_BYTES_LIMIT:
         return None
-    return BLOCK_Q, _TILE[dtype][0]
+    return BLOCK_Q, _block_k(d, dtype)
 
 
-#: the dkdv kernel's query rows per tile and keys per block (``kTileQ``,
-#: ``kRows`` in ``csrc/flash_bwd.cu``); its dq kernel owns BLOCK_Q query
-#: rows and walks the forward's key tiles
+#: the backward's tiles, as ``csrc/flash_bwd.cu`` has them: its dq kernel
+#: owns ``BWD_BLOCK_Q`` query rows (``kRows``) and walks key tiles of
+#: ``_BWD_TILE[dtype][0]`` rows (``TileOf::kBlockK``), rows padded by
+#: ``_BWD_TILE[dtype][1]`` elements (``TileOf::kPad``); its dkdv kernel
+#: owns ``BWD_BLOCK_K`` keys (``kRows``) and walks query tiles of
+#: ``BWD_TILE_Q`` rows (``kTileQ``)
+BWD_BLOCK_Q = 64
+_BWD_TILE = {torch.float32: (32, 4), torch.bfloat16: (64, 8)}
 BWD_TILE_Q, BWD_BLOCK_K = 32, 64
 
 
@@ -129,11 +142,11 @@ def bwd_smem_bytes(kernel: str, d: int, dtype) -> int:
     one dO tile (32 rows) and their three statistic rows. Rows are padded
     by 16 bytes; f32 adds each warp's ``16 x (n + 4)`` f32 staging buffer
     (n = the tile's rows)."""
-    block_k, pad = _TILE[dtype]
+    block_k, pad = _BWD_TILE[dtype]
     item = torch.empty((), dtype=dtype).element_size()
     f32 = dtype == torch.float32
     if kernel == KERNEL_BWD_DQ:
-        tiles = (2 * BLOCK_Q + 2 * block_k) * (d + pad) * item
+        tiles = (2 * BWD_BLOCK_Q + 2 * block_k) * (d + pad) * item
         return tiles + (4 * 16 * (block_k + 4) * 4 if f32 else 0)
     tiles = (2 * BWD_BLOCK_K + 2 * BWD_TILE_Q) * (d + pad) * item
     stage = 4 * 16 * (BWD_TILE_Q + 4) * 4 if f32 else 0
@@ -145,12 +158,12 @@ def _bwd_plan(kernel: str, d: int, dtype) -> Optional[Tuple[int, int]]:
     query rows per block, key rows per tile; dkdv: query rows per tile,
     keys per block), or None where it has no instantiation or would not
     fit shared memory."""
-    if dtype not in _TILE or d not in HEAD_DIMS:
+    if dtype not in _BWD_TILE or d not in HEAD_DIMS:
         return None
     if bwd_smem_bytes(kernel, d, dtype) > SMEM_BYTES_LIMIT:
         return None
     if kernel == KERNEL_BWD_DQ:
-        return BLOCK_Q, _TILE[dtype][0]
+        return BWD_BLOCK_Q, _BWD_TILE[dtype][0]
     return BWD_TILE_Q, BWD_BLOCK_K
 
 
@@ -180,7 +193,7 @@ def check_operands(what: str, q, k, v, state=(),
                              f"{q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
-    if q.dtype not in _TILE:
+    if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"{what}: q must be float32 or bfloat16, got "
                         f"{q.dtype}")
     for name, t in (("k", k), ("v", v), *grads):

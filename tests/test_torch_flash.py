@@ -300,19 +300,62 @@ def test_flash_supported_is_the_cuda_kernels_condition():
 
 
 def test_tile_plan_fits_hopper_shared_memory():
-    """(64 + 2·block_k) padded rows of Q/K/V, plus f32's four per-warp
-    16 x (block_k + 4) probability buffers."""
+    """bf16: 1024 alignment bytes, the 128-row Q tile and two stages of
+    one K and one V tile of block_k unpadded rows, and 64 mbarrier bytes;
+    f32: (128 + 2·block_k) rows of Q/K/V padded by 16 bytes and the
+    128 x (block_k + 16) probability tile."""
     f32, bf16 = torch.float32, torch.bfloat16
-    assert tflash.smem_bytes(128, f32) == (64 + 64) * 132 * 4 + 4 * 16 * 36 * 4
-    assert tflash.smem_bytes(128, f32) == 76_800
-    assert tflash.smem_bytes(128, bf16) == (64 + 128) * 136 * 2 == 52_224
-    assert tflash.smem_bytes(256, f32) == 142_336
+    assert tflash.smem_bytes(128, f32) == 4 * ((128 + 128) * 132 + 128 * 80)
+    assert tflash.smem_bytes(128, f32) == 176_128
+    assert tflash.smem_bytes(128, bf16) == 1024 + 128 * 256 + 4 * 128 * 256 \
+        + 64 == 164_928
+    assert tflash.smem_bytes(256, f32) == 224_256
     for d in tflash.HEAD_DIMS:
         for dt in (f32, bf16):
             assert tflash.smem_bytes(d, dt) <= tflash.SMEM_BYTES_LIMIT
-    assert tflash._plan(128, f32) == (64, 32)
-    assert tflash._plan(128, bf16) == (64, 64)
+    assert tflash._plan(128, f32) == (128, 64)
+    assert tflash._plan(128, bf16) == (128, 128)
     assert tflash._plan(96, f32) is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+@pytest.mark.parametrize("d", tflash.HEAD_DIMS)
+def test_tile_plan_takes_the_kernels_shapes(d, dtype):
+    """What ``csrc/flash_fwd.cu`` builds on: bf16 tiles are whole
+    128-byte TMA boxes (64 bf16) with box extents of at most 256 rows and
+    key tiles a multiple of wgmma's 16 and at most its 256; f32 rows are
+    read by 16 threads (keys tx + 16 j) and written as float4 groups at
+    64 g + 4 tx. Every plan fits, with its alignment slack and barriers."""
+    block_q, block_k = tflash._plan(d, dtype)
+    assert block_q == tflash.BLOCK_Q == 128
+    assert d % 64 == 0 and block_k % 16 == 0
+    assert block_k == (32 if d == 256 else 64) * (
+        2 if dtype == torch.bfloat16 else 1)
+    if dtype == torch.bfloat16:
+        assert block_q <= 256 and block_k <= 256
+        assert tflash.smem_bytes(d, dtype) % 8 == 0   # mbarriers: 8 bytes
+    assert tflash.smem_bytes(d, dtype) <= tflash.SMEM_BYTES_LIMIT
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    return chip_smoke
+
+
+def test_earlier_source_is_named_by_a_source_of_the_tree(tmp_path):
+    """``chip_smoke.py --earlier PATH`` takes an earlier copy of a
+    ``csrc/`` source by its stem and refuses another name before it
+    builds anything."""
+    chip_smoke = _chip_smoke()
+    other = tmp_path / "flash.cu"
+    other.write_text("")
+    with pytest.raises(SystemExit, match="no source of the tree"):
+        chip_smoke.EarlierSource(str(other))
+    assert "flash_fwd" in _build.SOURCES and "ring" in _build.SOURCES
 
 
 def _operands(dtype=torch.float32, device="cpu"):
@@ -373,11 +416,7 @@ def test_cpu_calls_launch_nothing():
 
 def test_live_pairs_counts_the_masks_work():
     """``chip_smoke.live_pairs``, the work its operation bounds count."""
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
-    live_pairs = chip_smoke.live_pairs
+    live_pairs = _chip_smoke().live_pairs
     assert live_pairs(8, 8, 0, 0, False) == 64
     assert live_pairs(8, 8, 0, 0, True) == 8 * 9 // 2
     assert live_pairs(8192, 8192, 0, 0, True) == 8192 * 8193 // 2

@@ -128,6 +128,74 @@ def test_flash_kernels_equal_their_plain_versions(cuda_sp, dtype, fused,
             assert _worst_row_rel(a, b) <= 1e-2, part
 
 
+def _fold_operands(dev, dtype, h, h_kv, s, s_k, d, causal, window):
+    """q (H, s, D) at q_off = s_k, k/v (H_kv, s_k, D), and a carry from a
+    plain fold of the same keys at k_off = 0."""
+    q = _heads(11, h, s, d, dtype, dev)
+    k, v = (_heads(i, h_kv, s_k, d, dtype, dev) for i in (12, 13))
+    scale = 1.0 / math.sqrt(d)
+    carry = kflash.flash_block_attend_plain(
+        q, k, v, *kflash.fresh_state(h, s, d, dev), s_k, 0, causal, scale,
+        window=window)
+    return q, k, v, carry, scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("s,s_k,d,h,h_kv,causal,window", [
+    (64, 64, 128, 4, 4, True, None),     # smaller than one tile
+    (200, 200, 128, 4, 2, True, None),   # ragged past one tile
+    (1000, 1000, 128, 2, 1, True, 300),  # ragged past several, window
+    (200, 200, 64, 4, 4, True, None),    # D=64: one 128-byte box a row
+    (200, 200, 256, 4, 2, True, None),   # D=256: four boxes a row
+    (333, 333, 128, 4, 4, False, None),  # non-causal
+    (256, 77, 128, 4, 2, False, None),   # GQA, s_k ragged at the heads
+])
+def test_flash_kernels_at_the_tiles_edges(cuda_sp, dtype, fused, s, s_k, d,
+                                          h, h_kv, causal, window):
+    """The edges of the tiled design against the plain versions at
+    ``chip_smoke.py``'s bars: a query block or key tile cut short by the
+    extent, a last K/V tile whose rows past s_k must fill with zeros
+    inside their head, the head dims' box counts, and GQA."""
+    dev = cuda_sp.device
+    q, k, v, carry, scale = _fold_operands(dev, dtype, h, h_kv, s, s_k, d,
+                                           causal, window)
+    if fused:
+        got = kflash.flash_attend_fused(q, k, v, 0, 0, causal, scale,
+                                        window=window)
+        want = kflash.flash_attend_fused_plain(q, k, v, 0, 0, causal, scale,
+                                               window=window)
+        parts = ("out", "m", "l")
+    else:
+        args = (q, k, v, *carry, s_k, s_k // 2, causal, scale)
+        got = kflash.flash_block_attend(*args, window=window)
+        want = kflash.flash_block_attend_plain(*args, window=window)
+        parts = ("m", "l", "acc")
+    torch.cuda.synchronize()
+    for part, a, b in zip(parts, got, want):
+        if part in ("m", "l"):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+        elif dtype == torch.float32:
+            torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-5)
+        else:
+            assert _worst_row_rel(a, b) <= 1e-2, part
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_fold_of_a_future_block_returns_its_carry(cuda_sp, dtype, d):
+    """A K/V block wholly in the causal future of every query runs no
+    tile: the carry comes back bit for bit."""
+    q, k, v, carry, scale = _fold_operands(cuda_sp.device, dtype, 4, 2, 200,
+                                           200, d, True, None)
+    before = _build.LAUNCHES["flash_block"]
+    got = kflash.flash_block_attend(q, k, v, *carry, 200, 400, True, scale)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_block"] == before + 1
+    for a, b in zip(got, carry):
+        assert torch.equal(a, b)
+
+
 def test_flash_kernel_refuses_an_f64_cuda_input(cuda_sp):
     q = torch.zeros((2, 64, 128), dtype=torch.float64, device=cuda_sp.device)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
