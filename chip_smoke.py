@@ -116,8 +116,10 @@ Then the Streaming Message Interface on the ring tier
 rank a thread of a ``LocalWorld`` on the one card, 8 ranks unless said:
 
 20. each ring kernel ``torch.equal`` to its plain version on every rank,
-   every credit domain drained (credits granted = received = consumed),
-   and unequal to the plain version without rank 1's contribution:
+   every credit domain drained (credits granted = received = consumed;
+   with credits, every live block of a stream granted and consumed
+   chunks - 2), and unequal to the plain version without rank 1's
+   contribution:
    all-reduce of 1,048,576 f32 a rank (ADD) and int32 (MAX), all-gather
    of 512 KiB a rank, reduce-scatter of 8 x 512 KiB a rank, the
    neighbour stream of 512 KiB in 16 chunks in both directions, of 507
@@ -160,7 +162,14 @@ rank a thread of a ``LocalWorld`` on the one card, 8 ranks unless said:
    is timed the same way; ``launch_ms`` beside it is one launch through
    the wrapper on an idle card, by the wrapper's own events (the median
    of a few), so the host's cost of a launch, which a user pays on every
-   collective, is in it.
+   collective, is in it. The stream is also timed at the channel's shape
+   of phase 21 (507 chunks of 2072 f32 a rank), each stream time with its
+   us a chunk. Before the times, one launch's host side by part, rows
+   5-9 (``launch_split``: the zero fill, the device context, the stream
+   handle, the ctypes call, the C entry's queries, the launch, the event
+   records and the rest of ``_launch``, on the main thread; the same
+   ``_launch`` at the rendezvous; the wrapper's event time in both), and
+   the stream's device time at slice floors of 2, 4, 8 and 16 KiB;
 
 Then the chunked ring all-reduce (``smi_ring_all_reduce_chunked`` in
 ``ring.cu``) and SMI's benchmark suite on the port:
@@ -176,7 +185,8 @@ Then the chunked ring all-reduce (``smi_ring_all_reduce_chunked`` in
    ``sy`` sub-rings of the 2x4 world, each axis in one launch;
 25b. each of the five ring entries launched ``STRESS_LAUNCHES`` times at
    two shapes, phase 20's first (phase 25's for the chunked entry) and
-   one block a rank (a chunk) on 4 KiB units, fresh random inputs each
+   one block a rank (a chunk) on 4 KiB units, and the stream also at the
+   channel's shape, fresh random inputs each
    launch, every launch ``torch.equal`` to its plain version on every
    rank with every credit domain drained: a race shows rarely;
 26. every benchmark of ``smi_tpu_torch.benchmarks`` through
@@ -2069,6 +2079,10 @@ SMI_RANKS = 8             # the reference's 8-device cluster
 SMI_ELEMS = 1 << 20       # 4 MiB of f32 a rank: the priced all-reduce payload
 HALF_MIB = 1 << 17        # 512 KiB of f32: the microbenchmarks' message
 STREAM_CHUNKS = 16
+#: the channel's stream of phase 21 (SMI_ELEMS in chunks of 2072)
+CHANNEL_CHUNKS, CHANNEL_ELEMS = 507, 2072
+#: phase 24: the stream's slice floors compared with the plan's
+STREAM_FLOORS = (2048, 4096, 8192, 16384)
 API_ROOT = 5
 PROBE_ELEMS = 1024        # 4 KiB of f32: one block a rank (or a chunk)
 
@@ -2149,6 +2163,127 @@ def ring_kernel_ms(world, fn):
         record = kring.last_record(world)
         launches.append(record["ms"])
     return RingTime(ms, statistics.median(launches), outs, record)
+
+
+#: phase 24: host-clock repetitions of each part of one ring launch
+SPLIT_REPS = 50
+#: the C entry's codes for a grid of no blocks (refused before any CUDA
+#: call) and for one too large to be resident (refused after the queries)
+CUDA_INVALID_VALUE, CUDA_COOPERATIVE_TOO_LARGE = 1, 720
+
+
+def launch_split(world, fn):
+    """Where one ring launch's host time goes. ``world.run(fn)`` makes one
+    launch (``RING_LAUNCHES`` times), whose ``_launch`` and C entry
+    arguments are recorded; then each part runs ``SPLIT_REPS`` times on
+    the host clock, the median in us: ``alone`` the whole ``_launch`` on
+    the main thread (no rank thread alive), ``fill`` the zero fill of the
+    flags, ``device`` the device context, ``stream`` the stream handle,
+    ``ctypes`` the C call alone (a grid of no blocks, refused before any
+    CUDA call), ``queries`` what the C entry asks before it launches (a
+    grid too large, refused after that, less ``ctypes``), ``launch`` the
+    launch (the whole entry less both), ``events`` the wrapper's two
+    event records, and ``rest`` what ``_launch`` spends besides (the plan,
+    the state and the table check); ``rendezvous`` is the host time of
+    the same ``_launch`` at the rendezvous, where the other rank threads,
+    released by the same barrier as the leader, go on to the next one
+    meanwhile. ``event_rendezvous_ms`` and ``event_alone_ms`` are one
+    launch's time by the wrapper's own events, at the rendezvous and from
+    the main thread."""
+    import statistics
+
+    import torch
+
+    from smi_tpu_torch.kernels import _build
+    from smi_tpu_torch.kernels import ring as kring
+
+    launch, entry = kring._launch, _build.entry
+    calls, c_calls, at_rendezvous, event_rendezvous = [], [], [], []
+
+    def timed_launch(*args, **kw):
+        t0 = time.perf_counter()
+        launch(*args, **kw)
+        at_rendezvous.append((time.perf_counter() - t0) * 1e6)
+        calls.append((args, kw))
+
+    def recorded_entry(kernel):
+        fn = entry(kernel)
+
+        def call(*args):
+            c_calls.append((fn, args))
+            return fn(*args)
+        return call
+
+    with patched(kring, _launch=timed_launch), \
+            patched(_build, entry=recorded_entry):
+        for _ in range(RING_LAUNCHES):
+            world.run(fn)
+            event_rendezvous.append(kring.last_record(world)["ms"])
+    (args, kw), (c_entry, c_args) = calls[-1], c_calls[-1]
+    last = world.ring_state["last_launch"]
+    state = world.ring_state[("stream", last["stream"])]
+    flags = state["flags"][:, :last["chunks"] * last["blocks"]]
+    begin, end = state["events"]
+
+    def host_us(part, expect=None):
+        times = []
+        for _ in range(SPLIT_REPS):
+            flags.zero_()
+            torch.cuda.synchronize(world.device)
+            t0 = time.perf_counter()
+            got = part()
+            times.append((time.perf_counter() - t0) * 1e6)
+            torch.cuda.synchronize(world.device)
+            if expect is not None and got != expect:
+                raise AssertionError(f"launch split: the C entry returned "
+                                     f"{got}, expected {expect}")
+        return statistics.median(times)
+
+    def entry_with(blocks):
+        return lambda: c_entry(*c_args[:-2], blocks, c_args[-1])
+
+    def alone():
+        launch(*args, **kw)
+
+    def device():
+        with torch.cuda.device(world.device):
+            pass
+
+    queue = world.stream   # where the rendezvous launches
+
+    def stream():
+        torch.cuda.current_stream(world.device).cuda_stream
+
+    def events():
+        begin.record(queue)
+        end.record(queue)
+
+    event_alone = []
+    with torch.cuda.device(world.device), torch.cuda.stream(world.stream):
+        split = {
+            "alone": host_us(alone),
+            "fill": host_us(flags.zero_),
+            "device": host_us(device),
+            "stream": host_us(stream),
+            "ctypes": host_us(entry_with(0), CUDA_INVALID_VALUE),
+            "too_large": host_us(entry_with(1 << 20),
+                                 CUDA_COOPERATIVE_TOO_LARGE),
+            "entry": host_us(entry_with(c_args[-2]), 0),
+            "events": host_us(events),
+        }
+        for _ in range(SPLIT_REPS):
+            launch(*args, **kw)
+            end.synchronize()
+            event_alone.append(begin.elapsed_time(end))
+    split["queries"] = split.pop("too_large") - split["ctypes"]
+    split["launch"] = split.pop("entry") - split["queries"] - split["ctypes"]
+    split["rest"] = split["alone"] - sum(
+        split[k] for k in ("fill", "device", "stream", "ctypes", "queries",
+                           "launch", "events"))
+    split["rendezvous"] = statistics.median(at_rendezvous)
+    split["event_rendezvous_ms"] = statistics.median(event_rendezvous)
+    split["event_alone_ms"] = statistics.median(event_alone)
+    return split
 
 
 def ring_phases(dev, gen, earlier=None):
@@ -2241,6 +2376,15 @@ def ring_phases(dev, gen, earlier=None):
                 f"{int(record['granted'].sum())}, consumed "
                 f"{int(record['consumed'].sum())}, received "
                 f"{int(record['credits_received'].sum())}")
+        if kernel == "ring_neighbour_stream" and record["flow_control"]:
+            # every live block granted and consumed chunks - 2 credits
+            live = record["barrier"] == 2
+            credits = max(0, shape[0] - 2)
+            if not (bool(live.any())
+                    and bool((record["granted"][live] == credits).all())
+                    and bool((record["consumed"][live] == credits).all())):
+                raise AssertionError(f"{what}: a live block did not grant "
+                                     f"and consume {credits} credits")
         dropped = list(xs)
         dropped[1] = torch.zeros_like(xs[1])
         control = plain(dropped, plain_kw)
@@ -2271,8 +2415,8 @@ def ring_phases(dev, gen, earlier=None):
     # chunks of 2072 elements against the ring's direction, and the
     # stencil's one-chunk halo slabs on the sub-rings of the 2x4 world,
     # every line of an axis in one launch, on stream slots 0-3
-    log("  " + check("ring_neighbour_stream", n, (507, 2072), f32,
-                     direction=-1))
+    log("  " + check("ring_neighbour_stream", n,
+                     (CHANNEL_CHUNKS, CHANNEL_ELEMS), f32, direction=-1))
     w24 = st.LocalWorld((2, 4), ("sx", "sy"))
     for axis, width, slots in (("sx", 2048, (0, 1)), ("sy", 4096, (2, 3))):
         for direction, slot in zip((1, -1), slots):
@@ -2440,7 +2584,7 @@ def ring_phases(dev, gen, earlier=None):
         f"zeros off-root, and to the xla tier (exactly but for f32 ADD); "
         f"transfer 0->{API_ROOT} made 3 hops in direction -1, stream "
         f"{API_ROOT}->{API_ROOT + 1} moved "
-        f"{-(-SMI_ELEMS // 2072)} chunks of 2072 elements in one launch")
+        f"{CHANNEL_CHUNKS} chunks of {CHANNEL_ELEMS} elements in one launch")
     del ring, xla, ring_out, xla_out
 
     # ---- 22. the applications ----------------------------------------
@@ -2571,7 +2715,58 @@ def ring_phases(dev, gen, earlier=None):
                 f"/ {t8:.3f} us; {(t8 - t2) / (n - 2):.3f} us a step beyond "
                 f"the first, {t2 - (t8 - t2) / (n - 2):.3f} us fixed")
 
+    # one launch's host side by part, rows 5-9, at the shapes timed below
+    # (the chunked all-reduce at phase 27's 4 MiB in four chunks)
+    side = int(SMI_ELEMS ** 0.5)
+    splits = {}
+    for kernel, shape, call in (
+            ("ring_neighbour_stream", (STREAM_CHUNKS, HALF_MIB // STREAM_CHUNKS),
+             kring.neighbour_stream),
+            ("ring_all_gather", (HALF_MIB,), kring.ring_all_gather),
+            ("ring_all_reduce", (SMI_ELEMS,), kring.ring_all_reduce),
+            ("ring_all_reduce_chunked", (side, side),
+             lambda x, c: kring.ring_all_reduce(x, c, chunks=4)),
+            ("ring_reduce_scatter", (n * HALF_MIB,),
+             kring.ring_reduce_scatter)):
+        xs = [rnd(shape, f32) for _ in range(n)]
+        sides = [("tree", launch_split(
+            w8, lambda c: call(xs[c.rank], c)))]
+        if earlier is not None:
+            with earlier.swapped():
+                sides.append(("earlier", launch_split(
+                    w8, lambda c: call(xs[c.rank], c))))
+        for what, sp in sides:
+            log(f"  host split of one {kernel} {shape} launch ({what}), us: "
+                f"alone {sp['alone']:.2f} = fill {sp['fill']:.2f} + device "
+                f"{sp['device']:.2f} + stream {sp['stream']:.2f} + ctypes "
+                f"{sp['ctypes']:.2f} + C queries {sp['queries']:.2f} + "
+                f"launch {sp['launch']:.2f} + events {sp['events']:.2f} + "
+                f"rest {sp['rest']:.2f}; at the rendezvous "
+                f"{sp['rendezvous']:.2f}; by the wrapper's events "
+                f"{sp['event_rendezvous_ms']:.4f} ms "
+                f"at the rendezvous, {sp['event_alone_ms']:.4f} ms alone")
+        splits[kernel] = (shape, dict(sides))
+
+    # the stream's slice floor: its device time at the plan's floor and at
+    # others, at both of its timed shapes
+    floor_ms = {}
+    for shape in ((STREAM_CHUNKS, HALF_MIB // STREAM_CHUNKS),
+                  (CHANNEL_CHUNKS, CHANNEL_ELEMS)):
+        xs = [rnd(shape, f32) for _ in range(n)]
+        got = {}
+        for floor in STREAM_FLOORS:
+            with patched(kring, STREAM_SLICE_BYTES=floor):
+                t = ring_kernel_ms(
+                    w8, lambda c: kring.neighbour_stream(xs[c.rank], c))
+            got[floor] = (t.ms, t.record["blocks"])
+        log(f"  stream {shape} f32 by slice floor (the plan's "
+            f"{kring.STREAM_SLICE_BYTES}): " + "; ".join(
+                f"{floor} B {ms:.4f} ms ({blocks} blocks a rank)"
+                for floor, (ms, blocks) in got.items()))
+        floor_ms[shape] = {str(f): ms for f, (ms, _) in got.items()}
+
     p_ar, p_half = 4 * SMI_ELEMS, 4 * HALF_MIB
+    p_channel = 4 * CHANNEL_CHUNKS * CHANNEL_ELEMS
     timed_cases = [
         # kernel, name, shape, bytes of all ranks' inputs and outputs
         # (each once: the bound), bytes the ring schedule moves in device
@@ -2591,6 +2786,12 @@ def ring_phases(dev, gen, earlier=None):
          f"n={n} {HALF_MIB} f32 in {STREAM_CHUNKS} chunks",
          (STREAM_CHUNKS, HALF_MIB // STREAM_CHUNKS), n * 2 * p_half,
          n * 4 * p_half, lambda xs: torch.roll(torch.stack(xs), 1, 0)),
+        # the channel's stream of phase 21: 4 MiB a rank in chunks of
+        # buffer_size 2048 rounded to packets
+        ("ring_neighbour_stream",
+         f"n={n} {CHANNEL_CHUNKS}x{CHANNEL_ELEMS} f32 (the channel's chunks)",
+         (CHANNEL_CHUNKS, CHANNEL_ELEMS), n * 2 * p_channel,
+         n * 4 * p_channel, lambda xs: torch.roll(torch.stack(xs), 1, 0)),
     ]
     for kernel, name, shape, io_bytes, sched_bytes, library in timed_cases:
         xs = [rnd(shape, f32) for _ in range(n)]
@@ -2599,6 +2800,9 @@ def ring_phases(dev, gen, earlier=None):
             lambda: ring_kernel_ms(w8, lambda c: call(xs[c.rank], c, {})),
             earlier)
         ms, e_ms = t.ms, e and e.ms
+        # the stream's us a chunk at this shape
+        chunk_us = (ms * 1e3 / shape[0],
+                    None if e_ms is None else e_ms * 1e3 / shape[0])
         plain_ms = time_ms(lambda: plain(xs, {}), 5)
         lib_ms = device_ms(lambda: library(xs))
         b_ms = bound(io_bytes)
@@ -2610,9 +2814,13 @@ def ring_phases(dev, gen, earlier=None):
             f"({sched_bytes / ms / 1e9:.4g} TB/s); plain {plain_ms:.4f} "
             f"ms, stacked library call {lib_ms:.4f} ms; launches on "
             f"phases 21-23: {launches[kernel]}" + (
+                "" if kernel != "ring_neighbour_stream" else
+                f"; {chunk_us[0]:.3f} us a chunk") + (
                 "" if e is None else
                 f"; earlier {e_ms:.4f} ms ({e_ms / ms:.3f}x), one launch "
-                f"{e.launch_ms:.4f} ms"))
+                f"{e.launch_ms:.4f} ms" + (
+                    "" if kernel != "ring_neighbour_stream" else
+                    f", {chunk_us[1]:.3f} us a chunk")))
         records.append({
             "name": f"{kernel} {name}", "route": "cuda", "source": RING_SRC,
             "replaces": RING_REPLACES[kernel],
@@ -2622,7 +2830,14 @@ def ring_phases(dev, gen, earlier=None):
             "earlier_ms": e_ms, "earlier_launch_ms": e and e.launch_ms,
             "step_us": step_us[kernel][0],
             "earlier_step_us": step_us[kernel][1],
+            **({} if kernel != "ring_neighbour_stream" else
+               {"chunk_us": chunk_us[0], "earlier_chunk_us": chunk_us[1],
+                "floor_ms": floor_ms[shape]}),
         })
+        split_shape, split = splits[kernel]
+        if split_shape == shape:
+            records[-1]["launch_split_us"] = split["tree"]
+            records[-1]["earlier_launch_split_us"] = split.get("earlier")
     # one collective through the API, host wall: the rendezvous' cost
     xs = [rnd((SMI_ELEMS,), f32) for _ in range(n)]
     t0 = time.perf_counter()
@@ -2637,7 +2852,7 @@ def ring_phases(dev, gen, earlier=None):
 
 
 CHUNKED_REPLACES = "smi_tpu/kernels/ring.py:542"
-#: phase 25b: launches of each ring entry at each of its two shapes
+#: phase 25b: launches of each ring entry at each of its shapes
 STRESS_LAUNCHES = 200
 #: phase 26: timed runs per benchmark, and the depth cut from the JAX
 #: defaults (pingpongs and messages 100, rounds 16); widths stay
@@ -2756,7 +2971,8 @@ def suite_phases(dev, gen, ring_check, earlier=None):
     entries = {
         # entry: (call, plain, phase 20's first shape (phase 25's for the
         # chunked entry: 4 MiB in two chunks), one block a rank (4 KiB a
-        # chunk, one block a chunk, for the chunked entry))
+        # chunk, one block a chunk, for the chunked entry); the stream also
+        # at the channel's shape, its other timed one)
         "ring_all_reduce": (
             kring.ring_all_reduce, kring.ring_all_reduce_plain,
             (SMI_ELEMS,), (PROBE_ELEMS,)),
@@ -2774,7 +2990,7 @@ def suite_phases(dev, gen, ring_check, earlier=None):
         "ring_neighbour_stream": (
             kring.neighbour_stream, kring.neighbour_stream_plain,
             (STREAM_CHUNKS, HALF_MIB // STREAM_CHUNKS),
-            (STREAM_CHUNKS, PROBE_ELEMS)),
+            (STREAM_CHUNKS, PROBE_ELEMS), (CHANNEL_CHUNKS, CHANNEL_ELEMS)),
     }
     for name, (call, plain, *shapes) in entries.items():
         for shape in shapes:

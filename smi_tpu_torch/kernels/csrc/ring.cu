@@ -33,26 +33,60 @@
 // cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs and launches with
 // cudaLaunchCooperativeKernel, which refuses it too.
 //
-// A "DMA" is the block copying its slice into the neighbour's slot, 16
-// bytes a load where source and destination are 16-byte aligned (by words
-// or bytes otherwise, so any shape and any element type moves), each
-// thread with kUnroll loads in flight. Then all threads meet
-// (__syncthreads) and thread 0 adds one to the neighbour's receive flag
-// with a release; the reader's thread 0 polls the flag with relaxed loads
-// until it has reached the count this step expects, acquires once, the
-// block meets, and all threads read the slot. Every flag operation is at
-// device scope (RING_SCOPE): one launch plays every rank, and every rank of it
-// lives on this card, so nothing has to be made visible to the host or to
-// another card. Flags are counters that only grow; the host zeroes them
-// before a launch, when no kernel is in flight. A wait that lasts ten
-// seconds traps (the clock is read once every kPollsPerClock polls): a
-// lost signal fails the launch, it cannot hang the card. Credits work the
-// same way (the reader grants a slot to its writer after it has copied the
-// slot out, or sent it onward), and each block counts the credits it
-// granted and the credits it consumed into its flag row for the host to
-// check that every credit domain drained. With flow_control == 0 there is
+// A "DMA" of the collectives is the block copying its slice into the
+// neighbour's slot, 16 bytes a load where source and destination are
+// 16-byte aligned (by words or bytes otherwise, so any shape and any
+// element type moves), each thread with kUnroll loads in flight. Then all
+// threads meet (__syncthreads) and thread 0 adds one to the neighbour's
+// receive flag with a release; the reader's thread 0 polls the flag with
+// relaxed loads until it has reached the count this step expects,
+// acquires once, the block meets, and all threads read the slot. Every
+// flag operation is at device scope (RING_SCOPE): one launch plays every
+// rank, and every rank of it lives on this card, so nothing has to be
+// made visible to the host or to another card. Flags are counters that
+// only grow; the host zeroes them before a launch, when no kernel is in
+// flight. A wait that lasts ten seconds traps (the clock is read once
+// every kPollsPerClock polls): a lost signal fails the launch, it cannot
+// hang the card. Credits work the same way (the reader grants a slot to
+// its writer after it has copied the slot out, or sent it onward), and
+// each block counts the credits it granted and the credits it consumed
+// into its flag row for the host to check that every credit domain
+// drained. With flow_control == 0 there is
 // no entry barrier and there are no credits; the receive flags stay, they
 // are the completion of the copy.
+//
+// The neighbour stream splits each block into two roles of one warpgroup
+// (128 threads), as the reference splits Push and Pop into two kernels
+// (templates/push.cl, pop.cl). In each role the first warp leads: its
+// lane 0 waits and signals, and it moves no data; the other three warps
+// copy. The Push role walks the chunks: its copying warps load their
+// slice of chunk c into registers, the leader waits for slot c % 2's
+// credit (from chunk 2 on), the slice is stored into the downstream
+// rank's slot, the role meets on its own named barrier (bar.sync 1, 128)
+// and the leader releases the downstream receive flag. The Pop role walks
+// the same chunks: the leader waits for the arrival, the slot is loaded
+// into registers, the role meets on bar.sync 2, the leader grants the
+// slot back upstream (unless c + 2 >= chunks), and only then does the
+// chunk go out, so the writer may refill the slot meanwhile. A role's
+// release follows its own barrier, so it covers the role's stores (Push)
+// or loads (Pop), as __syncthreads covers a block's. Push may run two
+// chunks ahead of the downstream Pop, as the credits allow. A release is
+// a MEMBAR.ALL.GPU before the red, and it waits for the outstanding loads
+// and stores of the leader's own warp: a leader that copied, or that
+// loaded the next chunk before its release, would delay each signal by a
+// load's round trip, so the copying warps load the next chunk only after
+// the barrier that precedes the release. What bounds the stream is the
+// flags' round trip: a slot's cycle is the writer's stores and release,
+// the reader's poll, acquire and load, its release and the writer's poll
+// and acquire, all through L2, so a chunk costs a microsecond or two
+// however small it is (chip_smoke.py phase 24), and two slots are at most
+// two chunks in flight on a link.
+// torch.roll of the stacked inputs (one pass at memory rate) is faster for
+// any message of more than a few chunks; only more slots would close the
+// gap, and they would change SMI's protocol. Every signal and wait of
+// credits.neighbour_stream_rank stays, with the same counts and the same
+// flag words; each role counts its own credits (Push the consumed, Pop
+// the granted) and both write them after a final block barrier.
 //
 // Bound on the H100 (3.35 TB/s): bytes, each input read once and each
 // output written once. With P the bytes of the unit that circulates and n
@@ -97,7 +131,10 @@
 
 #include <cstdint>
 #include <cstring>
+#include <map>
+#include <mutex>
 #include <type_traits>
+#include <utility>
 
 // The scope of every flag operation of the protocol: the device. A launch
 // form whose ranks live in other processes or on other cards would set it.
@@ -446,6 +483,160 @@ struct Proto {
   }
 };
 
+// ---- the neighbour stream: a Push role and a Pop role a block ----------
+
+constexpr int kRoleThreads = kThreads / 2;  // one warpgroup a role
+constexpr int kPushBar = 1;                 // named barriers (0: __syncthreads)
+constexpr int kPopBar = 2;
+// A role's first warp only waits and signals (its lane 0); the other
+// three copy. The release of a signal waits for the signalling warp's own
+// outstanding loads and stores (MEMBAR.ALL.GPU); a leader that moves no
+// data releases at once, while the copying warps already load the next
+// chunk.
+constexpr int kCopyThreads = kRoleThreads - 32;
+
+// One role of a stream block. Its threads meet on the role's own named
+// barrier, which orders their memory accesses before what the role's
+// leader does next, as __syncthreads does for a block; the leader's
+// release then covers the whole role's slice.
+struct Role {
+  int bar;   // kPushBar or kPopBar
+  int rank;  // this thread's index in the role; 0 leads
+
+  __device__ void sync() const {
+    asm volatile("bar.sync %0, %1;\n" : : "r"(bar), "n"(kRoleThreads)
+                 : "memory");
+  }
+  __device__ void signal(unsigned* flag) const {
+    sync();
+    if (rank == 0) flag_add(flag);
+  }
+  __device__ void wait(const unsigned* flag, unsigned expected) const {
+    if (rank == 0) flag_wait(flag, expected);
+    sync();
+  }
+};
+
+// One round of a role's copy in registers: kUnroll words W a copying
+// thread, kCopyThreads apart (6 KiB a round at 16-byte words), and with
+// round 0 a tail of fewer bytes than a word, one byte a thread. `rank` is
+// the thread's index among the copying threads; the leader's warp
+// (rank < 0) copies nothing.
+template <typename W>
+struct Round {
+  static constexpr int kWords = kCopyThreads * kUnroll;
+  W v[kUnroll];
+  unsigned char tail;
+
+  // the rounds of an nbytes copy (at least one, so that every thread of a
+  // role meets its barriers also for an empty slice)
+  static __device__ __forceinline__ long long of(long long nbytes) {
+    const long long words = nbytes / static_cast<long long>(sizeof(W));
+    return words > 0 ? (words + kWords - 1) / kWords : 1;
+  }
+  // round r of the nbytes at src
+  __device__ __forceinline__ void load(const char* src, long long nbytes,
+                                       long long r, int rank) {
+    if (rank < 0) return;
+    const long long words = nbytes / static_cast<long long>(sizeof(W));
+    const W* s = reinterpret_cast<const W*>(src) + r * kWords;
+    const long long left = words - r * kWords;
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = u * kCopyThreads + rank;
+      if (i < left) v[u] = __ldcg(s + i);
+    }
+    const long long at = words * static_cast<long long>(sizeof(W)) + rank;
+    if (r == 0 && at < nbytes)
+      tail = __ldcg(reinterpret_cast<const unsigned char*>(src) + at);
+  }
+  __device__ __forceinline__ void store(char* dst, long long nbytes,
+                                        long long r, int rank) const {
+    if (rank < 0) return;
+    const long long words = nbytes / static_cast<long long>(sizeof(W));
+    W* d = reinterpret_cast<W*>(dst) + r * kWords;
+    const long long left = words - r * kWords;
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = u * kCopyThreads + rank;
+      if (i < left) __stcg(d + i, v[u]);
+    }
+    const long long at = words * static_cast<long long>(sizeof(W)) + rank;
+    if (r == 0 && at < nbytes)
+      __stcg(reinterpret_cast<unsigned char*>(dst) + at, tail);
+  }
+};
+
+// The Push role: chunk c of `in` (chunks `unit` bytes apart; this block's
+// nb bytes of each) into slot c % 2 of the downstream rank (`slots`), and
+// its receive flag `recv` counted. A chunk's first round is loaded before
+// its credit is waited for.
+template <typename W>
+__device__ void push_role(const Params& p, Proto& pr, Role role,
+                          const char* in, char* slots, long long nb,
+                          long long unit, unsigned* recv) {
+  const long long rounds = Round<W>::of(nb);
+  const int rank = role.rank - (kRoleThreads - kCopyThreads);
+  for (int c = 0; c < p.chunks; ++c) {
+    const int slot = c & 1;
+    const char* from = in + c * unit;
+    char* to = slots + slot * p.slot_stride;
+    Round<W> w;
+    w.load(from, nb, 0, rank);
+    // both slots start granted (empty): wait from chunk 2 on
+    if (pr.flow && c >= 2) {
+      ++pr.consumed;
+      role.wait(pr.mine + kCredit + slot, ++pr.credit_seen[slot]);
+    }
+    w.store(to, nb, 0, rank);
+    for (long long r = 1; r < rounds; ++r) {
+      w.load(from, nb, r, rank);
+      w.store(to, nb, r, rank);
+    }
+    role.signal(recv + slot);
+  }
+}
+
+// The Pop role: each arrival in this rank's slot c % 2 (`slots`) out to
+// chunk c of `out`, the slot granted back to the upstream writer
+// (`credit`) once its last round is read, before that round is stored.
+template <typename W>
+__device__ void pop_role(const Params& p, Proto& pr, Role role,
+                         const char* slots, char* out, long long nb,
+                         long long unit, unsigned* credit) {
+  const long long rounds = Round<W>::of(nb);
+  const int rank = role.rank - (kRoleThreads - kCopyThreads);
+  for (int c = 0; c < p.chunks; ++c) {
+    const int slot = c & 1;
+    const char* from = slots + slot * p.slot_stride;
+    char* to = out + c * unit;
+    role.wait(pr.mine + kRecv + slot, ++pr.recv_seen[slot]);
+    for (long long r = 0; r < rounds; ++r) {
+      Round<W> w;
+      w.load(from, nb, r, rank);
+      // the slot is read: grant it back, unless no later chunk would wait
+      if (r == rounds - 1 && pr.flow && c + 2 < p.chunks) {
+        ++pr.granted;
+        role.signal(credit + slot);
+      }
+      w.store(to, nb, r, rank);
+    }
+  }
+}
+
+template <typename W>
+__device__ __forceinline__ void stream_role(
+    const Params& p, Proto& pr, bool push, Role role, const char* in,
+    char* out, char* dst_slots, const char* my_slots, long long nb,
+    long long unit, unsigned* dst_flags, unsigned* upstream_flags) {
+  if (push) {
+    push_role<W>(p, pr, role, in, dst_slots, nb, unit, dst_flags + kRecv);
+  } else {
+    pop_role<W>(p, pr, role, my_slots, out, nb, unit,
+                upstream_flags + kCredit);
+  }
+}
+
 __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
     neighbour_stream_kernel(Params p, int esize) {
   const RankEntry& me = p.table[blockIdx.y];
@@ -458,20 +649,36 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
   unsigned* dst_flags = p.direction == 1 ? pr.right : pr.left;
   unsigned* upstream_flags = p.direction == 1 ? pr.left : pr.right;
   pr.barrier();
-  for (int c = 0; c < p.chunks; ++c) {
-    const int slot = c & 1;
-    // both slots start granted (empty); wait from chunk 2 on
-    if (pr.flow && c >= 2) pr.take_credit(slot);
-    copy_bytes(dst.slots + slot * p.slot_stride + lo, nullptr,
-               me.in + c * unit + lo, nb);
-    pr.sent(dst_flags, slot);
-    pr.arrived(slot);
-    copy_bytes(me.out + c * unit + lo, nullptr,
-               me.slots + slot * p.slot_stride + lo, nb);
-    // slot consumed: grant it back, unless no later chunk would wait
-    if (pr.flow && c + 2 < p.chunks) pr.grant(upstream_flags, slot);
+  const bool push = threadIdx.x < kRoleThreads;
+  const Role role{push ? kPushBar : kPopBar,
+                  static_cast<int>(threadIdx.x) % kRoleThreads};
+  const char* in = me.in + lo;
+  char* out = me.out + lo;
+  char* dst_slots = dst.slots + lo;
+  const char* my_slots = me.slots + lo;
+  // one word size for every chunk: the widest that every chunk's input,
+  // output and slot allow
+  const uintptr_t ends = reinterpret_cast<uintptr_t>(in) |
+                         reinterpret_cast<uintptr_t>(out) |
+                         reinterpret_cast<uintptr_t>(dst_slots) |
+                         reinterpret_cast<uintptr_t>(my_slots) |
+                         static_cast<uintptr_t>(unit) |
+                         static_cast<uintptr_t>(p.slot_stride);
+  if (ends % 16 == 0) {
+    stream_role<uint4>(p, pr, push, role, in, out, dst_slots, my_slots, nb,
+                       unit, dst_flags, upstream_flags);
+  } else if (ends % 4 == 0) {
+    stream_role<unsigned>(p, pr, push, role, in, out, dst_slots, my_slots,
+                          nb, unit, dst_flags, upstream_flags);
+  } else {
+    stream_role<unsigned char>(p, pr, push, role, in, out, dst_slots,
+                               my_slots, nb, unit, dst_flags,
+                               upstream_flags);
   }
-  pr.finish();
+  // each role counted its own credits: Push the consumed, Pop the granted
+  __syncthreads();
+  if (threadIdx.x == 0) pr.mine[kConsumed] = pr.consumed;
+  if (threadIdx.x == kRoleThreads) pr.mine[kGranted] = pr.granted;
 }
 
 // all_gather_rank's steps, each unit read once where it lies: step 0
@@ -607,21 +814,41 @@ int esize_of(int dtype) {
   return 0;
 }
 
-// Launch `kernel` on a (blocks, ranks) grid only if the whole grid can be
-// resident at once.
-int launch_resident(const void* kernel, int blocks, int ranks, void** args,
-                    cudaStream_t stream) {
-  if (blocks < 1 || ranks < 1) return cudaErrorInvalidValue;
-  int device = 0, sms = 0, per_sm = 0;
+// The blocks of `kernel` that the current device holds at once (its SMs
+// times the kernel's resident blocks an SM): asked of the runtime once a
+// process for each kernel and device, since neither changes.
+cudaError_t resident_blocks(const void* kernel, long long* out) {
+  static std::mutex lock;
+  static std::map<std::pair<const void*, int>, long long> known;
+  int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> hold(lock);
+  const auto key = std::make_pair(kernel, device);
+  const auto found = known.find(key);
+  if (found != known.end()) {
+    *out = found->second;
+    return cudaSuccess;
+  }
+  int sms = 0, per_sm = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                       kThreads, 0);
   if (err != cudaSuccess) return err;
-  if (static_cast<long long>(blocks) * ranks >
-      static_cast<long long>(per_sm) * sms)
+  *out = known[key] = static_cast<long long>(per_sm) * sms;
+  return cudaSuccess;
+}
+
+// Launch `kernel` on a (blocks, ranks) grid only if the whole grid can be
+// resident at once.
+int launch_resident(const void* kernel, int blocks, int ranks, void** args,
+                    cudaStream_t stream) {
+  if (blocks < 1 || ranks < 1) return cudaErrorInvalidValue;
+  long long resident = 0;
+  cudaError_t err = resident_blocks(kernel, &resident);
+  if (err != cudaSuccess) return err;
+  if (static_cast<long long>(blocks) * ranks > resident)
     return cudaErrorCooperativeLaunchTooLarge;
   err = cudaLaunchCooperativeKernel(kernel, dim3(blocks, ranks), dim3(kThreads),
                                     args, 0, stream);

@@ -64,6 +64,11 @@ _BARRIER, _RECV, _CREDIT, _GRANTED, _CONSUMED = 0, 1, 3, 5, 6
 #: resident at once (``ring.cu`` holds four blocks an SM; the C entry
 #: point checks against the card)
 SLICE_BYTES = 16 * 1024
+#: the neighbour stream's floor: a chunk costs a flag round trip and the
+#: copy of a slice, which one round of loads of a role's copying warps
+#: (96 threads, four 16-byte loads each: 6 KiB) moves at once
+#: (``chip_smoke.py`` phase 24 times the stream at 2, 4, 8 and 16 KiB)
+STREAM_SLICE_BYTES = 4 * 1024
 MAX_BLOCKS_PER_RANK = 64
 MAX_BLOCKS = 512
 
@@ -248,18 +253,21 @@ def max_chunks(ranks: int) -> int:
     return max(1, min(MAX_BLOCKS_PER_RANK, MAX_BLOCKS // ranks))
 
 
-def launch_plan(unit_bytes: int, ranks: int, chunks: int = 1):
+def launch_plan(unit_bytes: int, ranks: int, chunks: int = 1,
+                slice_bytes: int = SLICE_BYTES):
     """The grid of one launch on a world of ``ranks``: ``(blocks a chunk,
     blocks a rank)``. Each of the ``chunks`` units of ``unit_bytes`` is
-    cut over blocks of its own, slices of at least :data:`SLICE_BYTES`,
-    and a rank's ``chunks`` x blocks stay within :func:`max_chunks`'s
-    caps; block ``x`` of a rank plays chunk ``x // blocks`` on flag row
-    ``x``."""
+    cut over blocks of its own, slices of at least ``slice_bytes``, and a
+    rank's ``chunks`` x blocks stay within :func:`max_chunks`'s caps;
+    block ``x`` of a rank plays chunk ``x // blocks`` on flag row ``x``.
+    The neighbour stream's chunks follow each other on the same blocks
+    (``chunks`` 1, its unit one chunk, ``slice_bytes``
+    :data:`STREAM_SLICE_BYTES`)."""
     cap = max_chunks(ranks)
     if not 1 <= chunks <= cap:
         raise ValueError(f"{chunks} chunks: a launch on {ranks} ranks "
                          f"takes 1 to {cap}")
-    blocks = max(1, min(cap // chunks, -(-unit_bytes // SLICE_BYTES)))
+    blocks = max(1, min(cap // chunks, -(-unit_bytes // slice_bytes)))
     return blocks, chunks * blocks
 
 
@@ -304,15 +312,21 @@ def _launch(kernel: str, world, axis_name, stream: int, xs, outs,
     dtype = xs[0].dtype
     unit_bytes = unit_elems * dtype.itemsize
     stride = _align(unit_bytes)
-    blocks, flag_rows = launch_plan(unit_bytes, n_world, chunks)
+    slice_bytes = (STREAM_SLICE_BYTES if kernel == "ring_neighbour_stream"
+                   else SLICE_BYTES)
+    blocks, flag_rows = launch_plan(unit_bytes, n_world, chunks, slice_bytes)
     state = _ring_state(world, stream, stride, chunks, flag_rows)
     flags, slots = state["flags"], state["slots"]
     flags[:, :flag_rows].zero_()
+    # rank r's slots and flag rows, by address: indexing the tensors per
+    # rank would cost the host more than the rest of the launch
+    slot0, slot_step = slots.data_ptr(), slots.stride(0)
+    flag0, flag_step = flags.data_ptr(), flags.stride(0) * flags.itemsize
     rows = [None] * n_world
     for line in lines:
         for pos, r in enumerate(line):
             rows[r] = (xs[r].data_ptr(), outs[r].data_ptr(),
-                       slots[r].data_ptr(), flags[r].data_ptr(), pos,
+                       slot0 + r * slot_step, flag0 + r * flag_step, pos,
                        line[(pos + 1) % n], line[(pos - 1) % n], 0)
     if rows != state["rows"]:   # the allocator hands the same blocks back
         state["table"].copy_(torch.tensor(rows, dtype=torch.int64))
@@ -321,18 +335,20 @@ def _launch(kernel: str, world, axis_name, stream: int, xs, outs,
         state["events"] = (torch.cuda.Event(enable_timing=True),
                            torch.cuda.Event(enable_timing=True))
     begin, end = state["events"]
-    begin.record()
+    # the world's device's current stream, asked once: each ask costs the
+    # host a few microseconds
+    queue = torch.cuda.current_stream(world.device)
+    begin.record(queue)
     with torch.cuda.device(world.device):
         status = _build.entry(kernel)(
             state["table"].data_ptr(), n_world, n, unit_elems, stride,
             DTYPE_CODES[dtype], *extra,
             *((chunks,) if kernel == "ring_all_reduce_chunked" else ()),
-            int(flow_control), blocks,
-            torch.cuda.current_stream().cuda_stream,
+            int(flow_control), blocks, queue.cuda_stream,
         )
     _build.check(kernel, status)
     _build.count_launch(kernel)
-    end.record()
+    end.record(queue)
     # the rendezvous waits for the world's stream before it releases the
     # ranks: a trapped spin is raised there
     world.ring_state["last_launch"] = {

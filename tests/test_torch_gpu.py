@@ -581,6 +581,92 @@ def test_ring_kernels_without_flow_control(cuda_world):
         kring.neighbour_stream_plain, xs)
 
 
+def _stream_record_holds(record, chunks, flow_control=True):
+    """The stream's credit record: every block drained; with credits a
+    live block held the barrier with both neighbours and granted and
+    consumed ``chunks - 2`` credits, a block past the end of a small chunk
+    none; without them no barrier and no credit."""
+    from smi_tpu_torch.kernels import ring as kring
+
+    assert kring.drained(record), record
+    if not flow_control:
+        assert not record["granted"].any() and not record["barrier"].any()
+        return
+    live = record["barrier"] == 2
+    assert bool(live.any()) and not record["barrier"][~live].any()
+    credits = max(0, chunks - 2)
+    assert bool((record["granted"][live] == credits).all()), record
+    assert bool((record["consumed"][live] == credits).all()), record
+
+
+#: chunk sizes from one byte to 4 MiB (int8 where the size is no multiple
+#: of 4, f32 otherwise: ragged slices, byte tails, one to 64 blocks a
+#: rank), each at 1, 2, 3, 16 and 507 chunks where a rank's message stays
+#: within 64 MiB
+STREAM_CHUNK_BYTES = [1, 3, 520, 4096, 4099, 8288, 32768, 1 << 20, 4 << 20]
+STREAM_CASES = [(b, c) for b in STREAM_CHUNK_BYTES for c in (1, 2, 3, 16, 507)
+                if b * c <= 64 << 20]
+
+
+@pytest.mark.parametrize("direction", [1, -1])
+@pytest.mark.parametrize("chunk_bytes,chunks", STREAM_CASES)
+def test_neighbour_stream_at_every_chunk_size(cuda_world, chunk_bytes, chunks,
+                                              direction):
+    from smi_tpu_torch.kernels import ring as kring
+
+    dtype = torch.float32 if chunk_bytes % 4 == 0 else torch.int8
+    xs = _ring_inputs(8, (chunks, chunk_bytes // dtype.itemsize), dtype,
+                      seed=chunk_bytes + chunks)
+    record = _check_ring(
+        cuda_world(8),
+        lambda x, c, probe=False: "ring_neighbour_stream" if probe
+        else kring.neighbour_stream(x, c, direction=direction),
+        lambda ys: kring.neighbour_stream_plain(ys, direction), xs)
+    _stream_record_holds(record, chunks)
+    assert record["blocks"] == kring.launch_plan(
+        chunk_bytes, 8, 1, kring.STREAM_SLICE_BYTES)[0]
+
+
+@pytest.mark.parametrize("shape", [(1, 2048), (16, 4096), (37, 130)])
+@pytest.mark.parametrize("direction", [1, -1])
+@pytest.mark.parametrize("axis", ["sx", "sy"])
+def test_neighbour_stream_on_the_lines_of_a_grid(axis, direction, shape):
+    """The 2x4 world's ``sx`` rings of two and ``sy`` rings of four, every
+    line in one launch: the halo's one-chunk slabs and longer streams."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from smi_tpu_torch.kernels import ring as kring
+
+    world = st.LocalWorld((2, 4), ("sx", "sy"))
+    xs = _ring_inputs(8, shape, torch.float32, seed=shape[0] + direction)
+    before = _build.LAUNCHES["ring_neighbour_stream"]
+    got = world.run(lambda c: kring.neighbour_stream(
+        xs[c.rank], c, axis, direction=direction))
+    assert _build.LAUNCHES["ring_neighbour_stream"] == before + 1
+    _stream_record_holds(kring.last_record(world), shape[0])
+    for line in world.lines(axis):
+        want = kring.neighbour_stream_plain([xs[r] for r in line], direction)
+        for r, w in zip(line, want):
+            assert torch.equal(got[r], w)
+
+
+@pytest.mark.parametrize("chunk_bytes", [4, 8288, 32768, 1 << 20])
+def test_neighbour_stream_without_flow_control_at_two_chunks(cuda_world,
+                                                             chunk_bytes):
+    """Two chunks, one a slot, need no credit however many blocks a rank
+    plays them."""
+    from smi_tpu_torch.kernels import ring as kring
+
+    xs = _ring_inputs(8, (2, chunk_bytes // 4), torch.float32,
+                      seed=chunk_bytes)
+    record = _check_ring(
+        cuda_world(8),
+        lambda x, c, probe=False: "ring_neighbour_stream" if probe
+        else kring.neighbour_stream(x, c, flow_control=False),
+        kring.neighbour_stream_plain, xs)
+    _stream_record_holds(record, 2, flow_control=False)
+
+
 @pytest.mark.parametrize("chunks", [2, 4, 8])
 def test_chunked_kernel_spreads_chunks_over_blocks(cuda_world, chunks):
     """1 MiB f32 a rank on 8 ranks: chunk c on blocks of its own, 64

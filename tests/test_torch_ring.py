@@ -224,6 +224,36 @@ def test_neighbour_stream_equals_the_interpreted_jax_kernel(
     np.testing.assert_array_equal(got, np.roll(x, direction, axis=0))
 
 
+#: n, shape, dtype, direction: chunks the stream's plan cuts over several
+#: blocks a rank (16 KiB and 12,000 bytes: 4 and 3 blocks of 4 KiB
+#: slices), many chunks (37 of 130 elements, so both slots turn over 18
+#: times) and ragged byte counts (1001 and 4099 bytes a chunk: word copies
+#: with a byte tail, and a second block of 3 bytes)
+STREAM_PLAN_CASES = [
+    (8, (3, 4096), "float32", 1), (3, (2, 3000), "float32", -1),
+    (2, (37, 130), "float32", 1), (3, (37, 130), "bfloat16", -1),
+    (8, (37, 130), "int8", 1), (2, (37, 130), "int8", -1),
+    (3, (5, 1001), "int8", 1), (2, (4, 4099), "int8", -1),
+]
+
+
+@pytest.mark.parametrize("n,shape,dtype,direction", STREAM_PLAN_CASES)
+def test_neighbour_stream_at_several_blocks_and_many_chunks(
+        eight_devices, n, shape, dtype, direction):
+    x = _inputs(n, shape, dtype, seed=90 + n + shape[0])
+    want = _jax_ring(eight_devices, n, lambda v, ma: jring.neighbour_stream(
+        v, "smi", n, direction=direction, interpret=True, mesh_axes=ma),
+        x, dtype)
+    got = _port_ring(n, lambda t, c: kring.neighbour_stream(
+        t, c, direction=direction), x, dtype)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, np.roll(x, direction, axis=0))
+    unit = int(np.prod(shape[1:])) * {"float32": 4, "bfloat16": 2,
+                                      "int8": 1}[dtype]
+    blocks, _ = kring.launch_plan(unit, n, 1, kring.STREAM_SLICE_BYTES)
+    assert blocks == -(-unit // kring.STREAM_SLICE_BYTES)
+
+
 @pytest.mark.parametrize("axis", ["sx", "sy"])
 def test_sub_ring_of_a_grid_equals_the_interpreted_jax_kernel(eight_devices,
                                                               axis):
@@ -405,6 +435,81 @@ def test_launch_plan_spreads_chunks_over_blocks_at_the_cap():
     assert kring.max_chunks(8) == 64 and kring.max_chunks(16) == 32
     with pytest.raises(ValueError, match="takes 1 to 64"):
         kring.launch_plan(4096, 8, 65)
+
+
+#: the stream's chunk sizes on the main path, in bytes, and its blocks a
+#: rank on 8 ranks: phase 24's probe (4 KiB), the channel's chunks (2072
+#: f32), the 2x4 stencil's halo slabs (2048 and 4096 f32), the 512 KiB
+#: message in 16 chunks, and a 4 MiB chunk at the cap
+STREAM_PLANS = [(4096, 1), (8288, 3), (8192, 2), (16384, 4), (32768, 8),
+                (4 << 20, 64)]
+
+
+@pytest.mark.parametrize("unit,blocks", STREAM_PLANS)
+def test_stream_plan_cuts_a_chunk_into_slices_of_4_kib(unit, blocks):
+    """A chunk of the stream goes over blocks of at least
+    ``STREAM_SLICE_BYTES`` (its own floor, below the collectives'
+    ``SLICE_BYTES``), one flag row a block, within the caps."""
+    assert kring.STREAM_SLICE_BYTES < kring.SLICE_BYTES
+    assert kring.launch_plan(unit, 8, 1, kring.STREAM_SLICE_BYTES) == (
+        blocks, blocks)
+    slices = slice_of_model(unit, 1, blocks)
+    assert all(n for _, n in slices)   # every block is live
+    assert sum(n for _, n in slices) == unit
+
+
+@pytest.mark.parametrize("ranks", [1, 2, 3, 4, 8, 16])
+def test_stream_plan_stays_resident_on_any_world(ranks):
+    """Every chunk size from one byte to 64 MiB on ``ranks``: at most
+    ``MAX_BLOCKS_PER_RANK`` blocks a rank and ``MAX_BLOCKS`` in all (the
+    grid the C entry checks against the card's resident blocks), slices of
+    16-byte multiples that cover the chunk, and no more blocks than the
+    floor asks for."""
+    for unit in [1, 15, 16, 4095, 4096, 4097, 8288, 12000, 1 << 20, 64 << 20]:
+        blocks, rows = kring.launch_plan(unit, ranks, 1,
+                                         kring.STREAM_SLICE_BYTES)
+        assert rows == blocks >= 1
+        assert blocks <= kring.MAX_BLOCKS_PER_RANK
+        assert blocks * ranks <= kring.MAX_BLOCKS
+        assert blocks <= -(-unit // kring.STREAM_SLICE_BYTES)
+        slices = slice_of_model(unit, 1, blocks)
+        assert sum(n for _, n in slices) == unit
+        assert all(first % 16 == 0 for first, _ in slices)
+
+
+def stream_round_model(nbytes, word, copiers=96, unroll=4):
+    """A model of ``ring.cu``'s ``Round``: the bytes that copying thread
+    ``t`` moves in round ``r`` of a slice of ``nbytes`` by words of
+    ``word`` bytes, ``unroll`` words a thread a round ``copiers`` apart,
+    and the tail of fewer bytes than a word one byte a thread with round
+    0; ``Round::of`` rounds, at least one."""
+    words = nbytes // word
+    per_round = copiers * unroll
+    rounds = max(1, -(-words // per_round))
+    moved = []
+    for r in range(rounds):
+        for t in range(copiers):
+            for u in range(unroll):
+                i = u * copiers + t
+                if i < words - r * per_round:
+                    w = r * per_round + i
+                    moved += range(w * word, (w + 1) * word)
+            if r == 0 and words * word + t < nbytes:
+                moved.append(words * word + t)
+    return rounds, moved
+
+
+@pytest.mark.parametrize("word", [16, 4, 1])
+def test_stream_rounds_move_every_byte_once(word):
+    """Each byte of a slice is loaded and stored by exactly one copying
+    thread in one round, whatever the slice's length and word size; a
+    4 KiB slice takes one round at 16-byte words."""
+    for nbytes in [0, 1, 3, 15, 16, 17, 520, 1001, 4096, 4099, 6144, 6145,
+                   8288, 16384]:
+        rounds, moved = stream_round_model(nbytes, word)
+        assert sorted(moved) == list(range(nbytes))
+        assert rounds == max(1, -(-(nbytes // word) // 384))
+    assert stream_round_model(4096, 16)[0] == 1
 
 
 def test_chunks_above_the_cap_clamp_and_keep_the_values():
