@@ -6,12 +6,15 @@ CUDA card, ``nvcc`` and ``nvidia-smi``; without a card it exits non-zero
 and prints no result. ``--earlier PATH`` (repeatable) builds an earlier
 copy of a ``smi_tpu_torch/kernels/csrc`` source with the same C entry
 points beside the tree's, named by its stem (``ring.cu``,
-``flash_fwd.cu``), and times it in turns with the tree's kernels
-(earlier, tree, tree, earlier) on the tree's launch plan: an earlier
-``ring.cu`` in phases 24 and 27 with outputs equal bit for bit; an
-earlier ``flash_fwd.cu`` in phase 11, each side's outputs held to the
-plain version's bars (the two round differently). The records of those
-kernels then carry ``earlier_ms``, else null. The phases:
+``flash_fwd.cu``, ``flash_bwd.cu``), and times it in turns with the
+tree's kernels (earlier, tree, tree, earlier): an earlier ``ring.cu`` in
+phases 24 and 27 on the tree's launch plan, with outputs equal bit for
+bit; an earlier ``flash_fwd.cu`` in phase 11 on the tree's plan, and an
+earlier ``flash_bwd.cu`` in phase 16 on the plan of the first,
+``mma.sync`` backward (``earlier_bwd_plan``: its C entry refuses any
+other), each side's outputs held to the plain version's bars (the two
+round differently). The records of those kernels then carry ``earlier_ms``,
+else null. The phases:
 
 1. the device, with the card's name and power limit from ``nvidia-smi``;
 2. the build of every CUDA kernel of the path from ``smi_tpu_torch/kernels/csrc``;
@@ -90,7 +93,10 @@ phase 2):
    step, the peak of ``torch.cuda.max_memory_allocated``;
 16. each backward kernel's time at the shapes of phases 12-15 beside its
    bound, its plain version's time and the backward of
-   ``scaled_dot_product_attention`` (forward plus backward less forward).
+   ``scaled_dot_product_attention`` (forward plus backward less forward),
+   with its blocks a launch (and, where bf16 dk/dv took its 64-key form,
+   the 128-key form's time); with an earlier ``flash_bwd.cu`` its time in
+   turns with the tree's, its outputs held to the plain version's bars.
 
 Then the explicit-copy stencil pipeline
 (``smi_tpu_torch/kernels/csrc/stencil_pipeline.cu``, also built in phase 2):
@@ -288,7 +294,8 @@ def main(argv=None) -> int:
         "--earlier", metavar="PATH", action="append", default=[],
         help="an earlier copy of a csrc/ source with the same C entry "
              "points, named by its stem (ring.cu: phases 24 and 27; "
-             "flash_fwd.cu: phase 11), timed in turns with the tree's "
+             "flash_fwd.cu: phase 11; flash_bwd.cu: phase 16), timed in "
+             "turns with the tree's "
              "kernels (earlier_ms in the kernels line; null without it); "
              "repeat for several sources")
     args = parser.parse_args(argv)
@@ -532,7 +539,7 @@ def main(argv=None) -> int:
             f"{ms / k:.5f} ms per sweep")
 
     records += flash_phases(dev, gen, max_err, earlier.get("flash_fwd"))
-    records += backward_phases(dev, gen, max_err)
+    records += backward_phases(dev, gen, max_err, earlier.get("flash_bwd"))
     records += pipeline_phases(dev, gen)
     ring_records, ring_check = ring_phases(dev, gen, earlier.get("ring"))
     records += ring_records
@@ -915,14 +922,31 @@ def patched(module, **attrs):
             setattr(module, name, value)
 
 
+def earlier_bwd_plan(kernel, d, dtype, *shape, **kw):
+    """The plan the first, ``mma.sync`` ``flash_bwd.cu`` checks: dq 64
+    query rows a block and key tiles of 64 (bf16) or 32 (f32) rows; dk/dv
+    32 query rows a tile and 64 keys a block, at every head dim and
+    shape."""
+    import torch
+
+    from smi_tpu_torch.kernels import flash as kflash
+
+    if kernel == kflash.KERNEL_BWD_DQ:
+        return 64, 64 if dtype == torch.bfloat16 else 32
+    return 32, 64
+
+
+
 class EarlierSource:
     """An earlier copy of a ``csrc/`` source with the tree's C entry
-    points, named by its stem (``ring.cu``, ``flash_fwd.cu``), given as
-    ``--earlier PATH`` (it is no file of the tree), built with the tree's
-    flags for that source into ``build/probe/earlier/`` beside the tree's
-    kernels and swapped in where the phases time it against the tree's.
-    It takes the tree's launch plan (:func:`kring.launch_plan`,
-    ``kflash._plan``)."""
+    points, named by its stem (``ring.cu``, ``flash_fwd.cu``,
+    ``flash_bwd.cu``), given as ``--earlier PATH`` (it is no file of the
+    tree), built with the tree's flags for that source into
+    ``build/probe/earlier/`` beside the tree's kernels and swapped in
+    where the phases time it against the tree's. It takes the tree's
+    launch plan (:func:`kring.launch_plan`, ``kflash._plan``), but for an
+    earlier ``flash_bwd.cu``, which takes the first backward's
+    (:func:`earlier_bwd_plan`)."""
 
     def __init__(self, path):
         from pathlib import Path
@@ -963,13 +987,17 @@ class EarlierSource:
     @contextlib.contextmanager
     def swapped(self):
         """The source's wrappers launch the earlier kernels in the
-        block."""
+        block, on the earlier source's plan."""
         from smi_tpu_torch.kernels import _build
+        from smi_tpu_torch.kernels import flash as kflash
 
         tree = _build._libs[self.stem]
         _build._libs[self.stem] = self.lib
         try:
-            yield
+            plan = ({"_bwd_plan": earlier_bwd_plan}
+                    if self.stem == "flash_bwd" else {})
+            with patched(kflash, **plan):
+                yield
         finally:
             _build._libs[self.stem] = tree
 
@@ -1379,10 +1407,12 @@ def flash_phases(dev, gen, max_err, earlier=None):
     return records
 
 
-def backward_phases(dev, gen, max_err):
+def backward_phases(dev, gen, max_err, earlier=None):
     """Phases 12-16: the flash backward kernels, the ring's backward and
     the transformer's train step. Returns the backward kernels' records
-    for the kernels line."""
+    for the kernels line. With an earlier ``flash_bwd.cu``
+    (:class:`EarlierSource`), phase 16 times it in turns with the
+    tree's, each side held to the plain version's bars."""
     import torch
 
     import smi_tpu_torch as st
@@ -1822,26 +1852,88 @@ def backward_phases(dev, gen, max_err):
                               kflash.flash_block_backward_dkdv_plain)}
     records = []
 
+    def hold(what, calls, outs, wants):
+        """Every call's gradients against its plain version's at the
+        bars, one line for all: f32 within F32_TOL everywhere, bf16 by
+        the worst row above the GRAD_FLOOR; where the plain gradient is
+        zeros (a future block), zeros."""
+        worst = 0.0
+        for (args, _), got, want in zip(calls, outs, wants):
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            for a, b in zip(got, want):
+                a, b = a.float(), b.float()
+                if not bool(b.any()):
+                    if bool(a.any()):
+                        raise AssertionError(f"{what}: nonzero gradients "
+                                             f"where the plain ones are 0")
+                elif args[0].dtype == f32:
+                    diff = (a - b).abs()
+                    if bool((diff > F32_TOL + F32_TOL * b.abs()).any()):
+                        raise AssertionError(
+                            f"{what}: outside {F32_TOL}, max abs err "
+                            f"{diff.max().item()}")
+                    worst = max(worst, diff.max().item())
+                else:
+                    rel, _ = Bars.row_rel(a, b, GRAD_FLOOR)
+                    if rel > BF16_ROW_REL:
+                        raise AssertionError(f"{what}: worst row relative "
+                                             f"error {rel} above "
+                                             f"{BF16_ROW_REL}")
+                    worst = max(worst, rel)
+        reading = ("max abs err" if calls[0][0][0].dtype == f32
+                   else "row rel err")
+        log(f"  {what}: every output within its bar (worst {reading} "
+            f"{worst:.3g})")
+
     def record(kernel, name, err_key, launches, calls, lib_ms):
         ops = nbytes = 0
         for args, window in calls:
             o, b = work(kernel, args, window)
             ops, nbytes = ops + o, nbytes + b
-        b_ms, b_by = flash_bound(ops, nbytes,
-                                 calls[0][0][0].dtype == bf16)
+        q, k = calls[0][0][:2]
+        b_ms, b_by = flash_bound(ops, nbytes, q.dtype == bf16)
         fn, fn_plain = fns[kernel]
-        ms = timed(lambda: [fn(*a, window=w) for a, w in calls])
+        plan = kflash._bwd_plan(kernel, q.shape[2], q.dtype, s_k=k.shape[1],
+                                h_kv=k.shape[0], sms=kflash._sm_count(dev))
+        blocks = kflash.bwd_blocks(kernel, plan, q.shape[0], k.shape[0],
+                                   q.shape[1], k.shape[1], q.shape[2])
+
+        def call():
+            return [fn(*a, window=w) for a, w in calls]
+
         plain_ms = time_ms(lambda: [fn_plain(*a, window=w)
                                     for a, w in calls], 1)
+        wants = None if earlier is None else [fn_plain(*a, window=w)
+                                              for a, w in calls]
+        t, e = in_turns(lambda: KernelTime.of(call), earlier,
+                        lambda _, outs: hold(
+                            f"earlier flash_bwd.cu, {kernel} {name}", calls,
+                            outs, wants))
+        ms, e_ms = t.ms, None if e is None else e.ms
+        del wants, t, e
+        # where the few-blocks rule chose bf16 dk/dv's 64-key form, the
+        # 128-key form's time beside it
+        unsplit_ms = None
+        if plan != kflash._bwd_plan(kernel, q.shape[2], q.dtype):
+            with patched(kflash, _sm_count=lambda device: 0):
+                unsplit_ms = timed(call)
         log(f"  {kernel} {name}: {ms:.4f} ms ({ops / ms / 1e9:.4g} TFLOP/s), "
             f"bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, "
-            f"launches on its main path {launches}")
+            f"launches on its main path {launches}, plan {plan}, {blocks} "
+            f"blocks a launch"
+            + ("" if unsplit_ms is None else
+               f", the 128-key form {unsplit_ms:.4f} ms")
+            + ("" if e_ms is None else
+               f"; earlier {e_ms:.4f} ms ({e_ms / ms:.3f}x)"))
         records.append({
             "name": f"{kernel} {name}", "route": "cuda", "source": BWD_SRC,
             "replaces": REPLACES[kernel], "launches": launches,
             "max_abs_err": max_err[(kernel, err_key)],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms,
+            "tflops": ops / ms / 1e9, "blocks": blocks, "earlier_ms": e_ms,
+            "unsplit_ms": unsplit_ms,
         })
 
     for name, s, h_kv, dt, causal, window in FUSED_CASES + [STACK_CASE]:

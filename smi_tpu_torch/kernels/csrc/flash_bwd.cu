@@ -1,5 +1,5 @@
 // Flash-attention backward (FlashAttention-2) for the ring-attention
-// schedule: two kernels, one per gradient orientation.
+// schedule: two kernels, one per gradient orientation, in two dtypes.
 //
 // Replaces: smi_tpu/kernels/flash.py::_bwd_dq_kernel (driven by
 // flash_block_backward_dq: dq of one K/V block) and
@@ -22,87 +22,81 @@
 //
 // Bound on the H100: operations. dq does 6*D operations per live
 // query-key pair (Q K^T, dO V^T, dS K), dkdv 8*D (K Q^T, V dO^T, P^T dO,
-// dS^T Q); at S=8192, H=8, D=128 causal that is 206 and 275 GFLOP: 3.1
-// and 4.1 ms at the 67 TFLOP/s of f32 outside the tensor cores (full f32,
-// as the reference runs HIGHEST), 0.21 and 0.28 ms at the 989 TFLOP/s
-// dense bf16 rate.
+// dS^T Q); at S=8192, H=8, D=128 causal that is 206 and 275 GFLOP: 0.21
+// and 0.28 ms at the 989 TFLOP/s of dense bf16 on the tensor cores, 3.1
+// and 4.1 ms at the 67 TFLOP/s of f32 on the CUDA cores (full f32, no
+// TF32: the reference runs HIGHEST).
 //
-// Design. Both kernels use the register layout of mma.sync m16n8
-// accumulators that flash_fwd.cu uses: a warp owns 16 rows, and each
-// thread holds two rows of every 8-column tile. bf16 runs every product
-// on the tensor cores (mma.sync.m16n8k16, f32 accumulation) and rounds
-// dS (dq, dK) and P^T (dV) to bf16 before their products, where the
-// reference rounds them to the operands' dtype. f32 runs them as f32 FMAs
-// on the CUDA cores through the same layout, with the left operand staged
-// in a per-warp shared buffer.
+// Design, bf16 (FlashAttention-3 in shape, the forward's vocabulary): a
+// block of 384 threads is one producer warp (its warpgroup gives its
+// registers to the others by setmaxnreg) and two consumer warpgroups.
+// The producer issues TMA loads through 3-D tensor maps (D, S, heads) in
+// 128-byte-swizzled boxes of 64 columns, so a ragged tile fills with
+// zeros inside its head; streamed tiles go through a two-stage ring with
+// a "full" and an "empty" mbarrier a stage.
+// - dq: a block owns 128 query rows of one head (64 a consumer
+//   warpgroup). Q and dO load once; K and V tiles of BK keys stream. S =
+//   Q K^T and dP = dO V^T are wgmma with both operands in shared memory
+//   (K-major), issued together; P forms in the accumulator registers while
+//   dP is in flight; dS = P o (dP - delta) is packed to bf16 (K's dtype)
+//   before the fence, and dq += dS K is wgmma with A from registers and K
+//   read MN-major (the transpose bit), as the forward reads V.
+// - dkdv: a block owns 128 keys of one K/V head (64 a consumer
+//   warpgroup); K and V load once. For each query head of the group, only
+//   the live query tiles stream, Q and dO with their m * log2(e), linv and
+//   delta (the producer warp writes those rows into the stage and arrives
+//   on its full barrier: 1 + 32 arrivals). S^T = K Q^T and dP^T = V dO^T
+//   are wgmma from shared memory; P^T (dout's dtype) and dS^T (q's) pack
+//   to bf16 in registers; dV += P^T dO and dK += dS^T Q are wgmma with dO
+//   and Q read MN-major. The statistics are per column of the
+//   accumulator, so they are read from shared memory. dK and dV stay in
+//   registers across the whole group: no atomics, the same bits on every
+//   run. Where 128-key blocks would leave most SMs idle (a GQA ring's
+//   short blocks: twice the blocks still fit one wave), the caller asks
+//   for the 64-key form: both consumer warpgroups take the same 64 keys
+//   and one half each of a 2x taller query tile, and the second adds its
+//   dK and dV to the first's through shared memory after the loop, in a
+//   fixed order.
+// - D=256: dq key tiles of 32; dkdv query tiles of 32 (64 in the
+//   64-key form) and the output columns split in halves over gridDim.y,
+//   each block recomputing the full-D scores.
 //
-// - dq: a block owns 64 query rows of one head (4 warps), holds its Q and
-//   dO tiles and its three statistics in registers, and walks only the
-//   key tiles that hold a live key for some of its rows. Blocks start
-//   from the last query tile, so the longest causal blocks run first.
-// - dkdv: a block owns 64 keys of one K/V head and walks the group's
-//   H/H_kv query heads and, for each, only the live 32-row query tiles
-//   (from the causal edge to the window's end). dK and dV stay in the
-//   block's registers across the whole group: no atomics, no per-query-
-//   head output, the same bits on every run.
+// Design, f32 (no wgmma form; TF32 would miss the 2e-5 bar): the
+// forward's register-tiled FFMA. 256 threads; thread (ty, tx) holds the
+// rows ty + 16 i of each score tile at columns tx + 16 j and of its
+// accumulators at the float4 columns 64 g + 4 tx; operands are float4s
+// from shared rows padded by 16 bytes, broadcast across the 16 threads
+// of a row. dq: 128 query rows a block (64 at D=256), K and V tiles of
+// 32 keys, dP = dO V^T first so that the next V loads by cp.async during
+// Q K^T and dS K, and the next K during the next dO V^T. dkdv: 128 keys
+// a block (32 at D=256, where K and V are twice as wide), query tiles of
+// 32 rows, P^T and dS^T staged in shared memory for the two
+// accumulations; dK += dS^T Q comes first, so the next Q and its
+// statistics load during dV += P^T dO, and the next dO during the next
+// K Q^T.
 //
-// Registers: a warp's dK and dV for 16 keys are 2 x 16 x 128 f32 at
-// D=128, 128 registers a thread; the 32-row query tile keeps the score
-// tiles at 16 each. Wider heads (D=256) split the output columns into
-// 128-wide halves over gridDim.z, each block recomputing the full-D
-// scores. Masked entries are set to 0 by a select, never by multiplying:
-// a row with no live key has m = NEG_INF and exp(S - m) = +inf there, and
-// inf * 0 is NaN. A block with no live pair writes exact zeros.
+// Both: p is ex2.approx of one FMA with log2(e) folded into the scale and
+// m; a tile body is compiled with and without the mask, and only a tile
+// that straddles the diagonal, the window's edge or a ragged end
+// evaluates it. Masked entries are set to 0 by a select, never by
+// multiplying: a row with no live key has m = NEG_INF and exp(S - m) =
+// +inf there, and inf * 0 is NaN. A zero-filled row past the ragged end
+// gives s = 0, not a masked score, so the select covers rows and keys
+// past their ends too. A block with no live pair writes exact zeros.
+// dq blocks of the last query rows, which walk the most key tiles under
+// causality, are issued first.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 
 #include <cstdint>
-#include <type_traits>
 
 namespace {
 
-constexpr int kThreads = 128;  // 4 warps
-constexpr int kRows = 64;      // dq: query rows a block owns; dkdv: keys
-constexpr int kTileQ = 32;     // dkdv: query rows per tile
-
-template <typename T>
-struct TileOf;
-template <>
-struct TileOf<float> {
-  static constexpr int kBlockK = 32;  // dq: key rows per tile
-  static constexpr int kPad = 4;      // row pad in elements: 16 bytes
-};
-template <>
-struct TileOf<__nv_bfloat16> {
-  static constexpr int kBlockK = 64;
-  static constexpr int kPad = 8;
-};
-
-// The shared-memory plans; smi_tpu_torch/kernels/flash.py::bwd_smem_bytes
-// computes the same sums.
-template <typename T, int D>
-struct Layout {
-  static constexpr bool kF32 = std::is_same<T, float>::value;
-  static constexpr int LD = D + TileOf<T>::kPad;  // tile row stride
-  static constexpr int DO = D < 128 ? D : 128;    // output columns a block
-  static constexpr int DT = DO / 8;               // accumulator tiles
-  static constexpr int BK = TileOf<T>::kBlockK;
-  static constexpr size_t kRowsBytes = size_t(kRows) * LD * sizeof(T);
-  static constexpr size_t kKBytes = size_t(BK) * LD * sizeof(T);
-  static constexpr size_t kQBytes = size_t(kTileQ) * LD * sizeof(T);
-  static constexpr size_t kStatBytes = size_t(3) * kTileQ * 4;
-  // f32 only: each warp's 16 x (n + 4) staging buffer for the left
-  // operand, n = BK (dq) or kTileQ (dkdv)
-  static constexpr size_t kDqStage = kF32 ? size_t(4) * 16 * (BK + 4) * 4 : 0;
-  static constexpr size_t kDkdvStage =
-      kF32 ? size_t(4) * 16 * (kTileQ + 4) * 4 : 0;
-  // dq: Q, dO (64 rows), K, V (BK rows), staging
-  static constexpr size_t kDqSmem = 2 * kRowsBytes + 2 * kKBytes + kDqStage;
-  // dkdv: K, V (64 rows), Q, dO (32 rows), m/linv/delta rows, staging
-  static constexpr size_t kDkdvSmem =
-      2 * kRowsBytes + 2 * kQBytes + kStatBytes + kDkdvStage;
-};
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr uint64_t kWaitNs = 10ull * 1000 * 1000 * 1000;  // then trap
 
 struct Params {
   const void* q;
@@ -121,458 +115,1456 @@ struct Params {
   float scale;
 };
 
-// rows [0, rows) of D elements from src (row stride D) into dst (row
-// stride LD), zeros past `avail`
-template <typename T, int D>
-__device__ __forceinline__ void load_rows(T* dst, const T* src, long long avail,
-                                          int rows) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kChunks = D / kVec;
-  constexpr int LD = Layout<T, D>::LD;
-  for (int i = threadIdx.x; i < rows * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < avail) {
-      val = *reinterpret_cast<const uint4*>(src + size_t(r) * D + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
+// ------------------------------------------------------------- shared --
+
+// dq block b owns query rows [q0, q0 + bq) of head hh; under causality
+// the last query tiles (the most key tiles each) come first.
+__device__ __forceinline__ void block_at(const Params& p, int bq, int& hh,
+                                         int& q0) {
+  const int n_qt = (p.s_q + bq - 1) / bq;
+  hh = blockIdx.x % p.h;
+  int qt = blockIdx.x / p.h;
+  if (p.causal) qt = n_qt - 1 - qt;
+  q0 = qt * bq;
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return uint32_t(__bfloat16_as_ushort(lo)) |
-         (uint32_t(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  return pack_bf16(__float2bfloat16_rn(lo), __float2bfloat16_rn(hi));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// Accumulator layout (that of mma.sync m16n8): in tile j, lane holds
-// rows g = lane/4 (elements 0, 1) and g + 8 (elements 2, 3) of its warp's
-// 16, columns j*8 + 2*(lane%4) + {0, 1}.
-
-// s (16 x NB) = A B^T over all D columns: A is this warp's 16 rows, B the
-// tile's NB rows, both of row stride LD
-template <typename T, int D, int NB>
-__device__ __forceinline__ void dot_tile(const T* A, const T* B,
-                                         float (&s)[NB / 8][4], int lane) {
-  constexpr int LD = Layout<T, D>::LD;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < NB / 8; ++j) {
-    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-  }
-  if constexpr (Layout<T, D>::kF32) {
-    const float* a0p = A + g * LD;
-    const float* a1p = a0p + 8 * LD;
-#pragma unroll 2
-    for (int d = 0; d < D; d += 4) {
-      const float4 a = *reinterpret_cast<const float4*>(a0p + d);
-      const float4 b = *reinterpret_cast<const float4*>(a1p + d);
-#pragma unroll
-      for (int j = 0; j < NB / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float4 kk = *reinterpret_cast<const float4*>(
-              B + (j * 8 + 2 * t + e) * LD + d);
-          float x = s[j][e], y = s[j][2 + e];
-          x = fmaf(a.x, kk.x, x); y = fmaf(b.x, kk.x, y);
-          x = fmaf(a.y, kk.y, x); y = fmaf(b.y, kk.y, y);
-          x = fmaf(a.z, kk.z, x); y = fmaf(b.z, kk.z, y);
-          x = fmaf(a.w, kk.w, x); y = fmaf(b.w, kk.w, y);
-          s[j][e] = x;
-          s[j][2 + e] = y;
-        }
-      }
-    }
-  } else {
-    const __nv_bfloat16* qa = A + g * LD + 2 * t;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t a0 = ld32(qa + kk * 16);
-      const uint32_t a1 = ld32(qa + 8 * LD + kk * 16);
-      const uint32_t a2 = ld32(qa + kk * 16 + 8);
-      const uint32_t a3 = ld32(qa + 8 * LD + kk * 16 + 8);
-#pragma unroll
-      for (int j = 0; j < NB / 8; ++j) {
-        const __nv_bfloat16* kb = B + (j * 8 + g) * LD + kk * 16 + 2 * t;
-        mma_bf16(s[j], a0, a1, a2, a3, ld32(kb), ld32(kb + 8));
-      }
-    }
-  }
-}
-
-// o (16 x DO) += P B, P (16 x NB) in the score registers, B the tile's NB
-// rows from the block's first output column (row stride LD). bf16 rounds
-// P to bf16 first; f32 stages P in this warp's buffer Pw.
-template <typename T, int D, int NB>
-__device__ __forceinline__ void accumulate(const float (&p)[NB / 8][4],
-                                           const T* B, float* Pw,
-                                           float (&o)[Layout<T, D>::DT][4],
-                                           int lane) {
-  using L = Layout<T, D>;
-  constexpr int LD = L::LD;
-  const int g = lane >> 2, t = lane & 3;
-  if constexpr (L::kF32) {
-    constexpr int PLD = NB + 4;
-#pragma unroll
-    for (int j = 0; j < NB / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        Pw[(g + 8 * (e >> 1)) * PLD + j * 8 + 2 * t + (e & 1)] = p[j][e];
-      }
-    }
-    __syncwarp();
-    const float* p0 = Pw + g * PLD;
-    const float* p1 = p0 + 8 * PLD;
-    for (int kk = 0; kk < NB; kk += 4) {
-      const float4 pa4 = *reinterpret_cast<const float4*>(p0 + kk);
-      const float4 pb4 = *reinterpret_cast<const float4*>(p1 + kk);
-      const float pa[4] = {pa4.x, pa4.y, pa4.z, pa4.w};
-      const float pb[4] = {pb4.x, pb4.y, pb4.z, pb4.w};
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float* brow = B + (kk + u) * LD + 2 * t;
-#pragma unroll
-        for (int dt = 0; dt < L::DT; ++dt) {
-          const float2 bb = *reinterpret_cast<const float2*>(brow + dt * 8);
-          o[dt][0] = fmaf(pa[u], bb.x, o[dt][0]);
-          o[dt][1] = fmaf(pa[u], bb.y, o[dt][1]);
-          o[dt][2] = fmaf(pb[u], bb.x, o[dt][2]);
-          o[dt][3] = fmaf(pb[u], bb.y, o[dt][3]);
-        }
-      }
-    }
-    __syncwarp();
-  } else {
-#pragma unroll
-    for (int kk = 0; kk < NB / 16; ++kk) {
-      const uint32_t a0 = pack_f32(p[2 * kk][0], p[2 * kk][1]);
-      const uint32_t a1 = pack_f32(p[2 * kk][2], p[2 * kk][3]);
-      const uint32_t a2 = pack_f32(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-      const uint32_t a3 = pack_f32(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-      const __nv_bfloat16* bb = B + (kk * 16 + 2 * t) * LD + g;
-#pragma unroll
-      for (int dt = 0; dt < L::DT; ++dt) {
-        const __nv_bfloat16* c = bb + dt * 8;
-        const uint32_t b0 = pack_bf16(c[0], c[LD]);
-        const uint32_t b1 = pack_bf16(c[8 * LD], c[9 * LD]);
-        mma_bf16(o[dt], a0, a1, a2, a3, b0, b1);
-      }
-    }
-  }
-}
-
-// whether the key at global position kp is masked for the query at qp
-__device__ __forceinline__ bool masked(const Params& p, long long qp,
-                                       long long kp) {
-  return (p.causal && kp > qp) ||
-         (p.window > 0 && kp < qp - (p.window - 1));
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const Params p) {
-  using L = Layout<T, D>;
-  constexpr int NT = L::BK / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem);
-  T* dOs = reinterpret_cast<T*>(smem + L::kRowsBytes);
-  T* Ks = reinterpret_cast<T*>(smem + 2 * L::kRowsBytes);
-  T* Vs = reinterpret_cast<T*>(smem + 2 * L::kRowsBytes + L::kKBytes);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  float* Pw = reinterpret_cast<float*>(smem + 2 * L::kRowsBytes +
-                                       2 * L::kKBytes) +
-              warp * 16 * (L::BK + 4);
-
-  const int hh = blockIdx.y;
-  const int kvh = hh / (p.h / p.h_kv);
-  // the last query tile first: under causality it walks the most keys
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
-  const int c0 = blockIdx.z * L::DO;
-  const int rows_here = min(kRows, p.s_q - q0);
-  const T* q = static_cast<const T*>(p.q) + (size_t(hh) * p.s_q + q0) * D;
-  const T* dout =
-      static_cast<const T*>(p.dout) + (size_t(hh) * p.s_q + q0) * D;
-  const T* k = static_cast<const T*>(p.k) + size_t(kvh) * p.s_k * D;
-  const T* v = static_cast<const T*>(p.v) + size_t(kvh) * p.s_k * D;
-  const size_t row0 = size_t(hh) * p.s_q;
-  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-
-  float mr[2], lr[2], dr[2], o[L::DT][4];
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const bool here = rows[hr] < p.s_q;
-    mr[hr] = here ? p.m[row0 + rows[hr]] : 0.f;
-    lr[hr] = here ? p.linv[row0 + rows[hr]] : 0.f;
-    dr[hr] = here ? p.delta[row0 + rows[hr]] : 0.f;
-#pragma unroll
-    for (int dt = 0; dt < L::DT; ++dt) o[dt][2 * hr] = o[dt][2 * hr + 1] = 0.f;
-  }
-
-  // the live key span of this block's rows, in local key indices
-  const long long q_first = (long long)p.q_off + q0;
-  const long long q_last = q_first + rows_here - 1;
+// The key tiles [kt0, kt0 + n * bk) that hold a live key for one of the
+// rows [q_first, q_first + rows) (global positions), in local key indices.
+__device__ __forceinline__ int live_key_tiles(const Params& p,
+                                              long long q_first, int rows,
+                                              int bk, long long& kt0) {
   long long lo = 0, hi = p.s_k;
-  if (p.causal) hi = min(hi, q_last - p.k_off + 1);
+  if (p.causal) hi = min(hi, q_first + rows - p.k_off);
   if (p.window > 0) lo = max(lo, q_first - (p.window - 1) - p.k_off);
-
-  if (lo < hi) {
-    load_rows<T, D>(Qs, q, rows_here, kRows);
-    load_rows<T, D>(dOs, dout, rows_here, kRows);
-    for (long long kt = lo / L::BK * L::BK; kt < hi; kt += L::BK) {
-      __syncthreads();  // the previous tile's K/V reads are done
-      load_rows<T, D>(Ks, k + kt * D, p.s_k - kt, L::BK);
-      load_rows<T, D>(Vs, v + kt * D, p.s_k - kt, L::BK);
-      __syncthreads();
-      // every (row, key) of the tile live: no mask to evaluate
-      bool full = kt + L::BK <= p.s_k;
-      if (p.causal) full = full && p.k_off + kt + L::BK - 1 <= q_first;
-      if (p.window > 0) {
-        full = full && p.k_off + kt >= q_first + kRows - 1 - (p.window - 1);
-      }
-      float s[NT][4], dp[NT][4];
-      dot_tile<T, D, L::BK>(Qs + warp * 16 * L::LD, Ks, s, lane);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float pe = expf(s[j][e] * p.scale - mr[e >> 1]) * lr[e >> 1];
-          if (!full) {
-            const long long col = kt + j * 8 + 2 * t + (e & 1);
-            const long long qp = q_first + warp * 16 + g + 8 * (e >> 1);
-            if (col >= p.s_k || masked(p, qp, p.k_off + col)) pe = 0.f;
-          }
-          s[j][e] = pe;
-        }
-      }
-      dot_tile<T, D, L::BK>(dOs + warp * 16 * L::LD, Vs, dp, lane);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          dp[j][e] = s[j][e] * (dp[j][e] - dr[e >> 1]);  // dS
-        }
-      }
-      accumulate<T, D, L::BK>(dp, Ks + c0, Pw, o, lane);
-    }
-  }
-
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    if (rows[hr] >= p.s_q) continue;
-    float* a = p.dq + (row0 + rows[hr]) * D + c0 + 2 * t;
-#pragma unroll
-    for (int dt = 0; dt < L::DT; ++dt) {
-      *reinterpret_cast<float2*>(a + dt * 8) =
-          make_float2(o[dt][2 * hr] * p.scale, o[dt][2 * hr + 1] * p.scale);
-    }
-  }
+  kt0 = lo / bk * bk;
+  return lo < hi ? static_cast<int>((hi - kt0 + bk - 1) / bk) : 0;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkdv_kernel(const Params p) {
-  using L = Layout<T, D>;
-  constexpr int NT = kTileQ / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* Ks = reinterpret_cast<T*>(smem);
-  T* Vs = reinterpret_cast<T*>(smem + L::kRowsBytes);
-  T* Qs = reinterpret_cast<T*>(smem + 2 * L::kRowsBytes);
-  T* dOs = reinterpret_cast<T*>(smem + 2 * L::kRowsBytes + L::kQBytes);
-  float* Ms =
-      reinterpret_cast<float*>(smem + 2 * L::kRowsBytes + 2 * L::kQBytes);
-  float* Ls = Ms + kTileQ;
-  float* Ds = Ls + kTileQ;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  float* Pw = reinterpret_cast<float*>(smem + 2 * L::kRowsBytes +
-                                       2 * L::kQBytes + L::kStatBytes) +
-              warp * 16 * (kTileQ + 4);
-
-  const int kvh = blockIdx.y;
-  const int group = p.h / p.h_kv;
-  const int k0 = blockIdx.x * kRows;
-  const int c0 = blockIdx.z * L::DO;
-  const int keys_here = min(kRows, p.s_k - k0);
-  const size_t key0 = size_t(kvh) * p.s_k + k0;  // (kvh, k0) of k/v/dk/dv
-  const int keys[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
-
-  float dk[L::DT][4], dv[L::DT][4];
-#pragma unroll
-  for (int dt = 0; dt < L::DT; ++dt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[dt][e] = dv[dt][e] = 0.f;
-  }
-
-  // the live query span of this block's keys, in local query indices
-  const long long k_first = (long long)p.k_off + k0;
-  const long long k_last = k_first + keys_here - 1;
+// The query tiles [qt0, qt0 + n * bq) that hold a live query for one of
+// the keys [k_first, k_first + keys) (global positions), in local query
+// indices.
+__device__ __forceinline__ int live_query_tiles(const Params& p,
+                                                long long k_first, int keys,
+                                                int bq, long long& qt0) {
   long long lo = 0, hi = p.s_q;
   if (p.causal) lo = max(lo, k_first - p.q_off);
-  if (p.window > 0) hi = min(hi, k_last + p.window - p.q_off);
+  if (p.window > 0) hi = min(hi, k_first + keys - 1 + p.window - p.q_off);
+  qt0 = lo / bq * bq;
+  return lo < hi && keys > 0 ? static_cast<int>((hi - qt0 + bq - 1) / bq)
+                             : 0;
+}
 
-  if (lo < hi) {
-    load_rows<T, D>(Ks, static_cast<const T*>(p.k) + key0 * D, keys_here,
-                    kRows);
-    load_rows<T, D>(Vs, static_cast<const T*>(p.v) + key0 * D, keys_here,
-                    kRows);
-    for (int j = 0; j < group; ++j) {
-      const size_t row0 = size_t(kvh * group + j) * p.s_q;  // (hh, 0)
-      const T* q = static_cast<const T*>(p.q) + row0 * D;
-      const T* dout = static_cast<const T*>(p.dout) + row0 * D;
-      for (long long qt = lo / kTileQ * kTileQ; qt < hi; qt += kTileQ) {
-        __syncthreads();  // the previous tile's reads are done
-        load_rows<T, D>(Qs, q + qt * D, p.s_q - qt, kTileQ);
-        load_rows<T, D>(dOs, dout + qt * D, p.s_q - qt, kTileQ);
-        if (threadIdx.x < kTileQ) {
-          const long long i = qt + threadIdx.x;
-          const bool here = i < p.s_q;
-          Ms[threadIdx.x] = here ? p.m[row0 + i] : 0.f;
-          Ls[threadIdx.x] = here ? p.linv[row0 + i] : 0.f;
-          Ds[threadIdx.x] = here ? p.delta[row0 + i] : 0.f;
-        }
-        __syncthreads();
-        // every (key, query) of the tile live: no mask to evaluate
-        bool full = k0 + kRows <= p.s_k && qt + kTileQ <= p.s_q;
-        if (p.causal) full = full && p.q_off + qt >= k_first + kRows - 1;
-        if (p.window > 0) {
-          full = full &&
-                 p.q_off + qt + kTileQ - 1 <= k_first + (p.window - 1);
-        }
-        float st[NT][4], dpt[NT][4];
-        dot_tile<T, D, kTileQ>(Ks + warp * 16 * L::LD, Qs, st, lane);
-#pragma unroll
-        for (int jj = 0; jj < NT; ++jj) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int col = jj * 8 + 2 * t + (e & 1);
-            float pe = expf(st[jj][e] * p.scale - Ms[col]) * Ls[col];
-            if (!full) {
-              const long long ql = qt + col;
-              const int key = keys[e >> 1];
-              if (ql >= p.s_q || key >= p.s_k ||
-                  masked(p, p.q_off + ql, p.k_off + (long long)key)) {
-                pe = 0.f;
-              }
-            }
-            st[jj][e] = pe;  // P^T
-          }
-        }
-        accumulate<T, D, kTileQ>(st, dOs + c0, Pw, dv, lane);
-        dot_tile<T, D, kTileQ>(Vs + warp * 16 * L::LD, dOs, dpt, lane);
-#pragma unroll
-        for (int jj = 0; jj < NT; ++jj) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int col = jj * 8 + 2 * t + (e & 1);
-            dpt[jj][e] = st[jj][e] * (dpt[jj][e] - Ds[col]);  // dS^T
-          }
-        }
-        accumulate<T, D, kTileQ>(dpt, Qs + c0, Pw, dk, lane);
-      }
-    }
+// Whether no pair of queries [qg, qg + nq) and keys [kg, kg + nk) (global
+// positions) is live.
+__device__ __forceinline__ bool span_dead(const Params& p, long long qg,
+                                          int nq, long long kg, int nk) {
+  if (nq <= 0 || nk <= 0) return true;
+  if (p.causal && kg > qg + nq - 1) return true;
+  return p.window > 0 && kg + nk - 1 < qg - (p.window - 1);
+}
+
+// Whether every pair of that span is live by position (the caller checks
+// the ragged ends).
+__device__ __forceinline__ bool span_full(const Params& p, long long qg,
+                                          int nq, long long kg, int nk) {
+  bool full = true;
+  if (p.causal) full = kg + nk - 1 <= qg;
+  if (p.window > 0) full = full && kg >= qg + nq - 1 - (p.window - 1);
+  return full;
+}
+
+// The mask of one tile in 32-bit positions relative to its first query
+// (global qg) and first key (global kg): key j is dead for query i past
+// either ragged end, in the query's causal future or before its window.
+struct TileMask {
+  int diag;         // kg - qg, clamped
+  int rows, keys;   // queries and keys left before the ends, clamped
+  int causal, window;
+
+  __device__ __forceinline__ bool dead(int i, int j) const {
+    const int rel = diag + j - i;
+    bool d = i >= rows || j >= keys;
+    if (causal) d = d || rel > 0;
+    if (window > 0) d = d || rel < 1 - window;
+    return d;
   }
+};
 
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    if (keys[hr] >= p.s_k) continue;
-    const size_t r = size_t(kvh) * p.s_k + keys[hr];
-    float* a = p.dk + r * D + c0 + 2 * t;
-    float* b = p.dv + r * D + c0 + 2 * t;
-#pragma unroll
-    for (int dt = 0; dt < L::DT; ++dt) {
-      *reinterpret_cast<float2*>(a + dt * 8) =
-          make_float2(dk[dt][2 * hr] * p.scale, dk[dt][2 * hr + 1] * p.scale);
-      *reinterpret_cast<float2*>(b + dt * 8) =
-          make_float2(dv[dt][2 * hr], dv[dt][2 * hr + 1]);
+// Clamped so that i, j < 1024 cannot overflow; a clamped distance
+// decides every comparison as the exact one would.
+__device__ __forceinline__ TileMask tile_mask(const Params& p, long long qg,
+                                              long long rows, long long kg,
+                                              long long keys) {
+  constexpr long long kFar = (1ll << 31) - 2048;
+  return TileMask{static_cast<int>(max(-kFar, min(kFar, kg - qg))),
+                  static_cast<int>(max(-1ll, min(4096ll, rows))),
+                  static_cast<int>(max(-1ll, min(4096ll, keys))), p.causal,
+                  p.window};
+}
+
+// 2^x by the special-function unit: exact 0 at -inf, about 2^-22
+// relative error elsewhere
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// P of one score s: exp(s * scale - m) * linv, with scale_log2 = scale *
+// log2(e) and ml = m * log2(e)
+__device__ __forceinline__ float prob(float s, float scale_log2, float ml,
+                                      float linv) {
+  return fast_exp2(fmaf(s, scale_log2, -ml)) * linv;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// --------------------------------------------------------------- bf16 --
+
+__device__ __forceinline__ void barrier_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void barrier_expect(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void barrier_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ uint64_t now_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Wait for the phase of `parity` to complete; trap after kWaitNs rather
+// than hang the card.
+__device__ __forceinline__ void barrier_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint64_t start = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) {
+      start = now_ns();
+    } else if (now_ns() - start > kWaitNs) {
+      __trap();
     }
   }
 }
 
-template <typename Kernel>
-int launch_with(Kernel kernel, size_t smem, dim3 grid, const Params& p,
-                void* stream) {
-  const cudaError_t err = cudaFuncSetAttribute(
+// One box of a 3-D tensor map (`map`: the address of a __grid_constant__
+// CUtensorMap) at (c0, c1, c2), innermost first.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 1.
+__device__ __forceinline__ uint64_t descriptor(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// wait until at most N committed groups are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving an accumulator's reads or writes across
+// the asynchronous product.
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
+  }
+}
+
+// wgmma m64nNk16, f32 += bf16 x bf16. wgmma_ss: A and B from shared
+// memory, both K-major; wgmma_rs: A from registers (the m16n8k16 A
+// fragment of each warp's 16 rows), B from shared memory MN-major.
+// The accumulator d[j][e] of a thread is that of mma.sync m16n8 tile j:
+// rows warp*16 + lane/4 (e = 0, 1) and + 8 (e = 2, 3), columns
+// j*8 + 2*(lane%4) + (e & 1).
+__device__ __forceinline__ void wgmma_ss(float (&d)[4][4], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[8][4],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16][4],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32][4],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127 "
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]),
+        "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]),
+        "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]),
+        "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]),
+        "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]),
+        "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]),
+        "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]),
+        "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]),
+        "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3]),
+        "+f"(d[24][0]), "+f"(d[24][1]), "+f"(d[24][2]), "+f"(d[24][3]),
+        "+f"(d[25][0]), "+f"(d[25][1]), "+f"(d[25][2]), "+f"(d[25][3]),
+        "+f"(d[26][0]), "+f"(d[26][1]), "+f"(d[26][2]), "+f"(d[26][3]),
+        "+f"(d[27][0]), "+f"(d[27][1]), "+f"(d[27][2]), "+f"(d[27][3]),
+        "+f"(d[28][0]), "+f"(d[28][1]), "+f"(d[28][2]), "+f"(d[28][3]),
+        "+f"(d[29][0]), "+f"(d[29][1]), "+f"(d[29][2]), "+f"(d[29][3]),
+        "+f"(d[30][0]), "+f"(d[30][1]), "+f"(d[30][2]), "+f"(d[30][3]),
+        "+f"(d[31][0]), "+f"(d[31][1]), "+f"(d[31][2]), "+f"(d[31][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Issue s (64 x N) = A B^T over all D columns: A's 64 rows and B's N
+// rows both K-major, in boxes of 64 columns a_box and b_box bytes apart;
+// D/16 steps of k16, 32 bytes apart inside a 128-byte row.
+template <int D, int NT>
+__device__ __forceinline__ void issue_dots(float (&s)[NT][4],
+                                           const unsigned char* A,
+                                           uint32_t a_box,
+                                           const unsigned char* B,
+                                           uint32_t b_box) {
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc) {
+    const int c = kc / 4, w = (kc % 4) * 32;
+    wgmma_ss(s, descriptor(A + c * a_box + w, 16, 1024),
+             descriptor(B + c * b_box + w, 16, 1024), 1);
+  }
+}
+
+// Issue o (64 x N) += A B: A the packed bf16 fragments of K/16 steps of
+// k16, B (K x N) MN-major: its rows kk*16.. at B + kk*16*128, its N
+// columns in boxes of 64, b_box bytes apart.
+template <int KS, int NT>
+__device__ __forceinline__ void issue_products(float (&o)[NT][4],
+                                               const uint32_t (&a)[KS][4],
+                                               const unsigned char* B,
+                                               uint32_t b_box) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    wgmma_rs(o, a[kk], descriptor(B + kk * 16 * 128, b_box, 1024));
+  }
+}
+
+// The m16n8k16 A fragment of score tiles 2kk and 2kk + 1
+template <int NT>
+__device__ __forceinline__ void pack_fragment(const float (&x)[NT][4],
+                                              int kk, uint32_t (&a)[4]) {
+  a[0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
+  a[1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
+  a[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+  a[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+}
+
+template <int D>
+struct DqBf16 {
+  static constexpr int kThreads = 384;  // two consumer warpgroups, one producer
+  static constexpr int BQ = 128;        // 64 query rows per consumer warpgroup
+  static constexpr int BK = D == 256 ? 32 : 64;  // keys per tile
+  static constexpr int kStages = 2;
+  static constexpr int NT = BK / 8;     // score accumulator tiles
+  static constexpr int DT = D / 8;      // dq accumulator tiles
+  static constexpr int kChunks = D / 64;  // boxes of 64 columns (128 bytes)
+  static constexpr uint32_t kRowsBytes = BQ * D * 2;  // Q or dO
+  static constexpr uint32_t kTileBytes = BK * D * 2;  // one K or V tile
+  static constexpr uint32_t kStageBytes = 2 * kTileBytes;
+  static constexpr uint32_t kBarOffset = 2 * kRowsBytes + kStages * kStageBytes;
+  // 1024: slack to align the base to the swizzle's 1024-byte period
+  static constexpr size_t kSmem = 1024 + kBarOffset + 64;
+};
+
+// One (64, BK) tile into this warpgroup's dq. Qw/dOw: the warpgroup's
+// 64 rows of Q and dO; Ks/Vs: the stage's tiles. ml, li, dl: the rows'
+// m * log2(e), linv and delta.
+template <int D, bool kMask>
+__device__ __forceinline__ void dq_tile_bf16(
+    const unsigned char* Qw, const unsigned char* dOw,
+    const unsigned char* Ks, const unsigned char* Vs,
+    float (&o)[DqBf16<D>::DT][4], const float (&ml)[2], const float (&li)[2],
+    const float (&dl)[2], float scale_log2, const TileMask& mask, int warp,
+    int lane) {
+  using L = DqBf16<D>;
+  const int g = lane >> 2, t = lane & 3;
+  float s[L::NT][4], dp[L::NT][4];
+#pragma unroll
+  for (int j = 0; j < L::NT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+  }
+  fence_operands(s);
+  fence_operands(dp);
+  wgmma_fence();
+  issue_dots<D>(s, Qw, L::BQ * 128, Ks, L::BK * 128);
+  wgmma_commit();
+  issue_dots<D>(dp, dOw, L::BQ * 128, Vs, L::BK * 128);
+  wgmma_commit();
+  wgmma_wait<1>();
+  fence_operands(s);
+#pragma unroll
+  for (int j = 0; j < L::NT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = prob(s[j][e], scale_log2, ml[e >> 1], li[e >> 1]);
+      if (kMask &&
+          mask.dead(warp * 16 + g + 8 * (e >> 1), j * 8 + 2 * t + (e & 1))) {
+        x = 0.f;
+      }
+      s[j][e] = x;
+    }
+  }
+  wgmma_wait<0>();
+  fence_operands(dp);
+  // dS, rounded to K's dtype, packed whole before the fence
+#pragma unroll
+  for (int j = 0; j < L::NT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dp[j][e] = s[j][e] * (dp[j][e] - dl[e >> 1]);
+  }
+  uint32_t a[L::BK / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < L::BK / 16; ++kk) pack_fragment(dp, kk, a[kk]);
+  fence_operands(o);
+  wgmma_fence();
+  issue_products(o, a, Ks, L::BK * 128);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_operands(o);
+}
+
+template <int D>
+__global__ void __launch_bounds__(384, 1)
+    flash_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tdo,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, const Params p) {
+  using L = DqBf16<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* Qs = smem;
+  unsigned char* dOs = smem + L::kRowsBytes;
+  unsigned char* stages = smem + 2 * L::kRowsBytes;
+  uint64_t* rows_full = reinterpret_cast<uint64_t*>(smem + L::kBarOffset);
+  uint64_t* full = rows_full + 1;
+  uint64_t* empty = full + L::kStages;
+
+  int hh, q0;
+  block_at(p, L::BQ, hh, q0);
+  const int kvh = hh / (p.h / p.h_kv);
+  long long kt0;
+  const int n_tiles = live_key_tiles(p, (long long)p.q_off + q0,
+                                     min(L::BQ, p.s_q - q0), L::BK, kt0);
+
+  if (threadIdx.x == 0) {
+    barrier_init(rows_full, 1);
+    for (int s = 0; s < L::kStages; ++s) {
+      barrier_init(&full[s], 1);
+      barrier_init(&empty[s], 8);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // producer: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256 && n_tiles > 0) {
+      barrier_expect(rows_full, 2 * L::kRowsBytes);
+      for (int c = 0; c < L::kChunks; ++c) {
+        tma_load(Qs + c * L::BQ * 128, &tq, rows_full, c * 64, q0, hh);
+        tma_load(dOs + c * L::BQ * 128, &tdo, rows_full, c * 64, q0, hh);
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int stage = i % L::kStages;
+        if (i >= L::kStages) {
+          barrier_wait(&empty[stage], (i / L::kStages - 1) & 1);
+        }
+        unsigned char* Kb = stages + stage * L::kStageBytes;
+        unsigned char* Vb = Kb + L::kTileBytes;
+        const int kt = static_cast<int>(kt0) + i * L::BK;
+        barrier_expect(&full[stage], L::kStageBytes);
+        for (int c = 0; c < L::kChunks; ++c) {
+          tma_load(Kb + c * L::BK * 128, &tk, &full[stage], c * 64, kt, kvh);
+          tma_load(Vb + c * L::BK * 128, &tv, &full[stage], c * 64, kt, kvh);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int r0 = q0 + wg * 64;  // the warpgroup's first row
+    const int rows_left = p.s_q - r0;
+    const long long wq_first = (long long)p.q_off + r0;
+    const size_t row0 = size_t(hh) * p.s_q;  // (hh, 0) of the rows and dq
+    const int rows[2] = {r0 + warp * 16 + g, r0 + warp * 16 + g + 8};
+    const float scale_log2 = p.scale * kLog2e;
+
+    float ml[2], li[2], dl[2], o[L::DT][4];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const bool here = rows[hr] < p.s_q;
+      ml[hr] = here ? p.m[row0 + rows[hr]] * kLog2e : 0.f;
+      li[hr] = here ? p.linv[row0 + rows[hr]] : 0.f;
+      dl[hr] = here ? p.delta[row0 + rows[hr]] : 0.f;
+#pragma unroll
+      for (int dt = 0; dt < L::DT; ++dt) {
+        o[dt][2 * hr] = o[dt][2 * hr + 1] = 0.f;
+      }
+    }
+
+    if (n_tiles > 0) barrier_wait(rows_full, 0);
+    const unsigned char* Qw = Qs + wg * 64 * 128;
+    const unsigned char* dOw = dOs + wg * 64 * 128;
+    for (int i = 0; i < n_tiles; ++i) {
+      const int stage = i % L::kStages;
+      const long long kt = kt0 + (long long)i * L::BK;
+      const long long kg = p.k_off + kt;
+      const int keys = static_cast<int>(min((long long)L::BK, p.s_k - kt));
+      barrier_wait(&full[stage], (i / L::kStages) & 1);
+      if (!span_dead(p, wq_first, min(64, rows_left), kg, keys)) {
+        const unsigned char* Kb = stages + stage * L::kStageBytes;
+        const TileMask mask = tile_mask(p, wq_first, rows_left, kg, p.s_k - kt);
+        if (rows_left >= 64 && keys == L::BK &&
+            span_full(p, wq_first, 64, kg, L::BK)) {
+          dq_tile_bf16<D, false>(Qw, dOw, Kb, Kb + L::kTileBytes, o, ml, li,
+                                 dl, scale_log2, mask, warp, lane);
+        } else {
+          dq_tile_bf16<D, true>(Qw, dOw, Kb, Kb + L::kTileBytes, o, ml, li,
+                                dl, scale_log2, mask, warp, lane);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) barrier_arrive(&empty[stage]);
+    }
+
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      if (rows[hr] >= p.s_q) continue;
+      float* a = p.dq + (row0 + rows[hr]) * D + 2 * t;
+#pragma unroll
+      for (int dt = 0; dt < L::DT; ++dt) {
+        *reinterpret_cast<float2*>(a + dt * 8) =
+            make_float2(o[dt][2 * hr] * p.scale, o[dt][2 * hr + 1] * p.scale);
+      }
+    }
+  }
+}
+
+// kSplit: the 64-key form, both consumer warpgroups on the block's 64
+// keys, each on one half of a query tile twice as tall
+template <int D, bool kSplit>
+struct DkdvBf16 {
+  static constexpr int kThreads = 384;
+  static constexpr int QN = D == 256 ? 32 : 64;  // queries a warpgroup a tile
+  static constexpr int KB = kSplit ? 64 : 128;   // keys a block
+  static constexpr int QT = kSplit ? 2 * QN : QN;  // query rows a tile
+  static constexpr int DO = D < 128 ? D : 128;   // output columns a block
+  static constexpr int kStages = 2;
+  static constexpr int NT = QN / 8;   // score accumulator tiles
+  static constexpr int DT = DO / 8;   // dK and dV accumulator tiles
+  static constexpr int kChunks = D / 64;
+  static constexpr uint32_t kKVBytes = KB * D * 2;   // K or V
+  static constexpr uint32_t kTileBytes = QT * D * 2;  // one Q or dO tile
+  static constexpr uint32_t kStageBytes = 2 * kTileBytes;
+  static constexpr uint32_t kStatOffset = 2 * kKVBytes + kStages * kStageBytes;
+  static constexpr int kStatFloats = 3 * QT;  // m * log2(e), linv, delta
+  static constexpr uint32_t kBarOffset =
+      kStatOffset + kStages * kStatFloats * 4;
+  static constexpr size_t kSmem = 1024 + kBarOffset + 64;
+};
+
+// One (64 keys, QN queries) tile into this warpgroup's dK and dV. Kw/Vw:
+// the warpgroup's 64 keys (boxes KB rows apart); Qw/dOw: its QN rows of
+// the stage's tiles (boxes QT rows apart); st: the stage's statistics
+// from its first row; c0: the block's first output column.
+template <int D, bool kSplit, bool kMask>
+__device__ __forceinline__ void dkdv_tile_bf16(
+    const unsigned char* Kw, const unsigned char* Vw,
+    const unsigned char* Qw, const unsigned char* dOw, const float* st,
+    float (&dk)[DkdvBf16<D, kSplit>::DT][4],
+    float (&dv)[DkdvBf16<D, kSplit>::DT][4], float scale_log2, int c0,
+    const TileMask& mask, int warp, int lane) {
+  using L = DkdvBf16<D, kSplit>;
+  const int g = lane >> 2, t = lane & 3;
+  float s[L::NT][4], dp[L::NT][4];
+#pragma unroll
+  for (int j = 0; j < L::NT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+  }
+  fence_operands(s);
+  fence_operands(dp);
+  wgmma_fence();
+  issue_dots<D>(s, Kw, L::KB * 128, Qw, L::QT * 128);
+  wgmma_commit();
+  issue_dots<D>(dp, Vw, L::KB * 128, dOw, L::QT * 128);
+  wgmma_commit();
+  wgmma_wait<1>();
+  fence_operands(s);
+  // P^T: row = key, column = query; the statistics are the column's
+#pragma unroll
+  for (int j = 0; j < L::NT; ++j) {
+    const int col = j * 8 + 2 * t;
+    const float2 ml = *reinterpret_cast<const float2*>(st + col);
+    const float2 li = *reinterpret_cast<const float2*>(st + L::QT + col);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = prob(s[j][e], scale_log2, (e & 1) ? ml.y : ml.x,
+                     (e & 1) ? li.y : li.x);
+      if (kMask && mask.dead(col + (e & 1), warp * 16 + g + 8 * (e >> 1))) {
+        x = 0.f;
+      }
+      s[j][e] = x;
+    }
+  }
+  wgmma_wait<0>();
+  fence_operands(dp);
+  // P^T rounded to dout's dtype, dS^T to q's, packed before the fence
+  uint32_t ap[L::QN / 16][4], as[L::QN / 16][4];
+#pragma unroll
+  for (int j = 0; j < L::NT; ++j) {
+    const float2 dl =
+        *reinterpret_cast<const float2*>(st + 2 * L::QT + j * 8 + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dp[j][e] = s[j][e] * (dp[j][e] - ((e & 1) ? dl.y : dl.x));
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < L::QN / 16; ++kk) {
+    pack_fragment(s, kk, ap[kk]);
+    pack_fragment(dp, kk, as[kk]);
+  }
+  const uint32_t cb = (c0 / 64) * L::QT * 128;  // the first output box
+  fence_operands(dv);
+  fence_operands(dk);
+  wgmma_fence();
+  issue_products(dv, ap, dOw + cb, L::QT * 128);
+  issue_products(dk, as, Qw + cb, L::QT * 128);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_operands(dv);
+  fence_operands(dk);
+}
+
+template <int D, bool kSplit>
+__global__ void __launch_bounds__(384, 1)
+    flash_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tdo,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, const Params p) {
+  using L = DkdvBf16<D, kSplit>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* Ks = smem;
+  unsigned char* Vs = smem + L::kKVBytes;
+  unsigned char* stages = smem + 2 * L::kKVBytes;
+  float* stats = reinterpret_cast<float*>(smem + L::kStatOffset);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::kBarOffset);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + L::kStages;
+
+  const int kvh = blockIdx.x % p.h_kv;
+  const int k0 = (blockIdx.x / p.h_kv) * L::KB;
+  const int c0 = blockIdx.y * L::DO;
+  const int group = p.h / p.h_kv;
+  long long qt0;
+  const int n_qt = live_query_tiles(p, (long long)p.k_off + k0,
+                                    min(L::KB, p.s_k - k0), L::QT, qt0);
+  const int n_tiles = group * n_qt;
+
+  if (threadIdx.x == 0) {
+    barrier_init(kv_full, 1);
+    for (int s = 0; s < L::kStages; ++s) {
+      barrier_init(&full[s], 33);  // the expect_tx and the 32 lanes' rows
+      barrier_init(&empty[s], 8);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // producer: lane 0 of its first warp issues every load; the warp
+    // writes each tile's statistics
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    const int lane = threadIdx.x & 31;
+    if (threadIdx.x < 288 && n_tiles > 0) {
+      if (lane == 0) {
+        barrier_expect(kv_full, 2 * L::kKVBytes);
+        for (int c = 0; c < L::kChunks; ++c) {
+          tma_load(Ks + c * L::KB * 128, &tk, kv_full, c * 64, k0, kvh);
+          tma_load(Vs + c * L::KB * 128, &tv, kv_full, c * 64, k0, kvh);
+        }
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int stage = i % L::kStages;
+        if (i >= L::kStages) {
+          barrier_wait(&empty[stage], (i / L::kStages - 1) & 1);
+        }
+        const int hh = kvh * group + i / n_qt;
+        const int qt = static_cast<int>(qt0) + (i % n_qt) * L::QT;
+        if (lane == 0) {
+          unsigned char* Qb = stages + stage * L::kStageBytes;
+          unsigned char* dOb = Qb + L::kTileBytes;
+          barrier_expect(&full[stage], L::kStageBytes);
+          for (int c = 0; c < L::kChunks; ++c) {
+            tma_load(Qb + c * L::QT * 128, &tq, &full[stage], c * 64, qt, hh);
+            tma_load(dOb + c * L::QT * 128, &tdo, &full[stage], c * 64, qt,
+                     hh);
+          }
+        }
+        float* st = stats + stage * L::kStatFloats;
+        const size_t row0 = size_t(hh) * p.s_q + qt;
+        for (int r = lane; r < L::QT; r += 32) {
+          const bool here = qt + r < p.s_q;
+          st[r] = here ? p.m[row0 + r] * kLog2e : 0.f;
+          st[L::QT + r] = here ? p.linv[row0 + r] : 0.f;
+          st[2 * L::QT + r] = here ? p.delta[row0 + r] : 0.f;
+        }
+        barrier_arrive(&full[stage]);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    // the warpgroup's keys (local) and its rows of each query tile
+    const int wk0 = kSplit ? k0 : k0 + wg * 64;
+    const int q_row0 = kSplit ? wg * L::QN : 0;
+    const int wkeys = min(64, p.s_k - wk0);
+    const long long kg = (long long)p.k_off + wk0;
+    const float scale_log2 = p.scale * kLog2e;
+
+    float dk[L::DT][4], dv[L::DT][4];
+#pragma unroll
+    for (int dt = 0; dt < L::DT; ++dt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[dt][e] = dv[dt][e] = 0.f;
+    }
+
+    if (n_tiles > 0) barrier_wait(kv_full, 0);
+    const unsigned char* Kw = Ks + (wk0 - k0) * 128;
+    const unsigned char* Vw = Vs + (wk0 - k0) * 128;
+    for (int i = 0; i < n_tiles; ++i) {
+      const int stage = i % L::kStages;
+      const long long wqt = qt0 + (long long)(i % n_qt) * L::QT + q_row0;
+      const long long qg = p.q_off + wqt;
+      const long long rows_left = p.s_q - wqt;
+      const int nq = static_cast<int>(min((long long)L::QN, rows_left));
+      barrier_wait(&full[stage], (i / L::kStages) & 1);
+      if (!span_dead(p, qg, nq, kg, wkeys)) {
+        const unsigned char* Qw =
+            stages + stage * L::kStageBytes + q_row0 * 128;
+        const unsigned char* dOw = Qw + L::kTileBytes;
+        const float* st = stats + stage * L::kStatFloats + q_row0;
+        const TileMask mask = tile_mask(p, qg, rows_left, kg, p.s_k - wk0);
+        if (nq == L::QN && wkeys == 64 && span_full(p, qg, L::QN, kg, 64)) {
+          dkdv_tile_bf16<D, kSplit, false>(Kw, Vw, Qw, dOw, st, dk, dv,
+                                           scale_log2, c0, mask, warp, lane);
+        } else {
+          dkdv_tile_bf16<D, kSplit, true>(Kw, Vw, Qw, dOw, st, dk, dv,
+                                          scale_log2, c0, mask, warp, lane);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) barrier_arrive(&empty[stage]);
+    }
+
+    if constexpr (kSplit) {
+      // the second warpgroup's sums into the first's, in a fixed order,
+      // through the stage buffers (every load has landed and been read
+      // once both warpgroups pass the first barrier)
+      float* red = reinterpret_cast<float*>(stages);
+      const int lt = threadIdx.x % 128;
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");
+      if (wg == 1) {
+#pragma unroll
+        for (int dt = 0; dt < L::DT; ++dt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            red[(dt * 4 + e) * 128 + lt] = dk[dt][e];
+            red[((L::DT + dt) * 4 + e) * 128 + lt] = dv[dt][e];
+          }
+        }
+      }
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");
+      if (wg == 1) return;
+#pragma unroll
+      for (int dt = 0; dt < L::DT; ++dt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dk[dt][e] += red[(dt * 4 + e) * 128 + lt];
+          dv[dt][e] += red[((L::DT + dt) * 4 + e) * 128 + lt];
+        }
+      }
+    }
+
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int key = wk0 + warp * 16 + g + 8 * hr;
+      if (key >= p.s_k) continue;
+      const size_t r = size_t(kvh) * p.s_k + key;
+      float* a = p.dk + r * D + c0 + 2 * t;
+      float* b = p.dv + r * D + c0 + 2 * t;
+#pragma unroll
+      for (int dt = 0; dt < L::DT; ++dt) {
+        *reinterpret_cast<float2*>(a + dt * 8) =
+            make_float2(dk[dt][2 * hr] * p.scale,
+                        dk[dt][2 * hr + 1] * p.scale);
+        *reinterpret_cast<float2*>(b + dt * 8) =
+            make_float2(dv[dt][2 * hr], dv[dt][2 * hr + 1]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------- f32 --
+
+constexpr int kF32Threads = 256;
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows [0, rows) of D floats from src (row stride D) into dst (row
+// stride LD); rows at or past `avail` fill with zeros and read nothing
+template <int D, int LD>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          long long avail, int rows) {
+  constexpr int kChunks = D / 4;
+  for (int i = threadIdx.x; i < rows * kChunks; i += kF32Threads) {
+    const int r = i / kChunks, c = (i % kChunks) * 4;
+    const bool valid = r < avail;
+    cp_async16(dst + r * LD + c, valid ? src + size_t(r) * D + c : src,
+               valid);
+  }
+}
+
+// s[i][j] = A row (ty + 16 i) . B row (tx + 16 j) over D (row stride LD)
+template <int D, int LD, int RM, int CN>
+__device__ __forceinline__ void f32_dots(const float* A, const float* B,
+                                         float (&s)[RM][CN], int ty,
+                                         int tx) {
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+#pragma unroll
+    for (int j = 0; j < CN; ++j) s[i][j] = 0.f;
+  }
+#pragma unroll 2
+  for (int d = 0; d < D; d += 4) {
+    float4 a[RM], b[CN];
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      a[i] = *reinterpret_cast<const float4*>(A + (ty + 16 * i) * LD + d);
+    }
+#pragma unroll
+    for (int j = 0; j < CN; ++j) {
+      b[j] = *reinterpret_cast<const float4*>(B + (tx + 16 * j) * LD + d);
+    }
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+#pragma unroll
+      for (int j = 0; j < CN; ++j) {
+        float x = s[i][j];
+        x = fmaf(a[i].x, b[j].x, x);
+        x = fmaf(a[i].y, b[j].y, x);
+        x = fmaf(a[i].z, b[j].z, x);
+        x = fmaf(a[i].w, b[j].w, x);
+        s[i][j] = x;
+      }
+    }
+  }
+}
+
+// o[i][g] += sum over k < NK of P[ty + 16 i][k] * B[k][64 g + 4 tx ..]:
+// P of row stride PLD, B of row stride LD from its first output column
+template <int NK, int LD, int PLD, int RM, int OG>
+__device__ __forceinline__ void f32_products(const float* P, const float* B,
+                                             float (&o)[RM][OG][4], int ty,
+                                             int tx) {
+#pragma unroll 2
+  for (int kk = 0; kk < NK; kk += 4) {
+    float4 pa[RM];
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      pa[i] = *reinterpret_cast<const float4*>(P + (ty + 16 * i) * PLD + kk);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      float4 vb[OG];
+#pragma unroll
+      for (int g = 0; g < OG; ++g) {
+        vb[g] = *reinterpret_cast<const float4*>(B + (kk + u) * LD + 64 * g +
+                                                 4 * tx);
+      }
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        const float pu = u == 0 ? pa[i].x
+                         : u == 1 ? pa[i].y
+                         : u == 2 ? pa[i].z
+                                  : pa[i].w;
+#pragma unroll
+        for (int g = 0; g < OG; ++g) {
+          o[i][g][0] = fmaf(pu, vb[g].x, o[i][g][0]);
+          o[i][g][1] = fmaf(pu, vb[g].y, o[i][g][1]);
+          o[i][g][2] = fmaf(pu, vb[g].z, o[i][g][2]);
+          o[i][g][3] = fmaf(pu, vb[g].w, o[i][g][3]);
+        }
+      }
+    }
+  }
+}
+
+template <int D>
+struct DqF32 {
+  static constexpr int BQ = D == 256 ? 64 : 128;  // query rows a block
+  static constexpr int BK = 32;                   // keys a tile
+  static constexpr int LD = D + 4;    // Q/dO/K/V row stride (floats)
+  // dS row stride: a warp's two half-warps (two rows) 16 banks apart
+  static constexpr int PLD = BK + 16;
+  static constexpr int RM = BQ / 16;  // rows a thread: ty + 16 i
+  static constexpr int CN = BK / 16;  // keys a thread: tx + 16 j
+  static constexpr int OG = D / 64;   // dq float4 groups: 64 g + 4 tx
+  static constexpr size_t kRowsFloats = size_t(BQ) * LD;
+  static constexpr size_t kTileFloats = size_t(BK) * LD;
+  static constexpr size_t kSmem =
+      4 * (2 * kRowsFloats + 2 * kTileFloats + size_t(BQ) * PLD);
+};
+
+// dS of one tile into Ps: P from the scores s, dS = P (dP - delta)
+template <int D, bool kMask>
+__device__ __forceinline__ void dq_scores_f32(
+    const float (&s)[DqF32<D>::RM][DqF32<D>::CN],
+    const float (&dp)[DqF32<D>::RM][DqF32<D>::CN], float* Ps,
+    const float (&ml)[DqF32<D>::RM], const float (&li)[DqF32<D>::RM],
+    const float (&dl)[DqF32<D>::RM], float scale_log2, const TileMask& mask,
+    int ty, int tx) {
+  using L = DqF32<D>;
+#pragma unroll
+  for (int i = 0; i < L::RM; ++i) {
+#pragma unroll
+    for (int j = 0; j < L::CN; ++j) {
+      float x = prob(s[i][j], scale_log2, ml[i], li[i]);
+      if (kMask && mask.dead(ty + 16 * i, tx + 16 * j)) x = 0.f;
+      Ps[(ty + 16 * i) * L::PLD + tx + 16 * j] = x * (dp[i][j] - dl[i]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(256, 1)
+    flash_dq_f32_kernel(const Params p) {
+  using L = DqF32<D>;
+  extern __shared__ __align__(16) float smf[];
+  float* Qs = smf;
+  float* dOs = Qs + L::kRowsFloats;
+  float* Ks = dOs + L::kRowsFloats;
+  float* Vs = Ks + L::kTileFloats;
+  float* Ps = Vs + L::kTileFloats;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+
+  int hh, q0;
+  block_at(p, L::BQ, hh, q0);
+  const int kvh = hh / (p.h / p.h_kv);
+  const int rows_here = min(L::BQ, p.s_q - q0);
+  const size_t row0 = size_t(hh) * p.s_q;  // (hh, 0) of the rows and dq
+  const float* q = static_cast<const float*>(p.q) + (row0 + q0) * D;
+  const float* dout = static_cast<const float*>(p.dout) + (row0 + q0) * D;
+  const float* k = static_cast<const float*>(p.k) + size_t(kvh) * p.s_k * D;
+  const float* v = static_cast<const float*>(p.v) + size_t(kvh) * p.s_k * D;
+  const long long q_first = (long long)p.q_off + q0;
+  const float scale_log2 = p.scale * kLog2e;
+
+  float ml[L::RM], li[L::RM], dl[L::RM], o[L::RM][L::OG][4];
+#pragma unroll
+  for (int i = 0; i < L::RM; ++i) {
+    const int row = q0 + ty + 16 * i;
+    const bool here = row < p.s_q;
+    ml[i] = here ? p.m[row0 + row] * kLog2e : 0.f;
+    li[i] = here ? p.linv[row0 + row] : 0.f;
+    dl[i] = here ? p.delta[row0 + row] : 0.f;
+#pragma unroll
+    for (int g = 0; g < L::OG; ++g) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[i][g][e] = 0.f;
+    }
+  }
+
+  long long kt0;
+  const int n_tiles = live_key_tiles(p, q_first, rows_here, L::BK, kt0);
+  if (n_tiles > 0) {
+    // groups in order: Q, dO with V_0; K_0; then V_i+1 and K_i+1 per tile
+    load_rows<D, L::LD>(Qs, q, rows_here, L::BQ);
+    load_rows<D, L::LD>(dOs, dout, rows_here, L::BQ);
+    load_rows<D, L::LD>(Vs, v + kt0 * D, p.s_k - kt0, L::BK);
+    cp_async_commit();
+    load_rows<D, L::LD>(Ks, k + kt0 * D, p.s_k - kt0, L::BK);
+    cp_async_commit();
+  }
+  for (int it = 0; it < n_tiles; ++it) {
+    const long long kt = kt0 + (long long)it * L::BK;
+    const long long next = kt + L::BK;
+    const bool more = it + 1 < n_tiles;
+    cp_async_wait<1>();  // V_it (K_it may still be in flight)
+    __syncthreads();
+    float dp[L::RM][L::CN], s[L::RM][L::CN];
+    f32_dots<D, L::LD>(dOs, Vs, dp, ty, tx);
+    __syncthreads();  // Vs free: the next V streams in during Q K^T, dS K
+    if (more) {
+      load_rows<D, L::LD>(Vs, v + next * D, p.s_k - next, L::BK);
+      cp_async_commit();
+      cp_async_wait<1>();  // K_it
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    f32_dots<D, L::LD>(Qs, Ks, s, ty, tx);
+    const long long kg = p.k_off + kt;
+    const TileMask mask = tile_mask(p, q_first, p.s_q - q0, kg, p.s_k - kt);
+    if (rows_here == L::BQ && next <= p.s_k &&
+        span_full(p, q_first, L::BQ, kg, L::BK)) {
+      dq_scores_f32<D, false>(s, dp, Ps, ml, li, dl, scale_log2, mask, ty,
+                              tx);
+    } else {
+      dq_scores_f32<D, true>(s, dp, Ps, ml, li, dl, scale_log2, mask, ty, tx);
+    }
+    __syncthreads();
+    f32_products<L::BK, L::LD, L::PLD>(Ps, Ks, o, ty, tx);
+    __syncthreads();  // Ks and Ps free: the next K streams in during dO V^T
+    if (more) {
+      load_rows<D, L::LD>(Ks, k + next * D, p.s_k - next, L::BK);
+      cp_async_commit();
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < L::RM; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row >= p.s_q) continue;
+#pragma unroll
+    for (int g = 0; g < L::OG; ++g) {
+      *reinterpret_cast<float4*>(p.dq + (row0 + row) * D + 64 * g + 4 * tx) =
+          make_float4(o[i][g][0] * p.scale, o[i][g][1] * p.scale,
+                      o[i][g][2] * p.scale, o[i][g][3] * p.scale);
+    }
+  }
+}
+
+template <int D>
+struct DkdvF32 {
+  static constexpr int KB = D == 256 ? 32 : 128;  // keys a block
+  static constexpr int QT = 32;                   // query rows a tile
+  static constexpr int DO = D < 128 ? D : 128;    // output columns a block
+  static constexpr int LD = D + 4;
+  static constexpr int PLD = QT + 16;  // P^T and dS^T row stride
+  static constexpr int RM = KB / 16;   // keys a thread: ty + 16 i
+  static constexpr int CN = QT / 16;   // queries a thread: tx + 16 j
+  static constexpr int OG = DO / 64;   // dK/dV float4 groups: 64 g + 4 tx
+  static constexpr size_t kKVFloats = size_t(KB) * LD;
+  static constexpr size_t kTileFloats = size_t(QT) * LD;
+  // K, V, one Q and one dO tile, m/linv/delta of its rows, P^T, dS^T
+  static constexpr size_t kSmem =
+      4 * (2 * kKVFloats + 2 * kTileFloats + 3 * QT + 2 * size_t(KB) * PLD);
+};
+
+// P^T and dS^T of one tile into Pt and dSt: row = key, column = query
+template <int D, bool kMask>
+__device__ __forceinline__ void dkdv_scores_f32(
+    const float (&s)[DkdvF32<D>::RM][DkdvF32<D>::CN],
+    const float (&dp)[DkdvF32<D>::RM][DkdvF32<D>::CN], const float* st,
+    float* Pt, float* dSt, float scale_log2, const TileMask& mask, int ty,
+    int tx) {
+  using L = DkdvF32<D>;
+#pragma unroll
+  for (int j = 0; j < L::CN; ++j) {
+    const int col = tx + 16 * j;
+    const float ml = st[col] * kLog2e, li = st[L::QT + col],
+                dl = st[2 * L::QT + col];
+#pragma unroll
+    for (int i = 0; i < L::RM; ++i) {
+      float x = prob(s[i][j], scale_log2, ml, li);
+      if (kMask && mask.dead(col, ty + 16 * i)) x = 0.f;
+      Pt[(ty + 16 * i) * L::PLD + col] = x;
+      dSt[(ty + 16 * i) * L::PLD + col] = x * (dp[i][j] - dl);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(256, 1)
+    flash_dkdv_f32_kernel(const Params p) {
+  using L = DkdvF32<D>;
+  extern __shared__ __align__(16) float smf[];
+  float* Ks = smf;
+  float* Vs = Ks + L::kKVFloats;
+  float* Qs = Vs + L::kKVFloats;
+  float* dOs = Qs + L::kTileFloats;
+  float* st = dOs + L::kTileFloats;
+  float* Pt = st + 3 * L::QT;
+  float* dSt = Pt + L::KB * L::PLD;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+
+  const int kvh = blockIdx.x % p.h_kv;
+  const int k0 = (blockIdx.x / p.h_kv) * L::KB;
+  const int c0 = blockIdx.y * L::DO;
+  const int group = p.h / p.h_kv;
+  const int keys_here = min(L::KB, p.s_k - k0);
+  const long long k_first = (long long)p.k_off + k0;
+  const float scale_log2 = p.scale * kLog2e;
+  long long qt0;
+  const int n_qt = live_query_tiles(p, k_first, keys_here, L::QT, qt0);
+  const int n_tiles = group * n_qt;
+
+  // tile i: rows [qt, qt + QT) of query head kvh * group + i / n_qt,
+  // from row0 = (that head, qt) of q, dout and the statistics
+  auto tile_rows = [&](int i, long long& qt) {
+    qt = qt0 + (long long)(i % n_qt) * L::QT;
+    return size_t(kvh * group + i / n_qt) * p.s_q + qt;
+  };
+  // Q and the statistics of tile i; dO of tile i
+  auto load_q = [&](int i) {
+    long long qt;
+    const size_t row0 = tile_rows(i, qt);
+    load_rows<D, L::LD>(Qs, static_cast<const float*>(p.q) + row0 * D,
+                        p.s_q - qt, L::QT);
+    for (int r = threadIdx.x; r < 3 * L::QT; r += kF32Threads) {
+      const int which = r / L::QT, rr = r % L::QT;
+      const float* src = which == 0 ? p.m : which == 1 ? p.linv : p.delta;
+      const bool valid = qt + rr < p.s_q;
+      cp_async4(st + r, valid ? src + row0 + rr : src, valid);
+    }
+    cp_async_commit();
+  };
+  auto load_dout = [&](int i) {
+    long long qt;
+    const size_t row0 = tile_rows(i, qt);
+    load_rows<D, L::LD>(dOs, static_cast<const float*>(p.dout) + row0 * D,
+                        p.s_q - qt, L::QT);
+    cp_async_commit();
+  };
+
+  float dk[L::RM][L::OG][4], dv[L::RM][L::OG][4];
+#pragma unroll
+  for (int i = 0; i < L::RM; ++i) {
+#pragma unroll
+    for (int g = 0; g < L::OG; ++g) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[i][g][e] = dv[i][g][e] = 0.f;
+    }
+  }
+
+  if (n_tiles > 0) {
+    // groups in order: K, V with Q_0; dO_0; then per tile Q_i+1 during
+    // dV += P^T dO and dO_i+1 during the next K Q^T
+    const size_t key0 = size_t(kvh) * p.s_k + k0;
+    load_rows<D, L::LD>(Ks, static_cast<const float*>(p.k) + key0 * D,
+                        keys_here, L::KB);
+    load_rows<D, L::LD>(Vs, static_cast<const float*>(p.v) + key0 * D,
+                        keys_here, L::KB);
+    load_q(0);
+    load_dout(0);
+  }
+  for (int i = 0; i < n_tiles; ++i) {
+    const bool more = i + 1 < n_tiles;
+    long long qt;
+    tile_rows(i, qt);
+    const long long qg = p.q_off + qt;
+    cp_async_wait<1>();  // Q_i (dO_i may still be in flight)
+    __syncthreads();
+    float s[L::RM][L::CN], dp[L::RM][L::CN];
+    f32_dots<D, L::LD>(Ks, Qs, s, ty, tx);
+    cp_async_wait<0>();  // dO_i
+    __syncthreads();
+    f32_dots<D, L::LD>(Vs, dOs, dp, ty, tx);
+    const TileMask mask = tile_mask(p, qg, p.s_q - qt, k_first, keys_here);
+    if (keys_here == L::KB && qt + L::QT <= p.s_q &&
+        span_full(p, qg, L::QT, k_first, L::KB)) {
+      dkdv_scores_f32<D, false>(s, dp, st, Pt, dSt, scale_log2, mask, ty,
+                                tx);
+    } else {
+      dkdv_scores_f32<D, true>(s, dp, st, Pt, dSt, scale_log2, mask, ty, tx);
+    }
+    __syncthreads();
+    f32_products<L::QT, L::LD, L::PLD>(dSt, Qs + c0, dk, ty, tx);
+    __syncthreads();  // Qs and the statistics free
+    if (more) load_q(i + 1);
+    f32_products<L::QT, L::LD, L::PLD>(Pt, dOs + c0, dv, ty, tx);
+    __syncthreads();  // dOs, Pt and dSt free
+    if (more) load_dout(i + 1);
+  }
+
+#pragma unroll
+  for (int i = 0; i < L::RM; ++i) {
+    const int key = k0 + ty + 16 * i;
+    if (key >= p.s_k) continue;
+    const size_t r = size_t(kvh) * p.s_k + key;
+#pragma unroll
+    for (int g = 0; g < L::OG; ++g) {
+      const int c = c0 + 64 * g + 4 * tx;
+      *reinterpret_cast<float4*>(p.dk + r * D + c) =
+          make_float4(dk[i][g][0] * p.scale, dk[i][g][1] * p.scale,
+                      dk[i][g][2] * p.scale, dk[i][g][3] * p.scale);
+      *reinterpret_cast<float4*>(p.dv + r * D + c) =
+          make_float4(dv[i][g][0], dv[i][g][1], dv[i][g][2], dv[i][g][3]);
+    }
+  }
+}
+
+// --------------------------------------------------------------- host --
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver-API symbol; the library links only
+// the runtime, so it is looked up in the driver the runtime has loaded
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib == nullptr ? nullptr
+                          : reinterpret_cast<EncodeTiled>(
+                                dlsym(lib, "cuTensorMapEncodeTiled"));
+  }();
+  return fn;
+}
+
+// A (heads, rows, d) bf16 tensor as a 3-D map (d, rows, heads), cut into
+// boxes of 64 columns (128 bytes, swizzled) by box_rows rows of one head:
+// rows past the head's end fill with zeros. 0, or minus the CUresult.
+int encode(CUtensorMap* map, const void* base, int d, int rows, int heads,
+           int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return -static_cast<int>(CUDA_ERROR_NOT_FOUND);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(heads)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
+                                 static_cast<cuuint64_t>(rows) * d * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -static_cast<int>(r);
+}
+
+// The four maps of a bf16 launch: q and dout in boxes of q_rows rows, k
+// and v in boxes of k_rows rows.
+int encode_all(CUtensorMap (&maps)[4], const Params& p, int d, int q_rows,
+               int k_rows) {
+  int err = encode(&maps[0], p.q, d, p.s_q, p.h, q_rows);
+  if (err == 0) err = encode(&maps[1], p.dout, d, p.s_q, p.h, q_rows);
+  if (err == 0) err = encode(&maps[2], p.k, d, p.s_k, p.h_kv, k_rows);
+  if (err == 0) err = encode(&maps[3], p.v, d, p.s_k, p.h_kv, k_rows);
+  return err;
+}
+
+template <typename Kernel, typename... Args>
+int launch_with(Kernel kernel, dim3 grid, int threads, size_t smem,
+                cudaStream_t stream, const Args&... args) {
+  const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
-  if (err != cudaSuccess) {
+  if (attr != cudaSuccess) {
     cudaGetLastError();
-    return static_cast<int>(err);
+    return static_cast<int>(attr);
   }
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  kernel<<<grid, threads, smem, stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 
-// block_q, block_k: the tile plan the caller assumed, checked here.
-// dq: 64 query rows a block, BK keys a tile; dkdv: 32 query rows a tile,
-// 64 keys a block.
-template <typename T, int D, bool kDq>
-int launch(const Params& p, int block_q, int block_k, void* stream) {
-  using L = Layout<T, D>;
-  const dim3 grid(((kDq ? p.s_q : p.s_k) + kRows - 1) / kRows,
-                  kDq ? p.h : p.h_kv, D / L::DO);
-  if constexpr (kDq) {
-    if (block_q != kRows || block_k != L::BK) {
+int blocks(int n, int tile) { return (n + tile - 1) / tile; }
+
+// block_q, block_k: the tile plan the caller assumed, checked here. dq:
+// query rows a block, keys a tile; dkdv: query rows a tile, keys a block
+// (bf16 takes either of its two forms).
+template <int D>
+int launch_dq(const Params& p, bool bf16, int block_q, int block_k,
+              cudaStream_t s) {
+  if (bf16) {
+    using L = DqBf16<D>;
+    if (block_q != L::BQ || block_k != L::BK) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    return launch_with(flash_bwd_dq_kernel<T, D>, L::kDqSmem, grid, p,
-                       stream);
-  } else {
-    if (block_q != kTileQ || block_k != kRows) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    return launch_with(flash_bwd_dkdv_kernel<T, D>, L::kDkdvSmem, grid, p,
-                       stream);
+    CUtensorMap m[4];
+    const int err = encode_all(m, p, D, L::BQ, L::BK);
+    if (err != 0) return err;
+    return launch_with(flash_dq_bf16_kernel<D>,
+                       dim3(blocks(p.s_q, L::BQ) * p.h), L::kThreads,
+                       L::kSmem, s, m[0], m[1], m[2], m[3], p);
   }
+  using L = DqF32<D>;
+  if (block_q != L::BQ || block_k != L::BK) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_with(flash_dq_f32_kernel<D>,
+                     dim3(blocks(p.s_q, L::BQ) * p.h), kF32Threads,
+                     L::kSmem, s, p);
+}
+
+template <int D, bool kSplit>
+int launch_dkdv_bf16(const Params& p, cudaStream_t s) {
+  using L = DkdvBf16<D, kSplit>;
+  CUtensorMap m[4];
+  const int err = encode_all(m, p, D, L::QT, L::KB);
+  if (err != 0) return err;
+  return launch_with(flash_dkdv_bf16_kernel<D, kSplit>,
+                     dim3(blocks(p.s_k, L::KB) * p.h_kv, D / L::DO),
+                     L::kThreads, L::kSmem, s, m[0], m[1], m[2], m[3], p);
+}
+
+template <int D>
+int launch_dkdv(const Params& p, bool bf16, int block_q, int block_k,
+                cudaStream_t s) {
+  if (bf16) {
+    using N = DkdvBf16<D, false>;
+    using S = DkdvBf16<D, true>;
+    if (block_q == N::QT && block_k == N::KB) {
+      return launch_dkdv_bf16<D, false>(p, s);
+    }
+    if (block_q == S::QT && block_k == S::KB) {
+      return launch_dkdv_bf16<D, true>(p, s);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  using L = DkdvF32<D>;
+  if (block_q != L::QT || block_k != L::KB) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_with(flash_dkdv_f32_kernel<D>,
+                     dim3(blocks(p.s_k, L::KB) * p.h_kv, D / L::DO),
+                     kF32Threads, L::kSmem, s, p);
 }
 
 // dtype 0: f32, 1: bf16; head dims 64, 128 and 256
 template <bool kDq>
 int dispatch(const Params& p, int dtype, int d, int block_q, int block_k,
              void* stream) {
-  if (p.s_q < 1 || p.s_k < 1 || p.h_kv < 1 || p.h % p.h_kv != 0) {
+  if (p.s_q < 1 || p.s_k < 1 || p.h_kv < 1 || p.h % p.h_kv != 0 ||
+      (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtype == 0) {
-    switch (d) {
-      case 64: return launch<float, 64, kDq>(p, block_q, block_k, stream);
-      case 128: return launch<float, 128, kDq>(p, block_q, block_k, stream);
-      case 256: return launch<float, 256, kDq>(p, block_q, block_k, stream);
-    }
-  } else if (dtype == 1) {
-    switch (d) {
-      case 64:
-        return launch<__nv_bfloat16, 64, kDq>(p, block_q, block_k, stream);
-      case 128:
-        return launch<__nv_bfloat16, 128, kDq>(p, block_q, block_k, stream);
-      case 256:
-        return launch<__nv_bfloat16, 256, kDq>(p, block_q, block_k, stream);
-    }
+  const bool bf16 = dtype == 1;
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 64:
+      return kDq ? launch_dq<64>(p, bf16, block_q, block_k, s)
+                 : launch_dkdv<64>(p, bf16, block_q, block_k, s);
+    case 128:
+      return kDq ? launch_dq<128>(p, bf16, block_q, block_k, s)
+                 : launch_dkdv<128>(p, bf16, block_q, block_k, s);
+    case 256:
+      return kDq ? launch_dq<256>(p, bf16, block_q, block_k, s)
+                 : launch_dkdv<256>(p, bf16, block_q, block_k, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
+// Both return cudaGetLastError() after the launch, cudaErrorInvalidValue
+// for a plan or shape the kernel does not take, or minus the CUresult of
+// a tensor map it could not encode.
 extern "C" int smi_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const float* m,
                                 const float* linv, const float* delta,

@@ -124,47 +124,89 @@ def _plan(d: int, dtype) -> Optional[Tuple[int, int]]:
     return BLOCK_Q, _block_k(d, dtype)
 
 
-#: the backward's tiles, as ``csrc/flash_bwd.cu`` has them: its dq kernel
-#: owns ``BWD_BLOCK_Q`` query rows (``kRows``) and walks key tiles of
-#: ``_BWD_TILE[dtype][0]`` rows (``TileOf::kBlockK``), rows padded by
-#: ``_BWD_TILE[dtype][1]`` elements (``TileOf::kPad``); its dkdv kernel
-#: owns ``BWD_BLOCK_K`` keys (``kRows``) and walks query tiles of
-#: ``BWD_TILE_Q`` rows (``kTileQ``)
-BWD_BLOCK_Q = 64
-_BWD_TILE = {torch.float32: (32, 4), torch.bfloat16: (64, 8)}
-BWD_TILE_Q, BWD_BLOCK_K = 32, 64
+#: the backward's tiles, as ``csrc/flash_bwd.cu`` has them (``DqBf16``,
+#: ``DkdvBf16``, ``DqF32``, ``DkdvF32``). dq: a block owns ``block_q``
+#: query rows and walks key tiles of ``block_k`` rows; dkdv: a block owns
+#: ``block_k`` keys and walks query tiles of ``block_q`` rows. bf16 dkdv
+#: has a 64-key form (``kSplit``) for launches that would leave most SMs
+#: idle.
+BWD_BLOCK_Q = 128
+BWD_BLOCK_K = 128
+
+#: SMs of the H100; the wrappers ask the card for its own count
+H100_SMS = 132
 
 
-def bwd_smem_bytes(kernel: str, d: int, dtype) -> int:
-    """Dynamic shared memory of one backward block, as ``Layout`` in
-    ``csrc/flash_bwd.cu`` sums it. dq: the Q and dO tiles (64 rows) and
-    one K and one V tile; dkdv: the K and V block (64 rows), one Q and
-    one dO tile (32 rows) and their three statistic rows. Rows are padded
-    by 16 bytes; f32 adds each warp's ``16 x (n + 4)`` f32 staging buffer
-    (n = the tile's rows)."""
-    block_k, pad = _BWD_TILE[dtype]
-    item = torch.empty((), dtype=dtype).element_size()
-    f32 = dtype == torch.float32
+def _bwd_tiles(kernel: str, d: int, dtype,
+               split: bool = False) -> Tuple[int, int]:
+    """``(block_q, block_k)`` of a backward kernel's tiles."""
+    if dtype == torch.bfloat16:
+        if kernel == KERNEL_BWD_DQ:
+            return BWD_BLOCK_Q, 32 if d == 256 else 64
+        qn = 32 if d == 256 else 64          # queries a warpgroup a tile
+        return (2 * qn, 64) if split else (qn, BWD_BLOCK_K)
     if kernel == KERNEL_BWD_DQ:
-        tiles = (2 * BWD_BLOCK_Q + 2 * block_k) * (d + pad) * item
-        return tiles + (4 * 16 * (block_k + 4) * 4 if f32 else 0)
-    tiles = (2 * BWD_BLOCK_K + 2 * BWD_TILE_Q) * (d + pad) * item
-    stage = 4 * 16 * (BWD_TILE_Q + 4) * 4 if f32 else 0
-    return tiles + 3 * BWD_TILE_Q * 4 + stage
+        return (64 if d == 256 else BWD_BLOCK_Q), 32
+    return 32, (32 if d == 256 else BWD_BLOCK_K)
 
 
-def _bwd_plan(kernel: str, d: int, dtype) -> Optional[Tuple[int, int]]:
-    """``(block_q, block_k)`` of a backward kernel for head dim ``d`` (dq:
-    query rows per block, key rows per tile; dkdv: query rows per tile,
-    keys per block), or None where it has no instantiation or would not
-    fit shared memory."""
-    if dtype not in _BWD_TILE or d not in HEAD_DIMS:
-        return None
-    if bwd_smem_bytes(kernel, d, dtype) > SMEM_BYTES_LIMIT:
-        return None
+def bwd_smem_bytes(kernel: str, d: int, dtype, split: bool = False) -> int:
+    """Dynamic shared memory of one backward block, as ``kSmem`` in
+    ``csrc/flash_bwd.cu`` sums it. bf16 (tiles unpadded: TMA swizzles):
+    1024 bytes to align the base to the 128-byte swizzle's period, the
+    block's own rows (dq: Q and dO; dkdv: K and V), two stages of the
+    streamed tiles (dq: K and V; dkdv: Q and dO, with their three f32
+    statistic rows) and 64 bytes of mbarriers. f32 (rows padded by 16
+    bytes): dq holds Q and dO, one K and one V tile and the dS tile;
+    dkdv holds K and V, one Q and one dO tile with their statistics, and
+    the P^T and dS^T tiles (rows of ``block_q + 16`` floats)."""
+    block_q, block_k = _bwd_tiles(kernel, d, dtype, split)
+    dq = kernel == KERNEL_BWD_DQ
+    if dtype == torch.bfloat16:
+        own, streamed = (block_q, block_k) if dq else (block_k, block_q)
+        stats = 0 if dq else 2 * 3 * block_q * 4
+        return 1024 + 2 * own * d * 2 + 2 * 2 * streamed * d * 2 + stats + 64
+    ld = d + 4
+    if dq:
+        return 4 * (2 * block_q * ld + 2 * block_k * ld
+                    + block_q * (block_k + 16))
+    return 4 * (2 * block_k * ld + 2 * block_q * ld + 3 * block_q
+                + 2 * block_k * (block_q + 16))
+
+
+def bwd_blocks(kernel: str, plan: Tuple[int, int], h: int, h_kv: int,
+               s_q: int, s_k: int, d: int) -> int:
+    """Blocks of one backward launch on ``plan``, as the C entry points
+    size the grid: dq one a (query block, head); dkdv one a (key block,
+    K/V head, half of the output columns at D=256)."""
+    block_q, block_k = plan
     if kernel == KERNEL_BWD_DQ:
-        return BWD_BLOCK_Q, _BWD_TILE[dtype][0]
-    return BWD_TILE_Q, BWD_BLOCK_K
+        return -(-s_q // block_q) * h
+    return -(-s_k // block_k) * h_kv * (2 if d == 256 else 1)
+
+
+def _bwd_plan(kernel: str, d: int, dtype, s_k: Optional[int] = None,
+              h_kv: Optional[int] = None,
+              sms: int = H100_SMS) -> Optional[Tuple[int, int]]:
+    """``(block_q, block_k)`` of a backward kernel for head dim ``d``, or
+    None where it has no instantiation or would not fit shared memory.
+    Given ``s_k`` and ``h_kv``, bf16 dkdv takes its 64-key form where
+    twice its 128-key blocks still fit one wave of ``sms`` (the 64-key
+    form halves each block's work and doubles the blocks, which helps
+    only where the doubled grid leaves no SM a second block)."""
+    if dtype not in _DTYPE_CODE or d not in HEAD_DIMS:
+        return None
+    split = (kernel == KERNEL_BWD_DKDV and dtype == torch.bfloat16
+             and s_k is not None
+             and 2 * bwd_blocks(kernel, _bwd_tiles(kernel, d, dtype),
+                                h_kv, h_kv, 0, s_k, d) <= sms)
+    if bwd_smem_bytes(kernel, d, dtype, split) > SMEM_BYTES_LIMIT:
+        return None
+    return _bwd_tiles(kernel, d, dtype, split)
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def flash_supported(s_q: int, s_k: int, d: int, dtype) -> bool:
@@ -516,6 +558,7 @@ def flash_block_backward_dkdv(q, k, v, dout, m, linv, delta, q_off, k_off,
     dv = torch.empty_like(dk)
     _launch(KERNEL_BWD_DKDV, q, (q, k, v, dout, m, linv, delta, dk, dv),
             _shape_ints(what, q, k, q_off, k_off, causal, window), scale,
-            _bwd_plan(KERNEL_BWD_DKDV, q.shape[2], q.dtype))
+            _bwd_plan(KERNEL_BWD_DKDV, q.shape[2], q.dtype, s_k=k.shape[1],
+                      h_kv=k.shape[0], sms=_sm_count(q.device)))
     return dk, dv
 

@@ -12,7 +12,9 @@ The CUDA kernels are held to these plain versions on the card
 (``chip_smoke.py``, ``tests/test_torch_gpu.py``).
 """
 
+import importlib.util
 import math
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -228,26 +230,118 @@ def test_cpu_calls_launch_nothing():
 
 
 def test_backward_tile_plan_fits_hopper_shared_memory():
-    """The sums ``Layout`` in ``csrc/flash_bwd.cu`` makes: dq holds the
-    Q and dO tiles (64 rows) and one K and one V tile, dkdv the K and V
-    block (64 rows), one Q and one dO tile (32 rows) and three 32-float
-    statistic rows; f32 adds four 16 x (n + 4) staging buffers."""
+    """The sums ``kSmem`` in ``csrc/flash_bwd.cu`` makes. bf16: 1024
+    bytes of alignment slack, the block's own rows (dq: Q and dO of 128
+    rows; dkdv: K and V of 128 keys, 64 in the 64-key form), two stages
+    of the streamed tiles (dq: K and V of 64 keys; dkdv: Q and dO of 64
+    rows, 128 in the 64-key form, with three f32 statistic rows) and 64
+    bytes of mbarriers. f32, rows padded by 16 bytes: dq holds Q and dO
+    (128 rows), one K and one V tile (32 keys) and the 128 x 48 dS tile;
+    dkdv holds K and V (128 keys), one Q and one dO tile (32 rows) with
+    their statistics, and the 128 x 48 P^T and dS^T tiles."""
     f32, bf16 = torch.float32, torch.bfloat16
     dq, dkdv = tflash.KERNEL_BWD_DQ, tflash.KERNEL_BWD_DKDV
     assert tflash.bwd_smem_bytes(dq, 128, f32) == \
-        (128 + 64) * 132 * 4 + 4 * 16 * 36 * 4 == 110_592
+        4 * ((2 * 128 + 2 * 32) * 132 + 128 * 48) == 193_536
     assert tflash.bwd_smem_bytes(dkdv, 128, f32) == \
-        (128 + 64) * 132 * 4 + 384 + 4 * 16 * 36 * 4 == 110_976
-    assert tflash.bwd_smem_bytes(dq, 128, bf16) == (128 + 128) * 136 * 2
+        4 * (2 * 128 * 132 + 2 * 32 * 132 + 96 + 2 * 128 * 48) == 218_496
+    assert tflash.bwd_smem_bytes(dq, 128, bf16) == \
+        1024 + 2 * 128 * 256 + 2 * 2 * 64 * 256 + 64 == 132_160
     assert tflash.bwd_smem_bytes(dkdv, 128, bf16) == \
-        (128 + 64) * 136 * 2 + 384
+        1024 + 2 * 128 * 256 + 2 * 2 * 64 * 256 + 2 * 3 * 64 * 4 + 64 \
+        == 133_696
+    assert tflash.bwd_smem_bytes(dkdv, 128, bf16, split=True) == \
+        1024 + 2 * 64 * 256 + 2 * 2 * 128 * 256 + 2 * 3 * 128 * 4 + 64 \
+        == 168_000
     for d in tflash.HEAD_DIMS:
         for dt in (f32, bf16):
             for kernel in (dq, dkdv):
-                assert tflash.bwd_smem_bytes(kernel, d, dt) <= \
-                    tflash.SMEM_BYTES_LIMIT
+                for split in (False, True):
+                    assert tflash.bwd_smem_bytes(kernel, d, dt, split) <= \
+                        tflash.SMEM_BYTES_LIMIT
                 assert tflash._bwd_plan(kernel, d, dt) is not None
-    assert tflash._bwd_plan(dq, 128, bf16) == (64, 64)
-    assert tflash._bwd_plan(dq, 128, f32) == (64, 32)
-    assert tflash._bwd_plan(dkdv, 128, f32) == (32, 64)
+    assert tflash._bwd_plan(dq, 128, bf16) == (128, 64)
+    assert tflash._bwd_plan(dq, 256, bf16) == (128, 32)
+    assert tflash._bwd_plan(dq, 128, f32) == (128, 32)
+    assert tflash._bwd_plan(dq, 256, f32) == (64, 32)
+    assert tflash._bwd_plan(dkdv, 128, bf16) == (64, 128)
+    assert tflash._bwd_plan(dkdv, 256, bf16) == (32, 128)
+    assert tflash._bwd_plan(dkdv, 128, f32) == (32, 128)
+    assert tflash._bwd_plan(dkdv, 256, f32) == (32, 32)
     assert tflash._bwd_plan(dkdv, 96, f32) is None
+
+
+@pytest.mark.parametrize("kernel,plan,h,h_kv,s_q,s_k,d,blocks", [
+    ("flash_bwd_dq", (128, 64), 8, 8, 8192, 8192, 128, 512),
+    ("flash_bwd_dq", (128, 64), 8, 1, 2048, 2048, 128, 128),
+    ("flash_bwd_dq", (64, 32), 4, 2, 200, 77, 256, 16),
+    ("flash_bwd_dkdv", (64, 128), 8, 8, 8192, 8192, 128, 512),
+    ("flash_bwd_dkdv", (64, 128), 8, 1, 2048, 2048, 128, 16),
+    ("flash_bwd_dkdv", (128, 64), 8, 1, 2048, 2048, 128, 32),
+    ("flash_bwd_dkdv", (32, 128), 4, 2, 200, 200, 256, 8),
+    ("flash_bwd_dkdv", (32, 128), 4, 2, 300, 129, 64, 4),
+])
+def test_backward_grid_mirrors_the_launch(kernel, plan, h, h_kv, s_q, s_k,
+                                          d, blocks):
+    """``bwd_blocks`` counts the blocks the C entry points launch: dq one
+    a (query block, head); dk/dv one a (key block, K/V head) and two at
+    D=256, where each block takes half of the output columns."""
+    assert tflash.bwd_blocks(kernel, plan, h, h_kv, s_q, s_k, d) == blocks
+
+
+@pytest.mark.parametrize("s_k,h_kv,d,sms,split", [
+    (8192, 8, 128, 132, False),   # 512 blocks of 128 keys
+    (2048, 1, 128, 132, True),    # the 4-rank GQA ring's block: 16
+    (2048, 4, 128, 132, True),    # 64: the 64-key form's 128 fit a wave
+    (2048, 8, 128, 132, False),   # 128: its 256 would take two
+    (2048, 2, 256, 132, True),    # 16 key blocks x 2 heads x 2 halves
+    (2048, 4, 256, 132, False),   # 128
+    (2048, 8, 128, 256, True),    # a card with more SMs
+    (100, 1, 64, 1, False),       # one block fills a one-SM card
+])
+def test_gqa_few_blocks_take_the_64_key_form(s_k, h_kv, d, sms, split):
+    """bf16 dk/dv takes its 64-key form (two warpgroups on the same keys,
+    a 2x taller query tile) exactly where its doubled grid still fits one
+    wave of the card's SMs; f32 and dq have one form."""
+    dkdv, bf16 = tflash.KERNEL_BWD_DKDV, torch.bfloat16
+    plan = tflash._bwd_plan(dkdv, d, bf16, s_k=s_k, h_kv=h_kv, sms=sms)
+    normal = tflash._bwd_plan(dkdv, d, bf16)
+    assert (plan != normal) == split
+    if split:
+        assert plan == (2 * normal[0], 64)
+        assert tflash.bwd_blocks(dkdv, plan, h_kv, h_kv, 0, s_k, d) == \
+            2 * tflash.bwd_blocks(dkdv, normal, h_kv, h_kv, 0, s_k, d)
+    for kernel, dt in ((dkdv, torch.float32),
+                       (tflash.KERNEL_BWD_DQ, bf16)):
+        assert tflash._bwd_plan(kernel, d, dt, s_k=s_k, h_kv=h_kv,
+                                sms=sms) == tflash._bwd_plan(kernel, d, dt)
+
+
+def test_earlier_backward_source_takes_its_own_plan(monkeypatch):
+    """``chip_smoke.py --earlier .../flash_bwd.cu`` times the parent's
+    backward, whose C entry refuses any plan but its own: while it is
+    swapped in, the wrappers ask for that plan and its library; after,
+    the tree's again."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    tree_lib, earlier_lib = object(), object()
+    monkeypatch.setitem(_build._libs, "flash_bwd", tree_lib)
+    source = object.__new__(chip_smoke.EarlierSource)
+    source.stem, source.lib = "flash_bwd", earlier_lib
+    dq, dkdv = tflash.KERNEL_BWD_DQ, tflash.KERNEL_BWD_DKDV
+    bf16, f32 = torch.bfloat16, torch.float32
+    with source.swapped():
+        assert _build._libs["flash_bwd"] is earlier_lib
+        assert tflash._bwd_plan(dq, 128, bf16) == (64, 64)
+        assert tflash._bwd_plan(dq, 256, f32) == (64, 32)
+        assert tflash._bwd_plan(dkdv, 128, bf16, s_k=2048, h_kv=1,
+                                sms=132) == (32, 64)
+    assert _build._libs["flash_bwd"] is tree_lib
+    assert tflash._bwd_plan(dq, 128, bf16) == (128, 64)
+    flash_fwd = object.__new__(chip_smoke.EarlierSource)
+    flash_fwd.stem, flash_fwd.lib = "flash_fwd", earlier_lib
+    monkeypatch.setitem(_build._libs, "flash_fwd", tree_lib)
+    with flash_fwd.swapped():
+        assert tflash._bwd_plan(dq, 128, bf16) == (128, 64)

@@ -224,11 +224,10 @@ def test_ring_attention_on_the_card_matches_the_reference(cuda_sp):
 # ------------------------------------------------ flash backward --
 
 
-def _bwd_args(dev, dtype, h, h_kv, s, q_off, k_off, causal, window):
+def _bwd_args(dev, dtype, h, h_kv, s, q_off, k_off, causal, window, d=128):
     """One block's backward operands: the statistics of a fused forward
     over keys ``[0, q_off + s)`` and a random dout; the block's K/V are
     those keys at ``k_off``, or fresh ones past them (a future block)."""
-    d = 128
     scale = 1.0 / math.sqrt(d)
     q, dout = (_heads(i, h, s, d, dtype, dev) for i in (1, 2))
     k_all, v_all = (_heads(i, h_kv, q_off + s, d, dtype, dev)
@@ -252,33 +251,100 @@ def _worst_row_above_floor(got, want, floor=1e-3):
     return ((got - want).norm(dim=-1)[keep] / ref[keep]).max().item()
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h,h_kv,s,q_off,k_off,causal,window", [
-    (4, 4, 96, 0, 0, True, None),      # the diagonal, ragged tiles
-    (4, 2, 64, 128, 64, True, None),   # a past block, GQA 2:1
-    (4, 1, 96, 96, 48, True, 40),      # the window's edge, GQA 4:1
-    (2, 2, 80, 0, 0, False, None),     # no mask
-])
-def test_flash_backward_kernels_equal_their_plain_versions(
-        cuda_sp, dtype, h, h_kv, s, q_off, k_off, causal, window):
-    """dq and (dk, dv) against the plain versions: within 2e-5 in f32,
-    by the worst row's relative error, 1e-2, in bf16; one launch each."""
-    args = _bwd_args(cuda_sp.device, dtype, h, h_kv, s, q_off, k_off,
-                     causal, window)
-    before = dict(_build.LAUNCHES)
+def _bwd_both(args, window):
+    """dq, dk and dv of the kernels and of their plain versions."""
     got = (kflash.flash_block_backward_dq(*args, window=window),
            *kflash.flash_block_backward_dkdv(*args, window=window))
-    torch.cuda.synchronize()
-    for name in ("flash_bwd_dq", "flash_bwd_dkdv"):
-        assert _build.LAUNCHES[name] == before[name] + 1
     want = (kflash.flash_block_backward_dq_plain(*args, window=window),
             *kflash.flash_block_backward_dkdv_plain(*args, window=window))
-    assert got[1].shape == (h_kv, s, 128)
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,h_kv,s,q_off,k_off,causal,window,d", [
+    (4, 4, 96, 0, 0, True, None, 128),      # the diagonal, ragged tiles
+    (4, 2, 64, 128, 64, True, None, 128),   # a past block, GQA 2:1
+    (4, 1, 96, 96, 48, True, 40, 128),      # the window's edge, GQA 4:1
+    (2, 2, 80, 0, 0, False, None, 128),     # no mask
+    (2, 2, 129, 0, 0, True, None, 128),     # one row past 128-row blocks
+    (4, 2, 200, 0, 0, True, None, 128),     # ragged 64-row tiles, GQA
+    (2, 1, 200, 0, 0, False, None, 128),    # ragged, no mask
+    (4, 4, 160, 100, 37, True, None, 128),  # offsets off the tiles' grid
+    (2, 1, 150, 90, 30, True, 70, 128),     # and a window
+    (4, 2, 200, 0, 0, True, None, 64),      # D=64: one box a row
+    (2, 2, 129, 64, 21, True, 100, 64),
+    (4, 2, 200, 0, 0, True, None, 256),     # D=256: halves over gridDim.y
+    (2, 2, 129, 64, 21, True, 100, 256),
+    (8, 1, 2048, 0, 0, True, None, 128),    # GQA 8:1, s_k=2048: few blocks
+    (8, 1, 2048, 2048, 1024, True, 1536, 128),   # and a window's edge
+    (8, 1, 1000, 0, 0, True, None, 64),     # the few-block form at D=64
+    (8, 1, 1000, 0, 0, True, None, 256),    # and at D=256
+])
+def test_flash_backward_kernels_equal_their_plain_versions(
+        cuda_sp, dtype, h, h_kv, s, q_off, k_off, causal, window, d):
+    """dq and (dk, dv) against the plain versions: within 2e-5 in f32,
+    by the worst row's relative error, 1e-2, in bf16; one launch each.
+    Ragged extents, offsets off the tiles' grid, every head dim and the
+    64-key form of bf16 dk/dv (a K/V head of 2048 keys or fewer)."""
+    args = _bwd_args(cuda_sp.device, dtype, h, h_kv, s, q_off, k_off,
+                     causal, window, d)
+    before = dict(_build.LAUNCHES)
+    got, want = _bwd_both(args, window)
+    for name in ("flash_bwd_dq", "flash_bwd_dkdv"):
+        assert _build.LAUNCHES[name] == before[name] + 1
+    assert got[1].shape == (h_kv, s, d)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert bool(torch.isfinite(a).all()), name
         if dtype == torch.float32:
             torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-5)
         else:
             assert _worst_row_above_floor(a, b) <= 1e-2, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,h_kv,s,d", [
+    (4, 4, 300, 128),    # 128-key blocks (bf16), 64-key (f32)
+    (8, 1, 2048, 128),   # the 64-key form of bf16 dk/dv
+    (2, 2, 200, 256),    # halves of the output columns
+])
+def test_flash_backward_kernels_give_the_same_bits_twice(cuda_sp, dtype, h,
+                                                         h_kv, s, d):
+    """dk and dv reduce the GQA group in registers (and the 64-key
+    form's two halves through shared memory in a fixed order), dq its
+    key tiles: no atomics, so two launches on the same inputs agree bit
+    for bit."""
+    args = _bwd_args(cuda_sp.device, dtype, h, h_kv, s, 0, 0, True, None, d)
+    runs = [(kflash.flash_block_backward_dq(*args),
+             *kflash.flash_block_backward_dkdv(*args)) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("h_kv,s", [(2, 256), (1, 2048)])
+def test_flash_backward_bar_sees_one_dropped_tile(cuda_sp, h_kv, s):
+    """The bf16 bar is not blind: the plain versions with one live
+    64-row tile left out (dq without the middle key tile, dk and dv
+    without the middle query tile, ``chip_smoke.py``'s control) read
+    above 1e-2 where the kernels read within it."""
+    args = _bwd_args(cuda_sp.device, torch.bfloat16, 4 * h_kv, h_kv, s, 0, 0,
+                     True, None)
+    q, k, v, dout, m, linv, delta, q_off, k_off, causal, scale = args
+    got, want = _bwd_both(args, None)
+    j = s // 2 // 64 * 64
+    lo, hi = slice(0, j), slice(j + 64, s)
+    dq = sum(kflash.flash_block_backward_dq_plain(
+        q, k[:, r], v[:, r], dout, m, linv, delta, q_off, k_off + r.start,
+        causal, scale) for r in (lo, hi))
+    dk, dv = (sum(parts) for parts in zip(*(
+        kflash.flash_block_backward_dkdv_plain(
+            q[:, r], k, v, dout[:, r], m[..., r], linv[..., r],
+            delta[..., r], q_off + r.start, k_off, causal, scale)
+        for r in (lo, hi))))
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, want, (dq, dk, dv)):
+        assert _worst_row_above_floor(a, b) <= 1e-2, name
+        assert _worst_row_above_floor(c, b) > 1e-2, name
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
