@@ -6,33 +6,49 @@ CUDA card, ``nvcc`` and ``nvidia-smi``; without a card it exits non-zero
 and prints no result. ``--earlier PATH`` (repeatable) builds an earlier
 copy of a ``smi_tpu_torch/kernels/csrc`` source with the same C entry
 points beside the tree's, named by its stem (``ring.cu``,
-``flash_fwd.cu``, ``flash_bwd.cu``), and times it in turns with the
-tree's kernels (earlier, tree, tree, earlier): an earlier ``ring.cu`` in
-phases 24 and 27 on the tree's launch plan, with outputs equal bit for
-bit; an earlier ``flash_fwd.cu`` in phase 11 on the tree's plan, and an
-earlier ``flash_bwd.cu`` in phase 16 on the plan of the first,
-``mma.sync`` backward (``earlier_bwd_plan``: its C entry refuses any
-other), each side's outputs held to the plain version's bars (the two
-round differently). The records of those kernels then carry ``earlier_ms``,
-else null. The phases:
+``flash_fwd.cu``, ``flash_bwd.cu``, ``stencil_temporal.cu``,
+``stencil_pipeline.cu``), and times it in turns with the tree's kernels
+(earlier, tree, tree, earlier): an earlier ``ring.cu`` in phases 24 and
+27 on the tree's launch plan, with outputs equal bit for bit; an earlier
+``flash_fwd.cu`` in phase 11 on the tree's plan, and an earlier
+``flash_bwd.cu`` in phase 16 on the plan of the first, ``mma.sync``
+backward (``earlier_bwd_plan``: its C entry refuses any other), each
+side's outputs held to the plain version's bars (the two round
+differently); an earlier ``stencil_temporal.cu`` in phase 6 and an
+earlier ``stencil_pipeline.cu`` in phase 19, each on its first form's
+plan (``earlier_temporal_plan``, ``earlier_pipeline_plan``), outputs
+equal bit for bit. The records of those kernels then carry
+``earlier_ms``, else null. The phases:
 
 1. the device, with the card's name and power limit from ``nvidia-smi``;
-2. the build of every CUDA kernel of the path from ``smi_tpu_torch/kernels/csrc``;
+2. the build of every CUDA kernel of the path from
+   ``smi_tpu_torch/kernels/csrc``, each instance's registers and spills
+   printed; a spill in ``stencil_temporal`` or ``stencil_pipeline`` fails;
 3. the single-sweep kernel against its plain PyTorch version on the card
    (``array_equal``): 8192x8192 with zero halos, and a 4096x2048 block
    with random halos at a nonzero offset inside an 8192x8192 grid;
 4. the k-sweep kernel against its plain version, at k=8 and k=16 on the
-   same two shapes, with random corner-complete halos on the second;
+   same two shapes, with random corner-complete halos on the second; then
+   ``TEMPORAL_CASES``: k = 1, 2, 7, 8, 16 and 32 on blocks that are no
+   multiple of the plan's stripe and band, inside the grid and holding
+   all four global edges, each global edge alone, and a 16x40 block under
+   one band, all with random halos;
 5. the main path at full width — the 8192x8192 f32 Jacobi stencil on a
    1x1 rank grid through ``make_communicator``, ``pick_temporal_depth``
-   and ``make_temporal_stencil_fn`` with 16*k+3 sweeps, so the remainder
-   runs on the single-sweep kernel — held ``array_equal`` to the plain
+   and ``make_temporal_stencil_fn`` with 259 sweeps (``MAIN_SWEEPS``), so
+   the remainder runs on the single-sweep kernel — held ``array_equal`` to
+   the plain
    PyTorch stencil on the card; then the same path on a 4096x2048 grid,
    the reference's per-rank block on its 2x4 grid, with the launch
    counts set to 0 before each run and read after it, and both kernels
    launched in each; then 1024x1024 against the numpy serial reference;
 6. each kernel's time at the main path's shapes (CUDA events), beside its
-   bound, its plain version's time and a PyTorch yardstick.
+   bound, its plain version's time and a PyTorch yardstick, with the
+   plan and the blocks an SM holds at once
+   (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); with an earlier
+   ``stencil_temporal.cu`` its time in turns with the tree's; and the
+   k-sweep kernel's ms a sweep at k = 8, 16 and 32 on both shapes, the
+   depth picker's order.
 
 Then ring attention's forward (``smi_tpu_torch/kernels/csrc/flash_fwd.cu``,
 built in phase 2 with the stencil sources), with TF32 off throughout:
@@ -104,7 +120,9 @@ Then the explicit-copy stencil pipeline
 17. the pipeline kernel against its plain version, ``torch.equal``: the
    8192x8192 extended state with zero halos and the 4096x2048 block at
    ``BLOCK_AT`` with random corner-complete halos, at k = 8, 16 and 32,
-   in f32 and bf16, with buffering 1 and 3;
+   in f32 and bf16, with buffering 1 and 3; then ``PIPE_CASES`` (a ragged
+   last band inside the grid and at its edges, a named stripe, the
+   generic loop at k = 24) in both dtypes and bufferings;
 18. the path at full width: ``make_communicator(shape=(1, 1))`` and
    ``make_pipeline_stencil_fn`` on 8192x8192 with 16*k+3 sweeps at each
    k, f32 and bf16, the launch counts set to 0 before each run and read
@@ -112,10 +130,12 @@ Then the explicit-copy stencil pipeline
    f32 ``torch.equal`` to the plain torch stencil, bf16 to the same path
    on the kernels' plain versions, and bf16's largest difference to f32
    printed; then 1024x1024 at k=16 against the numpy serial reference;
-19. one pass's time at 8192x8192, k = 8, 16 and 32, beside its bound,
-   its plain version's time and the temporal kernel's at the same depth
-   (no single PyTorch call does k sweeps), and buffering 1 against 3 at
-   one window shape: the overlap the ring buys.
+19. one pass's time at 8192x8192, k = 8, 16 and 32, f32 and bf16, beside
+   its bound, its plain version's time and the temporal kernel's at the
+   same depth (no single PyTorch call does k sweeps), the plan and the
+   blocks an SM holds, and buffering 1 against 3 at one window shape:
+   the overlap the ring buys; with an earlier ``stencil_pipeline.cu`` its
+   time in turns with the tree's.
 
 Then the Streaming Message Interface on the ring tier
 (``smi_tpu_torch/kernels/csrc/ring.cu``, also built in phase 2), every
@@ -260,6 +280,7 @@ per-kernel JSON record; the last line is the device JSON.
 """
 
 import contextlib
+import ctypes
 import dataclasses
 import json
 import math
@@ -278,6 +299,18 @@ BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor cores
 HEADS, HEAD_DIM = 8, 128    # the JAX package's attention rows (PERF.json)
 SEQ, SEQ_LONG, WINDOW = 8192, 32768, 4096
 RING = 4                    # the emulated ring's ranks
+MAIN_SWEEPS = 259           # the main path's sweeps: 16 passes at k=16, 3 more
+TABLE_DEPTH = 16            # the depth of PERF.md's rows 1-2
+#: phase 4: (depth, block, its offset, the grid) with random halos
+TEMPORAL_CASES = [
+    *((k, (1000, 1500), (3000, 2000), (N, N)) for k in (1, 2, 7, 8, 16, 32)),
+    *((k, (1000, 1500), (0, 0), (1000, 1500)) for k in (1, 2, 7, 8, 16, 32)),
+    (16, (600, 700), (0, 3000), (N, N)),          # the top edge alone
+    (16, (600, 700), (3000, 0), (N, N)),          # the left edge
+    (32, (600, 700), (N - 600, 3000), (N, N)),    # the bottom edge
+    (32, (600, 700), (3000, N - 700), (N, N)),    # the right edge
+    (8, (16, 40), (0, 0), (16, 40)),              # under one band
+]
 
 
 def log(msg: str) -> None:
@@ -294,8 +327,9 @@ def main(argv=None) -> int:
         "--earlier", metavar="PATH", action="append", default=[],
         help="an earlier copy of a csrc/ source with the same C entry "
              "points, named by its stem (ring.cu: phases 24 and 27; "
-             "flash_fwd.cu: phase 11; flash_bwd.cu: phase 16), timed in "
-             "turns with the tree's "
+             "flash_fwd.cu: phase 11; flash_bwd.cu: phase 16; "
+             "stencil_temporal.cu: phase 6; stencil_pipeline.cu: phase "
+             "19), timed in turns with the tree's "
              "kernels (earlier_ms in the kernels line; null without it); "
              "repeat for several sources")
     args = parser.parse_args(argv)
@@ -369,6 +403,16 @@ def main(argv=None) -> int:
             f"frame at most {max(found['stack'])} bytes, spill stores at "
             f"most {max(found['spill stores'])} bytes, spill loads at most "
             f"{max(found['spill loads'])} bytes")
+    # the wavefront kernels keep every level in registers: no instance
+    # may spill
+    for name in ("stencil_temporal", "stencil_pipeline"):
+        spilled = [int(m) for m in re.findall(
+            r"(\d+) bytes spill (?:stores|loads)", _build.build_log(name))]
+        if not spilled or max(spilled):
+            raise AssertionError(f"{name}: an instance spills (or no "
+                                 f"-Xptxas -v lines): {spilled}")
+        log(f"  {name}: {len(spilled) // 2} instances, 0 bytes of spill "
+            f"stores and loads")
 
     max_err = {}   # (kernel, shape, depth) -> max abs err of its check
 
@@ -416,15 +460,29 @@ def main(argv=None) -> int:
                      ("temporal", BLOCK, k),
                      ktemporal.temporal_sweeps(*args_b),
                      ktemporal.temporal_sweeps_plain(*args_b))
-    del x, xb, args, args_b
+    # every depth (register instances and the generic loop), blocks that
+    # are no multiple of the plan's stripe and band, a block under one
+    # band, random halos inside the grid and at each global edge
+    for k, (h, w), at, grid in TEMPORAL_CASES:
+        args_c = (rand(h, w), rand(k, w + 2 * k), rand(k, w + 2 * k),
+                  rand(h, k), rand(h, k), *at, *grid, k)
+        expect_equal(f"{h}x{w} at {at} in {grid} k={k} random halos, plan "
+                     f"{ktemporal._plan(h, w, k)}",
+                     ("temporal", (h, w), k),
+                     ktemporal.temporal_sweeps(*args_c),
+                     ktemporal.temporal_sweeps_plain(*args_c))
+    del x, xb, args, args_b, args_c
 
     # ---- 5. the main path at full width ------------------------------
     log("[5 main path]")
     comm = st.make_communicator(shape=(1, 1), axis_names=("sx", "sy"))
-    depth = st.pick_temporal_depth(N, N, torch.float32, 256)
+    iters = MAIN_SWEEPS
+    depth = st.pick_temporal_depth(N, N, torch.float32, iters)
     if depth is None:
         raise AssertionError(f"no temporal depth for {N}x{N}")
-    iters = 16 * depth + 3
+    if iters % depth == 0:
+        raise AssertionError(f"{iters} sweeps at depth {depth} leave no "
+                             f"remainder for the single-sweep kernel")
 
     def drive(h, w):
         """The main path on an (h, w) grid: the launches it made."""
@@ -506,19 +564,40 @@ def main(argv=None) -> int:
         "plain_ms": plain_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
     })
+    blocks_per_sm = _build.library(ktemporal.KERNEL).\
+        smi_stencil_temporal_blocks_per_sm
+    blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int]
+    blocks_per_sm.restype = ctypes.c_int
+
+    def plan_note(h, w, k):
+        stripe, band = ktemporal._plan(h, w, k)
+        blocks = -(-h // stripe) * -(-w // band)
+        return (f"plan (stripe {stripe}, band {band}), "
+                f"{ktemporal.threads(band, k)} threads, {blocks} blocks, "
+                f"{blocks_per_sm(k, band)} an SM (the plan assumes "
+                f"{ktemporal.blocks_per_sm(band, k)}), swept "
+                f"{ktemporal.swept_ratio(h, w, k):.4g}x")
+
+    k = TABLE_DEPTH   # rows 1-2 of PERF.md's table
     for (h, w), replaces in (((N, N), "smi_tpu/kernels/stencil_temporal.py:385"),
                              (BLOCK, "smi_tpu/kernels/stencil_temporal.py:195")):
-        k = depth
         xt = x[:h, :w].contiguous()
         zt = torch.zeros(k, w + 2 * k, device=dev)
         zs = torch.zeros(h, k, device=dev)
         args = (xt, zt, zt, zs, zs, 0, 0, h, w, k)
-        ms = time_ms(lambda: ktemporal.temporal_sweeps(*args), 20)
+        tree, early = in_turns(
+            lambda: KernelTime.of(lambda: ktemporal.temporal_sweeps(*args)),
+            earlier.get("stencil_temporal"))
+        ms = tree.ms
         plain_ms = time_ms(lambda: ktemporal.temporal_sweeps_plain(*args), 3)
         b_ms, b_by = bound(h, w, k, 2 * k * (w + 2 * k) + 2 * h * k)
-        log(f"  temporal {h}x{w} k={k} tile {ktemporal._plan(h, w, k)}: "
-            f"{ms:.4f} ms ({h * w * k / ms * 1e3:.4g} cell-sweeps/s), "
-            f"bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms")
+        earlier_note = ("" if early is None else
+                        f", earlier {early.ms:.4f} ms in turns "
+                        f"(equal outputs)")
+        log(f"  temporal {h}x{w} k={k}: {ms:.4f} ms "
+            f"({h * w * k / ms * 1e3:.4g} cell-sweeps/s){earlier_note}, "
+            f"bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms; "
+            f"{plan_note(h, w, k)}")
         records.append({
             "name": f"stencil_temporal {h}x{w} k={k}", "route": "cuda",
             "source": "smi_tpu_torch/kernels/csrc/stencil_temporal.cu",
@@ -527,20 +606,24 @@ def main(argv=None) -> int:
             "max_abs_err": max_err[("temporal", (h, w), k)], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None,
+            "earlier_ms": None if early is None else early.ms,
         })
 
-    # the depth picker's choice on this card: time per sweep at k=8 too
-    for k in (8, 16):
-        zt = torch.zeros(k, N + 2 * k, device=dev)
-        zs = torch.zeros(N, k, device=dev)
-        args = (x, zt, zt, zs, zs, 0, 0, N, N, k)
-        ms = time_ms(lambda: ktemporal.temporal_sweeps(*args), 20)
-        log(f"  depth {k} at {N}x{N}: {ms:.4f} ms per pass, "
-            f"{ms / k:.5f} ms per sweep")
+    # the depth picker's order on this card: ms a sweep at each depth
+    for h, w in ((N, N), BLOCK):
+        for k in (8, 16, 32):
+            xt = x[:h, :w].contiguous()
+            zt = torch.zeros(k, w + 2 * k, device=dev)
+            zs = torch.zeros(h, k, device=dev)
+            args = (xt, zt, zt, zs, zs, 0, 0, h, w, k)
+            ms = time_ms(lambda: ktemporal.temporal_sweeps(*args), 20)
+            log(f"  depth {k} at {h}x{w}: {ms:.4f} ms per pass, "
+                f"{ms / k:.5f} ms per sweep; {plan_note(h, w, k)}")
+    del x, xt, args
 
     records += flash_phases(dev, gen, max_err, earlier.get("flash_fwd"))
     records += backward_phases(dev, gen, max_err, earlier.get("flash_bwd"))
-    records += pipeline_phases(dev, gen)
+    records += pipeline_phases(dev, gen, earlier.get("stencil_pipeline"))
     ring_records, ring_check = ring_phases(dev, gen, earlier.get("ring"))
     records += ring_records
     records += suite_phases(dev, gen, ring_check, earlier.get("ring"))
@@ -937,16 +1020,59 @@ def earlier_bwd_plan(kernel, d, dtype, *shape, **kw):
 
 
 
+def earlier_temporal_plan(h, w, depth):
+    """The plan of the first, shared-memory ``stencil_temporal.cu``: the
+    largest square tile of 64, 32, 16 or 8 (cut to the block) whose two
+    ``(tile + 2k)``-edged f32 windows fit a block's shared memory."""
+    for edge in (64, 32, 16, 8):
+        th, tw = min(edge, h), min(edge, w)
+        if 2 * 4 * (th + 2 * depth) * (tw + 2 * depth) <= 232_448:
+            return th, tw
+    return None
+
+
+def earlier_pipeline_plan(h, w, depth, buffering=3, stripe=None):
+    """The plan of the first, window-sweeping ``stencil_pipeline.cu``
+    (its C entry refuses any other): an 8-aligned stripe dividing ``h``,
+    no shorter than ``depth``, and a band of 32-224 columns whose
+    ``(stripe + 2k) x (band + 2k)`` window fits the 256-edged TMA box, with
+    ``buffering`` slots and a sweep buffer in shared memory; the fewest
+    window cells per output cell, then the taller stripe."""
+    from fractions import Fraction
+
+    if depth < 8 or depth % 8 or w < 128 or w % 128 or h < 8:
+        return None
+    best = None
+    tallest = min(h, 256 - 2 * depth)
+    for t in ([stripe] if stripe is not None else range(tallest, 7, -1)):
+        if t < depth or t % 8 or h % t or t + 2 * depth > 256:
+            continue
+        for band in (32, 64, 96, 128, 160, 192, 224):
+            if band > w or band + 2 * depth > 256:
+                break
+            window = 4 * (t + 2 * depth) * (band + 2 * depth)
+            if (buffering + 1) * (-(-window // 128) * 128) + 152 > 232_448:
+                continue
+            key = (Fraction((t + 2 * depth) * (band + 2 * depth), t * band),
+                   -t)
+            if best is None or key < best[0]:
+                best = (key, t, band)
+    return None if best is None else best[1:]
+
+
 class EarlierSource:
     """An earlier copy of a ``csrc/`` source with the tree's C entry
     points, named by its stem (``ring.cu``, ``flash_fwd.cu``,
-    ``flash_bwd.cu``), given as ``--earlier PATH`` (it is no file of the
-    tree), built with the tree's flags for that source into
+    ``flash_bwd.cu``, ``stencil_temporal.cu``, ``stencil_pipeline.cu``),
+    given as ``--earlier PATH`` (it is no file of the tree), built with the
+    tree's flags for that source and the tree's ``csrc/`` headers into
     ``build/probe/earlier/`` beside the tree's kernels and swapped in
     where the phases time it against the tree's. It takes the tree's
     launch plan (:func:`kring.launch_plan`, ``kflash._plan``), but for an
-    earlier ``flash_bwd.cu``, which takes the first backward's
-    (:func:`earlier_bwd_plan`)."""
+    earlier ``flash_bwd.cu`` (:func:`earlier_bwd_plan`), and an earlier
+    ``stencil_temporal.cu`` or ``stencil_pipeline.cu``
+    (:func:`earlier_temporal_plan`, :func:`earlier_pipeline_plan`), which
+    take their first forms' plans."""
 
     def __init__(self, path):
         from pathlib import Path
@@ -963,9 +1089,10 @@ class EarlierSource:
         out_dir.mkdir(parents=True, exist_ok=True)
         # one library a source: a process loads a path only once
         self.lib_path = out_dir / f"lib{self.stem}.so"
-        # the source's own flags, so that only the source differs
-        cmd = [_build.find_nvcc(), *_build.nvcc_flags(self.stem), "-o",
-               str(self.lib_path), str(Path(path).resolve())]
+        # the source's own flags and the tree's csrc/ headers, so that
+        # only the source differs
+        cmd = _build.nvcc_command(_build.find_nvcc(), Path(path).resolve(),
+                                  self.lib_path)
         self.proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True)
         self.lib = None
@@ -990,13 +1117,19 @@ class EarlierSource:
         block, on the earlier source's plan."""
         from smi_tpu_torch.kernels import _build
         from smi_tpu_torch.kernels import flash as kflash
+        from smi_tpu_torch.kernels import stencil_pipeline as kpipe
+        from smi_tpu_torch.kernels import stencil_temporal as ktemporal
 
+        module, plan = {
+            "flash_bwd": (kflash, {"_bwd_plan": earlier_bwd_plan}),
+            "stencil_temporal": (ktemporal,
+                                 {"_plan": earlier_temporal_plan}),
+            "stencil_pipeline": (kpipe, {"_plan": earlier_pipeline_plan}),
+        }.get(self.stem, (kflash, {}))
         tree = _build._libs[self.stem]
         _build._libs[self.stem] = self.lib
         try:
-            plan = ({"_bwd_plan": earlier_bwd_plan}
-                    if self.stem == "flash_bwd" else {})
-            with patched(kflash, **plan):
+            with patched(module, **plan):
                 yield
         finally:
             _build._libs[self.stem] = tree
@@ -1967,11 +2100,21 @@ def backward_phases(dev, gen, max_err, earlier=None):
 PIPE_SRC = "smi_tpu_torch/kernels/csrc/stencil_pipeline.cu"
 PIPE_REPLACES = "smi_tpu/kernels/stencil_pipeline.py:185"
 PIPE_DEPTHS = (8, 16, 32)
+#: phase 17: (depth, block, its offset, the grid, stripe) with random halos
+PIPE_CASES = [
+    # a ragged last band inside the grid (k=24: the generic loop)
+    *((k, (512, 1408), (1024, 2048), (N, N), None) for k in (8, 16, 24, 32)),
+    # the same block as the whole grid: all four global edges
+    *((k, (512, 1408), (0, 0), (512, 1408), None) for k in (8, 16, 32)),
+    (16, (72, 384), (8, 128), (200, 1024), 24),   # a named stripe
+]
 
 
-def pipeline_phases(dev, gen):
+def pipeline_phases(dev, gen, earlier=None):
     """Phases 17-19: the explicit-copy stencil pipeline. Returns its
-    records for the kernels line."""
+    records for the kernels line. With an earlier ``stencil_pipeline.cu``
+    (:class:`EarlierSource`), phase 19 times it in turns with the tree's,
+    on its own plan, outputs equal bit for bit."""
     import numpy as np
     import torch
 
@@ -2018,6 +2161,26 @@ def pipeline_phases(dev, gen):
                     log(f"  {what}: torch.equal")
                 del want, got
             del ext
+    for k, (h, w), at, grid, stripe in PIPE_CASES:
+        ext = extended(h, w, k, True)
+        for cd in dtypes:
+            want = kpipe.pipeline_sweeps_plain(ext, *at, *grid, k, cd)
+            for buffering in (1, kpipe.PIPELINE_SLOTS):
+                got = kpipe.pipeline_sweeps(ext, *at, *grid, k,
+                                            stripe=stripe, compute_dtype=cd,
+                                            buffering=buffering)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                max_err[(cd, k)] = max(max_err.get((cd, k), 0.0), err)
+                what = (f"{h}x{w} at {at} in {grid} k={k} {cd} buffering "
+                        f"{buffering}, random halos, plan "
+                        f"{kpipe._plan(h, w, k, buffering, stripe)}")
+                if not torch.equal(got, want):
+                    raise AssertionError(f"{what}: kernel != plain, max "
+                                         f"abs err {err}")
+                log(f"  {what}: torch.equal")
+            del want, got
+        del ext
 
     # ---- 18. the path at full width -----------------------------------
     log("[18 pipeline main path] make_pipeline_stencil_fn on a 1x1 grid")
@@ -2113,10 +2276,25 @@ def pipeline_phases(dev, gen):
             band, int(cd == "bfloat16"), buffering,
             torch.cuda.current_stream().cuda_stream))
 
+    blocks_per_sm = _build.library(kpipe.KERNEL).\
+        smi_stencil_pipeline_blocks_per_sm
+    blocks_per_sm.argtypes = [ctypes.c_int] * 5
+    blocks_per_sm.restype = ctypes.c_int
+
+    def plan_note(k, cd, buffering):
+        stripe, band = kpipe._plan(N, N, k, buffering)
+        held = blocks_per_sm(k, stripe, band, int(cd == "bfloat16"),
+                             buffering)
+        return (f"plan (stripe {stripe}, band {band}), "
+                f"{ktemporal.threads(band, k)} threads, "
+                f"{kpipe.pipeline_smem_bytes(stripe, band, k, buffering)} B "
+                f"of shared memory, {held} blocks an SM")
+
     records = []
     for k in PIPE_DEPTHS:
         ext = extended(N, N, k, False)
         out = torch.empty_like(ext)
+        out_e = torch.empty_like(ext)
         nbytes = 4 * (ext.numel() + N * N)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = 4 * N * N * k / F32_FLOPS * 1e3
@@ -2130,8 +2308,16 @@ def pipeline_phases(dev, gen):
         stripe, band = kpipe._plan(N, N, k, kpipe.PIPELINE_SLOTS)
         sync_plan = kpipe._plan(N, N, k, 1)
         for cd in dtypes:
-            ms = time_ms(lambda: kpipe.pipeline_sweeps(
-                ext, 0, 0, N, N, k, compute_dtype=cd, out=out), 20)
+            sides = iter((out, out_e, out_e, out))   # the turns' buffers
+
+            def measure():
+                dst = next(sides)
+                return KernelTime(time_ms(lambda: kpipe.pipeline_sweeps(
+                    ext, 0, 0, N, N, k, compute_dtype=cd, out=dst), 20),
+                    dst[k:k + N, k:k + N])
+
+            tree, early = in_turns(measure, earlier)
+            ms = tree.ms
             sync_same = time_ms(lambda: launch(ext, out, k, cd, 1, stripe,
                                                band), 20)
             ring_same = time_ms(lambda: launch(ext, out, k, cd, 3, stripe,
@@ -2141,8 +2327,12 @@ def pipeline_phases(dev, gen):
                 20)
             plain_ms = time_ms(lambda: kpipe.pipeline_sweeps_plain(
                 ext, 0, 0, N, N, k, cd), 3)
-            log(f"  k={k} {cd}: ring {ms:.4f} ms per pass (stripe {stripe}, "
-                f"band {band}; {N * N * k / ms * 1e3:.4g} cell-sweeps/s), "
+            earlier_note = ("" if early is None else
+                            f", earlier {early.ms:.4f} ms in turns (equal "
+                            f"outputs)")
+            log(f"  k={k} {cd}: ring {ms:.4f} ms per pass ("
+                f"{N * N * k / ms * 1e3:.4g} cell-sweeps/s){earlier_note}, "
+                f"{plan_note(k, cd, kpipe.PIPELINE_SLOTS)}, "
                 f"bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, "
                 f"temporal kernel at k={k} {temporal_ms:.4f} ms; at the "
                 f"ring's window: buffering 1 {sync_same:.4f} ms, buffering 3 "
@@ -2156,8 +2346,9 @@ def pipeline_phases(dev, gen):
                 "max_abs_err": max_err[(cd, k)], "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": None,
+                "earlier_ms": None if early is None else early.ms,
             })
-        del ext, out, xt
+        del ext, out, out_e, xt
     return records
 
 

@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded with ``ctypes``. The
 libraries go to ``build/torch_kernels/`` beside the package, keyed by a
-hash of the source and the flags, so a changed source builds anew and an
-unchanged one loads at once. All sources compile at the same time, one
+hash of the source, the ``csrc/*.cuh`` headers it includes and the flags,
+so a changed source or header builds anew and an unchanged one loads at
+once. All sources compile at the same time, one
 ``nvcc`` each. A source may export several kernels (``flash_fwd.cu``
 exports the fused and the carried flash forward); each kernel has its
 own launch count (``flash_bwd.cu`` exports the two backward kernels,
@@ -25,6 +26,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -88,14 +90,38 @@ def nvcc_flags(name: str) -> tuple:
 
 
 def nvcc_command(nvcc: str, source: Path, output: Path) -> List[str]:
-    return [nvcc, *nvcc_flags(source.stem), "-o", str(output), str(source)]
+    """``source``'s build with its flags; ``-I csrc/`` finds the shared
+    headers wherever the source lies (an earlier copy under
+    ``build/probe/``, say)."""
+    return [nvcc, *nvcc_flags(source.stem), "-I", str(CSRC), "-o",
+            str(output), str(source)]
+
+
+def included_headers(source: Path) -> List[Path]:
+    """The ``csrc/`` headers ``source`` includes by a quoted
+    ``#include``, directly or through another of them."""
+    found: List[Path] = []
+    todo = [source]
+    while todo:
+        text = todo.pop().read_text()
+        for name in re.findall(r'^\s*#\s*include\s+"([^"]+)"', text,
+                              re.MULTILINE):
+            header = CSRC / name
+            if header.is_file() and header not in found:
+                found.append(header)
+                todo.append(header)
+    return found
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to: keyed by source and flags."""
+    """Where ``csrc/<name>.cu`` builds to: keyed by the source, the
+    headers it includes and the flags."""
     source = CSRC / f"{name}.cu"
+    key = source.read_bytes()
+    for header in included_headers(source):
+        key += b"\0" + header.name.encode() + b"\0" + header.read_bytes()
     digest = hashlib.sha256(
-        source.read_bytes() + "\0".join(nvcc_flags(name)).encode()
+        key + "\0".join(nvcc_flags(name)).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -12,52 +12,51 @@
 // bf16 and keeps the state and the sum in f32.
 //
 // Bound on the H100: one pass reads each cell and writes it once (8 B per
-// cell, whatever k is) and does 4 floating-point operations per cell and
-// sweep. At 8192^2 and k=16 that is 537 MB (0.16 ms at 3.35 TB/s) against
-// 4.3 GFLOP (0.064 ms at 67 TFLOP/s f32), so the pass is bound by bytes.
-// The windows overlap by their aprons: the rows and columns fetched again
-// come from L2, not device memory, and are swept again in shared memory.
-// Three slots and a sweep buffer must fit 227 KB, so the windows are small:
-// at k=16 the plan is a 64x96 tile in a 96x128 window, 2.0 window cells per
-// output cell (the temporal kernel's 64x64 tile in 96x96: 2.25); at k=8,
-// 64x160 (1.375); at k=32, 64x32 (6.0). Sweeping those windows, five
-// shared-memory reads and one write per cell and sweep, costs more than
-// the copies that the ring overlaps.
+// cell, whatever k is): at 8192^2 and k=16, 537 MB, 0.1609 ms at 3.35
+// TB/s. Its 4.3 G cell-sweeps are 4 f32 instructions each at -fmad=false:
+// 0.128 ms at 33.5 T instructions/s. The first form swept each
+// window k times in shared memory, five reads and one write a cell and
+// sweep, over windows 2.0x the output at k=16 (6.0x at k=32) that three
+// slots and a sweep buffer left room for: 20x the bound, 96-97 % of it
+// in the sweeps.
 //
 // Design: the extended state is (H+2k, W+2k): the block in the interior,
-// its corner-complete halos in the border, so each window copy carries
-// its own aprons (the halo refresh fused into the stream). The block is
-// cut into column bands of `band` output columns and row stripes of
-// `stripe` rows; a window is one band of one stripe plus a k-deep apron
-// on every side, (stripe+2k) x (band+2k) floats, at most 256 on each edge
-// (the TMA box). The TPU kernel walks every stripe on one core; here the
-// band-major sequence of windows is split evenly over one grid of as many
-// blocks as the card holds at once, and each block walks its run of
-// windows (down a band, then on to the next) through a ring in dynamic
-// shared memory: three slots (one with buffering=1), an mbarrier each,
-// and one sweep buffer. Thread 0 is the producer: it fetches window i+1
-// into slot (i+1)%3 with one cp.async.bulk.tensor.2d against that slot's
-// barrier (expect_tx of the window's bytes), after cp.async.bulk.wait_group
-// .read has confirmed that the store of window i-2, the slot's last user,
-// has read it. All threads wait on slot i%3's barrier at parity (i/3)&1
-// and sweep: sweep s computes the window minus its outer s+1 rings,
-// alternating between the slot and the sweep buffer (k is even), so the
-// last sweep reads the buffer and writes the centre stripe x band tile
-// densely into the slot. After fence.proxy.async.shared::cta and a block
-// barrier, thread 0 stores that tile with a TMA bulk-group store and goes
-// on: the store of window i drains while window i+1 is swept and window
-// i+2 is fetched. buffering=1 runs the same code with one slot and waits
-// for each store to land before the next fetch. A barrier wait that spins
-// for seconds traps (a lost transaction fails the launch; it cannot hang
-// the card). Out-of-bounds box cells of a ragged last band load as zeros
-// and are never stored: the store map covers only the interior.
+// its corner-complete halos in the border, so each copy carries its own
+// aprons (the halo refresh fused into the stream). A CUDA block owns a
+// column band of `band` output columns and a run of whole stripes of
+// `stripe` rows; its window is the band plus k columns each side and it
+// runs the row wavefront of stencil_wavefront.cuh down its rows plus k
+// above and below (at k = 8, 16 and 32 every level in registers, other
+// depths the generic loop). Thread 0 is the producer: each slot of the
+// ring (three, or one with buffering=1) takes a chunk of `stripe` rows of
+// the window, one cp.async.bulk.tensor.2d a 256-column box against that
+// slot's mbarrier (expect_tx of the chunk's bytes), issued when the step
+// barrier shows that every thread has left the chunk the slot last held;
+// the threads wait on a chunk's barrier at its first row, at parity
+// (chunk / slots) & 1, and read their own columns of each row from the
+// slot. Level k goes to one of two staging buffers of `stripe` rows;
+// once a buffer is full, each thread fences its writes for the async
+// proxy (fence.proxy.async.shared::cta) and, after the next step barrier,
+// thread 0 stores it with TMA bulk-group stores (boxes of at most 256
+// columns) and goes on, waiting (cp.async.bulk.wait_group.read) only
+// before a buffer is written again. buffering=1 runs the same code with
+// one slot and waits for each store to land. The C entry cuts each band's
+// stripes into runs of at most 128 rows, more where that fills the card
+// better (shorter runs beat one wave of long ones on the card). A
+// barrier wait that spins for seconds traps (a lost transaction fails the
+// launch; it cannot hang the card). Out-of-bounds box cells (the ragged
+// last band, rows past the state) load as zeros and are never stored: the
+// store map covers only the interior.
 //
 // Arithmetic: 0.25f * (((up + down) + left) + right) in f32 and the
 // Dirichlet mask from global coordinates (row0, col0, gh, gw) at every
-// sweep; bf16 rounds each neighbour with __float2bfloat16_rn and widens
-// it with __bfloat162float, keeping the centre and the sum in f32. Built
-// with -fmad=false and without fast math, so f32 is bit-identical to k
-// serial sweeps of the numpy reference and bf16 to its plain version.
+// sweep. bf16 rounds each value once, when it is produced, with
+// __float2bfloat16_rn and widens it with __bfloat162float; every read of
+// it as a neighbour takes that form, the centre of a held cell and the
+// output keep f32. That is the plain version's rounding of every
+// neighbour read. Built with -fmad=false and without fast math, so f32 is
+// bit-identical to k serial sweeps of the numpy reference and bf16 to its
+// plain version.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -67,27 +66,34 @@
 #include <algorithm>
 #include <cstdint>
 
+#include "stencil_wavefront.cuh"
+
 namespace {
 
-constexpr int kBlockX = 32;
-constexpr int kBlockY = 32;
-constexpr int kThreads = kBlockX * kBlockY;
+using wavefront::Keep;
+using wavefront::smem_addr;
+using wavefront::columns;
+using wavefront::Window;
+
+constexpr int kMaxThreads = 256;
 constexpr int kMaxSlots = 3;
-constexpr int kSlotAlign = 128;
+constexpr int kAlign = 128;
+constexpr int kBox = 256;  // the longest edge of a TMA box
+constexpr int kRunRows = 128;  // output rows a block streams at most
 constexpr uint64_t kWaitNs = 10ull * 1000 * 1000 * 1000;  // 10 s
 
 struct Plan {
-  int row0, col0, gh, gw;  // the block's origin in the global grid
+  int h, w, row0, col0, gh, gw;  // the block and its place in the grid
   int k, stripe, band;
-  int stripes;           // h / stripe
-  int windows;           // bands * stripes
-  int slots;             // 1 or kMaxSlots
-  int slot_floats;       // one window, rounded up to kSlotAlign bytes
+  int width;            // window columns: threads x C
+  int box_w, boxes;     // the load's boxes: width = boxes x box_w
+  int out_w, out_boxes; // the store's boxes: band = out_boxes x out_w
+  int bands, stripes, runs;  // blocks = bands x runs; a run of stripes
+  int slots;            // 1 or kMaxSlots
+  // float offsets into the aligned dynamic shared memory
+  int slot_at, stage_at, scratch_at, keep_at;
+  int bar_at;           // byte offset of the mbarriers
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void barrier_init(uint64_t* bar) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
@@ -152,131 +158,186 @@ __device__ __forceinline__ void tma_store(uint64_t map, const float* src,
       " [%0, {%2, %3}], [%1];\n" ::"l"(map),
       "r"(smem_addr(src)), "r"(col), "r"(row)
       : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
 
-template <bool kBf16>
-__device__ __forceinline__ float neighbour(float v) {
-  if constexpr (kBf16) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  } else {
-    return v;
+// Chunks of the window through the slot ring, level k through the staging
+// buffers. Window cell (i, j) is extended-state cell (s0 + i, b0 + j); the
+// output row o is block row s0 + o. Steps come in order, so the chunk,
+// slot and staging positions are counters, not divisions.
+template <int C>
+struct PipelineIO {
+  const Plan& p;
+  uint64_t load_map, store_map;
+  float* slots;     // [slots][boxes][stripe][box_w]
+  float* staging;   // [2][out_boxes][stripe][out_w]
+  uint64_t* bars;   // [slots]
+  int b0, s0, rows, chunks, j0, tid;
+  // the thread's columns: in a slot row, and in a staging row (-1: none
+  // of them lies in the band)
+  int in_col, out_col;
+  int chunk, row, slot;     // input: window row = chunk * stripe + row
+  int out_chunk, out_row;   // output: row o = out_chunk * stripe + out_row
+  int stored;               // staging chunks stored (thread 0)
+
+  __device__ __forceinline__ void fetch_chunk(int c) {
+    const int s = c % p.slots;
+    barrier_expect(&bars[s], 4u * p.width * p.stripe);
+    for (int b = 0; b < p.boxes; ++b) {
+      tma_load(slots + (s * p.boxes + b) * p.stripe * p.box_w, load_map,
+               &bars[s], b0 + b * p.box_w, s0 + c * p.stripe);
+    }
   }
-}
 
-// k sweeps of one (rows x cols) window whose cell (0, 0) is global
-// (g_r0, g_c0): between `a` (the slot, holding the window) and `b` (the
-// sweep buffer); the last sweep writes the centre densely into `a`.
-template <bool kBf16>
-__device__ void sweep_window(float* a, float* b, const Plan& p, int g_r0,
-                             int g_c0) {
-  const int rows = p.stripe + 2 * p.k;
-  const int cols = p.band + 2 * p.k;
-  float* src = a;
-  float* dst = b;
-  for (int s = 0; s < p.k; ++s) {
-    const bool last = s == p.k - 1;
-    const int lo = s + 1;
-    const int row_hi = rows - s - 1;
-    const int col_hi = cols - s - 1;
-    for (int r = lo + threadIdx.y; r < row_hi; r += kBlockY) {
-      const int gr = g_r0 + r;
-      const bool row_edge = gr == 0 || gr == p.gh - 1;
-      const float* in = src + r * cols;
-      // the last sweep's cells are exactly the centre tile, packed
-      float* out = last ? a + (r - p.k) * p.band : dst + r * cols;
-      const int shift = last ? p.k : 0;
-      for (int c = lo + threadIdx.x; c < col_hi; c += kBlockX) {
-        const int gc = g_c0 + c;
-        const float center = in[c];
-        if (row_edge || gc == 0 || gc == p.gw - 1) {
-          out[c - shift] = center;
-        } else {
-          out[c - shift] = 0.25f * (((neighbour<kBf16>(in[c - cols]) +
-                              neighbour<kBf16>(in[c + cols])) +
-                             neighbour<kBf16>(in[c - 1])) +
-                            neighbour<kBf16>(in[c + 1]));
-        }
+  // Store the staging chunks whose rows are all written (thread 0).
+  __device__ __forceinline__ void store_ready() {
+    for (; stored < out_chunk; ++stored) {
+      const float* src =
+          staging + (stored & 1) * p.out_boxes * p.stripe * p.out_w;
+      for (int b = 0; b < p.out_boxes; ++b) {
+        tma_store(store_map, src + b * p.stripe * p.out_w,
+                  b0 + b * p.out_w, s0 + stored * p.stripe);
       }
-    }
-    if (!last) __syncthreads();
-    float* t = src;
-    src = dst;
-    dst = t;
-  }
-}
-
-template <bool kBf16>
-__global__ void __launch_bounds__(kThreads)
-    pipeline_kernel(const __grid_constant__ CUtensorMap load_map,
-                    const __grid_constant__ CUtensorMap store_map,
-                    const Plan p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const uint32_t pad = (kSlotAlign - (smem_addr(smem_raw) % kSlotAlign)) %
-                       kSlotAlign;
-  float* slots = reinterpret_cast<float*>(smem_raw + pad);
-  float* sweep_buf = slots + p.slots * p.slot_floats;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(sweep_buf + p.slot_floats);
-  const int tid = threadIdx.y * kBlockX + threadIdx.x;
-  const uint64_t load_desc = reinterpret_cast<uint64_t>(&load_map);
-  const uint64_t store_desc = reinterpret_cast<uint64_t>(&store_map);
-  const uint32_t window_bytes =
-      4u * (p.stripe + 2 * p.k) * (p.band + 2 * p.k);
-
-  // this block's run of windows [first, first + n) of the band-major order
-  const int first = static_cast<int>(
-      static_cast<long long>(blockIdx.x) * p.windows / gridDim.x);
-  const int n = static_cast<int>(
-      static_cast<long long>(blockIdx.x + 1) * p.windows / gridDim.x) - first;
-
-  // window i's top-left cell in the extended state; the centre tile's in
-  // the block (its interior) has the same coordinates
-  auto origin = [&](int i, int& col, int& row) {
-    const int j = first + i;
-    col = (j / p.stripes) * p.band;
-    row = (j % p.stripes) * p.stripe;
-  };
-  auto fetch = [&](int i) {
-    int col, row;
-    origin(i, col, row);
-    const int s = i % p.slots;
-    barrier_expect(&bars[s], window_bytes);
-    tma_load(slots + s * p.slot_floats, load_desc, &bars[s], col, row);
-  };
-
-  if (tid == 0) {
-    for (int s = 0; s < p.slots; ++s) barrier_init(&bars[s]);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    fetch(0);
-  }
-  __syncthreads();
-
-  for (int i = 0; i < n; ++i) {
-    const int s = i % p.slots;
-    if (p.slots > 1 && tid == 0 && i + 1 < n) {
-      // slot (i+1)%3 last held window i-2: its store must have read it
-      asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
-      fetch(i + 1);
-    }
-    barrier_wait(&bars[s], (i / p.slots) & 1);
-    int col, row;
-    origin(i, col, row);
-    float* slot = slots + s * p.slot_floats;
-    sweep_window<kBf16>(slot, sweep_buf, p, p.row0 + row - p.k,
-                        p.col0 + col - p.k);
-    // the threads' shared-memory writes, before the async proxy reads them
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();
-    if (tid == 0) {
-      tma_store(store_desc, slot, col, row);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
       if (p.slots == 1) {
         asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-        if (i + 1 < n) fetch(i + 1);
       }
     }
   }
-  if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+
+  __device__ __forceinline__ void begin() {
+    in_col = j0 / p.box_w * p.stripe * p.box_w + j0 % p.box_w;
+    const int jj = j0 - p.k;  // the thread's first band column
+    // C columns in one store box: k and out_w are multiples of C
+    out_col = jj >= 0 && jj < p.band
+                  ? jj / p.out_w * p.stripe * p.out_w + jj % p.out_w
+                  : -1;
+    chunk = row = slot = 0;
+    out_chunk = out_row = 0;
+    stored = 0;
+    if (tid == 0) {
+      for (int s = 0; s < p.slots; ++s) barrier_init(&bars[s]);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      for (int c = 0; c < min(p.slots, chunks); ++c) fetch_chunk(c);
+    }
+  }
+
+  __device__ __forceinline__ void step(int) {
+    const bool first = row == 0;
+    if (tid == 0) {
+      store_ready();
+      // the next step starts a staging buffer: its last store has read it
+      if (out_row == p.stripe - 1 && out_chunk >= 1) {
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      }
+      // every thread has left chunk-1: its slot takes chunk-1+slots
+      if (first && chunk > 0 && chunk - 1 + p.slots < chunks) {
+        fetch_chunk(chunk - 1 + p.slots);
+      }
+    }
+    if (first && chunk < chunks) {
+      barrier_wait(&bars[slot], (chunk / p.slots) & 1);
+    }
+  }
+
+  __device__ __forceinline__ void fetch(int, float (&v)[C]) {
+    const float* src = slots + slot * p.boxes * p.stripe * p.box_w +
+                       row * p.box_w + in_col;
+    if constexpr (C % 4 == 0) {
+#pragma unroll
+      for (int c = 0; c < C; c += 4) {
+        const float4 q = *reinterpret_cast<const float4*>(src + c);
+        v[c] = q.x;
+        v[c + 1] = q.y;
+        v[c + 2] = q.z;
+        v[c + 3] = q.w;
+      }
+    } else if constexpr (C == 2) {
+      const float2 q = *reinterpret_cast<const float2*>(src);
+      v[0] = q.x;
+      v[1] = q.y;
+    } else {
+#pragma unroll
+      for (int c = 0; c < C; ++c) v[c] = src[c];
+    }
+    if (++row == p.stripe) {
+      row = 0;
+      ++chunk;
+      slot = slot + 1 == p.slots ? 0 : slot + 1;
+    }
+  }
+
+  __device__ __forceinline__ void store(int o, int, const float (&v)[C]) {
+    if (o < 0 || o >= rows) return;
+    if (out_col >= 0) {
+      float* dst = staging + (out_chunk & 1) * p.out_boxes * p.stripe *
+                                 p.out_w +
+                   out_row * p.out_w + out_col;
+#pragma unroll
+      for (int c = 0; c < C; ++c) dst[c] = v[c];
+    }
+    if (++out_row == p.stripe) {
+      // the threads' shared-memory writes, before the async proxy reads
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      out_row = 0;
+      ++out_chunk;
+    }
+  }
+
+  __device__ __forceinline__ void end(int) {
+    __syncthreads();
+    if (tid == 0) {
+      store_ready();
+      asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+    }
+  }
+};
+
+// K = 8, 16, 32 with C = columns(K) columns a thread (levels in
+// registers), or K = 0: any depth, one column a thread (levels in shared
+// memory).
+template <int K, bool kBf16>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    pipeline_kernel(const __grid_constant__ CUtensorMap load_map,
+                    const __grid_constant__ CUtensorMap store_map,
+                    const __grid_constant__ Plan p) {
+  constexpr int C = columns(K);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t pad =
+      (kAlign - (smem_addr(smem_raw) % kAlign)) % kAlign;
+  float* base = reinterpret_cast<float*>(smem_raw + pad);
+  // this block's band, and its run of stripes [first, last)
+  const int band_i = blockIdx.x % p.bands;
+  const int run = blockIdx.x / p.bands;
+  const int first = static_cast<int>(static_cast<long long>(run) *
+                                     p.stripes / p.runs);
+  const int last = static_cast<int>(static_cast<long long>(run + 1) *
+                                    p.stripes / p.runs);
+  const int b0 = band_i * p.band;
+  const int s0 = first * p.stripe;
+  const int rows = (last - first) * p.stripe;
+  const Window win{p.k, rows, p.row0 + s0 - p.k, p.col0 + b0 - p.k, p.gh,
+                   p.gw};
+  PipelineIO<C> io{p,
+                   reinterpret_cast<uint64_t>(&load_map),
+                   reinterpret_cast<uint64_t>(&store_map),
+                   base + p.slot_at,
+                   base + p.stage_at,
+                   reinterpret_cast<uint64_t*>(
+                       reinterpret_cast<unsigned char*>(base) + p.bar_at),
+                   b0,
+                   s0,
+                   rows,
+                   (rows + 2 * p.k + p.stripe - 1) / p.stripe,
+                   static_cast<int>(threadIdx.x) * C,
+                   static_cast<int>(threadIdx.x)};
+  float* scratch = base + p.scratch_at;
+  const Keep keep{base + p.keep_at, base + p.keep_at + 2 * p.width, p.width};
+  if constexpr (K == 0) {
+    wavefront::run_shared<kBf16>(io, win, scratch, keep);
+  } else {
+    wavefront::run_registers<K, C, kBf16>(io, win, scratch, keep);
+  }
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
@@ -319,51 +380,36 @@ int encode(CUtensorMap* map, const float* base, int cols, int rows,
   return r == CUDA_SUCCESS ? 0 : -static_cast<int>(r);
 }
 
-}  // namespace
+int align_floats(int floats) {
+  return (floats * 4 + kAlign - 1) / kAlign * kAlign / 4;
+}
 
-// ext and out are (h + 2*depth, w + 2*depth) f32; the kernel reads ext and
-// writes out's interior. Returns cudaGetLastError() after the launch,
-// cudaErrorInvalidValue for a plan it cannot run, or minus the CUresult of
-// a tensor map it could not encode.
-extern "C" int smi_stencil_pipeline(const float* ext, float* out, int h,
-                                    int w, int row0, int col0, int gh,
-                                    int gw, int depth, int stripe, int band,
-                                    int bf16, int buffering, void* stream) {
-  const int k = depth;
-  const int rows = stripe + 2 * k;
-  const int cols = band + 2 * k;
-  if (k < 2 || k % 2 || stripe < k || h % stripe || band < 1 ||
-      rows > 256 || cols > 256 || (cols * 4) % 16 || ((w + 2 * k) * 4) % 16 ||
-      (buffering != 1 && buffering != kMaxSlots)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int ext_w = w + 2 * k;
-  CUtensorMap load_map, store_map;
-  int status = encode(&load_map, ext, ext_w, h + 2 * k, ext_w * 4, cols,
-                      rows);
-  if (status != 0) return status;
-  status = encode(&store_map, out + static_cast<size_t>(k) * ext_w + k, w, h,
-                  ext_w * 4, band, stripe);
-  if (status != 0) return status;
+// Lay out the block's shared memory (slots, staging, mbarriers, the
+// levels' scratch, the bf16 keep) in `p`; its size in bytes.
+template <int K>
+size_t layout(Plan& p, int threads) {
+  p.slot_at = 0;
+  p.stage_at = align_floats(p.slots * p.stripe * p.width);
+  const int bars_at = p.stage_at + align_floats(2 * p.stripe * p.band);
+  p.bar_at = 4 * bars_at;
+  p.scratch_at = bars_at + align_floats(2 * kMaxSlots);
+  p.keep_at = p.scratch_at +
+              align_floats(K == 0 ? wavefront::level_floats(p.k, p.width)
+                                  : wavefront::edge_floats<K>(threads / 32));
+  return 4 * static_cast<size_t>(
+                 p.keep_at +
+                 align_floats(2 * p.width + 2 * wavefront::kKeepRing)) +
+         kAlign;
+}
 
-  Plan p;
-  p.row0 = row0;
-  p.col0 = col0;
-  p.gh = gh;
-  p.gw = gw;
-  p.k = k;
-  p.stripe = stripe;
-  p.band = band;
-  p.stripes = h / stripe;
-  p.windows = (w + band - 1) / band * p.stripes;
-  p.slots = buffering;
-  const int slot_bytes =
-      (4 * rows * cols + kSlotAlign - 1) / kSlotAlign * kSlotAlign;
-  p.slot_floats = slot_bytes / 4;
-  const size_t smem = static_cast<size_t>(buffering + 1) * slot_bytes +
-                      kSlotAlign + 8 * kMaxSlots;
-
-  auto kernel = bf16 ? pipeline_kernel<true> : pipeline_kernel<false>;
+// Set the kernel's shared memory, then launch it, or only report the
+// blocks an SM holds at once (`blocks_per_sm` not null).
+template <int K, bool kBf16>
+int launch(const CUtensorMap& load_map, const CUtensorMap& store_map,
+           Plan p, int threads, cudaStream_t stream,
+           int* blocks_per_sm = nullptr) {
+  const size_t smem = layout<K>(p, threads);
+  auto kernel = pipeline_kernel<K, kBf16>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -376,11 +422,136 @@ extern "C" int smi_stencil_pipeline(const float* ext, float* out, int h,
   }
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, smem);
+                                                        threads, smem);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = std::min(p.windows, sms * std::max(per_sm, 1));
-  kernel<<<grid, dim3(kBlockX, kBlockY), smem,
-           static_cast<cudaStream_t>(stream)>>>(load_map, store_map, p);
+  if (blocks_per_sm != nullptr) {
+    *blocks_per_sm = per_sm;
+    return 0;
+  }
+  // each band's stripes in runs of at most kRunRows rows, and as many
+  // runs as fill the card once where that is more (shorter runs beat
+  // one wave of long ones on the card, apron and all)
+  const int fill = (sms * std::max(per_sm, 1) + p.bands - 1) / p.bands;
+  p.runs = std::min(p.stripes,
+                    std::max((p.h + kRunRows - 1) / kRunRows, fill));
+  kernel<<<p.bands * p.runs, threads, smem, stream>>>(load_map, store_map,
+                                                       p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The plan of a launch, or cudaErrorInvalidValue in `status` for one the
+// kernel cannot run.
+Plan make_plan(int h, int w, int row0, int col0, int gh, int gw, int k,
+               int stripe, int band, int buffering, int& threads,
+               int& status) {
+  const int cols = columns(k == 8 || k == 16 || k == 32 ? k : 0);
+  threads = band < 1 ? 0 : (band + 2 * k + 32 * cols - 1) / (32 * cols) * 32;
+  const int out_boxes = (band + kBox - 1) / kBox;
+  Plan p{};
+  // TMA: 16-byte rows and a 16-byte-aligned interior; each staging box
+  // 128-byte aligned; a thread's columns in one store box
+  if (h < 1 || w < 1 || k < 1 || stripe < 1 || stripe > kBox ||
+      h % stripe || band < 1 || threads > kMaxThreads || band % out_boxes ||
+      (band / out_boxes) % 4 || (stripe * (band / out_boxes)) % 32 ||
+      ((w + 2 * k) * 4) % 16 || (k * 4) % 16 || k % cols ||
+      (buffering != 1 && buffering != kMaxSlots)) {
+    status = static_cast<int>(cudaErrorInvalidValue);
+    return p;
+  }
+  status = 0;
+  p.h = h;
+  p.w = w;
+  p.row0 = row0;
+  p.col0 = col0;
+  p.gh = gh;
+  p.gw = gw;
+  p.k = k;
+  p.stripe = stripe;
+  p.band = band;
+  p.width = threads * cols;
+  p.box_w = std::min(p.width, kBox);
+  while (p.width % p.box_w) p.box_w /= 2;
+  p.boxes = p.width / p.box_w;
+  p.out_boxes = out_boxes;
+  p.out_w = band / out_boxes;
+  p.bands = (w + band - 1) / band;
+  p.stripes = h / stripe;
+  p.slots = buffering;
+  return p;
+}
+
+int dispatch(const CUtensorMap& load_map, const CUtensorMap& store_map,
+             const Plan& p, int threads, bool bf16, void* stream,
+             int* blocks_per_sm) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (p.k) {
+    case 8:
+      return bf16 ? launch<8, true>(load_map, store_map, p, threads, s,
+                                    blocks_per_sm)
+                  : launch<8, false>(load_map, store_map, p, threads, s,
+                                     blocks_per_sm);
+    case 16:
+      return bf16 ? launch<16, true>(load_map, store_map, p, threads, s,
+                                     blocks_per_sm)
+                  : launch<16, false>(load_map, store_map, p, threads, s,
+                                      blocks_per_sm);
+    case 32:
+      return bf16 ? launch<32, true>(load_map, store_map, p, threads, s,
+                                     blocks_per_sm)
+                  : launch<32, false>(load_map, store_map, p, threads, s,
+                                      blocks_per_sm);
+    default:
+      return bf16 ? launch<0, true>(load_map, store_map, p, threads, s,
+                                    blocks_per_sm)
+                  : launch<0, false>(load_map, store_map, p, threads, s,
+                                     blocks_per_sm);
+  }
+}
+
+}  // namespace
+
+// ext and out are (h + 2*depth, w + 2*depth) f32; the kernel reads ext and
+// writes out's interior. `stripe` is the rows of a slot's chunk and of a
+// store, `band` the output columns of a block; the block has ceil((band +
+// 2k) / C) threads, rounded up to a warp, C = columns(depth) (4, 4, 2 at
+// depth 8, 16, 32; 1 at any other). Returns cudaGetLastError() after the
+// launch, cudaErrorInvalidValue for a plan it cannot run, or minus the
+// CUresult of a tensor map it could not encode.
+extern "C" int smi_stencil_pipeline(const float* ext, float* out, int h,
+                                    int w, int row0, int col0, int gh,
+                                    int gw, int depth, int stripe, int band,
+                                    int bf16, int buffering, void* stream) {
+  const int k = depth;
+  int threads = 0, status = 0;
+  const Plan p = make_plan(h, w, row0, col0, gh, gw, k, stripe, band,
+                           buffering, threads, status);
+  if (status != 0) return status;
+  const int ext_w = w + 2 * k;
+  CUtensorMap load_map, store_map;
+  status = encode(&load_map, ext, ext_w, h + 2 * k, ext_w * 4, p.box_w,
+                  stripe);
+  if (status != 0) return status;
+  status = encode(&store_map, out + static_cast<size_t>(k) * ext_w + k, w, h,
+                  ext_w * 4, p.out_w, stripe);
+  if (status != 0) return status;
+  return dispatch(load_map, store_map, p, threads, bf16 != 0, stream,
+                  nullptr);
+}
+
+// The blocks of a plan an SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or minus a CUDA error.
+extern "C" int smi_stencil_pipeline_blocks_per_sm(int depth, int stripe,
+                                                  int band, int bf16,
+                                                  int buffering) {
+  int threads = 0, status = 0;
+  // a shape every rule takes: the band's own width, one stripe
+  const int w = (band + 127) / 128 * 128;
+  const Plan p = make_plan(stripe, w, 0, 0, stripe, w, depth, stripe, band,
+                           buffering, threads, status);
+  if (status != 0) return -status;
+  CUtensorMap unused{};
+  int blocks = 0;
+  status = dispatch(unused, unused, p, threads, bf16 != 0, nullptr, &blocks);
+  return status != 0 ? -status : blocks;
 }

@@ -5,10 +5,12 @@ block lives in HBM and a three-slot VMEM rotation carries row stripes,
 every move an explicit DMA against a semaphore slot: the fetch of stripe
 i+1, the k sweeps of stripe i and the write-back of stripe i-1 are in
 flight at once. Here ``csrc/stencil_pipeline.cu`` does the same on
-Hopper: the Tensor Memory Accelerator (TMA) copies each window into one
-of three shared-memory slots and reports to that slot's ``mbarrier``,
-the block's threads sweep the window k times, and a TMA store writes the
-centre back while the next windows are fetched and swept.
+Hopper: the Tensor Memory Accelerator (TMA) copies each stripe of a column
+band's window into one of three shared-memory slots and reports to that
+slot's ``mbarrier``, the block's threads carry the k sweeps down the rows
+as they arrive (the row wavefront of ``csrc/stencil_wavefront.cuh``), and
+TMA stores write finished stripes back while the next are fetched and
+swept.
 
 The state stays in an extended ``(H + 2k, W + 2k)`` f32 layout across
 passes, as the reference keeps its ``(H + 2k, W + 256)`` one: the block
@@ -19,10 +21,10 @@ stripe stream. Two extended buffers, the input and the output of a pass,
 swap between passes.
 
 Knobs, as in the JAX package: ``depth`` (sweeps per pass), ``stripe``
-(rows per window), ``compute_dtype`` (``"float32"``, bit-identical to the
-serial reference, or ``"bfloat16"``: each neighbour rounded to bf16, the
-centre and the sum kept in f32) and ``buffering`` (3, the ring; 1, the
-synchronous control). The state is f32 only. ``interpret=`` has no
+(rows a copy carries), ``compute_dtype`` (``"float32"``, bit-identical to
+the serial reference, or ``"bfloat16"``: each neighbour rounded to bf16,
+the centre and the sum kept in f32) and ``buffering`` (3, the ring; 1,
+the synchronous control). The state is f32 only. ``interpret=`` has no
 counterpart.
 
 :func:`pipeline_sweeps` launches the kernel for a CUDA tensor and calls
@@ -40,6 +42,7 @@ import torch
 
 from smi_tpu_torch.kernels import _build
 from smi_tpu_torch.kernels import stencil as kstencil
+from smi_tpu_torch.kernels import stencil_temporal as ktemporal
 from smi_tpu_torch.models.stencil import block_origin, global_boundary_mask
 from smi_tpu_torch.parallel.halo import (
     halo_exchange_2d_corners_finish,
@@ -62,32 +65,66 @@ SMEM_BYTES_LIMIT = 232_448
 #: the longest edge of a TMA box, in elements
 TMA_BOX_MAX = 256
 
-#: column band widths the planner tries (output columns per window)
-BAND_WIDTHS = (32, 64, 96, 128, 160, 192, 224)
+#: the narrowest band the planner takes (output columns a block)
+MIN_BAND = 32
 
-#: shared-memory alignment of every slot (TMA wants 128 B)
+#: the rows a copy carries when the caller names no stripe: the least
+#: shared memory a slot can take, and still two copies ahead of the sweeps
+DEFAULT_STRIPE = 8
+
+#: output rows a block streams at most (``kRunRows`` in the C entry)
+RUN_ROWS = ktemporal.STRIPE_ROWS
+
+#: shared-memory alignment of every region (TMA wants 128 B)
 SLOT_ALIGN = 128
 
-#: shared memory beside the windows: the slack to align the first slot,
-#: and one 8-byte mbarrier per slot of the ring
-SMEM_EXTRA = SLOT_ALIGN + 8 * PIPELINE_SLOTS
+#: rows of a boundary column's input a block keeps for bf16 holds
+#: (``kKeepRing`` in ``csrc/stencil_wavefront.cuh``)
+KEEP_RING = 128
+
+
+def _aligned(floats: int) -> int:
+    return -(-4 * floats // SLOT_ALIGN) * SLOT_ALIGN
 
 
 def pipeline_smem_bytes(stripe: int, band: int, depth: int,
                         buffering: int = PIPELINE_SLOTS) -> int:
-    """Shared memory of one block: ``buffering`` slots and one sweep
-    buffer, each an f32 ``(stripe + 2k) x (band + 2k)`` window rounded up
-    to :data:`SLOT_ALIGN`, plus :data:`SMEM_EXTRA`. The counterpart of
-    the JAX package's ``pipeline_vmem_bytes``; the CUDA launcher computes
-    the same."""
-    window = 4 * (stripe + 2 * depth) * (band + 2 * depth)
-    slot = -(-window // SLOT_ALIGN) * SLOT_ALIGN
-    return (buffering + 1) * slot + SMEM_EXTRA
+    """Shared memory of one block, each region rounded up to
+    :data:`SLOT_ALIGN`: ``buffering`` slots of a ``stripe``-row chunk of
+    the window, two staging buffers of ``stripe`` output rows, the
+    mbarriers, the sweeps' scratch and the bf16 holds' input values, plus
+    the slack to align the first. The counterpart of the JAX package's
+    ``pipeline_vmem_bytes``; the CUDA launcher computes the same."""
+    width = ktemporal.threads(band, depth) * ktemporal.columns(depth)
+    return (_aligned(buffering * stripe * width)
+            + _aligned(2 * stripe * band)
+            + _aligned(2 * PIPELINE_SLOTS)
+            + _aligned(ktemporal.scratch_floats(band, depth))
+            + _aligned(2 * width + 2 * KEEP_RING)
+            + SLOT_ALIGN)
 
 
-def _area_ratio(stripe: int, band: int, depth: int) -> Fraction:
-    """Window cells per output cell: the apron fetched and swept again."""
-    return Fraction((stripe + 2 * depth) * (band + 2 * depth), stripe * band)
+def _stores(band: int) -> int:
+    """TMA stores a staging buffer takes: boxes of at most
+    :data:`TMA_BOX_MAX` columns, as many as the band needs."""
+    return -(-band // TMA_BOX_MAX)
+
+
+def _band_fits(band: int, depth: int) -> bool:
+    """The C entry's rules for a band: its window within the launch
+    bound, and equal store boxes of whole 16-byte rows."""
+    boxes = _stores(band)
+    return (ktemporal.threads(band, depth) <= ktemporal.MAX_THREADS
+            and band % boxes == 0 and band // boxes % 4 == 0)
+
+
+def _area_ratio(h: int, w: int, depth: int, band: int) -> Fraction:
+    """Window cells swept per output cell: every band's window (a warp of
+    columns at a time) over the rows plus a 2k-row apron for each run of
+    at most :data:`RUN_ROWS` rows, the fewest runs the C entry cuts."""
+    width = ktemporal.threads(band, depth) * ktemporal.columns(depth)
+    runs = -(-h // RUN_ROWS)
+    return Fraction(-(-w // band) * width * (h + runs * 2 * depth), h * w)
 
 
 @functools.lru_cache(maxsize=256)
@@ -96,28 +133,35 @@ def _plan(h: int, w: int, depth: int, buffering: int = PIPELINE_SLOTS,
     """``(stripe, band)`` for an ``(h, w)`` block, or None.
 
     The reference's domain: ``depth`` a multiple of 8, ``w`` of 128, the
-    stripe an 8-aligned divisor of ``h`` no shorter than ``depth``.
-    Hopper's limits: window edges within the TMA box and ``buffering + 1``
-    windows within shared memory. Among those, the window that sweeps the
-    fewest cells per output cell; on a tie, the taller stripe.
+    stripe an 8-aligned divisor of ``h`` (:data:`DEFAULT_STRIPE` unless
+    named). Hopper's limits: the stripe within the TMA box and the block's
+    shared memory within a block's. The band is the even split of ``w``
+    (rounded up to whole store boxes) that sweeps the fewest window
+    columns; on a tie, the fewer bands. The C entry spreads each band's
+    stripes over as many blocks as fill the card.
     """
     if depth < 8 or depth % 8 or w < 128 or w % 128 or h < 8:
         return None
+    t = DEFAULT_STRIPE if stripe is None else stripe
+    if t < 8 or t % 8 or h % t or t > TMA_BOX_MAX:
+        return None
+    c = ktemporal.columns(depth)
     best = None
-    tallest = min(h, TMA_BOX_MAX - 2 * depth)
-    for t in ([stripe] if stripe is not None else range(tallest, 7, -1)):
-        if t < depth or t % 8 or h % t or t + 2 * depth > TMA_BOX_MAX:
+    for n in range(32, min(ktemporal.MAX_THREADS,
+                           ktemporal.MAX_WIDTH // c) + 1, 32):
+        widest = n * c - 2 * depth
+        if widest < MIN_BAND:
             continue
-        for band in BAND_WIDTHS:
-            if band > w or band + 2 * depth > TMA_BOX_MAX:
-                break
-            if pipeline_smem_bytes(t, band, depth,
-                                   buffering) > SMEM_BYTES_LIMIT:
-                continue
-            key = (_area_ratio(t, band, depth), -t)
-            if best is None or key < best[0]:
-                best = (key, t, band)
-    return None if best is None else best[1:]
+        count, band = ktemporal.even_bands(w, widest)
+        band = -(-band // (4 * _stores(band))) * 4 * _stores(band)
+        if (band > widest or not _band_fits(band, depth)
+                or pipeline_smem_bytes(t, band, depth,
+                                       buffering) > SMEM_BYTES_LIMIT):
+            continue
+        key = (_area_ratio(h, w, depth, band), count)
+        if best is None or key < best[0]:
+            best = (key, band)
+    return None if best is None else (t, best[1])
 
 
 def pick_pipeline_stripe_explained(
@@ -128,8 +172,7 @@ def pick_pipeline_stripe_explained(
     if depth < 8 or depth % 8:
         return None, (
             f"depth {depth} is not a multiple of 8 (the reference's "
-            f"sublane-aligned depths; the sweeps alternate between two "
-            f"buffers and end in the slot)"
+            f"sublane-aligned depths)"
         )
     if w < 128 or w % 128:
         return None, (
@@ -139,20 +182,24 @@ def pick_pipeline_stripe_explained(
         )
     plan = _plan(h, w, depth, buffering)
     if plan is None:
+        if h % DEFAULT_STRIPE:
+            return None, (
+                f"no 8-aligned stripe divides h={h} (the rows a copy "
+                f"carries, whole stripes a block)"
+            )
         return None, (
-            f"no 8-aligned stripe divides h={h} that is >= depth {depth}, "
-            f"keeps its window within the {TMA_BOX_MAX}-row TMA box and "
-            f"fits {buffering + 1} windows of a {BAND_WIDTHS[0]}-column "
-            f"band or wider in the {SMEM_BYTES_LIMIT} B of shared memory "
-            f"a block may use"
+            f"no window of a {MIN_BAND}-column band or wider at depth "
+            f"{depth} fits {buffering} slot(s) of {DEFAULT_STRIPE} rows, "
+            f"two staging buffers and the sweeps' scratch in the "
+            f"{SMEM_BYTES_LIMIT} B of shared memory a block may use"
         )
     t, band = plan
     slots = f"{buffering} slot{'s' if buffering > 1 else ''}"
     return t, (
         f"stripe {t}, band {band} ({slots}, "
         f"{pipeline_smem_bytes(t, band, depth, buffering)} B of shared "
-        f"memory, {float(_area_ratio(t, band, depth)):.4g} window cells "
-        f"per output cell)"
+        f"memory, {float(_area_ratio(h, w, depth, band)):.4g} window "
+        f"cells per output cell)"
     )
 
 
@@ -193,8 +240,8 @@ def _check_pass(h: int, w: int, dtype, depth: int, stripe: Optional[int],
     if plan is None:
         if stripe is not None and _plan(h, w, depth, buffering) is not None:
             note = (f"requested stripe {stripe} is not an 8-aligned divisor "
-                    f"of h={h} that is >= depth {depth} and whose window "
-                    f"fits the TMA box and shared memory")
+                    f"of h={h} within the {TMA_BOX_MAX}-row TMA box whose "
+                    f"slots fit shared memory")
         else:
             _, note = pick_pipeline_stripe_explained(h, w, depth, buffering)
         raise ValueError(f"stencil pipeline unsupported for block ({h}, {w}) "

@@ -3,16 +3,18 @@
 PyTorch counterpart of :mod:`smi_tpu.kernels.stencil_temporal`. The
 single-sweep kernel reads and writes the whole block every sweep (8 B per
 cell); this tier exchanges ``k``-deep corner-complete halos once, then
-``csrc/stencil_temporal.cu`` loads each tile's ``(TH+2k) x (TW+2k)``
-window into shared memory once, sweeps it ``k`` times and writes the tile
-back — ``k`` sweeps for one read and one write of the block. The
-Dirichlet mask is re-applied at every sweep from global coordinates, so
-the result is bit-identical to ``k`` serial sweeps.
+``csrc/stencil_temporal.cu`` streams each column band of the block down a
+row wavefront (``csrc/stencil_wavefront.cuh``): every cell is read once,
+goes through the ``k`` sweeps on chip and is written once — ``k`` sweeps
+for one read and one write of the block. The Dirichlet mask is re-applied
+at every sweep from global coordinates, so the result is bit-identical
+to ``k`` serial sweeps.
 
 One CUDA kernel serves both of the JAX package's dispatch shapes (the
 column-tiled ``_tiled_kernel`` and the full-width ``_temporal_kernel``):
-its tiles are independent, so the TPU planner's choice between them has
-no counterpart. :func:`_plan` sizes the tile to shared memory instead.
+its blocks are independent, so the TPU planner's choice between them has
+no counterpart. :func:`_plan` cuts the block into bands and stripes for
+the card instead.
 
 :func:`temporal_sweeps` launches the kernel for a CUDA tensor and calls
 :func:`temporal_sweeps_plain`, the same function in PyTorch ops, only for
@@ -21,6 +23,7 @@ a CPU tensor.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -39,31 +42,145 @@ KERNEL = "stencil_temporal"
 #: dynamic shared memory one H100 block may use (227 KB)
 SMEM_BYTES_LIMIT = 232_448
 
-#: tile edges tried in order: 64x64 at k=16 keeps a 74 KB window, three
-#: blocks per SM; smaller tiles only where the window would not fit
-TILE_EDGES = (64, 32, 16, 8)
+#: streaming multiprocessors of the H100 SXM, which the plan fills
+SMS = 132
+
+#: columns a thread owns at the depths whose sweeps the kernels keep in
+#: registers (two rows of every level: 2 * depth * columns floats, at
+#: most 128); any other depth runs the generic loop, one column a thread
+#: (``columns`` in ``csrc/stencil_wavefront.cuh``)
+REGISTER_COLUMNS = {8: 4, 16: 4, 32: 2}
+
+#: the kernels' launch bound
+MAX_THREADS = 256
+
+#: the widest window the planner gives a block at the register depths:
+#: wide enough for a 1.2x apron at k=32, narrow enough that an SM holds
+#: several blocks
+MAX_WIDTH = 512
+
+#: input rows in flight a block (the cp.async ring)
+PREFETCH_ROWS = 4
+
+#: registers a thread of each instance uses (``-Xptxas -v``, phase 2 of
+#: ``chip_smoke.py``; None: the generic loop), which set the blocks an SM
+#: holds at once
+REGISTERS = {8: 124, 16: 218, 32: 235, None: 48}
+
+#: rows a block streams at most: on the card a pass of stripes this short
+#: (several waves of blocks) beat one wave of long ones, apron and all
+#: (PERF.md)
+STRIPE_ROWS = 128
+
+#: the shortest stripe, in depths: its row apron (2k rows) costs at most
+#: twice the stripe
+MIN_STRIPE_DEPTHS = 2
 
 
-def window_bytes(th: int, tw: int, depth: int) -> int:
-    """Shared memory of one block: two f32 buffers of the window."""
-    return 2 * 4 * (th + 2 * depth) * (tw + 2 * depth)
+def columns(depth: int) -> int:
+    """Columns a thread owns in the wavefront kernels at ``depth``."""
+    return REGISTER_COLUMNS.get(depth, 1)
 
 
+def threads(band: int, depth: int) -> int:
+    """Threads of a block whose window is ``band`` output columns plus a
+    ``depth``-column apron each side: a warp at a time (both C entries
+    compute the same)."""
+    per_warp = 32 * columns(depth)
+    return -(-(band + 2 * depth) // per_warp) * 32
+
+
+def scratch_floats(band: int, depth: int) -> int:
+    """Shared memory the sweeps use beside the input, in floats: the
+    warps' edge slabs (two parities, a slab each side of the window), or
+    the generic loop's three rows of every level."""
+    n = threads(band, depth)
+    if depth in REGISTER_COLUMNS:
+        return 2 * (n // 32 + 2) * 2 * depth
+    return 3 * depth * (n + 2)
+
+
+def window_bytes(band: int, depth: int) -> int:
+    """Shared memory of one block: the input ring and the sweeps'
+    scratch. The CUDA launcher computes the same."""
+    width = threads(band, depth) * columns(depth)
+    return 4 * (PREFETCH_ROWS * width + scratch_floats(band, depth))
+
+
+def blocks_per_sm(band: int, depth: int) -> int:
+    """Blocks of this shape an H100 SM holds at once, by registers (four
+    partitions of 16384, a warp's registers in one) and shared memory."""
+    warps = threads(band, depth) // 32
+    regs = REGISTERS[depth if depth in REGISTER_COLUMNS else None]
+    warp_regs = -(-regs // 8) * 8 * 32
+    by_regs = 4 * (16_384 // warp_regs) // warps
+    by_smem = 233_472 // (window_bytes(band, depth) + 1024)
+    return max(1, min(by_regs, by_smem, 64 // warps, 32))
+
+
+def even_bands(w: int, widest: int, unit: int = 8) -> Tuple[int, int]:
+    """``(count, band)``: ``w`` cut into the fewest bands of at most
+    ``widest`` columns, as even as whole ``unit``s allow."""
+    count = -(-w // widest)
+    band = -(-w // count)
+    rounded = -(-band // unit) * unit
+    return count, rounded if rounded <= widest else band
+
+
+@functools.lru_cache(maxsize=256)
 def _plan(h: int, w: int, depth: int) -> Optional[Tuple[int, int]]:
-    """``(tile_h, tile_w)`` for an ``(h, w)`` block at ``depth`` sweeps:
-    the largest square edge of :data:`TILE_EDGES` (cut to the block)
-    whose window fits shared memory, or None."""
-    for edge in TILE_EDGES:
-        th, tw = min(edge, h), min(edge, w)
-        if window_bytes(th, tw, depth) <= SMEM_BYTES_LIMIT:
-            return th, tw
-    return None
+    """``(stripe, band)`` for an ``(h, w)`` block at ``depth`` sweeps, or
+    None. A block sweeps ``band`` output columns of ``stripe`` rows.
+
+    The band is the even split of ``w`` that sweeps the fewest window
+    columns (output plus apron, a warp of columns at a time, at most
+    :data:`MAX_WIDTH`) and fits shared memory; on a tie, the fewer bands.
+    The stripes are :data:`STRIPE_ROWS` rows (or the shortest below),
+    halved while the blocks would not fill the card once (:data:`SMS` x
+    :func:`blocks_per_sm`), but none shorter than
+    :data:`MIN_STRIPE_DEPTHS` depths (nor than the block), then evened
+    out over ``h``.
+    """
+    k = depth
+    if not 1 <= k <= min(h, w):
+        return None
+    c = columns(k)
+    best = None
+    for n in range(32, min(MAX_THREADS, MAX_WIDTH // c) + 1, 32):
+        widest = n * c - 2 * k
+        if widest < 1:
+            continue
+        count, band = even_bands(w, widest)
+        if window_bytes(band, k) > SMEM_BYTES_LIMIT:
+            continue
+        key = (count * threads(band, k), count)
+        if best is None or key < best[0]:
+            best = (key, count, band)
+    if best is None:
+        return None
+    _, count, band = best
+    shortest = min(h, MIN_STRIPE_DEPTHS * k)
+    stripe = min(h, max(STRIPE_ROWS, shortest))
+    while (stripe > shortest
+           and count * -(-h // stripe) < SMS * blocks_per_sm(band, k)):
+        stripe = max(shortest, -(-stripe // 2))
+    return -(-h // -(-h // stripe)), band
+
+
+def swept_ratio(h: int, w: int, depth: int) -> float:
+    """Window cells a pass sweeps per output cell under :func:`_plan`:
+    every band's full window (a warp of columns at a time) over every
+    stripe's rows plus its 2k-row apron."""
+    stripe, band = _plan(h, w, depth)
+    width = threads(band, depth) * columns(depth)
+    bands, stripes = -(-w // band), -(-h // stripe)
+    return bands * width * (h + stripes * 2 * depth) / (h * w)
 
 
 def temporal_supported(h: int, w: int, dtype, depth: int = 8) -> bool:
     """Whether the k-sweep kernel takes an ``(h, w)`` block: f32, a
     depth no deeper than the block (a neighbour's k-deep halo comes from
-    its own block), and a window that fits shared memory."""
+    its own block), and a window that fits a block."""
     return (
         dtype == torch.float32
         and 1 <= depth <= min(h, w)
@@ -74,8 +191,10 @@ def temporal_supported(h: int, w: int, dtype, depth: int = 8) -> bool:
 def pick_temporal_depth(h: int, w: int, dtype, iterations: int):
     """Deepest supported sweeps-per-pass, trying 16 then 8, or None.
 
-    16 is the JAX package's v5e measurement; on the H100 the best depth
-    has not been measured and is an open question (PERF.md).
+    The H100's order (``chip_smoke.py`` phase 6; NVIDIA H100 80GB HBM3,
+    700 W): at 8192x8192 a pass costs 0.0455 ms a sweep at k=16, 0.0462
+    at k=8 and 0.0569 at k=32. At the 4096x2048 block depth 8 is faster
+    (0.0086 against 0.0132 ms a sweep): an open question (PERF.md).
     """
     return next(
         (
@@ -132,14 +251,14 @@ def temporal_sweeps(block, top, bottom, left, right, row0: int, col0: int,
                                      col0, gh, gw, k)
     if block.device.type != "cuda":
         raise ValueError(f"temporal_sweeps: no kernel for {block.device}")
-    th, tw = _plan(h, w, k)
+    stripe, band = _plan(h, w, k)
     out = torch.empty_like(block)
     with torch.cuda.device(block.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = _build.entry(KERNEL)(
             block.data_ptr(), top.data_ptr(), bottom.data_ptr(),
             left.data_ptr(), right.data_ptr(), out.data_ptr(),
-            h, w, row0, col0, gh, gw, k, th, tw, stream,
+            h, w, row0, col0, gh, gw, k, stripe, band, stream,
         )
     _build.check(KERNEL, status)
     _build.count_launch(KERNEL)

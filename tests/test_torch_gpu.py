@@ -60,6 +60,60 @@ def test_temporal_stencil_matches_the_serial_reference(cuda_comm, iters,
                                   st.reference_stencil(g, iters))
 
 
+def _temporal_case(depth, shape, at, grid, seed):
+    """A random block and random corner-complete halos on the card."""
+    h, w = shape
+    k = depth
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*s):
+        return torch.rand(s, generator=gen, device="cuda")
+
+    return (rand(h, w), rand(k, w + 2 * k), rand(k, w + 2 * k), rand(h, k),
+            rand(h, k), *at, *grid, k)
+
+
+#: (block, its offset, the grid): no multiple of the plan's stripe and
+#: band, inside the grid, holding every global edge, each edge alone
+TEMPORAL_BLOCKS = [
+    ((300, 700), (1000, 1200), (4096, 4096)),
+    ((300, 700), (0, 0), (300, 700)),
+    ((300, 700), (0, 1200), (4096, 4096)),
+    ((300, 700), (1000, 0), (4096, 4096)),
+    ((300, 700), (3796, 1200), (4096, 4096)),
+    ((300, 700), (1000, 3396), (4096, 4096)),
+]
+
+
+@pytest.mark.parametrize("block,at,grid", TEMPORAL_BLOCKS)
+@pytest.mark.parametrize("depth", [1, 2, 7, 8, 16, 32])
+def test_temporal_kernel_equals_its_plain_version(cuda_comm, depth, block,
+                                                  at, grid):
+    """The wavefront kernel, one launch, torch.equal to its plain version
+    at every register depth and on the generic loop."""
+    args = _temporal_case(depth, block, at, grid, seed=depth)
+    before = _build.LAUNCHES["stencil_temporal"]
+    got = st.temporal_sweeps(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["stencil_temporal"] == before + 1
+    assert torch.equal(got, st.temporal_sweeps_plain(*args))
+
+
+def test_temporal_kernel_under_one_band(cuda_comm):
+    """A 16x40 block at k=8: one block, most of its window past the
+    block's columns."""
+    args = _temporal_case(8, (16, 40), (0, 0), (16, 40), seed=3)
+    assert torch.equal(st.temporal_sweeps(*args),
+                       st.temporal_sweeps_plain(*args))
+
+
+@pytest.mark.parametrize("depth", [8, 16, 32])
+def test_temporal_kernel_gives_the_same_bits_twice(cuda_comm, depth):
+    args = _temporal_case(depth, (1000, 1500), (0, 0), (1000, 1500),
+                          seed=5)
+    assert torch.equal(st.temporal_sweeps(*args), st.temporal_sweeps(*args))
+
+
 # ------------------------------------------------------ flash attention --
 
 
@@ -410,6 +464,12 @@ def test_train_step_on_the_card_matches_the_plain_tier(cuda_grid,
     (24, 128, 8, None, (0, 0), (24, 128)),           # one window
     (72, 384, 16, 24, (8, 128), (200, 1024)),        # a ragged band
     (4096, 1024, 8, None, (0, 0), (4096, 1024)),     # several windows a block
+    # a ragged last band inside the grid and at its four edges, at every
+    # register depth and on the generic loop (k=24)
+    (256, 1408, 16, None, (1024, 2048), (4096, 4096)),
+    (256, 1408, 32, None, (0, 0), (256, 1408)),
+    (256, 1408, 8, None, (3840, 2688), (4096, 4096)),
+    (256, 1408, 24, 16, (1024, 0), (4096, 4096)),
 ])
 def test_pipeline_kernel_equals_its_plain_version(cuda_comm, buffering,
                                                   compute_dtype, h, w,
@@ -430,6 +490,20 @@ def test_pipeline_kernel_equals_its_plain_version(cuda_comm, buffering,
     want = st.pipeline_sweeps_plain(ext, *at, *grid, k, compute_dtype)
     assert torch.equal(got, want)
     assert bool(torch.isnan(out[:k]).all() and torch.isnan(out[:, :k]).all())
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("depth", [8, 16, 32])
+def test_pipeline_kernel_gives_the_same_bits_twice(cuda_comm, compute_dtype,
+                                                   depth):
+    k = depth
+    gen = torch.Generator(device="cuda").manual_seed(k)
+    ext = torch.rand((512 + 2 * k, 1408 + 2 * k), generator=gen,
+                     device="cuda")
+    runs = [st.pipeline_sweeps(ext, 0, 0, 512, 1408, k,
+                               compute_dtype=compute_dtype).clone()
+            for _ in range(2)]
+    assert torch.equal(*runs)
 
 
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])

@@ -14,7 +14,9 @@ The kernels themselves run only on the card, where ``chip_smoke.py``
 holds each against its plain version.
 """
 
+import importlib.util
 import re
+import shutil
 import sys
 import threading
 from pathlib import Path
@@ -241,14 +243,89 @@ def test_temporal_plain_equals_serial_sweeps_on_random_data(depth):
 
 
 def test_plan_fits_shared_memory():
-    assert ktemporal._plan(8192, 8192, 16) == (64, 64)
-    assert ktemporal._plan(4096, 2048, 16) == (64, 64)
-    assert ktemporal.window_bytes(64, 64, 16) == 2 * 4 * 96 * 96
+    assert ktemporal._plan(8192, 8192, 16) == (128, 456)
+    assert ktemporal._plan(4096, 2048, 16) == (64, 344)
+    # the input ring (4 rows of the 512-column window) and the edge slabs
+    # (2 parities x 6 slabs x 2 sides x 16 levels)
+    assert ktemporal.window_bytes(456, 16) == 4 * (4 * 512 + 2 * 6 * 2 * 16)
     assert ktemporal._plan(16, 40, 8) == (16, 40)   # cut to the block
     for k in (1, 8, 16, 32, 50):
-        th, tw = ktemporal._plan(8192, 8192, k)
-        assert ktemporal.window_bytes(th, tw, k) <= ktemporal.SMEM_BYTES_LIMIT
+        stripe, band = ktemporal._plan(8192, 8192, k)
+        assert ktemporal.window_bytes(band, k) <= ktemporal.SMEM_BYTES_LIMIT
     assert ktemporal._plan(8192, 8192, 200) is None
+
+
+#: window columns a band sweeps per output column (the k-column aprons, a
+#: warp of columns at a time) and the whole swept area per output cell
+#: (with each stripe's 2k-row apron), at 8192^2
+SWEPT = {8: (1.07, 1.2), 16: (1.13, 1.41), 32: (1.19, 1.79)}
+
+
+@pytest.mark.parametrize("depth", sorted(SWEPT))
+def test_the_plan_sweeps_a_small_apron(depth):
+    n = 8192
+    stripe, band = ktemporal._plan(n, n, depth)
+    width = ktemporal.threads(band, depth) * ktemporal.columns(depth)
+    columns, area = SWEPT[depth]
+    assert -(-n // band) * width / n <= columns
+    assert ktemporal.swept_ratio(n, n, depth) <= area
+    assert band + 2 * depth <= width <= ktemporal.MAX_WIDTH
+    assert stripe >= ktemporal.MIN_STRIPE_DEPTHS * depth
+
+
+@pytest.mark.parametrize("shape", [(8192, 8192), (4096, 2048)])
+@pytest.mark.parametrize("depth", [8, 16, 32])
+def test_the_main_shapes_fill_the_card(shape, depth):
+    """Rows 1 and 2 of PERF.md (and the other register depths) launch at
+    least a block for every SM of the H100."""
+    h, w = shape
+    stripe, band = ktemporal._plan(h, w, depth)
+    assert -(-h // stripe) * -(-w // band) >= ktemporal.SMS
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("depth", [1, 2, 7, 8, 16, 24, 32, 50, 81, 82])
+def test_the_supported_set_is_no_narrower_than_the_first_forms(depth):
+    """Every block the first, shared-memory kernel took (its plan is
+    ``chip_smoke.earlier_temporal_plan``) the wavefront still takes."""
+    first = _chip_smoke().earlier_temporal_plan
+    for h in (1, 7, 16, 40, 63, 100, 333, 4096, 8192):
+        for w in (1, 8, 40, 90, 129, 1000, 2048, 8192):
+            took = (1 <= depth <= min(h, w)
+                    and first(h, w, depth) is not None)
+            if took:
+                assert ktemporal._plan(h, w, depth) is not None, (h, w)
+
+
+def test_earlier_stencil_sources_take_their_own_plans(monkeypatch):
+    """``chip_smoke.py --earlier .../stencil_temporal.cu`` (or
+    ``stencil_pipeline.cu``) times the parent's kernel, whose C entry
+    reads its own plan: while it is swapped in, the wrappers ask for that
+    plan and its library; after, the tree's again."""
+    from smi_tpu_torch.kernels import stencil_pipeline as kpipe
+
+    chip_smoke = _chip_smoke()
+    for stem, module, tree_plan, first_plan, args in (
+            ("stencil_temporal", ktemporal, (128, 456), (64, 64),
+             (8192, 8192, 16)),
+            ("stencil_pipeline", kpipe, (8, 456), (64, 96),
+             (8192, 8192, 16))):
+        tree_lib, earlier_lib = object(), object()
+        monkeypatch.setitem(_build._libs, stem, tree_lib)
+        source = object.__new__(chip_smoke.EarlierSource)
+        source.stem, source.lib = stem, earlier_lib
+        with source.swapped():
+            assert _build._libs[stem] is earlier_lib
+            assert module._plan(*args) == first_plan
+        assert _build._libs[stem] is tree_lib
+        assert module._plan(*args) == tree_plan
 
 
 def test_depth_picker_and_gating():
@@ -401,12 +478,25 @@ def test_missing_nvcc_raises_and_never_falls_back(monkeypatch, tmp_path):
         (tmp_path / "build").glob("*.so"))
 
 
-def test_library_path_is_keyed_by_source_and_flags(monkeypatch):
+def test_library_path_is_keyed_by_source_and_flags(monkeypatch, tmp_path):
     path = _build.library_path("stencil_sweep")
     assert path.parent == _build.BUILD_DIR
     assert path != _build.library_path("stencil_temporal")
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
     assert _build.library_path("stencil_sweep") != path
+    # and by the csrc/ headers a source includes: the wavefront sources
+    # build anew when their shared header changes
+    monkeypatch.undo()
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    header = csrc / "stencil_wavefront.cuh"
+    assert _build.included_headers(csrc / "stencil_pipeline.cu") == [header]
+    before = {n: _build.library_path(n) for n in _build.SOURCES}
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _build.library_path(n) for n in _build.SOURCES}
+    assert {n for n in before if before[n] != after[n]} == {
+        "stencil_pipeline", "stencil_temporal"}
 
 
 def test_build_dir_is_ignored_by_git():

@@ -30,6 +30,7 @@ from smi_tpu.kernels import stencil_pipeline as jpipe
 from smi_tpu.models import stencil
 from smi_tpu_torch.kernels import _build
 from smi_tpu_torch.kernels import stencil_pipeline as kpipe
+from smi_tpu_torch.kernels import stencil_temporal as ktemporal
 
 # spawned children import the worker by module name through this path
 sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -183,28 +184,85 @@ def test_supported_shapes(h, w, depth, stripe, compute_dtype, buffering):
                                  compute_dtype=compute_dtype,
                                  buffering=buffering)
     t, band = kpipe._plan(h, w, depth, buffering, stripe)
-    assert h % t == 0 and t % 8 == 0 and t >= depth
-    assert t + 2 * depth <= kpipe.TMA_BOX_MAX
-    assert band + 2 * depth <= kpipe.TMA_BOX_MAX and band <= w
+    assert h % t == 0 and t % 8 == 0 and t <= kpipe.TMA_BOX_MAX
+    # the C entry's rules: the window within the launch bound, equal
+    # store boxes of whole 16-byte rows, each 128-byte aligned
+    assert ktemporal.threads(band, depth) <= ktemporal.MAX_THREADS
+    boxes = -(-band // kpipe.TMA_BOX_MAX)
+    assert band % boxes == 0 and band // boxes % 4 == 0
+    assert t * (band // boxes) % 32 == 0
+    assert kpipe.MIN_BAND <= band <= max(w, kpipe.MIN_BAND)
     assert (kpipe.pipeline_smem_bytes(t, band, depth, buffering)
             <= kpipe.SMEM_BYTES_LIMIT)
 
 
 def test_picker_names_its_choice_and_every_refusal():
     stripe, note = st.pick_pipeline_stripe_explained(8192, 8192, 16)
-    assert stripe == 64 and "band 96" in note and "3 slots" in note
-    assert kpipe._plan(8192, 8192, 16) == (64, 96)
-    assert kpipe._pick_pipeline_stripe(8192, 8192, 16) == 64
+    assert stripe == 8 and "band 456" in note and "3 slots" in note
+    assert kpipe._plan(8192, 8192, 16) == (8, 456)
+    assert kpipe._pick_pipeline_stripe(8192, 8192, 16) == 8
     for args, words in (((8192, 8192, 7), "multiple of 8"),
                         ((8192, 8192, 0), "multiple of 8"),
                         ((64, 100, 8), "w=100"),
-                        ((8192, 8192, 48), "shared memory"),
+                        ((8192, 8192, 88), "shared memory"),
                         ((20, 128, 8), "divides h=20")):
         none, note = st.pick_pipeline_stripe_explained(*args)
         assert none is None and words in note, (args, note)
         assert not st.pipeline_supported(*args[:2], torch.float32, args[2])
-    # three slots and a sweep buffer of 96x128 f32, the slack, 3 barriers
-    assert kpipe.pipeline_smem_bytes(64, 96, 16) == 4 * 4 * 96 * 128 + 152
+    # three 8-row slots of the 512-column window, two staging buffers of
+    # the 456-column band, the mbarriers, the edge slabs (2 parities x 6
+    # slabs x 2 sides x 16 levels), the bf16 keep, the alignment slack
+    assert kpipe.pipeline_smem_bytes(8, 456, 16) == (
+        4 * 3 * 8 * 512 + 4 * 2 * 8 * 456 + 128 + 4 * 2 * 6 * 2 * 16
+        + 4 * (2 * 512 + 2 * 128) + 128)
+
+
+#: window columns a band sweeps per output column at 8192^2, and the
+#: whole swept area per output cell with a 2k-row apron a 128-row run
+PIPE_SWEPT = {8: (1.07, 1.2), 16: (1.13, 1.41), 32: (1.19, 1.79)}
+
+
+@pytest.mark.parametrize("depth", sorted(PIPE_SWEPT))
+def test_the_pipeline_plan_sweeps_a_small_apron(depth):
+    n = 8192
+    _, band = kpipe._plan(n, n, depth)
+    width = ktemporal.threads(band, depth) * ktemporal.columns(depth)
+    columns, area = PIPE_SWEPT[depth]
+    assert -(-n // band) * width / n <= columns
+    assert kpipe._area_ratio(n, n, depth, band) <= area
+
+
+@pytest.mark.parametrize("shape", [(8192, 8192), (4096, 2048)])
+@pytest.mark.parametrize("depth", [8, 16, 32])
+def test_the_pipeline_fills_the_card(shape, depth):
+    """The C entry cuts each band's stripes into runs of at most
+    RUN_ROWS rows: at least a block for every SM at the main shapes."""
+    h, w = shape
+    stripe, band = kpipe._plan(h, w, depth)
+    runs = min(h // stripe, -(-h // kpipe.RUN_ROWS))
+    assert -(-w // band) * runs >= ktemporal.SMS
+
+
+def test_the_pipeline_takes_every_shape_its_first_form_took():
+    """No narrower than the first, window-sweeping kernel (its plan is
+    ``chip_smoke.earlier_pipeline_plan``), stripe named or not."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    first = chip_smoke.earlier_pipeline_plan
+    for h in (8, 16, 24, 40, 72, 256, 4096, 8192):
+        for w in (128, 384, 1024, 8192):
+            for depth in (8, 16, 24, 32, 40, 48, 56):
+                for buffering in (1, kpipe.PIPELINE_SLOTS):
+                    for stripe in (None, 8, 16, 24, 64):
+                        if first(h, w, depth, buffering, stripe) is None:
+                            continue
+                        assert kpipe._plan(h, w, depth, buffering,
+                                           stripe) is not None, (
+                            h, w, depth, buffering, stripe)
 
 
 def test_pass_refusals_raise_value_errors(comm11):
