@@ -7,18 +7,20 @@ and prints no result. ``--earlier PATH`` (repeatable) builds an earlier
 copy of a ``smi_tpu_torch/kernels/csrc`` source with the same C entry
 points beside the tree's, named by its stem (``ring.cu``,
 ``flash_fwd.cu``, ``flash_bwd.cu``, ``stencil_temporal.cu``,
-``stencil_pipeline.cu``), and times it in turns with the tree's kernels
-(earlier, tree, tree, earlier): an earlier ``ring.cu`` in phases 24 and
-27 on the tree's launch plan, with outputs equal bit for bit; an earlier
+``stencil_pipeline.cu``, ``roll_chain.cu``), and times it in turns with
+the tree's kernels (earlier, tree, tree, earlier): an earlier
+``ring.cu`` in phases 24 and 27 on the tree's launch plan, with outputs
+equal bit for bit; an earlier
 ``flash_fwd.cu`` in phase 11 on the tree's plan, and an earlier
 ``flash_bwd.cu`` in phase 16 on the plan of the first, ``mma.sync``
 backward (``earlier_bwd_plan``: its C entry refuses any other), each
 side's outputs held to the plain version's bars (the two round
 differently); an earlier ``stencil_temporal.cu`` in phase 6 and an
-earlier ``stencil_pipeline.cu`` in phase 19, each on its first form's
-plan (``earlier_temporal_plan``, ``earlier_pipeline_plan``), outputs
-equal bit for bit. The records of those kernels then carry
-``earlier_ms``, else null. The phases:
+earlier ``stencil_pipeline.cu`` in phase 19 and an earlier
+``roll_chain.cu`` in phase 30, each on its first form's plan
+(``earlier_temporal_plan``, ``earlier_pipeline_plan``,
+``earlier_roll_plan``), outputs equal bit for bit. The records of those
+kernels then carry ``earlier_ms``, else null. The phases:
 
 1. the device, with the card's name and power limit from ``nvidia-smi``;
 2. the build of every CUDA kernel of the path from
@@ -239,12 +241,14 @@ and its roll-chain kernel (``smi_tpu_torch/kernels/csrc/roll_chain.cu``,
 also built in phase 2):
 
 28. the roll-chain kernel against its plain version (``torch.equal``) on
-   random f32 inputs: 512x2048 at one and two chains and 256x2048 at two,
-   each body (``lane``, ``sublane``, ``add``), at lengths 1, 3, 1000 and
-   4097 (net shifts that are not 0) and the timed 1024 and 4096, with
-   the R=1 control unequal to its input; the plan (tile, blocks,
-   threads, shared memory) and the compiler's registers and spills are
-   printed;
+   random f32 inputs: 512x2048 at one and two chains, 256x2048 at two,
+   the ragged 7x300 at three, and the longest axis the kernel takes
+   (4096: 8x4096, 4096x8), each body (``lane``, ``sublane``, ``add``),
+   at lengths 1, 3, 1000 and 4097 (net shifts that are not 0) and the
+   timed 1024 and 4096, with the R=1 control unequal to its input; each
+   case's plan (registers a line, warps a block, blocks) and
+   its instance's registers and spills (``-Xptxas -v``) and SHFL count
+   (``cuobjdump -sass``, where the toolkit has it) are printed;
 29. the whole surface on the card through ``surface.main`` at the JAX
    package's shapes, with only the harness's depth cut (``SURFACE_RUNS``,
    ``SURFACE_MIN_DELTA``): every record printed, each section's wall
@@ -253,12 +257,15 @@ also built in phase 2):
    the run and read after it, and the roll-chain, flash forward and
    backward and both stencil kernels launched;
 30. the roll kernel's time at 512x2048, R=4096, one and two chains, each
-   body (CUDA events per launch), beside its plain version's, one
-   ``torch.roll`` by the same net shift (the library time of lane and
-   sublane; add has none), and its bounds: device memory
-   (4 MiB in and out once) or operations, and the shared-memory term (8
-   B an element a step over 128 B a clock on each of 132 SMs at
-   ``nvidia-smi``'s maximum SM clock).
+   body (CUDA events per launch; with an earlier ``roll_chain.cu`` in
+   turns), beside its plain version's, one ``torch.roll`` by the same
+   net shift (the library time of lane and sublane; add has none), and
+   its bounds: device memory (4 MiB in and out once) or operations (the
+   add chain at 67 TFLOP/s; adds alone at half of it beside it), the
+   shuffle ceiling (an element a step over 32 shuffle results a clock on
+   each of 132 SMs at ``nvidia-smi``'s maximum SM clock) and the first
+   form's shared-memory term (8 B an element a step over 128 B a
+   clock).
 
 Bars: f32 out/acc/gradients within 2e-5 (``rtol = atol``); m and l within
 1e-5 in either dtype (both sides add exact products in f32); bf16
@@ -329,7 +336,7 @@ def main(argv=None) -> int:
              "points, named by its stem (ring.cu: phases 24 and 27; "
              "flash_fwd.cu: phase 11; flash_bwd.cu: phase 16; "
              "stencil_temporal.cu: phase 6; stencil_pipeline.cu: phase "
-             "19), timed in turns with the tree's "
+             "19; roll_chain.cu: phase 30), timed in turns with the tree's "
              "kernels (earlier_ms in the kernels line; null without it); "
              "repeat for several sources")
     args = parser.parse_args(argv)
@@ -627,7 +634,7 @@ def main(argv=None) -> int:
     ring_records, ring_check = ring_phases(dev, gen, earlier.get("ring"))
     records += ring_records
     records += suite_phases(dev, gen, ring_check, earlier.get("ring"))
-    records += surface_phases(dev, gen)
+    records += surface_phases(dev, gen, earlier.get("roll_chain"))
 
     log(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
@@ -1060,19 +1067,31 @@ def earlier_pipeline_plan(h, w, depth, buffering=3, stripe=None):
     return None if best is None else best[1:]
 
 
+def earlier_roll_plan(rows, cols, chains, body):
+    """The plan of the first, shared-memory ``roll_chain.cu``, whose C
+    entry takes a tile in place of the registers and warps: each block a
+    tile of every chain with the rolled axis whole and about 8192
+    elements over all chains."""
+    axis, other = (rows, cols) if body == "sublane" else (cols, rows)
+    lines = max(1, min(other, 8192 // (chains * axis)))
+    tile = (rows, lines) if body == "sublane" else (lines, cols)
+    return {"tile": tile, "blocks": -(-other // lines), "args": tile}
+
+
 class EarlierSource:
     """An earlier copy of a ``csrc/`` source with the tree's C entry
     points, named by its stem (``ring.cu``, ``flash_fwd.cu``,
-    ``flash_bwd.cu``, ``stencil_temporal.cu``, ``stencil_pipeline.cu``),
+    ``flash_bwd.cu``, ``stencil_temporal.cu``, ``stencil_pipeline.cu``,
+    ``roll_chain.cu``),
     given as ``--earlier PATH`` (it is no file of the tree), built with the
     tree's flags for that source and the tree's ``csrc/`` headers into
     ``build/probe/earlier/`` beside the tree's kernels and swapped in
     where the phases time it against the tree's. It takes the tree's
     launch plan (:func:`kring.launch_plan`, ``kflash._plan``), but for an
     earlier ``flash_bwd.cu`` (:func:`earlier_bwd_plan`), and an earlier
-    ``stencil_temporal.cu`` or ``stencil_pipeline.cu``
-    (:func:`earlier_temporal_plan`, :func:`earlier_pipeline_plan`), which
-    take their first forms' plans."""
+    ``stencil_temporal.cu``, ``stencil_pipeline.cu`` or ``roll_chain.cu``
+    (:func:`earlier_temporal_plan`, :func:`earlier_pipeline_plan`,
+    :func:`earlier_roll_plan`), which take their first forms' plans."""
 
     def __init__(self, path):
         from pathlib import Path
@@ -1117,6 +1136,7 @@ class EarlierSource:
         block, on the earlier source's plan."""
         from smi_tpu_torch.kernels import _build
         from smi_tpu_torch.kernels import flash as kflash
+        from smi_tpu_torch.kernels import roll
         from smi_tpu_torch.kernels import stencil_pipeline as kpipe
         from smi_tpu_torch.kernels import stencil_temporal as ktemporal
 
@@ -1125,6 +1145,7 @@ class EarlierSource:
             "stencil_temporal": (ktemporal,
                                  {"_plan": earlier_temporal_plan}),
             "stencil_pipeline": (kpipe, {"_plan": earlier_pipeline_plan}),
+            "roll_chain": (roll, {"_plan": earlier_roll_plan}),
         }.get(self.stem, (kflash, {}))
         tree = _build._libs[self.stem]
         _build._libs[self.stem] = self.lib
@@ -3444,20 +3465,83 @@ def suite_phases(dev, gen, ring_check, earlier=None):
 ROLL_SRC = "smi_tpu_torch/kernels/csrc/roll_chain.cu"
 ROLL_REPLACES = "smi_tpu/benchmarks/surface.py:562"
 #: phase 28: (shape, chains) and the lengths checked; 1000, 3 and 4097
-#: leave a net shift, 1024 and 4096 are the timed lengths
-ROLL_CASES = (((512, 2048), 1), ((512, 2048), 2), ((256, 2048), 2))
+#: leave a net shift, 1024 and 4096 are the timed lengths. 7x300 is
+#: ragged on both axes; 8x4096 and 4096x8 put the longest axis the
+#: kernel takes under lane and add, and under sublane
+ROLL_CASES = (((512, 2048), 1), ((512, 2048), 2), ((256, 2048), 2),
+              ((7, 300), 3), ((8, 4096), 1), ((4096, 8), 1))
 ROLL_LENGTHS = (1, 3, 1000, 4097, 1024, 4096)
+#: a roll_chain_kernel<ROTATE, K> instance's mangled name
+ROLL_INSTANCE = re.compile(r"roll_chain_kernelILb([01])ELi(\d+)EE")
 #: phase 29: the surface's harness depth (the JAX defaults: 3 runs a
 #: point, escalate until 1 s apart); widths and lengths stay
 SURFACE_RUNS = 1
 SURFACE_MIN_DELTA = 0.1
 SMEM_BYTES_PER_CLK = 128   # a Hopper SM: 32 banks of 4 B
+SHFL_PER_CLK = 32          # shuffle results a clock an SM (CC 9.0)
 SMS = 132
 
 
-def surface_phases(dev, gen):
+def roll_instance(name):
+    """``(rotate, regs)`` of a roll_chain_kernel instance named in
+    ``name``, or None."""
+    m = ROLL_INSTANCE.search(name)
+    return None if m is None else (m.group(1) == "1", int(m.group(2)))
+
+
+def roll_build_info(log_text):
+    """Each roll_chain_kernel instance's registers and spill bytes (stores,
+    loads) from its ``-Xptxas -v`` log."""
+    info, current = {}, None
+    for line in log_text.splitlines():
+        if "entry function" in line or "Function properties" in line:
+            current = roll_instance(line)
+            if current is not None:
+                info.setdefault(current, {})
+            continue
+        if current is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if spill:
+            info[current]["spill"] = (int(spill.group(1)),
+                                      int(spill.group(2)))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            info[current]["registers"] = int(used.group(1))
+    return info
+
+
+def roll_shuffles(library):
+    """SHFL instructions in each roll_chain_kernel instance of the built
+    ``library``, from ``cuobjdump -sass``; None where the toolkit has no
+    ``cuobjdump``."""
+    from pathlib import Path
+
+    from smi_tpu_torch.kernels import _build
+
+    tool = Path(_build.find_nvcc()).parent / "cuobjdump"
+    if not tool.is_file():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(library)], check=True,
+                          capture_output=True, text=True,
+                          timeout=300).stdout
+    counts, current = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = roll_instance(line)
+            if current is not None:
+                counts[current] = 0
+        elif current is not None and "SHFL" in line:
+            counts[current] += 1
+    return counts
+
+
+def surface_phases(dev, gen, earlier=None):
     """Phases 28-30: the roll-chain kernel and the single-card surface.
-    Returns the roll kernel's records."""
+    Returns the roll kernel's records. With an earlier ``roll_chain.cu``
+    (:class:`EarlierSource`), phase 30 times it in turns on its own plan
+    (:func:`earlier_roll_plan`), outputs equal bit for bit."""
     import os
     import tempfile
 
@@ -3475,10 +3559,11 @@ def surface_phases(dev, gen):
 
     # ---- 28. the roll-chain kernel vs its plain version -----------------
     log("[28 roll-chain kernel vs plain]")
-    for line in _build.build_log("roll_chain").splitlines():
-        if any(w in line for w in ("registers", "smem", "spill",
-                                   "entry function")):
-            log(f"  roll_chain: {line.strip()}")
+    built = roll_build_info(_build.build_log("roll_chain"))
+    shuffles = roll_shuffles(_build.library_path("roll_chain"))
+    log(f"  roll_chain: {len(built)} instances; SHFL counts " + (
+        "not read (no cuobjdump)" if shuffles is None
+        else "from cuobjdump -sass"))
     max_err = {}
     for shape, ilp in ROLL_CASES:
         for body in bodies:
@@ -3498,9 +3583,19 @@ def surface_phases(dev, gen):
             if any(torch.equal(c, x) for c, x in zip(control, xs)):
                 raise AssertionError(f"roll_chain {body} {shape} x{ilp}: "
                                      f"R=1 equals its input")
-            log(f"  {body} {shape[0]}x{shape[1]} x{ilp} chain(s), plan "
-                f"{roll.plan(*shape, ilp, body)}: equal at R in "
-                f"{ROLL_LENGTHS}; the R=1 control differs from its input")
+            p = roll.plan(*shape, ilp, body)
+            key = (body != "add", p["regs"])
+            shfl = ("" if shuffles is None else
+                    f", {shuffles.get(key)} SHFL (a step {p['regs']} on "
+                    f"whole lines, {p['regs'] + 1} on short ones)" if key[0]
+                    else f", {shuffles.get(key)} SHFL")
+            log(f"  {body} {shape[0]}x{shape[1]} x{ilp} chain(s): "
+                f"{p['regs']} registers a line, {p['warps']} warps a "
+                f"block, {p['blocks']} blocks; instance {key}: "
+                f"{built.get(key, {}).get('registers')} registers, spill "
+                f"stores/loads {built.get(key, {}).get('spill')} "
+                f"bytes{shfl}; equal at R in {ROLL_LENGTHS}; the R=1 "
+                f"control differs from its input")
 
     # ---- 29. the whole surface on the card -------------------------------
     log(f"[29 the single-card surface, runs {SURFACE_RUNS}, min delta "
@@ -3561,17 +3656,23 @@ def surface_phases(dev, gen):
     rows, cols = surface.CARD_SHAPES.roll
     length = surface.CARD_SHAPES.roll_lengths[1]
     elems = rows * cols
-    smem_ms = (8 * elems * length
-               / (SMEM_BYTES_PER_CLK * SMS * clock_mhz * 1e6) * 1e3)
+    clocks_per_ms = SMS * clock_mhz * 1e3
+    smem_ms = 8 * elems * length / SMEM_BYTES_PER_CLK / clocks_per_ms
+    shfl_ms = elems * length / SHFL_PER_CLK / clocks_per_ms
     records = []
     for body in bodies:
         for ilp in (1, 2):
             xs = chains((rows // ilp, cols), ilp)
-            ms = time_ms(lambda: roll.roll_chain(xs, length, body), 20)
+            t, e = in_turns(lambda: KernelTime.of(
+                lambda: roll.roll_chain(xs, length, body)), earlier)
+            ms, e_ms = t.ms, None if e is None else e.ms
             plain_ms = time_ms(
                 lambda: roll.roll_chain_plain(xs, length, body), 2)
             ops = elems * length if body == "add" else 0
             b_ms, b_by = flash_bound(ops, 2 * 4 * elems, False)
+            # an FMA counts as two of F32_FLOPS' operations: adds alone
+            # issue at half that rate
+            fadd_ms = ops / (F32_FLOPS / 2) * 1e3 if ops else None
             # lane and sublane equal one torch.roll by R mod n a chain; add
             # has no such call (x + R rounds unlike R additions of 1.0)
             lib_ms, lib_call, shift = None, None, ""
@@ -3584,12 +3685,18 @@ def surface_phases(dev, gen):
                 lib_call = f"torch.roll by R mod n ({length % n}), one a chain"
                 shift = f"; {lib_call} {lib_ms:.4f} ms"
             log(f"  {body} x{ilp} {rows // ilp}x{cols} R={length}: "
-                f"{ms:.4f} ms ({ms * 1e9 / (elems * length):.4f} ps/elem), "
-                f"bound {max(b_ms, smem_ms):.4f} ms by "
-                f"{'smem' if smem_ms >= b_ms else b_by} (device memory or "
-                f"operations {b_ms:.4f} ms by {b_by}; shared memory "
-                f"{smem_ms:.4f} ms at {clock_mhz:.0f} MHz), plain "
-                f"{plain_ms:.4f} ms{shift}; launches on the surface run: "
+                f"{ms:.4f} ms ({ms * 1e9 / (elems * length):.4f} ps/elem)"
+                + ("" if e_ms is None else
+                   f", earlier {e_ms:.4f} ms in turns (equal outputs, "
+                   f"{e_ms / ms:.3f}x)")
+                + f"; bound {b_ms:.4f} ms by {b_by}; "
+                + (f"shuffle ceiling {shfl_ms:.4f} ms at {clock_mhz:.0f} "
+                   f"MHz ({shfl_ms / ms:.1%} of it reached)" if ops == 0
+                   else f"adds alone at 33.5 T/s {fadd_ms:.4f} ms "
+                   f"({fadd_ms / ms:.1%} of it reached)")
+                + f", the first form's shared-memory term {smem_ms:.4f} "
+                f"ms at {clock_mhz:.0f} MHz; plain {plain_ms:.4f} "
+                f"ms{shift}; launches on the surface run: "
                 f"{launches['roll_chain']}")
             records.append({
                 "name": f"roll_chain {body} {rows // ilp}x{cols} x{ilp} "
@@ -3599,8 +3706,9 @@ def surface_phases(dev, gen):
                 "launches": launches["roll_chain"],
                 "max_abs_err": max_err[(body, ilp)], "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "fadd_bound_ms": fadd_ms, "shfl_bound_ms": shfl_ms,
                 "smem_bound_ms": smem_ms, "library_ms": lib_ms,
-                "library_call": lib_call,
+                "library_call": lib_call, "earlier_ms": e_ms,
             })
     return records
 

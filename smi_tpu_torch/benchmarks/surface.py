@@ -550,20 +550,21 @@ def flash_vs_stock(b: Bench, quick: bool = False):
 
 def roll_chain_points(b: Bench, quick: bool = False):
     """Isolated shift rates: chains of dependent whole-array shifts by
-    one, each step a read from one shared-memory buffer and a write to
-    the other, with nothing else in the kernel (``kernels/roll.py``).
+    one, each step a warp shuffle and a select of every element in
+    registers, with nothing else in the kernel (``kernels/roll.py``).
 
-    The port's stencil kernels take their neighbours by exactly such
-    shifted reads, so this prices the access their bound leaves out. Two
-    chain lengths (R and R/4) per axis, each timed differentially over
-    data-dependently chained launches; the per-element rate comes from
-    the R-difference, where per-launch device-memory traffic and launch
-    overhead cancel.
+    The port's stencil kernels take a horizontal neighbour by exactly
+    such a shuffle (``csrc/stencil_wavefront.cuh``), so this prices the
+    access their bound leaves out. Two chain lengths (R and R/4) per
+    axis, each timed differentially over data-dependently chained
+    launches; the per-element rate comes from the R-difference, where
+    per-launch device-memory traffic and launch overhead cancel.
 
     Two variants per axis. ``ilp=1`` is ONE chain over the whole array;
     ``ilp=2`` runs TWO independent chains over half-height arrays (the
-    same elements a step), which one block advances under one barrier:
-    two independent shifts in flight per barrier, the throughput pin.
+    same elements a step) in one launch, each line of each chain on a
+    warp of its own: twice the independent shuffles in flight on the
+    card, the throughput pin.
     """
     from smi_tpu_torch.kernels.roll import roll_chain
 
@@ -614,9 +615,9 @@ def roll_chain_points(b: Bench, quick: bool = False):
         for body in ("lane", "sublane")
         for ilp in (1, 2)
     ]
-    # Harness floor: the same chain with an add of 1.0 through the same
-    # two buffers and barrier, reading its own index: subtracting it from
-    # the roll rates isolates the cost of the shifted address.
+    # Harness floor: the same chain with an add of 1.0 on the same
+    # registers in the same loop: subtracting it from the roll rates
+    # isolates the shuffle and the select.
     out.append(measure("roll_chain_baseline_add_ps_per_elem", "add", 1))
     return out
 

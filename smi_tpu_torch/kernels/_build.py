@@ -251,8 +251,8 @@ SIGNATURES = {
     ),
     "roll_chain": (
         "smi_roll_chain",
-        # ins, outs, chains, rows, cols, length, body, tile_rows,
-        # tile_cols, stream
+        # ins, outs, chains, rows, cols, length, body, regs, warps,
+        # stream
         [_P] * 2 + [_I] * 7 + [_P],
     ),
 }

@@ -11,10 +11,15 @@ PyTorch counterpart of the kernel inside
 
 so ``length`` lane steps equal ``torch.roll(v, length, dims=1)``, the
 direction of ``pltpu.roll(v, 1, axis)`` chained. The hand-written CUDA
-kernel ``csrc/roll_chain.cu`` runs the whole chain in shared memory, one
-block per tile in which the rolled axis is whole; :func:`roll_chain`
-launches it for CUDA tensors and calls :func:`roll_chain_plain`, the same
-loop in PyTorch ops, only for CPU tensors.
+kernel ``csrc/roll_chain.cu`` runs the whole chain in registers: one warp
+owns one whole line of a chain (a row for ``lane`` and ``add``, a column
+for ``sublane``), lane ``l`` holding element ``32 k + l`` in
+register ``k``, and a rotation step moves every element by one warp
+shuffle and a select, with no shared memory and no barrier in the step
+loop (:func:`plan` names the registers, the warps a block and the
+blocks). :func:`roll_chain` launches it for CUDA tensors and calls
+:func:`roll_chain_plain`, the same loop in PyTorch ops, only for CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -29,13 +34,12 @@ from smi_tpu_torch.kernels import _build
 KERNEL = "roll_chain"
 BODIES = {"lane": 0, "sublane": 1, "add": 2}
 MAX_CHAINS = 4
-#: elements a thread owns at most (``kPer`` in the source)
-PER_THREAD = 16
-#: elements one block's tile may hold (``kPer * kMaxThreads``): two f32
-#: buffers of 64 KiB each
-MAX_TILE_ELEMS = PER_THREAD * 1024
-#: elements a block is planned to hold: 128 blocks cover 512x2048
-TARGET_TILE_ELEMS = 8192
+#: registers a line at most (``kMaxRegs`` in the source)
+MAX_REGS = 128
+#: the longest rolled axis: 32 elements a register
+MAX_AXIS = 32 * MAX_REGS
+#: warps a block (``kMaxWarps``): 1, 2 and 4 time the same on the card
+WARPS = 4
 
 
 def _step(v: torch.Tensor, body: str) -> torch.Tensor:
@@ -59,25 +63,33 @@ def roll_chain_plain(xs: Sequence[torch.Tensor], length: int,
 
 
 def plan(rows: int, cols: int, chains: int, body: str) -> dict:
-    """The kernel's tiling of ``chains`` ``(rows, cols)`` arrays: each
-    block's tile holds the rolled axis whole (``lane`` and ``add`` whole
-    rows, ``sublane`` a band of whole columns) and about
-    ``TARGET_TILE_ELEMS`` elements over all chains. Raises when the axis
-    times the chains does not fit one block."""
-    axis, other = (rows, cols) if body == "sublane" else (cols, rows)
-    if chains * axis > MAX_TILE_ELEMS:
+    """The kernel's plan for ``chains`` ``(rows, cols)`` arrays: one warp
+    a line (a row for ``lane`` and ``add``, a column for ``sublane``) of
+    one chain, warp ``w`` taking line ``w % lines`` of chain ``w //
+    lines``; element ``e`` of line ``i`` at ``i * line_stride + e *
+    elem_stride``, held in ``regs`` registers (the least power of two
+    whose 32 elements a register hold the rolled axis); ``warps`` warps
+    a block. ``args`` are the plan's two arguments of the C entry.
+    Raises when the rolled axis is longer than ``MAX_AXIS``."""
+    n, lines = (rows, cols) if body == "sublane" else (cols, rows)
+    if n > MAX_AXIS:
         raise ValueError(
-            f"roll_chain: {chains} chain(s) x {axis} elements along the "
-            f"{body} axis do not fit one block; the kernel holds at most "
-            f"{MAX_TILE_ELEMS} elements a block ({MAX_TILE_ELEMS * 8 // 1024}"
-            f" KiB of shared memory in two f32 buffers)"
+            f"roll_chain: {n} elements along the {body} axis exceed the "
+            f"kernel's limit of {MAX_AXIS} elements: a warp holds a line "
+            f"in registers, 32 elements a register and at most {MAX_REGS} "
+            f"registers a thread"
         )
-    lines = max(1, min(other, TARGET_TILE_ELEMS // (chains * axis)))
-    tile = (rows, lines) if body == "sublane" else (lines, cols)
-    elems = chains * tile[0] * tile[1]
-    return {"tile": tile, "blocks": -(-other // lines),
-            "threads": (-(-elems // PER_THREAD) + 31) // 32 * 32,
-            "smem_bytes": 2 * 4 * elems}
+    regs = 1 << (-(-n // 32) - 1).bit_length()
+    strides = (1, cols) if body == "sublane" else (cols, 1)
+    return {"axis": n, "lines": lines, "regs": regs, "warps": WARPS,
+            "blocks": -(-chains * lines // WARPS),
+            "line_stride": strides[0], "elem_stride": strides[1],
+            "args": (regs, WARPS)}
+
+
+#: the plan :func:`roll_chain` launches (``chip_smoke.py`` swaps in an
+#: earlier source's plan)
+_plan = plan
 
 
 def _check(xs, length, body) -> None:
@@ -122,7 +134,7 @@ def roll_chain(xs: Sequence[torch.Tensor], length: int,
     if xs[0].device.type != "cuda":
         raise ValueError(f"roll_chain: no kernel for {xs[0].device}")
     rows, cols = xs[0].shape
-    p = plan(rows, cols, len(xs), body)
+    p = _plan(rows, cols, len(xs), body)
     outs = tuple(torch.empty_like(x) for x in xs)
     ins = (ctypes.c_void_p * len(xs))(*(x.data_ptr() for x in xs))
     outp = (ctypes.c_void_p * len(xs))(*(o.data_ptr() for o in outs))
@@ -130,7 +142,7 @@ def roll_chain(xs: Sequence[torch.Tensor], length: int,
         stream = torch.cuda.current_stream().cuda_stream
         status = _build.entry(KERNEL)(
             ins, outp, len(xs), rows, cols, int(length), BODIES[body],
-            p["tile"][0], p["tile"][1], stream,
+            *p["args"], stream,
         )
     _build.check(KERNEL, status)
     _build.count_launch(KERNEL)

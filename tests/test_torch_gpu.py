@@ -997,11 +997,72 @@ def test_roll_chain_kernel_equals_its_plain_version(cuda_dev, body, shape,
     assert not any(torch.equal(c, x) for c, x in zip(control, xs))
 
 
+@pytest.mark.parametrize("shape", [(45, 1000), (1000, 45), (70, 77)])
+@pytest.mark.parametrize("ilp", [1, 2, 3])
+@pytest.mark.parametrize("body", ["lane", "sublane", "add"])
+def test_roll_chain_kernel_on_ragged_axes(cuda_dev, body, ilp, shape):
+    """Axes that are not a multiple of 32: a line leaves the top of its
+    last register empty, and the wrap takes element n - 1 from a
+    register chosen at run time."""
+    from smi_tpu_torch.kernels import roll
+
+    gen = torch.Generator(device=cuda_dev).manual_seed(sum(shape) + ilp)
+    xs = tuple(torch.randn(shape, generator=gen, device=cuda_dev)
+               for _ in range(ilp))
+    for length in (1, 33, 1001):
+        got = roll.roll_chain(xs, length, body)
+        for g, w in zip(got, roll.roll_chain_plain(xs, length, body)):
+            assert torch.equal(g, w), length
+    control = roll.roll_chain(xs, 1, body)
+    assert not any(torch.equal(c, x) for c, x in zip(control, xs))
+
+
+@pytest.mark.parametrize("chains", [1, 2, 3, 4])
+@pytest.mark.parametrize("body", ["lane", "sublane", "add"])
+def test_roll_chain_kernel_at_its_axis_limit(cuda_dev, body, chains):
+    """The longest axis the kernel takes (all its registers a thread), at
+    each chain count, and one element more refused."""
+    from smi_tpu_torch.kernels import roll
+
+    n = roll.MAX_AXIS
+    shape = (n, 5) if body == "sublane" else (5, n)
+    gen = torch.Generator(device=cuda_dev).manual_seed(n + chains)
+    xs = tuple(torch.randn(shape, generator=gen, device=cuda_dev)
+               for _ in range(chains))
+    for length in (1, n + 7):
+        got = roll.roll_chain(xs, length, body)
+        for g, w in zip(got, roll.roll_chain_plain(xs, length, body)):
+            assert torch.equal(g, w), length
+    longer = (n + 1, 5) if body == "sublane" else (5, n + 1)
+    with pytest.raises(ValueError, match=f"limit of {n} elements"):
+        roll.roll_chain(tuple(torch.zeros(longer, device=cuda_dev)
+                              for _ in range(chains)), 1, body)
+
+
+@pytest.mark.parametrize("shape,ilp", [((512, 2048), 1), ((256, 2048), 2),
+                                       ((7, 300), 3)])
+@pytest.mark.parametrize("body", ["lane", "sublane", "add"])
+def test_roll_chain_kernel_gives_the_same_bits_twice(cuda_dev, body, shape,
+                                                     ilp):
+    from smi_tpu_torch.kernels import roll
+
+    gen = torch.Generator(device=cuda_dev).manual_seed(ilp)
+    xs = tuple(torch.randn(shape, generator=gen, device=cuda_dev)
+               for _ in range(ilp))
+    first = roll.roll_chain(xs, 1000, body)
+    second = roll.roll_chain(xs, 1000, body)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 def test_roll_chain_kernel_refuses_an_axis_too_long(cuda_dev):
     from smi_tpu_torch.kernels import roll
 
-    with pytest.raises(ValueError, match="16384 elements"):
+    with pytest.raises(ValueError, match="limit of 4096 elements"):
         roll.roll_chain((torch.zeros(2, 20000, device=cuda_dev),), 1, "lane")
+    with pytest.raises(ValueError, match="limit of 4096 elements"):
+        roll.roll_chain((torch.zeros(4097, 2, device=cuda_dev),) * 2, 1,
+                        "sublane")
     with pytest.raises(TypeError, match="float32"):
         roll.roll_chain((torch.zeros(2, 8, device=cuda_dev,
                                      dtype=torch.float64),), 1, "add")

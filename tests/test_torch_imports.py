@@ -64,7 +64,9 @@ def _imported_roots(path: Path):
 @pytest.mark.parametrize(
     "path",
     sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                      ROOT / "tests" / "torch_gloo_worker.py"],
+                                      ROOT / "tests" / "torch_gloo_worker.py",
+                                      ROOT / "probes" /
+                                      "roll_chain_layouts.py"],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_no_source_imports_jax_or_the_jax_package(path):

@@ -104,28 +104,36 @@ def test_roll_chain_refuses_what_the_kernel_does_not_take():
         roll.roll_chain((x, torch.zeros(8, 32)), 1, "lane")
     with pytest.raises(ValueError, match="body"):
         roll.roll_chain((x,), 1, "diagonal")
-    with pytest.raises(ValueError, match="16384 elements"):
+    with pytest.raises(ValueError, match="limit of 4096 elements"):
         roll.plan(4, 20000, 1, "lane")
-    with pytest.raises(ValueError, match="16384 elements"):
+    with pytest.raises(ValueError, match="limit of 4096 elements"):
         roll.plan(9000, 4, 2, "sublane")
 
 
-@pytest.mark.parametrize("shape,ilp,body,tile,blocks", [
-    ((512, 2048), 1, "lane", (4, 2048), 128),
-    ((256, 2048), 2, "lane", (2, 2048), 128),
-    ((512, 2048), 1, "sublane", (512, 16), 128),
-    ((256, 2048), 2, "sublane", (256, 16), 128),
-    ((512, 2048), 1, "add", (4, 2048), 128),
-    ((7, 300), 3, "lane", (7, 300), 1),
-    ((33, 5), 1, "sublane", (33, 5), 1),
+@pytest.mark.parametrize("shape,ilp,body,regs,warps,blocks", [
+    ((512, 2048), 1, "lane", 64, 4, 128),
+    ((256, 2048), 2, "lane", 64, 4, 128),
+    ((512, 2048), 1, "sublane", 16, 4, 512),
+    ((256, 2048), 2, "sublane", 8, 4, 1024),
+    ((512, 2048), 1, "add", 64, 4, 128),
+    ((7, 300), 3, "lane", 16, 4, 6),
+    ((33, 5), 1, "sublane", 2, 4, 2),
 ])
-def test_roll_plan_keeps_the_rolled_axis_whole(shape, ilp, body, tile,
-                                               blocks):
+def test_roll_plan_keeps_the_rolled_axis_whole(shape, ilp, body, regs,
+                                               warps, blocks):
+    """A warp holds a whole line of a chain: the rolled axis in the least
+    power-of-two count of registers that holds it, within the kernel's
+    registers a thread; blocks of 4 warps, a warp for each line of each
+    chain."""
     p = roll.plan(*shape, ilp, body)
-    assert p["tile"] == tile and p["blocks"] == blocks
-    elems = ilp * tile[0] * tile[1]
-    assert p["smem_bytes"] == 8 * elems <= 8 * roll.MAX_TILE_ELEMS
-    assert p["threads"] % 32 == 0 and p["threads"] * 16 >= elems
+    n = shape[0] if body == "sublane" else shape[1]
+    assert (p["axis"], p["lines"]) == (n, shape[1] if body == "sublane"
+                                       else shape[0])
+    assert (p["regs"], p["warps"], p["blocks"]) == (regs, warps, blocks)
+    assert 32 * regs >= n and (regs == 1 or 16 * regs < n)
+    assert regs <= roll.MAX_REGS
+    assert p["args"] == (regs, warps)
+    assert (blocks - 1) * warps < ilp * p["lines"] <= blocks * warps
 
 
 # ------------------------------------------------------------- onchip --
