@@ -267,6 +267,27 @@ also built in phase 2):
    form's shared-memory term (8 B an element a step over 128 B a
    clock).
 
+Then the rest of SMI's collective surface, on the ``(2, 4)`` world
+``("dcn", "ici")`` (8 ranks, 4 MiB a rank: a ``(1024, 1024)`` f32 array):
+
+31. ``all_to_all`` pairwise, Bruck and two-tier in f32, bf16 and int32,
+   each ``torch.equal`` to the stacked block transpose; the allreduce
+   flat (``rs_ag=False``), by default (reduce-scatter + all-gather at
+   4 MiB) and ``hierarchical=True``, each form's rendezvous checked,
+   int32 ``torch.equal`` and f32 within 1e-6 of flat;
+   ``precision="bf16" | "int8" | "topk"`` on both tiers, the ring tier
+   ``torch.equal`` to quantise-then-``ring_all_reduce_plain``, bf16 and
+   int8 within the JAX package's relative-error pins (0.01, 0.02), 8 x
+   3.5 summing to 28 exactly; ``transfer_verified`` and
+   ``stream_verified`` 5->6 at the channel's 507 chunks of 2072 f32 on
+   both tiers, frames verified, and one flipped bit named by chunk. The
+   launch counts are set to 0 before these runs and read after them
+   (rows 7 and 5 of the kernels line add them). Then each form's times:
+   the device time of its rendezvous work (replayed behind a wait), its
+   host wall through ``LocalWorld.run``, the all-to-all's byte bound and
+   one stacked transpose copy, each beside ``nvidia-smi``'s name and
+   power limit.
+
 Bars: f32 out/acc/gradients within 2e-5 (``rtol = atol``); m and l within
 1e-5 in either dtype (both sides add exact products in f32); bf16
 out/acc/gradients by the worst row's relative error ``||got - want|| /
@@ -635,6 +656,12 @@ def main(argv=None) -> int:
     records += ring_records
     records += suite_phases(dev, gen, ring_check, earlier.get("ring"))
     records += surface_phases(dev, gen, earlier.get("roll_chain"))
+    surface_launches = collective_surface_phase(dev, gen, smi_line)
+    # rows 5 and 7 count phase 31's launches beside phases 21-23's
+    for record in records:
+        for kernel in ("ring_all_reduce", "ring_neighbour_stream"):
+            if record["replaces"] == RING_REPLACES[kernel]:
+                record["launches"] += surface_launches[kernel]
 
     log(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
@@ -3711,6 +3738,282 @@ def surface_phases(dev, gen, earlier=None):
                 "library_call": lib_call, "earlier_ms": e_ms,
             })
     return records
+
+
+#: phase 31: the hybrid world's grid and its per-rank payload
+HYBRID_GRID, HYBRID_AXES = (2, 4), ("dcn", "ici")
+SIDE = 1024               # (1024, 1024) f32: SMI_ELEMS, 4 MiB a rank
+#: repetitions of a collective through ``LocalWorld.run`` (host wall)
+WALL_REPS = 5
+
+
+def capture_rendezvous(world):
+    """Record the joint work of every rendezvous ``world`` makes while the
+    context is open: ``[(kind, work, payloads)]``, one per rendezvous
+    (the leader's call). Used inside ``with``."""
+    calls = []
+    real = world.rendezvous
+
+    def rendezvous(rank, kind, payload, work):
+        def recorded(payloads):
+            calls.append((kind, work, list(payloads)))
+            return work(payloads)
+        return real(rank, kind, payload, recorded)
+
+    @contextlib.contextmanager
+    def ctx():
+        world.rendezvous = rendezvous
+        try:
+            yield calls
+        finally:
+            del world.rendezvous
+    return ctx()
+
+
+def collective_time(world, fn):
+    """``(device_ms, wall_ms, kinds, outs)`` of ``world.run(fn)``:
+    ``device_ms`` the device time of its rendezvous work (each recorded
+    rendezvous replayed in order on the world's stream by
+    :func:`device_ms`; the ranks' own copies are not in it), ``wall_ms``
+    the median host wall of ``WALL_REPS`` runs, ``kinds`` the rendezvous
+    kinds in order."""
+    import statistics
+
+    import torch
+
+    with capture_rendezvous(world) as calls:
+        outs = world.run(fn)
+    with torch.cuda.device(world.device), torch.cuda.stream(world.stream):
+        dev_ms = device_ms(lambda: [work(p) for _, work, p in calls])
+    walls = []
+    for _ in range(WALL_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        world.run(fn)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return dev_ms, statistics.median(walls), [k for k, _, _ in calls], outs
+
+
+def collective_surface_phase(dev, gen, smi_line):
+    """Phase 31: the rest of SMI's collective surface on the ``(2, 4)``
+    world ``("dcn", "ici")``, 8 ranks at 4 MiB a rank: the all-to-all
+    family, the three allreduce forms, the quantised allreduce on both
+    tiers and the verified transfers. Launch counts are set to 0 before
+    the checked runs and read after them; returns the ring kernels'
+    launches there (rows 5 and 7 of the kernels line)."""
+    import torch
+
+    import smi_tpu_torch as st
+    from smi_tpu_torch.kernels import _build
+    from smi_tpu_torch.kernels import ring as kring
+    from smi_tpu_torch.parallel import collectives as coll
+
+    n = SMI_RANKS
+    world = st.LocalWorld(HYBRID_GRID, HYBRID_AXES)
+    f32, bf16, i32 = torch.float32, torch.bfloat16, torch.int32
+    count = SIDE // n        # rows a block of the all-to-all
+
+    def rnd(dtype):
+        if dtype == i32:
+            return [torch.randint(-1000, 1000, (SIDE, SIDE), generator=gen,
+                                  device=dev, dtype=i32) for _ in range(n)]
+        return [torch.rand((SIDE, SIDE), generator=gen, device=dev,
+                           dtype=f32).add_(0.5).to(dtype) for _ in range(n)]
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+
+    # ---- 31. the collective surface -----------------------------------
+    log(f"[31 all-to-all, hybrid and quantised allreduce, verified "
+        f"transfers on the {HYBRID_GRID} world {HYBRID_AXES}, {n} ranks]")
+    inputs = {dtype: rnd(dtype) for dtype in (f32, bf16, i32)}
+    for dtype, xs in inputs.items():
+        want = torch.stack(xs).view(n, n, count, SIDE).transpose(0, 1)
+        for algorithm in coll.ALLTOALL_ALGORITHMS:
+            got = world.run(lambda c: st.all_to_all(
+                xs[c.rank], c, algorithm=algorithm))
+            if not torch.equal(torch.stack(got).view(n, n, count, SIDE),
+                               want):
+                raise AssertionError(f"all_to_all {algorithm} "
+                                     f"{str(dtype)[6:]} != the block "
+                                     f"transpose")
+        log(f"  all_to_all {str(dtype)[6:]} ({SIDE}, {SIDE}) a rank: "
+            f"pairwise, bruck and hierarchical torch.equal to each other "
+            f"and to the stacked block transpose")
+
+    xs, xi = inputs[f32], inputs[i32]
+    forms = (("flat", dict(rs_ag=False)), ("default", {}),
+             ("hierarchical", dict(hierarchical=True)))
+    # the rendezvous each form makes: the default is rs+ag at 4 MiB
+    schedule = {"flat": ["all_reduce"],
+                "default": ["reduce_scatter", "all_gather"],
+                "hierarchical": ["reduce_scatter", "all_reduce",
+                                 "all_gather"]}
+    results = {}
+    for what, kw in forms:
+        for dtype, vals in ((f32, xs), (i32, xi)):
+            with capture_rendezvous(world) as calls:
+                results[what, dtype] = world.run(
+                    lambda c: st.allreduce(vals[c.rank].view(-1), c, **kw))
+            kinds = [k[0] for k, _, _ in calls]
+            if kinds != schedule[what]:
+                raise AssertionError(f"allreduce {what}: rendezvous "
+                                     f"{kinds}, expected {schedule[what]}")
+    exact = sum(x.view(-1).double() for x in xs)
+    for what, _ in forms:
+        for r in range(n):
+            if not torch.equal(results[what, i32][r],
+                               results["flat", i32][r]):
+                raise AssertionError(f"allreduce {what} int32 rank {r} != "
+                                     f"flat")
+            if not torch.allclose(results[what, f32][r],
+                                  results["flat", f32][r], rtol=1e-6,
+                                  atol=0.0):
+                raise AssertionError(f"allreduce {what} f32 rank {r} "
+                                     f"beyond 1e-6 of flat")
+        err = (results[what, f32][0].double() - exact).abs().max().item()
+        log(f"  allreduce {what} ({SMI_ELEMS},) a rank: rendezvous "
+            f"{schedule[what]}; int32 "
+            f"torch.equal to flat, f32 within 1e-6 of flat (max abs err "
+            f"against float64 {err:.3g})")
+    del results
+
+    clean = torch.full((SMI_ELEMS,), 3.5, device=dev)
+    quantised = {}
+    for precision in ("bf16", "int8", "topk"):
+        plain = kring.ring_all_reduce_plain(
+            [coll._quantize(x.view(-1), precision) for x in xs], "add")
+        for backend in ("ring", "xla"):
+            coll.error_feedback_reset()
+            got = world.run(lambda c: st.allreduce(
+                xs[c.rank].view(-1), c, precision=precision,
+                backend=backend))
+            for r in range(n):
+                if backend == "ring" and not torch.equal(got[r], plain[r]):
+                    raise AssertionError(
+                        f"precision {precision} ring rank {r} != "
+                        f"quantise-then-ring_all_reduce_plain")
+                if backend == "xla" and not torch.allclose(
+                        got[r], plain[r], rtol=1e-6, atol=0.0):
+                    raise AssertionError(
+                        f"precision {precision} xla rank {r} beyond 1e-6 "
+                        f"of the quantised sum")
+            rel = ((got[0].double() - exact).norm() / exact.norm()).item()
+            bound = {"bf16": 0.01, "int8": 0.02}.get(precision)
+            if bound is not None and not rel < bound:
+                raise AssertionError(f"precision {precision} {backend}: "
+                                     f"relative error {rel} >= {bound}")
+            coll.error_feedback_reset()
+            sums = world.run(lambda c: st.allreduce(
+                clean, c, precision=precision, backend=backend))
+            if not all(torch.equal(s, torch.full_like(s, 28.0))
+                       for s in sums):
+                raise AssertionError(f"precision {precision} {backend}: "
+                                     f"8 x 3.5 is not 28 exactly")
+            quantised[precision, backend] = rel
+        log(f"  allreduce precision={precision}: ring tier torch.equal to "
+            f"quantise-then-ring_all_reduce_plain, xla tier within 1e-6 of "
+            f"it; relative error against float64 {rel:.4g}"
+            + ("" if bound is None else f" (JAX pin {bound})")
+            + "; 8 x 3.5 sums to 28 exactly on both tiers")
+    coll.error_feedback_reset()
+
+    src, dst = API_ROOT, API_ROOT + 1
+    payload = [x.view(-1) for x in xs]
+    for backend in ("xla", "ring"):
+        def verified(c):
+            ch = st.P2PChannel(c, port=0, src=src, dst=dst,
+                               count=SMI_ELEMS, buffer_size=2048)
+            received, check = ch.transfer_verified(payload[c.rank],
+                                                   backend=backend)
+            streamed, _, s_check = ch.stream_verified(payload[c.rank],
+                                                      backend=backend)
+            ch.verify_frames(check)
+            ch.verify_frames(s_check)
+            return ch, received, streamed, s_check
+
+        outs = world.run(verified)
+        ch, received, streamed, check = outs[dst]
+        chunk = min(ch.chunk_elements, ch.count)
+        chunks = -(-ch.count // chunk)
+        if (chunk, chunks) != (CHANNEL_ELEMS, CHANNEL_CHUNKS):
+            raise AssertionError(f"channel chunks {chunks} x {chunk}, "
+                                 f"expected {CHANNEL_CHUNKS} x "
+                                 f"{CHANNEL_ELEMS}")
+        if not (torch.equal(received, payload[src])
+                and torch.equal(streamed, payload[src])):
+            raise AssertionError(f"verified {backend}: dst did not receive "
+                                 f"src's payload")
+        if not torch.equal(check.expected, ch.chunk_checksums(payload[src])):
+            raise AssertionError(f"verified {backend}: the moved checksums "
+                                 f"are not src's")
+        bad_chunk = 3 * chunks // 5
+        tampered = streamed.clone()
+        tampered.view(torch.int32)[bad_chunk * chunk + 1000] ^= 1 << 7
+        try:
+            ch.verify_frames(st.FrameCheck(check.expected,
+                                           ch.chunk_checksums(tampered),
+                                           check.at_dst))
+        except st.IntegrityError as err:
+            if (err.seq, err.kind, err.src, err.rank) != (
+                    bad_chunk, "checksum", src, dst):
+                raise AssertionError(f"verified {backend}: the error names "
+                                     f"{err.seq} {err.kind}") from err
+            log(f"  verified transfer and stream {src}->{dst} ({backend}): "
+                f"{chunks} chunks of {chunk} f32 delivered, frames verified; "
+                f"one bit flipped in chunk {bad_chunk}: IntegrityError "
+                f"naming chunk {err.seq}")
+        else:
+            raise AssertionError(f"verified {backend}: a flipped bit passed")
+    counts = {k: _build.LAUNCHES[k] for k in RING_KERNELS}
+    log(f"  launches in phase 31: {counts}")
+    expect = {"ring_all_reduce": 6, "ring_neighbour_stream": 4,
+              "ring_all_gather": 0, "ring_reduce_scatter": 0}
+    if counts != expect:
+        raise AssertionError(f"phase 31 launches {counts}, expected "
+                             f"{expect}")
+
+    # times, after the counted runs
+    for dtype, xs_t in inputs.items():
+        nbytes = 2 * n * xs_t[0].numel() * xs_t[0].element_size()
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        lib_ms = device_ms(lambda: torch.stack(xs_t).view(
+            n, n, count, SIDE).transpose(0, 1).contiguous())
+        for algorithm in coll.ALLTOALL_ALGORITHMS:
+            d_ms, w_ms, kinds, _ = collective_time(
+                world, lambda c: st.all_to_all(xs_t[c.rank], c,
+                                               algorithm=algorithm))
+            log(f"  all_to_all {algorithm} {str(dtype)[6:]}: rendezvous "
+                f"work {d_ms:.4f} ms over {len(kinds)} rendezvous, host "
+                f"wall through LocalWorld.run {w_ms:.3f} ms; bound "
+                f"{b_ms:.4f} ms ({nbytes / 2**20:.0f} MiB in and out "
+                f"once); one stacked transpose copy {lib_ms:.4f} ms "
+                f"[{smi_line}]")
+    for what, kw in forms:
+        for dtype, vals in ((f32, xs), (i32, xi)):
+            d_ms, w_ms, kinds, _ = collective_time(
+                world, lambda c: st.allreduce(vals[c.rank].view(-1), c,
+                                              **kw))
+            log(f"  allreduce {what} {str(dtype)[6:]}: rendezvous work "
+                f"{d_ms:.4f} ms ({', '.join(k[0] for k in kinds)}), host "
+                f"wall through LocalWorld.run {w_ms:.3f} ms [{smi_line}]")
+    for precision in ("bf16", "int8", "topk"):
+        for backend in ("ring", "xla"):
+            coll.error_feedback_reset()
+            t0 = time.perf_counter()
+            for _ in range(WALL_REPS):
+                world.run(lambda c: st.allreduce(
+                    xs[c.rank].view(-1), c, precision=precision,
+                    backend=backend))
+            w_ms = (time.perf_counter() - t0) / WALL_REPS * 1e3
+            q_ms = device_ms(lambda: coll._quantize(xs[0].view(-1),
+                                                    precision))
+            log(f"  allreduce precision={precision} {backend}: host wall "
+                f"through LocalWorld.run {w_ms:.3f} ms; one rank's "
+                f"quantise {q_ms:.4f} ms [{smi_line}]")
+    coll.error_feedback_reset()
+    return counts
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -22,7 +22,11 @@ write into each other's buffers under credit flow control, and the
 k-means and GESUMMV applications. The sixth adds the chunked ring
 all-reduce kernel, ``stream_concurrent`` and SMI's microbenchmark suite
 (``python -m smi_tpu_torch.benchmarks``), which ``import smi_tpu_torch``
-does not load. Entry points run on CUDA unless the caller passes
+does not load. Later slices complete SMI's collective surface:
+``all_to_all`` (pairwise, Bruck, two-tier), the hybrid ``("dcn",
+"ici")`` communicator with hierarchical and reduce-scatter + all-gather
+allreduce, quantised allreduce, verified transfers and tenant ports.
+Entry points run on CUDA unless the caller passes
 ``device="cpu"``; on a CPU tensor each kernel wrapper runs its plain
 PyTorch version instead.
 """
@@ -151,18 +155,25 @@ from smi_tpu_torch.ops.types import (
     dtype_to_torch,
 )
 from smi_tpu_torch.parallel.channels import (
+    FrameCheck,
     P2PChannel,
+    open_tenant_channel,
     ring_shift,
     stream_concurrent,
+    tenant_stream_port,
 )
 from smi_tpu_torch.parallel.collectives import (
+    all_to_all,
     allreduce,
+    allreduce_hierarchical,
     bcast,
+    error_feedback_reset,
     gather,
     reduce,
     scatter,
 )
 from smi_tpu_torch.parallel.context import SmiContext, smi_kernel
+from smi_tpu_torch.parallel.errors import IntegrityError
 from smi_tpu_torch.parallel.halo import (
     Halos,
     halo_exchange_2d,
@@ -175,7 +186,12 @@ from smi_tpu_torch.parallel.halo import (
     shift_along,
 )
 from smi_tpu_torch.parallel.local import LocalWorld
-from smi_tpu_torch.parallel.mesh import Communicator, make_communicator
+from smi_tpu_torch.parallel.mesh import (
+    Communicator,
+    make_communicator,
+    make_hybrid_communicator,
+    mesh_from_topology,
+)
 from smi_tpu_torch.utils.watchdog import Deadline, WatchdogTimeout
 
 __all__ = [
@@ -185,9 +201,13 @@ __all__ = [
     "Program", "Device", "ProgramMapping", "allocate_ports",
     "combined_program",
     "parse_program", "serialize_program", "parse_topology_file",
-    "Communicator", "make_communicator", "LocalWorld",
+    "Communicator", "make_communicator", "make_hybrid_communicator",
+    "mesh_from_topology", "LocalWorld",
     "P2PChannel", "stream_concurrent", "SmiContext", "smi_kernel",
-    "bcast", "reduce", "allreduce", "scatter", "gather",
+    "FrameCheck", "IntegrityError", "tenant_stream_port",
+    "open_tenant_channel",
+    "bcast", "reduce", "allreduce", "scatter", "gather", "all_to_all",
+    "allreduce_hierarchical", "error_feedback_reset",
     "Deadline", "WatchdogTimeout",
     "RING_STREAMS", "neighbour_stream", "neighbour_stream_plain",
     "ring_all_gather", "ring_all_gather_plain", "ring_all_reduce",

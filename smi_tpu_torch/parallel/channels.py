@@ -19,17 +19,26 @@ package, the two endpoint loops are one SPMD call that every rank makes:
   in the port's flag domain; the consumer then runs per chunk.
 
 :func:`ring_shift` is the rank-pipeline move, differentiable as
-``ppermute`` is in JAX. The JAX module's verified transport
-(``transfer_verified``, ``stream_verified``, ``verify_frames``) and the
-tenant ports are not ported yet. :func:`stream_concurrent` moves several
+``ppermute`` is in JAX. :func:`stream_concurrent` moves several
 channels' messages in lockstep bursts on either tier.
+
+The verified transport (``transfer_verified``, ``stream_verified``,
+``verify_frames``) moves a vector of per-chunk checksums beside the
+payload, over the payload's own tier, and turns a chunk that arrived
+damaged into a named :class:`~smi_tpu_torch.parallel.errors.
+IntegrityError`. Tenant ports (:func:`tenant_stream_port`,
+:func:`open_tenant_channel`) derive a transient channel's port from a
+tenant's stream identity.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional, Sequence, Tuple, Union
+import zlib
+from typing import (Callable, List, NamedTuple, Optional, Sequence, Tuple,
+                    Union)
 
+import numpy as np
 import torch
 
 from smi_tpu_torch.ops.operations import Reduce, pipeline_depth_packets
@@ -45,8 +54,30 @@ from smi_tpu_torch.parallel.backend import (
     identity_for,
     reduction_fn,
 )
+from smi_tpu_torch.parallel.errors import IntegrityError
 from smi_tpu_torch.parallel.mesh import Communicator
 from smi_tpu_torch.utils.watchdog import Deadline
+
+
+class FrameCheck(NamedTuple):
+    """What a verified transfer hands the host for its verdict:
+    ``expected``, the per-chunk checksums computed at ``src`` and moved
+    to ``dst`` over the payload's tier; ``got``, the checksums of the
+    delivered message; ``at_dst``, 1 at the rank where the comparison
+    means something (the others hold zeros).
+    :meth:`P2PChannel.verify_frames` turns a mismatch into a named
+    :class:`~smi_tpu_torch.parallel.errors.IntegrityError`."""
+
+    expected: torch.Tensor
+    got: torch.Tensor
+    at_dst: torch.Tensor
+
+
+def _wrap_int32(v: torch.Tensor) -> torch.Tensor:
+    """An int64 tensor reduced mod 2**32 into int32's range (two's
+    complement wraparound)."""
+    v = v & 0xFFFFFFFF
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -261,6 +292,118 @@ class P2PChannel:
         received = parts[0] if len(parts) == 1 else torch.cat(parts)
         return received, carry
 
+    # ------------------------------------------------------------------
+    # Verified transport: per-chunk sequence-keyed checksums
+    # ------------------------------------------------------------------
+
+    def chunk_checksums(self, data) -> torch.Tensor:
+        """Per-chunk int32 checksums of a message.
+
+        Chunk ``k``'s payload words (the dtype's raw bits, sign-extended
+        to int32) are summed with int32 wraparound under odd
+        pseudo-random position weights (``i * 2654435761 | 1``). An odd
+        weight makes every single-bit flip visible, a truncated landing
+        changes the sum, and the position dependence catches swapped or
+        reordered chunks. The same at both endpoints, so the comparison
+        in :meth:`verify_frames` is exact. The arithmetic runs in int64
+        and is reduced mod 2**32, which is int32 wraparound without
+        relying on overflow.
+        """
+        x = torch.as_tensor(data, device=self.comm.device).to(
+            self.torch_dtype)
+        chunk = min(self.chunk_elements, self.count)
+        n_chunks = -(-self.count // chunk)
+        pad = n_chunks * chunk - self.count
+        x = x[: self.count]
+        if pad:
+            x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+        if x.dtype.is_floating_point:
+            bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+            x = x.view(bits[x.element_size()])
+        words = x.to(torch.int64).reshape(n_chunks, -1)
+        # Knuth's 32-bit golden-ratio multiplier; | 1 keeps every weight
+        # odd
+        index = torch.arange(words.shape[1], dtype=torch.int64,
+                             device=words.device)
+        weights = _wrap_int32(index * -1640531527).to(torch.int64) | 1
+        terms = (_wrap_int32(words).to(torch.int64) * weights) & 0xFFFFFFFF
+        return _wrap_int32(terms.sum(dim=1))
+
+    def _move_checksums(self, sums: torch.Tensor,
+                        backend: str) -> torch.Tensor:
+        """The src's checksum vector delivered to dst over the payload's
+        tier (zeros elsewhere): the frame header riding its own
+        message."""
+        masked = sums if self.comm.rank == self.src else torch.zeros_like(
+            sums)
+        if backend == "ring":
+            return self._ring_move(masked[None])[0]
+        return self._permute(masked)
+
+    def _frame_check(self, data: torch.Tensor, received: torch.Tensor,
+                     backend: str) -> FrameCheck:
+        return FrameCheck(
+            expected=self._move_checksums(self.chunk_checksums(data),
+                                          backend),
+            got=self.chunk_checksums(received),
+            at_dst=torch.tensor(int(self.comm.rank == self.dst),
+                                dtype=torch.int32),
+        )
+
+    def transfer_verified(self, data, backend: str = "xla",
+                          deadline: Optional[Deadline] = None
+                          ) -> Tuple[torch.Tensor, FrameCheck]:
+        """:meth:`transfer` plus end-to-end integrity evidence: returns
+        ``(received, check)``; :meth:`verify_frames` on the check raises
+        a named :class:`~smi_tpu_torch.parallel.errors.IntegrityError`
+        for a corrupted, truncated or reordered chunk."""
+        data = self._data(data)
+        received = self.transfer(data, backend=backend, deadline=deadline)
+        return received, self._frame_check(data, received, backend)
+
+    def stream_verified(self, data, consumer: Optional[Callable] = None,
+                        init_carry=None, backend: str = "xla",
+                        deadline: Optional[Deadline] = None):
+        """:meth:`stream` plus end-to-end integrity evidence: returns
+        ``(received, carry, check)``. The checksums follow the chunking
+        the stream moves, so the check names the in-flight unit that was
+        damaged."""
+        data = self._data(data)
+        received, carry = self.stream(
+            data, consumer=consumer, init_carry=init_carry,
+            backend=backend, deadline=deadline,
+        )
+        return received, carry, self._frame_check(data, received, backend)
+
+    def verify_frames(self, check: FrameCheck, context: str = "") -> None:
+        """Raise on the first chunk whose delivered checksum differs from
+        the one computed at the source. A no-op at ranks other than
+        ``dst``, whose buffers are zeros by contract."""
+        def host(v):
+            return (v.detach().cpu().numpy() if torch.is_tensor(v)
+                    else np.asarray(v))
+
+        if not bool(np.any(host(check.at_dst))):
+            return
+        expected = host(check.expected)
+        got = host(check.got)
+        bad = np.nonzero(expected != got)[0]
+        if bad.size == 0:
+            return
+        k = int(bad[0])
+        where = f" during {context}" if context else ""
+        raise IntegrityError(
+            f"verified transfer on port-{self.port} channel "
+            f"{self.src}->{self.dst}{where}: chunk {k} (of "
+            f"{expected.size}) arrived corrupted: checksum expected "
+            f"{int(expected[k]):#010x}, got {int(got[k]):#010x}"
+            + (f"; {bad.size - 1} further chunk(s) also damaged"
+               if bad.size > 1 else ""),
+            rank=self.dst, src=self.src, seq=k,
+            expected=int(expected[k]), got=int(got[k]),
+            kind="checksum",
+        )
+
     def stream_reduce(self, data, op: Union[str, SmiOp] = SmiOp.ADD,
                       lanes: Optional[int] = None, backend: str = "xla",
                       deadline: Optional[Deadline] = None):
@@ -299,6 +442,38 @@ class P2PChannel:
             backend=backend, deadline=deadline,
         )
         return received, chunk_reduce(partials, axis=0)
+
+
+#: Port space of transient per-tenant stream channels: their ports are
+#: derived, never hand-assigned, and fold onto the ring tier's flag
+#: domains (:meth:`P2PChannel._ring_stream`) as static ports do.
+TENANT_PORT_SPACE = 1 << 16
+
+
+def tenant_stream_port(tenant: str, stream_seq: int) -> int:
+    """The transient port of one tenant stream: the (tenant, sequence)
+    identity hashed into the port space, stable across processes, so
+    every rank derives the same port without coordination."""
+    if stream_seq < 0:
+        raise ValueError(f"stream_seq must be >= 0, got {stream_seq}")
+    return zlib.crc32(
+        f"tenant-stream:{tenant}:{stream_seq}".encode()
+    ) % TENANT_PORT_SPACE
+
+
+def open_tenant_channel(comm: Communicator, tenant: str, stream_seq: int,
+                        src: int, dst: int, count: int,
+                        dtype: SmiDtype = SmiDtype.FLOAT,
+                        **kwargs) -> P2PChannel:
+    """A transient per-tenant P2P channel, metadata only, its port
+    derived from the tenant stream (:func:`tenant_stream_port`), so
+    concurrent tenants land on distinct ring flag domains (up to the
+    tier's domain count) and a tenant's consecutive streams rotate
+    domains. The other :class:`P2PChannel` knobs pass through."""
+    return P2PChannel(
+        comm, port=tenant_stream_port(tenant, stream_seq),
+        src=src, dst=dst, count=count, dtype=dtype, **kwargs,
+    )
 
 
 def stream_concurrent(channels: Sequence[P2PChannel], datas,

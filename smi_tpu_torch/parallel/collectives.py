@@ -26,14 +26,36 @@ result is bit-identical to the unchunked call. On the ring tier the
 chunks of a scatter or a gather are a sequence of launches on one stream
 slot, and a chunked bcast or reduce (and so allreduce) is one launch of
 the chunked all-reduce kernel, every chunk on its own slot pair.
-``chunks=None`` means one collective: the JAX package's plan engine, its ``precision=`` and
-``hierarchical=`` knobs, the reduce-scatter + all-gather gate and
-``all_to_all`` are not ported yet (ROADMAP.md Queue 1).
+``chunks=None`` means one collective.
+
+The JAX package's algorithm knobs, each resolved in the same order:
+
+- a large ADD ``allreduce`` on the ``"xla"`` tier takes the bandwidth-
+  optimal reduce-scatter + all-gather form (``rs_ag=``; by default at
+  :data:`RS_AG_MIN_BYTES` a rank, or ``$SMI_TPU_RS_AG_MIN_BYTES``);
+- ``hierarchical=`` takes the two-tier composition on a hybrid
+  ``("dcn", "ici")`` grid: combine within the slice, cross the slow tier
+  once with combined data (by default only at the slice count
+  ``$SMI_TPU_HIER_MIN_SLICES`` names);
+- ``precision=`` narrows a float ADD ``allreduce``'s contribution to
+  bf16, int8 or top-k before either tier runs, with error feedback per
+  call site and rank;
+- :func:`all_to_all` in its pairwise, Bruck and two-tier forms, all pure
+  routing.
+
+The JAX package also consults its plan engine (``tuning/``), which the
+port does not have yet: where the engine would decide, the port takes
+the engine's untuned answer (the byte threshold for rs+ag; flat, dense
+and pairwise otherwise).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import math
+import os
+import sys
+import threading
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -41,7 +63,7 @@ from smi_tpu_torch.kernels import ring as _kring
 from smi_tpu_torch.kernels.ring import check_chunks as _check_chunks
 from smi_tpu_torch.ops.types import SmiOp
 from smi_tpu_torch.parallel.backend import check_backend
-from smi_tpu_torch.parallel.mesh import Communicator
+from smi_tpu_torch.parallel.mesh import Communicator, _two_tier
 from smi_tpu_torch.utils.watchdog import Deadline
 
 
@@ -96,12 +118,294 @@ def _masked(x: torch.Tensor, keep: bool) -> torch.Tensor:
     return x if keep else torch.zeros_like(x)
 
 
-def _unsupported(name: str, value, item: str) -> None:
-    if value is not None and value is not False:
-        raise NotImplementedError(
-            f"{name}={value!r} is not ported yet (ROADMAP.md Queue 1 "
-            f"item 8: {item})"
+# ---------------------------------------------------------------------------
+# The algorithm knobs and their gates
+# ---------------------------------------------------------------------------
+
+#: Bytes a rank at or above which an ADD ``allreduce`` on the ``"xla"``
+#: tier takes reduce-scatter + all-gather: each link then carries
+#: ``2(n-1)/n`` of the payload. The decomposition reassociates the sum,
+#: so it is gated on size (and on ``rs_ag=``), never applied to small
+#: payloads silently.
+RS_AG_MIN_BYTES = 1 << 20
+
+#: Explicit byte-count override of the rs+ag switch (the operator's
+#: word; a malformed value is a loud error).
+RS_AG_ENV = "SMI_TPU_RS_AG_MIN_BYTES"
+
+#: Explicit slice-count override of the hierarchical allreduce gate: an
+#: eligible allreduce on a hybrid grid of at least this many slices
+#: takes the two-tier form. Malformed values are a loud error.
+HIER_MIN_SLICES_ENV = "SMI_TPU_HIER_MIN_SLICES"
+
+#: Explicit algorithm override for :func:`all_to_all`.
+ALLTOALL_ALGO_ENV = "SMI_TPU_ALLTOALL_ALGO"
+
+#: The algorithms :func:`all_to_all` accepts.
+ALLTOALL_ALGORITHMS = ("pairwise", "bruck", "hierarchical")
+
+#: Explicit wire-precision override for :func:`allreduce`.
+ALLREDUCE_PRECISION_ENV = "SMI_TPU_ALLREDUCE_PRECISION"
+
+#: The wire precisions :func:`allreduce` accepts: dense f32 (the
+#: default), bf16, int8 (symmetric scale and cast) and top-k.
+ALLREDUCE_PRECISIONS = ("f32", "bf16", "int8", "topk")
+
+#: The share of a contribution's elements that ``precision="topk"``
+#: keeps (the largest by magnitude).
+SPARSE_TOPK_DENSITY = 1.0 / 16.0
+
+#: Error-feedback residuals of the lossy precisions, keyed by call site,
+#: precision, shape, dtype and rank: what this call's rounding dropped is
+#: added to the next contribution of the same key, so the bias of
+#: repeated quantised reductions decays. The rank is in the key because
+#: a ``LocalWorld``'s rank threads share this module and call sites.
+_ERROR_FEEDBACK: dict = {}
+_ERROR_FEEDBACK_MAX_SITES = 256
+_ERROR_FEEDBACK_LOCK = threading.Lock()
+
+
+def _env_int(name: str, what: str) -> Optional[int]:
+    raw = os.environ.get(name, "").strip()
+    if not raw:
+        return None
+    try:
+        return int(raw)
+    except ValueError:
+        raise ValueError(f"${name} must be an integer {what}, got "
+                         f"{raw!r}") from None
+
+
+def _env_choice(name: str, choices) -> Optional[str]:
+    raw = os.environ.get(name, "").strip()
+    if not raw:
+        return None
+    if raw not in choices:
+        raise ValueError(f"${name} must be one of {choices}, got {raw!r}")
+    return raw
+
+
+def _hier_env_min_slices() -> Optional[int]:
+    """$SMI_TPU_HIER_MIN_SLICES as an int, None when unset; loud on a
+    malformed value or one below 2."""
+    value = _env_int(HIER_MIN_SLICES_ENV, "slice count")
+    if value is not None and value < 2:
+        raise ValueError(
+            f"${HIER_MIN_SLICES_ENV} must be >= 2 (a pod tiers over "
+            f"at least two slices; set a large value to pin the flat "
+            f"form), got {value}"
         )
+    return value
+
+
+def _rs_ag_env_bytes() -> Optional[int]:
+    """$SMI_TPU_RS_AG_MIN_BYTES as an int, None when unset; loud on a
+    malformed or negative value."""
+    value = _env_int(RS_AG_ENV, "byte count")
+    if value is not None and value < 0:
+        raise ValueError(f"${RS_AG_ENV} must be >= 0, got {value}")
+    return value
+
+
+def rs_ag_min_bytes() -> int:
+    """The resolved rs+ag switch: ``$SMI_TPU_RS_AG_MIN_BYTES`` when set,
+    else :data:`RS_AG_MIN_BYTES` (the JAX package's plan-cache rung waits
+    for the port's ``tuning/``)."""
+    env = _rs_ag_env_bytes()
+    return RS_AG_MIN_BYTES if env is None else env
+
+
+def _check_precision_eligible(precision: str, x: torch.Tensor, op: SmiOp,
+                              source: str) -> None:
+    """A lossy pin on a MAX/MIN or integer allreduce is a loud error,
+    never a silent dense fallback. ``source`` names who asked."""
+    if precision == "f32":
+        return
+    if op is not SmiOp.ADD:
+        raise ValueError(
+            f"{source} needs an ADD allreduce — compensated rounding "
+            f"is defined only for additive reduction; got op "
+            f"{op.name} (drop the precision pin or the op)"
+        )
+    if not x.dtype.is_floating_point:
+        raise ValueError(
+            f"{source} needs a floating-point payload — quantizing an "
+            f"integer reduction silently changes its semantics; got "
+            f"dtype {x.dtype} (drop the precision pin or cast)"
+        )
+
+
+def _resolve_precision(precision: Optional[str], x: torch.Tensor,
+                       op: SmiOp) -> str:
+    """The wire precision of one allreduce: an explicit ``precision=``
+    decides alone (checked loudly), then the env override (the same
+    checks), else dense f32 — the JAX package's untuned plan engine
+    answers f32 at every size."""
+    if precision is not None:
+        if precision not in ALLREDUCE_PRECISIONS:
+            raise ValueError(
+                f"precision must be one of {ALLREDUCE_PRECISIONS}, "
+                f"got {precision!r}"
+            )
+        _check_precision_eligible(precision, x, op,
+                                  f"precision={precision!r}")
+        return precision
+    env = _env_choice(ALLREDUCE_PRECISION_ENV, ALLREDUCE_PRECISIONS)
+    if env is not None:
+        _check_precision_eligible(
+            env, x, op, f"${ALLREDUCE_PRECISION_ENV}={env!r}"
+        )
+        return env
+    return "f32"
+
+
+def _quantize(y: torch.Tensor, precision: str) -> torch.Tensor:
+    """Scale-and-cast of one lossy precision, applied to the local
+    contribution before the collective: bf16 rounds to bfloat16 and back;
+    int8 rounds onto 127 levels a side of the largest magnitude; topk
+    keeps the elements at least as large in magnitude as the k-th largest
+    (k = ``ceil(size * SPARSE_TOPK_DENSITY)``) and zeros the rest, and is
+    the identity where k covers every element."""
+    if precision == "bf16":
+        return y.to(torch.bfloat16).to(y.dtype)
+    if precision == "int8":
+        peak = y.abs().max().to(torch.float32)
+        # a divisor on the tensor's device (a fill, no copy from the
+        # host): CUDA divides by a host scalar as a multiply by its
+        # reciprocal
+        scale = peak / torch.full_like(peak, 127.0)
+        scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+        q = torch.clamp(torch.round(y.to(torch.float32) / scale),
+                        -127.0, 127.0)
+        return (q * scale).to(y.dtype)
+    if precision == "topk":
+        size = y.numel()
+        if size == 0:
+            return y
+        k = max(1, int(math.ceil(size * SPARSE_TOPK_DENSITY)))
+        if k >= size:
+            return y
+        magnitude = y.to(torch.float32).abs()
+        threshold = torch.topk(magnitude.reshape(-1), k).values[-1]
+        return torch.where(magnitude >= threshold, y, torch.zeros_like(y))
+    raise ValueError(f"no lossy lowering for precision {precision!r}")
+
+
+def _error_feedback_key(precision: str, x: torch.Tensor,
+                        rank: int) -> tuple:
+    """The first frame outside this module (the caller's allreduce call
+    site), the precision, shape and dtype, and the rank."""
+    frame = sys._getframe(1)
+    while frame is not None and frame.f_code.co_filename == __file__:
+        frame = frame.f_back
+    site = (("<unknown>", 0) if frame is None
+            else (frame.f_code.co_filename, frame.f_lineno))
+    return site + (precision, tuple(x.shape), str(x.dtype), rank)
+
+
+def _compensated_quantize(x: torch.Tensor, precision: str,
+                          rank: int = 0) -> torch.Tensor:
+    """:func:`_quantize` with error feedback: the residual the last call
+    of this key dropped is added before rounding, and this call's is
+    stored. The port always runs eagerly, so it compensates from a call
+    site's second call on (the JAX package does only outside a trace)."""
+    key = _error_feedback_key(precision, x, rank)
+    with _ERROR_FEEDBACK_LOCK:
+        residual = _ERROR_FEEDBACK.get(key)
+    y = x if residual is None else x + residual
+    q = _quantize(y, precision)
+    with _ERROR_FEEDBACK_LOCK:
+        if (key not in _ERROR_FEEDBACK
+                and len(_ERROR_FEEDBACK) >= _ERROR_FEEDBACK_MAX_SITES):
+            _ERROR_FEEDBACK.clear()   # a bound on sites, not an LRU
+        _ERROR_FEEDBACK[key] = y - q
+    return q
+
+
+def error_feedback_reset() -> None:
+    """Drop every stored error-feedback residual (also the right call
+    after a topology or model-state reset)."""
+    with _ERROR_FEEDBACK_LOCK:
+        _ERROR_FEEDBACK.clear()
+
+
+def _use_rs_ag(x: torch.Tensor, comm: Communicator, op: SmiOp,
+               rs_ag: Optional[bool]) -> bool:
+    """Whether an allreduce takes reduce-scatter + all-gather. Eligible:
+    ADD, a leading dim that the comm size divides, a row a rank. The
+    decision is ``rs_ag`` when given, else payload bytes against
+    :func:`rs_ag_min_bytes`."""
+    if op is not SmiOp.ADD or x.dim() == 0:
+        if rs_ag:
+            raise ValueError(
+                "rs_ag=True needs an ADD allreduce over an array payload"
+            )
+        return False
+    eligible = x.shape[0] % comm.size == 0 and x.shape[0] >= comm.size
+    if rs_ag is not None:
+        if rs_ag and not eligible:
+            raise ValueError(
+                f"rs_ag=True needs leading dim divisible by comm size "
+                f"{comm.size}; got shape {tuple(x.shape)}"
+            )
+        return rs_ag
+    if not eligible:
+        return False
+    return x.numel() * x.element_size() >= rs_ag_min_bytes()
+
+
+def _use_hierarchical(x: torch.Tensor, comm: Communicator, op: SmiOp,
+                      hierarchical: Optional[bool],
+                      rs_ag: Optional[bool],
+                      chunks: Optional[int] = None) -> bool:
+    """Whether an allreduce takes the two-tier form. Eligible: ADD on a
+    hybrid grid of at least two slices whose leading dim the slice size
+    divides. The decision is ``hierarchical`` when given (True checked
+    loudly, and in conflict with any ``rs_ag`` pin), else flat when
+    ``rs_ag`` or an explicit ``chunks`` pipeline is pinned, else the
+    slice count against ``$SMI_TPU_HIER_MIN_SLICES``, else flat (the JAX
+    package's plan engine decides there: ROADMAP.md Queue 3)."""
+    if hierarchical and rs_ag is not None:
+        if rs_ag:
+            raise ValueError(
+                "hierarchical=True and rs_ag=True are competing "
+                "decompositions of one allreduce — pick one (the "
+                "hierarchical form already reduce-scatters within the "
+                "slice)"
+            )
+        raise ValueError(
+            "hierarchical=True conflicts with rs_ag=False: rs_ag="
+            "False pins the single bit-exact all-reduce, which the "
+            "two-tier decomposition would reassociate — drop one pin"
+        )
+    tiers = _two_tier(comm)
+    eligible = tiers is not None and tiers[0] > 1
+    inner = tiers[1] if tiers else 1
+    if hierarchical:
+        if not eligible:
+            raise ValueError(
+                f"hierarchical=True needs a multi-slice hybrid "
+                f"communicator (a 2-axis grid with a 'dcn' outer "
+                f"axis of >= 2 slices); got axes {comm.axis_names} "
+                f"with sizes {comm.axis_sizes}"
+            )
+        if op is SmiOp.ADD:
+            if x.dim() == 0 or x.shape[0] % inner:
+                raise ValueError(
+                    f"hierarchical=True needs a leading dim divisible "
+                    f"by the inner (ICI) axis size {inner}; got shape "
+                    f"{tuple(x.shape)}"
+                )
+        return True
+    if hierarchical is not None or rs_ag is not None:
+        return False
+    if chunks is not None and chunks != 1:
+        return False
+    if (op is not SmiOp.ADD or not eligible or x.dim() == 0
+            or x.shape[0] % inner or x.shape[0] < inner):
+        return False
+    min_slices = _hier_env_min_slices()
+    return min_slices is not None and tiers[0] >= min_slices
 
 
 # ---------------------------------------------------------------------------
@@ -185,6 +489,26 @@ def _chunked_scatter(x: torch.Tensor, size: int, chunks: int, scatter_one):
     return torch.cat(parts, dim=0)
 
 
+def _rs_ag_allreduce(x: torch.Tensor, comm: Communicator,
+                     chunks: int) -> torch.Tensor:
+    """Bandwidth-optimal ADD all-reduce: reduce-scatter, then all-gather,
+    over the whole grid. A chunked one pipelines both phases per column
+    range of the ``(size, count)`` view."""
+    size = comm.size
+    count = x.shape[0] // size
+    tail = tuple(x.shape[1:])
+    bounds = _chunk_bounds(count, chunks) if chunks > 1 else [(0, count)]
+    xu = x.reshape((size, count) + tail)
+    gathered = []
+    for s, e in bounds:
+        piece = xu[:, s:e].reshape((size * (e - s),) + tail)
+        shard = comm.reduce_scatter(piece, SmiOp.ADD)
+        gathered.append(comm.all_gather(shard).reshape(
+            (size, e - s) + tail))
+    out = gathered[0] if len(gathered) == 1 else torch.cat(gathered, dim=1)
+    return out.reshape(x.shape)
+
+
 # ---------------------------------------------------------------------------
 # The collectives
 # ---------------------------------------------------------------------------
@@ -200,9 +524,14 @@ def bcast(x: torch.Tensor, comm: Communicator, root: int = 0,
     Reference: ``SMI_Bcast``. A single masked all-reduce whose only
     non-zero contribution is the root's value; under ``backend="ring"``
     it circulates around the explicit credit-controlled ring.
+    ``hierarchical=True`` takes the two-tier slice-leader tree on a
+    hybrid grid (:func:`bcast_hierarchical`, bit-identical); rooted
+    collectives keep the flat form by default.
     """
     check_backend(backend)
-    _unsupported("hierarchical", hierarchical, "hierarchical collectives")
+    if hierarchical:
+        _check_hierarchical_rooted(backend, chunks, "bcast")
+        return bcast_hierarchical(x, comm, root=root)
     chunks = _check_chunks(chunks)
     contrib = _masked(x, _is_root(comm, root))
     if backend == "ring":
@@ -229,11 +558,16 @@ def reduce(x: torch.Tensor, comm: Communicator,
     receives the result (zeros elsewhere here). With ``all_ranks=True``
     behaves as an allreduce (no masking) — the fused Reduce+Bcast idiom
     of kmeans without the second collective. ``backend="ring"`` runs the
-    circulating-partial ring kernel.
+    circulating-partial ring kernel. ``hierarchical=True`` combines
+    within each slice of a hybrid grid first, then crosses the slow tier
+    once with the slice partials (:func:`reduce_hierarchical`).
     """
     check_backend(backend)
     op = SmiOp.parse(op)
-    _unsupported("hierarchical", hierarchical, "hierarchical collectives")
+    if hierarchical:
+        _check_hierarchical_rooted(backend, chunks, "reduce")
+        return reduce_hierarchical(x, comm, op=op, root=root,
+                                   all_ranks=all_ranks)
     chunks = _check_chunks(chunks)
     root_here = _is_root(comm, root)
     if backend == "ring":
@@ -257,13 +591,25 @@ def allreduce(x: torch.Tensor, comm: Communicator,
               precision: Optional[str] = None) -> torch.Tensor:
     """Reduce + Bcast in one collective.
 
-    ``rs_ag`` and ``hierarchical`` are decompositions of the
-    collective-library tier in the JAX package: forcing one on the ring
-    tier is an error, as there, and neither is ported yet on this tier;
-    nor is ``precision=`` (quantised and sparse wire formats).
+    Four algorithm knobs, as in the JAX package: ``chunks`` pipelines the
+    payload (bit-identical); ``rs_ag`` forces the reduce-scatter +
+    all-gather form on or off (by default it runs from
+    :func:`rs_ag_min_bytes` a rank, ADD only); ``hierarchical`` takes the
+    two-tier form on a hybrid grid (:func:`allreduce_hierarchical`; by
+    default only where ``$SMI_TPU_HIER_MIN_SLICES`` asks for it);
+    ``precision`` narrows a float ADD contribution
+    (:data:`ALLREDUCE_PRECISIONS`) before either tier runs, with error
+    feedback per call site and rank (:func:`_compensated_quantize`), and
+    is loud on an ineligible op or dtype. Both decompositions reassociate
+    a float sum (ints stay exact). ``rs_ag`` and ``hierarchical`` are
+    compositions of the ``"xla"`` tier: forcing one on the ring tier is an
+    error.
     """
     check_backend(backend)
     op = SmiOp.parse(op)
+    resolved_precision = _resolve_precision(precision, x, op)
+    if resolved_precision != "f32":
+        x = _compensated_quantize(x, resolved_precision, comm.rank)
     if backend != "xla":
         # a forced decomposition must never be silently dropped
         if rs_ag:
@@ -278,11 +624,115 @@ def allreduce(x: torch.Tensor, comm: Communicator,
                 "tier runs the circulating-partial kernel — drop "
                 "hierarchical or use backend='xla'"
             )
-    _unsupported("rs_ag", rs_ag, "the reduce-scatter + all-gather gate")
-    _unsupported("hierarchical", hierarchical, "hierarchical collectives")
-    _unsupported("precision", precision, "quantised and sparse allreduce")
+    elif _use_hierarchical(x, comm, op, hierarchical, rs_ag, chunks):
+        if chunks is not None and chunks != 1:
+            raise ValueError(
+                "chunks= does not compose with the hierarchical "
+                "allreduce (its three phases are already a pipeline); "
+                "drop chunks or pin hierarchical=False"
+            )
+        return allreduce_hierarchical(x, comm, op=op)
+    chunks = _check_chunks(chunks)
+    if backend == "xla" and _use_rs_ag(x, comm, op, rs_ag):
+        return _rs_ag_allreduce(x, comm, chunks)
     return reduce(x, comm, op=op, all_ranks=True, backend=backend,
                   program=program, deadline=deadline, chunks=chunks)
+
+
+# ---------------------------------------------------------------------------
+# Two-tier collectives on a hybrid ("dcn", "ici") grid
+# ---------------------------------------------------------------------------
+
+
+def _check_hierarchical_rooted(backend: str, chunks: Optional[int],
+                               family: str) -> None:
+    if backend != "xla":
+        raise ValueError(
+            "hierarchical=True is an XLA-tier composition; drop "
+            "it or use backend='xla'"
+        )
+    if chunks is not None and chunks != 1:
+        raise ValueError(
+            f"chunks= does not compose with the hierarchical "
+            f"{family}; drop chunks or hierarchical"
+        )
+
+
+def _hier_axes(comm: Communicator, inner: Optional[str],
+               outer: Optional[str]) -> Tuple[str, str]:
+    """The (outer, inner) tier axes of a hybrid grid: the grid's two
+    axes in order by default."""
+    if len(comm.axis_names) != 2 and (inner is None or outer is None):
+        raise ValueError(
+            "a hierarchical collective needs a 2-axis communicator or "
+            "explicit inner=/outer= axis names"
+        )
+    outer = outer if outer is not None else comm.axis_names[0]
+    inner = inner if inner is not None else comm.axis_names[1]
+    if inner == outer:
+        raise ValueError(
+            f"inner and outer tiers must be distinct axes, got "
+            f"{inner!r} for both"
+        )
+    for name in (inner, outer):
+        if name not in comm.axis_names:
+            raise ValueError(
+                f"axis {name!r} not in mesh axes {comm.axis_names}"
+            )
+    return outer, inner
+
+
+def allreduce_hierarchical(x: torch.Tensor, comm: Communicator,
+                           op: Union[str, SmiOp] = SmiOp.ADD,
+                           inner: Optional[str] = None,
+                           outer: Optional[str] = None) -> torch.Tensor:
+    """Two-tier allreduce: reduce-scatter within the slice (``inner``),
+    reduce the shards across slices (``outer``: each shard crosses the
+    slow tier once, at 1/per_slice of the volume), all-gather within the
+    slice. MAX/MIN have no scatter form: they reduce over ``inner``, then
+    ``outer``. ``x``'s leading dim must be divisible by the inner axis
+    size for ADD."""
+    outer, inner = _hier_axes(comm, inner, outer)
+    op = SmiOp.parse(op)
+    if op is not SmiOp.ADD:
+        return comm.all_reduce(comm.all_reduce(x, op, inner), op, outer)
+    inner_size = comm.shape[comm._axis(inner)]
+    if x.dim() == 0 or x.shape[0] % inner_size != 0:
+        raise ValueError(
+            f"leading dim {x.shape[0] if x.dim() else '()'} not "
+            f"divisible by inner axis size {inner_size}"
+        )
+    shard = comm.reduce_scatter(x, SmiOp.ADD, inner)
+    shard = comm.all_reduce(shard, SmiOp.ADD, outer)
+    return comm.all_gather(shard, inner)
+
+
+def bcast_hierarchical(x: torch.Tensor, comm: Communicator, root: int = 0,
+                       inner: Optional[str] = None,
+                       outer: Optional[str] = None) -> torch.Tensor:
+    """Two-tier one-to-all: the root's value is shared within its slice
+    (a masked sum over ``inner``), then crosses the slow tier once per
+    position (a sum over ``outer``). Pure routing: bit-identical to the
+    flat bcast for every dtype."""
+    outer, inner = _hier_axes(comm, inner, outer)
+    contrib = _masked(x, _is_root(comm, root))
+    return comm.all_reduce(comm.all_reduce(contrib, SmiOp.ADD, inner),
+                           SmiOp.ADD, outer)
+
+
+def reduce_hierarchical(x: torch.Tensor, comm: Communicator,
+                        op: Union[str, SmiOp] = SmiOp.ADD,
+                        root: int = 0, all_ranks: bool = False,
+                        inner: Optional[str] = None,
+                        outer: Optional[str] = None) -> torch.Tensor:
+    """Two-tier all-to-one: each slice combines over ``inner``, then the
+    slice partials cross ``outer`` once; masked to the root unless
+    ``all_ranks``. ADD reassociates the sum (ints exact), MAX/MIN are
+    exact."""
+    outer, inner = _hier_axes(comm, inner, outer)
+    op = SmiOp.parse(op)
+    out = comm.all_reduce(comm.all_reduce(x, op, inner), op, outer)
+    return out if all_ranks else _masked(out, _is_root(comm, root))
 
 
 def scatter(x: torch.Tensor, comm: Communicator, root: int = 0,
@@ -349,10 +799,125 @@ def gather(x: torch.Tensor, comm: Communicator, root: int = 0,
     return out if all_ranks else _masked(out, root_here)
 
 
-def all_to_all(x: torch.Tensor, comm: Communicator, **kwargs):
-    """Not ported yet (the JAX package's pairwise, Bruck and two-tier
-    all-to-all family)."""
-    raise NotImplementedError(
-        "all_to_all is not ported yet (ROADMAP.md Queue 1 item 8: the "
-        "all-to-all family)"
-    )
+# ---------------------------------------------------------------------------
+# All-to-all
+# ---------------------------------------------------------------------------
+
+
+def _bruck_all_to_all(x: torch.Tensor, comm: Communicator) -> torch.Tensor:
+    """Bruck's log-step all-to-all over ``permute`` rounds: a local
+    rotation puts the block destined ``(me + i) % n`` at index ``i``,
+    round ``k`` forwards every index with bit ``k`` set to rank
+    ``me + 2^k``, and the inverse rotation restores source order. Pure
+    routing, ``log2 n`` rounds of ``n/2`` blocks; ``n`` must be a power
+    of two (checked by the caller)."""
+    size = comm.size
+    count = x.shape[0] // size
+    tail = tuple(x.shape[1:])
+    xu = x.reshape((size, count) + tail)
+    me = comm.rank
+    idx = torch.arange(size, device=x.device)
+    buf = xu[(idx + me) % size]
+    hop = 1
+    while hop < size:
+        # the indices with bit ``hop`` set, in order: a view of buf
+        sent = buf.view((size // (2 * hop), 2, hop, count) + tail)[:, 1]
+        perm = [(s, (s + hop) % size) for s in range(size)]
+        moved = comm.permute(sent.reshape((size // 2, count) + tail), perm)
+        sent.copy_(moved.view(sent.shape))
+        hop <<= 1
+    return buf[(me - idx) % size].reshape(x.shape)
+
+
+def alltoall_hierarchical(x: torch.Tensor, comm: Communicator,
+                          inner: Optional[str] = None,
+                          outer: Optional[str] = None) -> torch.Tensor:
+    """Two-tier all-to-all on a hybrid grid. The block from ``(s, i)`` to
+    ``(t, j)`` first moves within slice ``s`` to position ``j``, then
+    crosses the slow tier once inside column ``j``, bundled with the
+    other blocks for slice ``t``: a rank sends ``outer - 1`` messages
+    across the slow tier in place of ``(outer - 1) * inner``. Pure
+    routing: bit-identical to the flat all-to-all for every dtype.
+    ``x``'s leading dim must be ``comm.size * count``."""
+    outer, inner = _hier_axes(comm, inner, outer)
+    m = comm.shape[comm._axis(outer)]
+    k = comm.shape[comm._axis(inner)]
+    n = m * k
+    if x.dim() == 0 or x.shape[0] % n:
+        raise ValueError(
+            f"all_to_all buffer leading dim {tuple(x.shape)} not "
+            f"divisible by comm size {n}"
+        )
+    count = x.shape[0] // n
+    tail = tuple(x.shape[1:])
+    xu = x.reshape((m, k, count) + tail)
+    # phase A (inner): bundle by destination position j, one m*count
+    # bundle to slice-mate j
+    a = torch.movedim(xu, 1, 0).reshape((k * m * count,) + tail)
+    a = comm.all_to_all(a, inner)
+    # now [source position][destination slice]: regroup by slice
+    au = a.reshape((k, m, count) + tail)
+    b = torch.movedim(au, 1, 0).reshape((m * k * count,) + tail)
+    # phase B (outer): one k-block bundle per destination slice
+    b = comm.all_to_all(b, outer)
+    # received [source slice][source position]: rank-major sources
+    return b.reshape(x.shape)
+
+
+def all_to_all(x: torch.Tensor, comm: Communicator,
+               algorithm: Optional[str] = None,
+               port: Optional[int] = None, backend: str = "xla",
+               program=None) -> torch.Tensor:
+    """Every rank scatters one block per destination and gathers one
+    block per source: ``x``'s leading dim is ``size * count`` (block
+    ``r``, rows ``[r*count, (r+1)*count)``, goes to rank ``r``), and the
+    result holds the received blocks in source order. The traffic shape
+    of MoE expert dispatch, a distributed shuffle and k-means
+    reassignment.
+
+    ``algorithm``: ``"pairwise"`` (one all-to-all of the transport),
+    ``"bruck"`` (``log2 n`` permute rounds; power-of-two rank counts
+    only, anything else a loud error) or ``"hierarchical"`` (the two-tier
+    form on a hybrid grid). All three are pure routing and bit-identical.
+    ``None`` takes ``$SMI_TPU_ALLTOALL_ALGO`` (loud when malformed), else
+    ``"pairwise"`` (what the JAX package's untuned plan engine picks).
+    The JAX package's credits simulator (``all_to_all_rank``,
+    ``all_to_all_bruck_rank`` and ``all_to_all_pod_rank`` in
+    ``smi_tpu/parallel/credits.py``) is the wire-level spec of the
+    three. The ring tier has no all-to-all kernel, so
+    ``backend="ring"`` is a loud error; on this tier the port is
+    metadata only.
+    """
+    check_backend(backend)
+    if backend != "xla":
+        raise ValueError(
+            "all_to_all has no ring-tier kernel yet (the credits "
+            "simulator is the executable wire-level reference); use "
+            "backend='xla'"
+        )
+    size = comm.size
+    if x.dim() == 0 or x.shape[0] % size or x.shape[0] < size:
+        raise ValueError(
+            f"all_to_all buffer leading dim {tuple(x.shape)} not "
+            f"divisible by comm size {size}"
+        )
+    algo = algorithm
+    if algo is not None:
+        if algo not in ALLTOALL_ALGORITHMS:
+            raise ValueError(
+                f"unknown all_to_all algorithm {algo!r}; known: "
+                f"{ALLTOALL_ALGORITHMS}"
+            )
+    else:
+        algo = (_env_choice(ALLTOALL_ALGO_ENV, ALLTOALL_ALGORITHMS)
+                or "pairwise")
+    if algo == "bruck":
+        if size & (size - 1):
+            raise ValueError(
+                f"algorithm='bruck' needs a power-of-two comm size, "
+                f"got {size} — drop the pin or use pairwise"
+            )
+        return _bruck_all_to_all(x, comm)
+    if algo == "hierarchical":
+        return alltoall_hierarchical(x, comm)
+    return comm.all_to_all(x)

@@ -178,10 +178,17 @@ class SmiContext:
                             program=self.program, deadline=self.deadline,
                             chunks=chunks)
 
-    # -- not ported yet -------------------------------------------------
-    def all_to_all(self, x, **kwargs):
-        return _coll.all_to_all(x, self.comm, **kwargs)
+    # ``algorithm`` resolves the env override, then pairwise — see
+    # parallel/collectives.all_to_all.
+    def all_to_all(self, x, algorithm: Optional[str] = None,
+                   port: Optional[int] = None,
+                   backend: Optional[str] = None):
+        return _coll.all_to_all(x, self.comm, algorithm=algorithm,
+                                port=port,
+                                backend=self._backend(backend),
+                                program=self.program)
 
+    # -- not ported yet -------------------------------------------------
     def explain_plan(self, op: str = "all_reduce",
                      dtype: str = "float32") -> str:
         raise NotImplementedError(

@@ -16,9 +16,9 @@ own stream, leaves its payload in its slot and waits at a barrier; one
 rank (the leader) then does the joint work for all of them on the
 world's stream, finishes it, and the barrier releases every rank with
 its share. The collective-library tier's primitives (shift, permute,
-all-reduce, all-gather, reduce-scatter) are implemented on it here; the
-ring kernels' wrappers (:mod:`smi_tpu_torch.kernels.ring`) bring their
-own joint work: one launch that plays every rank.
+all-reduce, all-gather, reduce-scatter, all-to-all) are implemented on
+it here; the ring kernels' wrappers (:mod:`smi_tpu_torch.kernels.ring`)
+bring their own joint work: one launch that plays every rank.
 
 On CUDA each rank thread works on a stream of its own. A rank never
 calls ``torch.cuda.synchronize()`` (that would wait for its neighbours'
@@ -269,6 +269,18 @@ class LocalWorld:
 
         return self.rendezvous(comm.rank, ("reduce_scatter", op, axis_name),
                                x, self._per_line(axis_name, per_line))
+
+    def all_to_all(self, comm: Communicator, x: torch.Tensor,
+                   axis_name: Optional[str]) -> torch.Tensor:
+        def per_line(xs):
+            n = len(xs)
+            count = xs[0].shape[0] // n
+            return [torch.cat([x_s[pos * count:(pos + 1) * count]
+                               for x_s in xs], dim=0)
+                    for pos in range(n)]
+
+        return self.rendezvous(comm.rank, ("all_to_all", axis_name), x,
+                               self._per_line(axis_name, per_line))
 
     # -- global arrays <-> per-rank shards ------------------------------
 

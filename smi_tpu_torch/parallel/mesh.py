@@ -12,10 +12,17 @@ and its transport: one process subgroup per axis, or the world.
 The collective-library tier (``backend="xla"``) reaches the transport
 only through the communicator's few primitives — :meth:`Communicator.
 exchange_start` (shifts along axes), :meth:`~Communicator.permute`,
-:meth:`~Communicator.all_reduce`, :meth:`~Communicator.all_gather` and
-:meth:`~Communicator.reduce_scatter` — each over one axis or over the
-whole grid. ``torch.distributed`` implements them here; the world's
-rendezvous implements them in :mod:`smi_tpu_torch.parallel.local`.
+:meth:`~Communicator.all_reduce`, :meth:`~Communicator.all_gather`,
+:meth:`~Communicator.reduce_scatter` and :meth:`~Communicator.all_to_all`
+— each over one axis or over the whole grid. ``torch.distributed``
+implements them here; the world's rendezvous implements them in
+:mod:`smi_tpu_torch.parallel.local`.
+
+:func:`make_hybrid_communicator` builds the two-tier grid
+``(n_slices, per_slice)`` with axes ``("dcn", "ici")``: the outer axis is
+the slow tier, the one the hierarchical collectives cross once with
+combined data (on one card a thread world plays it:
+``LocalWorld((2, 4), ("dcn", "ici"))``).
 
 Backends follow the tensors: gloo for CPU tensors, NCCL for CUDA tensors
 with one GPU per rank. A 1x1 grid (the one-card configuration) needs no
@@ -151,6 +158,13 @@ class Communicator:
             line.append(_ravel(coords, self.shape))
         return line
 
+    def alltoall_schedule(self) -> List[List[Tuple[int, int]]]:
+        """The pairwise all-to-all step schedule over this
+        communicator's size: per step, the ``(src, dst)`` rank pairs the
+        exchange drives (rank ``g`` sends to ``(g + s) % n`` at step
+        ``s``), every ordered pair of distinct ranks once."""
+        return _alltoall_pairwise_schedule(self.size)
+
     # -- the transport seam (the collective-library tier) --------------
 
     def _group(self, axis_name: Optional[str]):
@@ -275,6 +289,53 @@ class Communicator:
         full = self.all_reduce(x, op, axis_name)
         return full[pos * count:(pos + 1) * count].clone()
 
+    def all_to_all(self, x: torch.Tensor,
+                   axis_name: Optional[str] = None) -> torch.Tensor:
+        """Block ``r`` of the leading dimension to the rank at position
+        ``r`` of the axis; the blocks received come back in source order
+        (``lax.all_to_all(..., split_axis=0, concat_axis=0,
+        tiled=True)``)."""
+        n = len(self.line(axis_name))
+        if x.dim() == 0 or x.shape[0] % n:
+            raise ValueError(
+                f"all-to-all leading dim "
+                f"{x.shape[0] if x.dim() else '()'} not divisible by "
+                f"{n} ranks"
+            )
+        if n == 1 or x.numel() == 0:
+            return x
+        if self.world is not None:
+            return self.world.all_to_all(self, x, axis_name)
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=self._group(axis_name))
+        return out
+
+
+def _two_tier(comm: Communicator) -> Optional[Tuple[int, int]]:
+    """``(outer, inner)`` of a hybrid grid: two axes, one of them
+    ``"dcn"``, whose size is the slice count; None for any other grid
+    (the split the JAX package's ``tuning.cost_model.topology_from_comm``
+    exposes)."""
+    if len(comm.shape) == 2 and "dcn" in comm.axis_names:
+        outer = comm.shape[comm._axis("dcn")]
+        return outer, comm.size // outer
+    return None
+
+
+def _alltoall_pairwise_schedule(n: int) -> List[List[Tuple[int, int]]]:
+    """Step ``s`` (list index ``s - 1``) pairs every rank ``g`` with
+    ``(g + s) % n``: the rotation the JAX package's
+    ``credits.all_to_all_rank`` executes.
+    Every ordered pair of distinct ranks appears once over the ``n - 1``
+    steps, and each step's sends are a permutation."""
+    if n < 1:
+        raise ValueError(f"need n >= 1 ranks, got {n}")
+    return [
+        [(g, (g + s) % n) for g in range(n)]
+        for s in range(1, n)
+    ]
+
 
 def _unravel(rank: int, shape: Sequence[int]) -> Tuple[int, ...]:
     coords = []
@@ -371,3 +432,60 @@ def make_communicator(
             groups[name] = mine
     return Communicator(shape=shape, axis_names=axis_names, rank=rank,
                         device=dev, groups=groups)
+
+
+def _hybrid_shape(world: int, n_slices: Optional[int],
+                  per_slice: Optional[int]) -> Tuple[int, int]:
+    """``(n_slices, per_slice)`` of a hybrid grid over ``world`` ranks:
+    the ranks split evenly into ``n_slices`` slices in rank order, as the
+    JAX package splits a device list that reports no slice."""
+    if n_slices is None:
+        raise ValueError(
+            "single-slice platform: pass n_slices to split the "
+            "device list into virtual slices"
+        )
+    if per_slice is None:
+        if world % n_slices:
+            raise ValueError(
+                f"{world} devices do not split into {n_slices} slices"
+            )
+        per_slice = world // n_slices
+    if n_slices * per_slice > world:
+        raise ValueError(
+            f"need {n_slices * per_slice} devices, have {world}"
+        )
+    return n_slices, per_slice
+
+
+def make_hybrid_communicator(
+    n_slices: Optional[int] = None,
+    per_slice: Optional[int] = None,
+    axis_names: Sequence[str] = ("dcn", "ici"),
+    device=None,
+) -> Communicator:
+    """Two-tier communicator over the default process group: the outer
+    axis across slices (the slow tier), the inner one within a slice.
+
+    SMI's network is two-tier (devices grouped per node, intra-node links
+    costed 1 and inter-node routes 100), and its router keeps traffic
+    inside a node. This builds the ``(n_slices, per_slice)`` grid whose
+    collectives over ``axis_names[1]`` stay inside a slice, so that only
+    the cross-slice stage of a hierarchical collective crosses the outer
+    axis. Processes report no slice, so the ranks split evenly into
+    ``n_slices`` groups in rank order, and the grid must cover every rank
+    of the group. On one card, build ``LocalWorld((n_slices, per_slice),
+    ("dcn", "ici"))`` instead.
+    """
+    if len(axis_names) != 2:
+        raise ValueError(f"need (outer, inner) axis names, got {axis_names}")
+    initialised = dist.is_available() and dist.is_initialized()
+    world = dist.get_world_size() if initialised else 1
+    return make_communicator(shape=_hybrid_shape(world, n_slices, per_slice),
+                             axis_names=tuple(axis_names), device=device)
+
+
+def mesh_from_topology(topology, device=None) -> Communicator:
+    """A communicator whose ranks are the topology file's devices, in the
+    file's deterministic ``(node, index)`` order (one rank a device of
+    the parsed :class:`~smi_tpu_torch.ops.serialization.Topology`)."""
+    return make_communicator(n_devices=len(topology.devices), device=device)

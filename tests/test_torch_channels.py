@@ -411,3 +411,208 @@ def test_stream_concurrent_errors():
         run(lambda chs: st.stream_concurrent(
             [chs[0], chs[2]], [torch.zeros(8), torch.zeros(5)]))
     assert run(lambda chs: st.stream_concurrent([], [])) == [(), ()]
+
+
+# ---- verified transfers and tenant ports ---------------------------------
+
+
+from smi_tpu.parallel.channels import (  # noqa: E402
+    FrameCheck as JaxFrameCheck,
+    open_tenant_channel as jax_open_tenant_channel,
+    tenant_stream_port as jax_tenant_stream_port,
+)
+
+
+def _checksum_payload(dtype, count, seed):
+    rng = np.random.default_rng(seed)
+    if dtype == "int":
+        return rng.integers(-(1 << 31), (1 << 31) - 1, count,
+                            dtype=np.int64).astype(np.int32)
+    return (rng.normal(size=count) * 1e3).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype,torch_dtype", [
+    ("float", torch.float32), ("float", torch.bfloat16), ("int", torch.int32),
+    ("double", torch.float64), ("short", torch.int16), ("char", torch.int8)])
+@pytest.mark.parametrize("count,buffer_size", [
+    (1, None), (7, 1), (301, 5), (999, 33), (4097, None), (507 * 3, 2048)])
+def test_chunk_checksums_equal_the_jax_package(comm8, dtype, torch_dtype,
+                                               count, buffer_size):
+    """The same bits in, the same int32 vector out: floats by their raw
+    bits, wrapped int32 arithmetic, odd counts padded with zeros."""
+    x = _checksum_payload("int" if dtype in ("int", "short", "char")
+                          else "float", count, count)
+    tx = torch.from_numpy(x).to(torch_dtype)
+    if torch_dtype == torch.bfloat16:
+        jx = jnp.asarray(tx.float().numpy()).astype(jnp.bfloat16)
+        smi_dtype = "float"  # the channel's dtype; the payload is bf16
+    else:
+        jx = jnp.asarray(tx.numpy())
+        smi_dtype = dtype
+    jch = smi.P2PChannel(comm=comm8, port=0, src=0, dst=1, count=count,
+                         dtype=smi_dtype, buffer_size=buffer_size)
+    world = st.LocalWorld(N, device="cpu")
+    pch = st.P2PChannel(world.comms[0], port=0, src=0, dst=1, count=count,
+                        dtype=smi_dtype, buffer_size=buffer_size)
+    if torch_dtype == torch.bfloat16:
+        jch = _bf16_channel(jch)
+        pch = _bf16_channel(pch)
+    want = np.asarray(jch.chunk_checksums(jx))
+    got = pch.chunk_checksums(tx)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _bf16_channel(ch):
+    """The channel with its payload dtype overridden to bfloat16 (SMI
+    names no bf16 dtype; the checksum reads a bf16 payload's bits)."""
+    cls = type(ch)
+    attr = "jnp_dtype" if hasattr(ch, "jnp_dtype") else "torch_dtype"
+    value = jnp.bfloat16 if attr == "jnp_dtype" else torch.bfloat16
+    sub = type(cls.__name__, (cls,), {attr: property(lambda self: value)})
+    return sub(**{f: getattr(ch, f) for f in ch.__dataclass_fields__})
+
+
+def _jax_verified(comm, count, src, dst, backend, buffer_size):
+    @smi.smi_kernel(comm, in_specs=P(),
+                    out_specs=(P("smi"), (P("smi"), P("smi"), P("smi"))),
+                    backend=backend)
+    def app(ctx, x):
+        ch = smi.P2PChannel(comm=comm, port=0, src=src, dst=dst,
+                            count=count, buffer_size=buffer_size)
+        received, check = ch.transfer_verified(x, backend=backend)
+        return received[None], tuple(c[None] for c in check)
+
+    x = np.arange(count, dtype=np.float32) * 0.5 - 7.0
+    out, check = app(x)
+    return x, np.asarray(out), tuple(np.asarray(c) for c in check)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("kind", ["transfer", "stream"])
+def test_verified_moves_match_the_jax_package(comm8, backend, kind):
+    count, src, dst, buffer_size = 300, 0, 3, 17
+    x, want_out, (want_exp, want_got, want_at) = _jax_verified(
+        comm8, count, src, dst, backend, buffer_size)
+    world = st.LocalWorld(N, device="cpu")
+
+    def on_rank(c):
+        ch = st.P2PChannel(c, port=0, src=src, dst=dst, count=count,
+                           buffer_size=buffer_size)
+        if kind == "transfer":
+            received, check = ch.transfer_verified(torch.from_numpy(x),
+                                                   backend=backend)
+            carry = None
+        else:
+            received, carry, check = ch.stream_verified(
+                torch.from_numpy(x), consumer=lambda c_, chunk: c_ + 1,
+                init_carry=0, backend=backend)
+        ch.verify_frames(check)
+        return received, carry, check
+
+    outs = world.run(on_rank)
+    np.testing.assert_array_equal(np.stack([o[0].numpy() for o in outs]),
+                                  want_out)
+    for r, (_, carry, check) in enumerate(outs):
+        np.testing.assert_array_equal(check.expected.numpy(), want_exp[r])
+        np.testing.assert_array_equal(check.got.numpy(), want_got[r])
+        assert int(check.at_dst) == int(want_at[r]) == int(r == dst)
+        if kind == "stream":   # the consumer ran once a chunk
+            assert carry == -(-count // _chunk(count, buffer_size))
+
+
+def _chunk(count, buffer_size):
+    world = st.LocalWorld(2, device="cpu")
+    ch = st.P2PChannel(world.comms[0], port=0, src=0, dst=1, count=count,
+                       buffer_size=buffer_size)
+    return min(ch.chunk_elements, count)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_a_corrupted_chunk_is_named_as_in_the_jax_package(comm8, backend):
+    count, src, dst, buffer_size = 300, 0, 3, 17
+    x, out, (exp, got, at) = _jax_verified(comm8, count, src, dst, backend,
+                                           buffer_size)
+    jch = smi.P2PChannel(comm=comm8, port=0, src=src, dst=dst, count=count,
+                         buffer_size=buffer_size)
+    world = st.LocalWorld(N, device="cpu")
+    received = world.run(lambda c: st.P2PChannel(
+        c, port=0, src=src, dst=dst, count=count,
+        buffer_size=buffer_size).transfer_verified(
+            torch.from_numpy(x), backend=backend))
+    pch = st.P2PChannel(world.comms[0], port=0, src=src, dst=dst,
+                        count=count, buffer_size=buffer_size)
+    data, check = received[dst]
+    tampered = data.clone()
+    tampered.view(torch.int32)[137] ^= 1 << 9    # one bit, mid-message
+    bad = st.FrameCheck(check.expected, pch.chunk_checksums(tampered),
+                        check.at_dst)
+    with pytest.raises(st.IntegrityError) as err_p:
+        pch.verify_frames(bad, context="unit test")
+    jtampered = out[dst].copy()
+    jtampered.view(np.int32)[137] ^= 1 << 9
+    with pytest.raises(smi.IntegrityError) as err_j:
+        jch.verify_frames(JaxFrameCheck(
+            exp[dst], np.asarray(jch.chunk_checksums(jtampered)), at[dst]),
+            context="unit test")
+    got_e, want_e = err_p.value, err_j.value
+    assert str(got_e) == str(want_e)
+    for field in ("rank", "src", "seq", "expected", "got", "kind"):
+        assert getattr(got_e, field) == getattr(want_e, field), field
+    assert got_e.seq == 137 // _chunk(count, buffer_size)
+    assert (got_e.kind, got_e.src, got_e.rank) == ("checksum", src, dst)
+    # a rank other than dst holds zeros and never raises
+    pch.verify_frames(st.FrameCheck(check.expected, check.got,
+                                    torch.tensor(0)))
+
+
+def test_truncation_and_a_swap_are_caught():
+    count, buffer_size = 300, 17
+    world = st.LocalWorld(4, device="cpu")
+    x = torch.arange(count, dtype=torch.float32)
+    outs = world.run(lambda c: st.P2PChannel(
+        c, port=0, src=0, dst=2, count=count,
+        buffer_size=buffer_size).transfer_verified(x))
+    ch = st.P2PChannel(world.comms[0], port=0, src=0, dst=2, count=count,
+                       buffer_size=buffer_size)
+    data, check = outs[2]
+    chunk = _chunk(count, buffer_size)
+    truncated = data.clone()
+    truncated[chunk:] = 0.0
+    with pytest.raises(st.IntegrityError) as err:
+        ch.verify_frames(st.FrameCheck(check.expected,
+                                       ch.chunk_checksums(truncated),
+                                       check.at_dst))
+    assert err.value.seq == 1 and "further chunk(s)" in str(err.value)
+    swapped = data.clone()
+    swapped[:chunk], swapped[chunk:2 * chunk] = (data[chunk:2 * chunk],
+                                                 data[:chunk])
+    with pytest.raises(st.IntegrityError) as err:
+        ch.verify_frames(st.FrameCheck(check.expected,
+                                       ch.chunk_checksums(swapped),
+                                       check.at_dst))
+    assert err.value.seq == 0
+
+
+@pytest.mark.parametrize("tenant,seq", [
+    ("alice", 0), ("alice", 1), ("bob", 0), ("", 7), ("tenant-β", 12345)])
+def test_tenant_ports_match_the_jax_package(comm8, tenant, seq):
+    port = st.tenant_stream_port(tenant, seq)
+    assert port == jax_tenant_stream_port(tenant, seq)
+    assert 0 <= port < st.parallel.channels.TENANT_PORT_SPACE
+    world = st.LocalWorld(N, device="cpu")
+    ch = st.open_tenant_channel(world.comms[0], tenant, seq, src=1, dst=6,
+                                count=40, buffer_size=9,
+                                consecutive_reads=2)
+    jch = jax_open_tenant_channel(comm8, tenant, seq, src=1, dst=6,
+                                  count=40, buffer_size=9,
+                                  consecutive_reads=2)
+    assert (ch.port, ch._ring_stream(), ch.chunk_elements,
+            ch.burst_schedule()) == (jch.port, jch._ring_stream(),
+                                     jch.chunk_elements,
+                                     jch.burst_schedule())
+
+
+def test_tenant_port_rejects_a_negative_sequence():
+    with pytest.raises(ValueError, match="stream_seq"):
+        st.tenant_stream_port("alice", -1)

@@ -240,23 +240,56 @@ def _on_world(fn, n=4):
      ValueError, "XLA-tier decomposition"),
     (lambda c, x: st.allreduce(x, c, hierarchical=True, backend="ring"),
      ValueError, "XLA-tier composition"),
-    (lambda c, x: st.allreduce(x, c, rs_ag=True), NotImplementedError,
-     "Queue 1 item 8"),
-    (lambda c, x: st.allreduce(x, c, precision="int8"),
-     NotImplementedError, "Queue 1 item 8"),
-    (lambda c, x: st.bcast(x, c, hierarchical=True), NotImplementedError,
-     "hierarchical"),
-    (lambda c, x: pcoll.all_to_all(x, c), NotImplementedError,
-     "all-to-all"),
+    # the JAX package's loud errors of the all-to-all, rs+ag, two-tier
+    # and precision knobs (four here, four after shrink: the cases before
+    # and after keep their ids)
+    (lambda c, x: pcoll.all_to_all(x, c, backend="ring"), ValueError,
+     "no ring-tier kernel"),
+    (lambda c, x: st.allreduce(x, c, rs_ag=True, hierarchical=True),
+     ValueError, "competing decompositions"),
+    (lambda c, x: st.allreduce(x, c, op="max", precision="int8"),
+     ValueError, "needs an ADD allreduce"),
+    (lambda c, x: pcoll.all_to_all(x, c, algorithm="ghost"), ValueError,
+     "unknown all_to_all algorithm"),
     (lambda c, x: st.SmiContext(c).explain_plan(), NotImplementedError,
      "plan engine"),
     (lambda c, x: st.SmiContext(c).shrink({1}), NotImplementedError,
      "degraded-mode"),
+    (lambda c, x: pcoll.all_to_all(x[:6], c), ValueError,
+     "not divisible by comm size"),
+    (lambda c, x: st.allreduce(x.int(), c, precision="bf16"), ValueError,
+     "floating-point payload"),
+    (lambda c, x: st.allreduce(x, c, precision="fp4"), ValueError,
+     "precision must be one of"),
+    (lambda c, x: st.bcast(x, c, hierarchical=True), ValueError,
+     "multi-slice hybrid|2-axis"),
 ])
 def test_error_paths(call, exc, match):
     x = torch.zeros(8, 2)
     with pytest.raises(exc, match=match):
         _on_world(lambda c: call(c, x))
+
+
+def test_bruck_on_six_ranks_is_loud():
+    x = torch.zeros(12, 2)
+    with pytest.raises(ValueError, match="power-of-two comm size, got 6"):
+        _on_world(lambda c: pcoll.all_to_all(x, c, algorithm="bruck"), 6)
+
+
+@pytest.mark.parametrize("env,raw,match", [
+    ("ALLTOALL_ALGO_ENV", "fastest", "SMI_TPU_ALLTOALL_ALGO"),
+    ("RS_AG_ENV", "1MiB", "SMI_TPU_RS_AG_MIN_BYTES"),
+    ("HIER_MIN_SLICES_ENV", "many", "SMI_TPU_HIER_MIN_SLICES"),
+    ("ALLREDUCE_PRECISION_ENV", "int4", "SMI_TPU_ALLREDUCE_PRECISION"),
+])
+def test_a_malformed_env_variable_is_loud(monkeypatch, env, raw, match):
+    monkeypatch.setenv(getattr(pcoll, env), raw)
+    x = torch.zeros(8, 2)
+    world = st.LocalWorld((2, 2), ("dcn", "ici"), device="cpu")
+    call = (pcoll.all_to_all if env == "ALLTOALL_ALGO_ENV"
+            else st.allreduce)
+    with pytest.raises(ValueError, match=match):
+        world.run(lambda c: call(x, c))
 
 
 def test_expired_deadline_stops_a_ring_collective_before_dispatch():

@@ -964,6 +964,107 @@ def test_smi_api_on_the_card_matches_the_xla_tier(cuda_world):
                        torch.from_numpy(x[5 * 4096:6 * 4096]))
 
 
+# ------------------------------- the rest of the collective surface --
+
+
+@pytest.fixture
+def cuda_hybrid():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return st.LocalWorld((2, 4), ("dcn", "ici"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32], ids=str)
+@pytest.mark.parametrize("count", [1, 3, 128])
+def test_all_to_all_forms_on_the_card(cuda_hybrid, dtype, count):
+    """Pairwise, Bruck and the two-tier form on the ``(2, 4)`` world on
+    the card, each equal to the block transpose of the stacked inputs."""
+    xs = _ring_inputs(8, (8 * count, 33), dtype, seed=count)
+    want = torch.stack(xs).view(8, 8, count, 33).transpose(0, 1)
+    for algorithm in ("pairwise", "bruck", "hierarchical"):
+        got = cuda_hybrid.run(lambda c: st.all_to_all(
+            xs[c.rank], c, algorithm=algorithm))
+        assert torch.equal(torch.stack(got).view(8, 8, count, 33), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32], ids=str)
+def test_allreduce_forms_on_the_card(cuda_hybrid, dtype):
+    xs = _ring_inputs(8, (64, 130), dtype, seed=3)
+    runs = {kw: cuda_hybrid.run(lambda c: st.allreduce(
+        xs[c.rank], c, **dict(kw))) for kw in (
+            (("rs_ag", False),), (("rs_ag", True),),
+            (("hierarchical", True),))}
+    flat = runs[(("rs_ag", False),)]
+    for outs in runs.values():
+        for got, want in zip(outs, flat):
+            if dtype == torch.int32:
+                assert torch.equal(got, want)
+            else:
+                torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("precision", ["bf16", "int8", "topk"])
+def test_precision_allreduce_on_the_card(cuda_world, precision):
+    """Quantise, then the ring kernel: equal to the plain ring all-reduce
+    of the quantised contributions; the xla tier within 1e-6; clean values
+    exact on both tiers."""
+    from smi_tpu_torch.kernels import ring as kring
+    from smi_tpu_torch.parallel import collectives as pcoll
+
+    world = cuda_world(8)
+    xs = _ring_inputs(8, (4096,), torch.float32, seed=5)
+    want = kring.ring_all_reduce_plain(
+        [pcoll._quantize(x, precision) for x in xs], "add")
+    for backend in ("ring", "xla"):
+        pcoll.error_feedback_reset()
+        _build.reset_launches()
+        got = world.run(lambda c: st.allreduce(
+            xs[c.rank], c, precision=precision, backend=backend))
+        assert _build.LAUNCHES["ring_all_reduce"] == (backend == "ring")
+        for g, w in zip(got, want):
+            if backend == "ring":
+                assert torch.equal(g, w)
+            else:
+                torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-5)
+        clean = world.run(lambda c: st.allreduce(
+            torch.full((16,), 3.5, device="cuda"), c, precision=precision,
+            backend=backend))
+        assert all(torch.equal(o, torch.full_like(o, 28.0)) for o in clean)
+    pcoll.error_feedback_reset()
+
+
+@pytest.mark.parametrize("backend", ["xla", "ring"])
+def test_verified_transfers_on_the_card(cuda_world, backend):
+    world = cuda_world(8)
+    count = 3 * 2072 + 5
+    x = torch.randn(count, generator=torch.Generator().manual_seed(9)).cuda()
+
+    def on_rank(c):
+        ch = st.P2PChannel(c, port=0, src=5, dst=6, count=count,
+                           buffer_size=2048)
+        received, check = ch.transfer_verified(x, backend=backend)
+        streamed, _, s_check = ch.stream_verified(x, backend=backend)
+        ch.verify_frames(check)
+        ch.verify_frames(s_check)
+        return ch, received, streamed, check
+
+    _build.reset_launches()
+    outs = world.run(on_rank)
+    assert _build.LAUNCHES["ring_neighbour_stream"] == (
+        4 if backend == "ring" else 0)   # payload and checksums, twice
+    ch, received, streamed, check = outs[6]
+    assert torch.equal(received, x) and torch.equal(streamed, x)
+    assert torch.equal(check.expected, ch.chunk_checksums(x))
+    bad = received.clone()
+    bad.view(torch.int32)[2072 + 17] ^= 1 << 30
+    with pytest.raises(st.IntegrityError) as err:
+        ch.verify_frames(st.FrameCheck(check.expected,
+                                       ch.chunk_checksums(bad),
+                                       check.at_dst))
+    assert (err.value.seq, err.value.kind) == (1, "checksum")
+
+
 # ------------------------------------------------------- roll chains --
 
 

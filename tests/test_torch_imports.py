@@ -42,6 +42,7 @@ def test_fresh_import_loads_no_jax_and_builds_nothing():
                    "ops.serialization", "parallel.backend",
                    "parallel.local", "parallel.collectives",
                    "parallel.channels", "parallel.context",
+                   "parallel.errors",
                    "utils.watchdog", "kernels.ring", "models.kmeans",
                    "models.gesummv"):
         assert f"smi_tpu_torch.{module}" in report["new"], module

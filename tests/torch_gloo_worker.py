@@ -6,8 +6,10 @@ Spawned by ``tests/test_torch_halo.py`` (the stencil: :func:`run`),
 attention: :func:`run_attention`), ``tests/test_torch_transformer.py``
 (the train step: :func:`run_train_step`) and
 ``tests/test_torch_collectives.py`` (the SMI collectives and channels on
-the collective-library tier: :func:`run_collectives`) through
-:func:`run_group`; it imports
+the collective-library tier: :func:`run_collectives`) and
+``tests/test_torch_alltoall.py`` (the all-to-all family, the hybrid
+communicator's collectives and verified transfers: :func:`run_surface`)
+through :func:`run_group`; it imports
 torch and the port, never jax, so each child starts quickly. Every rank
 checks its own halo slabs against slices of the zero-padded global grid;
 rank 0 reports the gathered results of the distributed stencil tiers on
@@ -327,6 +329,70 @@ def run_collectives(rank, world, port, x, results):
             comm = st.make_communicator(world, device="cpu")
             out = collective_suite(comm, torch.from_numpy(x[rank]))
             results.put((rank, "ok", {k: v.numpy() for k, v in out.items()}))
+            dist.barrier()
+        finally:
+            dist.destroy_process_group()
+    except BaseException:  # report every failure to the parent, then exit
+        results.put((rank, "error", traceback.format_exc()))
+        raise
+
+
+def surface_suite(flat, hybrid, x):
+    """The all-to-all family, the hybrid grid's collectives and the
+    verified transfer on this rank's ``(16, 3)`` float32 ``x``: ``{name:
+    tensor}``. ``flat`` is a 1-D communicator of four ranks, ``hybrid``
+    the ``(2, 2)`` grid ``("dcn", "ici")`` over the same ranks (gloo
+    groups here, ``LocalWorld`` ranks in the test that holds the two
+    against each other)."""
+    import torch
+
+    import smi_tpu_torch as st
+
+    xi = (x * 100).to(torch.int32)
+    ch = st.P2PChannel(flat, port=3, src=1, dst=3, count=16,
+                       buffer_size=5)
+    received, check = ch.transfer_verified(x[:, 0].contiguous())
+    ch.verify_frames(check)
+    return {
+        "pairwise": st.all_to_all(x, flat, algorithm="pairwise"),
+        "bruck": st.all_to_all(x, flat, algorithm="bruck"),
+        "bruck int": st.all_to_all(xi, flat, algorithm="bruck"),
+        "hierarchical": st.all_to_all(x, hybrid, algorithm="hierarchical"),
+        "hierarchical bf16": st.all_to_all(x.to(torch.bfloat16), hybrid,
+                                           algorithm="hierarchical"),
+        "allreduce rs_ag": st.allreduce(xi, flat, rs_ag=True),
+        "allreduce hierarchical": st.allreduce(xi, hybrid,
+                                               hierarchical=True),
+        "allreduce hierarchical max": st.allreduce(x, hybrid, op="max",
+                                                   hierarchical=True),
+        "bcast hierarchical": st.bcast(x, hybrid, root=2,
+                                       hierarchical=True),
+        "reduce hierarchical": st.reduce(xi, hybrid, root=1,
+                                         hierarchical=True),
+        "verified received": received,
+        "verified expected": check.expected,
+        "verified got": check.got,
+    }
+
+
+def run_surface(rank, world, port, x, results):
+    """Initialise gloo, build the flat and the hybrid communicator, run
+    :func:`surface_suite` on this rank's row of ``x``, report the results
+    as numpy arrays (bf16 widened to f32)."""
+    try:
+        import torch
+        import torch.distributed as dist
+
+        import smi_tpu_torch as st
+
+        _init_gloo(rank, world, port)
+        try:
+            flat = st.make_communicator(world, device="cpu")
+            hybrid = st.make_hybrid_communicator(n_slices=2, device="cpu")
+            out = surface_suite(flat, hybrid, torch.from_numpy(x[rank]))
+            results.put((rank, "ok", {
+                k: (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+                for k, v in out.items()}))
             dist.barrier()
         finally:
             dist.destroy_process_group()
