@@ -272,8 +272,10 @@ Then the rest of SMI's collective surface, on the ``(2, 4)`` world
 
 31. ``all_to_all`` pairwise, Bruck and two-tier in f32, bf16 and int32,
    each ``torch.equal`` to the stacked block transpose; the allreduce
-   flat (``rs_ag=False``), by default (reduce-scatter + all-gather at
-   4 MiB) and ``hierarchical=True``, each form's rendezvous checked,
+   flat (``rs_ag=False``), by default (the form the plan engine's gates
+   name: flat in f32 at 4 MiB by the seeded H100 entry, the cost model's
+   two-tier form in int32, which no sweep covers) and
+   ``hierarchical=True``, each form's rendezvous checked,
    int32 ``torch.equal`` and f32 within 1e-6 of flat;
    ``precision="bf16" | "int8" | "topk"`` on both tiers, the ring tier
    ``torch.equal`` to quantise-then-``ring_all_reduce_plain``, bf16 and
@@ -287,6 +289,24 @@ Then the rest of SMI's collective surface, on the ``(2, 4)`` world
    host wall through ``LocalWorld.run``, the all-to-all's byte bound and
    one stacked transpose copy, each beside ``nvidia-smi``'s name and
    power limit.
+
+Then the plan engine (``smi_tpu_torch/tuning``):
+
+32. the engine's detected device kind, which must be the seeded H100
+   kind; the collective sweeps timed on the card (``SWEEP_KB``: 64, 256,
+   1024 and 4096 KiB a rank, f32, ``SWEEP_RUNS`` runs a point of one
+   ``LocalWorld.run``): the allreduce (chunks 1, 2 and 4) on the 8-rank
+   world and on the ``(2, 4)`` world, the two-tier sweep, the precision
+   sweep on both and the all-to-all on both, over an engine that starts
+   empty and takes each routing sweep's winners before the next sweep
+   runs; each table printed with the cost model's (v5e) price beside
+   every measurement, the winner and the runner-up, and the winners
+   beside the seeded entries. Then, with the default engine (the seeded
+   cache), an untuned 4 MiB allreduce on each world and an untuned 4 MiB
+   all-to-all on each, each with the rendezvous and ``torch.equal`` on
+   every rank of the pinned form its seeded H100 entry names; and
+   ``SmiContext.explain_plan("all_reduce")`` and ``("all_to_all")`` on
+   the ``(2, 4)`` world.
 
 Bars: f32 out/acc/gradients within 2e-5 (``rtol = atol``); m and l within
 1e-5 in either dtype (both sides add exact products in f32); bf16
@@ -657,6 +677,7 @@ def main(argv=None) -> int:
     records += suite_phases(dev, gen, ring_check, earlier.get("ring"))
     records += surface_phases(dev, gen, earlier.get("roll_chain"))
     surface_launches = collective_surface_phase(dev, gen, smi_line)
+    tuning_phase(dev, gen, smi_line)
     # rows 5 and 7 count phase 31's launches beside phases 21-23's
     for record in records:
         for kernel in ("ring_all_reduce", "ring_neighbour_stream"):
@@ -3844,11 +3865,14 @@ def collective_surface_phase(dev, gen, smi_line):
     xs, xi = inputs[f32], inputs[i32]
     forms = (("flat", dict(rs_ag=False)), ("default", {}),
              ("hierarchical", dict(hierarchical=True)))
-    # the rendezvous each form makes: the default is rs+ag at 4 MiB
-    schedule = {"flat": ["all_reduce"],
-                "default": ["reduce_scatter", "all_gather"],
-                "hierarchical": ["reduce_scatter", "all_reduce",
-                                 "all_gather"]}
+    # the rendezvous each form makes; the default's is that of the form
+    # the plan engine's gates name: at 4 MiB the seeded H100 entry's in
+    # f32 (phase 32), the cost model's in int32 (no sweep covers it)
+    schedule = {(what, dtype): allreduce_kinds(kw)
+                for what, kw in forms if kw for dtype in (f32, i32)}
+    for dtype, vals in ((f32, xs), (i32, xi)):
+        schedule["default", dtype] = allreduce_kinds(
+            engine_form(vals[0].view(-1), world.comms[0]))
     results = {}
     for what, kw in forms:
         for dtype, vals in ((f32, xs), (i32, xi)):
@@ -3856,9 +3880,10 @@ def collective_surface_phase(dev, gen, smi_line):
                 results[what, dtype] = world.run(
                     lambda c: st.allreduce(vals[c.rank].view(-1), c, **kw))
             kinds = [k[0] for k, _, _ in calls]
-            if kinds != schedule[what]:
-                raise AssertionError(f"allreduce {what}: rendezvous "
-                                     f"{kinds}, expected {schedule[what]}")
+            if kinds != schedule[what, dtype]:
+                raise AssertionError(f"allreduce {what} {dtype}: rendezvous "
+                                     f"{kinds}, expected "
+                                     f"{schedule[what, dtype]}")
     exact = sum(x.view(-1).double() for x in xs)
     for what, _ in forms:
         for r in range(n):
@@ -3873,7 +3898,7 @@ def collective_surface_phase(dev, gen, smi_line):
                                      f"beyond 1e-6 of flat")
         err = (results[what, f32][0].double() - exact).abs().max().item()
         log(f"  allreduce {what} ({SMI_ELEMS},) a rank: rendezvous "
-            f"{schedule[what]}; int32 "
+            f"f32 {schedule[what, f32]}, int32 {schedule[what, i32]}; int32 "
             f"torch.equal to flat, f32 within 1e-6 of flat (max abs err "
             f"against float64 {err:.3g})")
     del results
@@ -4013,6 +4038,221 @@ def collective_surface_phase(dev, gen, smi_line):
                 f"quantise {q_ms:.4f} ms [{smi_line}]")
     coll.error_feedback_reset()
     return counts
+
+
+#: phase 32: the sweep grid (KiB a rank, f32), the chunk candidates of the
+#: allreduce sweep and the timed runs a point (after one warm-up)
+SWEEP_KB = (64, 256, 1024, 4096)
+SWEEP_CHUNKS = (1, 2, 4)
+SWEEP_RUNS = 5
+
+
+def rendezvous_kinds(world, fn):
+    """``(outs, kinds)`` of one ``world.run(fn)``: the kinds of the
+    rendezvous it made, in order."""
+    with capture_rendezvous(world) as calls:
+        outs = world.run(fn)
+    return outs, [kind for kind, _, _ in calls]
+
+
+def seeded_forms():
+    """The pinned forms the seeded H100 entries name for an untuned f32
+    call of 4 MiB a rank: allreduce keywords on the 8-rank world
+    (``"n8"``) and on the ``(2, 4)`` hybrid (``"n8:dcn2"``), and the
+    all-to-all algorithm on each. On the hybrid world a flat answer's
+    rs+ag and chunk gates read the ``n8`` entry, as the engine does."""
+    from smi_tpu_torch.tuning import seeded
+    from smi_tpu_torch.tuning.plan import PlanKey, payload_bucket
+
+    cache = seeded.seeded_cache()
+
+    def knobs(op, topology):
+        hit = cache.lookup(PlanKey(op, payload_bucket(4 * SMI_ELEMS),
+                                   "float32", seeded.SEEDED_H100_DEVICE_KIND,
+                                   topology))
+        if hit is None:
+            raise AssertionError(f"no seeded H100 entry for {op} on "
+                                 f"{topology} at 4 MiB a rank")
+        return hit.knobs
+
+    flat = knobs("all_reduce", "n8")
+    chunks = int(flat.get("chunks", 1))
+    pod = knobs("all_reduce", "n8:dcn2")["algorithm"]
+    return {
+        "n8": dict(rs_ag=flat["algorithm"] == "rs_ag", chunks=chunks),
+        "n8:dcn2": (dict(hierarchical=True) if pod == "hierarchical" else
+                    dict(rs_ag=flat["algorithm"] == "rs_ag", chunks=chunks)),
+        "all_to_all n8": knobs("all_to_all", "n8")["algorithm"],
+        "all_to_all n8:dcn2": knobs("all_to_all", "n8:dcn2")["algorithm"],
+    }
+
+
+def engine_form(x, comm):
+    """The allreduce keywords the plan engine's gates name for an
+    untuned ADD allreduce of ``x`` on ``comm``."""
+    from smi_tpu_torch.ops.types import SmiOp
+    from smi_tpu_torch.parallel import collectives as coll
+
+    if coll._use_hierarchical(x, comm, SmiOp.ADD, None, None):
+        return dict(hierarchical=True)
+    return dict(rs_ag=coll._use_rs_ag(x, comm, SmiOp.ADD, None),
+                chunks=coll._resolve_chunks(None, x, comm, "all_reduce"))
+
+
+def allreduce_kinds(kw):
+    """The rendezvous an allreduce pinned by ``kw`` makes on a
+    ``LocalWorld`` at 4 MiB a rank."""
+    if kw.get("hierarchical"):
+        return ["reduce_scatter", "all_reduce", "all_gather"]
+    one = ["reduce_scatter", "all_gather"] if kw.get("rs_ag") else [
+        "all_reduce"]
+    return one * kw.get("chunks", 1)
+
+
+def modeled_us(cm, name, payload, world, candidate):
+    """The cost model's (v5e-priced) time of one sweep candidate, or
+    None where it prices none."""
+    topo = cm.topology_from_comm(world)
+    if name == "sweep_allreduce":
+        table = cm.allreduce_candidates(payload, cm.TopologySpec(n=topo.n))
+        candidate = candidate.split()[0]
+    elif name == "sweep_allreduce_hierarchical":
+        table = cm.allreduce_candidates(payload, topo)
+        if candidate == "flat":
+            return min(c.modeled_us for c in table
+                       if c.name != "hierarchical")
+    elif name == "sweep_allreduce_precision":
+        table = cm.allreduce_precision_candidates(payload, topo)
+    else:
+        table = cm.alltoall_candidates(payload, topo)
+    return next((c.modeled_us for c in table if c.name == candidate), None)
+
+
+def tuning_phase(dev, gen, smi_line):
+    """Phase 32: the plan engine on the card. The detected device kind;
+    the four collective sweeps (and the flat forms on an 8-rank world)
+    timed on the card over an engine that starts empty and takes each
+    routing sweep's winners before the next sweep runs, each table
+    printed with its winners; then, with the default engine (the seeded
+    cache), each untuned 4 MiB call against the pinned form its seeded
+    H100 entry names, and ``explain_plan`` on the hybrid world."""
+    import torch
+
+    import smi_tpu_torch as st
+    from smi_tpu_torch.tuning import cost_model as cm
+    from smi_tpu_torch.tuning import engine as eng
+    from smi_tpu_torch.tuning import seeded, sweep
+    from smi_tpu_torch.tuning.cache import PlanCache
+    from smi_tpu_torch.tuning.plan import PlanKey
+
+    log("[32 the plan engine: the collective sweeps on the card, the "
+        "seeded H100 entries deciding untuned calls, explain_plan]")
+    kind = eng.PlanEngine().device_kind()
+    log(f"  detected device kind {kind!r} (torch.cuda.get_device_name: "
+        f"{torch.cuda.get_device_name(0)!r})")
+    if kind != seeded.SEEDED_H100_DEVICE_KIND:
+        raise AssertionError(f"device kind {kind!r} is not the seeded "
+                             f"{seeded.SEEDED_H100_DEVICE_KIND!r}")
+    n = SMI_RANKS
+    hybrid = st.LocalWorld(HYBRID_GRID, HYBRID_AXES)
+    flat = st.LocalWorld(n)
+    chunked = dict(chunk_candidates=SWEEP_CHUNKS)
+    sweeps = (   # (sweep, world, keywords, whether its winners route)
+        (sweep.sweep_allreduce, flat, chunked, True),
+        (sweep.sweep_allreduce, hybrid, chunked, False),
+        (sweep.sweep_allreduce_hierarchical, hybrid, {}, True),
+        (sweep.sweep_allreduce_precision, hybrid, {}, False),
+        (sweep.sweep_allreduce_precision, flat, {}, False),
+        (sweep.sweep_alltoall, hybrid, {}, True),
+        (sweep.sweep_alltoall, flat, {}, True),
+    )
+    saved = eng.get_engine()
+    swept = PlanCache()     # the routing sweeps' winners, in order
+    try:
+        for fn, world, kw, routing in sweeps:
+            eng.set_engine(eng.PlanEngine(
+                cache=PlanCache.from_json(swept.to_json()), device_kind=kind))
+            record = []
+            t0 = time.perf_counter()
+            got = fn(world, sizes_kb=SWEEP_KB, runs=SWEEP_RUNS, record=record,
+                     **kw)
+            where = "x".join(map(str, world.shape)) + " " + "/".join(
+                world.axis_names)
+            log(f"  {fn.__name__} on the {where} world, f32, {SWEEP_RUNS} "
+                f"runs a point ({time.perf_counter() - t0:.1f} s): us of "
+                f"one LocalWorld.run, beside the cost model's v5e price "
+                f"[{smi_line}]")
+            for kb in SWEEP_KB:
+                rows = sorted((us, name) for k, name, us in record if k == kb)
+                for us, name in rows:
+                    mod = modeled_us(cm, fn.__name__, kb * 1024, world, name)
+                    log(f"    {kb:>5} KiB  {name:<16} measured {us:>10.1f} "
+                        f"us  modeled "
+                        + ("-" if mod is None else f"{mod:.1f} us"))
+                (win_us, win), (next_us, runner) = rows[0], rows[1]
+                log(f"    {kb:>5} KiB  winner {win} {win_us:.1f} us, "
+                    f"runner-up {runner} {next_us:.1f} us "
+                    f"({next_us / win_us:.3f}x)")
+            for sig, entry in sorted(got.entries.items()):
+                log(f"    entry {sig}: {entry.knobs}")
+            if routing:
+                swept.merge(got)
+    finally:
+        eng.set_engine(saved)
+    log("  routing entries of this run: " + json.dumps(swept.to_json()))
+    shipped = seeded.seeded_cache()
+    agree = []
+    for sig, entry in sorted(swept.entries.items()):
+        hit = shipped.lookup(PlanKey.from_signature(sig))
+        # one chunk is the unchunked default: the seeded entries name
+        # chunks only where a chunked form won
+        won = {k: v for k, v in entry.knobs.items()
+               if (k, v) != ("chunks", 1)}
+        agree.append(hit is not None and hit.knobs == won)
+        log(f"    {sig}: this run {won}, seeded "
+            f"{None if hit is None else hit.knobs}")
+    log(f"  {sum(agree)} of {len(agree)} of this run's routing winners are "
+        f"the seeded entries'")
+
+    # the default engine: the seeded H100 entries decide untuned calls
+    forms = seeded_forms()
+    xs = [torch.rand(SMI_ELEMS, generator=gen, device=dev) + 0.5
+          for _ in range(n)]
+    for topology, world in (("n8", flat), ("n8:dcn2", hybrid)):
+        kw = forms[topology]
+        untuned, kinds = rendezvous_kinds(
+            world, lambda c: st.allreduce(xs[c.rank], c))
+        pinned, pinned_kinds = rendezvous_kinds(
+            world, lambda c: st.allreduce(xs[c.rank], c, **kw))
+        want = allreduce_kinds(kw)
+        if [k[0] for k in kinds] != want or kinds != pinned_kinds:
+            raise AssertionError(f"untuned allreduce on {topology}: "
+                                 f"rendezvous {kinds}, pinned {kw} "
+                                 f"{pinned_kinds}, expected {want}")
+        if not all(torch.equal(u, p) for u, p in zip(untuned, pinned)):
+            raise AssertionError(f"untuned allreduce on {topology} != the "
+                                 f"pinned {kw}")
+        log(f"  untuned 4 MiB allreduce on {topology}: rendezvous {want}, "
+            f"torch.equal on every rank to the pinned form {kw} its seeded "
+            f"entry names")
+        algorithm = forms[f"all_to_all {topology}"]
+        untuned, kinds = rendezvous_kinds(
+            world, lambda c: st.all_to_all(xs[c.rank], c))
+        pinned, pinned_kinds = rendezvous_kinds(
+            world, lambda c: st.all_to_all(xs[c.rank], c,
+                                           algorithm=algorithm))
+        if kinds != pinned_kinds or not all(
+                torch.equal(u, p) for u, p in zip(untuned, pinned)):
+            raise AssertionError(f"untuned all_to_all on {topology} != the "
+                                 f"pinned algorithm={algorithm!r}")
+        log(f"  untuned 4 MiB all_to_all on {topology}: {len(kinds)} "
+            f"rendezvous, torch.equal on every rank to the pinned "
+            f"algorithm={algorithm!r} its seeded entry names")
+    ctx = st.SmiContext(hybrid.comms[0])
+    for op in ("all_reduce", "all_to_all"):
+        log(f"  SmiContext.explain_plan({op!r}) on the {HYBRID_GRID} world:")
+        for line in ctx.explain_plan(op).splitlines():
+            log(f"    {line}")
 
 
 if __name__ == "__main__":

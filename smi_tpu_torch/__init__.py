@@ -25,7 +25,9 @@ all-reduce kernel, ``stream_concurrent`` and SMI's microbenchmark suite
 does not load. Later slices complete SMI's collective surface:
 ``all_to_all`` (pairwise, Bruck, two-tier), the hybrid ``("dcn",
 "ici")`` communicator with hierarchical and reduce-scatter + all-gather
-allreduce, quantised allreduce, verified transfers and tenant ports.
+allreduce, quantised allreduce, verified transfers and tenant ports; and
+the plan engine (``smi_tpu_torch.tuning``) that decides their untuned
+knobs, from the card's own measured sweeps on an H100.
 Entry points run on CUDA unless the caller passes
 ``device="cpu"``; on a CPU tensor each kernel wrapper runs its plain
 PyTorch version instead.

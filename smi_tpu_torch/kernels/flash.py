@@ -39,7 +39,8 @@ before P^T·dout and dS^T to q's dtype before dS^T·Q. ``precision`` is
 accepted so the signatures match and changes nothing. The TPU tile
 targets, chunk budgets and the 128-lane statistics layout have no
 counterpart: :func:`_plan` and :func:`_bwd_plan` size the tiles to Hopper
-shared memory.
+shared memory, and the forward asks the plan engine only to confirm its
+pair (:func:`fwd_plan_explained`).
 """
 
 from __future__ import annotations
@@ -122,6 +123,31 @@ def _plan(d: int, dtype) -> Optional[Tuple[int, int]]:
     if smem_bytes(d, dtype) > SMEM_BYTES_LIMIT:
         return None
     return BLOCK_Q, _block_k(d, dtype)
+
+
+def fwd_plan_explained(d: int, dtype,
+                       window: Optional[int] = None
+                       ) -> Tuple[Optional[Tuple[int, int]], str]:
+    """``(plan, layer)`` of the forward kernels: the plan engine's tile
+    pair (``planned_flash_blocks``, layer ``"cache"``) where its cache
+    entry names the pair the kernel compiles for this dtype and head dim,
+    else :func:`_plan` (layer ``"heuristic"``). The kernels compile one
+    pair a dtype and head dim, so an entry naming any other pair, the
+    v5e's seeded (1024, 1024) among them, leaves the plan as it is,
+    without an error."""
+    plan = _plan(d, dtype)
+    try:
+        from smi_tpu_torch.tuning.engine import (
+            dtype_name,
+            planned_flash_blocks,
+        )
+
+        got = planned_flash_blocks(dtype_name(dtype), window is not None)
+    except Exception:
+        got = None
+    if got is not None and plan is not None and tuple(got) == plan:
+        return plan, "cache"
+    return plan, "heuristic"
 
 
 #: the backward's tiles, as ``csrc/flash_bwd.cu`` has them (``DqBf16``,
@@ -394,7 +420,7 @@ def flash_attend_fused(q, k, v, q_off, k_off, causal: bool, scale: float,
     l = torch.empty_like(m)
     _launch(KERNEL_FUSED, q, (q, k, v, out, m, l),
             _shape_ints(what, q, k, q_off, k_off, causal, window), scale,
-            _plan(q.shape[2], q.dtype))
+            fwd_plan_explained(q.shape[2], q.dtype, window)[0])
     return out, m, l
 
 
@@ -416,7 +442,7 @@ def flash_block_attend(q, k, v, m, l, acc, q_off, k_off, causal: bool,
                              torch.empty_like(acc))
     _launch(KERNEL_BLOCK, q, (q, k, v, m, l, acc, m_out, l_out, acc_out),
             _shape_ints(what, q, k, q_off, k_off, causal, window), scale,
-            _plan(q.shape[2], q.dtype))
+            fwd_plan_explained(q.shape[2], q.dtype, window)[0])
     return m_out, l_out, acc_out
 
 

@@ -545,6 +545,21 @@ def ring_all_gather(
     )
 
 
+def _planned_ring_chunks(x: torch.Tensor, n: int) -> int:
+    """The plan engine's pipeline depth for a ``chunks=None`` ring
+    all-reduce: a measured cache entry for this device kind, payload
+    bucket, dtype and ring size, else 1 (the unchunked kernel). Never
+    raises."""
+    try:
+        from smi_tpu_torch.tuning.engine import dtype_name, planned_chunks
+
+        payload = x.numel() * x.element_size() if x.dim() else 0
+        return check_chunks(planned_chunks("ring_all_reduce", payload, n,
+                                           dtype_name(x.dtype)))
+    except Exception:
+        return 1
+
+
 def ring_all_reduce(
     x: torch.Tensor,
     comm: Communicator,
@@ -565,15 +580,18 @@ def ring_all_reduce(
     own credits and its own blocks, in one launch of the chunked kernel;
     the result is bit for bit the unchunked one. ``chunks`` is clamped to
     the leading dimension and to :func:`max_chunks` of the world; ``None``
-    is one unchunked launch (the JAX package's plan engine, which may
-    pick a depth there, is not ported).
+    asks the plan engine (:func:`_planned_ring_chunks`: a measured cache
+    entry for this device kind, else one unchunked launch).
     """
     _check_stream(stream)
     op = SmiOp.parse(op)
-    chunks = check_chunks(chunks)
+    if chunks is not None:
+        chunks = check_chunks(chunks)
     n = _ring_size(comm, axis_name)
     if n == 1 or x.numel() == 0:
         return x
+    if chunks is None:
+        chunks = _planned_ring_chunks(x, n)
     chunks = min(chunks, x.shape[0] if x.dim() else 1,
                  max_chunks(comm.world.size))
     if chunks > 1:

@@ -43,10 +43,14 @@ The JAX package's algorithm knobs, each resolved in the same order:
 - :func:`all_to_all` in its pairwise, Bruck and two-tier forms, all pure
   routing.
 
-The JAX package also consults its plan engine (``tuning/``), which the
-port does not have yet: where the engine would decide, the port takes
-the engine's untuned answer (the byte threshold for rs+ag; flat, dense
-and pairwise otherwise).
+Where no pin and no environment variable decides, each knob asks the
+plan engine (:mod:`smi_tpu_torch.tuning`) at the JAX package's place in
+its ladder: a measured plan-cache entry for this device kind, payload
+bucket and topology (on an H100, the card's own sweeps), then the
+alpha-beta model where it is confident, then the heuristic (the byte
+threshold for rs+ag; flat, dense, pairwise and one chunk otherwise).
+Every rank asks alike and gets the engine's one answer. A consult never
+raises: a broken cache costs tuning, never a call.
 """
 
 from __future__ import annotations
@@ -63,7 +67,10 @@ from smi_tpu_torch.kernels import ring as _kring
 from smi_tpu_torch.kernels.ring import check_chunks as _check_chunks
 from smi_tpu_torch.ops.types import SmiOp
 from smi_tpu_torch.parallel.backend import check_backend
-from smi_tpu_torch.parallel.mesh import Communicator, _two_tier
+from smi_tpu_torch.parallel.mesh import Communicator
+from smi_tpu_torch.tuning import cost_model as cm
+from smi_tpu_torch.tuning import engine as _engine
+from smi_tpu_torch.tuning.engine import dtype_name
 from smi_tpu_torch.utils.watchdog import Deadline
 
 
@@ -209,10 +216,15 @@ def _rs_ag_env_bytes() -> Optional[int]:
 
 def rs_ag_min_bytes() -> int:
     """The resolved rs+ag switch: ``$SMI_TPU_RS_AG_MIN_BYTES`` when set,
-    else :data:`RS_AG_MIN_BYTES` (the JAX package's plan-cache rung waits
-    for the port's ``tuning/``)."""
+    else the plan cache's measured/seeded threshold entry for this
+    device kind, else :data:`RS_AG_MIN_BYTES`. Never raises."""
     env = _rs_ag_env_bytes()
-    return RS_AG_MIN_BYTES if env is None else env
+    if env is not None:
+        return env
+    try:
+        return int(_engine.get_engine().rs_ag_threshold()[0])
+    except Exception:
+        return RS_AG_MIN_BYTES
 
 
 def _check_precision_eligible(precision: str, x: torch.Tensor, op: SmiOp,
@@ -236,11 +248,13 @@ def _check_precision_eligible(precision: str, x: torch.Tensor, op: SmiOp,
 
 
 def _resolve_precision(precision: Optional[str], x: torch.Tensor,
-                       op: SmiOp) -> str:
+                       comm: Communicator, op: SmiOp) -> str:
     """The wire precision of one allreduce: an explicit ``precision=``
     decides alone (checked loudly), then the env override (the same
-    checks), else dense f32 — the JAX package's untuned plan engine
-    answers f32 at every size."""
+    checks), then the auto path: ineligible ops and dtypes stay dense
+    silently, else the plan engine's ladder — measured cache entry ->
+    measured crossover threshold -> model (inert: its margin equals the
+    int8 byte ratio) -> dense f32. Never raises."""
     if precision is not None:
         if precision not in ALLREDUCE_PRECISIONS:
             raise ValueError(
@@ -256,7 +270,15 @@ def _resolve_precision(precision: Optional[str], x: torch.Tensor,
             env, x, op, f"${ALLREDUCE_PRECISION_ENV}={env!r}"
         )
         return env
-    return "f32"
+    if op is not SmiOp.ADD or x.dim() == 0 or not x.dtype.is_floating_point:
+        return "f32"
+    topo = cm.topology_from_comm(comm)
+    try:
+        return _engine.planned_precision(
+            x.numel() * x.element_size(), topo.n, topo.inner or 1,
+            topo.outer or 0, dtype_name(x.dtype))
+    except Exception:
+        return "f32"
 
 
 def _quantize(y: torch.Tensor, precision: str) -> torch.Tensor:
@@ -333,8 +355,11 @@ def _use_rs_ag(x: torch.Tensor, comm: Communicator, op: SmiOp,
                rs_ag: Optional[bool]) -> bool:
     """Whether an allreduce takes reduce-scatter + all-gather. Eligible:
     ADD, a leading dim that the comm size divides, a row a rank. The
-    decision is ``rs_ag`` when given, else payload bytes against
-    :func:`rs_ag_min_bytes`."""
+    decision is ``rs_ag`` when given, else ``$SMI_TPU_RS_AG_MIN_BYTES``
+    alone when set, else the plan engine's gate (measured cache entry
+    -> confident model -> the resolved threshold, :func:`rs_ag_min_bytes`);
+    with the engine unreachable, the plain :data:`RS_AG_MIN_BYTES`
+    comparison."""
     if op is not SmiOp.ADD or x.dim() == 0:
         if rs_ag:
             raise ValueError(
@@ -351,7 +376,13 @@ def _use_rs_ag(x: torch.Tensor, comm: Communicator, op: SmiOp,
         return rs_ag
     if not eligible:
         return False
-    return x.numel() * x.element_size() >= rs_ag_min_bytes()
+    payload = x.numel() * x.element_size()
+    env = _rs_ag_env_bytes()   # loud on malformed — before the engine
+    try:
+        return _engine.planned_rs_ag(payload, comm.size, dtype_name(x.dtype),
+                                     threshold=env)
+    except Exception:
+        return payload >= (RS_AG_MIN_BYTES if env is None else env)
 
 
 def _use_hierarchical(x: torch.Tensor, comm: Communicator, op: SmiOp,
@@ -363,8 +394,9 @@ def _use_hierarchical(x: torch.Tensor, comm: Communicator, op: SmiOp,
     divides. The decision is ``hierarchical`` when given (True checked
     loudly, and in conflict with any ``rs_ag`` pin), else flat when
     ``rs_ag`` or an explicit ``chunks`` pipeline is pinned, else the
-    slice count against ``$SMI_TPU_HIER_MIN_SLICES``, else flat (the JAX
-    package's plan engine decides there: ROADMAP.md Queue 3)."""
+    slice count against ``$SMI_TPU_HIER_MIN_SLICES`` alone when set, else
+    the plan engine's gate (measured cache entry -> measured crossover
+    -> confident model -> flat). Never raises past the loud checks."""
     if hierarchical and rs_ag is not None:
         if rs_ag:
             raise ValueError(
@@ -378,9 +410,9 @@ def _use_hierarchical(x: torch.Tensor, comm: Communicator, op: SmiOp,
             "False pins the single bit-exact all-reduce, which the "
             "two-tier decomposition would reassociate — drop one pin"
         )
-    tiers = _two_tier(comm)
-    eligible = tiers is not None and tiers[0] > 1
-    inner = tiers[1] if tiers else 1
+    topo = cm.topology_from_comm(comm)
+    eligible = topo.hierarchical_eligible
+    inner = topo.inner or 1
     if hierarchical:
         if not eligible:
             raise ValueError(
@@ -404,8 +436,31 @@ def _use_hierarchical(x: torch.Tensor, comm: Communicator, op: SmiOp,
     if (op is not SmiOp.ADD or not eligible or x.dim() == 0
             or x.shape[0] % inner or x.shape[0] < inner):
         return False
-    min_slices = _hier_env_min_slices()
-    return min_slices is not None and tiers[0] >= min_slices
+    min_slices = _hier_env_min_slices()   # loud on malformed — first
+    if min_slices is not None:
+        return topo.outer >= min_slices
+    try:
+        return _engine.planned_hierarchical(
+            x.numel() * x.element_size(), topo.n, inner, topo.outer,
+            dtype_name(x.dtype))
+    except Exception:
+        return False
+
+
+def _resolve_chunks(chunks: Optional[int], x: torch.Tensor,
+                    comm: Communicator, family: str) -> int:
+    """The chunk count of a collective: an explicit int, checked and
+    used as is (``chunks=1`` is one collective, not "ask the engine"),
+    else the plan cache's entry for this family, payload bucket, dtype,
+    device kind and rank count, else 1. Never raises past the check."""
+    if chunks is not None:
+        return _check_chunks(chunks)
+    try:
+        payload = x.numel() * x.element_size() if x.dim() else 0
+        return _check_chunks(_engine.planned_chunks(
+            family, payload, comm.size, dtype_name(x.dtype)))
+    except Exception:
+        return 1
 
 
 # ---------------------------------------------------------------------------
@@ -532,7 +587,7 @@ def bcast(x: torch.Tensor, comm: Communicator, root: int = 0,
     if hierarchical:
         _check_hierarchical_rooted(backend, chunks, "bcast")
         return bcast_hierarchical(x, comm, root=root)
-    chunks = _check_chunks(chunks)
+    chunks = _resolve_chunks(chunks, x, comm, "broadcast")
     contrib = _masked(x, _is_root(comm, root))
     if backend == "ring":
         _check_deadline(deadline, "broadcast", comm)
@@ -568,7 +623,7 @@ def reduce(x: torch.Tensor, comm: Communicator,
         _check_hierarchical_rooted(backend, chunks, "reduce")
         return reduce_hierarchical(x, comm, op=op, root=root,
                                    all_ranks=all_ranks)
-    chunks = _check_chunks(chunks)
+    chunks = _resolve_chunks(chunks, x, comm, "reduce")
     root_here = _is_root(comm, root)
     if backend == "ring":
         _check_deadline(deadline, "reduce", comm)
@@ -607,7 +662,7 @@ def allreduce(x: torch.Tensor, comm: Communicator,
     """
     check_backend(backend)
     op = SmiOp.parse(op)
-    resolved_precision = _resolve_precision(precision, x, op)
+    resolved_precision = _resolve_precision(precision, x, comm, op)
     if resolved_precision != "f32":
         x = _compensated_quantize(x, resolved_precision, comm.rank)
     if backend != "xla":
@@ -632,7 +687,7 @@ def allreduce(x: torch.Tensor, comm: Communicator,
                 "drop chunks or pin hierarchical=False"
             )
         return allreduce_hierarchical(x, comm, op=op)
-    chunks = _check_chunks(chunks)
+    chunks = _resolve_chunks(chunks, x, comm, "all_reduce")
     if backend == "xla" and _use_rs_ag(x, comm, op, rs_ag):
         return _rs_ag_allreduce(x, comm, chunks)
     return reduce(x, comm, op=op, all_ranks=True, backend=backend,
@@ -748,7 +803,7 @@ def scatter(x: torch.Tensor, comm: Communicator, root: int = 0,
     are launches in program order on one stream slot.
     """
     check_backend(backend)
-    chunks = _check_chunks(chunks)
+    chunks = _resolve_chunks(chunks, x, comm, "scatter")
     size = comm.size
     if x.dim() == 0 or x.shape[0] % size != 0:
         raise ValueError(
@@ -783,7 +838,7 @@ def gather(x: torch.Tensor, comm: Communicator, root: int = 0,
     chunks neighbour to neighbour around the explicit ring.
     """
     check_backend(backend)
-    chunks = _check_chunks(chunks)
+    chunks = _resolve_chunks(chunks, x, comm, "gather")
     size = comm.size
     root_here = _is_root(comm, root)
     if backend == "ring":
@@ -879,8 +934,10 @@ def all_to_all(x: torch.Tensor, comm: Communicator,
     ``"bruck"`` (``log2 n`` permute rounds; power-of-two rank counts
     only, anything else a loud error) or ``"hierarchical"`` (the two-tier
     form on a hybrid grid). All three are pure routing and bit-identical.
-    ``None`` takes ``$SMI_TPU_ALLTOALL_ALGO`` (loud when malformed), else
-    ``"pairwise"`` (what the JAX package's untuned plan engine picks).
+    ``None`` takes ``$SMI_TPU_ALLTOALL_ALGO`` (loud when malformed and on
+    a shape it cannot run), else the plan engine's ladder (a measured
+    cache entry this shape can run, then the model where confidently
+    away from parity, then ``"pairwise"``).
     The JAX package's credits simulator (``all_to_all_rank``,
     ``all_to_all_bruck_rank`` and ``all_to_all_pod_rank`` in
     ``smi_tpu/parallel/credits.py``) is the wire-level spec of the
@@ -909,8 +966,16 @@ def all_to_all(x: torch.Tensor, comm: Communicator,
                 f"{ALLTOALL_ALGORITHMS}"
             )
     else:
-        algo = (_env_choice(ALLTOALL_ALGO_ENV, ALLTOALL_ALGORITHMS)
-                or "pairwise")
+        algo = _env_choice(ALLTOALL_ALGO_ENV, ALLTOALL_ALGORITHMS)
+        if algo is None:
+            topo = cm.topology_from_comm(comm)
+            try:
+                algo = _engine.planned_alltoall(
+                    x.numel() * x.element_size(), topo.n,
+                    topo.inner or topo.n, topo.outer or 1,
+                    dtype_name(x.dtype))
+            except Exception:
+                algo = "pairwise"
     if algo == "bruck":
         if size & (size - 1):
             raise ValueError(

@@ -188,14 +188,28 @@ class SmiContext:
                                 backend=self._backend(backend),
                                 program=self.program)
 
-    # -- not ported yet -------------------------------------------------
     def explain_plan(self, op: str = "all_reduce",
                      dtype: str = "float32") -> str:
-        raise NotImplementedError(
-            "explain_plan needs the plan engine, which is not ported yet "
-            "(ROADMAP.md Queue 1 item 12: tuning/)"
+        """The plan engine's candidate table for this communicator:
+        which knob values a collective dispatched through this context
+        would run with, which layer (cache / live / model / heuristic)
+        decided each, and the modeled vs measured costs behind the
+        choice — the JAX package's text for the same topology, device
+        kind and cache. On a hybrid multi-slice grid the allreduce table
+        prices all three candidates (flat ring, rs+ag, the two-tier
+        form) and names the two-tier gate's deciding layer. The
+        ``flash_fwd`` and ``stencil`` tables name the port's own Hopper
+        tile plans."""
+        from smi_tpu_torch.tuning import cost_model as cm
+        from smi_tpu_torch.tuning.engine import get_engine
+
+        topo = cm.topology_from_comm(self.comm)
+        return get_engine().explain_text(
+            op, n=self.size, dtype=dtype,
+            slices=topo.outer if topo.hierarchical_eligible else None,
         )
 
+    # -- not ported yet -------------------------------------------------
     def shrink(self, excluded_ranks) -> "SmiContext":
         raise NotImplementedError(
             "shrink needs the degraded-mode communicator, which is not "

@@ -312,17 +312,6 @@ class Communicator:
         return out
 
 
-def _two_tier(comm: Communicator) -> Optional[Tuple[int, int]]:
-    """``(outer, inner)`` of a hybrid grid: two axes, one of them
-    ``"dcn"``, whose size is the slice count; None for any other grid
-    (the split the JAX package's ``tuning.cost_model.topology_from_comm``
-    exposes)."""
-    if len(comm.shape) == 2 and "dcn" in comm.axis_names:
-        outer = comm.shape[comm._axis("dcn")]
-        return outer, comm.size // outer
-    return None
-
-
 def _alltoall_pairwise_schedule(n: int) -> List[List[Tuple[int, int]]]:
     """Step ``s`` (list index ``s - 1``) pairs every rank ``g`` with
     ``(g + s) % n``: the rotation the JAX package's

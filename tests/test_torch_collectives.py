@@ -251,8 +251,8 @@ def _on_world(fn, n=4):
      ValueError, "needs an ADD allreduce"),
     (lambda c, x: pcoll.all_to_all(x, c, algorithm="ghost"), ValueError,
      "unknown all_to_all algorithm"),
-    (lambda c, x: st.SmiContext(c).explain_plan(), NotImplementedError,
-     "plan engine"),
+    (lambda c, x: st.SmiContext(c).explain_plan("ghost"), ValueError,
+     "unknown op 'ghost'"),
     (lambda c, x: st.SmiContext(c).shrink({1}), NotImplementedError,
      "degraded-mode"),
     (lambda c, x: pcoll.all_to_all(x[:6], c), ValueError,

@@ -1167,3 +1167,119 @@ def test_roll_chain_kernel_refuses_an_axis_too_long(cuda_dev):
     with pytest.raises(TypeError, match="float32"):
         roll.roll_chain((torch.zeros(2, 8, device=cuda_dev,
                                      dtype=torch.float64),), 1, "add")
+
+
+# ------------------------------------------------------ the plan engine --
+
+
+@pytest.fixture
+def engine_on_card():
+    """The plan engine's module, its process-global engine reset to the
+    default (the seeded cache) and restored after the test."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the engine keys by its name")
+    from smi_tpu_torch.tuning import engine as eng
+
+    saved = eng._ENGINE
+    eng.set_engine(None)
+    yield eng
+    eng.set_engine(saved)
+
+
+def _kinds_of(world, fn):
+    """``(outs, kinds)``: the rendezvous kinds of one ``world.run(fn)``."""
+    calls = []
+    real = world.rendezvous
+
+    def rendezvous(rank, kind, payload, work):
+        if rank == 0:
+            calls.append(kind)
+        return real(rank, kind, payload, work)
+
+    world.rendezvous = rendezvous
+    try:
+        outs = world.run(fn)
+    finally:
+        del world.rendezvous
+    return outs, calls
+
+
+def test_plan_engine_detects_the_card(engine_on_card):
+    from smi_tpu_torch.tuning import plan, seeded
+
+    name = torch.cuda.get_device_name(0)
+    kind = engine_on_card.get_engine().device_kind()
+    assert kind == engine_on_card._detect_device_kind() == \
+        plan.normalize_device_kind(name)
+    if name == "NVIDIA H100 80GB HBM3":
+        assert kind == seeded.SEEDED_H100_DEVICE_KIND
+
+
+@pytest.mark.parametrize("topology", ["n8", "n8:dcn2"])
+@pytest.mark.parametrize("op", ["all_reduce", "all_to_all"])
+def test_seeded_h100_entries_decide_the_untuned_gates(engine_on_card, op,
+                                                      topology):
+    """Each seeded H100 entry is the gate's answer from the cache, and an
+    untuned f32 call at its payload makes the rendezvous of the pinned
+    form it names, with equal results on every rank."""
+    from smi_tpu_torch.tuning import cost_model as cm
+    from smi_tpu_torch.tuning import seeded
+    from smi_tpu_torch.tuning.plan import PlanKey
+
+    eng = engine_on_card.get_engine()
+    if eng.device_kind() != seeded.SEEDED_H100_DEVICE_KIND:
+        pytest.skip("the seeded entries are the H100 80GB HBM3's")
+    world = (st.LocalWorld((2, 4), ("dcn", "ici")) if topology == "n8:dcn2"
+             else st.LocalWorld(8))
+    topo = cm.topology_from_comm(world)
+    cache = seeded.seeded_cache()
+    for bucket in (16, 18, 20, 22):
+        payload = 1 << bucket
+        entry = cache.lookup(PlanKey(op, f"pow2:{bucket}", "float32",
+                                     seeded.SEEDED_H100_DEVICE_KIND,
+                                     topology))
+        algorithm = entry.knobs["algorithm"]
+        if op == "all_to_all":
+            assert eng.use_alltoall(payload, topo) == (algorithm, "cache")
+            pinned = dict(algorithm=algorithm)
+            call = st.all_to_all
+        elif topology == "n8:dcn2":
+            assert eng.use_hierarchical(payload, topo) == (
+                algorithm == "hierarchical", "cache")
+            pinned = (dict(hierarchical=True) if algorithm == "hierarchical"
+                      else dict(hierarchical=False))
+            call = st.allreduce
+        else:
+            assert eng.use_rs_ag(payload, topo) == (algorithm == "rs_ag",
+                                                    "cache")
+            pinned = dict(rs_ag=algorithm == "rs_ag")
+            call = st.allreduce
+        xs = _ring_inputs(8, (payload // 4,), torch.float32, seed=bucket)
+        untuned, kinds = _kinds_of(world, lambda c: call(xs[c.rank], c))
+        want, want_kinds = _kinds_of(world, lambda c: call(xs[c.rank], c,
+                                                           **pinned))
+        assert kinds == want_kinds, (bucket, pinned)
+        for u, w in zip(untuned, want):
+            assert torch.equal(u, w)
+
+
+def test_sweeps_write_entries_keyed_to_the_card(engine_on_card):
+    from smi_tpu_torch.tuning import sweep
+    from smi_tpu_torch.tuning.cache import PlanCache
+    from smi_tpu_torch.tuning.plan import PlanKey, normalize_device_kind
+
+    kind = normalize_device_kind(torch.cuda.get_device_name(0))
+    engine_on_card.set_engine(engine_on_card.PlanEngine(cache=PlanCache()))
+    record = []
+    caches = (
+        sweep.sweep_allreduce(st.LocalWorld(4), sizes_kb=(64,),
+                              chunk_candidates=(1, 2), runs=1,
+                              record=record),
+        sweep.sweep_alltoall(st.LocalWorld((2, 2), ("dcn", "ici")),
+                             sizes_kb=(64,), runs=1, record=record),
+    )
+    sigs = [sig for c in caches for sig in c.entries]
+    assert {"all_reduce|pow2:16|float32|" + kind + "|n4",
+            "all_to_all|pow2:16|float32|" + kind + "|n4:dcn2"} <= set(sigs)
+    assert all(PlanKey.from_signature(s).device_kind == kind for s in sigs)
+    assert len(record) == 4 + 3 and all(us > 0 for _, _, us in record)

@@ -8,10 +8,10 @@ go through ``allreduce_hierarchical``, the rooted ``hierarchical=True``
 collectives and the reduce-scatter + all-gather allreduce on both sides:
 integers and MAX/MIN exactly, f32 ADD within ``rtol=1e-6`` (the two-tier
 and rs+ag forms add in another order than one all-reduce). The gates are
-held to the JAX package's wherever its plan engine is not consulted: the
-rs+ag byte threshold and ``$SMI_TPU_RS_AG_MIN_BYTES``, the hierarchical
-pins and ``$SMI_TPU_HIER_MIN_SLICES``; where the engine decides, the port
-stays flat (ROADMAP.md Queue 3).
+held to the JAX package's in every case: the rs+ag byte threshold and
+``$SMI_TPU_RS_AG_MIN_BYTES``, the hierarchical pins and
+``$SMI_TPU_HIER_MIN_SLICES``, and, where neither decides, each package's
+plan engine on the CPU.
 """
 
 import jax
@@ -137,12 +137,16 @@ def test_mesh_from_topology_ranks_the_topologys_devices():
 ])
 def test_two_tier_split_matches_the_cost_model(shape, names, want):
     from smi_tpu.tuning import cost_model as cm
+    from smi_tpu_torch.tuning import cost_model as pcm
 
-    comm = st.LocalWorld(shape, names, device="cpu").comms[0]
-    assert pmesh._two_tier(comm) == want
+    world = st.LocalWorld(shape, names, device="cpu")
     spec = cm.topology_from_comm(
         smi.make_communicator(shape=shape, axis_names=names))
     assert ((spec.outer, spec.inner) if spec.outer else None) == want
+    for comm in (world.comms[0], world):
+        got = pcm.topology_from_comm(comm)
+        assert (got.n, got.inner, got.outer) == (spec.n, spec.inner,
+                                                 spec.outer)
 
 
 # ---- two-tier collectives ---------------------------------------------
@@ -284,9 +288,10 @@ def test_untuned_allreduce_of_4_mib_takes_rs_ag(monkeypatch):
 def test_hierarchical_gate_matches_the_jax_package(hcomm, hworld,
                                                    monkeypatch, env, rows,
                                                    pins):
-    """Pins, conflicts, eligibility and ``$SMI_TPU_HIER_MIN_SLICES`` decide
-    alike. With no pin and no env the JAX package asks its plan engine,
-    which the port does not have: the port stays flat there."""
+    """Pins, conflicts, eligibility, ``$SMI_TPU_HIER_MIN_SLICES`` and,
+    with no pin and no env, each package's plan engine (device kind
+    ``"cpu"``: the model rung takes the two-tier form where its modeled
+    advantage clears 4x, as at 3 MiB) decide alike."""
     if env is None:
         monkeypatch.delenv(pcoll.HIER_MIN_SLICES_ENV, raising=False)
     else:
@@ -307,13 +312,7 @@ def test_hierarchical_gate_matches_the_jax_package(hcomm, hworld,
         want = decide(jcoll._use_hierarchical,
                       jax.ShapeDtypeStruct((rows, 3), jnp.float32), hcomm,
                       jcoll.SmiOp.parse(op))
-        engine_decides = (env is None and pins["hierarchical"] is None
-                          and pins["rs_ag"] is None
-                          and pins["chunks"] is None)
-        if engine_decides and want is True:
-            assert got is False, (op, rows)
-        else:
-            assert got == want, (op, rows, env, pins)
+        assert got == want, (op, rows, env, pins)
 
 
 def test_hierarchical_env_forces_the_two_tier_form(hworld, monkeypatch):

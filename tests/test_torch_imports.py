@@ -44,12 +44,15 @@ def test_fresh_import_loads_no_jax_and_builds_nothing():
                    "parallel.channels", "parallel.context",
                    "parallel.errors",
                    "utils.watchdog", "kernels.ring", "models.kmeans",
-                   "models.gesummv"):
+                   "models.gesummv", "tuning.engine", "tuning.cost_model",
+                   "tuning.cache", "tuning.plan", "tuning.seeded"):
         assert f"smi_tpu_torch.{module}" in report["new"], module
-    # the benchmark suite and the profiler helpers load only when asked
+    # the benchmark suite, the profiler helpers and the sweeps load only
+    # when asked
     assert not [m for m in report["new"]
                 if m.startswith(("smi_tpu_torch.benchmarks",
-                                 "smi_tpu_torch.utils.tracing"))]
+                                 "smi_tpu_torch.utils.tracing",
+                                 "smi_tpu_torch.tuning.sweep"))]
     assert report["libs"] == 0
     assert set(report["launches"].values()) == {0}
 

@@ -26,6 +26,8 @@ from smi_tpu_torch.parallel import collectives as pcoll
 
 N = 8
 LOSSY = ["bf16", "int8", "topk"]
+#: rank 0 of an 8-rank CPU world: the precision ladder's topology
+PCOMM8 = st.LocalWorld(N, device="cpu").comms[0]
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -183,18 +185,20 @@ def test_residuals_are_kept_apart_per_rank():
 def test_explicit_pin_outranks_env(monkeypatch):
     x = torch.ones(64)
     monkeypatch.setenv(pcoll.ALLREDUCE_PRECISION_ENV, "int8")
-    assert pcoll._resolve_precision("f32", x, st.SmiOp.ADD) == "f32"
-    assert pcoll._resolve_precision(None, x,
+    assert pcoll._resolve_precision("f32", x, PCOMM8,
+                                    st.SmiOp.ADD) == "f32"
+    assert pcoll._resolve_precision(None, x, PCOMM8,
                                     st.SmiOp.ADD) == "int8"
     monkeypatch.setenv(pcoll.ALLREDUCE_PRECISION_ENV, "f32")
-    assert pcoll._resolve_precision("bf16", x,
+    assert pcoll._resolve_precision("bf16", x, PCOMM8,
                                     st.SmiOp.ADD) == "bf16"
 
 
 def test_env_malformed_errors_loudly(monkeypatch):
     monkeypatch.setenv(pcoll.ALLREDUCE_PRECISION_ENV, "int7")
     with pytest.raises(ValueError) as err:
-        pcoll._resolve_precision(None, torch.ones(64), st.SmiOp.ADD)
+        pcoll._resolve_precision(None, torch.ones(64), PCOMM8,
+                                 st.SmiOp.ADD)
     assert pcoll.ALLREDUCE_PRECISION_ENV in str(err.value)
     assert "int7" in str(err.value)
 
@@ -213,7 +217,7 @@ def test_ineligible_op_and_dtype_error_as_in_the_jax_package(
                              ("add", "int32", "floating-point payload")):
         with pytest.raises(ValueError, match=match) as got:
             pcoll._resolve_precision(
-                pin, torch.ones(64, dtype=getattr(torch, dtype)),
+                pin, torch.ones(64, dtype=getattr(torch, dtype)), PCOMM8,
                 st.SmiOp.parse(op))
         with pytest.raises(ValueError) as want:
             jcoll._resolve_precision(
@@ -224,7 +228,8 @@ def test_ineligible_op_and_dtype_error_as_in_the_jax_package(
 
 def test_unknown_pin_is_loud():
     with pytest.raises(ValueError, match="precision must be one of"):
-        pcoll._resolve_precision("fp4", torch.ones(4), st.SmiOp.ADD)
+        pcoll._resolve_precision("fp4", torch.ones(4), PCOMM8,
+                                 st.SmiOp.ADD)
 
 
 @pytest.mark.parametrize("dtype,op", [("int32", "add"), ("float32", "max"),
@@ -232,7 +237,7 @@ def test_unknown_pin_is_loud():
 def test_auto_path_stays_dense(comm8, dtype, op):
     """No pin, no env: dense, as the JAX package's untuned ladder."""
     assert pcoll._resolve_precision(
-        None, torch.ones(64, dtype=getattr(torch, dtype)),
+        None, torch.ones(64, dtype=getattr(torch, dtype)), PCOMM8,
         st.SmiOp.parse(op)) == "f32"
     assert jcoll._resolve_precision(
         None, jnp.ones(64, dtype=dtype), comm8,
