@@ -308,6 +308,33 @@ Then the plan engine (``smi_tpu_torch/tuning``):
    ``SmiContext.explain_plan("all_reduce")`` and ``("all_to_all")`` on
    the ``(2, 4)`` world.
 
+Then the elastic runtime's first tier:
+
+33. the backward on a thread world: ``.backward()`` called by every rank
+   of a CUDA ``LocalWorld`` inside ``run`` (autograd runs each rank's
+   nodes on its own thread there), ring attention's flash and plain
+   tiers at 2 and 4 ranks (``BWD_SHAPE``, f32, causal) and a 4-rank
+   ``ring_shift``, each against the one-rank gradients at the f32 bar,
+   with the rendezvous timeout cut to ``BWD_RENDEZVOUS_S`` and the thread
+   that ran each rank's q node checked; one timed 4-rank flash backward
+   at the attention phases' widths (``BWD_TIMED``); a backward called on
+   the outputs after ``run`` returned must fail at once. Launches counted
+   (the flash rows add them);
+34. the elastic path: ``checkpoint.run_jacobi`` at N x N f32 on a 1x1
+   communicator and on the 2x4 world, a step raising at iteration
+   ``ELASTIC_CRASH_AT`` of ``ELASTIC_ITERS`` (cadence
+   ``ELASTIC_CADENCE``), resumed, ``torch.equal`` to the uninterrupted
+   run; one 256 MiB checkpoint's save from and restore to the card timed
+   (GB/s beside ``nvidia-smi``'s name and power limit); checkpointed
+   k-means on 8 ranks (``KMEANS_*``, ring tier); ``recover_communicator``
+   dropping rank ``DROPPED`` (heirs, epoch 1, epoch 0 refused); the means
+   restored on the 7 survivors and 3 more iterations there on the ring
+   tier against ``reference_kmeans`` (its reduce and bcast are ring
+   all-reduces), and the neighbour stream on the 7-rank ring
+   ``torch.equal`` to its plain version; ``regrow`` to 8 ranks at epoch
+   2 and a 4 MiB ring all-reduce ``torch.equal`` to its plain version.
+   Launches counted (rows 5 and 7 add them).
+
 Bars: f32 out/acc/gradients within 2e-5 (``rtol = atol``); m and l within
 1e-5 in either dtype (both sides add exact products in f32); bf16
 out/acc/gradients by the worst row's relative error ``||got - want|| /
@@ -678,12 +705,17 @@ def main(argv=None) -> int:
     records += surface_phases(dev, gen, earlier.get("roll_chain"))
     surface_launches = collective_surface_phase(dev, gen, smi_line)
     tuning_phase(dev, gen, smi_line)
-    # rows 5 and 7 count phase 31's launches beside phases 21-23's
+    backward_launches = backward_world_phase(dev)
+    elastic_launches = elastic_phase(dev, smi_line)
+    # rows 5 and 7 count phase 31's launches beside phases 21-23's, and
+    # the first record of each ring and flash kernel phases 33-34's
+    later = {RING_REPLACES[k]: elastic_launches[k] for k in RING_REPLACES}
+    later.update({REPLACES[k]: backward_launches[k] for k in REPLACES})
     for record in records:
         for kernel in ("ring_all_reduce", "ring_neighbour_stream"):
             if record["replaces"] == RING_REPLACES[kernel]:
                 record["launches"] += surface_launches[kernel]
-
+        record["launches"] += later.pop(record["replaces"], 0)
     log(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -4253,6 +4285,398 @@ def tuning_phase(dev, gen, smi_line):
         log(f"  SmiContext.explain_plan({op!r}) on the {HYBRID_GRID} world:")
         for line in ctx.explain_plan(op).splitlines():
             log(f"    {line}")
+
+
+#: phase 33: the thread worlds' backward, (S a rank, H, D), f32 causal
+BWD_WORLDS = (2, 4)
+BWD_SHAPE = (512, 2, 64)
+#: and one timed 4-rank flash backward at the attention phases' widths
+BWD_TIMED = (4, SEQ // 4, HEADS, HEAD_DIM)
+#: a hung rendezvous breaks after this long (the default is 600 s)
+BWD_RENDEZVOUS_S = 30.0
+
+
+def attention_grads(comm, arrays, weight, use_flash, threads):
+    """``(dq, dk, dv)`` of ``sum(attention(q, k, v) * weight)`` on this
+    rank's sequence shards by one ``.backward()``, and the seconds of that
+    backward on this rank's stream. The thread that ran q's gradient node
+    is appended to ``threads`` as ``(rank, name)``."""
+    import threading
+
+    import torch
+
+    import smi_tpu_torch as st
+
+    q, k, v = (st.sequence_shard_from_numpy(x, comm).requires_grad_(True)
+               for x in arrays)
+    q.register_hook(lambda g: threads.append(
+        (comm.rank, threading.current_thread().name)))
+    out = st.make_ring_attention_fn(comm, causal=True,
+                                    use_flash=use_flash)(q, k, v)
+    loss = (out * st.sequence_shard_from_numpy(weight, comm)).sum()
+    torch.cuda.current_stream().synchronize()
+    t0 = time.perf_counter()
+    loss.backward()
+    torch.cuda.current_stream().synchronize()
+    return q.grad, k.grad, v.grad, time.perf_counter() - t0
+
+
+def grads_within(what, got, want):
+    """Each gradient within F32_TOL (atol = rtol) of the one-rank one;
+    returns the largest absolute error."""
+    import torch
+
+    worst = 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        diff = (g - w).abs()
+        worst = max(worst, diff.max().item())
+        if bool((diff > F32_TOL + F32_TOL * w.abs()).any()):
+            raise AssertionError(f"{what} {name}: outside {F32_TOL} of the "
+                                 f"one-rank gradients, max abs err "
+                                 f"{diff.max().item()}")
+    if not all(bool(torch.isfinite(g).all()) for g in got):
+        raise AssertionError(f"{what}: gradients are not finite")
+    return worst
+
+
+def backward_world_phase(dev):
+    """Phase 33: ``.backward()`` on every rank of a CUDA ``LocalWorld``
+    through autograd, the flash and plain tiers of ring attention at 2
+    and 4 ranks and a 4-rank ``ring_shift``, each against the one-rank
+    gradients, with the rendezvous timeout cut to ``BWD_RENDEZVOUS_S``;
+    then one timed 4-rank flash backward at ``BWD_TIMED``, and a backward
+    called on the outputs after ``run`` returned, which must fail at
+    once. Launch counts are set to 0 before and read after; returns
+    them."""
+    import numpy as np
+    import torch
+
+    import smi_tpu_torch as st
+    from smi_tpu_torch.kernels import _build
+    from smi_tpu_torch.parallel import local
+
+    log(f"[33 the backward on a thread world: .backward() on every rank of "
+        f"CUDA LocalWorlds of {BWD_WORLDS} ranks, flash and plain tiers, "
+        f"rendezvous timeout {BWD_RENDEZVOUS_S} s]")
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    one = st.make_communicator(shape=(1,), axis_names=("sp",))
+
+    def check(n, s_local, h, d, use_flash, seed):
+        rng = np.random.RandomState(seed)
+        q, k, v, w = (rng.randn(s_local * n, h, d).astype(np.float32)
+                      for _ in range(4))
+        want = attention_grads(one, (q, k, v), w, use_flash, [])
+        world = st.LocalWorld(n, ("sp",))
+        threads = []
+        t0 = time.perf_counter()
+        got = world.run(lambda c: attention_grads(c, (q, k, v), w,
+                                                  use_flash, threads))
+        wall = time.perf_counter() - t0
+        tier = "flash" if use_flash else "plain"
+        what = f"{n} ranks {tier} S={s_local}x{n} H={h} D={d}"
+        if wall >= BWD_RENDEZVOUS_S:
+            raise AssertionError(f"{what}: {wall:.1f} s, not inside the "
+                                 f"{BWD_RENDEZVOUS_S} s rendezvous timeout")
+        if sorted(threads) != [(r, f"smi-rank-{r}") for r in range(n)]:
+            raise AssertionError(f"{what}: q's gradient nodes ran on "
+                                 f"{sorted(threads)}, not on the rank "
+                                 f"threads")
+        err = grads_within(what, [torch.cat([g[i] for g in got])
+                                  for i in range(3)], want[:3])
+        backward_s = max(g[3] for g in got)
+        log(f"  {what}: .backward() on every rank, q's nodes on threads "
+            f"{[name for _, name in sorted(threads)]}; gradients within "
+            f"{F32_TOL} of the one-rank ones (max abs err {err:.3g}); "
+            f"backward {backward_s * 1e3:.3f} ms (slowest rank's stream), "
+            f"forward + backward {wall * 1e3:.3f} ms host wall "
+            f"(one-rank backward {want[3] * 1e3:.3f} ms)")
+        return backward_s
+
+    with patched(local, RENDEZVOUS_TIMEOUT_S=BWD_RENDEZVOUS_S):
+        s_local, h, d = BWD_SHAPE
+        for n in BWD_WORLDS:
+            for use_flash in (True, False):
+                check(n, s_local, h, d, use_flash, SEED + n)
+        n = 4
+        world = st.LocalWorld(n)
+
+        def shifted(c):
+            x = torch.full((3, 130), float(c.rank), device=c.device,
+                           requires_grad=True)
+            (st.ring_shift(x, c) * (c.rank + 1)).sum().backward()
+            return x.grad
+
+        for r, g in enumerate(world.run(shifted)):
+            if not torch.equal(g, torch.full_like(g, (r + 1) % n + 1)):
+                raise AssertionError(f"ring_shift backward: rank {r}'s "
+                                     f"gradient is not {(r + 1) % n + 1}")
+        log(f"  ring_shift on {n} ranks: each rank's gradient is the next "
+            f"rank's weight (torch.equal)")
+        n, s_local, h, d = BWD_TIMED
+        backward_s = check(n, s_local, h, d, True, SEED)
+
+        world = st.LocalWorld(2, ("sp",))
+        rng = np.random.RandomState(SEED)
+        q = rng.randn(2 * s_local, 2, 64).astype(np.float32)
+        outs = world.run(lambda c: st.make_ring_attention_fn(
+            c, causal=True)(*(st.sequence_shard_from_numpy(
+                q, c).requires_grad_(True) for _ in range(3))))
+        t0 = time.perf_counter()
+        try:
+            torch.stack(outs).sum().backward()
+        except RuntimeError as exc:
+            if "world.run" not in str(exc):
+                raise
+            log(f"  a backward on the outputs after run returned fails in "
+                f"{(time.perf_counter() - t0) * 1e3:.3f} ms: "
+                f"{str(exc)[:160]}...")
+        else:
+            raise AssertionError("a backward outside world.run did not "
+                                 "fail")
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    for name in ("flash_block", "flash_bwd_dq", "flash_bwd_dkdv"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the "
+                                 f"thread worlds' backward")
+    log(f"  launches {launches}; the {BWD_TIMED[0]}-rank flash backward at "
+        f"S={BWD_TIMED[1]}x{BWD_TIMED[0]} H={BWD_TIMED[2]} "
+        f"D={BWD_TIMED[3]} f32: {backward_s * 1e3:.3f} ms")
+    return launches
+
+
+#: phase 34: the checkpointed Jacobi drivers (N x N f32)
+ELASTIC_ITERS, ELASTIC_CADENCE, ELASTIC_CRASH_AT = 12, 4, 10
+#: and k-means on 8 ranks, then on the 7 survivors
+KMEANS_POINTS, KMEANS_K, KMEANS_DIMS, KMEANS_ITERS = 65520, 16, 2, 3
+DROPPED = 5
+
+
+class Crash(RuntimeError):
+    """A step that raises: the stand-in for a crash mid-run."""
+
+
+@contextlib.contextmanager
+def crashing_sweeps(at):
+    """``models.stencil.make_stencil_fn``'s sweeps raise :class:`Crash`
+    from the ``at``-th call of each (every rank's sweep at iteration
+    ``at``)."""
+    from smi_tpu_torch.models import stencil
+
+    real = stencil.make_stencil_fn
+
+    def make(comm, iterations, **kw):
+        fn, calls = real(comm, iterations, **kw), [0]
+
+        def sweep(block):
+            calls[0] += 1
+            if calls[0] > at:
+                raise Crash(f"crash at iteration {at}")
+            return fn(block)
+
+        return sweep
+
+    with patched(stencil, make_stencil_fn=make):
+        yield
+
+
+def elastic_phase(dev, smi_line):
+    """Phase 34: the elastic path. The checkpointed Jacobi driver at
+    N x N f32 on a 1x1 communicator and on the 2x4 world, crashed at
+    iteration ``ELASTIC_CRASH_AT`` and resumed, ``torch.equal`` to the
+    uninterrupted run; one 256 MiB checkpoint's save and restore timed;
+    checkpointed k-means on 8 ranks; ``recover_communicator`` dropping
+    rank ``DROPPED`` (heirs, epoch, the stale epoch refused); the means
+    restored on the 7 survivors and 3 more iterations on the ring tier
+    against ``reference_kmeans``, and the neighbour stream on that
+    7-rank ring against its plain version; the regrown 8-rank world's
+    all-reduce ``torch.equal`` to its plain version. Launch counts are set to 0
+    before and read after; returns them (rows 5 and 7 add them)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import smi_tpu_torch as st
+    from smi_tpu_torch.kernels import _build
+    from smi_tpu_torch.kernels import ring as kring
+    from smi_tpu_torch.parallel import checkpoint as ckpt
+
+    log(f"[34 the elastic path: checkpointed Jacobi at {N}x{N} f32 crashed "
+        f"at iteration {ELASTIC_CRASH_AT} of {ELASTIC_ITERS} and resumed; "
+        f"k-means on 8 ranks, rank {DROPPED} lost, 7 survivors on the ring "
+        f"tier, regrown to 8]")
+    log(f"  {smi_line}")
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    grid = st.initial_grid(N, N)
+    grid[:, -1] = 2.0
+    with tempfile.TemporaryDirectory(prefix="smi-checkpoints-") as tmp:
+        last = None
+        for label, comm in (
+                ("1x1 communicator", st.make_communicator(
+                    shape=(1, 1), axis_names=("sx", "sy"))),
+                ("2x4 LocalWorld", st.LocalWorld((2, 4), ("sx", "sy")))):
+            t0 = time.perf_counter()
+            want = ckpt.run_jacobi(grid, ELASTIC_ITERS, comm=comm)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            store = ckpt.CheckpointStore(os.path.join(
+                tmp, label.replace(" ", "-")), keep=2)
+            t0 = time.perf_counter()
+            try:
+                with crashing_sweeps(ELASTIC_CRASH_AT):
+                    ckpt.run_jacobi(grid, ELASTIC_ITERS, comm=comm,
+                                    store=store, cadence=ELASTIC_CADENCE)
+            except Crash:
+                pass
+            else:
+                raise AssertionError("the crashing step did not crash")
+            crashed_s = time.perf_counter() - t0
+            resumed_at = store.latest_step()
+            t0 = time.perf_counter()
+            got = ckpt.run_jacobi(grid, ELASTIC_ITERS, comm=comm,
+                                  store=store, cadence=ELASTIC_CADENCE)
+            torch.cuda.synchronize()
+            resume_s = time.perf_counter() - t0
+            if resumed_at != ELASTIC_CRASH_AT // ELASTIC_CADENCE * \
+                    ELASTIC_CADENCE:
+                raise AssertionError(f"{label}: the store holds step "
+                                     f"{resumed_at}")
+            if tuple(got.shape) != (N, N) or not torch.equal(got, want):
+                raise AssertionError(f"{label}: the resumed run != the "
+                                     f"uninterrupted run")
+            _, bands, _ = store.restore()
+            log(f"  {label}: crashed at iteration {ELASTIC_CRASH_AT} "
+                f"({crashed_s:.3f} s with its checkpoints), resumed from "
+                f"step {resumed_at} ({resume_s:.3f} s), torch.equal to the "
+                f"uninterrupted run ({plain_s:.3f} s without a store); "
+                f"{len(bands)} band(s) of {bands[0].shape} in the store")
+            last = got
+        ref = st.reference_stencil(grid[:1024, :1024].copy(), ELASTIC_ITERS)
+        small = ckpt.run_jacobi(grid[:1024, :1024].copy(), ELASTIC_ITERS,
+                                comm=st.LocalWorld((2, 4), ("sx", "sy")))
+        if not np.array_equal(small.cpu().numpy(), ref):
+            raise AssertionError("1024x1024 checkpointed Jacobi != numpy "
+                                 "reference_stencil")
+        log("  1024x1024 on the 2x4 world: array_equal to the numpy "
+            "reference_stencil")
+
+        store = ckpt.CheckpointStore(os.path.join(tmp, "timed"), keep=1)
+        nbytes = last.numel() * last.element_size()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        store.save(0, {0: last})
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, shards, _ = store.restore()
+        back = torch.from_numpy(shards[0]).to(dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if not torch.equal(back, last):
+            raise AssertionError("the restored checkpoint != the saved grid")
+        log(f"  one {nbytes / 2**20:.0f} MiB checkpoint (one shard and its "
+            f"manifest, fsync'd): save from the card {save_s * 1e3:.3f} ms "
+            f"({nbytes / save_s / 1e9:.4g} GB/s), restore to the card "
+            f"{restore_s * 1e3:.3f} ms ({nbytes / restore_s / 1e9:.4g} GB/s, "
+            f"read back through the page cache); {smi_line}")
+
+        rng = np.random.RandomState(SEED)
+        centres = rng.rand(KMEANS_K, KMEANS_DIMS).astype(np.float32) * 10
+        pts = (centres[rng.randint(0, KMEANS_K, KMEANS_POINTS)]
+               + rng.randn(KMEANS_POINTS, KMEANS_DIMS).astype(np.float32)
+               * 0.3).astype(np.float32)
+        init = pts[:KMEANS_K].copy()
+        world8 = st.LocalWorld(SMI_RANKS)
+        store = ckpt.CheckpointStore(os.path.join(tmp, "kmeans"))
+        means = ckpt.run_kmeans(pts, init, KMEANS_ITERS, comm=world8,
+                                store=store, cadence=KMEANS_ITERS,
+                                backend="ring")
+        np.testing.assert_allclose(
+            means.cpu().numpy(), st.reference_kmeans(pts, init, KMEANS_ITERS),
+            rtol=1e-3, atol=1e-4)
+        log(f"  k-means on {SMI_RANKS} ranks, {KMEANS_POINTS} points, "
+            f"k={KMEANS_K}, {KMEANS_DIMS} dims, {KMEANS_ITERS} iterations "
+            f"on the ring tier, checkpointed: within rtol 1e-3, atol 1e-4 "
+            f"of reference_kmeans")
+        t0 = time.perf_counter()
+        survivors, heirs = st.recover_communicator(world8.comms[0],
+                                                   {DROPPED})
+        shrink_s = time.perf_counter() - t0
+        if heirs != {DROPPED: DROPPED + 1} or survivors.epoch != 1 or \
+                survivors.size != SMI_RANKS - 1:
+            raise AssertionError(f"recover_communicator: heirs {heirs}, "
+                                 f"epoch {survivors.epoch}, size "
+                                 f"{survivors.size}")
+        try:
+            survivors.validate_epoch(DROPPED + 1, 0)
+        except st.StaleEpochError as exc:
+            refused = str(exc)
+        else:
+            raise AssertionError("validate_epoch took epoch 0 at epoch 1")
+        log(f"  recover_communicator dropping rank {DROPPED}: heirs {heirs}, "
+            f"epoch {survivors.epoch}, {survivors.size} ranks, "
+            f"{shrink_s * 1e3:.3f} ms of host time; validate_epoch refuses "
+            f"epoch 0: {refused[:90]}...")
+        world7 = survivors.world
+        before = dict(_build.LAUNCHES)
+        t0 = time.perf_counter()
+        means7 = ckpt.run_kmeans(pts, init, 2 * KMEANS_ITERS, comm=world7,
+                                 store=store, cadence=KMEANS_ITERS,
+                                 backend="ring")
+        torch.cuda.synchronize()
+        wall7 = time.perf_counter() - t0
+        seven = _build.LAUNCHES["ring_all_reduce"] - before["ring_all_reduce"]
+        if seven <= 0:
+            raise AssertionError("the 7 survivors' k-means launched no ring "
+                                 "all-reduce")
+        if store.latest_step() != 2 * KMEANS_ITERS:
+            raise AssertionError(f"the survivors' store holds step "
+                                 f"{store.latest_step()}")
+        np.testing.assert_allclose(
+            means7.cpu().numpy(),
+            st.reference_kmeans(pts, init, 2 * KMEANS_ITERS),
+            rtol=1e-3, atol=1e-4)
+        log(f"  the means restored at iteration {KMEANS_ITERS} on the "
+            f"{world7.size} survivors (ranks {world7.parent_ranks}), "
+            f"{KMEANS_ITERS} more on the ring tier ({wall7 * 1e3:.1f} ms, "
+            f"{seven} ring all-reduce launches: k-means' reduce and bcast "
+            f"are each one): within rtol 1e-3, atol 1e-4 of "
+            f"reference_kmeans at {2 * KMEANS_ITERS} iterations")
+        # the neighbour stream on the same 7-rank ring: its 16 chunks of
+        # 512 KiB a rank, each rank's to the next
+        xs = [torch.rand((STREAM_CHUNKS, HALF_MIB // STREAM_CHUNKS),
+                         device=dev) for _ in range(world7.size)]
+        got = world7.run(lambda c: kring.neighbour_stream(xs[c.rank], c))
+        want = kring.neighbour_stream_plain(xs)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError("the neighbour stream on the 7 survivors "
+                                 "!= its plain version")
+        log(f"  the neighbour stream on the {world7.size} survivors "
+            f"({STREAM_CHUNKS} chunks, 512 KiB a rank): torch.equal to its "
+            f"plain version")
+        regrown = world8.regrow({DROPPED}, {DROPPED})
+        if (regrown.size, regrown.epoch) != (SMI_RANKS, 2):
+            raise AssertionError(f"regrow: {regrown.size} ranks at epoch "
+                                 f"{regrown.epoch}")
+        xs = [torch.rand(SMI_ELEMS, device=dev) for _ in range(SMI_RANKS)]
+        got = regrown.run(lambda c: kring.ring_all_reduce(xs[c.rank], c))
+        want = kring.ring_all_reduce_plain(xs)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError("the regrown world's all-reduce != its "
+                                 "plain version")
+        log(f"  regrow to {regrown.size} ranks at epoch {regrown.epoch}: a "
+            f"4 MiB ring all-reduce torch.equal to its plain version")
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    for kernel in ("ring_all_reduce", "ring_neighbour_stream"):
+        if launches[kernel] <= 0:
+            raise AssertionError(f"kernel {kernel} was not launched on the "
+                                 f"elastic path")
+    log(f"  launches {launches}")
+    return launches
 
 
 if __name__ == "__main__":

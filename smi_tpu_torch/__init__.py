@@ -27,7 +27,12 @@ does not load. Later slices complete SMI's collective surface:
 "ici")`` communicator with hierarchical and reduce-scatter + all-gather
 allreduce, quantised allreduce, verified transfers and tenant ports; and
 the plan engine (``smi_tpu_torch.tuning``) that decides their untuned
-knobs, from the card's own measured sweeps on an H100.
+knobs, from the card's own measured sweeps on an H100; and the elastic
+runtime's first tier: the routing layer and its ``FailureSet``, the
+degraded-mode communicator (``shrink``/``regrow`` and their pod forms,
+membership epochs, heirs, ``recover_communicator``), the hostfile
+bootstrap, and CRC-framed checkpoints with the checkpointed Jacobi and
+K-means drivers.
 Entry points run on CUDA unless the caller passes
 ``device="cpu"``; on a CPU tensor each kernel wrapper runs its plain
 PyTorch version instead.
@@ -156,6 +161,11 @@ from smi_tpu_torch.ops.types import (
     SmiOp,
     dtype_to_torch,
 )
+from smi_tpu_torch.parallel.checkpoint import (
+    CheckpointIntegrityError,
+    CheckpointStore,
+    run_iterative,
+)
 from smi_tpu_torch.parallel.channels import (
     FrameCheck,
     P2PChannel,
@@ -188,12 +198,15 @@ from smi_tpu_torch.parallel.halo import (
     shift_along,
 )
 from smi_tpu_torch.parallel.local import LocalWorld
+from smi_tpu_torch.parallel.membership import StaleEpochError
 from smi_tpu_torch.parallel.mesh import (
     Communicator,
     make_communicator,
     make_hybrid_communicator,
     mesh_from_topology,
 )
+from smi_tpu_torch.parallel.recovery import recover_communicator
+from smi_tpu_torch.parallel.routing import FailureSet, RouteCutError
 from smi_tpu_torch.utils.watchdog import Deadline, WatchdogTimeout
 
 __all__ = [
@@ -211,6 +224,9 @@ __all__ = [
     "bcast", "reduce", "allreduce", "scatter", "gather", "all_to_all",
     "allreduce_hierarchical", "error_feedback_reset",
     "Deadline", "WatchdogTimeout",
+    "FailureSet", "RouteCutError", "recover_communicator",
+    "CheckpointStore", "CheckpointIntegrityError", "run_iterative",
+    "StaleEpochError",
     "RING_STREAMS", "neighbour_stream", "neighbour_stream_plain",
     "ring_all_gather", "ring_all_gather_plain", "ring_all_reduce",
     "ring_all_reduce_plain", "ring_all_reduce_chunked_plain",

@@ -209,11 +209,15 @@ class SmiContext:
             slices=topo.outer if topo.hierarchical_eligible else None,
         )
 
-    # -- not ported yet -------------------------------------------------
+    # -- degraded mode -------------------------------------------------
     def shrink(self, excluded_ranks) -> "SmiContext":
-        raise NotImplementedError(
-            "shrink needs the degraded-mode communicator, which is not "
-            "ported yet (ROADMAP.md Queue 1 item 2: Communicator.shrink)"
+        """This context over the survivors' communicator
+        (:meth:`Communicator.shrink`: survivors keep rank order, the
+        shrunk grid is 1-D). The program metadata and backend tier carry
+        over; the deadline does not (a recovery phase gets a fresh
+        budget)."""
+        return dataclasses.replace(
+            self, comm=self.comm.shrink(excluded_ranks), deadline=None
         )
 
     # -- MPMD: per-rank divergent local compute ------------------------

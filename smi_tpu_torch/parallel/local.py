@@ -24,13 +24,30 @@ On CUDA each rank thread works on a stream of its own. A rank never
 calls ``torch.cuda.synchronize()`` (that would wait for its neighbours'
 streams too); it synchronises its own stream before a rendezvous, and
 the leader synchronises the world's stream before releasing the others.
+
+A rank meets the others only from a thread that ``run`` is running. That
+holds for a backward pass too: autograd runs a CUDA graph's nodes on one
+worker thread per card, where the first ring node to reach the barrier
+would hold the thread that the other ranks' nodes queue on, so
+:meth:`LocalWorld.run` turns autograd's device threads off for its rank
+threads (``torch.autograd.set_multithreading_enabled(False)``) and
+``.backward()`` called inside ``run`` runs every node on the rank's own
+thread. A rendezvous from a thread that no ``run`` is running (autograd's
+device thread, or the caller's after ``run`` returned) raises at once.
+
+:meth:`LocalWorld.shrink` and :meth:`LocalWorld.regrow` make the world
+of a membership change (the survivors, or the survivors and the ranks
+re-admitted): a new world of their threads on the same device, made once
+for each membership and epoch, whose ranks every member's
+``comm.shrink(...)`` / ``comm.regrow(...)`` returns.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import threading
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -48,6 +65,10 @@ from smi_tpu_torch.parallel.mesh import (
 #: is declared broken
 RENDEZVOUS_TIMEOUT_S = 600.0
 
+#: ``depth``: how many ``LocalWorld.run`` calls this thread is running a
+#: rank of (a rank thread may drive its rank of another world too)
+_RANK_THREAD = threading.local()
+
 
 class LocalWorld:
     """A rank grid of threads on one device.
@@ -56,7 +77,9 @@ class LocalWorld:
     axes (``"smi"`` for 1-D), ``device`` where every rank's tensors live
     (CUDA by default; pass ``device="cpu"`` to run on the CPU).
     ``world.comms[r]`` is rank r's communicator; :meth:`run` runs a
-    function on every rank at once.
+    function on every rank at once. A world made by a membership change
+    names the rank of the parent world each of its ranks was in
+    ``parent_ranks`` (None for a world built directly).
     """
 
     def __init__(self, shape, axis_names: Optional[Sequence[str]] = None,
@@ -85,6 +108,15 @@ class LocalWorld:
         #: persistent state of the ring tier (comm slots and flag words),
         #: owned by the world and managed by :mod:`smi_tpu_torch.kernels.ring`
         self.ring_state: dict = {}
+        self.parent_ranks: Optional[Tuple[int, ...]] = None
+        # the worlds of this world's membership changes, made once each
+        self._members: Dict[tuple, "LocalWorld"] = {}
+        self._members_lock = threading.Lock()
+
+    @property
+    def epoch(self) -> int:
+        """The membership epoch of every rank's communicator."""
+        return self.comms[0].epoch
 
     # -- running ranks --------------------------------------------------
 
@@ -119,10 +151,15 @@ class LocalWorld:
         out, errors = [None] * self.size, []
 
         def body(r):
+            _RANK_THREAD.depth = getattr(_RANK_THREAD, "depth", 0) + 1
             try:
                 if cuda:
+                    # autograd runs this rank's CUDA nodes on this thread,
+                    # not on the card's one worker thread, so a ring node
+                    # of a backward meets the others from its rank
                     with torch.cuda.device(self.device), \
-                            torch.cuda.stream(self._cuda_streams()[r + 1]):
+                            torch.cuda.stream(self._cuda_streams()[r + 1]), \
+                            torch.autograd.set_multithreading_enabled(False):
                         out[r] = fn(self.comms[r])
                         torch.cuda.current_stream().synchronize()
                 else:
@@ -130,6 +167,8 @@ class LocalWorld:
             except BaseException as exc:  # raised again below
                 errors.append(exc)
                 self._barrier.abort()
+            finally:
+                _RANK_THREAD.depth -= 1
 
         if self.size == 1:
             body(0)
@@ -153,7 +192,19 @@ class LocalWorld:
         ``work(payloads) -> results`` (one per rank, in rank order) on
         the world's stream, return this rank's result. ``kind`` names
         the call; ranks that arrive with different kinds have diverged,
-        and the world fails."""
+        and the world fails. A rank must arrive from a thread that
+        :meth:`run` is running: from any other (a backward pass run on
+        the outputs after ``run`` returned, say) it would wait for ever,
+        so it raises."""
+        if self.size > 1 and not getattr(_RANK_THREAD, "depth", 0):
+            raise RuntimeError(
+                f"rank {rank} of a {self.size}-rank world met the others "
+                f"from thread {threading.current_thread().name!r}, which "
+                f"no world.run is running: the ranks of a world meet only "
+                f"inside world.run. Call .backward() inside the function "
+                f"world.run runs, on each rank's loss, e.g. "
+                f"world.run(lambda c: fn(c)(q, k, v).sum().backward())"
+            )
         cuda = self.device.type == "cuda"
         if cuda:
             torch.cuda.current_stream().synchronize()
@@ -182,6 +233,46 @@ class LocalWorld:
         if cuda:
             _record_stream(result, torch.cuda.current_stream())
         return result
+
+    # -- membership changes (the elastic runtime) ------------------------
+
+    def shrink(self, excluded_ranks) -> "LocalWorld":
+        """The survivors' world: the world of every surviving rank's
+        ``comm.shrink(excluded_ranks)`` (this world for an empty
+        exclusion), for a host to :meth:`run` on."""
+        return self._change(excluded_ranks, lambda c: c.shrink(excluded_ranks))
+
+    def regrow(self, excluded_ranks, readmit_ranks,
+               epoch: Optional[int] = None) -> "LocalWorld":
+        """The world of every member's ``comm.regrow(excluded_ranks,
+        readmit_ranks, epoch)``, called on the original world."""
+        still_dead = set(excluded_ranks) - set(readmit_ranks)
+        return self._change(still_dead, lambda c: c.regrow(
+            excluded_ranks, readmit_ranks, epoch=epoch))
+
+    def _change(self, excluded, change) -> "LocalWorld":
+        """``change(comm)`` on a rank that stays a member (rank 0 when
+        none does, to raise the change's own error), as a world."""
+        excluded = set(excluded)
+        member = next((c for c in self.comms if c.rank not in excluded),
+                      self.comms[0])
+        return change(member).world
+
+    def _member_world(self, members: Sequence[int], shape, axis_names,
+                      epoch: int) -> "LocalWorld":
+        """The world over ``members`` (ranks of this world, in the new
+        rank order) as the grid ``shape`` at ``epoch``, made the first
+        time any member asks and the same world for every member after."""
+        key = (tuple(members), tuple(shape), tuple(axis_names), epoch)
+        with self._members_lock:
+            world = self._members.get(key)
+            if world is None:
+                world = LocalWorld(shape, axis_names, device=self.device)
+                world.comms = [dataclasses.replace(c, epoch=epoch)
+                               for c in world.comms]
+                world.parent_ranks = tuple(members)
+                self._members[key] = world
+        return world
 
     # -- the collective-library tier on the rendezvous ------------------
 

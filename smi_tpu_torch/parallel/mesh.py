@@ -42,6 +42,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from smi_tpu_torch.ops.serialization import Topology
 from smi_tpu_torch.ops.types import SmiOp
 
 DEFAULT_AXIS = "smi"
@@ -93,6 +94,15 @@ class Communicator:
     coordinates (None on a single-rank grid). ``world`` is the
     :class:`~smi_tpu_torch.parallel.local.LocalWorld` whose thread this
     rank is (None for a rank that is a process).
+
+    ``topology``, when built from a topology file, keeps the parsed link
+    list and MPMD program map for the routing layer and
+    :meth:`program_of_rank`. ``epoch`` is the membership epoch, bumped by
+    every composition change (:meth:`shrink`, :meth:`regrow`) so traffic
+    tagged with a superseded epoch is rejectable (:meth:`validate_epoch`);
+    like the topology it takes no part in equality. A grid of processes
+    made by a membership change names the process rank of each of its
+    ranks in ``process_ranks`` (None: rank r is process r).
     """
 
     shape: Tuple[int, ...]
@@ -103,6 +113,13 @@ class Communicator:
         default=None, compare=False, repr=False
     )
     world: Optional[object] = dataclasses.field(
+        default=None, compare=False, repr=False
+    )
+    topology: Optional[Topology] = dataclasses.field(
+        default=None, compare=False, repr=False
+    )
+    epoch: int = dataclasses.field(default=0, compare=False)
+    process_ranks: Optional[Tuple[int, ...]] = dataclasses.field(
         default=None, compare=False, repr=False
     )
 
@@ -162,18 +179,280 @@ class Communicator:
         """The pairwise all-to-all step schedule over this
         communicator's size: per step, the ``(src, dst)`` rank pairs the
         exchange drives (rank ``g`` sends to ``(g + s) % n`` at step
-        ``s``), every ordered pair of distinct ranks once."""
-        return _alltoall_pairwise_schedule(self.size)
+        ``s``), every ordered pair of distinct ranks once. It follows
+        every membership change: a shrunk or regrown communicator's
+        schedule is the rotation over its own size."""
+        from smi_tpu_torch.parallel.routing import alltoall_pairwise_schedule
+
+        return alltoall_pairwise_schedule(self.size)
+
+    # -- degraded mode (the elastic runtime) ----------------------------
+
+    def shrink(self, excluded_ranks) -> "Communicator":
+        """This rank's communicator over the survivors of
+        ``excluded_ranks`` (ULFM's ``MPI_Comm_shrink``).
+
+        Survivors keep their relative rank order, and the shrunk grid is
+        1-D over the default axis: axis structure cannot survive
+        arbitrary holes (:meth:`shrink_pod` keeps whole slices). The
+        epoch goes up by one; an empty exclusion returns ``self``. The
+        topology is dropped: its rank numbering no longer matches.
+
+        On a :class:`~smi_tpu_torch.parallel.local.LocalWorld` the
+        survivors' threads get the ranks of one new world on the same
+        device, made once for the exclusion and epoch
+        (:meth:`LocalWorld.shrink` returns it, to ``run`` on). On a grid
+        of processes the survivors build their process group among
+        themselves (a dead rank takes no part) and every peer is mapped
+        to its process rank. An excluded rank that asks raises
+        ``ValueError``.
+        """
+        excluded, _ = self._validate_membership_args(
+            excluded_ranks, None, "shrink")
+        size = self.size
+        if len(excluded) >= size:
+            raise ValueError(
+                f"cannot shrink a {size}-rank communicator by "
+                f"{len(excluded)} ranks: no survivors"
+            )
+        if not excluded:
+            return self
+        survivors = [r for r in range(size) if r not in excluded]
+        return self._member_comm(survivors, (len(survivors),),
+                                 (DEFAULT_AXIS,), self.epoch + 1, "shrink")
+
+    def regrow(self, excluded_ranks, readmit_ranks,
+               epoch: Optional[int] = None) -> "Communicator":
+        """The inverse of :meth:`shrink`: re-admit recovered ranks.
+
+        Called on the ORIGINAL (pre-shrink) communicator — the only
+        holder of the full rank order — with the currently excluded set
+        and the subset of it to re-admit. Returns this rank's
+        communicator in a fresh 1-D grid over the surviving and
+        re-admitted ranks in original rank order, under a new epoch:
+        ``epoch`` (``shrunk.epoch + 1`` of the live chain) when more
+        than one shrink produced the excluded set, else this
+        communicator's epoch plus two (one for the shrink, one for this
+        regrow), so the shrunk incarnation's epoch never collides with
+        the regrown one's. With a ``topology`` the still-dead devices
+        become a :class:`~smi_tpu_torch.parallel.routing.FailureSet` and
+        every member pair must still route around them, or
+        :class:`~smi_tpu_torch.parallel.routing.RouteCutError` names the
+        cut; without one no physical check runs.
+        """
+        excluded, readmit = self._validate_membership_args(
+            excluded_ranks, readmit_ranks, "regrow"
+        )
+        still_dead = excluded - readmit
+        self._check_regrow_routes(still_dead)
+        alive = [r for r in range(self.size) if r not in still_dead]
+        return self._member_comm(
+            alive, (len(alive),), (DEFAULT_AXIS,),
+            self.epoch + 2 if epoch is None else epoch, "regrow")
+
+    def _validate_membership_args(self, excluded_ranks, readmit_ranks,
+                                  what: str):
+        """The shared argument check of the shrink/regrow pairs (flat
+        and pod): the excluded set in range and, for a regrow, readmit a
+        non-empty subset of it. Returns ``(excluded, readmit)`` as sets
+        (``readmit`` None for a shrink)."""
+        excluded = set(excluded_ranks)
+        readmit = None
+        if readmit_ranks is not None:
+            readmit = set(readmit_ranks)
+            stray = sorted(readmit - excluded)
+            if stray:
+                raise ValueError(
+                    f"cannot regrow ranks {stray}: they are not in the "
+                    f"excluded set {sorted(excluded)}"
+                )
+            if not readmit:
+                raise ValueError(
+                    f"{what}() needs at least one rank to re-admit"
+                )
+        size = self.size
+        bad = sorted(r for r in excluded if not (0 <= r < size))
+        if bad:
+            raise ValueError(
+                f"excluded ranks {bad} out of range for comm size {size}"
+            )
+        return excluded, readmit
+
+    def _check_regrow_routes(self, still_dead) -> None:
+        """The physical leg of a regrow: with a topology, the still-dead
+        devices become a FailureSet and every member pair must route
+        around them (RouteCutError names the cut). Without one there is
+        nothing to check."""
+        if self.topology is None:
+            return
+        from smi_tpu_torch.parallel.routing import (
+            FailureSet,
+            build_routing_context,
+            check_all_pairs_routable,
+        )
+
+        topo_devices = self.topology.devices
+        cut = FailureSet(devices=frozenset(
+            topo_devices[r] for r in sorted(still_dead)
+        ))
+        ctx = build_routing_context(self.topology, excluded=cut)
+        alive = [r for r in range(self.size) if r not in still_dead]
+        check_all_pairs_routable(
+            ctx, [topo_devices[r] for r in alive]
+        )
+
+    def _pod_axes(self, what: str) -> Tuple[int, int]:
+        """(slices, per_slice) of a two-axis hybrid communicator; loud
+        otherwise."""
+        if len(self.axis_names) != 2:
+            raise ValueError(
+                f"{what}() needs a 2-axis (slices, per_slice) hybrid "
+                f"communicator; got axes {self.axis_names} — use "
+                f"{what.replace('_pod', '')}() on flat meshes"
+            )
+        return self.shape[0], self.shape[1]
+
+    def _pod_mesh_without(self, dead_slices, what: str,
+                          epoch: int) -> "Communicator":
+        """The hybrid grid with whole dead slices dropped from the outer
+        axis: the one copy of the row layout :meth:`shrink_pod` and
+        :meth:`regrow_pod` share."""
+        slices, per_slice = self._pod_axes(what)
+        rows = [s for s in range(slices) if s not in dead_slices]
+        members = [s * per_slice + i for s in rows for i in range(per_slice)]
+        return self._member_comm(members, (len(rows), per_slice),
+                                 self.axis_names, epoch, what)
+
+    def shrink_pod(self, excluded_ranks) -> "Communicator":
+        """Pod-aware :meth:`shrink` for a hybrid (slices, per_slice)
+        communicator.
+
+        Whole dead slices drop out of the OUTER axis with the hybrid
+        shape kept, so hierarchical collectives go on over the remaining
+        slices. A partial slice cannot keep the shape (unequal slices do
+        not tile), so dead ranks fall back to the flat 1-D ring over all
+        survivors. The epoch goes up once either way (an empty exclusion
+        returns ``self``).
+        """
+        slices, per_slice = self._pod_axes("shrink_pod")
+        excluded, _ = self._validate_membership_args(
+            excluded_ranks, None, "shrink_pod"
+        )
+        size = self.size
+        if not excluded:
+            return self
+        if len(excluded) >= size:
+            raise ValueError(
+                f"cannot shrink a {size}-rank pod by {len(excluded)} "
+                f"ranks: no survivors"
+            )
+        by_slice: dict = {}
+        for r in excluded:
+            by_slice.setdefault(r // per_slice, set()).add(r)
+        if any(len(dead) < per_slice for dead in by_slice.values()):
+            return self.shrink(excluded)  # partial slice: flat ring
+        return self._pod_mesh_without(by_slice, "shrink_pod",
+                                      epoch=self.epoch + 1)
+
+    def regrow_pod(self, excluded_ranks, readmit_ranks,
+                   epoch: Optional[int] = None) -> "Communicator":
+        """The inverse of :meth:`shrink_pod`, called on the ORIGINAL pod
+        communicator. When the still-dead set is whole slices (usually
+        empty) the result keeps the hybrid shape; a still-dead partial
+        slice falls back to the flat :meth:`regrow`. Epochs as in
+        :meth:`regrow`."""
+        slices, per_slice = self._pod_axes("regrow_pod")
+        excluded, readmit = self._validate_membership_args(
+            excluded_ranks, readmit_ranks, "regrow_pod"
+        )
+        still_dead = excluded - readmit
+        by_slice: dict = {}
+        for r in still_dead:
+            by_slice.setdefault(r // per_slice, set()).add(r)
+        new_epoch = self.epoch + 2 if epoch is None else epoch
+        if any(len(dead) < per_slice for dead in by_slice.values()):
+            return self.regrow(excluded, readmit, epoch=new_epoch)
+        self._check_regrow_routes(still_dead)
+        return self._pod_mesh_without(by_slice, "regrow_pod",
+                                      epoch=new_epoch)
+
+    def _member_comm(self, members: List[int], shape: Tuple[int, ...],
+                     axis_names: Tuple[str, ...], epoch: int,
+                     what: str) -> "Communicator":
+        """This rank's communicator in the grid ``shape`` over
+        ``members`` (ranks of this communicator, in the new rank order)
+        at ``epoch``: a rank of the members' new world of threads, or of
+        the members' process group."""
+        if self.rank not in members:
+            raise ValueError(
+                f"rank {self.rank} is excluded by this {what}: it has no "
+                f"rank among the members {members}"
+            )
+        if self.world is not None:
+            world = self.world._member_world(members, shape, axis_names,
+                                             epoch)
+            return world.comms[members.index(self.rank)]
+        return _process_member_comm(self, members, shape, axis_names, epoch)
+
+    def validate_epoch(self, rank: int, epoch: int,
+                       what: str = "message") -> None:
+        """Reject traffic tagged with another epoch: the loud stale-epoch
+        gate (:class:`~smi_tpu_torch.parallel.membership.
+        StaleEpochError`). A *newer* epoch than ours is the mirror
+        failure — WE missed a membership change — and is named so."""
+        if epoch != self.epoch:
+            from smi_tpu_torch.parallel.membership import StaleEpochError
+
+            raise StaleEpochError(rank, epoch, self.epoch, what=what)
+
+    def heirs(self, excluded_ranks) -> dict:
+        """excluded rank -> its surviving heir (nearest successor on the
+        ring), which inherits its duties: its progress-logged chunks, its
+        logged contribution to a restarted reduction
+        (:func:`smi_tpu_torch.parallel.recovery.heir_of`). Raises
+        ``ValueError`` when nobody survives."""
+        from smi_tpu_torch.parallel.recovery import heir_of
+
+        excluded = set(excluded_ranks)
+        size = self.size
+        bad = sorted(r for r in excluded if not (0 <= r < size))
+        if bad:
+            raise ValueError(
+                f"excluded ranks {bad} out of range for comm size {size}"
+            )
+        if len(excluded) >= size:
+            raise ValueError(
+                f"no survivors among {size} ranks to inherit from "
+                f"{sorted(excluded)}"
+            )
+        survivors = [r for r in range(size) if r not in excluded]
+        return {r: heir_of(r, survivors, size) for r in excluded}
+
+    def program_of_rank(self, rank: int):
+        """The program rank ``rank`` runs under MPMD (None without a
+        topology)."""
+        if self.topology is None:
+            return None
+        device = self.topology.mapping.devices[rank]
+        return self.topology.mapping.program_for(device)
 
     # -- the transport seam (the collective-library tier) --------------
 
     def _group(self, axis_name: Optional[str]):
         """The process group of a collective over ``axis_name`` (None:
-        the default group, which the grid spans)."""
-        if axis_name is None or not self.groups:
+        the whole grid's, the default group unless a membership change
+        made the grid)."""
+        if not self.groups:
             return None
+        if axis_name is None:
+            return self.groups.get(None)
         self._axis(axis_name)
         return self.groups[axis_name]
+
+    def _process(self, rank: int) -> int:
+        """The process rank of this grid's ``rank``: a point-to-point
+        peer is named by its rank in the default group."""
+        return rank if self.process_ranks is None else self.process_ranks[rank]
 
     def exchange_start(self, shifts: Sequence[Shift],
                        ring: bool) -> Exchange:
@@ -204,10 +483,11 @@ class Communicator:
             group = self._group(axis_name)
             ops = by_axis.setdefault(axis_name, [])
             if dst is not None:
-                ops.append(dist.P2POp(dist.isend, x.contiguous(), dst,
-                                      group=group, tag=tag))
+                ops.append(dist.P2POp(dist.isend, x.contiguous(),
+                                      self._process(dst), group=group,
+                                      tag=tag))
             if src is not None:
-                ops.append(dist.P2POp(dist.irecv, out, src,
+                ops.append(dist.P2POp(dist.irecv, out, self._process(src),
                                       group=group, tag=tag))
         # one batch per axis subgroup (a batch may not mix groups), all
         # in flight together
@@ -225,14 +505,17 @@ class Communicator:
             return self.world.permute(self, x, perm)
         out = torch.zeros_like(x, memory_format=torch.contiguous_format)
         ops = []
+        group = self._group(None)
         for tag, (src, dst) in enumerate(perm):
             if src == dst == self.rank:
                 out.copy_(x)
             elif src == self.rank:
-                ops.append(dist.P2POp(dist.isend, x.contiguous(), dst,
+                ops.append(dist.P2POp(dist.isend, x.contiguous(),
+                                      self._process(dst), group=group,
                                       tag=tag))
             elif dst == self.rank:
-                ops.append(dist.P2POp(dist.irecv, out, src, tag=tag))
+                ops.append(dist.P2POp(dist.irecv, out, self._process(src),
+                                      group=group, tag=tag))
         if ops:
             for work in dist.batch_isend_irecv(ops):
                 work.wait()
@@ -310,20 +593,6 @@ class Communicator:
         out = torch.empty_like(x)
         dist.all_to_all_single(out, x, group=self._group(axis_name))
         return out
-
-
-def _alltoall_pairwise_schedule(n: int) -> List[List[Tuple[int, int]]]:
-    """Step ``s`` (list index ``s - 1``) pairs every rank ``g`` with
-    ``(g + s) % n``: the rotation the JAX package's
-    ``credits.all_to_all_rank`` executes.
-    Every ordered pair of distinct ranks appears once over the ``n - 1``
-    steps, and each step's sends are a permutation."""
-    if n < 1:
-        raise ValueError(f"need n >= 1 ranks, got {n}")
-    return [
-        [(g, (g + s) % n) for g in range(n)]
-        for s in range(1, n)
-    ]
 
 
 def _unravel(rank: int, shape: Sequence[int]) -> Tuple[int, ...]:
@@ -473,8 +742,53 @@ def make_hybrid_communicator(
                              axis_names=tuple(axis_names), device=device)
 
 
-def mesh_from_topology(topology, device=None) -> Communicator:
+def mesh_from_topology(topology: Topology, device=None) -> Communicator:
     """A communicator whose ranks are the topology file's devices, in the
     file's deterministic ``(node, index)`` order (one rank a device of
-    the parsed :class:`~smi_tpu_torch.ops.serialization.Topology`)."""
-    return make_communicator(n_devices=len(topology.devices), device=device)
+    the parsed :class:`~smi_tpu_torch.ops.serialization.Topology`). The
+    link list and MPMD program map stay on it (``.topology``) for the
+    routing layer, :meth:`Communicator.regrow`'s route check and
+    :meth:`Communicator.program_of_rank`."""
+    base = make_communicator(n_devices=len(topology.devices), device=device)
+    return dataclasses.replace(base, topology=topology)
+
+
+#: the process groups of each membership the processes formed:
+#: ``(process ranks, shape, axis names, epoch) -> groups``, so a second
+#: shrink to the same members at the same epoch takes the same groups
+#: (the other members create each group once)
+_MEMBER_GROUPS: Dict[tuple, Dict[Optional[str], object]] = {}
+
+
+def _process_member_comm(comm: Communicator, members: List[int],
+                         shape: Tuple[int, ...],
+                         axis_names: Tuple[str, ...],
+                         epoch: int) -> Communicator:
+    """``comm``'s process in the grid ``shape`` over the processes of
+    ``members``: the members create the grid's group and one group per
+    axis line they are on among themselves
+    (``use_local_synchronization``), so an excluded process, which may be
+    dead, takes no part."""
+    procs = tuple(comm._process(r) for r in members)
+    me = members.index(comm.rank)
+    groups = None
+    if len(procs) > 1:
+        key = (procs, shape, axis_names, epoch)
+        groups = _MEMBER_GROUPS.get(key)
+        if groups is None:
+            backend = "nccl" if comm.device.type == "cuda" else "gloo"
+
+            def group(ranks):
+                return dist.new_group(list(ranks), backend=backend,
+                                      use_local_synchronization=True)
+
+            groups = {None: group(procs)}
+            for a, name in enumerate(axis_names):
+                line = next(line for line in _axis_lines(shape, a)
+                            if me in line)
+                groups[name] = (groups[None] if len(line) == len(procs)
+                                else group(procs[i] for i in line))
+            _MEMBER_GROUPS[key] = groups
+    return Communicator(shape=shape, axis_names=axis_names, rank=me,
+                        device=comm.device, groups=groups, epoch=epoch,
+                        process_ranks=procs)

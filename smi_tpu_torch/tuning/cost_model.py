@@ -169,6 +169,14 @@ def topology_from_comm(comm) -> TopologySpec:
     return TopologySpec(n=n)
 
 
+def topology_from_routing(topology) -> TopologySpec:
+    """TopologySpec from a build-time routing topology
+    (:func:`smi_tpu_torch.parallel.routing.grid_topology` et al.): the
+    route-table world's device count, fed to the same model as a live
+    communicator's."""
+    return TopologySpec(n=len(topology.devices))
+
+
 # ---------------------------------------------------------------------------
 # Collective algorithm costs
 # ---------------------------------------------------------------------------

@@ -21,17 +21,22 @@ from typing import Callable, Optional
 
 class WatchdogTimeout(TimeoutError):
     """A deadline expired. ``state_dump`` is the provider's text (or
-    None); ``elapsed`` and ``budget`` are seconds."""
+    None); ``elapsed`` and ``budget`` are seconds. ``state`` is the
+    structured per-rank dump (``{rank: {"state": ...}}``) when the raiser
+    has one: :func:`smi_tpu_torch.parallel.recovery.failed_ranks_of`
+    reads the ranks it marks ``"stalled"`` from it."""
 
     def __init__(self, message: str, state_dump: Optional[str] = None,
                  elapsed: Optional[float] = None,
-                 budget: Optional[float] = None):
+                 budget: Optional[float] = None,
+                 state: Optional[dict] = None):
         if state_dump:
             message = f"{message}\n{state_dump}"
         super().__init__(message)
         self.state_dump = state_dump
         self.elapsed = elapsed
         self.budget = budget
+        self.state = state
 
 
 class Deadline:

@@ -28,7 +28,7 @@ import smi_tpu_torch as st
 from smi_tpu.parallel import collectives as jcoll
 from smi_tpu.parallel.mesh import make_communicator, make_hybrid_communicator
 from smi_tpu_torch.parallel import collectives as pcoll
-from smi_tpu_torch.parallel import mesh as pmesh
+from smi_tpu_torch.parallel import routing
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 import torch_gloo_worker  # noqa: E402
@@ -194,7 +194,7 @@ def test_pairwise_schedule_matches_the_jax_package(n):
 
 def test_schedule_rejects_zero_ranks():
     with pytest.raises(ValueError, match="n >= 1"):
-        pmesh._alltoall_pairwise_schedule(0)
+        routing.alltoall_pairwise_schedule(0)
 
 
 def test_transport_all_to_all_over_one_axis(hybrid_world):

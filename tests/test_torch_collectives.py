@@ -253,8 +253,8 @@ def _on_world(fn, n=4):
      "unknown all_to_all algorithm"),
     (lambda c, x: st.SmiContext(c).explain_plan("ghost"), ValueError,
      "unknown op 'ghost'"),
-    (lambda c, x: st.SmiContext(c).shrink({1}), NotImplementedError,
-     "degraded-mode"),
+    (lambda c, x: st.SmiContext(c).shrink(range(c.size)), ValueError,
+     "no survivors"),
     (lambda c, x: pcoll.all_to_all(x[:6], c), ValueError,
      "not divisible by comm size"),
     (lambda c, x: st.allreduce(x.int(), c, precision="bf16"), ValueError,

@@ -1283,3 +1283,174 @@ def test_sweeps_write_entries_keyed_to_the_card(engine_on_card):
             "all_to_all|pow2:16|float32|" + kind + "|n4:dcn2"} <= set(sigs)
     assert all(PlanKey.from_signature(s).device_kind == kind for s in sigs)
     assert len(record) == 4 + 3 and all(us > 0 for _, _, us in record)
+
+
+# ------------------------------------- the backward on a thread world --
+
+#: a rendezvous that waits this long has hung; the default is 600 s
+SHORT_RENDEZVOUS_S = 30.0
+#: the f32 bar of the ring's gradients against the one-rank gradients
+#: (``F32_TOL`` of ``chip_smoke.py``: atol = rtol)
+GRAD_TOL = 2e-5
+
+
+@pytest.fixture
+def short_rendezvous(monkeypatch):
+    """Worlds built under this fixture break a hung rendezvous in
+    ``SHORT_RENDEZVOUS_S`` (the barrier takes its timeout when the world
+    is built)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from smi_tpu_torch.parallel import local
+
+    monkeypatch.setattr(local, "RENDEZVOUS_TIMEOUT_S", SHORT_RENDEZVOUS_S)
+
+
+def _attention_grads(comm, shards, weight, use_flash, threads):
+    """``(dq, dk, dv)`` of ``sum(attention(q, k, v) * weight)`` on this
+    rank by one ``.backward()``; the name of the thread that ran q's
+    gradient node goes into ``threads``."""
+    import threading
+
+    q, k, v = (s.clone().requires_grad_(True) for s in shards)
+    q.register_hook(lambda g: threads.append(
+        (comm.rank, threading.current_thread().name)))
+    out = st.make_ring_attention_fn(comm, causal=True,
+                                    use_flash=use_flash)(q, k, v)
+    (out * weight).sum().backward()
+    return q.grad, k.grad, v.grad
+
+
+@pytest.mark.parametrize("use_flash", [True, False], ids=["flash", "plain"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_ring_attention_backward_on_a_thread_world(short_rendezvous, n,
+                                                   use_flash):
+    """Every rank of a CUDA ``LocalWorld`` calls ``.backward()`` on its
+    loss: the ring's backward meets at the world's rendezvous from the
+    rank threads, and the gradients equal the one-rank gradients over the
+    whole sequence."""
+    import time
+
+    s_local, h, d = 512, 2, 64
+    rng = np.random.RandomState(16 + n)
+    q, k, v, w = (rng.randn(s_local * n, h, d).astype(np.float32)
+                  for _ in range(4))
+    one = st.make_communicator(shape=(1,), axis_names=("sp",),
+                               device="cuda")
+    whole = [st.sequence_shard_from_numpy(x, one) for x in (q, k, v)]
+    want = _attention_grads(one, whole, st.sequence_shard_from_numpy(w, one),
+                            use_flash, [])
+    world = st.LocalWorld(n, ("sp",))
+    threads = []
+
+    def rank(c):
+        shards = [st.sequence_shard_from_numpy(x, c) for x in (q, k, v)]
+        return _attention_grads(c, shards, st.sequence_shard_from_numpy(w, c),
+                                use_flash, threads)
+
+    t0 = time.perf_counter()
+    got = world.run(rank)
+    assert time.perf_counter() - t0 < SHORT_RENDEZVOUS_S
+    assert sorted(threads) == [(r, f"smi-rank-{r}") for r in range(n)]
+    for i, name in enumerate(("dq", "dk", "dv")):
+        ring = torch.cat([g[i] for g in got])
+        torch.testing.assert_close(ring, want[i], rtol=GRAD_TOL,
+                                   atol=GRAD_TOL, msg=name)
+
+
+def test_ring_shift_backward_on_a_thread_world(short_rendezvous):
+    """``ring_shift(x).sum().backward()`` on every rank of a 4-rank CUDA
+    world: rank r's x went to rank r + 1, whose loss weights it by
+    ``(r + 1) % 4 + 1``, so that is rank r's gradient."""
+    n = 4
+    world = st.LocalWorld(n)
+
+    def rank(c):
+        x = torch.full((3, 130), float(c.rank), device=c.device,
+                       requires_grad=True)
+        (st.ring_shift(x, c) * (c.rank + 1)).sum().backward()
+        return x.grad
+
+    got = world.run(rank)
+    for r, g in enumerate(got):
+        assert torch.equal(g, torch.full_like(g, (r + 1) % n + 1))
+
+
+# --------------------------------- rings of 7 and the elastic worlds --
+
+
+@pytest.mark.parametrize("dtype,op", [(torch.float32, "add"),
+                                      (torch.int32, "max")], ids=str)
+def test_ring_all_reduce_on_seven_ranks(cuda_world, dtype, op):
+    """A ring whose size is not a power of two (the survivors of an
+    8-rank world): the kernel equals its plain version."""
+    from smi_tpu_torch.kernels import ring as kring
+
+    xs = _ring_inputs(7, (65520 // 7, 16), dtype, seed=7)
+    _check_ring(cuda_world(7),
+                lambda x, c, probe=False: "ring_all_reduce" if probe
+                else kring.ring_all_reduce(x, c, op=op),
+                lambda ys: kring.ring_all_reduce_plain(ys, op), xs)
+
+
+@pytest.mark.parametrize("root", [0, 3, 6])
+def test_ring_bcast_on_seven_ranks(cuda_world, root):
+    """``bcast`` on the ring tier (one launch of the ring all-reduce, the
+    root's value the only non-zero contribution) equals the root's value
+    on every rank of a 7-rank world."""
+    world = cuda_world(7)
+    xs = _ring_inputs(7, (16, 130), torch.float32, seed=root)
+    before = _build.LAUNCHES["ring_all_reduce"]
+    got = world.run(lambda c: st.bcast(xs[c.rank], c, root=root,
+                                       backend="ring"))
+    assert _build.LAUNCHES["ring_all_reduce"] == before + 1
+    for g in got:
+        assert torch.equal(g, xs[root])
+
+
+@pytest.mark.parametrize("direction", [1, -1])
+def test_neighbour_stream_on_seven_ranks(cuda_world, direction):
+    from smi_tpu_torch.kernels import ring as kring
+
+    xs = _ring_inputs(7, (16, 8192), torch.float32, seed=7 + direction)
+    _check_ring(cuda_world(7),
+                lambda x, c, probe=False: "ring_neighbour_stream" if probe
+                else kring.neighbour_stream(x, c, direction=direction),
+                lambda ys: kring.neighbour_stream_plain(ys, direction), xs)
+
+
+@pytest.mark.parametrize("backend", ["xla", "ring"])
+def test_shrunk_and_regrown_worlds_all_reduce_on_the_card(backend):
+    """8 ranks lose rank 5: the survivors' world (7 ranks, epoch 1) and
+    the regrown one (8 ranks, epoch 2) each all-reduce to the plain sum
+    of their members' inputs, in the survivors' own run and inside the
+    parent's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from smi_tpu_torch.kernels import ring as kring
+
+    world = st.LocalWorld(8)
+    xs = _ring_inputs(8, (4096,), torch.float32, seed=16)
+    small = world.shrink({5})
+    assert (small.size, small.epoch, small.parent_ranks) == (
+        7, 1, (0, 1, 2, 3, 4, 6, 7))
+    members = [xs[r] for r in small.parent_ranks]
+    want = kring.ring_all_reduce_plain(members)
+    got = small.run(lambda c: st.allreduce(members[c.rank], c,
+                                           backend=backend))
+    inside = world.run(lambda c: None if c.rank == 5 else st.allreduce(
+        xs[c.rank], c.shrink({5}), backend=backend))
+    for g, w, i in zip(got, want, [o for o in inside if o is not None]):
+        if backend == "ring":
+            assert torch.equal(g, w) and torch.equal(i, w)
+        else:
+            torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-5)
+            assert torch.equal(i, g)
+    back = world.regrow({5}, {5})
+    assert (back.size, back.epoch) == (8, 2)
+    got = back.run(lambda c: st.allreduce(xs[c.rank], c, backend=backend))
+    for g, w in zip(got, kring.ring_all_reduce_plain(xs)):
+        if backend == "ring":
+            assert torch.equal(g, w)
+        else:
+            torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-5)

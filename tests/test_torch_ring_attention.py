@@ -379,3 +379,40 @@ def test_thread_ring_raises_a_rank_failure_without_hanging():
     with pytest.raises(ValueError, match="rank 1 failed"):
         ring.run(rank)
     assert ring.barrier.broken
+
+
+@pytest.mark.parametrize("use_flash", [True, False], ids=["flash", "plain"])
+def test_every_rank_of_a_thread_world_calls_backward(comm1, use_flash):
+    """``.backward()`` on each rank's loss inside ``LocalWorld.run``: the
+    ring backward meets at the rendezvous from the rank threads, and the
+    gradients are the one-rank ones over the whole sequence."""
+    n, s_local, h, d = 2, 16, 2, 8
+    rng = np.random.RandomState(3)
+    q, k, v, w = (rng.randn(n * s_local, h, d).astype(np.float32)
+                  for _ in range(4))
+
+    def grads(comm):
+        xs = [st.sequence_shard_from_numpy(a, comm).requires_grad_(True)
+              for a in (q, k, v)]
+        out = st.make_ring_attention_fn(comm, causal=True,
+                                        use_flash=use_flash)(*xs)
+        (out * st.sequence_shard_from_numpy(w, comm)).sum().backward()
+        return [x.grad for x in xs]
+
+    want = grads(comm1)
+    got = st.LocalWorld(n, ("sp",), device="cpu").run(grads)
+    for i in range(3):
+        torch.testing.assert_close(torch.cat([g[i] for g in got]), want[i],
+                                   rtol=2e-5, atol=2e-5)
+
+
+def test_a_backward_after_run_returned_fails_at_once():
+    """The outputs' backward outside ``world.run`` would wait at the
+    rendezvous for ranks that never come: it raises, naming the way."""
+    world = st.LocalWorld(2, device="cpu")
+    x = torch.ones(4, requires_grad=True)
+    outs = world.run(lambda c: st.ring_shift(x * (c.rank + 1), c))
+    with pytest.raises(RuntimeError, match="inside world.run"):
+        torch.stack(outs).sum().backward()
+    again = world.run(lambda c: st.ring_shift(x * (c.rank + 1), c))
+    assert [o.tolist() for o in again] == [[2.0] * 4, [1.0] * 4]

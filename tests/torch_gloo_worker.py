@@ -9,7 +9,8 @@ attention: :func:`run_attention`), ``tests/test_torch_transformer.py``
 the collective-library tier: :func:`run_collectives`) and
 ``tests/test_torch_alltoall.py`` (the all-to-all family, the hybrid
 communicator's collectives and verified transfers: :func:`run_surface`)
-through :func:`run_group`; it imports
+and ``tests/test_torch_elastic.py`` (a rank drops out and the survivors
+shrink: :func:`run_shrink`) through :func:`run_group`; it imports
 torch and the port, never jax, so each child starts quickly. Every rank
 checks its own halo slabs against slices of the zero-padded global grid;
 rank 0 reports the gathered results of the distributed stencil tiers on
@@ -394,6 +395,60 @@ def run_surface(rank, world, port, x, results):
                 k: (v.float() if v.dtype == torch.bfloat16 else v).numpy()
                 for k, v in out.items()}))
             dist.barrier()
+        finally:
+            dist.destroy_process_group()
+    except BaseException:  # report every failure to the parent, then exit
+        results.put((rank, "error", traceback.format_exc()))
+        raise
+
+
+def shrink_suite(comm, x):
+    """The collectives of a shrunk communicator on this rank's ``(12,)``
+    float32 ``x``: ``{name: tensor}`` — the all-reduce, a ring shift and
+    a channel transfer (point-to-point, peers by process rank), a bcast,
+    a reduce and an all-to-all."""
+    import smi_tpu_torch as st
+
+    ch = st.P2PChannel(comm, port=0, src=2, dst=0, count=x.shape[0])
+    return {
+        "allreduce": st.allreduce(x, comm),
+        "allreduce max": st.allreduce(x, comm, op="max"),
+        "ring shift": st.ring_shift(x, comm),
+        "transfer": ch.transfer(x),
+        "bcast": st.bcast(x, comm, root=1),
+        "reduce": st.reduce(x, comm, root=2),
+        "all_to_all": st.all_to_all(x, comm),
+    }
+
+
+def run_shrink(rank, world, port, x, dropped, results):
+    """Initialise gloo and a ``world``-rank communicator; rank
+    ``dropped`` then drops out and takes no further part, while the
+    survivors shrink it away (twice: the second call must give the same
+    groups) and run :func:`shrink_suite` on this rank's row of ``x``.
+    Reports the shrunk rank, size, epoch and process ranks beside the
+    results."""
+    try:
+        import torch
+        import torch.distributed as dist
+
+        import smi_tpu_torch as st
+
+        _init_gloo(rank, world, port)
+        comm = st.make_communicator(world, device="cpu")
+        if rank == dropped:
+            results.put((rank, "ok", None))
+            return
+        try:
+            shrunk = comm.shrink({dropped})
+            again = comm.shrink({dropped})
+            out = {k: v.numpy() for k, v in shrink_suite(
+                shrunk, torch.from_numpy(x[rank])).items()}
+            out["membership"] = (shrunk.rank, shrunk.size, shrunk.epoch,
+                                 shrunk.process_ranks,
+                                 again.groups is shrunk.groups)
+            results.put((rank, "ok", out))
+            dist.barrier(group=shrunk.groups[None])
         finally:
             dist.destroy_process_group()
     except BaseException:  # report every failure to the parent, then exit
