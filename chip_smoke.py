@@ -335,6 +335,25 @@ Then the elastic runtime's first tier:
    2 and a 4 MiB ring all-reduce ``torch.equal`` to its plain version.
    Launches counted (rows 5 and 7 add them).
 
+Then the fault-simulator tier:
+
+35. on an 8-rank ``LocalWorld``: ``Deadline(0.0)`` on each ring-tier
+   family (``bcast``, ``reduce``, ``allreduce``, ``scatter``, ``gather``,
+   a channel's ``transfer`` and ``stream``) raises ``WatchdogTimeout``
+   on every rank with ``.state`` equal to ``faults.mirror_stall_dump``
+   of the family's protocol, and no ring kernel launches; the credit
+   simulator's all-reduce with rank ``FAULT_RANK`` crash-stopped raises
+   ``DeadlockError``, and ``recover_communicator`` on it shrinks to the 7
+   survivors with heir ``FAULT_HEIR``; their 4 MiB f32 ring all-reduce
+   and 512 KiB neighbour stream ``torch.equal`` to the plain versions,
+   credits drained, each rank's readback under ``run_with_deadline``;
+   ``timed(deadline_s=, sink=OnlineTuner)`` records one sample; on the
+   host, ``run_with_recovery`` heals a crash-stop on each ring protocol at
+   n = 8 and the phi-accrual detector confirms a silent rank into a
+   ``MembershipView``. The cells that need ``networkx`` are named and
+   left out (``NETWORKX_CELLS``). Launches counted (rows 5 and 7 add
+   them).
+
 Bars: f32 out/acc/gradients within 2e-5 (``rtol = atol``); m and l within
 1e-5 in either dtype (both sides add exact products in f32); bf16
 out/acc/gradients by the worst row's relative error ``||got - want|| /
@@ -707,9 +726,11 @@ def main(argv=None) -> int:
     tuning_phase(dev, gen, smi_line)
     backward_launches = backward_world_phase(dev)
     elastic_launches = elastic_phase(dev, smi_line)
+    fault_launches = fault_tier_phase(dev, smi_line)
     # rows 5 and 7 count phase 31's launches beside phases 21-23's, and
-    # the first record of each ring and flash kernel phases 33-34's
-    later = {RING_REPLACES[k]: elastic_launches[k] for k in RING_REPLACES}
+    # the first record of each ring and flash kernel phases 33-35's
+    later = {RING_REPLACES[k]: elastic_launches[k] + fault_launches[k]
+             for k in RING_REPLACES}
     later.update({REPLACES[k]: backward_launches[k] for k in REPLACES})
     for record in records:
         for kernel in ("ring_all_reduce", "ring_neighbour_stream"):
@@ -4675,6 +4696,276 @@ def elastic_phase(dev, smi_line):
         if launches[kernel] <= 0:
             raise AssertionError(f"kernel {kernel} was not launched on the "
                                  f"elastic path")
+    log(f"  launches {launches}")
+    return launches
+
+
+#: phase 35: the rank a simulated all-reduce loses (``tests/test_recovery.py``'s
+#: input: crash-stop after 3 actions) and the heir that inherits from it
+FAULT_RANK, FAULT_AFTER, FAULT_HEIR = 5, 3, 6
+#: the watchdog's budget on the survivors' readbacks, seconds
+READBACK_BUDGET_S = 60.0
+#: the protocols of the recovery cells run on the card's host
+RECOVERY_PROTOCOLS = ("all_gather", "all_reduce", "reduce_scatter",
+                      "neighbour_stream")
+#: the simulator cells phase 35 leaves out: each reaches ``networkx``
+#: (through ``parallel.routing``), which the card's machine lacks
+NETWORKX_CELLS = (
+    "run_with_recovery under a DownLink (recovery._check_cut_routable)",
+    "chaos_campaign (its plans draw DownLink faults)",
+    "run_elastic_cell / elastic_campaign (regrow: plan_regrow_ring)",
+    "run_pod_cell / pod_campaign (plan_pod_rings)",
+    "MembershipView.failure_set",
+)
+
+
+def fault_tier_phase(dev, smi_line):
+    """Phase 35: the fault-simulator tier on an 8-rank CUDA ``LocalWorld``.
+    (a) ``Deadline(0.0)`` on ``bcast``, ``reduce``, ``allreduce``,
+    ``scatter`` and ``gather`` (``backend="ring"``) and a channel's
+    ``transfer`` and ``stream``: each rank raises ``WatchdogTimeout`` whose
+    ``.state`` is ``faults.mirror_stall_dump`` of the family's protocol
+    at n = 8, and no ring kernel launches. (b) The simulator's all-reduce
+    at n = 8 with rank ``FAULT_RANK`` crash-stopped raises
+    ``DeadlockError`` naming it stalled; ``recover_communicator`` on that
+    error shrinks the world to 7 with heir ``FAULT_HEIR``; the survivors'
+    4 MiB f32 ring all-reduce and 512 KiB neighbour stream, each
+    ``torch.equal`` to its plain version with every credit domain
+    drained, each rank's result read back under ``run_with_deadline``
+    (c); one all-reduce through ``timed(deadline_s=, sink=)`` records
+    one sample. (d) On the host: ``run_with_recovery`` for a crash-stop
+    plan on each ring protocol at n = 8, healed to ``expected_results``,
+    and the phi-accrual detector with a ``MembershipView`` on one
+    heartbeat trace until the view confirms the silent rank. Launch
+    counts are set to 0 before and read after; returns them (rows 5 and
+    7 add them)."""
+    import numpy as np
+    import torch
+
+    import smi_tpu_torch as st
+    from smi_tpu_torch.kernels import _build
+    from smi_tpu_torch.kernels import ring as kring
+    from smi_tpu_torch.parallel import collectives as coll
+    from smi_tpu_torch.parallel import credits as C
+    from smi_tpu_torch.parallel import faults as F
+    from smi_tpu_torch.parallel import membership as M
+    from smi_tpu_torch.parallel import recovery as R
+    from smi_tpu_torch.tuning.online import OnlineTuner
+    from smi_tpu_torch.utils import tracing
+    from smi_tpu_torch.utils import watchdog as W
+
+    log(f"[35 the fault-simulator tier: the protocol mirror on {SMI_RANKS} "
+        f"ranks' expired ring deadlines; a simulated crash of rank "
+        f"{FAULT_RANK} shrinks the world; the survivors' ring kernels; "
+        f"run_with_recovery and the detector on the host]")
+    log(f"  {smi_line}")
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    world = st.LocalWorld(SMI_RANKS)
+    x_rank = [torch.rand(SMI_ELEMS, device=dev) for _ in range(SMI_RANKS)]
+
+    # ---- (a) the mirror on every ring-tier deadline ------------------
+    def channel(c):
+        return st.P2PChannel(comm=c, port=0, src=0, dst=3, count=SMI_ELEMS)
+
+    families = {
+        "bcast": ("all_reduce", lambda x, c, d: coll.bcast(
+            x, c, root=FAULT_RANK, backend="ring", deadline=d)),
+        "reduce": ("all_reduce", lambda x, c, d: coll.reduce(
+            x, c, backend="ring", deadline=d)),
+        "allreduce": ("all_reduce", lambda x, c, d: coll.allreduce(
+            x, c, backend="ring", deadline=d)),
+        "scatter": ("reduce_scatter", lambda x, c, d: coll.scatter(
+            x, c, backend="ring", deadline=d)),
+        "gather": ("all_gather", lambda x, c, d: coll.gather(
+            x, c, backend="ring", deadline=d)),
+        "transfer": ("neighbour_stream", lambda x, c, d: channel(
+            c).transfer(x, backend="ring", deadline=d)),
+        "stream": ("neighbour_stream", lambda x, c, d: channel(
+            c).stream(x, backend="ring", deadline=d)),
+    }
+    ring_kernels = [k for k in _build.LAUNCHES if k.startswith("ring_")]
+    before = {k: _build.LAUNCHES[k] for k in ring_kernels}
+    for family, (protocol, call) in families.items():
+        def expire(c):
+            try:
+                call(x_rank[c.rank], c, W.Deadline(0.0))
+            except W.WatchdogTimeout as exc:
+                return exc
+            raise AssertionError(f"{family}: an expired deadline "
+                                 f"dispatched on rank {c.rank}")
+
+        t0 = time.perf_counter()
+        errors = world.run(expire)
+        wall = time.perf_counter() - t0
+        want = F.mirror_stall_dump(protocol, SMI_RANKS)
+        for r, exc in enumerate(errors):
+            if exc.state != want or \
+                    f"protocol mirror [{protocol}, n={SMI_RANKS}]" not in \
+                    (exc.state_dump or ""):
+                raise AssertionError(f"{family}: rank {r}'s timeout holds "
+                                     f"no {protocol} mirror: {exc}")
+        states = sorted({v["state"] for k, v in want.items()
+                         if isinstance(k, int)})
+        log(f"  {family}: all {SMI_RANKS} ranks raised WatchdogTimeout with "
+            f"the {protocol} mirror (ranks {', '.join(states)}); "
+            f"{wall * 1e3:.3f} ms for the world")
+    moved = {k: _build.LAUNCHES[k] - before[k] for k in ring_kernels
+             if _build.LAUNCHES[k] != before[k]}
+    if moved:
+        raise AssertionError(f"expired deadlines launched ring kernels: "
+                             f"{moved}")
+    log(f"  no ring kernel launched under an expired deadline "
+        f"({', '.join(ring_kernels)} unmoved)")
+
+    # ---- (b) recovery from a simulated crash, on the ring kernels ----
+    try:
+        C.simulate_all_reduce(SMI_RANKS, C.Strategy(0),
+                              faults=F.FaultPlan.single(
+                                  F.StalledRank(FAULT_RANK,
+                                                after=FAULT_AFTER)))
+    except C.DeadlockError as exc:
+        dead = exc
+    else:
+        raise AssertionError("the crash-stopped all-reduce completed")
+    if dead.state[FAULT_RANK]["state"] != "stalled" or \
+            R.failed_ranks_of(dead) != {FAULT_RANK}:
+        raise AssertionError(f"the deadlock names {R.failed_ranks_of(dead)}"
+                             f" stalled")
+    t0 = time.perf_counter()
+    survivors, heirs = st.recover_communicator(world.comms[0], dead)
+    shrink_s = time.perf_counter() - t0
+    world7 = survivors.world
+    if heirs != {FAULT_RANK: FAULT_HEIR} or world7.size != SMI_RANKS - 1 \
+            or FAULT_RANK in world7.parent_ranks:
+        raise AssertionError(f"recover_communicator: heirs {heirs}, ranks "
+                             f"{world7.parent_ranks}")
+    log(f"  DeadlockError of the simulated all-reduce names rank "
+        f"{FAULT_RANK} stalled; recover_communicator: heirs {heirs}, "
+        f"epoch {survivors.epoch}, ranks {world7.parent_ranks}, "
+        f"{shrink_s * 1e3:.3f} ms of host time")
+
+    readback_s = []
+
+    def read_back(y):
+        """This rank's result read back to the host under the watchdog,
+        in the rank's thread (its own stream)."""
+        t0 = time.perf_counter()
+        host = W.run_with_deadline(
+            lambda: y.cpu(), READBACK_BUDGET_S,
+            state_provider=F.mirror_state_provider(
+                "allreduce", world7.size, structured=True),
+            context="survivor readback")
+        readback_s.append(time.perf_counter() - t0)
+        return host
+
+    xs = x_rank[:world7.size]
+    cases = (
+        ("ring_all_reduce", xs, kring.ring_all_reduce,
+         kring.ring_all_reduce_plain, "4 MiB f32 all-reduce"),
+        ("ring_neighbour_stream",
+         [torch.rand((STREAM_CHUNKS, HALF_MIB // STREAM_CHUNKS), device=dev)
+          for _ in range(world7.size)],
+         kring.neighbour_stream, kring.neighbour_stream_plain,
+         f"{STREAM_CHUNKS}-chunk 512 KiB neighbour stream"),
+    )
+    for kernel, inputs, call, plain, what in cases:
+        readback_s.clear()
+        got = world7.run(lambda c: read_back(call(inputs[c.rank], c)))
+        record = kring.last_record(world7)
+        want = plain(inputs)
+        for r, (g, w) in enumerate(zip(got, want)):
+            if not torch.equal(g, w.cpu()):
+                err = (g.double() - w.cpu().double()).abs().max().item()
+                raise AssertionError(f"survivors' {what}: rank {r} kernel "
+                                     f"!= plain, max abs err {err}")
+        if not kring.drained(record):
+            raise AssertionError(
+                f"survivors' {what}: credits did not drain: granted "
+                f"{int(record['granted'].sum())}, consumed "
+                f"{int(record['consumed'].sum())}")
+        log(f"  the {world7.size} survivors' {what} ({kernel}): torch.equal "
+            f"to its plain version, credits drained "
+            f"({int(record['granted'].sum())} granted); each rank's "
+            f"readback under run_with_deadline({READBACK_BUDGET_S:g} s): "
+            f"{min(readback_s) * 1e3:.3f}-{max(readback_s) * 1e3:.3f} ms; "
+            f"{smi_line}")
+
+    # ---- (c) timed with a deadline and a sink ------------------------
+    tuner = OnlineTuner()
+    out, secs = tracing.timed(
+        lambda: world7.run(lambda c: kring.ring_all_reduce(xs[c.rank], c)),
+        deadline_s=READBACK_BUDGET_S, sink=tuner, op="all_reduce",
+        payload_bytes=4.0 * SMI_ELEMS, tenant="phase-35")
+    if tuner.samples_ingested != 1 or len(tuner.cells) != 1:
+        raise AssertionError(f"timed(sink=) recorded "
+                             f"{tuner.samples_ingested} samples")
+    want = kring.ring_all_reduce_plain(xs)
+    if not all(torch.equal(g, w) for g, w in zip(out, want)):
+        raise AssertionError("the timed all-reduce != its plain version")
+    (cell,) = tuner.cells.values()
+    log(f"  timed(deadline_s={READBACK_BUDGET_S:g}, sink=OnlineTuner): one "
+        f"sample of {cell.mean_us:.1f} us for the 7 survivors' 4 MiB "
+        f"all-reduce and its readback ({secs * 1e3:.3f} ms wall); "
+        f"{smi_line}")
+
+    # ---- (d) the simulators on this machine's host -------------------
+    t0 = time.perf_counter()
+    for protocol in RECOVERY_PROTOCOLS:
+        out = R.run_with_recovery(
+            protocol, SMI_RANKS,
+            F.FaultPlan.single(F.StalledRank(FAULT_RANK, after=FAULT_AFTER)))
+        expected = R.expected_results(
+            protocol, SMI_RANKS,
+            R.canonical_inputs(protocol, SMI_RANKS, 5), 5)
+        if not out.ok or any(out.results[g] != expected[g]
+                             for g in out.survivors):
+            raise AssertionError(f"run_with_recovery({protocol}) did not "
+                                 f"heal: {out.fault_trail}")
+        log(f"  run_with_recovery({protocol}, n={SMI_RANKS}, rank "
+            f"{FAULT_RANK} crash-stopped): healed to expected_results on "
+            f"{len(out.survivors)} survivors, trail {out.fault_trail}, "
+            f"{out.replayed_chunks} chunks replayed")
+    recovery_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    clock = M.StepClock()
+    detector = M.PhiAccrualDetector(clock, range(SMI_RANKS))
+    view = M.MembershipView(SMI_RANKS)
+    events, confirmed_at = [], None
+    for tick in range(40 * M.HEARTBEAT_INTERVAL):
+        if tick % M.HEARTBEAT_INTERVAL == 0:
+            for r in range(SMI_RANKS):
+                if r != FAULT_RANK or tick < 10 * M.HEARTBEAT_INTERVAL:
+                    detector.heartbeat(r)
+        clock.advance(1)
+        for event in detector.poll():
+            events.append(type(event).__name__)
+            if isinstance(event, M.ConfirmedDead):
+                view.confirm_dead(event.rank)
+                confirmed_at = tick
+        if confirmed_at is not None:
+            break
+    detector_s = time.perf_counter() - t0
+    if confirmed_at is None or FAULT_RANK in view.members or \
+            "SuspectRank" not in events:
+        raise AssertionError(f"the detector never confirmed rank "
+                             f"{FAULT_RANK}: {events}")
+    log(f"  PhiAccrualDetector + MembershipView: rank {FAULT_RANK} silent "
+        f"from tick {10 * M.HEARTBEAT_INTERVAL}, events {events}, confirmed "
+        f"dead at tick {confirmed_at}; the view at epoch {view.epoch} with "
+        f"{len(view.members)} members")
+    log(f"  host cells: {len(RECOVERY_PROTOCOLS) + 1} ("
+        f"{len(RECOVERY_PROTOCOLS)} recovery cells {recovery_s * 1e3:.1f} "
+        f"ms, the detector cell {detector_s * 1e3:.1f} ms); left out, as "
+        f"they need networkx: {'; '.join(NETWORKX_CELLS)}")
+
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    for kernel in ("ring_all_reduce", "ring_neighbour_stream"):
+        if launches[kernel] <= 0:
+            raise AssertionError(f"kernel {kernel} was not launched on the "
+                                 f"fault tier's path")
     log(f"  launches {launches}")
     return launches
 

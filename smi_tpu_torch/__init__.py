@@ -33,6 +33,14 @@ degraded-mode communicator (``shrink``/``regrow`` and their pod forms,
 membership epochs, heirs, ``recover_communicator``), the hostfile
 bootstrap, and CRC-framed checkpoints with the checkpointed Jacobi and
 K-means drivers.
+The seventeenth adds the fault-simulator tier: the
+credit protocol's executable specification and schedule fuzzer
+(``parallel.credits``), fault plans and verdicts (``parallel.faults``),
+self-healing collectives over progress logs and the chaos campaigns
+(``parallel.recovery``), the phi-accrual detector, membership views and
+the elastic and pod soaks (``parallel.membership``) — host tools, in step
+with the JAX package seed for seed — and the watchdog's protocol mirror
+on every ring-tier deadline.
 Entry points run on CUDA unless the caller passes
 ``device="cpu"``; on a CPU tensor each kernel wrapper runs its plain
 PyTorch version instead.
@@ -186,6 +194,7 @@ from smi_tpu_torch.parallel.collectives import (
 )
 from smi_tpu_torch.parallel.context import SmiContext, smi_kernel
 from smi_tpu_torch.parallel.errors import IntegrityError
+from smi_tpu_torch.parallel.faults import FaultPlan
 from smi_tpu_torch.parallel.halo import (
     Halos,
     halo_exchange_2d,
@@ -198,14 +207,31 @@ from smi_tpu_torch.parallel.halo import (
     shift_along,
 )
 from smi_tpu_torch.parallel.local import LocalWorld
-from smi_tpu_torch.parallel.membership import StaleEpochError
+from smi_tpu_torch.parallel.membership import (
+    ConfirmedDead,
+    MembershipView,
+    PhiAccrualDetector,
+    PodRingPlan,
+    StaleEpochError,
+    SuspectRank,
+    elastic_campaign,
+    plan_pod_rings,
+    pod_campaign,
+)
 from smi_tpu_torch.parallel.mesh import (
     Communicator,
     make_communicator,
     make_hybrid_communicator,
     mesh_from_topology,
 )
-from smi_tpu_torch.parallel.recovery import recover_communicator
+from smi_tpu_torch.parallel.recovery import (
+    ProgressLog,
+    RecoveryOutcome,
+    WalCorruptionError,
+    chaos_campaign,
+    recover_communicator,
+    run_with_recovery,
+)
 from smi_tpu_torch.parallel.routing import FailureSet, RouteCutError
 from smi_tpu_torch.utils.watchdog import Deadline, WatchdogTimeout
 
@@ -226,7 +252,10 @@ __all__ = [
     "Deadline", "WatchdogTimeout",
     "FailureSet", "RouteCutError", "recover_communicator",
     "CheckpointStore", "CheckpointIntegrityError", "run_iterative",
-    "StaleEpochError",
+    "StaleEpochError", "FaultPlan", "MembershipView", "PhiAccrualDetector",
+    "SuspectRank", "ConfirmedDead", "PodRingPlan", "plan_pod_rings",
+    "pod_campaign", "elastic_campaign", "ProgressLog", "RecoveryOutcome",
+    "WalCorruptionError", "run_with_recovery", "chaos_campaign",
     "RING_STREAMS", "neighbour_stream", "neighbour_stream_plain",
     "ring_all_gather", "ring_all_gather_plain", "ring_all_reduce",
     "ring_all_reduce_plain", "ring_all_reduce_chunked_plain",

@@ -185,6 +185,20 @@ class P2PChannel:
             )
         return masked.reshape((n_chunks, chunk) + tuple(data.shape[1:]))
 
+    def _deadline(self, deadline: Optional[Deadline],
+                  what: str) -> Optional[Deadline]:
+        """Attach this channel's protocol mirror to a caller deadline, so
+        a timeout dumps the per-rank state of the matching protocol
+        (``what`` is a ``faults.FAMILY_PROTOCOL`` key: "transfer" and
+        "stream" both mirror the neighbour-stream machine)."""
+        if deadline is None:
+            return None
+        from smi_tpu_torch.parallel.faults import mirror_state_provider
+
+        return deadline.with_provider(
+            mirror_state_provider(what, self.comm.size, structured=True)
+        )
+
     def _ring_move(self, chunked_payload: torch.Tensor,
                    deadline: Optional[Deadline] = None) -> torch.Tensor:
         """Drive a ``(rows, ...)`` payload hop by hop to ``dst`` over the
@@ -227,6 +241,7 @@ class P2PChannel:
         point-to-point move. ``deadline`` bounds the host-side dispatch.
         """
         data = self._data(data)
+        deadline = self._deadline(deadline, "transfer")
         if deadline is not None:
             deadline.check(f"transfer on port-{self.port} channel")
         if check_backend(backend) == "ring":
@@ -255,6 +270,7 @@ class P2PChannel:
         """
         data = self._data(data)
         check_backend(backend)
+        deadline = self._deadline(deadline, "stream")
         if deadline is not None:
             deadline.check(f"stream on port-{self.port} channel")
         if not self.rendezvous:

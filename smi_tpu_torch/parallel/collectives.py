@@ -77,9 +77,19 @@ from smi_tpu_torch.utils.watchdog import Deadline
 def _check_deadline(deadline: Optional[Deadline], family: str,
                     comm: Communicator) -> None:
     """Ring-tier watchdog gate: an expired deadline raises
-    ``WatchdogTimeout`` before the collective is dispatched."""
-    if deadline is not None:
-        deadline.check(f"ring {family} over {comm.size} ranks")
+    ``WatchdogTimeout`` before the collective is dispatched, carrying the
+    protocol's per-rank state mirror
+    (:func:`smi_tpu_torch.parallel.faults.mirror_state_provider`) as text
+    and, structured, on ``.state`` — so the caller can hand the error
+    straight to :func:`smi_tpu_torch.parallel.recovery.
+    recover_communicator` for a shrink-and-retry."""
+    if deadline is None:
+        return
+    from smi_tpu_torch.parallel.faults import mirror_state_provider
+
+    deadline.with_provider(
+        mirror_state_provider(family, comm.size, structured=True)
+    ).check(f"ring {family} over {comm.size} ranks")
 
 
 def _stream_for(port: Optional[int], program, family: str) -> int:

@@ -10,7 +10,8 @@ card's kernels, which Perfetto or ``chrome://tracing`` opens.
 - :func:`annotate` — a named region on the trace's timeline (and an NVTX
   range on CUDA).
 - :func:`timed` — wall-clock timing of a callable with completion forced
-  by reading its result back to the host, returning (result, seconds).
+  by reading its result back to the host, returning (result, seconds);
+  optionally bounded by a watchdog and fed to a sample sink.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import Any, Callable, Iterator, Tuple
+from typing import Any, Callable, Iterator, Optional, Tuple
 
 import torch
 
@@ -63,11 +64,54 @@ def _read_back(value) -> None:
             _read_back(v)
 
 
-def timed(fn: Callable[[], Any]) -> Tuple[Any, float]:
+def timed(
+    fn: Callable[[], Any],
+    deadline_s: Optional[float] = None,
+    state_provider: Optional[Callable[[], str]] = None,
+    sink=None,
+    op: str = "timed",
+    payload_bytes: Optional[float] = None,
+    tenant: Optional[str] = None,
+) -> Tuple[Any, float]:
     """Run ``fn`` and return (result, elapsed seconds), with completion
     forced by a host readback of every tensor in the result: queued CUDA
-    work returns before it has run, so a bare call times the enqueue."""
+    work returns before it has run, so a bare call times the enqueue.
+
+    ``deadline_s`` arms a hard watchdog
+    (:func:`smi_tpu_torch.utils.watchdog.run_with_deadline`) around the
+    readback: a device hang becomes a ``WatchdogTimeout`` — carrying the
+    ``state_provider``'s protocol-state dump when one is given (e.g.
+    :func:`smi_tpu_torch.parallel.faults.mirror_state_provider`) —
+    instead of a stuck host. Defaults to ``$SMI_WATCHDOG_SECS`` when
+    unset. ``fn()`` itself runs in the caller's thread, on the caller's
+    stream; only the readback crosses into the watchdog's worker.
+
+    ``sink`` receives the measurement: an object with a ``record(op,
+    seconds, payload_bytes=, tenant=)`` method (the online tuner,
+    :class:`smi_tpu_torch.tuning.online.OnlineTuner`), or any plain
+    callable taking ``(op, seconds)``. ``op`` / ``payload_bytes`` /
+    ``tenant`` label the sample. A sink's failure propagates: a
+    measurement pipeline that silently drops samples would corrupt every
+    decision made on them.
+    """
+    from smi_tpu_torch.utils import watchdog as _watchdog
+
+    if deadline_s is None:
+        default = _watchdog.default_deadline()
+        deadline_s = default.budget if default is not None else None
+
     t0 = time.perf_counter()
     result = fn()
-    _read_back(result)
-    return result, time.perf_counter() - t0
+    _watchdog.run_with_deadline(
+        lambda: _read_back(result), deadline_s,
+        state_provider=state_provider, context="timed() readback",
+    )
+    elapsed = time.perf_counter() - t0
+    if sink is not None:
+        record = getattr(sink, "record", None)
+        if record is not None:
+            record(op, elapsed, payload_bytes=payload_bytes,
+                   tenant=tenant)
+        else:
+            sink(op, elapsed)
+    return result, elapsed

@@ -1454,3 +1454,115 @@ def test_shrunk_and_regrown_worlds_all_reduce_on_the_card(backend):
             assert torch.equal(g, w)
         else:
             torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-5)
+
+
+# ------------------------------------------------ the fault-simulator tier --
+
+#: family -> (the mirror's protocol, the ring-tier call under a deadline)
+MIRROR_FAMILIES = {
+    "bcast": ("all_reduce", lambda x, c, d: st.bcast(
+        x, c, root=1, backend="ring", deadline=d)),
+    "reduce": ("all_reduce", lambda x, c, d: st.reduce(
+        x, c, backend="ring", deadline=d)),
+    "allreduce": ("all_reduce", lambda x, c, d: st.allreduce(
+        x, c, backend="ring", deadline=d)),
+    "scatter": ("reduce_scatter", lambda x, c, d: st.scatter(
+        x, c, backend="ring", deadline=d)),
+    "gather": ("all_gather", lambda x, c, d: st.gather(
+        x, c, backend="ring", deadline=d)),
+    "transfer": ("neighbour_stream", lambda x, c, d: st.P2PChannel(
+        comm=c, port=0, src=0, dst=1, count=64).transfer(
+            x, backend="ring", deadline=d)),
+    "stream": ("neighbour_stream", lambda x, c, d: st.P2PChannel(
+        comm=c, port=0, src=0, dst=1, count=64).stream(
+            x, backend="ring", deadline=d)),
+}
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("family", sorted(MIRROR_FAMILIES))
+def test_an_expired_ring_deadline_carries_the_mirror_on_the_card(
+        cuda_world, family, n):
+    """Every rank of a CUDA world raises ``WatchdogTimeout`` holding the
+    family's protocol mirror, and no ring kernel launches."""
+    from smi_tpu_torch.parallel import faults
+    from smi_tpu_torch.utils.watchdog import Deadline, WatchdogTimeout
+
+    protocol, call = MIRROR_FAMILIES[family]
+    world = cuda_world(n)
+    xs = _ring_inputs(n, (64,), torch.float32, seed=n)
+    before = {k: v for k, v in _build.LAUNCHES.items()
+              if k.startswith("ring_")}
+
+    def rank(c):
+        with pytest.raises(WatchdogTimeout) as e:
+            call(xs[c.rank], c, Deadline(0.0))
+        return e.value
+
+    for err in world.run(rank):
+        assert err.state == faults.mirror_stall_dump(protocol, n)
+        assert f"protocol mirror [{protocol}, n={n}]" in err.state_dump
+    assert {k: v for k, v in _build.LAUNCHES.items()
+            if k.startswith("ring_")} == before
+
+
+@pytest.mark.parametrize("n,dead", [(3, 1), (4, 2), (4, 3)])
+def test_survivors_of_a_simulated_crash_run_the_ring_kernels(n, dead):
+    """The credit simulator's all-reduce with rank ``dead`` crash-stopped
+    names it; ``recover_communicator`` shrinks a CUDA world from that
+    error, and the survivors' all-reduce and neighbour stream equal their
+    plain versions with the credits drained, each rank's result read back
+    under ``run_with_deadline``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from smi_tpu_torch.kernels import ring as kring
+    from smi_tpu_torch.parallel import credits, faults
+    from smi_tpu_torch.utils.watchdog import run_with_deadline
+
+    with pytest.raises(credits.DeadlockError) as e:
+        credits.simulate_all_reduce(
+            n, credits.Strategy(0),
+            faults=faults.FaultPlan.single(faults.StalledRank(dead,
+                                                              after=3)))
+    world = st.LocalWorld(n)
+    small, heirs = st.recover_communicator(world.comms[0], e.value)
+    assert heirs == {dead: (dead + 1) % n}
+    survivors = small.world
+    assert dead not in survivors.parent_ranks
+    m = survivors.size
+    for kernel, xs, call, plain in (
+            ("ring_all_reduce",
+             _ring_inputs(m, (4096,), torch.float32, seed=n),
+             kring.ring_all_reduce, kring.ring_all_reduce_plain),
+            ("ring_neighbour_stream",
+             _ring_inputs(m, (8, 512), torch.float32, seed=n + 1),
+             kring.neighbour_stream, kring.neighbour_stream_plain)):
+        def rank(c):
+            y = call(xs[c.rank], c)
+            return run_with_deadline(lambda: y.cpu(), 60.0)
+
+        before = _build.LAUNCHES[kernel]
+        got = survivors.run(rank)
+        assert _build.LAUNCHES[kernel] == before + 1
+        assert kring.drained(kring.last_record(survivors))
+        for g, w in zip(got, plain(xs)):
+            assert torch.equal(g, w.cpu())
+
+
+def test_timed_feeds_one_sample_from_a_ring_all_reduce(cuda_world):
+    """``timed(deadline_s=, sink=)`` around a 4-rank ring all-reduce on the
+    card: one sample in the tuner, and the result its plain version's."""
+    from smi_tpu_torch.kernels import ring as kring
+    from smi_tpu_torch.tuning.online import OnlineTuner
+    from smi_tpu_torch.utils.tracing import timed
+
+    world = cuda_world(4)
+    xs = _ring_inputs(4, (4096,), torch.float32, seed=35)
+    tuner = OnlineTuner()
+    got, secs = timed(
+        lambda: world.run(lambda c: kring.ring_all_reduce(xs[c.rank], c)),
+        deadline_s=60.0, sink=tuner, op="all_reduce",
+        payload_bytes=4 * 4096.0)
+    assert tuner.samples_ingested == 1 and secs > 0
+    for g, w in zip(got, kring.ring_all_reduce_plain(xs)):
+        assert torch.equal(g, w)

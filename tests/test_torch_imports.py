@@ -47,7 +47,8 @@ def test_fresh_import_loads_no_jax_and_builds_nothing():
                    "parallel.channels", "parallel.context",
                    "parallel.errors", "parallel.routing",
                    "parallel.membership", "parallel.recovery",
-                   "parallel.checkpoint",
+                   "parallel.checkpoint", "parallel.credits",
+                   "parallel.faults",
                    "utils.watchdog", "kernels.ring", "models.kmeans",
                    "models.gesummv", "tuning.engine", "tuning.cost_model",
                    "tuning.cache", "tuning.plan", "tuning.seeded"):
