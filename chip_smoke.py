@@ -936,7 +936,8 @@ FUSED_CASES = [
      True, WINDOW),
 ]
 #: phase 11: replays of a ring's folds for their device time (16 folds
-#: of host launch cost each must fit in the card's wait, RING_HOLD_CYCLES)
+#: of host launch cost each should fit in the card's first wait,
+#: RING_HOLD_CYCLES)
 FOLD_REPS = 7
 #: phase 7's small ragged shapes at the other head dims, in f32 and
 #: bf16: (name, S, H, H_kv, D, causal, window)
@@ -2493,7 +2494,8 @@ PROBE_ELEMS = 1024        # 4 KiB of f32: one block a rank (or a chunk)
 
 
 RING_REPS = 21
-RING_HOLD_CYCLES = 40_000_000   # the card waits while the host enqueues
+RING_HOLD_CYCLES = 40_000_000   # the card's first wait while the host enqueues
+HOLD_TRIES = 4                  # each try waits 4x as long as the one before
 
 
 RING_LAUNCHES = 5
@@ -2502,27 +2504,41 @@ RING_LAUNCHES = 5
 def device_ms(fn, reps=RING_REPS):
     """The device time of the work ``fn`` enqueues on the current
     stream: one call to warm up, then ``reps`` calls back to back behind
-    a wait of ``RING_HOLD_CYCLES``, so the card runs them one after the
-    other and the host's enqueue time is hidden; a CUDA event between
-    calls, and the median of the ``reps`` times. Raises if the wait ended
-    before the host had enqueued every call."""
+    a wait of the card, so the card runs them one after the other and
+    the host's enqueue time is hidden; a CUDA event between calls, and
+    the median of the ``reps`` times. The first wait is
+    ``RING_HOLD_CYCLES``; a try whose wait ended before the host had
+    enqueued every call is thrown away and made again behind a wait four
+    times as long, since a host that shares its cores enqueues slower at
+    times. Raises if the wait of the last of ``HOLD_TRIES`` tries ended
+    first too."""
     import statistics
 
     import torch
 
-    marks = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
     fn()
-    torch.cuda._sleep(RING_HOLD_CYCLES)
-    marks[0].record()
-    for mark in marks[1:]:
-        fn()
-        mark.record()
-    if marks[0].query():
-        raise AssertionError("the card ran out of its wait before the "
-                             "host had enqueued the calls")
-    marks[-1].synchronize()
-    return statistics.median(a.elapsed_time(b)
-                             for a, b in zip(marks, marks[1:]))
+    hold = RING_HOLD_CYCLES
+    for tries in range(HOLD_TRIES, 0, -1):
+        marks = [torch.cuda.Event(enable_timing=True)
+                 for _ in range(reps + 1)]
+        torch.cuda._sleep(hold)
+        marks[0].record()
+        for mark in marks[1:]:
+            fn()
+            mark.record()
+        ran_out = marks[0].query()
+        marks[-1].synchronize()
+        if not ran_out:
+            return statistics.median(a.elapsed_time(b)
+                                     for a, b in zip(marks, marks[1:]))
+        if tries == 1:
+            raise AssertionError(f"the card ran out of its wait before the "
+                                 f"host had enqueued the calls, "
+                                 f"{HOLD_TRIES} times up to {hold} cycles")
+        log(f"  (the card's wait of {hold} cycles ran out before the host "
+            f"had enqueued {reps} calls; timed again behind "
+            f"{4 * hold} cycles)")
+        hold *= 4
 
 
 @dataclasses.dataclass
