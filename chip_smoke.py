@@ -354,6 +354,28 @@ Then the fault-simulator tier:
    left out (``NETWORKX_CELLS``). Launches counted (rows 5 and 7 add
    them).
 
+Then the analysis and observability tiers:
+
+36. the plan engine's stencil sweep on the card: ``sweep_stencil`` at
+   N x N f32 (``STENCIL_SWEEP_RUNS`` timed passes a candidate), every
+   candidate's us a sweep or the port's reason for refusing it logged;
+   the winner's one pass ``torch.equal`` to its plain version (f32
+   compute; within 0.05 for bf16), and its kernel's time alone; the same
+   sweep over the kernel's own stripes 8 and 16 (``STENCIL_SIDE_STRIPES``,
+   below the cost model's grid) logged beside it. On the 8-rank ``LocalWorld`` at 4 MiB
+   f32 a rank: one ring all-reduce through ``timed(sink=SampleSink())``
+   records one cell, ``torch.equal`` to its plain version, credits
+   drained; an expired ``Deadline(0.0, recorder=FlightRecorder())`` on
+   ``allreduce(backend="ring")`` raises ``WatchdogTimeout`` on every rank
+   with the recorder's tail on the error and in its state, and launches
+   nothing. On the host: ``analysis.perf_all()`` and
+   ``obs.trace.trace_protocol("all_reduce", 8)``, whose track ends equal
+   the simulator's clocks bit for bit, each one's host time logged.
+   Last, the default engine's ``stencil_pipeline_plan`` at N x N must be
+   a ``[cache]`` hit on the seeded H100 entry, one that the pipeline
+   kernel admits. Launches of the sweep and of the timed all-reduce are
+   counted (rows 4 and 7 add them).
+
 Bars: f32 out/acc/gradients within 2e-5 (``rtol = atol``); m and l within
 1e-5 in either dtype (both sides add exact products in f32); bf16
 out/acc/gradients by the worst row's relative error ``||got - want|| /
@@ -727,11 +749,14 @@ def main(argv=None) -> int:
     backward_launches = backward_world_phase(dev)
     elastic_launches = elastic_phase(dev, smi_line)
     fault_launches = fault_tier_phase(dev, smi_line)
+    analysis_launches = analysis_obs_phase(dev, smi_line)
     # rows 5 and 7 count phase 31's launches beside phases 21-23's, and
-    # the first record of each ring and flash kernel phases 33-35's
+    # the first record of each ring and flash kernel phases 33-36's, of
+    # the pipeline kernel phase 36's
     later = {RING_REPLACES[k]: elastic_launches[k] + fault_launches[k]
-             for k in RING_REPLACES}
+             + analysis_launches.get(k, 0) for k in RING_REPLACES}
     later.update({REPLACES[k]: backward_launches[k] for k in REPLACES})
+    later[PIPE_REPLACES] = analysis_launches["stencil_pipeline"]
     for record in records:
         for kernel in ("ring_all_reduce", "ring_neighbour_stream"):
             if record["replaces"] == RING_REPLACES[kernel]:
@@ -4983,6 +5008,226 @@ def fault_tier_phase(dev, smi_line):
             raise AssertionError(f"kernel {kernel} was not launched on the "
                                  f"fault tier's path")
     log(f"  launches {launches}")
+    return launches
+
+
+#: phase 36: timed passes a candidate of the stencil sweep (after one
+#: warm-up), as ``smi-tpu tune --ops stencil`` runs it
+STENCIL_SWEEP_RUNS = 3
+#: phase 36: the pipeline kernel's own stripes, below the cost model's
+#: grid (32-256, the v5e's), timed beside it and not seeded
+STENCIL_SIDE_STRIPES = (8, 16)
+
+
+def analysis_obs_phase(dev, smi_line):
+    """Phase 36: the analysis and observability tiers on the card's
+    machine. (a) ``sweep_stencil`` at N x N f32 on the card, every
+    candidate timed or refused with its reason, the winner's one pass
+    held to its plain version. (b) On an 8-rank ``LocalWorld`` at 4 MiB
+    f32 a rank: one ring all-reduce through ``timed(sink=SampleSink())``,
+    equal to its plain version with credits drained, and an expired
+    ``Deadline(0.0, recorder=FlightRecorder())`` on the ring
+    ``allreduce``, which must raise with the recorder's tail on every
+    rank and launch nothing. (c) ``perf_all`` and ``trace_protocol`` on
+    the host. (d) The default engine's stencil plan must be the seeded
+    H100 entry, admitted by the kernel. Launch counts of (a)'s sweep and
+    (b)'s timed all-reduce are returned (rows 4 and 7 add them)."""
+    import torch
+
+    import smi_tpu_torch as st
+    from smi_tpu_torch import analysis as A
+    from smi_tpu_torch.kernels import _build
+    from smi_tpu_torch.kernels import ring as kring
+    from smi_tpu_torch.kernels import stencil_pipeline as kpipe
+    from smi_tpu_torch.obs import events as E
+    from smi_tpu_torch.obs import metrics as OM
+    from smi_tpu_torch.obs import trace as OT
+    from smi_tpu_torch.parallel import collectives as coll
+    from smi_tpu_torch.parallel import credits as C
+    from smi_tpu_torch.tuning.engine import PlanEngine
+    from smi_tpu_torch.tuning.seeded import seeded_cache
+    from smi_tpu_torch.tuning.sweep import sweep_stencil
+    from smi_tpu_torch.utils import tracing
+    from smi_tpu_torch.utils import watchdog as W
+
+    log(f"[36 the analysis and observability tiers: the stencil sweep on "
+        f"the card; timed(sink=SampleSink) and a recorder on an expired "
+        f"ring deadline on {SMI_RANKS} ranks; perf_all and trace_protocol "
+        f"on the host]")
+    log(f"  {smi_line}")
+    launches = {}
+
+    # ---- (a) the stencil sweep on the card ---------------------------
+    rows = []
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    cache = sweep_stencil(N, N, "float32", runs=STENCIL_SWEEP_RUNS,
+                          record=rows)
+    sweep_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches["stencil_pipeline"] = _build.LAUNCHES["stencil_pipeline"]
+    timed_rows = sorted((us, name) for name, us, _ in rows if us is not None)
+    for name, us, note in rows:
+        log(f"  {name}: " + (f"{us:.3f} us a sweep ({note})" if us is not None
+                             else note))
+    (sig, entry), = cache.entries.items()
+    knobs = entry.knobs
+    if not timed_rows or launches["stencil_pipeline"] <= 0:
+        raise AssertionError(f"the stencil sweep timed nothing: {rows}")
+    log(f"  winner {sig}: {knobs}, {entry.cost_us:.3f} us a sweep "
+        f"({entry.provenance}); runner-up "
+        f"{timed_rows[1][1] if len(timed_rows) > 1 else None}; "
+        f"{len(timed_rows)} timed, {len(rows) - len(timed_rows)} refused; "
+        f"{launches['stencil_pipeline']} pipeline launches; sweep "
+        f"{sweep_s:.3f} s; {smi_line}")
+    depth, cdt = knobs["depth"], knobs["compute_dtype"]
+    x = torch.from_numpy(st.initial_grid(N, N)).to(dev)
+    x[:, -1] = 2.0
+    comm = st.make_communicator(shape=(1, 1), axis_names=("sx", "sy"))
+    got = kpipe.make_pipeline_stencil_fn(
+        comm, depth, N, N, depth=depth, stripe=knobs["stripe"],
+        compute_dtype=cdt, buffering=knobs["buffering"])(x)
+    want = kpipe.pipeline_sweeps_plain(kpipe._extend(x, depth), 0, 0, N, N,
+                                       depth, cdt)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    if not (torch.equal(got, want) if cdt == "float32" else err <= 0.05):
+        raise AssertionError(f"the sweep's winner {knobs}: one pass != its "
+                             f"plain version, max abs err {err}")
+    log(f"  the winner's one pass at {N}x{N}: "
+        + ("torch.equal to" if cdt == "float32" else "within 0.05 of")
+        + f" its plain version (max abs err {err})")
+    # where a timed call goes: the winner's kernel alone (CUDA events, on
+    # an extended state made once) against the call through the driver
+    ext = kpipe._extend(x, depth)
+    nxt = torch.empty_like(ext)
+    kernel_ms = time_ms(lambda: kpipe.pipeline_sweeps(
+        ext, 0, 0, N, N, depth, knobs["stripe"], cdt, knobs["buffering"],
+        out=nxt), 10)
+    log(f"  the winner's kernel alone: {kernel_ms:.4f} ms a pass "
+        f"({kernel_ms * 1e3 / depth:.3f} us a sweep) of the "
+        f"{entry.cost_us * depth / 1e3:.4f} ms a timed call; {smi_line}")
+    del x, got, want, ext, nxt
+    # beside the v5e grid: the port's own stripes (its default is 8),
+    # which the grid leaves out; logged, not seeded
+    side = []
+    sweep_stencil(N, N, "float32", stripes=STENCIL_SIDE_STRIPES,
+                  runs=STENCIL_SWEEP_RUNS, record=side)
+    for name, us, note in side:
+        if name.startswith("pipe:"):
+            log(f"  outside the grid {name}: "
+                + (f"{us:.3f} us a sweep" if us is not None else note))
+
+    # ---- (b) observability around the ring tier ----------------------
+    world = st.LocalWorld(SMI_RANKS)
+    xs = [torch.rand(SMI_ELEMS, device=dev) for _ in range(SMI_RANKS)]
+    sink = OM.SampleSink()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    out, secs = tracing.timed(
+        lambda: world.run(lambda c: kring.ring_all_reduce(xs[c.rank], c)),
+        sink=sink, op="all_reduce", payload_bytes=4.0 * SMI_ELEMS)
+    torch.cuda.synchronize()
+    launches["ring_all_reduce"] = _build.LAUNCHES["ring_all_reduce"]
+    record = kring.last_record(world)
+    want = kring.ring_all_reduce_plain(xs)
+    if not all(torch.equal(g, w) for g, w in zip(out, want)):
+        raise AssertionError("the timed all-reduce != its plain version")
+    if not kring.drained(record):
+        raise AssertionError("the timed all-reduce's credits did not drain")
+    entries = sink.entries()
+    if len(sink) != 1 or len(entries) != 1 or launches["ring_all_reduce"] != 1:
+        raise AssertionError(f"timed(sink=SampleSink()) recorded "
+                             f"{len(sink)} samples in {entries}, "
+                             f"{launches['ring_all_reduce']} launches")
+    log(f"  timed(sink=SampleSink()) of the {SMI_RANKS}-rank 4 MiB ring "
+        f"all-reduce: one cell {entries[0]} ({secs * 1e3:.3f} ms wall); "
+        f"torch.equal to its plain version, credits drained "
+        f"({int(record['granted'].sum())} granted); {smi_line}")
+
+    recorders = [E.FlightRecorder() for _ in range(SMI_RANKS)]
+    for r, rec in enumerate(recorders):
+        # each rank's recorder holds its own simulated all-reduce
+        C.simulate_all_reduce(SMI_RANKS, C.Strategy(r), recorder=rec)
+    ring_kernels = [k for k in _build.LAUNCHES if k.startswith("ring_")]
+    before = {k: _build.LAUNCHES[k] for k in ring_kernels}
+
+    def expire(c):
+        try:
+            coll.allreduce(xs[c.rank], c, backend="ring",
+                           deadline=W.Deadline(0.0,
+                                               recorder=recorders[c.rank]))
+        except W.WatchdogTimeout as exc:
+            return exc
+        raise AssertionError(f"an expired deadline dispatched on rank "
+                             f"{c.rank}")
+
+    t0 = time.perf_counter()
+    errors = world.run(expire)
+    wall = time.perf_counter() - t0
+    for r, exc in enumerate(errors):
+        tail = getattr(exc, "recorder_tail", None)
+        if not tail or not tail["events"] or \
+                tail != recorders[r].tail() or \
+                (exc.state or {}).get("flight_recorder") != tail:
+            raise AssertionError(f"rank {r}'s WatchdogTimeout carries no "
+                                 f"recorder tail: {exc}")
+    moved = {k: _build.LAUNCHES[k] - before[k] for k in ring_kernels
+             if _build.LAUNCHES[k] != before[k]}
+    if moved:
+        raise AssertionError(f"the expired deadline launched {moved}")
+    tail = errors[0].recorder_tail
+    log(f"  Deadline(0.0, recorder=FlightRecorder()) on the ring allreduce:"
+        f" all {SMI_RANKS} ranks raised WatchdogTimeout with the recorder's"
+        f" tail ({len(tail['events'])} of {tail['total_events']} events, "
+        f"last {tail['events'][-1]['kind']}) on the error and in "
+        f"state['flight_recorder']; no ring kernel launched; "
+        f"{wall * 1e3:.3f} ms for the world")
+
+    # ---- (c) the host tiers ------------------------------------------
+    t0 = time.perf_counter()
+    reports = A.perf_all()
+    roofline = A.roofline_lint()
+    perf_s = time.perf_counter() - t0
+    n_findings = A.perf_reports_to_json(reports, roofline)["findings"]
+    log(f"  perf_all(): {len(reports)} protocol instances decomposed, "
+        f"{n_findings} finding(s) with roofline_lint(), "
+        f"{perf_s * 1e3:.1f} ms of host time")
+    t0 = time.perf_counter()
+    payload = OT.trace_protocol("all_reduce", SMI_RANKS)
+    trace_s = time.perf_counter() - t0
+    other = payload["otherData"]
+    makespan = A.decompose_protocol("all_reduce", n=SMI_RANKS,
+                                    verify=False).makespan_s
+    if other["span_makespan_us"] != other["makespan_us"] or \
+            other["makespan_us"] != makespan * 1e6 or any(
+                row["span_end_us"] != row["clock_us"]
+                for row in other["per_rank"]):
+        raise AssertionError(f"trace_protocol's track ends != the "
+                             f"simulator's clocks: {other}")
+    OT.validate_chrome_trace(payload)
+    log(f"  trace_protocol('all_reduce', n={SMI_RANKS}): "
+        f"{len(payload['traceEvents'])} events, every track's end equal "
+        f"to its rank's clock and the makespan {other['makespan_us']!r} us"
+        f" to elapsed_seconds() bit for bit; {trace_s * 1e3:.1f} ms of "
+        f"host time")
+
+    # ---- (d) the seeded H100 entry -----------------------------------
+    engine = PlanEngine(cache=seeded_cache())
+    plan = engine.stencil_pipeline_plan(N, N)
+    text = plan.explain()
+    p = plan.knobs
+    if "[cache]" not in text or plan.decided_by.get("depth") != "cache" or \
+            not kpipe.pipeline_supported(
+                N, N, torch.float32, p["depth"], stripe=p["stripe"],
+                compute_dtype=p["compute_dtype"], buffering=p["buffering"]):
+        raise AssertionError(f"the default engine's stencil plan on "
+                             f"{torch.cuda.get_device_name(0)} is no cache "
+                             f"hit the kernel admits:\n{text}")
+    log(f"  the default engine's stencil_pipeline_plan({N}, {N}): [cache] "
+        f"{p}, {engine.cache.lookup(plan.key).cost_us} us a sweep seeded; "
+        f"the sweep's winner in this run: {knobs}, {entry.cost_us:.3f} us")
     return launches
 
 

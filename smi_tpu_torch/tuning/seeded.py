@@ -14,7 +14,11 @@ entries.
   per-bucket allreduce and all-to-all ``algorithm`` (and ``chunks`` where
   a chunked form measured faster) of an 8-rank world and of a ``(2, 4)``
   ``("dcn", "ici")`` hybrid world, f32, 64 KiB to 4 MiB a rank, and
-  the crossover entries a sweep distilled. Each entry's provenance
+  the crossover entries a sweep distilled; and the stencil pipeline's
+  knobs at the canonical 8192^2 f32 block that the card's own stencil
+  sweep (:func:`smi_tpu_torch.tuning.sweep.sweep_stencil`, run by
+  ``chip_smoke.py`` phase 36) measured fastest among the candidates the
+  port's kernel admits. Each entry's provenance
   names ``PERF.md`` and the card's name and power limit. No
   ``precision`` entry is seeded: a lossy wire width reached by an
   untuned call would change results, not only speed, so the precision
@@ -23,7 +27,8 @@ entries.
 Seeded v5e costs are microseconds per timed rep, derived from each
 metric's committed differential timing ``[r, 4r, t_r, t_4r]`` as
 ``(t_4r - t_r) / (4r - r) * 1e6``; the H100 entries carry the sweep's
-mean host wall of one ``LocalWorld.run`` in microseconds.
+mean host wall of one ``LocalWorld.run`` in microseconds, and the
+stencil entry the sweep's microseconds a sweep.
 """
 
 from __future__ import annotations
@@ -65,6 +70,17 @@ SEEDED_H100_ENTRIES = tuple(
     )
     for bucket, cost_us in zip((16, 18, 20, 22), costs)
 )
+
+#: the H100's stencil pipeline winner at 8192^2 f32, from ``chip_smoke.py``
+#: phase 36's ``sweep_stencil`` (PERF.md section 6): 17 candidates timed,
+#: the four with stripe 128 refused by the kernel's shared-memory plan;
+#: depth 32 / stripe 32 / f32 / 3 slots won, 110.725 us a sweep (one
+#: pass of ``make_pipeline_stencil_fn`` over 32 sweeps, driver included)
+SEEDED_H100_STENCIL_PIPELINE_KNOBS = {
+    "algorithm": "pipeline", "depth": 32, "stripe": 32,
+    "compute_dtype": "float32", "buffering": 3,
+}
+SEEDED_H100_STENCIL_PIPELINE_US = 110.725
 
 #: knob values drift-guarded against PERF.json configs
 SEEDED_FLASH_BF16_BLOCKS = (1024, 1024)       # flash_vs_stock_swept
@@ -151,6 +167,16 @@ def seeded_cache() -> PlanCache:
             cost_us=None,
             provenance="seeded:collectives.RS_AG_MIN_BYTES "
                        "(HLO-verified switch test)",
+        ),
+    )
+    cache.put(
+        PlanKey("stencil_pipeline", "8192", "float32",
+                SEEDED_H100_DEVICE_KIND, "chip"),
+        CacheEntry(
+            dict(SEEDED_H100_STENCIL_PIPELINE_KNOBS),
+            cost_us=SEEDED_H100_STENCIL_PIPELINE_US,
+            provenance=f"seeded:PERF.md:chip_smoke phase 36:sweep_stencil:"
+                       f"8192x8192:float32 ({SEEDED_H100_CARD})",
         ),
     )
     for (op, detail, dtype, topology, knobs, cost_us,

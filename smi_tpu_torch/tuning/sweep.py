@@ -16,15 +16,17 @@ world's device), so a CPU sweep can never shadow an H100 or v5e entry.
 ``record``, when given, receives one ``(kb, candidate, us)`` row per
 timed candidate.
 
+:func:`sweep_stencil` times the explicit-copy stencil pipeline's knob
+grid on one card (or, on the CPU, gates and prices it as a proxy).
+
 Not ported yet: ``sweep_flash`` (the Hopper flash kernels compile one
 tile pair per dtype, head dim and form, so there is no candidate set to
-sweep) and ``sweep_stencil`` (it needs the JAX package's
-``analysis/perf.py``).
+sweep).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 from smi_tpu_torch.tuning import cost_model as cm
 from smi_tpu_torch.tuning.cache import CacheEntry, PlanCache
@@ -320,3 +322,190 @@ def sweep_alltoall(
             provenance=f"sweep:alltoall:{kb}KiB:n{n}",
         ))
     return cache
+
+
+def _stencil_refusal(h: int, w: int, knobs: dict) -> Optional[str]:
+    """Why the port's pipeline kernel refuses a candidate at ``(h, w)``,
+    or None when :func:`~smi_tpu_torch.kernels.stencil_pipeline.
+    pipeline_supported` admits it."""
+    import torch
+
+    from smi_tpu_torch.kernels import stencil_pipeline as kpipe
+
+    try:
+        kpipe._check_pass(h, w, torch.float32, knobs["depth"],
+                          knobs["stripe"], knobs["compute_dtype"],
+                          knobs["buffering"])
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def sweep_stencil(
+    h: int = 8192,
+    w: int = 8192,
+    dtype_name: str = "float32",
+    depths: Sequence[int] = cm.STENCIL_PIPELINE_DEPTHS,
+    stripes: Sequence[int] = cm.STENCIL_PIPELINE_STRIPES,
+    runs: int = 3,
+    device_kind: Optional[str] = None,
+    proxy_shape: Tuple[int, int] = (256, 384),
+    verbose: bool = False,
+    device=None,
+    record: Optional[list] = None,
+) -> PlanCache:
+    """Sweep the explicit-copy stencil pipeline's depth x stripe x
+    compute-dtype grid (plus the synchronous control path) at one block
+    shape and cache the winner under
+    ``PlanKey("stencil_pipeline", str(h), ...)``.
+
+    On the card (``device`` a CUDA device; the default) every candidate
+    is timed for real: one pass of ``make_pipeline_stencil_fn`` on a 1x1
+    communicator over ``initial_grid(h, w)``, ``runs`` timed calls after
+    a warm-up, each ended by a device synchronise (a host copy of the
+    block would outweigh the pass), normalized to us a sweep. A
+    candidate that the port's kernel refuses at ``(h, w)``
+    (``pipeline_supported``), or whose launch raises, is dropped and
+    named with its reason; no other plan stands in for it.
+
+    On the CPU the sweep is a *proxy* tier: each candidate must first
+    pass the correctness gate at ``proxy_shape`` through the pipeline's
+    plain version (equal to the serial reference for f32 compute,
+    within 0.05 for bf16; a candidate that the port's gate refuses
+    there, or that cannot reproduce the reference, is dropped, loudly),
+    and is then priced as the cost model's prediction scaled by the
+    perf decomposer's idle fraction for its buffering depth. Either
+    way the entries are keyed by the measured device kind, so a CPU
+    proxy sweep can never shadow an H100 or v5e entry.
+
+    ``record``, when given, receives one ``(name, us_or_None, note)``
+    row per candidate: its us a sweep, or None and the reason it was
+    dropped.
+    """
+    import numpy as np
+    import torch
+
+    from smi_tpu_torch.analysis import perf as aperf
+    from smi_tpu_torch.kernels import stencil_pipeline as kpipe
+    from smi_tpu_torch.models import stencil as mstencil
+    from smi_tpu_torch.parallel.mesh import make_communicator, resolve_device
+
+    dev = resolve_device(device)
+    on_card = dev.type == "cuda"
+    if device_kind:
+        dk = normalize_device_kind(device_kind)
+    elif on_card:
+        dk = normalize_device_kind(torch.cuda.get_device_name(dev))
+    else:
+        dk = normalize_device_kind(dev.type)
+    cset = cm.stencil_pipeline_candidates(h, w, dtype_name,
+                                          depths, stripes)
+    cache = PlanCache()
+    if not cset:
+        return cache
+    comm = make_communicator(shape=(1, 1), axis_names=("sx", "sy"),
+                             device=dev)
+    idle_by_buffering = {}
+
+    def idle_factor(buffering: int) -> float:
+        if buffering not in idle_by_buffering:
+            rep = aperf.decompose_stencil_stream(buffering=buffering)
+            idle_by_buffering[buffering] = max(
+                r["idle_fraction"] for r in rep.per_rank
+            )
+        return idle_by_buffering[buffering]
+
+    def drop(name: str, note: str) -> None:
+        if record is not None:
+            record.append((name, None, note))
+        if verbose:
+            print(f"  {name}: {note}")
+
+    results = []
+    if on_card:
+        x = torch.from_numpy(mstencil.initial_grid(h, w)).to(dev)
+    for cand in cset:
+        depth = cand.knobs["depth"]
+        stripe = cand.knobs["stripe"]
+        cdt = cand.knobs["compute_dtype"]
+        buffering = cand.knobs["buffering"]
+        if on_card:
+            refusal = _stencil_refusal(h, w, cand.knobs)
+            if refusal is not None:
+                drop(cand.name, f"refused ({refusal})")
+                continue
+            fn = kpipe.make_pipeline_stencil_fn(
+                comm, depth, h, w, depth=depth, stripe=stripe,
+                compute_dtype=cdt, buffering=buffering,
+            )
+            try:
+                secs = _measure_synced(lambda: fn(x), dev, runs)
+            except Exception as e:
+                drop(cand.name, f"rejected ({type(e).__name__}: {e})")
+                continue
+            cost_us = secs * 1e6 / depth
+            provenance = f"sweep:stencil:{h}x{w}:{dtype_name}"
+        else:
+            ph, pw = proxy_shape
+            gate_stripe = stripe
+            if ph % stripe or stripe < depth:
+                gate_stripe = None    # auto-pick at the proxy shape
+            if not kpipe.pipeline_supported(
+                ph, pw, torch.float32, depth, stripe=gate_stripe,
+                compute_dtype=cdt, buffering=buffering,
+            ):
+                drop(cand.name, f"no proxy gate at {ph}x{pw}, skipped")
+                continue
+            g = mstencil.initial_grid(ph, pw)
+            g[:, -1] = 2.0
+            g[ph // 2, :] = 0.5
+            fn = kpipe.make_pipeline_stencil_fn(
+                comm, depth, ph, pw, depth=depth, stripe=gate_stripe,
+                compute_dtype=cdt, buffering=buffering,
+            )
+            out = fn(torch.from_numpy(g).to(dev)).cpu().numpy()
+            ref = mstencil.reference_stencil(g, depth)
+            if cdt == "float32":
+                ok = np.array_equal(out, ref)
+            else:
+                ok = np.allclose(out, ref, atol=0.05)
+            if not ok:
+                drop(cand.name, "FAILED the proxy correctness gate, "
+                                "dropped")
+                continue
+            cost_us = cand.modeled_us * (1.0 + idle_factor(buffering))
+            provenance = (f"sweep:stencil:proxy{ph}x{pw}:"
+                          f"replay-b{buffering}")
+        results.append((cost_us, cand, provenance))
+        if record is not None:
+            record.append((cand.name, cost_us, provenance))
+        if verbose:
+            print(f"  {cand.name}: {cost_us:.1f} us/sweep")
+
+    if results:
+        cost_us, cand, provenance = min(
+            results, key=lambda r: (r[0], r[1].name)
+        )
+        cache.put(
+            PlanKey("stencil_pipeline", str(h), dtype_name, dk, "chip"),
+            CacheEntry(dict(cand.knobs), cost_us=cost_us,
+                       provenance=provenance),
+        )
+    return cache
+
+
+def _measure_synced(call, device, runs: int) -> float:
+    """Mean seconds of ``call()`` over ``runs`` timed calls after a
+    warm-up (:func:`~smi_tpu_torch.benchmarks.stats.timed_samples`),
+    each ended by a synchronise of ``device``."""
+    import torch
+
+    from smi_tpu_torch.benchmarks.stats import timed_samples
+
+    def run():
+        call()
+        torch.cuda.synchronize(device)
+
+    torch.cuda.synchronize(device)
+    samples = timed_samples(run, runs)
+    return sum(samples) / len(samples)

@@ -1566,3 +1566,103 @@ def test_timed_feeds_one_sample_from_a_ring_all_reduce(cuda_world):
     assert tuner.samples_ingested == 1 and secs > 0
     for g, w in zip(got, kring.ring_all_reduce_plain(xs)):
         assert torch.equal(g, w)
+
+
+# ------------------------------------ the analysis and observability tiers --
+
+
+def test_sweep_stencil_times_one_candidate_on_the_card():
+    """A narrow ``sweep_stencil`` on the card (one pipelined candidate
+    and the synchronous control, at a block the kernel admits): each is
+    timed by its launches, the entry is keyed to the card, and the
+    winner's one pass equals its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from smi_tpu_torch.kernels import stencil_pipeline as kpipe
+    from smi_tpu_torch.tuning.plan import normalize_device_kind
+    from smi_tpu_torch.tuning.sweep import sweep_stencil
+
+    h = w = 1024
+    rows = []
+    before = _build.LAUNCHES["stencil_pipeline"]
+    cache = sweep_stencil(h, w, depths=(8,), stripes=(64,), runs=1,
+                          record=rows)
+    timed_rows = [r for r in rows if r[1] is not None]
+    assert [r[0] for r in timed_rows] == [r[0] for r in rows]
+    # a warm-up and one timed pass a candidate, one launch each
+    assert _build.LAUNCHES["stencil_pipeline"] - before == 2 * len(rows)
+    (sig, entry), = cache.entries.items()
+    dk = normalize_device_kind(torch.cuda.get_device_name())
+    assert sig == f"stencil_pipeline|{h}|float32|{dk}|chip"
+    assert entry.provenance == f"sweep:stencil:{h}x{w}:float32"
+    assert entry.cost_us == min(r[1] for r in timed_rows) > 0
+    k = entry.knobs
+    x = torch.from_numpy(_grid(h, w)).cuda()
+    comm = st.make_communicator(shape=(1, 1), axis_names=("sx", "sy"),
+                                device="cuda")
+    got = kpipe.make_pipeline_stencil_fn(
+        comm, k["depth"], h, w, depth=k["depth"], stripe=k["stripe"],
+        compute_dtype=k["compute_dtype"], buffering=k["buffering"])(x)
+    want = kpipe.pipeline_sweeps_plain(kpipe._extend(x, k["depth"]), 0, 0,
+                                       h, w, k["depth"], k["compute_dtype"])
+    if k["compute_dtype"] == "float32":
+        assert torch.equal(got, want)
+    else:
+        assert (got - want).abs().max().item() <= 0.05
+
+
+def test_timed_feeds_one_sample_sink_cell_from_a_ring_all_reduce(cuda_world):
+    """``timed(sink=SampleSink())`` around a ring all-reduce on the card
+    records one cell in the sink, and the result is its plain
+    version's, credits drained."""
+    from smi_tpu_torch.kernels import ring as kring
+    from smi_tpu_torch.obs.metrics import SampleSink
+    from smi_tpu_torch.utils.tracing import timed
+
+    world = cuda_world(8)
+    xs = _ring_inputs(8, (4096,), torch.float32, seed=36)
+    sink = SampleSink()
+    got, secs = timed(
+        lambda: world.run(lambda c: kring.ring_all_reduce(xs[c.rank], c)),
+        sink=sink, op="all_reduce", payload_bytes=4 * 4096.0)
+    (entry,) = sink.entries()
+    assert len(sink) == 1 and entry["knobs"]["op"] == "all_reduce"
+    assert entry["knobs"]["payload_bucket_bytes"] == 4 * 4096
+    assert entry["cost_us"] == pytest.approx(secs * 1e6, abs=1e-3)
+    assert kring.drained(kring.last_record(world))
+    for g, w in zip(got, kring.ring_all_reduce_plain(xs)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n", [2, 8])
+def test_an_expired_ring_deadline_carries_the_recorder_tail_on_the_card(
+        cuda_world, n):
+    """``Deadline(0.0, recorder=FlightRecorder())`` on the ring
+    all-reduce: every rank's ``WatchdogTimeout`` carries its recorder's
+    tail, on the error and in the structured state beside the protocol
+    mirror, and no ring kernel launches."""
+    from smi_tpu_torch.obs.events import FlightRecorder
+    from smi_tpu_torch.parallel import credits
+    from smi_tpu_torch.utils.watchdog import Deadline, WatchdogTimeout
+
+    world = cuda_world(n)
+    xs = _ring_inputs(n, (64,), torch.float32, seed=n)
+    recorders = [FlightRecorder() for _ in range(n)]
+    for r, rec in enumerate(recorders):
+        credits.simulate_all_reduce(n, credits.Strategy(r), recorder=rec)
+    before = {k: v for k, v in _build.LAUNCHES.items()
+              if k.startswith("ring_")}
+
+    def rank(c):
+        with pytest.raises(WatchdogTimeout) as e:
+            st.allreduce(xs[c.rank], c, backend="ring",
+                         deadline=Deadline(0.0, recorder=recorders[c.rank]))
+        return e.value
+
+    for r, err in enumerate(world.run(rank)):
+        tail = recorders[r].tail()
+        assert tail["events"] and err.recorder_tail == tail
+        assert err.state["flight_recorder"] == tail
+        assert "protocol mirror [all_reduce" in err.state_dump
+    assert {k: v for k, v in _build.LAUNCHES.items()
+            if k.startswith("ring_")} == before

@@ -115,3 +115,50 @@ def test_chip_smoke_refuses_to_run_without_a_card(monkeypatch):
                           timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+#: the analysis and observability tiers and the serving leaves they
+#: drive: host code, imported on demand
+HOST_TIER_MODULES = (
+    "serving.qos", "serving.scheduler", "serving.admission", "serving",
+    "obs.events", "obs.metrics", "analysis.verifier", "analysis.mutants",
+    "analysis.properties", "analysis.model", "analysis.perf",
+    "analysis.perf_mutants", "analysis", "obs.spans", "obs.slo",
+    "obs.trace", "obs",
+)
+
+_HOST_PROBE = """
+import json, sys
+from smi_tpu_torch.kernels import _build
+out = {}
+for module in %r:
+    __import__("smi_tpu_torch." + module)
+    out[module] = sorted({m.split(".")[0] for m in sys.modules})
+print(json.dumps({"roots": out, "libs": len(_build._libs),
+                  "launches": _build.LAUNCHES}))
+"""
+
+
+@pytest.fixture(scope="module")
+def host_tier_imports():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", _HOST_PROBE % (HOST_TIER_MODULES,)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("module", HOST_TIER_MODULES)
+def test_host_tier_module_imports_no_jax_and_builds_nothing(
+        host_tier_imports, module):
+    """Imported in turn in one fresh interpreter, each module of the
+    analysis, observability and serving tiers leaves every forbidden
+    package unloaded (so none of them brought one in), and nothing is
+    built or launched."""
+    roots = set(host_tier_imports["roots"][module])
+    assert not roots & FORBIDDEN, sorted(roots & FORBIDDEN)
+    assert (PACKAGE / (module.replace(".", "/") + ".py")).is_file() or \
+        (PACKAGE / module.replace(".", "/") / "__init__.py").is_file()
+    assert host_tier_imports["libs"] == 0
+    assert set(host_tier_imports["launches"].values()) == {0}
