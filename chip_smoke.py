@@ -376,6 +376,26 @@ Then the analysis and observability tiers:
    kernel admits. Launches of the sweep and of the timed all-reduce are
    counted (rows 4 and 7 add them).
 
+Then the rest of the serving tier:
+
+37. the KV dataflow on an 8-rank ``LocalWorld``:
+   ``serving.inference.traced_kv_dataflow`` at the reference's shape
+   (2 requests, 8 KV chunks, 3 decode steps) on both tiers, every rank's
+   tokens equal to the float64 closed form; then at full width
+   (``KV_REQUESTS`` requests, ``KV_CHUNKS`` chunks, ``KV_GEN`` steps: a
+   4 MiB f32 fold a rank, row 7's shape, over 32 MiB of KV a rank) on
+   the default tier and on ``backend="ring"``, every rank's tokens within
+   ``KV_RTOL`` of the closed form, each call's host wall logged; the
+   same row sums folded once through ``allreduce(..., backend="ring")``,
+   ``torch.equal`` to the kernel's plain version with credits drained,
+   and that fold's device time beside its bound. On the host, with seed
+   0 at their defaults, twice each: ``serve_selftest``, ``load_campaign``,
+   ``retune_selftest``, ``moe_campaign`` and ``infer_selftest``, every
+   gate green and both runs' sorted-JSON digests equal to the JAX
+   package's report's (``SERVING_CAMPAIGNS``), each one's host wall
+   logged; the campaigns that reach ``networkx`` are named and left
+   out (``SERVING_NETWORKX``). Launches counted (row 7 adds them).
+
 Bars: f32 out/acc/gradients within 2e-5 (``rtol = atol``); m and l within
 1e-5 in either dtype (both sides add exact products in f32); bf16
 out/acc/gradients by the worst row's relative error ``||got - want|| /
@@ -750,11 +770,13 @@ def main(argv=None) -> int:
     elastic_launches = elastic_phase(dev, smi_line)
     fault_launches = fault_tier_phase(dev, smi_line)
     analysis_launches = analysis_obs_phase(dev, smi_line)
+    serving_launches = serving_phase(dev, smi_line)
     # rows 5 and 7 count phase 31's launches beside phases 21-23's, and
-    # the first record of each ring and flash kernel phases 33-36's, of
+    # the first record of each ring and flash kernel phases 33-37's, of
     # the pipeline kernel phase 36's
     later = {RING_REPLACES[k]: elastic_launches[k] + fault_launches[k]
-             + analysis_launches.get(k, 0) for k in RING_REPLACES}
+             + analysis_launches.get(k, 0) + serving_launches.get(k, 0)
+             for k in RING_REPLACES}
     later.update({REPLACES[k]: backward_launches[k] for k in REPLACES})
     later[PIPE_REPLACES] = analysis_launches["stencil_pipeline"]
     for record in records:
@@ -5228,6 +5250,201 @@ def analysis_obs_phase(dev, smi_line):
     log(f"  the default engine's stencil_pipeline_plan({N}, {N}): [cache] "
         f"{p}, {engine.cache.lookup(plan.key).cost_us} us a sweep seeded; "
         f"the sweep's winner in this run: {knobs}, {entry.cost_us:.3f} us")
+    return launches
+
+
+#: phase 37: the KV dataflow at full width — requests (one f32 row sum
+#: each, so a 4 MiB fold a rank: row 7's shape), KV chunks a request
+#: (32 MiB of KV a rank) and decode steps
+KV_REQUESTS, KV_CHUNKS, KV_GEN = 1 << 20, 8, 4
+#: phase 37: the reference's own shape (``tests/test_inference.py``)
+KV_REF_SHAPE = (2, 8, 3)
+#: phase 37: each wide token's relative distance from the float64 closed
+#: form (the f32 products and row sums round past 2^24)
+KV_RTOL = 1e-5
+#: phase 37: the serving campaigns run on the host, each with seed 0, and
+#: the sha256 of the JAX package's report of the same call as sorted-key
+#: JSON (``tests/test_torch_serving.py`` holds these to the JAX package)
+SERVING_CAMPAIGNS = {
+    "serve_selftest":
+        "7c86f06062ceddc349599323f876582ebbb41921e1c860c73bd0dfa1e0f2b349",
+    "load_campaign":
+        "420cb72b2e959d40c69889b82e4a61bf6f2b314fc45de016fd72a11d596e1e9f",
+    "retune_selftest":
+        "99657168ce806d045176d325c2e707cfb5ef3c6ff3921e151691272647a57aad",
+    "moe_campaign":
+        "a821a0d626399243e2fc7c91908ac8d16e7f8729ad7759d72e928ceb40b897fa",
+    "infer_selftest":
+        "ce8193bd2acf9904526801199ec6cbafe11b952f899bc1c8d34d708d59d12d31",
+}
+#: the serving campaigns phase 37 leaves out: each reaches ``networkx``
+#: (membership's ``plan_regrow_ring``, through ``parallel.routing``),
+#: which the card's machine lacks
+SERVING_NETWORKX = (
+    "autoscale_selftest (ElasticityController.bind parks its spares "
+    "through shrink_pod -> plan_regrow_ring)",
+    "partition_selftest (the heal's regrow_pod -> plan_regrow_ring)",
+)
+
+
+def kv_closed_form(n, requests, kv_chunks, gen_len):
+    """``traced_kv_dataflow``'s tokens in float64: at step s rank i's row
+    r sums ``(i + 1) * P_r + kv_chunks * s * (s + 1) / 2``, ``P_r`` the
+    row's prompt sum, and the token is the prefix of the n ranks' folds."""
+    import numpy as np
+
+    prompts = np.arange(requests * kv_chunks, dtype=np.float64).reshape(
+        requests, kv_chunks).sum(-1)
+    folds = [n * (n + 1) / 2 * prompts + n * kv_chunks * s * (s + 1) / 2
+             for s in range(gen_len)]
+    return np.cumsum(np.array(folds).reshape(gen_len, requests), axis=0)
+
+
+def serving_phase(dev, smi_line):
+    """Phase 37: the rest of the serving tier. (a) The port's
+    ``traced_kv_dataflow`` on an 8-rank CUDA ``LocalWorld`` at the
+    reference's shape on both tiers, exact to the closed form, and at
+    full width on the default tier and on the ring tier, every rank's
+    tokens within ``KV_RTOL`` of it; the step-0 row sums folded through
+    the ring all-reduce, ``torch.equal`` to its plain version with
+    credits drained. (b) The serving campaigns on the host, twice each,
+    gates green and digests equal. (c) The ring fold's device time.
+    Launch counts of (a) are returned (row 7 adds them)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    import smi_tpu_torch as st
+    from smi_tpu_torch.kernels import _build
+    from smi_tpu_torch.kernels import ring as kring
+    from smi_tpu_torch.serving import campaign as SC
+    from smi_tpu_torch.serving import moe as SM
+    from smi_tpu_torch.serving.inference import traced_kv_dataflow
+
+    log(f"[37 the serving tier: traced_kv_dataflow on {SMI_RANKS} ranks at "
+        f"{KV_REF_SHAPE} and at {KV_REQUESTS}x{KV_CHUNKS}, {KV_GEN} steps, "
+        f"on both tiers; the serving campaigns on the host]")
+    log(f"  {smi_line}")
+    world = st.LocalWorld(SMI_RANKS)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+
+    # ---- (a) the dataflow on the card --------------------------------
+    def dataflow(shape, backend):
+        requests, kv_chunks, gen_len = shape
+        t0 = time.perf_counter()
+        outs = world.run(lambda c: traced_kv_dataflow(
+            c, requests=requests, kv_chunks=kv_chunks, gen_len=gen_len,
+            backend=backend))
+        wall = time.perf_counter() - t0
+        want = kv_closed_form(SMI_RANKS, *shape)
+        worst = 0.0
+        for r, (tokens, record) in enumerate(outs):
+            if tuple(tokens.shape) != (gen_len, requests) or \
+                    tokens.dtype != torch.float32 or \
+                    tokens.device.type != "cuda" or \
+                    not torch.isfinite(tokens).all():
+                raise AssertionError(f"{backend} {shape}: rank {r}'s tokens "
+                                     f"{tuple(tokens.shape)} {tokens.dtype}")
+            if len(record.splitlines()) != gen_len or \
+                    f"backend={backend}" not in record:
+                raise AssertionError(f"{backend} {shape}: rank {r}'s record "
+                                     f"{record!r}")
+            got = tokens.double().cpu().numpy()
+            worst = max(worst, float((np.abs(got - want) / want).max()))
+        return outs, wall, worst
+
+    for backend in ("xla", "ring"):
+        outs, wall, worst = dataflow(KV_REF_SHAPE, backend)
+        if worst != 0.0:
+            raise AssertionError(f"the reference shape on {backend}: tokens "
+                                 f"off the closed form by {worst}")
+        log(f"  {KV_REF_SHAPE} on {backend}: every rank's tokens equal to "
+            f"the float64 closed form; {wall * 1e3:.3f} ms of host wall")
+    walls = {}
+    for backend in ("xla", "ring"):
+        outs, wall, worst = dataflow((KV_REQUESTS, KV_CHUNKS, KV_GEN),
+                                     backend)
+        if worst > KV_RTOL:
+            raise AssertionError(f"the wide dataflow on {backend}: tokens "
+                                 f"{worst:.3g} from the closed form, over "
+                                 f"{KV_RTOL:g}")
+        walls[backend] = wall
+        spread = max((t - outs[0][0]).abs().max().item() for t, _ in outs)
+        log(f"  {KV_REQUESTS}x{KV_CHUNKS}, {KV_GEN} steps on {backend}: "
+            f"every rank's tokens within {worst:.3g} (relative) of the "
+            f"closed form, bar {KV_RTOL:g}; ranks differ by at most "
+            f"{spread:g}; {wall * 1e3:.3f} ms of host wall for the call on "
+            f"{SMI_RANKS} ranks; {smi_line}")
+        del outs
+    prompts = torch.arange(KV_REQUESTS * KV_CHUNKS, dtype=torch.float32,
+                           device=dev).reshape(KV_REQUESTS, KV_CHUNKS)
+    rows = [(prompts * float(r + 1)).sum(-1) for r in range(SMI_RANKS)]
+    del prompts
+    got = world.run(lambda c: st.allreduce(rows[c.rank], c, backend="ring"))
+    record = kring.last_record(world)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    want = kring.ring_all_reduce_plain(rows)
+    for r, (g, w) in enumerate(zip(got, want)):
+        if not torch.equal(g, w):
+            err = (g.double() - w.double()).abs().max().item()
+            raise AssertionError(f"the ring fold: rank {r} != its plain "
+                                 f"version, max abs err {err}")
+    if not kring.drained(record):
+        raise AssertionError(f"the ring fold's credits did not drain: "
+                             f"granted {int(record['granted'].sum())}, "
+                             f"consumed {int(record['consumed'].sum())}")
+    expected = KV_REF_SHAPE[2] + KV_GEN + 1
+    if launches["ring_all_reduce"] != expected or \
+            launches["ring_all_reduce_chunked"] != 0:
+        raise AssertionError(f"phase 37 launches {launches}, expected "
+                             f"{expected} of ring_all_reduce")
+    log(f"  the step-0 row sums ({KV_REQUESTS} f32 a rank) through "
+        f"allreduce(backend='ring'): torch.equal to ring_all_reduce_plain "
+        f"on every rank, credits drained ({int(record['granted'].sum())} "
+        f"granted); launches {launches}")
+    del got, want
+
+    # ---- (b) the campaigns on the host -------------------------------
+    for name, reference in SERVING_CAMPAIGNS.items():
+        run = getattr(SC, name, None) or getattr(SM, name)
+        digests, seconds = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            report = run(seed=0)
+            seconds.append(time.perf_counter() - t0)
+            if report.get("ok") is not True or report.get("failures"):
+                raise AssertionError(f"{name}(seed=0) failed its gates: "
+                                     f"{report.get('verdict')} "
+                                     f"{report.get('failures')}")
+            digests.append(hashlib.sha256(json.dumps(
+                report, sort_keys=True).encode()).hexdigest())
+        if digests[0] != digests[1]:
+            raise AssertionError(f"{name}(seed=0): two runs' digests differ")
+        if digests[0] != reference:
+            raise AssertionError(f"{name}(seed=0): digest {digests[0]} is "
+                                 f"not the JAX package's {reference}")
+        cells = report.get("cells", 1)
+        log(f"  {name}(seed=0): gates green, {cells} cell(s), digest "
+            f"{digests[0][:16]} on both runs, the JAX package's; "
+            f"{seconds[0] * 1e3:.1f} and {seconds[1] * 1e3:.1f} ms of host "
+            f"wall")
+    log(f"  left out, as they need networkx: {'; '.join(SERVING_NETWORKX)}")
+
+    # ---- (c) the ring fold's device time -----------------------------
+    fold = ring_kernel_ms(world, lambda c: kring.ring_all_reduce(
+        rows[c.rank], c))
+    nbytes = 2 * 4 * KV_REQUESTS * SMI_RANKS
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"  the ring fold of {KV_REQUESTS} f32 a rank on {SMI_RANKS} ranks: "
+        f"{fold.ms:.4f} ms of device time (launch through the wrapper "
+        f"{fold.launch_ms:.4f} ms), bound {bound:.4f} ms (bytes: every "
+        f"rank's row sums read once and its fold written once); the "
+        f"dataflow's host wall {walls['xla'] * 1e3:.3f} ms on the default "
+        f"tier and {walls['ring'] * 1e3:.3f} ms on the ring, {KV_GEN} folds "
+        f"each; {smi_line}")
     return launches
 
 

@@ -28,7 +28,7 @@ calls their real methods (``offer``/``pump``/``release``,
 ``record``/``void_deliveries``). There is no hand-written re-model to
 drift from the shipped code; the only model-owned glue is the thin
 frontend wiring (routing, failover, rejoin) that
-:class:`~smi_tpu.serving.frontend.ServingFrontend` performs between
+:class:`~smi_tpu_torch.serving.frontend.ServingFrontend` performs between
 those same calls, and the control-plane mutants of
 :mod:`smi_tpu_torch.analysis.mutants` break exactly that glue (or swap in a
 broken subclass of one real object) to prove each property can fail.
@@ -43,7 +43,7 @@ Exploration is breadth-first over **canonicalized** states:
   tenants/ranks collapse to one orbit representative;
 - BFS order makes the first violation found a **minimal** (shortest)
   counterexample trace; the trace is a plain tuple of named actions
-  that :func:`smi_tpu.serving.campaign.replay_model_trace` re-executes
+  that :func:`smi_tpu_torch.serving.campaign.replay_model_trace` re-executes
   against a fresh ``World`` as a failing campaign cell — differential
   soundness in both directions;
 - a state budget bounds runaway scopes with the same loud
@@ -447,7 +447,7 @@ class World:
     Subclass hooks (``_make_scheduler``, ``_release_credit``,
     ``_reroute_stream``, ``_beat_ranks``) are the seams the
     control-plane mutants override — each hook's default is exactly
-    what :class:`~smi_tpu.serving.frontend.ServingFrontend` does, and
+    what :class:`~smi_tpu_torch.serving.frontend.ServingFrontend` does, and
     everything else goes straight through the shipped objects.
     """
 
@@ -1886,7 +1886,7 @@ class ModelFinding:
 
     ``trace`` is the BFS-shortest action sequence from the initial
     state to the violating state —
-    :func:`smi_tpu.serving.campaign.replay_model_trace` re-executes it
+    :func:`smi_tpu_torch.serving.campaign.replay_model_trace` re-executes it
     against a fresh :class:`World` as a failing campaign cell."""
 
     property: str

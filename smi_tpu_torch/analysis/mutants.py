@@ -157,7 +157,7 @@ MUTANTS = ("dropped_wait", "reused_slot", "unbalanced_grant",
 # by exactly its named property
 # (:data:`smi_tpu_torch.analysis.properties.PROPERTIES`), with the minimal
 # counterexample trace replaying as a failing campaign cell
-# (``smi_tpu.serving.campaign.replay_model_trace``).
+# (``smi_tpu_torch.serving.campaign.replay_model_trace``).
 
 
 def _model_world_base():

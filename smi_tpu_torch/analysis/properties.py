@@ -12,7 +12,7 @@ checker runs :func:`check_state` on every reachable state and
 BFS order) becomes the minimal counterexample.
 
 The properties are the campaign gates of
-:mod:`smi_tpu.serving.campaign` and the elastic soak, turned from
+:mod:`smi_tpu_torch.serving.campaign` and the elastic soak, turned from
 sampled assertions into exhaustively-checked invariants:
 
 - **queue-bound** — stream-credit occupancy never exceeds the pool,

@@ -126,7 +126,7 @@ QUANTIZED_PROTOCOLS = C.QUANTIZED_PROTOCOLS
 #: Serving-level fault classes, deliberately NOT in
 #: :data:`FAULT_CLASSES` (same seed-pinning rule as
 #: :data:`ELASTIC_FAULT_CLASSES`). They drive the multi-tenant
-#: front-end (:mod:`smi_tpu.serving`) across ticks of a serving loop,
+#: front-end (:mod:`smi_tpu_torch.serving`) across ticks of a serving loop,
 #: not actions of one collective: a ``SlowConsumer`` is the
 #: *saturated-not-dead* regime — the destination keeps heartbeating
 #: while its consumer stalls, so wire credits exhaust and the stall
@@ -336,7 +336,7 @@ class SlowConsumer:
 
     The serving-level fault the end-to-end credit chain exists for:
     landed chunks stop being consumed, the destination's wire credits
-    exhaust within :data:`~smi_tpu.serving.scheduler.WIRE_CREDITS`
+    exhaust within :data:`~smi_tpu_torch.serving.scheduler.WIRE_CREDITS`
     chunks, its accepted streams stop completing, their stream credits
     stay held, and the admission edge must shed NEW work to that
     destination with a named error (``backpressure:rank<r>``) instead

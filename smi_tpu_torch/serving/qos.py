@@ -3,7 +3,7 @@
 The port's copy of :mod:`smi_tpu.serving.qos`, kept in step with it
 line for line (pure Python).
 
-The serving front-end (:mod:`smi_tpu.serving.frontend`) multiplexes
+The serving front-end (:mod:`smi_tpu_torch.serving.frontend`) multiplexes
 many tenants onto the channel substrate; this module is its *policy*
 surface — the constants every other serving layer (and
 ``docs/robustness.md``, drift-guarded by ``tests/test_perf_docs.py``)

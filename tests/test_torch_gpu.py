@@ -1666,3 +1666,53 @@ def test_an_expired_ring_deadline_carries_the_recorder_tail_on_the_card(
         assert "protocol mirror [all_reduce" in err.state_dump
     assert {k: v for k, v in _build.LAUNCHES.items()
             if k.startswith("ring_")} == before
+
+
+def _kv_closed_form(n, requests, kv_chunks, gen_len):
+    """``traced_kv_dataflow``'s tokens in float64: ``chip_smoke.py``'s
+    ``kv_closed_form``."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    return chip_smoke.kv_closed_form(n, requests, kv_chunks, gen_len)
+
+
+@pytest.mark.parametrize("requests,kv_chunks,gen_len,rtol", [
+    (2, 8, 3, 0.0),            # the reference's shape: exact
+    (1 << 16, 8, 4, 1e-5),     # wide: the f32 sums round past 2^24
+])
+def test_traced_kv_dataflow_and_its_ring_fold_on_the_card(
+        cuda_world, requests, kv_chunks, gen_len, rtol):
+    """``traced_kv_dataflow`` on an 8-rank world of the card on both
+    tiers: every rank's tokens within ``rtol`` of the float64 closed
+    form; the step-0 row sums folded through the ring all-reduce equal
+    to its plain version, credits drained; one ring launch a decode step
+    and one for the fold."""
+    from smi_tpu_torch.kernels import ring as kring
+    from smi_tpu_torch.serving.inference import traced_kv_dataflow
+
+    world = cuda_world(8)
+    want = _kv_closed_form(8, requests, kv_chunks, gen_len)
+    before = _build.LAUNCHES["ring_all_reduce"]
+    for backend in ("xla", "ring"):
+        outs = world.run(lambda c: traced_kv_dataflow(
+            c, requests=requests, kv_chunks=kv_chunks, gen_len=gen_len,
+            backend=backend))
+        for tokens, record in outs:
+            assert tokens.is_cuda and tokens.dtype == torch.float32
+            assert tuple(tokens.shape) == (gen_len, requests)
+            got = tokens.double().cpu().numpy()
+            assert (np.abs(got - want) / want).max() <= rtol
+            assert len(record.splitlines()) == gen_len
+    prompts = torch.arange(requests * kv_chunks, dtype=torch.float32,
+                           device="cuda").reshape(requests, kv_chunks)
+    rows = [(prompts * float(r + 1)).sum(-1) for r in range(8)]
+    got = world.run(lambda c: st.allreduce(rows[c.rank], c, backend="ring"))
+    assert kring.drained(kring.last_record(world))
+    for g, w in zip(got, kring.ring_all_reduce_plain(rows)):
+        assert torch.equal(g, w)
+    assert _build.LAUNCHES["ring_all_reduce"] - before == gen_len + 1

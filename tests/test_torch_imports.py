@@ -117,10 +117,12 @@ def test_chip_smoke_refuses_to_run_without_a_card(monkeypatch):
     assert '"ok"' not in proc.stdout
 
 
-#: the analysis and observability tiers and the serving leaves they
+#: the analysis and observability tiers and the serving tier they
 #: drive: host code, imported on demand
 HOST_TIER_MODULES = (
-    "serving.qos", "serving.scheduler", "serving.admission", "serving",
+    "serving.qos", "serving.scheduler", "serving.admission",
+    "serving.placement", "serving.frontend", "serving.elasticity",
+    "serving.moe", "serving.inference", "serving.campaign", "serving",
     "obs.events", "obs.metrics", "analysis.verifier", "analysis.mutants",
     "analysis.properties", "analysis.model", "analysis.perf",
     "analysis.perf_mutants", "analysis", "obs.spans", "obs.slo",
@@ -162,3 +164,20 @@ def test_host_tier_module_imports_no_jax_and_builds_nothing(
         (PACKAGE / module.replace(".", "/") / "__init__.py").is_file()
     assert host_tier_imports["libs"] == 0
     assert set(host_tier_imports["launches"].values()) == {0}
+
+
+def test_serving_exports_the_jax_packages_names():
+    """The port's ``serving`` exports the JAX package's
+    ``serving.__all__``, name for name and in its order, and every name
+    resolves."""
+    import smi_tpu.serving as jax_serving
+    import smi_tpu_torch.serving as serving
+
+    assert serving.__all__ == jax_serving.__all__
+    for name in serving.__all__:
+        value = getattr(serving, name)
+        if callable(value):
+            assert value.__module__.startswith("smi_tpu_torch.serving."), \
+                name
+        else:
+            assert value == getattr(jax_serving, name), name

@@ -5,14 +5,15 @@ observability layer (pure Python): the flight recorder and its event
 schema, the metrics registry and sample sink, the Perfetto export of the
 timestamped simulator, request spans with tail-latency blame, and the
 burn-rate SLO engine. The first part carries over ``tests/test_obs.py``
-against the port, all but its serving-campaign cases and ``bench.py``'s
-field (the port has no serving front end or campaigns yet), and the
-cases of ``tests/test_slo.py`` that need none of the front end, the
-campaigns or MoE. The second part runs both packages on the same seeds
-with the tolerance "equal": trace files byte-identical, simulator event
-streams and metrics snapshots equal as sorted-key JSON, span trees,
-blame and SLO health equal, the spans built from the same recorded
-serving run (the JAX package's front end makes it).
+against the port, all but ``bench.py``'s field (the port has no
+counterpart of ``bench.py`` yet), and the cases of ``tests/test_slo.py``
+that need none of the front end, the campaigns or MoE
+(``tests/test_torch_slo.py`` carries the rest). The second part runs
+both packages on the same seeds with the tolerance "equal": trace files
+byte-identical, simulator event streams and metrics snapshots equal as
+sorted-key JSON, span trees, blame and SLO health equal, each package's
+spans built from its own front end's recording of the same serving
+run.
 """
 
 import copy
@@ -392,10 +393,86 @@ class TestTraceExport:
                                     "idle")
 
 
-
 # ---------------------------------------------------------------------------
 # Serving leaves + control plane: error tails and epoch events
 # ---------------------------------------------------------------------------
+
+
+@pytest.mark.serving
+class TestServingObservability:
+    def test_metrics_snapshot_equals_campaign_bookkeeping(self):
+        """The acceptance criterion: a seeded chaos-under-load cell's
+        metrics snapshot must agree with the campaign gate's own
+        accounting — counter for counter."""
+        from smi_tpu_torch.serving.campaign import run_load_cell
+        from smi_tpu_torch.serving.qos import QOS_CLASSES
+
+        rep = run_load_cell(n=4, seed=11, duration=160, overload=2.0)
+        assert rep["ok"], rep["verdict"]
+        counters = rep["metrics"]["counters"]
+        for qos in QOS_CLASSES:
+            assert counters.get(f"admitted_total{{qos={qos}}}", 0) \
+                == rep["accepted"][qos]
+            assert counters.get(f"delivered_total{{qos={qos}}}", 0) \
+                == rep["delivered"][qos]
+            for reason, count in rep["shed"][qos].items():
+                key = f"shed_total{{qos={qos},reason={reason}}}"
+                assert counters.get(key, 0) == count
+        # and nothing in the registry claims sheds the gate never saw
+        metric_shed = sum(
+            v for k, v in counters.items()
+            if k.startswith("shed_total{")
+        )
+        assert metric_shed == sum(
+            sum(rep["shed"][q].values()) for q in QOS_CLASSES
+        )
+
+    def test_snapshot_and_event_stream_deterministic_per_seed(self):
+        from smi_tpu_torch.serving.campaign import run_load_cell
+
+        a = run_load_cell(n=4, seed=5, duration=120, overload=2.0)
+        b = run_load_cell(n=4, seed=5, duration=120, overload=2.0)
+        assert json.dumps(a["metrics"], sort_keys=True) == \
+            json.dumps(b["metrics"], sort_keys=True)
+        assert a["obs"] == b["obs"]
+        assert a["obs"]["dropped_events"] == (
+            a["obs"]["total_events"]
+            - min(a["obs"]["total_events"],
+                  a["obs"]["recorder_capacity"])
+        )
+
+    def test_kill_cell_emits_control_plane_events(self):
+        from smi_tpu_torch.serving.campaign import run_load_cell
+
+        rep = run_load_cell(n=4, seed=1, duration=240, kill_rank=2,
+                            kill_at=60)
+        assert rep["ok"], rep["verdict"]
+        counts = rep["obs"]["event_counts"]
+        assert counts.get("ctl.suspect", 0) >= 1
+        assert counts.get("ctl.confirm", 0) == 1
+        assert counts.get("ctl.shrink", 0) == 1
+        assert counts.get("serve.replay", 0) >= 1
+        counters = rep["metrics"]["counters"]
+        assert counters.get("epoch_bumps_total{reason=shrink}") == 1
+
+    def test_admission_rejected_carries_the_tail(self):
+        from smi_tpu_torch.serving.frontend import ServingFrontend
+        from smi_tpu_torch.serving.qos import AdmissionRejected
+
+        fe = ServingFrontend(4, seed=0, tenant_rate=0.25,
+                             tenant_burst=1.0)
+        fe.submit("t0", "batch", ("c0",))
+        with pytest.raises(AdmissionRejected) as info:
+            fe.submit("t0", "batch", ("c1",))  # bucket empty
+        e = info.value
+        assert e.reason == "tenant-rate"
+        assert e.recorder_tail is not None
+        assert e.recorder_tail["events"]
+        # the tail survives the copy/pickle paths the model checker
+        # and campaign reports exercise
+        assert copy.copy(e).recorder_tail == e.recorder_tail
+        assert pickle.loads(pickle.dumps(e)).recorder_tail \
+            == e.recorder_tail
 
 
 class TestControlPlaneObservability:
@@ -885,16 +962,20 @@ def test_slo_health_equals_the_jax_package_s(seed):
     dict(seed=0, duration=240, overload=1.0, kill_rank=2, kill_at=60),
 ], ids=["steady", "overload", "stall", "kill"])
 def test_spans_and_blame_of_one_recorded_run_equal_the_jax_package_s(cell):
-    """One serving run recorded by the JAX package's front end (the
-    port has none yet), its event snapshot built into span trees and a
-    blame report by both packages: equal tree for tree."""
+    """The same serving run, recorded by each package's own front end:
+    the two event snapshots equal, and the span trees and blame report
+    each package builds from its own snapshot equal tree for tree."""
     from smi_tpu.obs import spans as JSP
-    from smi_tpu.serving.campaign import run_load_cell
+    from smi_tpu.serving.campaign import run_load_cell as jax_run_load_cell
     from smi_tpu_torch.obs import spans as SP
+    from smi_tpu_torch.serving.campaign import run_load_cell
 
     _rep, fe = run_load_cell(n=4, return_frontend=True, **cell)
+    _jrep, jfe = jax_run_load_cell(n=4, return_frontend=True, **cell)
     snap = json.loads(json.dumps(fe.recorder.snapshot()))
-    ours, theirs = SP.build_spans(snap), JSP.build_spans(snap)
+    jsnap = json.loads(json.dumps(jfe.recorder.snapshot()))
+    assert _canon(snap) == _canon(jsnap)
+    ours, theirs = SP.build_spans(snap), JSP.build_spans(jsnap)
     assert list(ours.requests) == list(theirs.requests)
     for key in ours.requests:
         assert _canon(ours.requests[key].to_json()) == \
