@@ -396,6 +396,26 @@ Then the rest of the serving tier:
    logged; the campaigns that reach ``networkx`` are named and left
    out (``SERVING_NETWORKX``). Launches counted (row 7 adds them).
 
+Then the command line:
+
+38. ``python -m smi_tpu_torch topology -n 8`` as a subprocess, then in
+   the process ``build`` of the CLI's transfer -> reduce(max) -> bcast
+   app (manifest -> route -> device -> host) with ``--report``, whose
+   per-op kernels must be one stream and two all-reduce launches with
+   their ptxas figures; the generated host module's ``SmiInit_app``
+   bootstraps the 8 ranks from the written tables (a ``LocalWorld`` of
+   the card) and the generated device module's symbols run the app at
+   ``SMI_ELEMS`` f32 a rank on both tiers, ``torch.equal`` across tiers
+   and to ``max(x, 0)`` on every rank, the ring tier launching row 5
+   once and row 7 twice, credits drained; the stream and the all-reduce
+   at the app's shapes held to their plain versions, and their device
+   times beside the byte bound; ``aot-verify``
+   (every source built for sm_90a, every case of the JAX surface at
+   v5e:2x4, v5e:4x4 and v5e:2x4*2 fitting the card, each ring kernel's
+   blocks an SM from the ptxas figures equal to the runtime's); ``lint
+   --combined`` and ``serve --selftest``; each command timed. Launches
+   of the app and the report counted (rows 5 and 7 add them).
+
 Bars: f32 out/acc/gradients within 2e-5 (``rtol = atol``); m and l within
 1e-5 in either dtype (both sides add exact products in f32); bf16
 out/acc/gradients by the worst row's relative error ``||got - want|| /
@@ -418,6 +438,7 @@ per-kernel JSON record; the last line is the device JSON.
 import contextlib
 import ctypes
 import dataclasses
+import io
 import json
 import math
 import re
@@ -771,11 +792,13 @@ def main(argv=None) -> int:
     fault_launches = fault_tier_phase(dev, smi_line)
     analysis_launches = analysis_obs_phase(dev, smi_line)
     serving_launches = serving_phase(dev, smi_line)
+    cli_launches = cli_phase(dev, smi_line)
     # rows 5 and 7 count phase 31's launches beside phases 21-23's, and
-    # the first record of each ring and flash kernel phases 33-37's, of
+    # the first record of each ring and flash kernel phases 33-38's, of
     # the pipeline kernel phase 36's
     later = {RING_REPLACES[k]: elastic_launches[k] + fault_launches[k]
              + analysis_launches.get(k, 0) + serving_launches.get(k, 0)
+             + cli_launches.get(k, 0)
              for k in RING_REPLACES}
     later.update({REPLACES[k]: backward_launches[k] for k in REPLACES})
     later[PIPE_REPLACES] = analysis_launches["stencil_pipeline"]
@@ -3655,25 +3678,13 @@ def roll_instance(name):
 
 def roll_build_info(log_text):
     """Each roll_chain_kernel instance's registers and spill bytes (stores,
-    loads) from its ``-Xptxas -v`` log."""
-    info, current = {}, None
-    for line in log_text.splitlines():
-        if "entry function" in line or "Function properties" in line:
-            current = roll_instance(line)
-            if current is not None:
-                info.setdefault(current, {})
-            continue
-        if current is None:
-            continue
-        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", line)
-        if spill:
-            info[current]["spill"] = (int(spill.group(1)),
-                                      int(spill.group(2)))
-        used = re.search(r"Used (\d+) registers", line)
-        if used:
-            info[current]["registers"] = int(used.group(1))
-    return info
+    loads) from its ``-Xptxas -v`` log (``parallel/aot.py``'s parser)."""
+    from smi_tpu_torch.parallel import aot
+
+    return {roll_instance(name): {"registers": figs["registers"],
+                                  "spill": figs.get("spill")}
+            for name, figs in aot.kernel_resources(log_text).items()
+            if roll_instance(name) is not None}
 
 
 def roll_shuffles(library):
@@ -5445,6 +5456,282 @@ def serving_phase(dev, smi_line):
         f"dataflow's host wall {walls['xla'] * 1e3:.3f} ms on the default "
         f"tier and {walls['ring'] * 1e3:.3f} ms on the ring, {KV_GEN} folds "
         f"each; {smi_line}")
+    return launches
+
+
+
+#: phase 38: the CLI's app (tests/test_cli.py's transfer -> reduce(max)
+#: -> bcast program) written against the port's package
+CLI_APP = '''\
+import smi_tpu_torch as smi
+
+def kernel(ctx, x):
+    ch = ctx.open_channel(port=0, src=0, dst=1, count=64, dtype="float",
+                          buffer_size=17)
+    got = ctx.transfer(ch, x)
+    r = ctx.reduce(got, op="max", port=1)
+    return ctx.bcast(r, root=0, port=2)
+'''
+CLI_APP_REPS = 5
+#: the app's launches on the ring tier: the transfer's one hop, then the
+#: reduce and the bcast
+CLI_APP_LAUNCHES = {"ring_neighbour_stream": 1, "ring_all_reduce": 2}
+
+
+def cli_phase(dev, smi_line):
+    """Phase 38: the command line. ``python -m smi_tpu_torch`` once as a
+    subprocess (``topology -n 8``), then in-process ``build`` (manifest ->
+    route -> device -> host) of the CLI's app with ``--report``; the
+    generated host module bootstraps the 8 ranks from the written tables
+    and the generated device module's symbols run the app on an 8-rank
+    ``LocalWorld`` of the card at ``SMI_ELEMS`` f32 a rank on both tiers,
+    ``torch.equal`` across tiers and to ``max(x, 0)`` on every rank,
+    credits drained; each ring launch of the app replayed against its
+    plain version and timed; ``aot-verify`` (every source built for sm_90a, every
+    case of the JAX surface fitting, the ring kernels' ptxas-derived
+    blocks an SM equal to the runtime's); ``lint --combined`` and
+    ``serve --selftest``. Each command's wall time is logged. Returns the
+    launches of the app and the report (rows 5 and 7 add them)."""
+    import importlib.util
+    import os
+
+    import torch
+
+    import smi_tpu_torch as st
+    import smi_tpu_torch.__main__ as cli
+    from smi_tpu_torch.kernels import _build
+    from smi_tpu_torch.kernels import ring as kring
+    from smi_tpu_torch.ops.types import SmiOp
+    from smi_tpu_torch.utils import native
+
+    log(f"[38 the command line: python -m smi_tpu_torch; build --report of "
+        f"the CLI's app on {SMI_RANKS} ranks; the generated modules at "
+        f"{SMI_ELEMS} f32 a rank on both tiers; aot-verify; lint; serve]")
+    log(f"  {smi_line}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "cli")
+    os.makedirs(work, exist_ok=True)
+    cluster = os.path.join(work, "cluster.json")
+    app_py = os.path.join(work, "app.py")
+    with open(app_py, "w") as f:
+        f.write(CLI_APP)
+    walls = {}
+
+    def command(name, argv):
+        """``cli.main(argv)``, its output kept in ``build/cli/<name>.log``
+        and its last line logged."""
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            rc = cli.main(argv)
+        walls[name] = time.perf_counter() - t0
+        path = os.path.join(work, name.split()[0] + ".log")
+        with open(path, "w") as f:
+            f.write(text.getvalue())
+        last = (text.getvalue().strip().splitlines() or [""])[-1]
+        log(f"  {name}: exit {rc} in {walls[name]:.3f} s; last line "
+            f"{last!r} (the whole output in {os.path.relpath(path, root)})")
+        if rc != 0:
+            raise AssertionError(f"python -m smi_tpu_torch {' '.join(argv)} "
+                                 f"exited {rc}")
+        return rc
+
+    # ---- (a) the entry point as a subprocess -------------------------
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "smi_tpu_torch", "topology", "-n",
+         str(SMI_RANKS), "-p", "app", "-f", cluster],
+        cwd=root, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=root))
+    walls["python -m smi_tpu_torch topology"] = time.perf_counter() - t0
+    if proc.returncode != 0 or not os.path.isfile(cluster):
+        raise AssertionError(f"python -m smi_tpu_torch topology failed: "
+                             f"{proc.returncode} {proc.stderr[-2000:]}")
+    log(f"  native runtime in use: {native.native_available()} "
+        f"({native.runtime_version()}); manifest tool "
+        f"{native.manifest_tool()}")
+
+    # ---- (b) build with --report --------------------------------------
+    out = os.path.join(work, "app")
+    command("build --report", ["build", cluster, app_py, "-o", out,
+                               "--report"])
+    with open(os.path.join(out, "report.json")) as f:
+        report = json.load(f)
+    got = [(e["op"], e["kernels"]) for e in report["operations"]]
+    want = [("push", {"ring_neighbour_stream": 1}),
+            ("reduce", {"ring_all_reduce": 1}),
+            ("broadcast", {"ring_all_reduce": 1})]
+    if got != want or report["comm_size"] != SMI_RANKS:
+        raise AssertionError(f"build --report: {got} on "
+                             f"{report['comm_size']} ranks, expected {want}")
+    for e in report["operations"]:
+        for kernel, figs in e["figures"].items():
+            if figs["registers"] is None or figs["registers"] > 64:
+                raise AssertionError(f"build --report: {kernel}'s figures "
+                                     f"{figs}")
+        log(f"  report {e['op']} port {e['port']} {e['dtype']}: "
+            f"{e['kernels']}, {e['bytes']} B, figures {e['figures']}, "
+            f"{e['predicted_us']} us at 3.35 TB/s")
+    report_launches = {}
+    for e in report["operations"]:
+        for kernel, n in e["kernels"].items():
+            report_launches[kernel] = report_launches.get(kernel, 0) + n
+
+    # ---- (c) the generated modules -----------------------------------
+    def load(name):
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(out, name + ".py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    host, dev_mod = load("smi_generated_host"), load("smi_generated_device")
+    routes = os.path.join(out, "smi-routes")
+    world, program = host.SmiInit_app(rank=0, ranks=SMI_RANKS,
+                                      routing_dir=routes)
+    for rank in range(1, SMI_RANKS):
+        if native.bootstrap_rank(routes, rank, 4, SMI_RANKS) < \
+                program.logical_port_count:
+            raise AssertionError(f"rank {rank}'s tables are undersized")
+    if not isinstance(world, st.LocalWorld) or world.size != SMI_RANKS \
+            or world.device.type != dev.type:
+        raise AssertionError(f"SmiInit_app returned {world!r}")
+    log(f"  SmiInit_app: a {world.size}-rank LocalWorld on {world.device}, "
+        f"{program.logical_port_count} ports, every rank's tables valid")
+
+    def app_for(backend):
+        @st.smi_kernel(world, in_specs=None, out_specs="smi",
+                       program=dev_mod.PROGRAM, backend=backend)
+        def app(ctx, v):
+            ch = dev_mod.SMI_Open_send_channel_0_float(
+                ctx, src=0, dst=1, count=v.shape[0])
+            got = dev_mod.SMI_Push_0_float(ctx, ch, v)
+            r = dev_mod.SMI_Reduce_1_int(ctx, got, root=0)
+            return dev_mod.SMI_Bcast_2_int(ctx, r, root=0)[None]
+        return app
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 38)
+    x = torch.randn(SMI_ELEMS, generator=gen, device=dev)
+    outs, app_ms = {}, {}
+    for backend in ("xla", "ring"):
+        app = app_for(backend)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        outs[backend] = app(x)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+        if backend == "ring":
+            app_launches = dict(_build.LAUNCHES)
+            record = kring.last_record(world)
+            if launched != CLI_APP_LAUNCHES:
+                raise AssertionError(f"the app on the ring tier launched "
+                                     f"{launched}, expected "
+                                     f"{CLI_APP_LAUNCHES}")
+            if not kring.drained(record):
+                raise AssertionError("the app's last ring launch did not "
+                                     "drain its credits")
+        elif launched:
+            raise AssertionError(f"the default tier launched {launched}")
+        walls_ms = []
+        for _ in range(CLI_APP_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            app(x)
+            torch.cuda.synchronize()
+            walls_ms.append((time.perf_counter() - t0) * 1e3)
+        app_ms[backend] = sorted(walls_ms)[len(walls_ms) // 2]
+    want = x.clamp(min=0).expand(SMI_RANKS, -1)
+    if tuple(outs["ring"].shape) != (SMI_RANKS, SMI_ELEMS) or \
+            not torch.equal(outs["ring"], outs["xla"]) or \
+            not torch.equal(outs["ring"], want):
+        err = (outs["ring"] - want).abs().max().item()
+        raise AssertionError(f"the app: ring != default tier or max(x, 0), "
+                             f"max abs err {err}")
+    log(f"  the app at {SMI_ELEMS} f32 a rank: ring tier torch.equal to the "
+        f"default tier and to max(x, 0) on all {SMI_RANKS} ranks; launches "
+        f"{CLI_APP_LAUNCHES}, credits drained; median host wall of "
+        f"{CLI_APP_REPS} calls {app_ms['xla']:.3f} ms on the default tier, "
+        f"{app_ms['ring']:.3f} ms on the ring; {smi_line}")
+
+    # each ring launch of the app against its plain version (not counted)
+    xs = [x[None] if r == 0 else torch.zeros_like(x[None])
+          for r in range(SMI_RANKS)]
+    got = world.run(lambda c: kring.neighbour_stream(xs[c.rank], c))
+    for r, (g, w) in enumerate(zip(got, kring.neighbour_stream_plain(xs,
+                                                                     1))):
+        if not torch.equal(g, w):
+            raise AssertionError(f"the app's stream: rank {r} != plain")
+    if not kring.drained(kring.last_record(world)):
+        raise AssertionError("the app's stream did not drain its credits")
+    parts = [g[0] for g in got]
+    for op in (SmiOp.MAX, SmiOp.ADD):
+        got = world.run(lambda c: kring.ring_all_reduce(
+            parts[c.rank], c, op=op, chunks=1))
+        for r, (g, w) in enumerate(zip(got, kring.ring_all_reduce_plain(
+                parts, op))):
+            if not torch.equal(g, w):
+                raise AssertionError(f"the app's {op} all-reduce: rank {r} "
+                                     f"!= plain")
+        if not kring.drained(kring.last_record(world)):
+            raise AssertionError(f"the app's {op} all-reduce did not drain")
+    log("  the app's stream and its MAX and ADD all-reduces at the app's "
+        "shapes: torch.equal to their plain versions, credits drained")
+    # their device time (behind a wait, the median of the replays) beside
+    # the bound: every rank's input read once and output written once
+    bound = 2 * 4 * SMI_ELEMS * SMI_RANKS / HBM_BYTES_PER_S * 1e3
+    for name, fn in (
+            ("stream", lambda c: kring.neighbour_stream(xs[c.rank], c)),
+            ("MAX all-reduce", lambda c: kring.ring_all_reduce(
+                parts[c.rank], c, op=SmiOp.MAX, chunks=1))):
+        t = ring_kernel_ms(world, fn)
+        log(f"  the app's {name}: {t.ms:.4f} ms of device time, one launch "
+            f"through the wrapper {t.launch_ms:.4f} ms, bound {bound:.4f} "
+            f"ms (bytes); {smi_line}")
+    del outs, xs, parts, got, want
+
+    # ---- (d) aot-verify ----------------------------------------------
+    aot_json = os.path.join(work, "AOT_H100.json")
+    command("aot-verify", ["aot-verify", "-o", aot_json])
+    with open(aot_json) as f:
+        aot = json.load(f)
+    if not aot["ok"]:
+        raise AssertionError(f"aot-verify: {aot}")
+    occupancy = {}
+    for topo, entry in aot["topologies"].items():
+        programs = entry["programs"]
+        launches = [l for p in programs.values() for l in p["launches"]]
+        for l in launches:
+            if l["cooperative"]:
+                if l.get("runtime_blocks_per_sm") != l["blocks_per_sm"]:
+                    raise AssertionError(f"aot-verify {topo}: {l}")
+                key = (l["kernel"], l["dtype"], l["op"])
+                occupancy[key] = (l["registers"], l["blocks_per_sm"],
+                                  l["runtime_blocks_per_sm"],
+                                  l["resident_blocks"])
+        most = max((l["smem"] for l in launches), default=0)
+        log(f"  aot-verify {topo} ({entry['devices']} ranks): "
+            f"{len(programs)} cases fit, {len(launches)} distinct launches, "
+            f"the most shared memory a block {most} B of "
+            f"{232448} B")
+    for (kernel, dtype, op), (regs, ptxas, runtime, resident) in sorted(
+            occupancy.items()):
+        log(f"  {kernel} {dtype} op {op}: {regs} registers, {ptxas} blocks "
+            f"an SM by the ptxas figures, {runtime} by the runtime, "
+            f"{resident} resident")
+    log(f"  sources built: " + ", ".join(
+        f"{name} ({len(src['instances'])} instances)"
+        for name, src in aot["sources"].items()))
+
+    # ---- (e) lint and serve ------------------------------------------
+    command("lint --combined", ["lint", "--combined", "-o",
+                                os.path.join(work, "lint.json")])
+    command("serve --selftest", ["serve", "--selftest", "-o",
+                                 os.path.join(work, "serve.json")])
+    log("  " + "; ".join(f"{name}: {s:.3f} s" for name, s in walls.items())
+        + f"; {smi_line}")
+    launches = {k: app_launches.get(k, 0) + report_launches.get(k, 0)
+                for k in RING_REPLACES}
+    log(f"  launches (the app and the report): {launches}")
     return launches
 
 

@@ -1,7 +1,6 @@
 """Static verification of the credits protocol zoo + the control plane.
 
-The port's copy of :mod:`smi_tpu.analysis`, with the same names less
-``serialized_dma_findings`` (see :mod:`.perf`).
+The port's copy of :mod:`smi_tpu.analysis`, with the same names.
 
 The compile-time correctness tiers: :mod:`.verifier` proves
 deadlock-freedom, slot-race-freedom, credit conservation, and wire-lane
@@ -87,6 +86,7 @@ from smi_tpu_torch.analysis.perf import (  # noqa: F401
     perf_reports_to_json,
     render_perf_reports,
     roofline_lint,
+    serialized_dma_findings,
 )
 from smi_tpu_torch.analysis.perf_mutants import (  # noqa: F401
     OVERSIZED_FLASH_TILE,

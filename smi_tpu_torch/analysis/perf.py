@@ -1,10 +1,9 @@
 """Static performance analyzer: critical-path decomposition + roofline lint.
 
 The port's copy of :mod:`smi_tpu.analysis.perf`, kept in step with it
-line for line, less ``serialized_dma_findings``: that rule parses XLA
-HLO through the JAX package's ``parallel/traffic.py``, which the port
-does not carry, so :func:`roofline_lint` refuses ``hlo_text``. The
-flash-tile checks and :data:`ANALYTIC_EXPECTED_US` price through the
+line for line. ``serialized_dma_findings`` parses XLA HLO text a user
+hands it (a JAX program's dump) through the port's copy of the text
+parser, :mod:`smi_tpu_torch.parallel.traffic`. The flash-tile checks and :data:`ANALYTIC_EXPECTED_US` price through the
 port's :mod:`smi_tpu_torch.tuning.cost_model`, which keeps the JAX
 package's model prices for the TPU v5e (VMEM frame, HBM rate, link
 rates): they are the model's numbers for that chip, never times of an
@@ -863,6 +862,38 @@ def below_roofline_findings(
     return findings
 
 
+def serialized_dma_findings(hlo_text: str) -> List[PerfFinding]:
+    """``serialized-dma``: async collective pairs that are part of a
+    dependent collective chain yet moved with zero compute scheduled in
+    their flight window — the transfer is pure critical path even
+    though the program HAS compute to hide behind it."""
+    from smi_tpu_torch.parallel import traffic as T
+
+    findings = []
+    report = T.overlap_report(hlo_text=hlo_text)
+    for rec in report["per_collective"]:
+        if not rec["async"]:
+            continue
+        upstream = rec.get("depends_on_collective")
+        if (rec.get("scheduled_ops", 0) == 0
+                and rec["computation_compute_bytes"] > 0
+                and upstream):
+            findings.append(PerfFinding(
+                check="serialized-dma",
+                message=(
+                    f"async {rec['op']} %{rec['name']} depends on "
+                    f"collective %{upstream} and has ZERO compute "
+                    f"scheduled between its start and done — the "
+                    f"dependent DMA chain runs end-to-end on the "
+                    f"critical path while the computation holds "
+                    f"{rec['computation_compute_bytes']} B of compute "
+                    f"that could hide it (see overlap_report)"
+                ),
+                expected=">0 scheduled bytes", got=0,
+            ))
+    return findings
+
+
 # -- stencil stripe stream (r18 roofline closure) ----------------------------
 
 #: The stream model is two ranks: the HBM side (0) pushing stripes and
@@ -1226,20 +1257,13 @@ def roofline_lint(
     check_expectations: bool = True,
 ) -> List[PerfFinding]:
     """The full sub-tier (b) pass: VMEM double-buffer + tile roofline
-    over ``flash_tiles`` (default: the shipped seeded tiles) and the
-    analytic drift check against the committed expectations.
-
-    ``serialized-dma`` reads an XLA HLO artifact through the JAX
-    package's ``parallel/traffic.py``, which has no counterpart in the
-    port yet, so ``hlo_text`` raises :class:`NotImplementedError`."""
-    if hlo_text is not None:
-        raise NotImplementedError(
-            "roofline_lint(hlo_text=...): the serialized-dma rule parses "
-            "XLA HLO through parallel/traffic.py, TPU-only machinery the "
-            "port does not carry (ROADMAP.md Queue 1, item 13)"
-        )
+    over ``flash_tiles`` (default: the shipped seeded tiles),
+    ``serialized-dma`` when an HLO artifact is given, and the analytic
+    drift check against the committed expectations."""
     findings = no_double_buffer_findings(flash_tiles)
     findings += below_roofline_findings(flash_tiles)
+    if hlo_text is not None:
+        findings += serialized_dma_findings(hlo_text)
     if check_expectations:
         findings += analytic_regression_findings()
     return findings

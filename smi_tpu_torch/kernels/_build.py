@@ -126,12 +126,13 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build_kernels(names=None) -> Dict[str, float]:
+def build_kernels(names=None, load: bool = True) -> Dict[str, float]:
     """Compile every named source that is not built yet, all at once,
-    and load each. Returns the wall seconds each build waited for."""
+    and load each (``load=False`` only compiles: neither a card nor the
+    CUDA driver is needed). Returns the wall seconds each build waited for."""
     names = list(SOURCES) if names is None else list(names)
     with _lock:
-        todo = [n for n in names if n not in _libs]
+        todo = [n for n in names if not load or n not in _libs]
         pending = {}
         started = time.perf_counter()
         for name in todo:
@@ -156,7 +157,7 @@ def build_kernels(names=None) -> Dict[str, float]:
             os.replace(tmp, out)
         if failures:
             raise RuntimeError("nvcc failed for " + "\n".join(failures))
-        for name in todo:
+        for name in todo if load else ():
             _libs[name] = _declare(name, ctypes.CDLL(str(library_path(name))))
         return waited
 

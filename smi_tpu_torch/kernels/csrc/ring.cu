@@ -931,3 +931,22 @@ extern "C" int smi_ring_reduce_scatter(
   return launch_reduce(reduce_for<true>(dtype, op), table, ranks, n, elems,
                        slot_stride, 1, flow_control, blocks, stream);
 }
+
+// The blocks of one ring kernel instance an SM holds at once, as the
+// runtime's occupancy calculator counts them (the C entries hold a grid to
+// this times the SMs): `kernel` 0 the stream, 1 the all-gather, 2 the
+// all-reduce (and its chunked form), 3 the reduce-scatter; `dtype` and
+// `op` pick a reduce instance.
+extern "C" int smi_ring_blocks_per_sm(int kernel, int dtype, int op,
+                                      int* out) {
+  const void* fn = nullptr;
+  switch (kernel) {
+    case 0: fn = (const void*)neighbour_stream_kernel; break;
+    case 1: fn = (const void*)all_gather_kernel; break;
+    case 2: fn = (const void*)reduce_for<false>(dtype, op); break;
+    case 3: fn = (const void*)reduce_for<true>(dtype, op); break;
+  }
+  if (fn == nullptr || out == nullptr) return cudaErrorInvalidValue;
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, fn, kThreads, 0));
+}

@@ -1716,3 +1716,85 @@ def test_traced_kv_dataflow_and_its_ring_fold_on_the_card(
     for g, w in zip(got, kring.ring_all_reduce_plain(rows)):
         assert torch.equal(g, w)
     assert _build.LAUNCHES["ring_all_reduce"] - before == gen_len + 1
+
+
+# ---------------------------------------------------------------------------
+# The command line's tiers on the card
+# ---------------------------------------------------------------------------
+
+
+def test_aot_surface_fits_and_the_runtime_agrees():
+    """``aot.check_surface`` on the card: every source builds for
+    sm_90a, every launch of the JAX surface's cases fits, and each ring
+    kernel's blocks an SM from the ptxas figures equal the runtime's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the occupancy is asked of it")
+    from smi_tpu_torch.parallel import aot
+
+    reports = aot.check_surface("v5e:2x4", runtime=True)
+    ring = [l for r in reports.values() for l in r["launches"]
+            if l["cooperative"]]
+    assert ring and all(
+        l["runtime_blocks_per_sm"] == l["blocks_per_sm"] for l in ring)
+    assert set(reports) == {n for n, _ in aot.surface_cases("v5e:2x4")}
+
+
+@pytest.mark.parametrize("count", [96, 4096])
+def test_cli_app_on_both_tiers_of_an_8_rank_world(cuda_world, tmp_path,
+                                                  count):
+    """The CLI-generated device module's transfer -> reduce(max) ->
+    bcast on 8 rank threads of the card: the ring tier launches the
+    stream once and the all-reduce twice, and equals the default tier
+    and max(x, 0) on every rank."""
+    import importlib.util
+    import os
+
+    import smi_tpu_torch.__main__ as cli
+
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+    meta = tmp_path / "app.json"
+    meta.write_text(open(os.path.join(data, "cli-program.json")).read())
+    assert cli.main(["device", str(tmp_path / "appdev.py"), str(meta)]) == 0
+    spec = importlib.util.spec_from_file_location("gpu_appdev",
+                                                  tmp_path / "appdev.py")
+    dev = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(dev)
+    world = cuda_world(8)
+    x = torch.randn(count, generator=torch.Generator().manual_seed(count))
+    outs = {}
+    for backend in ("xla", "ring"):
+        @st.smi_kernel(world, in_specs=None, out_specs="smi",
+                       program=dev.PROGRAM, backend=backend)
+        def app(ctx, v):
+            ch = dev.SMI_Open_send_channel_0_float(ctx, src=0, dst=1,
+                                                   count=v.shape[0])
+            got = dev.SMI_Push_0_float(ctx, ch, v)
+            r = dev.SMI_Reduce_1_int(ctx, got, root=0)
+            return dev.SMI_Bcast_2_int(ctx, r, root=0)[None]
+
+        _build.reset_launches()
+        outs[backend] = app(x)
+        launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+    assert launched == {"ring_neighbour_stream": 1, "ring_all_reduce": 2}
+    assert torch.equal(outs["ring"], outs["xla"])
+    assert torch.equal(outs["ring"].cpu(),
+                       x.clamp(min=0).expand(8, -1))
+
+
+def test_program_report_counts_the_ring_launches(cuda_world):
+    from smi_tpu_torch.ops.operations import Broadcast, Pop, Push, Reduce
+    from smi_tpu_torch.ops.program import Program
+    from smi_tpu_torch.utils.report import format_report, program_report
+
+    program = Program([Push(port=0, dtype="float", buffer_size=17),
+                       Pop(port=0, dtype="float", buffer_size=17),
+                       Reduce(port=1, dtype="int", op="max"),
+                       Broadcast(port=2, dtype="int")])
+    report = program_report(program, cuda_world(8), count=4096)
+    kernels = [e["kernels"] for e in report["operations"]]
+    assert kernels == [{"ring_neighbour_stream": 1},
+                       {"ring_all_reduce": 1}, {"ring_all_reduce": 1}]
+    for e in report["operations"]:
+        (figs,) = e["figures"].values()
+        assert figs["registers"] is not None and figs["registers"] <= 64
+    assert "hbm_pred_us" in format_report(report)

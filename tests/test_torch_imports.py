@@ -106,6 +106,20 @@ def test_package_lists_its_kernel_sources_as_package_data():
                         "stencil_sweep.cu", "stencil_temporal.cu"]
 
 
+def test_chip_smoke_defines_every_phase_before_it_runs():
+    """``chip_smoke.py``'s ``if __name__ == "__main__"`` guard is its last
+    statement, so every phase ``main`` calls is defined when it runs."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    last = tree.body[-1]
+    assert isinstance(last, ast.If) and ast.unparse(last.test) == \
+        "__name__ == '__main__'"
+    calls = {n.func.id for n in ast.walk(tree)
+             if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)}
+    defined = {n.name for n in tree.body
+               if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+    assert {"cli_phase", "serving_phase", "main"} <= calls & defined
+
+
 def test_chip_smoke_refuses_to_run_without_a_card(monkeypatch):
     """``chip_smoke.py`` exits non-zero and prints no result without CUDA."""
     if torch.cuda.is_available():
@@ -118,7 +132,8 @@ def test_chip_smoke_refuses_to_run_without_a_card(monkeypatch):
 
 
 #: the analysis and observability tiers and the serving tier they
-#: drive: host code, imported on demand
+#: drive, and the command line with its build, report and traffic
+#: tiers: host code, imported on demand
 HOST_TIER_MODULES = (
     "serving.qos", "serving.scheduler", "serving.admission",
     "serving.placement", "serving.frontend", "serving.elasticity",
@@ -126,7 +141,8 @@ HOST_TIER_MODULES = (
     "obs.events", "obs.metrics", "analysis.verifier", "analysis.mutants",
     "analysis.properties", "analysis.model", "analysis.perf",
     "analysis.perf_mutants", "analysis", "obs.spans", "obs.slo",
-    "obs.trace", "obs",
+    "obs.trace", "obs", "parallel.traffic", "parallel.aot",
+    "utils.native", "utils.report", "__main__",
 )
 
 _HOST_PROBE = """
@@ -181,3 +197,40 @@ def test_serving_exports_the_jax_packages_names():
                 name
         else:
             assert value == getattr(jax_serving, name), name
+
+
+_GENERATED_PROBE = """
+import importlib.util, json, sys
+before = set(sys.modules)
+for name in ("smi_generated_device", "smi_generated_host"):
+    spec = importlib.util.spec_from_file_location(name, sys.argv[1] + "/"
+                                                  + name + ".py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+print(json.dumps(sorted({m.split(".")[0]
+                         for m in set(sys.modules) - before})))
+"""
+
+
+def test_generated_modules_import_no_jax(tmp_path):
+    """The device and host modules ``python -m smi_tpu_torch`` writes
+    import the port, never jax or the JAX package: by their source, and
+    loaded in a fresh interpreter."""
+    import smi_tpu_torch.__main__ as cli
+
+    meta = tmp_path / "app.json"
+    meta.write_text((ROOT / "tests" / "data" / "cli-program.json")
+                    .read_text())
+    assert cli.main(["device", str(tmp_path / "smi_generated_device.py"),
+                     str(meta)]) == 0
+    assert cli.main(["host", str(tmp_path / "smi_generated_host.py"),
+                     str(meta)]) == 0
+    for name in ("smi_generated_device.py", "smi_generated_host.py"):
+        roots = set(_imported_roots(tmp_path / name))
+        assert "smi_tpu_torch" in roots and not roots & FORBIDDEN, roots
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _GENERATED_PROBE,
+                           str(tmp_path)], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    loaded = set(json.loads(proc.stdout.strip().splitlines()[-1]))
+    assert "smi_tpu_torch" in loaded and not loaded & FORBIDDEN

@@ -6,9 +6,9 @@ port's copies of the JAX package's critical-path decomposition, roofline
 lint and perf mutants (pure Python; the flash-tile rules price through
 the port's cost model, which keeps the JAX package's v5e model prices).
 The first part carries over ``tests/test_perf_analysis.py`` against the
-port, all but its ``serialized-dma`` cases, which parse XLA HLO through
-the JAX package's ``parallel/traffic.py`` and have no counterpart in the
-port (``roofline_lint(hlo_text=...)`` refuses), and its one slow case.
+port, all but its one slow case (its ``serialized-dma`` cases are in
+``tests/test_torch_traffic.py``, beside the HLO parser they read
+through).
 The second part holds the port to the JAX package with the tolerance
 "equal": ``perf_all`` reports, ``analytic_predictions``,
 ``roofline_lint`` and the stencil stream's decomposition, sorted-key
@@ -432,12 +432,17 @@ def test_render_reports_name_the_binding_edge():
     assert "0 perf finding(s)" in text
 
 def test_roofline_lint_refuses_hlo_text():
-    """``serialized-dma`` needs the JAX package's XLA HLO parser, which
-    the port does not carry: HLO text is refused, never ignored."""
-    with pytest.raises(NotImplementedError, match="traffic.py"):
-        P.roofline_lint(hlo_text="HloModule m")
-    assert not hasattr(P, "serialized_dma_findings")
+    """HLO text was refused while the port had no HLO parser; it now
+    goes through the port's ``parallel/traffic.py`` and is never
+    ignored: ``roofline_lint(hlo_text=...)`` adds exactly the
+    ``serialized-dma`` findings of that text, as the JAX package's."""
+    assert hasattr(P, "serialized_dma_findings")
     assert "serialized-dma" in P.PERF_LINT_CHECKS
+    base = P.roofline_lint(check_expectations=False)
+    got = P.roofline_lint(hlo_text="HloModule m", check_expectations=False)
+    assert [f.to_json() for f in got] == [f.to_json() for f in base]
+    want = JP.roofline_lint(hlo_text="HloModule m", check_expectations=False)
+    assert [f.to_json() for f in got] == [f.to_json() for f in want]
 
 
 # ---------------------------------------------------------------------------

@@ -454,3 +454,39 @@ def run_shrink(rank, world, port, x, dropped, results):
     except BaseException:  # report every failure to the parent, then exit
         results.put((rank, "error", traceback.format_exc()))
         raise
+
+
+def run_host_module(rank, world, port, build_dir, results):
+    """Initialise gloo and bootstrap this rank through the generated host
+    module in ``build_dir`` (``SmiInit_app`` over ``build_dir/smi-routes``);
+    report the communicator's rank and size, the program's port count and
+    the sum over the group of ``rank + 1``."""
+    try:
+        import importlib.util
+        import os
+
+        import torch
+        import torch.distributed as dist
+
+        import smi_tpu_torch as st
+
+        _init_gloo(rank, world, port)
+        try:
+            spec = importlib.util.spec_from_file_location(
+                "smi_generated_host",
+                os.path.join(build_dir, "smi_generated_host.py"))
+            host = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(host)
+            comm, prog = host.SmiInit_app(
+                rank=rank, ranks=world,
+                routing_dir=os.path.join(build_dir, "smi-routes"),
+                device="cpu")
+            got = st.allreduce(torch.tensor([float(rank + 1)]), comm)
+            results.put((rank, "ok", {
+                "rank": comm.rank, "size": comm.size,
+                "ports": prog.logical_port_count, "sum": float(got[0])}))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:  # report every failure to the parent, then exit
+        results.put((rank, "error", traceback.format_exc()))
+        raise
