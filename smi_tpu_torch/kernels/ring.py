@@ -45,6 +45,7 @@ from smi_tpu_torch.kernels import _build
 from smi_tpu_torch.ops.types import SmiOp
 from smi_tpu_torch.parallel.backend import combine_fn
 from smi_tpu_torch.parallel.mesh import Communicator
+from smi_tpu_torch.utils.tracing import annotate
 
 #: flag domains of the ring tier: the stream slot comes from the program
 #: model's port allocation, and rings on distinct slots never share flags
@@ -339,14 +340,14 @@ def _launch(kernel: str, world, axis_name, stream: int, xs, outs,
     # host a few microseconds
     queue = torch.cuda.current_stream(world.device)
     begin.record(queue)
-    with torch.cuda.device(world.device):
+    with torch.cuda.device(world.device), annotate("smi.ring.launch"):
         status = _build.entry(kernel)(
             state["table"].data_ptr(), n_world, n, unit_elems, stride,
             DTYPE_CODES[dtype], *extra,
             *((chunks,) if kernel == "ring_all_reduce_chunked" else ()),
             int(flow_control), blocks, queue.cuda_stream,
         )
-    _build.check(kernel, status)
+        _build.check(kernel, status)
     _build.count_launch(kernel)
     end.record(queue)
     # the rendezvous waits for the world's stream before it releases the

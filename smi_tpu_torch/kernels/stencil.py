@@ -20,6 +20,7 @@ from smi_tpu_torch.kernels import _build
 from smi_tpu_torch.models.stencil import block_origin, global_boundary_mask
 from smi_tpu_torch.parallel.halo import halo_exchange_2d
 from smi_tpu_torch.parallel.mesh import Communicator
+from smi_tpu_torch.utils.tracing import annotate
 
 KERNEL = "stencil_sweep"
 
@@ -82,12 +83,13 @@ def fused_sweep(block, top, bottom, left, right, row0: int, col0: int,
     out = torch.empty_like(block)
     with torch.cuda.device(block.device):
         stream = torch.cuda.current_stream().cuda_stream
-        status = _build.entry(KERNEL)(
-            block.data_ptr(), top.data_ptr(), bottom.data_ptr(),
-            left.data_ptr(), right.data_ptr(), out.data_ptr(),
-            h, w, row0, col0, gh, gw, stream,
-        )
-    _build.check(KERNEL, status)
+        with annotate("smi.stencil.launch"):
+            status = _build.entry(KERNEL)(
+                block.data_ptr(), top.data_ptr(), bottom.data_ptr(),
+                left.data_ptr(), right.data_ptr(), out.data_ptr(),
+                h, w, row0, col0, gh, gw, stream,
+            )
+            _build.check(KERNEL, status)
     _build.count_launch(KERNEL)
     return out
 

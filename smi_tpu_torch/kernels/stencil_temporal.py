@@ -36,6 +36,7 @@ from smi_tpu_torch.parallel.halo import (
     halo_exchange_2d_corners_start,
 )
 from smi_tpu_torch.parallel.mesh import Communicator
+from smi_tpu_torch.utils.tracing import annotate
 
 KERNEL = "stencil_temporal"
 
@@ -255,12 +256,13 @@ def temporal_sweeps(block, top, bottom, left, right, row0: int, col0: int,
     out = torch.empty_like(block)
     with torch.cuda.device(block.device):
         stream = torch.cuda.current_stream().cuda_stream
-        status = _build.entry(KERNEL)(
-            block.data_ptr(), top.data_ptr(), bottom.data_ptr(),
-            left.data_ptr(), right.data_ptr(), out.data_ptr(),
-            h, w, row0, col0, gh, gw, k, stripe, band, stream,
-        )
-    _build.check(KERNEL, status)
+        with annotate("smi.stencil.launch"):
+            status = _build.entry(KERNEL)(
+                block.data_ptr(), top.data_ptr(), bottom.data_ptr(),
+                left.data_ptr(), right.data_ptr(), out.data_ptr(),
+                h, w, row0, col0, gh, gw, k, stripe, band, stream,
+            )
+            _build.check(KERNEL, status)
     _build.count_launch(KERNEL)
     return out
 
@@ -269,11 +271,12 @@ def temporal_pass(block: torch.Tensor, comm: Communicator, gh: int, gw: int,
                   depth: int = 8) -> torch.Tensor:
     """``depth`` fused sweeps over this rank's block (one memory pass):
     the corner-complete halo exchange, then one kernel launch."""
-    exchange = halo_exchange_2d_corners_start(block, comm, depth=depth)
-    halos = halo_exchange_2d_corners_finish(exchange)
-    row0, col0, _, _ = block_origin(block, comm)
-    return temporal_sweeps(block, halos.top, halos.bottom, halos.left,
-                           halos.right, row0, col0, gh, gw, depth)
+    with annotate("smi.stencil.pass"):
+        exchange = halo_exchange_2d_corners_start(block, comm, depth=depth)
+        halos = halo_exchange_2d_corners_finish(exchange)
+        row0, col0, _, _ = block_origin(block, comm)
+        return temporal_sweeps(block, halos.top, halos.bottom, halos.left,
+                               halos.right, row0, col0, gh, gw, depth)
 
 
 def make_temporal_stencil_fn(comm: Communicator, iterations: int, gh: int,
@@ -284,10 +287,13 @@ def make_temporal_stencil_fn(comm: Communicator, iterations: int, gh: int,
     full, rem = divmod(iterations, depth)
 
     def fn(block: torch.Tensor) -> torch.Tensor:
-        for _ in range(full):
-            block = temporal_pass(block, comm, gh, gw, depth)
-        for _ in range(rem):
-            block = kstencil.jacobi_step_block_fused(block, comm, gh, gw)
-        return block
+        with annotate("smi.stencil.solve"):
+            for _ in range(full):
+                block = temporal_pass(block, comm, gh, gw, depth)
+            for _ in range(rem):
+                with annotate("smi.stencil.sweep"):
+                    block = kstencil.jacobi_step_block_fused(block, comm,
+                                                             gh, gw)
+            return block
 
     return fn

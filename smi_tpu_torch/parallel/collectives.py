@@ -71,6 +71,7 @@ from smi_tpu_torch.parallel.mesh import Communicator
 from smi_tpu_torch.tuning import cost_model as cm
 from smi_tpu_torch.tuning import engine as _engine
 from smi_tpu_torch.tuning.engine import dtype_name
+from smi_tpu_torch.utils.tracing import annotate
 from smi_tpu_torch.utils.watchdog import Deadline
 
 
@@ -593,21 +594,22 @@ def bcast(x: torch.Tensor, comm: Communicator, root: int = 0,
     hybrid grid (:func:`bcast_hierarchical`, bit-identical); rooted
     collectives keep the flat form by default.
     """
-    check_backend(backend)
-    if hierarchical:
-        _check_hierarchical_rooted(backend, chunks, "bcast")
-        return bcast_hierarchical(x, comm, root=root)
-    chunks = _resolve_chunks(chunks, x, comm, "broadcast")
-    contrib = _masked(x, _is_root(comm, root))
-    if backend == "ring":
-        _check_deadline(deadline, "broadcast", comm)
-        return _kring.ring_all_reduce(
-            contrib, comm, op=SmiOp.ADD,
-            stream=_stream_for(port, program, "broadcast"), chunks=chunks,
-        )
-    # on this tier the port is metadata only
-    return _pipelined(contrib, chunks,
-                      lambda piece: comm.all_reduce(piece, SmiOp.ADD))
+    with annotate("smi.collective.bcast"):
+        check_backend(backend)
+        if hierarchical:
+            _check_hierarchical_rooted(backend, chunks, "bcast")
+            return bcast_hierarchical(x, comm, root=root)
+        chunks = _resolve_chunks(chunks, x, comm, "broadcast")
+        contrib = _masked(x, _is_root(comm, root))
+        if backend == "ring":
+            _check_deadline(deadline, "broadcast", comm)
+            return _kring.ring_all_reduce(
+                contrib, comm, op=SmiOp.ADD,
+                stream=_stream_for(port, program, "broadcast"), chunks=chunks,
+            )
+        # on this tier the port is metadata only
+        return _pipelined(contrib, chunks,
+                          lambda piece: comm.all_reduce(piece, SmiOp.ADD))
 
 
 def reduce(x: torch.Tensor, comm: Communicator,
@@ -627,23 +629,24 @@ def reduce(x: torch.Tensor, comm: Communicator,
     within each slice of a hybrid grid first, then crosses the slow tier
     once with the slice partials (:func:`reduce_hierarchical`).
     """
-    check_backend(backend)
-    op = SmiOp.parse(op)
-    if hierarchical:
-        _check_hierarchical_rooted(backend, chunks, "reduce")
-        return reduce_hierarchical(x, comm, op=op, root=root,
-                                   all_ranks=all_ranks)
-    chunks = _resolve_chunks(chunks, x, comm, "reduce")
-    root_here = _is_root(comm, root)
-    if backend == "ring":
-        _check_deadline(deadline, "reduce", comm)
-        out = _kring.ring_all_reduce(
-            x, comm, op=op, stream=_stream_for(port, program, "reduce"),
-            chunks=chunks,
-        )
-    else:
-        out = _pipelined(x, chunks, lambda p: comm.all_reduce(p, op))
-    return out if all_ranks else _masked(out, root_here)
+    with annotate("smi.collective.reduce"):
+        check_backend(backend)
+        op = SmiOp.parse(op)
+        if hierarchical:
+            _check_hierarchical_rooted(backend, chunks, "reduce")
+            return reduce_hierarchical(x, comm, op=op, root=root,
+                                       all_ranks=all_ranks)
+        chunks = _resolve_chunks(chunks, x, comm, "reduce")
+        root_here = _is_root(comm, root)
+        if backend == "ring":
+            _check_deadline(deadline, "reduce", comm)
+            out = _kring.ring_all_reduce(
+                x, comm, op=op, stream=_stream_for(port, program, "reduce"),
+                chunks=chunks,
+            )
+        else:
+            out = _pipelined(x, chunks, lambda p: comm.all_reduce(p, op))
+        return out if all_ranks else _masked(out, root_here)
 
 
 def allreduce(x: torch.Tensor, comm: Communicator,
@@ -670,38 +673,39 @@ def allreduce(x: torch.Tensor, comm: Communicator,
     compositions of the ``"xla"`` tier: forcing one on the ring tier is an
     error.
     """
-    check_backend(backend)
-    op = SmiOp.parse(op)
-    resolved_precision = _resolve_precision(precision, x, comm, op)
-    if resolved_precision != "f32":
-        x = _compensated_quantize(x, resolved_precision, comm.rank)
-    if backend != "xla":
-        # a forced decomposition must never be silently dropped
-        if rs_ag:
-            raise ValueError(
-                "rs_ag=True is an XLA-tier decomposition; the ring tier "
-                "runs the circulating-partial kernel — drop rs_ag or use "
-                "backend='xla'"
-            )
-        if hierarchical:
-            raise ValueError(
-                "hierarchical=True is an XLA-tier composition; the ring "
-                "tier runs the circulating-partial kernel — drop "
-                "hierarchical or use backend='xla'"
-            )
-    elif _use_hierarchical(x, comm, op, hierarchical, rs_ag, chunks):
-        if chunks is not None and chunks != 1:
-            raise ValueError(
-                "chunks= does not compose with the hierarchical "
-                "allreduce (its three phases are already a pipeline); "
-                "drop chunks or pin hierarchical=False"
-            )
-        return allreduce_hierarchical(x, comm, op=op)
-    chunks = _resolve_chunks(chunks, x, comm, "all_reduce")
-    if backend == "xla" and _use_rs_ag(x, comm, op, rs_ag):
-        return _rs_ag_allreduce(x, comm, chunks)
-    return reduce(x, comm, op=op, all_ranks=True, backend=backend,
-                  program=program, deadline=deadline, chunks=chunks)
+    with annotate("smi.collective.allreduce"):
+        check_backend(backend)
+        op = SmiOp.parse(op)
+        resolved_precision = _resolve_precision(precision, x, comm, op)
+        if resolved_precision != "f32":
+            x = _compensated_quantize(x, resolved_precision, comm.rank)
+        if backend != "xla":
+            # a forced decomposition must never be silently dropped
+            if rs_ag:
+                raise ValueError(
+                    "rs_ag=True is an XLA-tier decomposition; the ring tier "
+                    "runs the circulating-partial kernel — drop rs_ag or use "
+                    "backend='xla'"
+                )
+            if hierarchical:
+                raise ValueError(
+                    "hierarchical=True is an XLA-tier composition; the ring "
+                    "tier runs the circulating-partial kernel — drop "
+                    "hierarchical or use backend='xla'"
+                )
+        elif _use_hierarchical(x, comm, op, hierarchical, rs_ag, chunks):
+            if chunks is not None and chunks != 1:
+                raise ValueError(
+                    "chunks= does not compose with the hierarchical "
+                    "allreduce (its three phases are already a pipeline); "
+                    "drop chunks or pin hierarchical=False"
+                )
+            return allreduce_hierarchical(x, comm, op=op)
+        chunks = _resolve_chunks(chunks, x, comm, "all_reduce")
+        if backend == "xla" and _use_rs_ag(x, comm, op, rs_ag):
+            return _rs_ag_allreduce(x, comm, chunks)
+        return reduce(x, comm, op=op, all_ranks=True, backend=backend,
+                      program=program, deadline=deadline, chunks=chunks)
 
 
 # ---------------------------------------------------------------------------
@@ -757,19 +761,20 @@ def allreduce_hierarchical(x: torch.Tensor, comm: Communicator,
     slice. MAX/MIN have no scatter form: they reduce over ``inner``, then
     ``outer``. ``x``'s leading dim must be divisible by the inner axis
     size for ADD."""
-    outer, inner = _hier_axes(comm, inner, outer)
-    op = SmiOp.parse(op)
-    if op is not SmiOp.ADD:
-        return comm.all_reduce(comm.all_reduce(x, op, inner), op, outer)
-    inner_size = comm.shape[comm._axis(inner)]
-    if x.dim() == 0 or x.shape[0] % inner_size != 0:
-        raise ValueError(
-            f"leading dim {x.shape[0] if x.dim() else '()'} not "
-            f"divisible by inner axis size {inner_size}"
-        )
-    shard = comm.reduce_scatter(x, SmiOp.ADD, inner)
-    shard = comm.all_reduce(shard, SmiOp.ADD, outer)
-    return comm.all_gather(shard, inner)
+    with annotate("smi.collective.allreduce_hierarchical"):
+        outer, inner = _hier_axes(comm, inner, outer)
+        op = SmiOp.parse(op)
+        if op is not SmiOp.ADD:
+            return comm.all_reduce(comm.all_reduce(x, op, inner), op, outer)
+        inner_size = comm.shape[comm._axis(inner)]
+        if x.dim() == 0 or x.shape[0] % inner_size != 0:
+            raise ValueError(
+                f"leading dim {x.shape[0] if x.dim() else '()'} not "
+                f"divisible by inner axis size {inner_size}"
+            )
+        shard = comm.reduce_scatter(x, SmiOp.ADD, inner)
+        shard = comm.all_reduce(shard, SmiOp.ADD, outer)
+        return comm.all_gather(shard, inner)
 
 
 def bcast_hierarchical(x: torch.Tensor, comm: Communicator, root: int = 0,
@@ -779,10 +784,11 @@ def bcast_hierarchical(x: torch.Tensor, comm: Communicator, root: int = 0,
     (a masked sum over ``inner``), then crosses the slow tier once per
     position (a sum over ``outer``). Pure routing: bit-identical to the
     flat bcast for every dtype."""
-    outer, inner = _hier_axes(comm, inner, outer)
-    contrib = _masked(x, _is_root(comm, root))
-    return comm.all_reduce(comm.all_reduce(contrib, SmiOp.ADD, inner),
-                           SmiOp.ADD, outer)
+    with annotate("smi.collective.bcast_hierarchical"):
+        outer, inner = _hier_axes(comm, inner, outer)
+        contrib = _masked(x, _is_root(comm, root))
+        return comm.all_reduce(comm.all_reduce(contrib, SmiOp.ADD, inner),
+                               SmiOp.ADD, outer)
 
 
 def reduce_hierarchical(x: torch.Tensor, comm: Communicator,
@@ -794,10 +800,11 @@ def reduce_hierarchical(x: torch.Tensor, comm: Communicator,
     slice partials cross ``outer`` once; masked to the root unless
     ``all_ranks``. ADD reassociates the sum (ints exact), MAX/MIN are
     exact."""
-    outer, inner = _hier_axes(comm, inner, outer)
-    op = SmiOp.parse(op)
-    out = comm.all_reduce(comm.all_reduce(x, op, inner), op, outer)
-    return out if all_ranks else _masked(out, _is_root(comm, root))
+    with annotate("smi.collective.reduce_hierarchical"):
+        outer, inner = _hier_axes(comm, inner, outer)
+        op = SmiOp.parse(op)
+        out = comm.all_reduce(comm.all_reduce(x, op, inner), op, outer)
+        return out if all_ranks else _masked(out, _is_root(comm, root))
 
 
 def scatter(x: torch.Tensor, comm: Communicator, root: int = 0,
@@ -812,28 +819,29 @@ def scatter(x: torch.Tensor, comm: Communicator, root: int = 0,
     ``backend="ring"`` uses the ring reduce-scatter kernel; its chunks
     are launches in program order on one stream slot.
     """
-    check_backend(backend)
-    chunks = _resolve_chunks(chunks, x, comm, "scatter")
-    size = comm.size
-    if x.dim() == 0 or x.shape[0] % size != 0:
-        raise ValueError(
-            f"scatter buffer leading dim "
-            f"{x.shape[0] if x.dim() else '()'} not divisible by comm "
-            f"size {size}"
-        )
-    contrib = _masked(x, _is_root(comm, root))
-    if backend == "ring":
-        _check_deadline(deadline, "scatter", comm)
-        stream = _stream_for(port, program, "scatter")
+    with annotate("smi.collective.scatter"):
+        check_backend(backend)
+        chunks = _resolve_chunks(chunks, x, comm, "scatter")
+        size = comm.size
+        if x.dim() == 0 or x.shape[0] % size != 0:
+            raise ValueError(
+                f"scatter buffer leading dim "
+                f"{x.shape[0] if x.dim() else '()'} not divisible by comm "
+                f"size {size}"
+            )
+        contrib = _masked(x, _is_root(comm, root))
+        if backend == "ring":
+            _check_deadline(deadline, "scatter", comm)
+            stream = _stream_for(port, program, "scatter")
+            return _chunked_scatter(
+                contrib, size, chunks,
+                lambda piece: _kring.ring_reduce_scatter(
+                    piece, comm, op=SmiOp.ADD, stream=stream),
+            )
         return _chunked_scatter(
             contrib, size, chunks,
-            lambda piece: _kring.ring_reduce_scatter(
-                piece, comm, op=SmiOp.ADD, stream=stream),
+            lambda piece: comm.reduce_scatter(piece, SmiOp.ADD),
         )
-    return _chunked_scatter(
-        contrib, size, chunks,
-        lambda piece: comm.reduce_scatter(piece, SmiOp.ADD),
-    )
 
 
 def gather(x: torch.Tensor, comm: Communicator, root: int = 0,
@@ -847,21 +855,22 @@ def gather(x: torch.Tensor, comm: Communicator, root: int = 0,
     everywhere with ``all_ranks=True``). ``backend="ring"`` forwards
     chunks neighbour to neighbour around the explicit ring.
     """
-    check_backend(backend)
-    chunks = _resolve_chunks(chunks, x, comm, "gather")
-    size = comm.size
-    root_here = _is_root(comm, root)
-    if backend == "ring":
-        _check_deadline(deadline, "gather", comm)
-        stream = _stream_for(port, program, "gather")
-        out = _chunked_gather(
-            x, size, chunks,
-            lambda piece: _kring.ring_all_gather(piece, comm,
-                                                  stream=stream),
-        )
-    else:
-        out = _chunked_gather(x, size, chunks, comm.all_gather)
-    return out if all_ranks else _masked(out, root_here)
+    with annotate("smi.collective.gather"):
+        check_backend(backend)
+        chunks = _resolve_chunks(chunks, x, comm, "gather")
+        size = comm.size
+        root_here = _is_root(comm, root)
+        if backend == "ring":
+            _check_deadline(deadline, "gather", comm)
+            stream = _stream_for(port, program, "gather")
+            out = _chunked_gather(
+                x, size, chunks,
+                lambda piece: _kring.ring_all_gather(piece, comm,
+                                                      stream=stream),
+            )
+        else:
+            out = _chunked_gather(x, size, chunks, comm.all_gather)
+        return out if all_ranks else _masked(out, root_here)
 
 
 # ---------------------------------------------------------------------------
@@ -904,29 +913,30 @@ def alltoall_hierarchical(x: torch.Tensor, comm: Communicator,
     across the slow tier in place of ``(outer - 1) * inner``. Pure
     routing: bit-identical to the flat all-to-all for every dtype.
     ``x``'s leading dim must be ``comm.size * count``."""
-    outer, inner = _hier_axes(comm, inner, outer)
-    m = comm.shape[comm._axis(outer)]
-    k = comm.shape[comm._axis(inner)]
-    n = m * k
-    if x.dim() == 0 or x.shape[0] % n:
-        raise ValueError(
-            f"all_to_all buffer leading dim {tuple(x.shape)} not "
-            f"divisible by comm size {n}"
-        )
-    count = x.shape[0] // n
-    tail = tuple(x.shape[1:])
-    xu = x.reshape((m, k, count) + tail)
-    # phase A (inner): bundle by destination position j, one m*count
-    # bundle to slice-mate j
-    a = torch.movedim(xu, 1, 0).reshape((k * m * count,) + tail)
-    a = comm.all_to_all(a, inner)
-    # now [source position][destination slice]: regroup by slice
-    au = a.reshape((k, m, count) + tail)
-    b = torch.movedim(au, 1, 0).reshape((m * k * count,) + tail)
-    # phase B (outer): one k-block bundle per destination slice
-    b = comm.all_to_all(b, outer)
-    # received [source slice][source position]: rank-major sources
-    return b.reshape(x.shape)
+    with annotate("smi.collective.alltoall_hierarchical"):
+        outer, inner = _hier_axes(comm, inner, outer)
+        m = comm.shape[comm._axis(outer)]
+        k = comm.shape[comm._axis(inner)]
+        n = m * k
+        if x.dim() == 0 or x.shape[0] % n:
+            raise ValueError(
+                f"all_to_all buffer leading dim {tuple(x.shape)} not "
+                f"divisible by comm size {n}"
+            )
+        count = x.shape[0] // n
+        tail = tuple(x.shape[1:])
+        xu = x.reshape((m, k, count) + tail)
+        # phase A (inner): bundle by destination position j, one m*count
+        # bundle to slice-mate j
+        a = torch.movedim(xu, 1, 0).reshape((k * m * count,) + tail)
+        a = comm.all_to_all(a, inner)
+        # now [source position][destination slice]: regroup by slice
+        au = a.reshape((k, m, count) + tail)
+        b = torch.movedim(au, 1, 0).reshape((m * k * count,) + tail)
+        # phase B (outer): one k-block bundle per destination slice
+        b = comm.all_to_all(b, outer)
+        # received [source slice][source position]: rank-major sources
+        return b.reshape(x.shape)
 
 
 def all_to_all(x: torch.Tensor, comm: Communicator,
@@ -955,44 +965,45 @@ def all_to_all(x: torch.Tensor, comm: Communicator,
     ``backend="ring"`` is a loud error; on this tier the port is
     metadata only.
     """
-    check_backend(backend)
-    if backend != "xla":
-        raise ValueError(
-            "all_to_all has no ring-tier kernel yet (the credits "
-            "simulator is the executable wire-level reference); use "
-            "backend='xla'"
-        )
-    size = comm.size
-    if x.dim() == 0 or x.shape[0] % size or x.shape[0] < size:
-        raise ValueError(
-            f"all_to_all buffer leading dim {tuple(x.shape)} not "
-            f"divisible by comm size {size}"
-        )
-    algo = algorithm
-    if algo is not None:
-        if algo not in ALLTOALL_ALGORITHMS:
+    with annotate("smi.collective.all_to_all"):
+        check_backend(backend)
+        if backend != "xla":
             raise ValueError(
-                f"unknown all_to_all algorithm {algo!r}; known: "
-                f"{ALLTOALL_ALGORITHMS}"
+                "all_to_all has no ring-tier kernel yet (the credits "
+                "simulator is the executable wire-level reference); use "
+                "backend='xla'"
             )
-    else:
-        algo = _env_choice(ALLTOALL_ALGO_ENV, ALLTOALL_ALGORITHMS)
-        if algo is None:
-            topo = cm.topology_from_comm(comm)
-            try:
-                algo = _engine.planned_alltoall(
-                    x.numel() * x.element_size(), topo.n,
-                    topo.inner or topo.n, topo.outer or 1,
-                    dtype_name(x.dtype))
-            except Exception:
-                algo = "pairwise"
-    if algo == "bruck":
-        if size & (size - 1):
+        size = comm.size
+        if x.dim() == 0 or x.shape[0] % size or x.shape[0] < size:
             raise ValueError(
-                f"algorithm='bruck' needs a power-of-two comm size, "
-                f"got {size} — drop the pin or use pairwise"
+                f"all_to_all buffer leading dim {tuple(x.shape)} not "
+                f"divisible by comm size {size}"
             )
-        return _bruck_all_to_all(x, comm)
-    if algo == "hierarchical":
-        return alltoall_hierarchical(x, comm)
-    return comm.all_to_all(x)
+        algo = algorithm
+        if algo is not None:
+            if algo not in ALLTOALL_ALGORITHMS:
+                raise ValueError(
+                    f"unknown all_to_all algorithm {algo!r}; known: "
+                    f"{ALLTOALL_ALGORITHMS}"
+                )
+        else:
+            algo = _env_choice(ALLTOALL_ALGO_ENV, ALLTOALL_ALGORITHMS)
+            if algo is None:
+                topo = cm.topology_from_comm(comm)
+                try:
+                    algo = _engine.planned_alltoall(
+                        x.numel() * x.element_size(), topo.n,
+                        topo.inner or topo.n, topo.outer or 1,
+                        dtype_name(x.dtype))
+                except Exception:
+                    algo = "pairwise"
+        if algo == "bruck":
+            if size & (size - 1):
+                raise ValueError(
+                    f"algorithm='bruck' needs a power-of-two comm size, "
+                    f"got {size} — drop the pin or use pairwise"
+                )
+            return _bruck_all_to_all(x, comm)
+        if algo == "hierarchical":
+            return alltoall_hierarchical(x, comm)
+        return comm.all_to_all(x)

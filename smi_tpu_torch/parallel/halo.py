@@ -24,6 +24,7 @@ import torch
 
 from smi_tpu_torch.parallel.backend import check_backend
 from smi_tpu_torch.parallel.mesh import Communicator, Exchange, Shift
+from smi_tpu_torch.utils.tracing import annotate
 
 #: in-flight transfers (:func:`halo_exchange_start`)
 HaloExchange = Exchange
@@ -129,17 +130,19 @@ def halo_exchange_start(
     """Issue the four neighbour transfers and return without waiting."""
     row_axis, col_axis = _axes(comm, "halo_exchange_2d")
     d = depth
-    return _issue(comm, [
-        (block[-d:, :], row_axis, +1),   # top halo of the rank below
-        (block[:d, :], row_axis, -1),    # bottom halo of the rank above
-        (block[:, -d:], col_axis, +1),   # left halo of the right rank
-        (block[:, :d], col_axis, -1),    # right halo of the left rank
-    ], ring, backend)
+    with annotate("smi.halo.start"):
+        return _issue(comm, [
+            (block[-d:, :], row_axis, +1),   # top halo of the rank below
+            (block[:d, :], row_axis, -1),    # bottom halo of the rank above
+            (block[:, -d:], col_axis, +1),   # left halo of the right rank
+            (block[:, :d], col_axis, -1),    # right halo of the left rank
+        ], ring, backend)
 
 
 def halo_exchange_finish(exchange: HaloExchange) -> Halos:
     """Wait for an in-flight exchange; returns the four slabs."""
-    return Halos(*exchange.wait())
+    with annotate("smi.halo.finish"):
+        return Halos(*exchange.wait())
 
 
 def halo_exchange_2d(
@@ -183,23 +186,26 @@ def halo_exchange_2d_corners_start(
     neighbour. Phase 2 is left in flight."""
     row_axis, col_axis = _axes(comm, "halo_exchange_2d_corners")
     d = depth
-    left, right = _issue(comm, [
-        (block[:, -d:], col_axis, +1),
-        (block[:, :d], col_axis, -1),
-    ], ring, backend).wait()
-    ext_top = torch.cat([left[:d], block[:d], right[:d]], dim=1)
-    ext_bottom = torch.cat([left[-d:], block[-d:], right[-d:]], dim=1)
-    pending = _issue(comm, [
-        (ext_bottom, row_axis, +1),
-        (ext_top, row_axis, -1),
-    ], ring, backend)
+    with annotate("smi.halo.phase1"):
+        left, right = _issue(comm, [
+            (block[:, -d:], col_axis, +1),
+            (block[:, :d], col_axis, -1),
+        ], ring, backend).wait()
+    with annotate("smi.halo.phase2"):
+        ext_top = torch.cat([left[:d], block[:d], right[:d]], dim=1)
+        ext_bottom = torch.cat([left[-d:], block[-d:], right[-d:]], dim=1)
+        pending = _issue(comm, [
+            (ext_bottom, row_axis, +1),
+            (ext_top, row_axis, -1),
+        ], ring, backend)
     return CornerHaloExchange(left=left, right=right, pending=pending)
 
 
 def halo_exchange_2d_corners_finish(exchange: CornerHaloExchange) -> Halos:
     """Wait for the vertical transfers; returns the four slabs with
     top/bottom side-extended."""
-    top, bottom = exchange.pending.wait()
+    with annotate("smi.halo.finish"):
+        top, bottom = exchange.pending.wait()
     return Halos(top=top, bottom=bottom, left=exchange.left,
                  right=exchange.right)
 

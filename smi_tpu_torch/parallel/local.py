@@ -60,6 +60,7 @@ from smi_tpu_torch.parallel.mesh import (
     grid_axes,
     resolve_device,
 )
+from smi_tpu_torch.utils.tracing import annotate
 
 #: seconds a rank waits for the others at a rendezvous before the world
 #: is declared broken
@@ -142,57 +143,63 @@ class LocalWorld:
         """``fn(comm)`` on every rank's thread; the results in rank
         order. A failure on any rank aborts the barrier, so no rank
         waits for ever, and is raised here."""
-        cuda = self.device.type == "cuda"
-        if self._barrier.broken:
-            self._barrier.reset()
-        if cuda:
-            # the ranks' streams do not wait for the default stream
-            torch.cuda.synchronize(self.device)
-        out, errors = [None] * self.size, []
+        with annotate("smi.world.run"):
+            cuda = self.device.type == "cuda"
+            if self._barrier.broken:
+                self._barrier.reset()
+            if cuda:
+                # the ranks' streams do not wait for the default stream
+                torch.cuda.synchronize(self.device)
+            out, errors = [None] * self.size, []
 
-        def body(r):
-            _RANK_THREAD.depth = getattr(_RANK_THREAD, "depth", 0) + 1
-            try:
-                if cuda:
-                    # autograd runs this rank's CUDA nodes on this thread,
-                    # not on the card's one worker thread, so a ring node
-                    # of a backward meets the others from its rank
-                    with torch.cuda.device(self.device), \
-                            torch.cuda.stream(self._cuda_streams()[r + 1]), \
-                            torch.autograd.set_multithreading_enabled(False):
-                        out[r] = fn(self.comms[r])
-                        torch.cuda.current_stream().synchronize()
-                else:
-                    out[r] = fn(self.comms[r])
-            except BaseException as exc:  # raised again below
-                errors.append(exc)
-                self._barrier.abort()
-            finally:
-                _RANK_THREAD.depth -= 1
+            def body(r):
+                _RANK_THREAD.depth = getattr(_RANK_THREAD, "depth", 0) + 1
+                try:
+                    with annotate("smi.world.rank"):
+                        if cuda:
+                            # autograd runs this rank's CUDA nodes on
+                            # this thread, not on the card's one worker
+                            # thread, so a ring node of a backward meets
+                            # the others from its rank
+                            with torch.cuda.device(self.device), \
+                                    torch.cuda.stream(
+                                        self._cuda_streams()[r + 1]), \
+                                    torch.autograd.set_multithreading_enabled(
+                                        False):
+                                out[r] = fn(self.comms[r])
+                                torch.cuda.current_stream().synchronize()
+                        else:
+                            out[r] = fn(self.comms[r])
+                except BaseException as exc:  # raised again below
+                    errors.append(exc)
+                    self._barrier.abort()
+                finally:
+                    _RANK_THREAD.depth -= 1
 
-        if self.size == 1:
-            body(0)
-        else:
-            threads = [threading.Thread(target=body, args=(r,),
-                                        name=f"smi-rank-{r}")
-                       for r in range(self.size)]
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join()
-        if errors:
-            first = [e for e in errors
-                     if not isinstance(e, threading.BrokenBarrierError)]
-            raise (first or errors)[0]
-        return out
+            if self.size == 1:
+                body(0)
+            else:
+                threads = [threading.Thread(target=body, args=(r,),
+                                            name=f"smi-rank-{r}")
+                           for r in range(self.size)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join()
+            if errors:
+                first = [e for e in errors
+                         if not isinstance(e, threading.BrokenBarrierError)]
+                raise (first or errors)[0]
+            return out
 
     def rendezvous(self, rank: int, kind, payload,
                    work: Callable[[List[object]], List[object]]):
         """Meet the other ranks: leave ``payload``, let one rank run
         ``work(payloads) -> results`` (one per rank, in rank order) on
-        the world's stream, return this rank's result. ``kind`` names
-        the call; ranks that arrive with different kinds have diverged,
-        and the world fails. A rank must arrive from a thread that
+        the world's stream, return this rank's result. ``kind`` is a
+        tuple whose first item names the call (the span
+        ``smi.world.rendezvous.<call>``); ranks that arrive with
+        different kinds have diverged, and the world fails. A rank must arrive from a thread that
         :meth:`run` is running: from any other (a backward pass run on
         the outputs after ``run`` returned, say) it would wait for ever,
         so it raises."""
@@ -205,34 +212,39 @@ class LocalWorld:
                 f"world.run runs, on each rank's loss, e.g. "
                 f"world.run(lambda c: fn(c)(q, k, v).sum().backward())"
             )
-        cuda = self.device.type == "cuda"
-        if cuda:
-            torch.cuda.current_stream().synchronize()
-        self._in[rank] = (kind, payload)
-        if self._barrier.wait() == 0:
-            try:
-                kinds = [k for k, _ in self._in]
-                if any(k != kinds[0] for k in kinds):
-                    raise RuntimeError(
-                        f"the ranks of the world diverged: they met with "
-                        f"calls {kinds}"
-                    )
-                payloads = [p for _, p in self._in]
+        with annotate(f"smi.world.rendezvous.{kind[0]}"):
+            cuda = self.device.type == "cuda"
+            with annotate("smi.world.arrive"):
                 if cuda:
-                    with torch.cuda.stream(self.stream):
-                        self._out = work(payloads)
-                    self.stream.synchronize()
-                else:
-                    self._out = work(payloads)
-                self._in = [None] * self.size
-            except BaseException:
-                self._barrier.abort()
-                raise
-        self._barrier.wait()
-        result = self._out[rank]
-        if cuda:
-            _record_stream(result, torch.cuda.current_stream())
-        return result
+                    torch.cuda.current_stream().synchronize()
+                self._in[rank] = (kind, payload)
+                lead = self._barrier.wait() == 0
+            if lead:
+                with annotate("smi.world.lead"):
+                    try:
+                        kinds = [k for k, _ in self._in]
+                        if any(k != kinds[0] for k in kinds):
+                            raise RuntimeError(
+                                f"the ranks of the world diverged: they met "
+                                f"with calls {kinds}"
+                            )
+                        payloads = [p for _, p in self._in]
+                        if cuda:
+                            with torch.cuda.stream(self.stream):
+                                self._out = work(payloads)
+                            self.stream.synchronize()
+                        else:
+                            self._out = work(payloads)
+                        self._in = [None] * self.size
+                    except BaseException:
+                        self._barrier.abort()
+                        raise
+            with annotate("smi.world.release"):
+                self._barrier.wait()
+            result = self._out[rank]
+            if cuda:
+                _record_stream(result, torch.cuda.current_stream())
+            return result
 
     # -- membership changes (the elastic runtime) ------------------------
 

@@ -114,6 +114,34 @@ def test_temporal_kernel_gives_the_same_bits_twice(cuda_comm, depth):
     assert torch.equal(st.temporal_sweeps(*args), st.temporal_sweeps(*args))
 
 
+def test_traced_8192_solve_has_one_launch_span_a_launch(cuda_comm):
+    """The upstream 8192^2 solve, 259 sweeps at k=16: 16 passes and 3
+    remainder sweeps, 19 ``smi.stencil.launch`` spans, as many as the
+    launch counters count."""
+    n, sweeps = 8192, 259
+    fn = st.make_temporal_stencil_fn(cuda_comm, sweeps, n, n, depth=16)
+    block = torch.rand(n, n, device="cuda")
+    fn(block)   # builds the kernels outside the trace
+    torch.cuda.synchronize()
+    before = sum(_build.LAUNCHES[k]
+                 for k in ("stencil_temporal", "stencil_sweep"))
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn(block)
+        torch.cuda.synchronize()
+    launches = sum(_build.LAUNCHES[k]
+                   for k in ("stencil_temporal", "stencil_sweep")) - before
+    # host spans only: the trace mirrors each on the device's timeline
+    names = [e.name for e in prof.events()
+             if e.name.startswith("smi.")
+             and e.device_type == torch.autograd.DeviceType.CPU]
+    assert names.count("smi.stencil.launch") == launches == 19
+    assert names.count("smi.stencil.solve") == 1
+    assert names.count("smi.stencil.pass") == 16
+    assert names.count("smi.stencil.sweep") == 3
+
+
 # ------------------------------------------------------ flash attention --
 
 

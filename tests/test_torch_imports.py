@@ -25,8 +25,10 @@ before = set(sys.modules)
 import smi_tpu_torch
 from smi_tpu_torch.kernels import _build
 new = sorted(set(sys.modules) - before)
+import torch.autograd.profiler as profiler
 print(json.dumps({"new": new, "libs": len(_build._libs),
-                  "launches": _build.LAUNCHES}))
+                  "launches": _build.LAUNCHES,
+                  "profiling": profiler._is_profiler_enabled}))
 """
 
 
@@ -49,16 +51,18 @@ def test_fresh_import_loads_no_jax_and_builds_nothing():
                    "parallel.membership", "parallel.recovery",
                    "parallel.checkpoint", "parallel.credits",
                    "parallel.faults",
-                   "utils.watchdog", "kernels.ring", "models.kmeans",
+                   "utils.watchdog", "utils.tracing", "kernels.ring",
+                   "models.kmeans",
                    "models.gesummv", "tuning.engine", "tuning.cost_model",
                    "tuning.cache", "tuning.plan", "tuning.seeded"):
         assert f"smi_tpu_torch.{module}" in report["new"], module
-    # the benchmark suite, the profiler helpers and the sweeps load only
-    # when asked
+    # the benchmark suite and the sweeps load only when asked; the span
+    # helper (utils.tracing) loads with the layers that open spans, and
+    # starts no profiler
     assert not [m for m in report["new"]
                 if m.startswith(("smi_tpu_torch.benchmarks",
-                                 "smi_tpu_torch.utils.tracing",
                                  "smi_tpu_torch.tuning.sweep"))]
+    assert not report["profiling"]
     assert report["libs"] == 0
     assert set(report["launches"].values()) == {0}
 
