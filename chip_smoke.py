@@ -50,7 +50,9 @@ kernels then carry ``earlier_ms``, else null. The phases:
    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); with an earlier
    ``stencil_temporal.cu`` its time in turns with the tree's; and the
    k-sweep kernel's ms a sweep at k = 8, 16 and 32 on both shapes, the
-   depth picker's order.
+   depth picker's order, each with its form (level groups, columns a
+   thread) and warps an SM; then the k-sweep launches counted by form
+   (``stencil_temporal.FORM_LAUNCHES``).
 
 Then ring attention's forward (``smi_tpu_torch/kernels/csrc/flash_fwd.cu``,
 built in phase 2 with the stencil sources), with TF32 off throughout:
@@ -721,17 +723,16 @@ def main(argv=None) -> int:
         "plain_ms": plain_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
     })
-    blocks_per_sm = _build.library(ktemporal.KERNEL).\
-        smi_stencil_temporal_blocks_per_sm
-    blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int]
-    blocks_per_sm.restype = ctypes.c_int
-
     def plan_note(h, w, k):
         stripe, band = ktemporal._plan(h, w, k)
         blocks = -(-h // stripe) * -(-w // band)
-        return (f"plan (stripe {stripe}, band {band}), "
+        form = ktemporal.form(k)
+        held = ktemporal.runtime_blocks_per_sm(band, k)
+        return (f"plan (stripe {stripe}, band {band}), {form.groups} level "
+                f"group(s) of {form.columns} columns a thread, "
                 f"{ktemporal.threads(band, k)} threads, {blocks} blocks, "
-                f"{blocks_per_sm(k, band)} an SM (the plan assumes "
+                f"{held} an SM ({held * ktemporal.threads(band, k) // 32} "
+                f"warps; the plan assumes "
                 f"{ktemporal.blocks_per_sm(band, k)}), swept "
                 f"{ktemporal.swept_ratio(h, w, k):.4g}x")
 
@@ -777,6 +778,8 @@ def main(argv=None) -> int:
             log(f"  depth {k} at {h}x{w}: {ms:.4f} ms per pass, "
                 f"{ms / k:.5f} ms per sweep; {plan_note(h, w, k)}")
     del x, xt, args
+    log(f"  launches by form (depth, level groups, columns a thread): "
+        f"{dict(sorted(ktemporal.FORM_LAUNCHES.items()))}")
 
     records += flash_phases(dev, gen, max_err, earlier.get("flash_fwd"))
     records += backward_phases(dev, gen, max_err, earlier.get("flash_bwd"))
@@ -2479,7 +2482,7 @@ def pipeline_phases(dev, gen, earlier=None):
         held = blocks_per_sm(k, stripe, band, int(cd == "bfloat16"),
                              buffering)
         return (f"plan (stripe {stripe}, band {band}), "
-                f"{ktemporal.threads(band, k)} threads, "
+                f"{ktemporal.window_threads(band, k)} threads, "
                 f"{kpipe.pipeline_smem_bytes(stripe, band, k, buffering)} B "
                 f"of shared memory, {held} blocks an SM")
 
@@ -5701,23 +5704,31 @@ def cli_phase(dev, smi_line):
         programs = entry["programs"]
         launches = [l for p in programs.values() for l in p["launches"]]
         for l in launches:
-            if l["cooperative"]:
+            if l["cooperative"] or l["kernel"] == "stencil_temporal":
                 if l.get("runtime_blocks_per_sm") != l["blocks_per_sm"]:
                     raise AssertionError(f"aot-verify {topo}: {l}")
+            if l["cooperative"]:
                 key = (l["kernel"], l["dtype"], l["op"])
                 occupancy[key] = (l["registers"], l["blocks_per_sm"],
                                   l["runtime_blocks_per_sm"],
                                   l["resident_blocks"])
+            elif l["kernel"] == "stencil_temporal":
+                key = (l["kernel"], "float32", f"k={l['k']}")
+                occupancy[key] = (l["registers"], l["blocks_per_sm"],
+                                  l["runtime_blocks_per_sm"],
+                                  l["blocks_per_sm"] * l["threads"] // 32)
         most = max((l["smem"] for l in launches), default=0)
         log(f"  aot-verify {topo} ({entry['devices']} ranks): "
             f"{len(programs)} cases fit, {len(launches)} distinct launches, "
             f"the most shared memory a block {most} B of "
             f"{232448} B")
     for (kernel, dtype, op), (regs, ptxas, runtime, resident) in sorted(
-            occupancy.items()):
+            occupancy.items(), key=str):
+        held = ("warps an SM" if kernel == "stencil_temporal"
+                else "resident")
         log(f"  {kernel} {dtype} op {op}: {regs} registers, {ptxas} blocks "
             f"an SM by the ptxas figures, {runtime} by the runtime, "
-            f"{resident} resident")
+            f"{resident} {held}")
     log(f"  sources built: " + ", ".join(
         f"{name} ({len(src['instances'])} instances)"
         for name, src in aot["sources"].items()))

@@ -27,7 +27,10 @@
 // `stripe` rows; its window is the band plus k columns each side and it
 // runs the row wavefront of stencil_wavefront.cuh down its rows plus k
 // above and below (at k = 8, 16 and 32 every level in registers, other
-// depths the generic loop). Thread 0 is the producer: each slot of the
+// depths the generic loop). It keeps the one-group form, each thread
+// carrying every level: a bf16 hold reads the input value that the thread
+// which read the input kept (Keep), and a level split would put the
+// reader and the holds of later levels in different threads. Thread 0 is the producer: each slot of the
 // ring (three, or one with buffering=1) takes a chunk of `stripe` rows of
 // the window, one cp.async.bulk.tensor.2d a 256-column box against that
 // slot's mbarrier (expect_tx of the chunk's bytes), issued when the step
@@ -241,25 +244,9 @@ struct PipelineIO {
   }
 
   __device__ __forceinline__ void fetch(int, float (&v)[C]) {
-    const float* src = slots + slot * p.boxes * p.stripe * p.box_w +
-                       row * p.box_w + in_col;
-    if constexpr (C % 4 == 0) {
-#pragma unroll
-      for (int c = 0; c < C; c += 4) {
-        const float4 q = *reinterpret_cast<const float4*>(src + c);
-        v[c] = q.x;
-        v[c + 1] = q.y;
-        v[c + 2] = q.z;
-        v[c + 3] = q.w;
-      }
-    } else if constexpr (C == 2) {
-      const float2 q = *reinterpret_cast<const float2*>(src);
-      v[0] = q.x;
-      v[1] = q.y;
-    } else {
-#pragma unroll
-      for (int c = 0; c < C; ++c) v[c] = src[c];
-    }
+    wavefront::load_row<C>(slots + slot * p.boxes * p.stripe * p.box_w +
+                               row * p.box_w + in_col,
+                           v);
     if (++row == p.stripe) {
       row = 0;
       ++chunk;
@@ -336,7 +323,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   if constexpr (K == 0) {
     wavefront::run_shared<kBf16>(io, win, scratch, keep);
   } else {
-    wavefront::run_registers<K, C, kBf16>(io, win, scratch, keep);
+    wavefront::run_registers<K, C, 1, kBf16>(io, win, scratch, keep);
   }
 }
 
@@ -395,7 +382,7 @@ size_t layout(Plan& p, int threads) {
   p.scratch_at = bars_at + align_floats(2 * kMaxSlots);
   p.keep_at = p.scratch_at +
               align_floats(K == 0 ? wavefront::level_floats(p.k, p.width)
-                                  : wavefront::edge_floats<K>(threads / 32));
+                                  : wavefront::edge_floats(K, threads / 32));
   return 4 * static_cast<size_t>(
                  p.keep_at +
                  align_floats(2 * p.width + 2 * wavefront::kKeepRing)) +

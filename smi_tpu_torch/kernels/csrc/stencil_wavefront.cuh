@@ -10,16 +10,29 @@
 // once, as level k; the row apron is 2k rows a stripe, not a ring a sweep.
 //
 // Two forms:
-//  * run_registers<K, C>: a thread owns C adjacent columns and keeps, for
-//    each level below K, the last two rows of them in registers (2·K·C
-//    floats: C = columns(K) = 4, 4, 2 at K = 8, 16, 32, so at most 128).
-//    Up, down and the inner left/right neighbours are registers. The edge columns cross threads:
-//    by __shfl_up_sync/__shfl_down_sync inside a warp, and for lanes 0 and
-//    31 through a small shared-memory slab per warp. A level's horizontal
-//    neighbours are its centre row, which the previous step produced, so
-//    one block barrier a row step (not a sweep) publishes every level's
-//    edges at once (two parities). Per cell and sweep: 4 f32 operations,
-//    2/C shuffles and 2/C selects.
+//  * run_registers<K, C, P>: P level groups of warps, each covering the
+//    window with C adjacent columns a thread; group g carries levels
+//    [g·K/P, (g+1)·K/P) and keeps, for each, the last two rows of its
+//    columns in registers (2·(K/P)·C floats a thread). Up, down and the
+//    inner left/right neighbours are registers. The edge columns cross
+//    threads: by __shfl_up_sync/__shfl_down_sync inside a warp, and for
+//    lanes 0 and 31 through a small shared-memory slab per warp of the
+//    group. A level's horizontal neighbours are its centre row, which the
+//    previous step produced, so one block barrier a row step (not a sweep)
+//    publishes every level's edges at once (two parities). Between groups
+//    a hand-off slab of two parities carries a row: group g-1 writes its
+//    last level's row at step ts, group g reads it at step ts+1, each
+//    thread the columns its partner wrote, after the same barrier. So
+//    group g runs g steps behind group 0, and a window takes
+//    rows + 2K + P - 1 steps. Group 0 alone reads the input, the last
+//    group alone writes level K. Per cell and sweep: 4 f32 operations,
+//    2/C shuffles and 2/C selects; a row a step crosses each seam.
+//    Splitting the levels frees registers for more warps an SM (every
+//    level in one thread, 2·K·C floats, needs 218 registers at K = 16,
+//    C = 4: 8 warps an SM); it also divides each warp's work between two
+//    barriers by P while the step's own work (the input, the output, the
+//    edges, the hold test) stays, so a group carries at least 8 levels
+//    where it can.
 //  * run_shared: any depth, one column a thread, each level's last three
 //    rows in shared memory (five shared-memory words a cell and sweep):
 //    the generic loop for depths the register form has no instance for.
@@ -27,27 +40,30 @@
 // Arithmetic: 0.25f * (((up + down) + left) + right) in f32, each level at
 // -fmad=false, so a level is bit-identical to one serial sweep. The
 // Dirichlet mask is the global one (rows and columns 0 and g-1) at every
-// level; a row step takes the masked levels only where it reaches a held
-// row, or in a warp that holds a boundary column (a branch the warp takes
-// as one). Cells beyond the global grid are averaged like any other:
+// level; a group's row step takes the masked levels only where its levels
+// reach a held row, or only the held columns in a warp that holds one (a
+// branch the warp takes as one), else none. Cells beyond the global grid
+// are averaged like any other:
 // only boundary cells read them, and those hold. Garbage (the unwritten
 // first levels, zero-filled rows and columns past the input) spreads one
 // cell a level, so after k levels it has not reached the band.
 //
-// bf16 neighbours (the pipeline's mixed form): each value is rounded once
-// when it is produced and kept only in that form, which every later use
-// reads as a neighbour. Its f32 form is needed only as the output (level k,
+// bf16 neighbours (the pipeline's mixed form, one level group only): each
+// value is rounded once when it is produced and kept only in that form,
+// which every later use reads as a neighbour. Its f32 form is needed only as the output (level k,
 // written before rounding) and as a held boundary value, which equals the
 // cell's input value: the block keeps the input's f32 values of the global
 // boundary rows and columns it holds (Keep) and holds from those.
 //
 // An IO class supplies the rows and takes the results:
-//   begin()                  before the first step;
-//   step(t)                  after step t's barrier (prefetch, copies);
-//   fetch(t, float (&)[C])   the thread's C input values of window row t;
+//   begin()                  before the first step (the first group);
+//   step(t)                  after step t's barrier (prefetch, copies; the
+//                            first group);
+//   fetch(t, float (&)[C])   the thread's C input values of window row t
+//                            (the first group);
 //   store(o, t, const float (&)[C])  level k of output row o (window row
-//                            k + o), produced at step t;
-//   end(t)                   after the last step t.
+//                            k + o), produced at step t (the last group);
+//   end(t)                   after the last step t (every thread).
 
 #pragma once
 
@@ -84,7 +100,8 @@ struct Keep {
   int width;    // W
 };
 
-// Columns a thread owns at depth K (0: the generic loop).
+// Columns a thread owns in the one-group form at depth K, as the
+// pipeline kernel runs it (0: the generic loop).
 __host__ __device__ constexpr int columns(int K) {
   return K == 32 ? 2 : K == 0 ? 1 : 4;
 }
@@ -152,10 +169,57 @@ __device__ __forceinline__ int column_mask(const Window& win, int j0) {
   return mask;
 }
 
-// Shared memory of run_registers' edge slabs, in floats.
-template <int K>
-__host__ __device__ constexpr int edge_floats(int warps) {
-  return 2 * (warps + 2) * 2 * K;
+// A thread's C adjacent values of a shared-memory row, in the widest
+// accesses C allows.
+template <int C>
+__device__ __forceinline__ void load_row(const float* from, float (&v)[C]) {
+  if constexpr (C % 4 == 0) {
+#pragma unroll
+    for (int c = 0; c < C; c += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(from + c);
+      v[c] = q.x;
+      v[c + 1] = q.y;
+      v[c + 2] = q.z;
+      v[c + 3] = q.w;
+    }
+  } else if constexpr (C == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(from);
+    v[0] = q.x;
+    v[1] = q.y;
+  } else {
+#pragma unroll
+    for (int c = 0; c < C; ++c) v[c] = from[c];
+  }
+}
+
+template <int C>
+__device__ __forceinline__ void store_row(float* to, const float (&v)[C]) {
+  if constexpr (C % 4 == 0) {
+#pragma unroll
+    for (int c = 0; c < C; c += 4) {
+      *reinterpret_cast<float4*>(to + c) =
+          make_float4(v[c], v[c + 1], v[c + 2], v[c + 3]);
+    }
+  } else if constexpr (C == 2) {
+    *reinterpret_cast<float2*>(to) = make_float2(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int c = 0; c < C; ++c) to[c] = v[c];
+  }
+}
+
+// Shared memory of run_registers' edge slabs, in floats: two parities of
+// a slab for each warp of a level group and one each side of the window,
+// each side of a warp holding the group's K / groups levels (the same
+// total for any number of groups).
+__host__ __device__ constexpr int edge_floats(int depth, int group_warps) {
+  return 2 * (group_warps + 2) * 2 * depth;
+}
+
+// Shared memory of run_registers' hand-off slabs, in floats: two parities
+// of a window row for each seam between level groups.
+__host__ __device__ constexpr int hand_floats(int groups, int width) {
+  return 2 * (groups - 1) * width;
 }
 
 template <bool B>
@@ -169,55 +233,85 @@ __device__ __forceinline__ bool holds_rows(const Window& win, int ts,
                                            int depth) {
   const int top = -win.g_row;             // window row of global row 0
   const int bottom = win.gh - 1 - win.g_row;
-  return (top >= ts - depth && top < ts) ||
-         (bottom >= ts - depth && bottom < ts);
+  return static_cast<unsigned>(ts - top - 1) < static_cast<unsigned>(depth) ||
+         static_cast<unsigned>(ts - bottom - 1) < static_cast<unsigned>(depth);
 }
 
-// K sweeps (win.k == K) with C columns a thread, levels in registers;
-// `edges` holds edge_floats<K>(warps) floats.
-template <int K, int C, bool kBf16, class IO>
+// K sweeps (win.k == K) with C columns a thread, levels in registers, in
+// P level groups of blockDim.x / P threads, each covering the window;
+// `scratch` holds edge_floats(K, blockDim.x / P / 32) +
+// hand_floats(P, blockDim.x / P * C) floats. P = 1: one group carries
+// every level.
+template <int K, int C, int P, bool kBf16, class IO>
 __device__ __forceinline__ void run_registers(IO& io, const Window& win,
-                                              float* edges,
+                                              float* scratch,
                                               const Keep& keep) {
-  static_assert(K % 4 == 0, "edges move four levels at a time");
+  static_assert(K % (4 * P) == 0, "edges move four levels at a time");
+  static_assert(P == 1 || !kBf16,
+                "a bf16 hold reads input values only the first group keeps");
+  constexpr int L = K / P;  // levels a group carries
   const int tid = threadIdx.x;
+  const int group_threads = blockDim.x / P;
+  // warp-uniform: a group is whole warps
+  const int group = P == 1 ? 0 : tid / group_threads;
+  const int gtid = tid - group * group_threads;
   const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int warps = blockDim.x >> 5;
-  const int j0 = tid * C;
-  // edges[parity][warp + 1][side][K]: side 0 the warp's column 0, side 1
-  // its last; warps -1 and `warps` are zero slabs past the window
-  const int parity_stride = (warps + 2) * 2 * K;
-  for (int i = tid; i < 2 * parity_stride; i += blockDim.x) edges[i] = 0.0f;
+  const int warp = gtid >> 5;
+  const int warps = group_threads >> 5;
+  const int width = group_threads * C;
+  const int j0 = gtid * C;
+  const int lo = group * L;  // the group's first level
+  // edges[parity][group][warp + 1][side][L]: side 0 the warp's column 0,
+  // side 1 its last; warps -1 and `warps` are zero slabs past the window
+  const int group_stride = (warps + 2) * 2 * L;
+  const int parity_stride = P * group_stride;
+  float* edges = scratch;
+  // hand[parity][seam][width]: level lo + L of a window row, from the
+  // group before a seam to the one after it
+  float* hand = scratch + 2 * parity_stride;
+  const int zeroed = 2 * parity_stride + hand_floats(P, width);
+  for (int i = tid; i < zeroed; i += blockDim.x) scratch[i] = 0.0f;
   // lane 0 reads the left warp's side 1, lane 31 the right warp's side 0;
   // the other lanes read lane 0's words (a broadcast)
-  const int in_off = lane == 31 ? (warp + 2) * 2 * K : warp * 2 * K + K;
-  const int out_off = (warp + 1) * 2 * K + (lane == 31 ? K : 0);
+  const int in_off = group * group_stride +
+                     (lane == 31 ? (warp + 2) * 2 * L : warp * 2 * L + L);
+  const int out_off =
+      group * group_stride + (warp + 1) * 2 * L + (lane == 31 ? L : 0);
+  const bool publishes = lane == 0 || lane == 31;
   const int colmask = column_mask<C>(win, j0);
-  // the warp holds a boundary column: it takes the masked levels at every
-  // step, as one (no shuffle ever runs in a divergent branch)
+  // the warp holds a boundary column: it takes the held-column levels at
+  // every step, as one (no shuffle ever runs in a divergent branch)
   const bool column_warp = __any_sync(kFull, colmask != 0);
+  // level lo + l at the group's step tg computes global row 0 where
+  // tg - l == hold_top, row gh - 1 where tg - l == hold_bottom
+  const int hold_top = lo + 1 - win.g_row;
+  const int hold_bottom = lo + win.gh - win.g_row;
 
-  float up[K][C], ce[K][C];
+  float up[L][C], ce[L][C];
 #pragma unroll
-  for (int l = 0; l < K; ++l) {
+  for (int l = 0; l < L; ++l) {
 #pragma unroll
     for (int c = 0; c < C; ++c) up[l][c] = ce[l][c] = 0.0f;
   }
 
-  // The K levels of step ts: d is level 0 of window row ts on entry and
-  // level K of row ts - K on exit (n32, before bf16 rounding). kHold:
-  // the global boundary's cells keep their value.
-  auto levels = [&](auto hold, int ts, float(&d)[C], float(&n32)[C]) {
-    constexpr bool kHold = decltype(hold)::value;
+  // The group's levels at its step tg (the block's step ts less the
+  // group): d is level lo of window row tg - lo on entry and level lo + L
+  // of row tg - lo - L on exit (n32, before bf16 rounding). The global
+  // boundary's cells keep their value: kRows, on held rows and columns;
+  // kCols, on held columns alone (a warp that holds one, on a step that
+  // reaches no held row).
+  auto levels = [&](auto rows, auto cols, int ts, int tg, float(&d)[C],
+                    float(&n32)[C]) {
+    constexpr bool kRows = decltype(rows)::value;
+    constexpr bool kCols = decltype(cols)::value;
     // the other warps' edges of every level's centre row, written at
     // step ts-1 with parity (ts-1)&1
-    const float4* ein = reinterpret_cast<const float4*>(
+    const float4* edge_in = reinterpret_cast<const float4*>(
         edges + ((ts + 1) & 1) * parity_stride + in_off);
     float4 e4;
 #pragma unroll
-    for (int l = 0; l < K; ++l) {
-      if (l % 4 == 0) e4 = ein[l / 4];
+    for (int l = 0; l < L; ++l) {
+      if (l % 4 == 0) e4 = edge_in[l / 4];
       const float e = l % 4 == 0   ? e4.x
                       : l % 4 == 1 ? e4.y
                       : l % 4 == 2 ? e4.z
@@ -226,20 +320,19 @@ __device__ __forceinline__ void run_registers(IO& io, const Window& win,
       float from_right = __shfl_down_sync(kFull, ce[l][0], 1);
       if (lane == 0) from_left = e;
       if (lane == 31) from_right = e;
-      // level l+1 of window row ts-l-1
+      // level lo+l+1 of window row tg-lo-l-1
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         const float left = c > 0 ? ce[l][c - 1] : from_left;
         const float right = c < C - 1 ? ce[l][c + 1] : from_right;
         n32[c] = 0.25f * (((up[l][c] + d[c]) + left) + right);
       }
-      if constexpr (kHold) {
-        const int i = ts - l - 1;
-        const int g = win.g_row + i;
-        if (on_edge(g, win.gh)) {
+      const int i = tg - lo - l - 1;
+      if constexpr (kRows) {
+        if (tg - l == hold_top || tg - l == hold_bottom) {
 #pragma unroll
           for (int c = 0; c < C; ++c) {
-            n32[c] = kBf16 ? kept_row(keep, g, j0 + c) : ce[l][c];
+            n32[c] = kBf16 ? kept_row(keep, win.g_row + i, j0 + c) : ce[l][c];
           }
         } else if (column_warp) {
 #pragma unroll
@@ -248,6 +341,12 @@ __device__ __forceinline__ void run_registers(IO& io, const Window& win,
                 kBf16 ? kept_col(keep, win, i, j0 + c) : ce[l][c];
             n32[c] = (colmask >> c & 1) ? held : n32[c];
           }
+        }
+      } else if constexpr (kCols) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const float held = kBf16 ? kept_col(keep, win, i, j0 + c) : ce[l][c];
+          n32[c] = (colmask >> c & 1) ? held : n32[c];
         }
       }
 #pragma unroll
@@ -259,39 +358,58 @@ __device__ __forceinline__ void run_registers(IO& io, const Window& win,
     }
   };
 
-  const int steps = win.rows + 2 * K;
-  io.begin();
+  // group g runs g steps behind group 0: the last group's level K of
+  // window row r comes K + P - 1 steps after row r's input
+  const int steps = win.rows + 2 * K + P - 1;
+  if (group == 0) io.begin();
   int t = 0;
   for (; t < steps; t += kStepUnroll) {
 #pragma unroll
     for (int u = 0; u < kStepUnroll; ++u) {
       const int ts = t + u;
+      const int tg = ts - group;
       __syncthreads();
-      io.step(ts);
       float d[C];
-      io.fetch(ts, d);
-      if constexpr (kBf16) keep_inputs<C>(keep, win, ts, j0, colmask, d);
+      if (group == 0) {
+        io.step(ts);
+        io.fetch(ts, d);
+        if constexpr (kBf16) keep_inputs<C>(keep, win, ts, j0, colmask, d);
 #pragma unroll
-      for (int c = 0; c < C; ++c) d[c] = neighbour_form<kBf16>(d[c]);
-      float n32[C];
-      if (column_warp || holds_rows(win, ts, K)) {
-        levels(Flag<true>{}, ts, d, n32);
+        for (int c = 0; c < C; ++c) d[c] = neighbour_form<kBf16>(d[c]);
       } else {
-        levels(Flag<false>{}, ts, d, n32);
+        // level lo of window row tg - lo, handed over at step ts - 1
+        load_row<C>(hand + ((ts + 1) & 1) * (P - 1) * width +
+                        (group - 1) * width + j0,
+                    d);
       }
-      // n32: level K of window row ts-K, output row ts-2K
-      io.store(ts - 2 * K, ts, n32);
-      if (lane == 0 || lane == 31) {
-        float4* eout = reinterpret_cast<float4*>(
-            edges + (ts & 1) * parity_stride + out_off);
+      float n32[C];
+      if (static_cast<unsigned>(tg - hold_top) < static_cast<unsigned>(L) ||
+          static_cast<unsigned>(tg - hold_bottom) < static_cast<unsigned>(L)) {
+        levels(Flag<true>{}, Flag<true>{}, ts, tg, d, n32);
+      } else if (column_warp) {
+        levels(Flag<false>{}, Flag<true>{}, ts, tg, d, n32);
+      } else {
+        levels(Flag<false>{}, Flag<false>{}, ts, tg, d, n32);
+      }
+      if (group == P - 1) {
+        // n32: level K of window row tg-K, output row tg-2K
+        io.store(tg - 2 * K, ts, n32);
+      } else {
+        store_row<C>(hand + (ts & 1) * (P - 1) * width + group * width + j0,
+                     d);
+      }
+      // lane 0 publishes its column 0, lane 31 its last (selects and
+      // predicated stores: no branch)
+      float4* eout = reinterpret_cast<float4*>(
+          edges + (ts & 1) * parity_stride + out_off);
 #pragma unroll
-        for (int l = 0; l < K; l += 4) {
-          eout[l / 4] = lane == 0
-                            ? make_float4(ce[l][0], ce[l + 1][0],
-                                          ce[l + 2][0], ce[l + 3][0])
-                            : make_float4(ce[l][C - 1], ce[l + 1][C - 1],
-                                          ce[l + 2][C - 1], ce[l + 3][C - 1]);
-        }
+      for (int l = 0; l < L; l += 4) {
+        const float4 e = make_float4(
+            lane == 0 ? ce[l][0] : ce[l][C - 1],
+            lane == 0 ? ce[l + 1][0] : ce[l + 1][C - 1],
+            lane == 0 ? ce[l + 2][0] : ce[l + 2][C - 1],
+            lane == 0 ? ce[l + 3][0] : ce[l + 3][C - 1]);
+        if (publishes) eout[l / 4] = e;
       }
     }
   }

@@ -68,12 +68,15 @@ TMA_BOX_MAX = 256
 #: the narrowest band the planner takes (output columns a block)
 MIN_BAND = 32
 
+#: the kernel's launch bound (``kMaxThreads`` in the C entry)
+MAX_THREADS = 256
+
 #: the rows a copy carries when the caller names no stripe: the least
 #: shared memory a slot can take, and still two copies ahead of the sweeps
 DEFAULT_STRIPE = 8
 
 #: output rows a block streams at most (``kRunRows`` in the C entry)
-RUN_ROWS = ktemporal.STRIPE_ROWS
+RUN_ROWS = 128
 
 #: shared-memory alignment of every region (TMA wants 128 B)
 SLOT_ALIGN = 128
@@ -95,7 +98,7 @@ def pipeline_smem_bytes(stripe: int, band: int, depth: int,
     mbarriers, the sweeps' scratch and the bf16 holds' input values, plus
     the slack to align the first. The counterpart of the JAX package's
     ``pipeline_vmem_bytes``; the CUDA launcher computes the same."""
-    width = ktemporal.threads(band, depth) * ktemporal.columns(depth)
+    width = ktemporal.window_threads(band, depth) * ktemporal.columns(depth)
     return (_aligned(buffering * stripe * width)
             + _aligned(2 * stripe * band)
             + _aligned(2 * PIPELINE_SLOTS)
@@ -114,7 +117,7 @@ def _band_fits(band: int, depth: int) -> bool:
     """The C entry's rules for a band: its window within the launch
     bound, and equal store boxes of whole 16-byte rows."""
     boxes = _stores(band)
-    return (ktemporal.threads(band, depth) <= ktemporal.MAX_THREADS
+    return (ktemporal.window_threads(band, depth) <= MAX_THREADS
             and band % boxes == 0 and band // boxes % 4 == 0)
 
 
@@ -122,7 +125,7 @@ def _area_ratio(h: int, w: int, depth: int, band: int) -> Fraction:
     """Window cells swept per output cell: every band's window (a warp of
     columns at a time) over the rows plus a 2k-row apron for each run of
     at most :data:`RUN_ROWS` rows, the fewest runs the C entry cuts."""
-    width = ktemporal.threads(band, depth) * ktemporal.columns(depth)
+    width = ktemporal.window_threads(band, depth) * ktemporal.columns(depth)
     runs = -(-h // RUN_ROWS)
     return Fraction(-(-w // band) * width * (h + runs * 2 * depth), h * w)
 
@@ -147,8 +150,7 @@ def _plan(h: int, w: int, depth: int, buffering: int = PIPELINE_SLOTS,
         return None
     c = ktemporal.columns(depth)
     best = None
-    for n in range(32, min(ktemporal.MAX_THREADS,
-                           ktemporal.MAX_WIDTH // c) + 1, 32):
+    for n in range(32, min(MAX_THREADS, ktemporal.MAX_WIDTH // c) + 1, 32):
         widest = n * c - 2 * depth
         if widest < MIN_BAND:
             continue

@@ -6,9 +6,11 @@ cell); this tier exchanges ``k``-deep corner-complete halos once, then
 ``csrc/stencil_temporal.cu`` streams each column band of the block down a
 row wavefront (``csrc/stencil_wavefront.cuh``): every cell is read once,
 goes through the ``k`` sweeps on chip and is written once — ``k`` sweeps
-for one read and one write of the block. The Dirichlet mask is re-applied
-at every sweep from global coordinates, so the result is bit-identical
-to ``k`` serial sweeps.
+for one read and one write of the block. At each register depth a block
+splits the levels among level groups of warps (:data:`FORMS`), so a
+thread keeps fewer of them and an SM holds more warps. The Dirichlet mask
+is re-applied at every sweep from global coordinates, so the result is
+bit-identical to ``k`` serial sweeps.
 
 One CUDA kernel serves both of the JAX package's dispatch shapes (the
 column-tiled ``_tiled_kernel`` and the full-width ``_temporal_kernel``):
@@ -24,7 +26,9 @@ a CPU tensor.
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+import math
+import threading
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -46,14 +50,32 @@ SMEM_BYTES_LIMIT = 232_448
 #: streaming multiprocessors of the H100 SXM, which the plan fills
 SMS = 132
 
-#: columns a thread owns at the depths whose sweeps the kernels keep in
-#: registers (two rows of every level: 2 * depth * columns floats, at
-#: most 128); any other depth runs the generic loop, one column a thread
-#: (``columns`` in ``csrc/stencil_wavefront.cuh``)
-REGISTER_COLUMNS = {8: 4, 16: 4, 32: 2}
 
-#: the kernels' launch bound
-MAX_THREADS = 256
+class Form(NamedTuple):
+    """The shape of the temporal kernel at one depth (``Form`` in
+    ``csrc/stencil_temporal.cu``): ``groups`` level groups of warps, each
+    carrying ``depth / groups`` of the levels across the whole window,
+    ``columns`` a thread, and its launch bound (``max_threads`` a block at
+    most, ``min_blocks`` an SM at least, which caps the registers)."""
+
+    groups: int
+    columns: int
+    max_threads: int
+    min_blocks: int
+
+
+#: the temporal kernel's form at the depths whose levels it keeps in
+#: registers; any other depth runs the generic loop (:data:`GENERIC`)
+FORMS = {8: Form(1, 4, 128, 4), 16: Form(2, 4, 256, 2),
+         32: Form(4, 4, 512, 1)}
+
+#: the generic loop: one column a thread, every level in shared memory
+GENERIC = Form(1, 1, 256, 1)
+
+#: columns a thread owns in the wavefront's one-group form at the register
+#: depths (``columns`` in ``csrc/stencil_wavefront.cuh``): the pipeline
+#: kernel's, which carries every level in each thread
+REGISTER_COLUMNS = {8: 4, 16: 4, 32: 2}
 
 #: the widest window the planner gives a block at the register depths:
 #: wide enough for a 1.2x apron at k=32, narrow enough that an SM holds
@@ -63,60 +85,106 @@ MAX_WIDTH = 512
 #: input rows in flight a block (the cp.async ring)
 PREFETCH_ROWS = 4
 
-#: registers a thread of each instance uses (``-Xptxas -v``, phase 2 of
-#: ``chip_smoke.py``; None: the generic loop), which set the blocks an SM
-#: holds at once
-REGISTERS = {8: 124, 16: 218, 32: 235, None: 48}
-
-#: rows a block streams at most: on the card a pass of stripes this short
-#: (several waves of blocks) beat one wave of long ones, apron and all
-#: (PERF.md)
-STRIPE_ROWS = 128
+#: registers a thread of each temporal instance uses (``-Xptxas -v``,
+#: phase 2 of ``chip_smoke.py``; None: the generic loop), which set the
+#: blocks an SM holds at once
+REGISTERS = {8: 119, 16: 125, 32: 128, None: 48}
 
 #: the shortest stripe, in depths: its row apron (2k rows) costs at most
 #: twice the stripe
 MIN_STRIPE_DEPTHS = 2
 
+#: the plan's model of a pass on the card: blocks run in waves of SMS x
+#: blocks_per_sm; a wave counts as full past this share of it, and the
+#: last wave costs this many waves more (its blocks' spread in time).
+#: Fitted to the stripe sweeps at the main shapes (PERF.md, PR 24)
+WAVE_FILL = 0.98
+TAIL_WAVES = 0.3
+
+#: launches CUDA accepted, by form: (depth, level groups, columns a
+#: thread) -> count, since the process started (the plain CPU version
+#: counts nothing); beside ``_build.LAUNCHES``, which counts them all
+FORM_LAUNCHES: Dict[Tuple[int, int, int], int] = {}
+
+_form_lock = threading.Lock()
+
 
 def columns(depth: int) -> int:
-    """Columns a thread owns in the wavefront kernels at ``depth``."""
+    """Columns a thread owns in the one-group wavefront at ``depth``."""
     return REGISTER_COLUMNS.get(depth, 1)
 
 
-def threads(band: int, depth: int) -> int:
-    """Threads of a block whose window is ``band`` output columns plus a
-    ``depth``-column apron each side: a warp at a time (both C entries
-    compute the same)."""
-    per_warp = 32 * columns(depth)
+def form(depth: int) -> Form:
+    """The temporal kernel's form at ``depth``."""
+    return FORMS.get(depth, GENERIC)
+
+
+def window_threads(band: int, depth: int, cols: Optional[int] = None) -> int:
+    """Threads that cover a window of ``band`` output columns plus a
+    ``depth``-column apron each side, ``cols`` columns a thread (the
+    one-group form's by default), a warp at a time: one level group."""
+    per_warp = 32 * (columns(depth) if cols is None else cols)
     return -(-(band + 2 * depth) // per_warp) * 32
 
 
-def scratch_floats(band: int, depth: int) -> int:
-    """Shared memory the sweeps use beside the input, in floats: the
-    warps' edge slabs (two parities, a slab each side of the window), or
-    the generic loop's three rows of every level."""
-    n = threads(band, depth)
+def threads(band: int, depth: int) -> int:
+    """Threads of a temporal block: its level groups, each covering the
+    window."""
+    f = form(depth)
+    return f.groups * window_threads(band, depth, f.columns)
+
+
+def window_width(band: int, depth: int) -> int:
+    """Window columns a temporal block sweeps (a warp of columns at a
+    time)."""
+    f = form(depth)
+    return window_threads(band, depth, f.columns) * f.columns
+
+
+def scratch_floats(band: int, depth: int, groups: int = 1,
+                   cols: Optional[int] = None) -> int:
+    """Shared memory the sweeps use beside the input, in floats: each
+    level group's edge slabs (two parities, a slab a warp and one each
+    side of the window) and the hand-off rows between groups (two
+    parities a seam), or the generic loop's three rows of every level."""
+    n = window_threads(band, depth, cols)
+    width = n * (columns(depth) if cols is None else cols)
     if depth in REGISTER_COLUMNS:
-        return 2 * (n // 32 + 2) * 2 * depth
+        return 2 * (n // 32 + 2) * 2 * depth + 2 * (groups - 1) * width
     return 3 * depth * (n + 2)
 
 
 def window_bytes(band: int, depth: int) -> int:
-    """Shared memory of one block: the input ring and the sweeps'
-    scratch. The CUDA launcher computes the same."""
-    width = threads(band, depth) * columns(depth)
-    return 4 * (PREFETCH_ROWS * width + scratch_floats(band, depth))
+    """Shared memory of one temporal block: the input ring and the
+    sweeps' scratch. The CUDA launcher computes the same."""
+    f = form(depth)
+    return 4 * (PREFETCH_ROWS * window_width(band, depth)
+                + scratch_floats(band, depth, f.groups, f.columns))
 
 
 def blocks_per_sm(band: int, depth: int) -> int:
     """Blocks of this shape an H100 SM holds at once, by registers (four
     partitions of 16384, a warp's registers in one) and shared memory."""
     warps = threads(band, depth) // 32
-    regs = REGISTERS[depth if depth in REGISTER_COLUMNS else None]
+    regs = REGISTERS[depth if depth in FORMS else None]
     warp_regs = -(-regs // 8) * 8 * 32
     by_regs = 4 * (16_384 // warp_regs) // warps
     by_smem = 233_472 // (window_bytes(band, depth) + 1024)
     return max(1, min(by_regs, by_smem, 64 // warps, 32))
+
+
+def runtime_blocks_per_sm(band: int, depth: int) -> int:
+    """The runtime's count of blocks of this shape an SM holds at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` through the C
+    entry); needs a card."""
+    import ctypes
+
+    fn = _build.library(KERNEL).smi_stencil_temporal_blocks_per_sm
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    blocks = fn(depth, band)
+    _build.check(f"{KERNEL} occupancy", max(0, -blocks))
+    return blocks
 
 
 def even_bands(w: int, widest: int, unit: int = 8) -> Tuple[int, int]:
@@ -136,19 +204,20 @@ def _plan(h: int, w: int, depth: int) -> Optional[Tuple[int, int]]:
     The band is the even split of ``w`` that sweeps the fewest window
     columns (output plus apron, a warp of columns at a time, at most
     :data:`MAX_WIDTH`) and fits shared memory; on a tie, the fewer bands.
-    The stripes are :data:`STRIPE_ROWS` rows (or the shortest below),
-    halved while the blocks would not fill the card once (:data:`SMS` x
-    :func:`blocks_per_sm`), but none shorter than
-    :data:`MIN_STRIPE_DEPTHS` depths (nor than the block), then evened
-    out over ``h``.
+    The stripes are ``h`` evenly cut in the count that the card runs
+    soonest: :func:`waves` of :data:`SMS` x :func:`blocks_per_sm` blocks
+    times a block's row steps, none shorter than
+    :data:`MIN_STRIPE_DEPTHS` depths (nor than the block); on a tie, the
+    fewer stripes.
     """
     k = depth
     if not 1 <= k <= min(h, w):
         return None
-    c = columns(k)
+    f = form(k)
     best = None
-    for n in range(32, min(MAX_THREADS, MAX_WIDTH // c) + 1, 32):
-        widest = n * c - 2 * k
+    for n in range(32, min(f.max_threads // f.groups,
+                           MAX_WIDTH // f.columns) + 1, 32):
+        widest = n * f.columns - 2 * k
         if widest < 1:
             continue
         count, band = even_bands(w, widest)
@@ -161,11 +230,19 @@ def _plan(h: int, w: int, depth: int) -> Optional[Tuple[int, int]]:
         return None
     _, count, band = best
     shortest = min(h, MIN_STRIPE_DEPTHS * k)
-    stripe = min(h, max(STRIPE_ROWS, shortest))
-    while (stripe > shortest
-           and count * -(-h // stripe) < SMS * blocks_per_sm(band, k)):
-        stripe = max(shortest, -(-stripe // 2))
-    return -(-h // -(-h // stripe)), band
+    slots = SMS * blocks_per_sm(band, k)
+    apron = 2 * k + f.groups - 1   # a block's row steps past its stripe
+    stripes = {-(-h // n) for n in range(1, h // shortest + 1)}
+    stripe = min(stripes, key=lambda s: (
+        waves(count * -(-h // s), slots) * (s + apron), -s))
+    return stripe, band
+
+
+def waves(blocks: int, slots: int) -> float:
+    """Waves of the card that ``blocks`` take, ``slots`` at a time, in the
+    plan's model: a wave counts full past :data:`WAVE_FILL` of it, and the
+    last costs :data:`TAIL_WAVES` more."""
+    return math.ceil(blocks / (WAVE_FILL * slots)) + TAIL_WAVES
 
 
 def swept_ratio(h: int, w: int, depth: int) -> float:
@@ -173,7 +250,7 @@ def swept_ratio(h: int, w: int, depth: int) -> float:
     every band's full window (a warp of columns at a time) over every
     stripe's rows plus its 2k-row apron."""
     stripe, band = _plan(h, w, depth)
-    width = threads(band, depth) * columns(depth)
+    width = window_width(band, depth)
     bands, stripes = -(-w // band), -(-h // stripe)
     return bands * width * (h + stripes * 2 * depth) / (h * w)
 
@@ -192,10 +269,11 @@ def temporal_supported(h: int, w: int, dtype, depth: int = 8) -> bool:
 def pick_temporal_depth(h: int, w: int, dtype, iterations: int):
     """Deepest supported sweeps-per-pass, trying 16 then 8, or None.
 
-    The H100's order (``chip_smoke.py`` phase 6; NVIDIA H100 80GB HBM3,
-    700 W): at 8192x8192 a pass costs 0.0455 ms a sweep at k=16, 0.0462
-    at k=8 and 0.0569 at k=32. At the 4096x2048 block depth 8 is faster
-    (0.0086 against 0.0132 ms a sweep): an open question (PERF.md).
+    The order is the benchmark's (its cells run depth 16). On the H100
+    (``chip_smoke.py`` phase 6; NVIDIA H100 80GB HBM3, 700 W) a pass at
+    8192x8192 costs 0.0310 ms a sweep at k=16, 0.0300 at k=8 and 0.0353
+    at k=32; at the 4096x2048 block 0.0071 at k=16 and 0.0073 at k=8.
+    Whether 8 should lead at 8192x8192 is an open question (PERF.md).
     """
     return next(
         (
@@ -264,6 +342,10 @@ def temporal_sweeps(block, top, bottom, left, right, row0: int, col0: int,
             )
             _build.check(KERNEL, status)
     _build.count_launch(KERNEL)
+    f = form(k)
+    with _form_lock:
+        key = (k, f.groups, f.columns)
+        FORM_LAUNCHES[key] = FORM_LAUNCHES.get(key, 0) + 1
     return out
 
 

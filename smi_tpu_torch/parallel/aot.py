@@ -555,7 +555,7 @@ def _app_cases(topology: str):
         depth = kt.pick_temporal_depth(h, w, torch.float32, 16) or 8
         stripe, band = kt._plan(h, w, depth)
         launches = [{"kernel": "stencil_temporal", "k": depth,
-                     "threads": kt.threads(band, depth),
+                     "band": band, "threads": kt.threads(band, depth),
                      "blocks": -(-w // band) * -(-h // stripe),
                      "dynamic_smem": kt.window_bytes(band, depth),
                      "cooperative": False}]
@@ -596,7 +596,7 @@ def _port_cases(topology: str):
             for bf16 in ("0", "1"):
                 out.append({"kernel": "stencil_pipeline", "k": depth,
                             "bf16": bf16,
-                            "threads": kt.threads(band, depth),
+                            "threads": kt.window_threads(band, depth),
                             "blocks": None,
                             "dynamic_smem": kp.pipeline_smem_bytes(
                                 stripe, band, depth),
@@ -710,6 +710,14 @@ def check_launch(launch: dict, resources: Dict[str, Dict[str, dict]],
         problems.append(f"{threads} threads a block > {MAX_BLOCK_THREADS}")
     if per_sm < 1:
         problems.append("no block of it fits an SM")
+    if runtime and launch["kernel"] == "stencil_temporal":
+        from smi_tpu_torch.kernels import stencil_temporal as kt
+
+        got = kt.runtime_blocks_per_sm(launch["band"], launch["k"])
+        out["runtime_blocks_per_sm"] = got
+        if got != per_sm:
+            problems.append(f"the runtime holds {got} blocks an SM, the "
+                            f"ptxas figures say {per_sm}")
     if launch["cooperative"]:
         out["resident_blocks"] = sms * per_sm
         if runtime:

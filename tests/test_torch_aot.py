@@ -214,9 +214,15 @@ def test_instance_names(mangled, want):
 
 def test_blocks_per_sm_agrees_with_the_temporal_plan():
     """The occupancy arithmetic is the temporal module's (which phase 6
-    holds to the runtime's occupancy API on the card)."""
-    for band, depth in ((488, 16), (240, 8), (448, 32), (100, 5)):
-        regs = kt.REGISTERS[depth if depth in kt.REGISTER_COLUMNS else None]
+    and the AOT check hold to the runtime's occupancy API on the card),
+    for the level-group forms at the bands of the 8192^2 and 4096x2048
+    plans, and for the generic loop."""
+    shapes = [(488, 16), (240, 8), (448, 32), (100, 5)]
+    shapes += [(kt._plan(h, w, d)[1], d) for h, w in ((8192, 8192),
+                                                      (4096, 2048))
+               for d in (8, 16, 32)]
+    for band, depth in shapes:
+        regs = kt.REGISTERS[depth if depth in kt.FORMS else None]
         smem = kt.window_bytes(band, depth)
         assert aot.blocks_per_sm(regs, kt.threads(band, depth), smem) == \
             kt.blocks_per_sm(band, depth)

@@ -16,6 +16,7 @@ import torch
 import smi_tpu_torch as st
 from smi_tpu_torch.kernels import _build
 from smi_tpu_torch.kernels import flash as kflash
+from smi_tpu_torch.kernels import stencil_temporal as ktemporal
 
 pytestmark = pytest.mark.gpu
 
@@ -74,7 +75,11 @@ def _temporal_case(depth, shape, at, grid, seed):
 
 
 #: (block, its offset, the grid): no multiple of the plan's stripe and
-#: band, inside the grid, holding every global edge, each edge alone
+#: band, inside the grid, holding every global edge, each edge alone; then
+#: the level groups' cases: a global boundary row inside the halo, 3, 8
+#: or 13 rows past the block (inside the first group's levels, on the
+#: seam of two groups of 8 levels, inside the second's), odd stripes
+#: (the step unroll pads them), one band, and the 8192^2 main shape
 TEMPORAL_BLOCKS = [
     ((300, 700), (1000, 1200), (4096, 4096)),
     ((300, 700), (0, 0), (300, 700)),
@@ -82,6 +87,10 @@ TEMPORAL_BLOCKS = [
     ((300, 700), (1000, 0), (4096, 4096)),
     ((300, 700), (3796, 1200), (4096, 4096)),
     ((300, 700), (1000, 3396), (4096, 4096)),
+    ((301, 300), (3, 0), (304, 4096)),
+    ((257, 700), (8, 1000), (273, 4096)),
+    ((333, 500), (13, 3596), (354, 4096)),
+    ((8192, 8192), (0, 0), (8192, 8192)),
 ]
 
 
@@ -89,13 +98,18 @@ TEMPORAL_BLOCKS = [
 @pytest.mark.parametrize("depth", [1, 2, 7, 8, 16, 32])
 def test_temporal_kernel_equals_its_plain_version(cuda_comm, depth, block,
                                                   at, grid):
-    """The wavefront kernel, one launch, torch.equal to its plain version
-    at every register depth and on the generic loop."""
+    """The wavefront kernel, one launch in its depth's form (counted by
+    form), torch.equal to its plain version at every register depth and
+    on the generic loop."""
     args = _temporal_case(depth, block, at, grid, seed=depth)
-    before = _build.LAUNCHES["stencil_temporal"]
+    form = ktemporal.form(depth)
+    key = (depth, form.groups, form.columns)
+    forms = ktemporal.FORM_LAUNCHES
+    before = _build.LAUNCHES["stencil_temporal"], forms.get(key, 0)
     got = st.temporal_sweeps(*args)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES["stencil_temporal"] == before + 1
+    assert (_build.LAUNCHES["stencil_temporal"], forms[key]) == (
+        before[0] + 1, before[1] + 1)
     assert torch.equal(got, st.temporal_sweeps_plain(*args))
 
 

@@ -15,6 +15,7 @@ holds each against its plain version.
 """
 
 import importlib.util
+import math
 import re
 import shutil
 import sys
@@ -243,16 +244,65 @@ def test_temporal_plain_equals_serial_sweeps_on_random_data(depth):
 
 
 def test_plan_fits_shared_memory():
-    assert ktemporal._plan(8192, 8192, 16) == (128, 456)
-    assert ktemporal._plan(4096, 2048, 16) == (64, 344)
-    # the input ring (4 rows of the 512-column window) and the edge slabs
-    # (2 parities x 6 slabs x 2 sides x 16 levels)
-    assert ktemporal.window_bytes(456, 16) == 4 * (4 * 512 + 2 * 6 * 2 * 16)
+    assert ktemporal._plan(8192, 8192, 16) == (191, 456)
+    assert ktemporal._plan(4096, 2048, 16) == (96, 344)
+    # the input ring (4 rows of the 512-column window), the edge slabs
+    # (2 parities x 2 groups x 6 slabs x 2 sides x 8 levels) and the
+    # hand-off rows (2 parities x 1 seam x 512 columns)
+    assert ktemporal.window_bytes(456, 16) == 4 * (
+        4 * 512 + 2 * 2 * 6 * 2 * 8 + 2 * 1 * 512)
     assert ktemporal._plan(16, 40, 8) == (16, 40)   # cut to the block
     for k in (1, 8, 16, 32, 50):
         stripe, band = ktemporal._plan(8192, 8192, k)
         assert ktemporal.window_bytes(band, k) <= ktemporal.SMEM_BYTES_LIMIT
     assert ktemporal._plan(8192, 8192, 200) is None
+
+
+@pytest.mark.parametrize("depth", [8, 16, 32])
+def test_the_temporal_block_follows_its_level_groups(depth):
+    """At 8192^2 a block is its form's level groups, each covering the
+    window; its shared memory holds each group's edge slabs and the
+    hand-off rows between groups; an SM holds at least 16 warps."""
+    n = 8192
+    stripe, band = ktemporal._plan(n, n, depth)
+    form = ktemporal.form(depth)
+    group = -(-(band + 2 * depth) // (32 * form.columns)) * 32
+    width = group * form.columns
+    assert ktemporal.threads(band, depth) == form.groups * group
+    assert ktemporal.threads(band, depth) <= form.max_threads
+    assert ktemporal.window_width(band, depth) == width
+    levels = depth // form.groups
+    edges = 2 * form.groups * (group // 32 + 2) * 2 * levels
+    hand = 2 * (form.groups - 1) * width
+    assert ktemporal.window_bytes(band, depth) == 4 * (
+        ktemporal.PREFETCH_ROWS * width + edges + hand)
+    per_sm = ktemporal.blocks_per_sm(band, depth)
+    assert per_sm >= form.min_blocks
+    assert per_sm * ktemporal.threads(band, depth) // 32 >= 16
+    if depth == 16:
+        assert (form.groups, form.columns) == (2, 4)
+        assert (per_sm, ktemporal.threads(band, depth)) == (2, 256)
+
+
+def test_the_forms_are_the_kernels():
+    """The plan's forms, input ring and register counts are the C
+    source's (``form`` and ``kPrefetch`` in ``stencil_temporal.cu``)."""
+    source = (_build.CSRC / "stencil_temporal.cu").read_text()
+    body = source[source.index("constexpr Form form(int K)"):]
+    body = body[:body.index("\n}\n")]
+    found = {int(k): ktemporal.Form(*map(int, f.split(",")))
+             for k, f in re.findall(r"K == (\d+)\s*\? Form\{([^}]*)\}", body)}
+    assert found == ktemporal.FORMS
+    generic = re.search(r":\s*Form\{([^}]*)\};", body).group(1)
+    assert ktemporal.Form(*map(int, generic.split(","))) == ktemporal.GENERIC
+    assert re.search(r"constexpr int kPrefetch = (\d+);", source).group(1) \
+        == str(ktemporal.PREFETCH_ROWS)
+    assert set(ktemporal.REGISTERS) == set(ktemporal.FORMS) | {None}
+    for depth, form in ktemporal.FORMS.items():
+        # the launch bound's register cap holds each instance's count
+        cap = 65_536 // (form.max_threads * form.min_blocks)
+        assert ktemporal.REGISTERS[depth] <= min(cap, 255)
+        assert depth % (4 * form.groups) == 0   # edges move 4 levels
 
 
 #: window columns a band sweeps per output column (the k-column aprons, a
@@ -265,7 +315,7 @@ SWEPT = {8: (1.07, 1.2), 16: (1.13, 1.41), 32: (1.19, 1.79)}
 def test_the_plan_sweeps_a_small_apron(depth):
     n = 8192
     stripe, band = ktemporal._plan(n, n, depth)
-    width = ktemporal.threads(band, depth) * ktemporal.columns(depth)
+    width = ktemporal.window_width(band, depth)
     columns, area = SWEPT[depth]
     assert -(-n // band) * width / n <= columns
     assert ktemporal.swept_ratio(n, n, depth) <= area
@@ -276,11 +326,14 @@ def test_the_plan_sweeps_a_small_apron(depth):
 @pytest.mark.parametrize("shape", [(8192, 8192), (4096, 2048)])
 @pytest.mark.parametrize("depth", [8, 16, 32])
 def test_the_main_shapes_fill_the_card(shape, depth):
-    """Rows 1 and 2 of PERF.md (and the other register depths) launch at
-    least a block for every SM of the H100."""
+    """Rows 1 and 2 of PERF.md (and the other register depths) launch
+    blocks in waves of the H100 (SMs x blocks an SM at once) whose last
+    wave is at least 85 % full: no short tail of blocks."""
     h, w = shape
     stripe, band = ktemporal._plan(h, w, depth)
-    assert -(-h // stripe) * -(-w // band) >= ktemporal.SMS
+    blocks = -(-h // stripe) * -(-w // band)
+    waves = blocks / (ktemporal.SMS * ktemporal.blocks_per_sm(band, depth))
+    assert waves - math.ceil(waves) + 1 >= 0.85
 
 
 def _chip_smoke():
@@ -313,7 +366,7 @@ def test_earlier_stencil_sources_take_their_own_plans(monkeypatch):
 
     chip_smoke = _chip_smoke()
     for stem, module, tree_plan, first_plan, args in (
-            ("stencil_temporal", ktemporal, (128, 456), (64, 64),
+            ("stencil_temporal", ktemporal, (191, 456), (64, 64),
              (8192, 8192, 16)),
             ("stencil_pipeline", kpipe, (8, 456), (64, 96),
              (8192, 8192, 16))):
@@ -405,9 +458,11 @@ def test_temporal_wrapper_refuses_an_unsupported_depth():
 
 def test_cpu_calls_launch_nothing():
     before = dict(_build.LAUNCHES)
+    forms = dict(ktemporal.FORM_LAUNCHES)
     st.fused_sweep(*_sweep_args())
     st.temporal_sweeps(*_temporal_args())
     assert _build.LAUNCHES == before
+    assert ktemporal.FORM_LAUNCHES == forms
     assert set(before) == {"stencil_sweep", "stencil_temporal",
                            "stencil_pipeline", "flash_fused", "flash_block",
                            "flash_bwd_dq", "flash_bwd_dkdv",

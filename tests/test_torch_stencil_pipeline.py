@@ -187,13 +187,28 @@ def test_supported_shapes(h, w, depth, stripe, compute_dtype, buffering):
     assert h % t == 0 and t % 8 == 0 and t <= kpipe.TMA_BOX_MAX
     # the C entry's rules: the window within the launch bound, equal
     # store boxes of whole 16-byte rows, each 128-byte aligned
-    assert ktemporal.threads(band, depth) <= ktemporal.MAX_THREADS
+    assert ktemporal.window_threads(band, depth) <= kpipe.MAX_THREADS
     boxes = -(-band // kpipe.TMA_BOX_MAX)
     assert band % boxes == 0 and band // boxes % 4 == 0
     assert t * (band // boxes) % 32 == 0
     assert kpipe.MIN_BAND <= band <= max(w, kpipe.MIN_BAND)
     assert (kpipe.pipeline_smem_bytes(t, band, depth, buffering)
             <= kpipe.SMEM_BYTES_LIMIT)
+
+
+@pytest.mark.parametrize("depth,band", [(8, 488), (16, 456), (32, 432)])
+def test_the_pipeline_keeps_one_level_group(depth, band):
+    """The pipeline kernel runs the wavefront's one-group form (every
+    level in each thread, as before the temporal kernel's level split):
+    its 8192^2 plan, block and shared memory are unchanged."""
+    assert kpipe._plan(8192, 8192, depth) == (8, band)
+    assert kpipe._plan(8192, 8192, depth, 1) == (8, band)
+    threads = ktemporal.window_threads(band, depth)
+    assert threads == -(-(band + 2 * depth)
+                        // (32 * ktemporal.columns(depth))) * 32
+    assert threads <= kpipe.MAX_THREADS == 256
+    assert kpipe.pipeline_smem_bytes(8, band, depth) == {
+        8: 86528, 16: 85248, 32: 87296}[depth]
 
 
 def test_picker_names_its_choice_and_every_refusal():
@@ -226,7 +241,7 @@ PIPE_SWEPT = {8: (1.07, 1.2), 16: (1.13, 1.41), 32: (1.19, 1.79)}
 def test_the_pipeline_plan_sweeps_a_small_apron(depth):
     n = 8192
     _, band = kpipe._plan(n, n, depth)
-    width = ktemporal.threads(band, depth) * ktemporal.columns(depth)
+    width = ktemporal.window_threads(band, depth) * ktemporal.columns(depth)
     columns, area = PIPE_SWEPT[depth]
     assert -(-n // band) * width / n <= columns
     assert kpipe._area_ratio(n, n, depth, band) <= area
