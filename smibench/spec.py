@@ -2,7 +2,10 @@
 of the checkout, and under ``smibench/`` one file a cell
 (``workloads/<cell>.json``), a configuration (``configs/<config>.json``
 with its driver ``drivers/<config>.py`` and plain reference
-``references/<config>.py``) and a metric (``metrics/<metric>.py``)."""
+``references/<config>.py``) and a metric (``metrics/<metric>.py``).
+
+Each file is looked for under :data:`DIRS` in order; the command reads
+the benchmark's own directory alone."""
 
 from __future__ import annotations
 
@@ -18,6 +21,10 @@ HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 BENCHMARK = ROOT / "BENCHMARK.json"
 
+#: directories searched, in order, for a file found by name (a test puts
+#: a fixture's directory before the benchmark's own)
+DIRS = (HERE,)
+
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
 
@@ -26,6 +33,16 @@ def check_name(name: str, what: str) -> str:
     if not isinstance(name, str) or not NAME.match(name):
         raise ValueError(f"{what} {name!r} is not a valid name")
     return name
+
+
+def find(kind: str, name: str, suffix: str) -> Path:
+    """The first ``<dir>/<kind>/<name><suffix>`` of :data:`DIRS`."""
+    check_name(name, kind)
+    for base in DIRS:
+        path = base / kind / f"{name}{suffix}"
+        if path.is_file():
+            return path
+    raise FileNotFoundError(f"no {kind} file {kind}/{name}{suffix}")
 
 
 def load_json(path: Path) -> dict:
@@ -38,19 +55,17 @@ def benchmark() -> dict:
 
 
 def workload(name: str) -> dict:
-    return load_json(HERE / "workloads" / f"{check_name(name, 'cell')}.json")
+    return load_json(find("workloads", name, ".json"))
 
 
 def config(name: str) -> dict:
-    return load_json(HERE / "configs" / f"{check_name(name, 'config')}.json")
+    return load_json(find("configs", name, ".json"))
 
 
 def load_module(kind: str, name: str) -> ModuleType:
     """``smibench/<kind>/<name>.py`` as a module (names may hold ``-``
     and ``.``, so they load by path)."""
-    path = HERE / kind / f"{check_name(name, kind)}.py"
-    if not path.is_file():
-        raise FileNotFoundError(f"no {kind} file {path.relative_to(ROOT)}")
+    path = find(kind, name, ".py")
     modname = f"smibench.{kind}.{re.sub(r'[^A-Za-z0-9_]', '_', name)}"
     if modname in sys.modules:
         return sys.modules[modname]

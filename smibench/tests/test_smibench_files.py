@@ -7,6 +7,7 @@ import re
 import pytest
 
 from smibench import spec
+from smibench.tests.conftest import reduced_faults
 
 BENCH = spec.benchmark()
 CELLS = [w["name"] for w in BENCH["workloads"]]
@@ -40,9 +41,38 @@ def test_config_file_driver_and_reference_load(config):
     entry = next(c for c in BENCH["configs"] if c["name"] == config)
     assert entry["file"] == f"smibench/configs/{config}.json"
     assert spec.config(config)["name"] == config
-    assert entry["reduced"] == []
+    assert reduced_faults(entry, spec.config(config)) == []
     assert hasattr(spec.load_module("drivers", config), "Cell")
     spec.load_module("references", config)
+
+
+#: a configuration cut to one chip's share: experts held and a vocabulary
+#: slice, each with the source's value and the deployment stated
+CUT = {"name": "cut", "num_experts": 8, "vocab_size": 25024,
+       "published": {"num_experts": 128, "vocab_size": 200192},
+       "deployment": "each MoE layer's experts over 16 chips, 8 a chip; "
+                     "the vocabulary in eighths"}
+
+
+@pytest.mark.parametrize("change, fault", [
+    ({}, None),
+    ({"reduced": ["num_experts", "num_layers"]}, "'num_layers' is not a key"),
+    ({"published": {"num_experts": 128}}, "'vocab_size' has no published"),
+    ({"published": None}, "no published object"),
+    ({"deployment": None}, "no deployment"),
+    ({"deployment": " "}, "no deployment"),
+], ids=["sound", "key_not_in_file", "published_value_missing",
+        "published_missing", "deployment_missing", "deployment_blank"])
+def test_reduced_rule(change, fault):
+    entry = {"name": "cut",
+             "reduced": change.get("reduced", ["num_experts", "vocab_size"])}
+    config = {k: v for k, v in {**CUT, **change}.items()
+              if k != "reduced" and v is not None}
+    faults = reduced_faults(entry, config)
+    if fault is None:
+        assert faults == []
+    else:
+        assert any(fault in f for f in faults), faults
 
 
 @pytest.mark.parametrize("metric", [m["name"] for m in METRICS])
@@ -52,7 +82,8 @@ def test_metric_reader_loads(metric):
 
 @pytest.mark.parametrize("name", CELLS + CONFIGS
                          + [m["name"] for m in METRICS]
-                         + [w["traffic"] for w in BENCH["workloads"]])
+                         + [w["traffic"] for w in BENCH["workloads"]]
+                         + [k for c in BENCH["configs"] for k in c["reduced"]])
 def test_names_use_allowed_characters(name):
     assert spec.NAME.match(name)
 
@@ -66,9 +97,10 @@ def test_units_and_fields(metric):
 
 def test_end_to_end_bounds_and_sources():
     names = [m["name"] for m in BENCH["end_to_end"]]
-    assert "setup_s" in names
     # every cell, those that later PRs add too, reports the set-up time
-    assert "workloads" not in BENCH["end_to_end"][names.index("setup_s")]
+    # and the tail of a solve's wall
+    for name in ("setup_s", "solve_ms_p95"):
+        assert "workloads" not in BENCH["end_to_end"][names.index(name)]
     for m in BENCH["end_to_end"]:
         assert m["source"] in ("host_clock", "device_trace")
         assert 0.01 <= m["bound"] <= 0.25

@@ -142,12 +142,16 @@ def test_end_to_end_readers():
     walls = [0.01] * 95 + [0.02] * 5
     run = _run(work={"cells": 1e9}, walls=walls)
     rate = spec.load_module("metrics", "stencil_cells_per_s")
-    p95 = spec.load_module("metrics", "stencil_solve_ms_p95")
+    p95 = spec.load_module("metrics", "solve_ms_p95")
     assert rate.read(run) == pytest.approx(1e11 / sum(walls))
     assert p95.read(run) == pytest.approx(
         yardstick.percentile(walls, 95) * 1e3)
+    # the tail of a solve's wall reads whatever the unit of work; the
+    # stencil's rate reads only where the work is in cells
     other = _run(work={"rows": 1e9}, walls=walls)
-    assert rate.read(other) is None and p95.read(other) is None
+    assert rate.read(other) is None
+    assert p95.read(other) == p95.read(run)
+    assert p95.read(_run(work={"rows": 1e9}, walls=())) is None
     assert spec.load_module("metrics", "setup_s").read(run) == 3.0
 
 
