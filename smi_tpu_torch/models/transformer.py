@@ -17,15 +17,43 @@ update.
 
 Mixed precision as in the JAX package: with ``compute_dtype="bfloat16"``
 the products and the attention ring run in bf16 while the parameters,
-layernorm statistics, gradients and the update stay f32. Each product
+norm statistics, gradients and the update stay f32. Each product
 rounds its result to the compute dtype before widening it, as ``mm``
 does there.
+
+:class:`BlockConfig`'s defaults are the JAX package's block: a
+layernorm without affine, no positions, a GELU MLP, one ``window`` for
+every layer. Options the JAX package does not have (its defaults keep
+today's outputs bit for bit), which the ``afmoe`` family needs:
+
+- ``family="afmoe"``: the ``afmoe`` block's attention and norms, all
+  together: an RMSNorm with a weight before and after each sublayer, an
+  RMSNorm of each query and key head, rotary positions (``rope_theta``)
+  on windowed layers only, and the attention output times
+  ``sigmoid(x Wg)`` before ``Wo``;
+- ``mlp`` ``"swiglu"`` (of ``mlp_width``) or ``"experts"`` (an expert
+  layer that holds some of a router's experts, :mod:`.moe`);
+- per layer of a stack, ``layer_types`` (``"sliding"``: windowed to
+  ``window``; ``"full"``) and ``layer_mlps``.
+
+:class:`LanguageModel` wraps a stack of such layers as a language model
+(an embedding, the stack, a final RMSNorm, the head over the vocabulary
+rows held here and a cross-entropy), built from a ``config.json``'s keys
+by :meth:`LanguageModel.from_config`; :func:`make_train_step` trains it
+as it trains a block.
+
+Spans (``utils/tracing.annotate``): ``smi.train.step`` with its children
+``smi.train.forward``, ``.backward`` and ``.update``; ``smi.attn.sliding``
+and ``smi.attn.full`` (a layer's attention from its norm to its gate,
+by the layer's kind); ``smi.lm.head`` (the final norm, the head and the
+loss); the expert layer's ``smi.moe.*`` (:mod:`.moe`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional
+import math
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,8 +62,10 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from smi_tpu_torch.models import moe
 from smi_tpu_torch.models import ring_attention as ra
 from smi_tpu_torch.parallel.mesh import Communicator, resolve_device
+from smi_tpu_torch.utils.tracing import annotate
 
 #: the block's weights, in the order ``nn.Module.parameters`` yields them
 PARAM_NAMES = ("wqkv", "wo", "w1", "w2")
@@ -57,6 +87,60 @@ class BlockConfig:
     #: "bfloat16" runs the products and the attention ring in bf16 with
     #: f32 master weights; "float32" is full precision
     compute_dtype: str = "float32"
+    #: "jax": the JAX package's block (a layernorm without affine, no
+    #: positions); "afmoe": an RMSNorm with a weight before and after
+    #: each sublayer, an RMSNorm of each query and key head, rotary
+    #: positions on windowed layers, the attention output times
+    #: ``sigmoid(x Wg)`` before ``Wo``
+    family: str = "jax"
+    #: added to the variance (layernorm) or mean square (RMSNorm) inside
+    #: the reciprocal square root
+    norm_eps: float = 1e-6
+    rope_theta: float = 10000.0
+    #: "gelu" (``w1``, ``w2``), "swiglu" (``w1``, ``w3``, ``w2``) or
+    #: "experts" (:func:`moe.expert_layer`, configured by ``experts``)
+    mlp: str = "gelu"
+    #: the dense MLP's width (None: ``mlp_ratio * embed``)
+    mlp_width: Optional[int] = None
+    experts: Optional[moe.ExpertConfig] = None
+    #: per layer of a stack: "sliding" (windowed to ``window``) or
+    #: "full"; None: every layer takes ``window``
+    layer_types: Optional[Tuple[str, ...]] = None
+    #: per layer of a stack: its ``mlp``; None: every layer takes ``mlp``
+    layer_mlps: Optional[Tuple[str, ...]] = None
+
+    def __post_init__(self):
+        if self.family not in ("jax", "afmoe"):
+            raise ValueError(f"unknown family {self.family!r}")
+        for mlp in (self.mlp,) + tuple(self.layer_mlps or ()):
+            if mlp not in ("gelu", "swiglu", "experts"):
+                raise ValueError(f"unknown mlp {mlp!r}")
+            if mlp == "experts" and self.experts is None:
+                raise ValueError("an experts MLP needs an ExpertConfig")
+        for kind in self.layer_types or ():
+            if kind not in ("sliding", "full"):
+                raise ValueError(f"unknown layer type {kind!r}")
+            if kind == "sliding" and self.window is None:
+                raise ValueError("a sliding layer needs a window")
+        if (self.layer_types is not None and self.layer_mlps is not None
+                and len(self.layer_types) != len(self.layer_mlps)):
+            raise ValueError("layer_types and layer_mlps differ in length")
+
+    def layer(self, i: int) -> "BlockConfig":
+        """Layer ``i``'s block: its window and MLP from ``layer_types``
+        and ``layer_mlps``; the config itself where both are None."""
+        if self.layer_types is None and self.layer_mlps is None:
+            return self
+        window = self.window
+        if self.layer_types is not None and self.layer_types[i] == "full":
+            window = None
+        mlp = self.mlp if self.layer_mlps is None else self.layer_mlps[i]
+        return dataclasses.replace(self, window=window, mlp=mlp,
+                                   layer_types=None, layer_mlps=None)
+
+    @property
+    def _width(self) -> int:
+        return self.mlp_width or self.mlp_ratio * self.embed
 
     @property
     def _cdtype(self) -> torch.dtype:
@@ -99,12 +183,57 @@ def init_stack_params(config: BlockConfig, layers: int,
             for name in PARAM_NAMES}
 
 
-def _layernorm(x):
-    """Layernorm without affine: biased variance, ``1e-6`` inside the
+def param_shapes(config: BlockConfig) -> Dict[str, tuple]:
+    """The shape of each weight of one block (the layer's config,
+    :meth:`BlockConfig.layer`), by name: ``wqkv``, ``wo`` and the MLP's
+    always; the rest as the options ask."""
+    e, h, d, kv = config.embed, config.heads, config.head_dim, config._kv
+    f = config._width
+    shapes = {"wqkv": (e, (h + 2 * kv) * d), "wo": (h * d, e)}
+    if config.family == "afmoe":
+        shapes.update(wg=(e, h * d), input_norm=(e,), pre_mlp_norm=(e,),
+                      post_attn_norm=(e,), post_mlp_norm=(e,),
+                      q_norm=(d,), k_norm=(d,))
+    if config.mlp == "experts":
+        shapes.update(moe.param_shapes(e, config.experts))
+    else:
+        shapes.update(w1=(e, f), w2=(f, e))
+        if config.mlp == "swiglu":
+            shapes["w3"] = (e, f)
+    return shapes
+
+
+def _layernorm(x, eps=1e-6):
+    """Layernorm without affine: biased variance, ``eps`` inside the
     reciprocal square root."""
     mu = x.mean(dim=-1, keepdim=True)
     var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
-    return (x - mu) * torch.rsqrt(var + 1e-6)
+    return (x - mu) * torch.rsqrt(var + eps)
+
+
+def _rmsnorm(x, weight, eps):
+    """``x / rms(x) * weight`` over the last dim, in f32 (one fused
+    kernel each way on CUDA)."""
+    return F.rms_norm(x, weight.shape, weight, eps)
+
+
+def _rope(t, offset: int, theta: float):
+    """Rotary positions on ``t`` ``(B, S, heads, D)`` f32 at positions
+    ``offset + [0, S)``: the two halves of each head rotated by
+    ``position * theta ** (-2j / D)``."""
+    s, d = t.shape[1], t.shape[3]
+    inv_freq = 1.0 / theta ** (torch.arange(0, d, 2, device=t.device)
+                               .float() / d)
+    pos = torch.arange(offset, offset + s, device=t.device).float()
+    angles = torch.outer(pos, inv_freq).repeat(1, 2)[None, :, None]
+    half = d // 2
+    rotated = torch.cat((-t[..., half:], t[..., :half]), dim=-1)
+    return t * angles.cos() + rotated * angles.sin()
+
+
+def _gate(attn, xn, wg, mm):
+    """The attention output ``attn`` times ``sigmoid(xn Wg)``."""
+    return attn * torch.sigmoid(mm(xn, wg))
 
 
 def block_shard(
@@ -114,8 +243,11 @@ def block_shard(
     config: BlockConfig,
     sp_axis: str = "sp",
     use_flash: Optional[bool] = None,
+    route_cache: Optional[dict] = None,
 ) -> torch.Tensor:
-    """One pre-norm block on this rank's activation shard."""
+    """One pre-norm block on this rank's activation shard.
+    ``route_cache``: an expert layer's routing, kept from its first call
+    for a later one (:func:`moe.expert_layer`)."""
     b, s, e = x.shape
     h, d = config.heads, config.head_dim
     cd = config._cdtype
@@ -124,47 +256,99 @@ def block_shard(
     def mm(a, w):
         """A product in the compute dtype, rounded to it, then widened;
         autograd carries the casts, so gradients land in f32."""
-        return (a.to(cd) @ params[w].to(cd)).float()
+        return (a.to(cd) @ w.to(cd)).float()
 
-    xn = _layernorm(x)
-    qkv = mm(xn.reshape(b * s, e), "wqkv").reshape(b, s, h + 2 * kv, d)
-    q = qkv[:, :, :h]
-    k = qkv[:, :, h:h + kv]
-    v = qkv[:, :, h + kv:]
+    afmoe = config.family == "afmoe"
 
-    # fold the batch into the heads: (B, S, Hx, D) -> (S, B*Hx, D); each
-    # batch's heads stay contiguous, so the GQA map hh // (H/KV) holds
-    def fold(t, hx):
-        return t.transpose(0, 1).reshape(s, b * hx, d).to(cd)
+    def norm(t, name):
+        if afmoe:
+            return _rmsnorm(t, params[name], config.norm_eps)
+        return _layernorm(t, config.norm_eps)
 
-    attn = ra.ring_attention_shard(
-        fold(q, h), fold(k, kv), fold(v, kv), comm, causal=config.causal,
-        axis_name=sp_axis, use_flash=use_flash, window=config.window,
-    ).float()                                             # (S, B*H, D)
-    attn = attn.reshape(s, b, h * d).transpose(0, 1)      # (B, S, H*D)
-    x = x + mm(attn.reshape(b * s, h * d), "wo").reshape(b, s, e)
+    kind = "full" if config.window is None else "sliding"
+    with annotate(f"smi.attn.{kind}"):
+        xn = norm(x, "input_norm").reshape(b * s, e).to(cd)
+        qkv = mm(xn, params["wqkv"]).reshape(b, s, h + 2 * kv, d)
+        q = qkv[:, :, :h]
+        k = qkv[:, :, h:h + kv]
+        v = qkv[:, :, h + kv:]
+        if afmoe:
+            q = _rmsnorm(q, params["q_norm"], config.norm_eps)
+            k = _rmsnorm(k, params["k_norm"], config.norm_eps)
+        if afmoe and config.window is not None:
+            offset = comm.coords[comm._axis(sp_axis)] * s
+            q = _rope(q, offset, config.rope_theta)
+            k = _rope(k, offset, config.rope_theta)
 
-    yn = _layernorm(x).reshape(b * s, e)
-    mlp = mm(F.gelu(mm(yn, "w1"), approximate="tanh"), "w2")
-    return x + mlp.reshape(b, s, e)
+        # fold the batch into the heads: (B, S, Hx, D) -> (S, B*Hx, D);
+        # each batch's heads stay contiguous, so the GQA map hh // (H/KV)
+        # holds
+        def fold(t, hx):
+            return t.to(cd).transpose(0, 1).reshape(s, b * hx, d)
+
+        attn = ra.ring_attention_shard(
+            fold(q, h), fold(k, kv), fold(v, kv), comm,
+            causal=config.causal, axis_name=sp_axis, use_flash=use_flash,
+            window=config.window,
+        )                                                 # (S, B*H, D)
+        # (B*S, H*D) in f32, in one copy
+        attn = attn.reshape(s, b, h, d).transpose(0, 1).to(
+            torch.float32, memory_format=torch.contiguous_format
+        ).reshape(b * s, h * d)
+        if afmoe:
+            attn = _gate(attn, xn, params["wg"], mm)
+    out = mm(attn, params["wo"]).reshape(b, s, e)
+    if afmoe:
+        out = norm(out, "post_attn_norm")
+    x = x + out
+
+    yn = norm(x, "pre_mlp_norm").reshape(b * s, e)
+    if config.mlp != "experts":
+        yn = yn.to(cd)
+    if config.mlp == "gelu":
+        out = mm(F.gelu(mm(yn, params["w1"]), approximate="tanh"),
+                 params["w2"])
+    elif config.mlp == "swiglu":
+        out = moe.swiglu(yn, params["w1"], params["w3"], params["w2"], mm)
+    else:
+        out = moe.expert_layer(params, yn, config.experts, mm, cd,
+                               route_cache)
+    out = out.reshape(b, s, e)
+    if afmoe:
+        out = norm(out, "post_mlp_norm")
+    return x + out
 
 
 def stack_shard(
-    params: Mapping[str, torch.Tensor],   # stacked: every leaf (layers, ...)
+    params,
     x: torch.Tensor,
     comm: Communicator,
     config: BlockConfig,
     sp_axis: str = "sp",
     use_flash: Optional[bool] = None,
+    routing: Optional[Sequence[dict]] = None,
 ) -> torch.Tensor:
     """A ``layers``-deep stack of pre-norm blocks on this rank's shard,
     each block recomputed under differentiation (activation
     checkpointing, the JAX package's ``jax.checkpoint`` inside
     ``lax.scan``): training memory holds one block's residuals plus the
-    per-layer activations."""
-    for i in range(params["wqkv"].shape[0]):
-        x = checkpoint(block_shard, {n: p[i] for n, p in params.items()}, x,
-                       comm, config, sp_axis, use_flash, use_reentrant=False)
+    per-layer activations.
+
+    ``params`` is stacked (every leaf ``(layers, ...)``) for layers of
+    one shape, or a sequence of per-layer dictionaries; layer ``i``
+    runs ``config.layer(i)``. ``routing`` holds a dict a layer, where an
+    expert layer keeps its routing for its recompute (fresh dicts when
+    None)."""
+    if isinstance(params, Mapping):
+        depth = params["wqkv"].shape[0]
+        layers = [{n: p[i] for n, p in params.items()} for i in range(depth)]
+    else:
+        layers = list(params)
+    if routing is None:
+        routing = [{} for _ in layers]
+    for i, p in enumerate(layers):
+        x = checkpoint(block_shard, p, x, comm, config.layer(i), sp_axis,
+                       use_flash, routing[i], use_reentrant=False)
     return x
 
 
@@ -219,6 +403,187 @@ class TransformerStack(nn.Module):
         return x
 
 
+#: keys of an ``afmoe`` ``config.json`` this port fixes: other values
+#: describe a model it does not run
+_AFMOE_FIXED = {"hidden_act": "silu", "score_func": "sigmoid",
+                "n_group": 1, "topk_group": 1, "num_expert_groups": 1,
+                "num_limited_groups": 1, "rope_scaling": None,
+                "tie_word_embeddings": False}
+
+
+def afmoe_block_config(cfg: Mapping, held: Optional[Sequence[int]] = None,
+                       compute_dtype: str = "bfloat16") -> BlockConfig:
+    """The stack's :class:`BlockConfig` from an ``afmoe`` ``config.json``'s
+    keys. ``num_experts`` is the count held here (experts ``0 ..
+    num_experts - 1`` unless ``held`` names them); ``router_experts``,
+    where given, the router's width (else ``num_experts``)."""
+    for key, want in _AFMOE_FIXED.items():
+        if cfg.get(key, want) != want:
+            raise ValueError(f"{key} = {cfg[key]!r}: the port runs "
+                             f"{want!r}")
+    layers = cfg["num_hidden_layers"]
+    dense = cfg["num_dense_layers"]
+    held = tuple(range(cfg["num_experts"])) if held is None else held
+    experts = moe.ExpertConfig(
+        router=cfg.get("router_experts", cfg["num_experts"]),
+        topk=cfg["num_experts_per_tok"], width=cfg["moe_intermediate_size"],
+        held=tuple(held), shared=cfg["num_shared_experts"],
+        route_scale=cfg["route_scale"], route_norm=cfg["route_norm"])
+    types = tuple({"sliding_attention": "sliding",
+                   "full_attention": "full"}[t] for t in cfg["layer_types"])
+    if len(types) != layers:
+        raise ValueError(f"{len(types)} layer types for {layers} layers")
+    return BlockConfig(
+        embed=cfg["hidden_size"], heads=cfg["num_attention_heads"],
+        head_dim=cfg["head_dim"], kv_heads=cfg["num_key_value_heads"],
+        window=cfg["sliding_window"], compute_dtype=compute_dtype,
+        family="afmoe", norm_eps=cfg["rms_norm_eps"],
+        rope_theta=cfg["rope_theta"], mlp="swiglu",
+        mlp_width=cfg["intermediate_size"],
+        experts=experts, layer_types=types,
+        layer_mlps=("swiglu",) * dense + ("experts",) * (layers - dense))
+
+
+class LanguageModel(nn.Module):
+    """A language model over a stack of blocks: ``h = embed[ids]`` (times
+    ``sqrt(embed)`` where ``embed_scale``), the stack (layer ``i`` runs
+    ``config.layer(i)``, each under activation checkpointing), a final
+    RMSNorm, the head, and the summed cross-entropy of each next token
+    over the ``vocab`` rows held here.
+
+    Every weight is an f32 parameter in the ``(in, out)`` layout; the
+    embedding is ``(vocab, embed)``. ``weights`` are by the names of
+    :meth:`reference_names` (``wq``, ``wk`` and ``wv`` apart; the blocks
+    hold them as one ``wqkv``); None draws matrices normal with std 0.02
+    and norm weights of 1 from ``seed``."""
+
+    def __init__(self, config: BlockConfig, layers: int, vocab: int,
+                 weights: Optional[Mapping[str, torch.Tensor]] = None,
+                 embed_scale: bool = True, device=None, seed: int = 0):
+        super().__init__()
+        self.config = config
+        self.vocab = vocab
+        self.scale = math.sqrt(config.embed) if embed_scale else 1.0
+        #: each layer's routing of the last call (:meth:`stack`)
+        self.routing = []
+        dev = resolve_device(device)
+        shapes = self._shapes(config, layers, vocab)
+        if weights is None:
+            gen = torch.Generator().manual_seed(seed)
+            weights = {n: (torch.ones(shape) if n.endswith("norm")
+                           else torch.randn(shape, generator=gen) * 0.02)
+                       for n, shape in shapes.items()}
+
+        def value(name, copy=False):
+            got = weights[name]
+            if tuple(got.shape) != shapes[name]:
+                raise ValueError(f"{name} has shape {tuple(got.shape)}, "
+                                 f"the model {shapes[name]}")
+            return got.detach().to(dev, torch.float32, copy=copy)
+
+        def param(name):
+            return nn.Parameter(value(name, copy=True))
+
+        self.embed = param("embed")
+        self.blocks = nn.ModuleList()
+        for i in range(layers):
+            pre = f"layers.{i}."
+            block = nn.ParameterDict()
+            for name in param_shapes(config.layer(i)):
+                if name == "wqkv":
+                    block[name] = nn.Parameter(torch.cat(
+                        [value(pre + w) for w in ("wq", "wk", "wv")], dim=1))
+                else:
+                    block[name] = param(pre + name)
+            self.blocks.append(block)
+        self.final_norm = param("final_norm")
+        self.head = param("head")
+
+    @staticmethod
+    def _shapes(config, layers, vocab) -> Dict[str, tuple]:
+        e, h, d, kv = (config.embed, config.heads, config.head_dim,
+                       config._kv)
+        shapes = {"embed": (vocab, e)}
+        for i in range(layers):
+            block = param_shapes(config.layer(i))
+            del block["wqkv"]
+            block.update(wq=(e, h * d), wk=(e, kv * d), wv=(e, kv * d))
+            shapes.update({f"layers.{i}.{n}": v for n, v in block.items()})
+        shapes.update(final_norm=(e,), head=(e, vocab))
+        return shapes
+
+    @classmethod
+    def from_config(cls, cfg: Mapping, weights=None,
+                    held: Optional[Sequence[int]] = None,
+                    compute_dtype: str = "bfloat16", device=None,
+                    seed: int = 0) -> "LanguageModel":
+        """The model of an ``afmoe`` ``config.json``'s keys
+        (:func:`afmoe_block_config`; ``mup_enabled`` scales the
+        embedding)."""
+        return cls(afmoe_block_config(cfg, held, compute_dtype),
+                   cfg["num_hidden_layers"], cfg["vocab_size"],
+                   weights=weights, embed_scale=bool(cfg["mup_enabled"]),
+                   device=device, seed=seed)
+
+    def reference_names(self, grads: bool = False
+                        ) -> Dict[str, torch.Tensor]:
+        """Every weight (or, with ``grads``, its gradient) by the names
+        the constructor takes: ``wq``, ``wk`` and ``wv`` are views of a
+        block's ``wqkv``."""
+        h, d, kv = self.config.heads, self.config.head_dim, self.config._kv
+
+        def get(p):
+            return p.grad if grads else p
+
+        out = {"embed": get(self.embed)}
+        for i, block in enumerate(self.blocks):
+            for name, p in block.items():
+                t = get(p)
+                if name != "wqkv":
+                    out[f"layers.{i}.{name}"] = t
+                    continue
+                for w, lo, hi in (("wq", 0, h), ("wk", h, h + kv),
+                                  ("wv", h + kv, h + 2 * kv)):
+                    out[f"layers.{i}.{w}"] = (None if t is None
+                                              else t[:, lo * d:hi * d])
+        out.update(final_norm=get(self.final_norm), head=get(self.head))
+        return out
+
+    def forward(self, ids, comm: Communicator, sp_axis: str = "sp",
+                use_flash: Optional[bool] = None):
+        """The logits ``(B_local, S_local, vocab)`` of this rank's ids, f32
+        (rounded to the compute dtype by the head's product)."""
+        h = self.stack(ids, comm, sp_axis, use_flash)
+        with annotate("smi.lm.head"):
+            return self._logits(h)
+
+    def stack(self, ids, comm, sp_axis="sp", use_flash=None):
+        """The last layer's output; ``routing`` keeps each expert
+        layer's routing of this call (``"sel"``: each token's expert
+        ids)."""
+        x = self.embed[ids] * self.scale
+        self.routing = [{} for _ in self.blocks]
+        return stack_shard([dict(b.items()) for b in self.blocks], x, comm,
+                           self.config, sp_axis, use_flash, self.routing)
+
+    def _logits(self, h):
+        cd = self.config._cdtype
+        b, s, e = h.shape
+        hn = _rmsnorm(h, self.final_norm, self.config.norm_eps)
+        return (hn.reshape(b * s, e).to(cd) @ self.head.to(cd)).float(
+        ).reshape(b, s, self.vocab)
+
+    def loss(self, ids, labels, comm: Communicator, sp_axis: str = "sp",
+             use_flash: Optional[bool] = None):
+        """The summed cross-entropy of ``labels`` (each position's next
+        token) under the logits of ``ids``, f32."""
+        h = self.stack(ids, comm, sp_axis, use_flash)
+        with annotate("smi.lm.head"):
+            logits = self._logits(h)
+            return F.cross_entropy(logits.reshape(-1, self.vocab),
+                                   labels.reshape(-1), reduction="sum")
+
+
 def make_train_step(
     comm: Communicator,
     config: BlockConfig,
@@ -236,30 +601,44 @@ def make_train_step(
     rank (a 1x1 grid sends nothing), updates the parameters in place
     (``p -= lr * g / n_total``) and returns the mean loss. Each
     parameter's ``grad`` keeps the summed gradient of the step.
+
+    For a ``layers``-deep :class:`LanguageModel`, ``x`` and ``y`` are
+    ``(B_local, S_local)`` token ids and their next tokens, and the local
+    loss is the summed cross-entropy (:meth:`LanguageModel.loss`); the
+    rest is the same.
     """
     _, sp_axis = comm.axis_names
 
     def step(model: nn.Module, x: torch.Tensor, y: torch.Tensor):
-        depth = len(model.blocks) if isinstance(model, TransformerStack) \
-            else 1
+        depth = len(model.blocks) if isinstance(
+            model, (TransformerStack, LanguageModel)) else 1
         if depth != layers:
             raise ValueError(f"the train step is for {layers} layer(s), the "
                              f"model has {depth}")
         n_total = x.shape[0] * x.shape[1] * comm.size
         params = list(model.parameters())
-        for p in params:
-            p.grad = None
-        pred = model(x, comm, sp_axis=sp_axis, use_flash=use_flash)
-        loss = ((pred - y) ** 2).sum()
-        loss.backward()
-        loss = loss.detach()
-        if comm.size > 1:
+        with annotate("smi.train.step"):
             for p in params:
-                dist.all_reduce(p.grad)
-            dist.all_reduce(loss)
-        with torch.no_grad():
-            for p in params:
-                p -= lr * p.grad / n_total
+                p.grad = None
+            with annotate("smi.train.forward"):
+                if isinstance(model, LanguageModel):
+                    loss = model.loss(x, y, comm, sp_axis=sp_axis,
+                                      use_flash=use_flash)
+                else:
+                    pred = model(x, comm, sp_axis=sp_axis,
+                                 use_flash=use_flash)
+                    loss = ((pred - y) ** 2).sum()
+            with annotate("smi.train.backward"):
+                loss.backward()
+            loss = loss.detach()
+            with annotate("smi.train.update"):
+                if comm.size > 1:
+                    for p in params:
+                        dist.all_reduce(p.grad)
+                    dist.all_reduce(loss)
+                with torch.no_grad():
+                    for p in params:
+                        p -= lr * p.grad / n_total
         return loss / n_total
 
     return step

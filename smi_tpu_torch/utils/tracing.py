@@ -33,7 +33,19 @@ benchmark's readers match them):
   ``smi.world.lead`` (the leader's joint work) and ``smi.world.release``;
 - ``smi.collective.<name>`` — each public collective;
 - ``smi.ring.launch`` — the ring tier's one launch for the whole world;
+- ``smi.train.step`` with its children ``smi.train.forward``,
+  ``.backward`` and ``.update`` — one call of a ``make_train_step``
+  step (``models/transformer.py``);
+- ``smi.attn.sliding`` / ``smi.attn.full`` — a block's attention from
+  its norm to its gate, by the layer's kind (windowed or not);
+- ``smi.moe.route`` / ``.dispatch`` / ``.experts`` / ``.combine`` — the
+  expert layer's phases (``models/moe.py``), siblings, never nested;
+  the dispatch holds the layer's one device->host read;
+- ``smi.lm.head`` — a language model's final norm, head and loss;
 - ``smi.host.gc.gen<N>`` — a garbage-collection pass of generation N.
+
+A checkpointed layer opens its spans again when the backward recomputes
+it.
 
 In Perfetto a device idle stretch lies under the span open on the host
 at that time; a rank's ``smi.world.arrive`` is its wait for the slowest
