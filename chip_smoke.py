@@ -417,6 +417,24 @@ Then the command line:
    blocks an SM from the ptxas figures equal to the runtime's); ``lint
    --combined`` and ``serve --selftest``; each command timed. Launches
    of the app and the report counted (rows 5 and 7 add them).
+Then the afmoe training step's attention glue:
+
+39. the fused kernels (``smi_tpu_torch/kernels/csrc/attn_glue.cu``)
+   at ``trinity-train-2x8k``'s shape (``GLUE_CELL``: 2 x 8192 tokens, 32
+   query and 4 key/value heads of 128), on a windowed layer (rotary
+   tables) and a full one: each kernel against its plain version, q and k
+   and every output of the epilogue and its backward within one bf16
+   step, v bit for bit, ``d qkv`` within 2^-8 and the norm weights'
+   gradients within 1e-3 (relative, by norm), each backward twice bit for
+   bit, and a control (the plain version with the norm weights swapped,
+   or the gate negated) that must land outside the bar; the launch counts
+   of the four kernels set to 0 before one step of a 32-layer afmoe model
+   (``GLUE_STEP_MODEL``: Trinity-Mini's layer pattern at a small width,
+   heads of 64) and read after it (64, 64, 32, 32); each kernel's time
+   (CUDA events, 50 calls back to back; a backward called on this
+   thread, held equal to autograd's) beside its byte bound (each operand
+   read once and each result written once over the memory rate) and its
+   plain version's (``plain_ms`` and ``library_ms``).
 
 Bars: f32 out/acc/gradients within 2e-5 (``rtol = atol``); m and l within
 1e-5 in either dtype (both sides add exact products in f32); bf16
@@ -440,6 +458,7 @@ per-kernel JSON record; the last line is the device JSON.
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import io
 import json
 import math
@@ -447,6 +466,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 
 SEED = 1234
 N = 8192                  # the reference's hardware grid (models/stencil.py)
@@ -810,6 +830,7 @@ def main(argv=None) -> int:
             if record["replaces"] == RING_REPLACES[kernel]:
                 record["launches"] += surface_launches[kernel]
         record["launches"] += later.pop(record["replaces"], 0)
+    records += glue_phase(dev)
     log(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -5744,6 +5765,241 @@ def cli_phase(dev, smi_line):
                 for k in RING_REPLACES}
     log(f"  launches (the app and the report): {launches}")
     return launches
+
+
+GLUE_SRC = "smi_tpu_torch/kernels/csrc/attn_glue.cu"
+#: phase 39: trinity-train-2x8k's attention: 2 x 8192 tokens, 32 query and
+#: 4 key/value heads of 128; its norm eps and rotary base
+GLUE_CELL = dict(b=2, s=8192, h=32, kv=4, d=128)
+GLUE_EPS = 1e-5
+GLUE_THETA = 10000.0
+#: phase 39: the step whose launches are read, Trinity-Mini's layer
+#: pattern (three windowed layers, then a full one) at a small width,
+#: every layer dense: heads of 64, GQA 4:1, 2 x 256 tokens
+GLUE_STEP_MODEL = {
+    "num_hidden_layers": 32, "num_dense_layers": 32, "hidden_size": 256,
+    "num_attention_heads": 4, "num_key_value_heads": 1, "head_dim": 64,
+    "layer_types": (["sliding_attention"] * 3 + ["full_attention"]) * 8,
+    "sliding_window": 64, "intermediate_size": 384,
+    "moe_intermediate_size": 64, "num_experts": 4, "num_experts_per_tok": 2,
+    "num_shared_experts": 1, "route_scale": 1.0, "route_norm": True,
+    "score_func": "sigmoid", "rms_norm_eps": GLUE_EPS,
+    "rope_theta": GLUE_THETA, "mup_enabled": True, "vocab_size": 512,
+    "tie_word_embeddings": False,
+}
+#: phase 39: a 32-layer step's launches: each forward kernel in the
+#: forward and in its recompute, each backward kernel once a layer
+GLUE_STEP_LAUNCHES = {"attn_prologue": 64, "attn_epilogue": 64,
+                      "attn_prologue_bwd": 32, "attn_epilogue_bwd": 32}
+
+
+def glue_phase(dev):
+    """Phase 39: the afmoe attention glue kernels against their plain
+    versions at ``GLUE_CELL``, their launches in one step of
+    ``GLUE_STEP_MODEL`` and their times beside their byte bounds. Returns
+    their records for the kernels line."""
+    import torch
+
+    import smi_tpu_torch as st
+    from smi_tpu_torch.kernels import _build
+    from smi_tpu_torch.kernels import attn_glue as glue
+    from smi_tpu_torch.models import transformer as ttf
+
+    bf16 = torch.bfloat16
+    b, s, h, kv, d = (GLUE_CELL[k] for k in ("b", "s", "h", "kv", "d"))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(bf16)
+
+    def leaves(*ts):
+        return [t.detach().clone().requires_grad_() for t in ts]
+
+    def ulps(got, want):
+        """The largest distance in bf16 steps and the share of elements
+        apart (signed values ordered as integers)."""
+        def ordered(t):
+            i = t.contiguous().view(torch.int16).int()
+            return torch.where(i < 0, -(i & 0x7FFF), i)
+
+        apart = (ordered(got) - ordered(want)).abs()
+        return int(apart.max()), float((apart > 0).double().mean())
+
+    def rel(got, want):
+        return float((got.double() - want.double()).norm()
+                     / want.double().norm())
+
+    def hold(what, got, want, control):
+        """``got`` within one bf16 step of ``want`` and ``control`` (a
+        wrong kernel's output) outside it; the largest abs error."""
+        got, want, control = got.detach(), want.detach(), control.detach()
+        apart, share = ulps(got, want)
+        wrong, _ = ulps(control, want)
+        if apart > 1:
+            raise AssertionError(f"{what}: {apart} bf16 steps from the "
+                                 f"plain version")
+        if wrong <= 1:
+            raise AssertionError(f"{what}: the control passes the bar")
+        log(f"  {what}: within 1 bf16 step ({100 * share:.4f} % of "
+            f"elements 1 step apart; control {wrong} steps)")
+        return float((got.float() - want.float()).abs().max())
+
+    def twice(what, grads, again):
+        for g, g2 in zip(grads, again):
+            if not torch.equal(g, g2):
+                raise AssertionError(f"{what}: two runs differ")
+
+    log(f"[39 afmoe attention glue vs plain] B={b} S={s} H={h} KV={kv} "
+        f"D={d}, windowed (rotary tables) and full")
+    _build.build_kernels(["attn_glue"])
+    records, errs = [], {}
+
+    # ---- the prologue, on a windowed and a full layer -----------------
+    qkv = randn(b * s, (h + 2 * kv) * d, scale=1.5)
+    qn = torch.rand(d, generator=gen, device=dev) + 0.5
+    kn = torch.rand(d, generator=gen, device=dev) + 0.5
+    times = {}
+    for kind in ("sliding", "full"):
+        rope = (ttf._rope_tables(s, d, 0, GLUE_THETA, dev)
+                if kind == "sliding" else None)
+        got_in, want_in = leaves(qkv, qn, kn), leaves(qkv, qn, kn)
+        got = glue.attn_prologue(*got_in, b, h, kv, GLUE_EPS, rope)
+        want = glue.attn_prologue_plain(*want_in, b, h, kv, GLUE_EPS, rope)
+        control = glue.attn_prologue_plain(qkv, kn, qn, b, h, kv, GLUE_EPS,
+                                           rope)
+        errs[("attn_prologue", kind)] = max(
+            hold(f"{kind} {name}", g, w, c)
+            for name, g, w, c in zip("qk", got, want, control))
+        if not torch.equal(got[2], want[2]):
+            raise AssertionError(f"{kind} v: not the plain version's bits")
+        cot = [randn(*t.shape) for t in got]
+        grads = torch.autograd.grad(got, got_in, cot, retain_graph=True)
+        again = torch.autograd.grad(got, got_in, cot, retain_graph=True)
+        wants = torch.autograd.grad(want, want_in, cot, retain_graph=True)
+        twice(f"{kind} prologue backward", grads, again)
+        for name, g, w, bar in zip(("d qkv", "d q_norm", "d k_norm"),
+                                   grads, wants, (2.0 ** -8, 1e-3, 1e-3)):
+            r = rel(g, w)
+            if r > bar:
+                raise AssertionError(f"{kind} {name}: relative error {r} "
+                                     f"above {bar}")
+            log(f"  {kind} {name}: relative error {r:.3e} (bar {bar:g})")
+        errs[("attn_prologue_bwd", kind)] = float(
+            (grads[0].float() - wants[0].float()).abs().max())
+        # the backward timed on this thread (autograd runs it on its
+        # device thread), and held to autograd's gradients
+        ctx = types.SimpleNamespace(
+            saved_tensors=(qkv, qn, kn) + (rope or (None, None)),
+            shape=(b, h, kv, GLUE_EPS))
+        backward = functools.partial(glue._Prologue.backward, ctx, *cot)
+        if not all(torch.equal(g, g2) for g, g2 in zip(grads, backward())):
+            raise AssertionError(f"{kind} prologue backward: the direct "
+                                 f"call differs from autograd's")
+        with torch.no_grad():
+            times[("attn_prologue", kind)] = (
+                timed(lambda: glue.attn_prologue(qkv, qn, kn, b, h, kv,
+                                                 GLUE_EPS, rope), 50),
+                timed(lambda: glue.attn_prologue_plain(
+                    qkv, qn, kn, b, h, kv, GLUE_EPS, rope)))
+        times[("attn_prologue_bwd", kind)] = (
+            timed(backward, 50),
+            timed(lambda: torch.autograd.grad(want, want_in, cot,
+                                              retain_graph=True)))
+        del got, want, control, grads, again, wants, cot
+    tables = 2 * s * d * 4
+    prologue_bytes = 2 * qkv.numel() * qkv.element_size()
+    nbytes = {("attn_prologue", "sliding"): prologue_bytes + tables,
+              ("attn_prologue", "full"): prologue_bytes,
+              ("attn_prologue_bwd", "sliding"): 1.5 * prologue_bytes
+              + tables,
+              ("attn_prologue_bwd", "full"): 1.5 * prologue_bytes}
+    del qkv
+
+    # ---- the epilogue ---------------------------------------------------
+    heads_major = randn(b * h, s, d)
+    gate = randn(b * s, h * d, scale=3.0)
+    got_in, want_in = leaves(heads_major, gate), leaves(heads_major, gate)
+    got = glue.attn_epilogue(got_in[0].transpose(0, 1), got_in[1], b, h)
+    want = glue.attn_epilogue_plain(want_in[0].transpose(0, 1), want_in[1],
+                                    b, h)
+    control = glue.attn_epilogue_plain(heads_major.transpose(0, 1), -gate,
+                                       b, h)
+    errs[("attn_epilogue", "")] = hold("gated output", got, want, control)
+    cot = randn(*got.shape)
+    grads = torch.autograd.grad([got], got_in, [cot], retain_graph=True)
+    again = torch.autograd.grad([got], got_in, [cot], retain_graph=True)
+    wants = torch.autograd.grad([want], want_in, [cot], retain_graph=True)
+    twice("epilogue backward", grads, again)
+    controls = torch.autograd.grad(
+        [glue.attn_epilogue_plain(want_in[0].transpose(0, 1), -want_in[1],
+                                  b, h)], want_in, [cot])
+    errs[("attn_epilogue_bwd", "")] = max(
+        hold(name, g, w, c)
+        for name, g, w, c in zip(("d attn", "d gate"), grads, wants,
+                                 controls))
+    ctx = types.SimpleNamespace(saved_tensors=(heads_major, gate),
+                                shape=(b, h))
+    backward = functools.partial(glue._Epilogue.backward, ctx, cot)
+    if not all(torch.equal(g, g2) for g, g2 in zip(
+            (grads[0].transpose(0, 1), grads[1]), backward())):
+        raise AssertionError("epilogue backward: the direct call differs "
+                             "from autograd's")
+    with torch.no_grad():
+        times[("attn_epilogue", "")] = (
+            timed(lambda: glue.attn_epilogue(heads_major.transpose(0, 1),
+                                             gate, b, h), 50),
+            timed(lambda: glue.attn_epilogue_plain(
+                heads_major.transpose(0, 1), gate, b, h)))
+    times[("attn_epilogue_bwd", "")] = (
+        timed(backward, 50),
+        timed(lambda: torch.autograd.grad([want], want_in, [cot],
+                                          retain_graph=True)))
+    attn_bytes = gate.numel() * gate.element_size()
+    nbytes[("attn_epilogue", "")] = 3 * attn_bytes
+    nbytes[("attn_epilogue_bwd", "")] = 5 * attn_bytes
+    del heads_major, gate, got, want, control, grads, again, wants
+    del controls, cot
+
+    # ---- the launches of one 32-layer afmoe step ----------------------
+    comm = st.make_communicator(shape=(1, 1), axis_names=("dp", "sp"),
+                                device=dev)
+    model = ttf.LanguageModel.from_config(GLUE_STEP_MODEL, device=dev,
+                                          seed=SEED)
+    step = ttf.make_train_step(comm, model.config, layers=len(model.blocks))
+    cpu_gen = torch.Generator().manual_seed(SEED)
+    ids, labels = (torch.randint(0, GLUE_STEP_MODEL["vocab_size"], (2, 256),
+                                 generator=cpu_gen).to(dev) for _ in "ab")
+    step(model, ids, labels)
+    torch.cuda.synchronize()
+    for k in GLUE_STEP_LAUNCHES:
+        _build.LAUNCHES[k] = 0
+    loss = float(step(model, ids, labels))
+    torch.cuda.synchronize()
+    launches = {k: _build.LAUNCHES[k] for k in GLUE_STEP_LAUNCHES}
+    log(f"  one step of the {GLUE_STEP_MODEL['num_hidden_layers']}-layer "
+        f"afmoe model (loss {loss:.4f}): launches {launches}")
+    if launches != GLUE_STEP_LAUNCHES:
+        raise AssertionError(f"the step launched {launches}, expected "
+                             f"{GLUE_STEP_LAUNCHES}")
+    del model, step
+
+    # ---- the times --------------------------------------------------
+    for (kernel, kind), (ms, plain_ms) in times.items():
+        b_ms = nbytes[(kernel, kind)] / HBM_BYTES_PER_S * 1e3
+        name = (f"{kernel}{' ' + kind if kind else ''} B={b} S={s} H={h} "
+                f"KV={kv} D={d} [32-layer afmoe step]")
+        log(f"  {name}: {ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({nbytes[(kernel, kind)] / 1e6:.1f} MB; {100 * b_ms / ms:.1f} "
+            f"%), plain {plain_ms:.4f} ms")
+        records.append({
+            "name": name, "route": "cuda", "source": GLUE_SRC,
+            "replaces": None, "launches": launches[kernel],
+            "max_abs_err": errs[(kernel, kind)], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": "bytes",
+            "library_ms": plain_ms, "earlier_ms": None,
+        })
+    return records
 
 
 if __name__ == "__main__":

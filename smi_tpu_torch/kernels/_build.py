@@ -10,7 +10,8 @@ once. All sources compile at the same time, one
 exports the fused and the carried flash forward); each kernel has its
 own launch count (``flash_bwd.cu`` exports the two backward kernels,
 ``ring.cu`` the five ring kernels, ``roll_chain.cu`` the surface's
-roll-chain probe).
+roll-chain probe, ``attn_glue.cu`` the afmoe attention glue's two
+forward and two backward kernels).
 
 Nothing here runs on import: the first :func:`library` call builds. A
 missing ``nvcc`` raises; there is no fallback to the plain versions.
@@ -256,6 +257,29 @@ SIGNATURES = {
         # stream
         [_P] * 2 + [_I] * 7 + [_P],
     ),
+    "attn_prologue": (
+        "smi_attn_prologue",
+        # qkv, q_w, k_w, cos, sin, q, k, v, batch, seq, heads, kv_heads,
+        # head_dim, eps, stream
+        [_P] * 8 + [_I] * 5 + [_F] + [_P],
+    ),
+    "attn_prologue_bwd": (
+        "smi_attn_prologue_bwd",
+        # qkv, q_w, k_w, cos, sin, dq, dk, dv, dqkv, partial, dq_w, dk_w,
+        # batch, seq, heads, kv_heads, head_dim, blocks, eps, stream
+        [_P] * 12 + [_I] * 6 + [_F] + [_P],
+    ),
+    "attn_epilogue": (
+        "smi_attn_epilogue",
+        # attn, gate, out, batch, seq, heads, head_dim, stream
+        [_P] * 3 + [_I] * 4 + [_P],
+    ),
+    "attn_epilogue_bwd": (
+        "smi_attn_epilogue_bwd",
+        # attn, gate, dout, dattn, dgate, batch, seq, heads, head_dim,
+        # stream
+        [_P] * 5 + [_I] * 4 + [_P],
+    ),
 }
 
 #: kernels whose entry point lives in a source of another name
@@ -263,7 +287,9 @@ _SOURCE_OF = {"flash_fused": "flash_fwd", "flash_block": "flash_fwd",
               "flash_bwd_dq": "flash_bwd", "flash_bwd_dkdv": "flash_bwd",
               "ring_neighbour_stream": "ring", "ring_all_gather": "ring",
               "ring_all_reduce": "ring", "ring_reduce_scatter": "ring",
-              "ring_all_reduce_chunked": "ring"}
+              "ring_all_reduce_chunked": "ring",
+              "attn_prologue": "attn_glue", "attn_prologue_bwd": "attn_glue",
+              "attn_epilogue": "attn_glue", "attn_epilogue_bwd": "attn_glue"}
 
 
 def source_of(kernel: str) -> str:

@@ -42,6 +42,13 @@ rows held here and a cross-entropy), built from a ``config.json``'s keys
 by :meth:`LanguageModel.from_config`; :func:`make_train_step` trains it
 as it trains a block.
 
+On a CUDA tensor in bf16, an ``afmoe`` block's attention glue (the QK
+norm, the rotation and the fold into the flash kernels' layout; the
+gate on their output) runs as the fused kernels of
+:mod:`~smi_tpu_torch.kernels.attn_glue`, with the products' outputs kept
+in bf16; elsewhere the plain composition runs, and the two round at the
+same places.
+
 Spans (``utils/tracing.annotate``): ``smi.train.step`` with its children
 ``smi.train.forward``, ``.backward`` and ``.update``; ``smi.attn.sliding``
 and ``smi.attn.full`` (a layer's attention from its norm to its gate,
@@ -52,6 +59,7 @@ loss); the expert layer's ``smi.moe.*`` (:mod:`.moe`).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
@@ -62,6 +70,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from smi_tpu_torch.kernels import attn_glue as glue
 from smi_tpu_torch.models import moe
 from smi_tpu_torch.models import ring_attention as ra
 from smi_tpu_torch.parallel.mesh import Communicator, resolve_device
@@ -217,23 +226,96 @@ def _rmsnorm(x, weight, eps):
     return F.rms_norm(x, weight.shape, weight, eps)
 
 
-def _rope(t, offset: int, theta: float):
-    """Rotary positions on ``t`` ``(B, S, heads, D)`` f32 at positions
-    ``offset + [0, S)``: the two halves of each head rotated by
-    ``position * theta ** (-2j / D)``."""
-    s, d = t.shape[1], t.shape[3]
-    inv_freq = 1.0 / theta ** (torch.arange(0, d, 2, device=t.device)
+@functools.lru_cache(maxsize=16)
+def _rope_tables(s: int, d: int, offset: int, theta: float, device):
+    """Rotary positions' ``(cos, sin)`` tables, ``(S, D)`` f32, at
+    positions ``offset + [0, S)``: the cosines and sines of ``position *
+    theta ** (-2j / D)``, the ``D/2`` frequencies twice over; built once a
+    shape, offset and device."""
+    inv_freq = 1.0 / theta ** (torch.arange(0, d, 2, device=device)
                                .float() / d)
-    pos = torch.arange(offset, offset + s, device=t.device).float()
-    angles = torch.outer(pos, inv_freq).repeat(1, 2)[None, :, None]
-    half = d // 2
-    rotated = torch.cat((-t[..., half:], t[..., :half]), dim=-1)
-    return t * angles.cos() + rotated * angles.sin()
+    pos = torch.arange(offset, offset + s, device=device).float()
+    angles = torch.outer(pos, inv_freq).repeat(1, 2)
+    return angles.cos(), angles.sin()
+
+
+def _rope(config: BlockConfig, comm, sp_axis: str, s: int, device):
+    """The tables of an ``afmoe`` layer's rotary positions at this rank's
+    ``sp`` offset, or None on a layer without positions (a full one)."""
+    if config.window is None:
+        return None
+    offset = comm.coords[comm._axis(sp_axis)] * s
+    return _rope_tables(s, config.head_dim, offset, config.rope_theta,
+                        device)
 
 
 def _gate(attn, xn, wg, mm):
     """The attention output ``attn`` times ``sigmoid(xn Wg)``."""
     return attn * torch.sigmoid(mm(xn, wg))
+
+
+def _plain_attention(params, xn, comm, config: BlockConfig, b: int, s: int,
+                     sp_axis: str, use_flash: Optional[bool], mm):
+    """The attention sublayer from the normed input ``xn`` ``(B*S, E)`` to
+    the ``wo`` product's input ``(B*S, H*D)`` f32, in torch ops: the
+    ``wqkv`` product; for ``afmoe`` the fused kernels' plain version of
+    the QK norm, the rotation and the fold, for the JAX package's block
+    the fold alone; the ring; the output widened in token order, and for
+    ``afmoe`` gated."""
+    h, kv, d, cd = config.heads, config._kv, config.head_dim, config._cdtype
+    qkv = mm(xn, params["wqkv"])
+    if config.family == "afmoe":
+        # head-major, handed to the ring as (S, B*Hx, D) views
+        q, k, v = (t.transpose(0, 1) for t in glue.attn_prologue_plain(
+            qkv, params["q_norm"], params["k_norm"], b, h, kv,
+            config.norm_eps, _rope(config, comm, sp_axis, s, xn.device),
+            dtype=cd))
+    else:
+        # fold the batch into the heads: (B, S, Hx, D) -> (S, B*Hx, D);
+        # each batch's heads stay contiguous, so the GQA map hh // (H/KV)
+        # holds
+        qkv = qkv.reshape(b, s, h + 2 * kv, d)
+        q, k, v = (t.to(cd).transpose(0, 1).reshape(s, b * hx, d)
+                   for t, hx in ((qkv[:, :, :h], h),
+                                 (qkv[:, :, h:h + kv], kv),
+                                 (qkv[:, :, h + kv:], kv)))
+    attn = ra.ring_attention_shard(
+        q, k, v, comm, causal=config.causal, axis_name=sp_axis,
+        use_flash=use_flash, window=config.window,
+    )                                                     # (S, B*H, D)
+    attn = glue.token_order(attn, b, h)                   # (B*S, H*D) f32
+    if config.family == "afmoe":
+        attn = _gate(attn, xn, params["wg"], mm)
+    return attn
+
+
+def _fuses_attention_glue(config: BlockConfig, x: torch.Tensor) -> bool:
+    """Whether the attention sublayer's glue runs as the fused kernels of
+    :mod:`~smi_tpu_torch.kernels.attn_glue`: an ``afmoe`` block in bf16 on
+    a CUDA tensor. Elsewhere (the CPU, the JAX package's block, f32) the
+    plain composition runs."""
+    return (config.family == "afmoe" and config._cdtype == torch.bfloat16
+            and x.is_cuda)
+
+
+def _fused_attention(params, xn, comm, config: BlockConfig, b: int, s: int,
+                     sp_axis: str, use_flash: Optional[bool]):
+    """The ``afmoe`` attention sublayer from the normed input ``xn``
+    ``(B*S, E)`` bf16 to the ``wo`` product's input ``(B*S, H*D)`` bf16:
+    the products kept in bf16, the QK norm, the rotation and the fold in
+    one kernel, the flash ring on its head-major output, the gate in
+    another kernel on the ring's output where it lies."""
+    h, kv, cd = config.heads, config._kv, config._cdtype
+    q, k, v = glue.attn_prologue(xn @ params["wqkv"].to(cd),
+                                 params["q_norm"], params["k_norm"], b, h,
+                                 kv, config.norm_eps,
+                                 _rope(config, comm, sp_axis, s, xn.device))
+    attn = ra.ring_attention_shard(
+        q.transpose(0, 1), k.transpose(0, 1), v.transpose(0, 1), comm,
+        causal=config.causal, axis_name=sp_axis, use_flash=use_flash,
+        window=config.window,
+    )                                                     # (S, B*H, D)
+    return glue.attn_epilogue(attn, xn @ params["wg"].to(cd), b, h)
 
 
 def block_shard(
@@ -249,9 +331,7 @@ def block_shard(
     ``route_cache``: an expert layer's routing, kept from its first call
     for a later one (:func:`moe.expert_layer`)."""
     b, s, e = x.shape
-    h, d = config.heads, config.head_dim
     cd = config._cdtype
-    kv = config._kv
 
     def mm(a, w):
         """A product in the compute dtype, rounded to it, then widened;
@@ -268,35 +348,12 @@ def block_shard(
     kind = "full" if config.window is None else "sliding"
     with annotate(f"smi.attn.{kind}"):
         xn = norm(x, "input_norm").reshape(b * s, e).to(cd)
-        qkv = mm(xn, params["wqkv"]).reshape(b, s, h + 2 * kv, d)
-        q = qkv[:, :, :h]
-        k = qkv[:, :, h:h + kv]
-        v = qkv[:, :, h + kv:]
-        if afmoe:
-            q = _rmsnorm(q, params["q_norm"], config.norm_eps)
-            k = _rmsnorm(k, params["k_norm"], config.norm_eps)
-        if afmoe and config.window is not None:
-            offset = comm.coords[comm._axis(sp_axis)] * s
-            q = _rope(q, offset, config.rope_theta)
-            k = _rope(k, offset, config.rope_theta)
-
-        # fold the batch into the heads: (B, S, Hx, D) -> (S, B*Hx, D);
-        # each batch's heads stay contiguous, so the GQA map hh // (H/KV)
-        # holds
-        def fold(t, hx):
-            return t.to(cd).transpose(0, 1).reshape(s, b * hx, d)
-
-        attn = ra.ring_attention_shard(
-            fold(q, h), fold(k, kv), fold(v, kv), comm,
-            causal=config.causal, axis_name=sp_axis, use_flash=use_flash,
-            window=config.window,
-        )                                                 # (S, B*H, D)
-        # (B*S, H*D) in f32, in one copy
-        attn = attn.reshape(s, b, h, d).transpose(0, 1).to(
-            torch.float32, memory_format=torch.contiguous_format
-        ).reshape(b * s, h * d)
-        if afmoe:
-            attn = _gate(attn, xn, params["wg"], mm)
+        if _fuses_attention_glue(config, x):
+            attn = _fused_attention(params, xn, comm, config, b, s,
+                                    sp_axis, use_flash)
+        else:
+            attn = _plain_attention(params, xn, comm, config, b, s,
+                                    sp_axis, use_flash, mm)
     out = mm(attn, params["wo"]).reshape(b, s, e)
     if afmoe:
         out = norm(out, "post_attn_norm")

@@ -161,6 +161,12 @@ _INSTANCE_PATTERNS = (
     (re.compile(r"sweep_kernel"), "stencil_sweep"),
     (re.compile(r"roll_chain_kernelILb(?P<rotate>[01])ELi(?P<regs>\d+)E"),
      "roll_chain"),
+    (re.compile(r"attn_prologue_kernelILi(?P<d>\d+)E"), "attn_prologue"),
+    (re.compile(r"(attn_prologue_bwd|norm_grad)_kernelILi(?P<d>\d+)E"),
+     "attn_prologue_bwd"),
+    (re.compile(r"attn_epilogue_kernelILi(?P<d>\d+)E"), "attn_epilogue"),
+    (re.compile(r"attn_epilogue_bwd_kernelILi(?P<d>\d+)E"),
+     "attn_epilogue_bwd"),
 )
 
 #: mangled element types of the ring's reduce instances
@@ -578,7 +584,8 @@ def _app_cases(topology: str):
 def _port_cases(topology: str):
     """Launches of the port's kernels that the JAX surface has no case
     for: the stencil pipeline at the 8192² block of the process grid
-    (f32 and bf16 compute) and the surface's roll-chain probe."""
+    (f32 and bf16 compute), the surface's roll-chain probe and the
+    ``afmoe`` attention glue."""
     from smi_tpu_torch.kernels import roll
     from smi_tpu_torch.kernels import stencil_pipeline as kp
     from smi_tpu_torch.kernels import stencil_temporal as kt
@@ -618,6 +625,25 @@ def _port_cases(topology: str):
         return out
 
     yield "port_roll_chain_surface", rolls
+
+    def glue():
+        from smi_tpu_torch.kernels import attn_glue
+
+        # the afmoe block's attention glue at Trinity-Mini's widths, 2 x
+        # 8192 tokens: 32 query and 4 key/value heads of 128
+        out = []
+        for kernel, heads in ((attn_glue.KERNEL_PROLOGUE, 40),
+                              (attn_glue.KERNEL_PROLOGUE_BWD, 40),
+                              (attn_glue.KERNEL_EPILOGUE, 32),
+                              (attn_glue.KERNEL_EPILOGUE_BWD, 32)):
+            out.append({"kernel": kernel, "d": 128,
+                        "threads": 32 * attn_glue.BLOCK_ROWS,
+                        "blocks": attn_glue.launch_blocks(kernel,
+                                                          2 * 8192 * heads),
+                        "dynamic_smem": 0, "cooperative": False})
+        return out
+
+    yield "port_afmoe_attention_glue", glue
 
 
 def surface_cases(topology: str = DEFAULT_TOPOLOGY):

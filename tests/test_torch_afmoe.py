@@ -242,7 +242,10 @@ def test_rope_reaches_windowed_afmoe_layers_only(comm11, monkeypatch,
               for n, s in ttf.param_shapes(block).items()}
     x = torch.randn(1, 24, 32, generator=gen)
     base = ttf.block_shard(params, x, comm11, block)
-    monkeypatch.setattr(ttf, "_rope", lambda t, offset, theta: t)
+    # tables that rotate by 0: every head as it came
+    monkeypatch.setattr(ttf, "_rope_tables",
+                        lambda s, d, offset, theta, device: (
+                            torch.ones(s, d), torch.zeros(s, d)))
     plain = ttf.block_shard(params, x, comm11, block)
     assert torch.equal(base, plain) != moves
 

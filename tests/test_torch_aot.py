@@ -54,6 +54,15 @@ def _instances():
         "roll_chain": [f"{_NS}17roll_chain_kernelILb{r}ELi{g}EEEvv"
                        for r in (0, 1) for g in (1, 2, 4, 8, 16, 32, 64,
                                                  128)],
+        "attn_glue": [f"{_NS}{len(n)}{n}ILi{d}EEEvNS_{p}E"
+                      for n, p in (("attn_prologue_kernel", "8Prologue"),
+                                   ("attn_prologue_bwd_kernel",
+                                    "11PrologueBwd"),
+                                   ("attn_epilogue_kernel", "8Epilogue"),
+                                   ("attn_epilogue_bwd_kernel", "8Epilogue"))
+                      for d in (64, 128, 256)]
+        + [f"{_NS}16norm_grad_kernelILi{d}EEEvPKfiPfS3_"
+           for d in (64, 128, 256)],
     }
     return out
 
@@ -62,7 +71,8 @@ def _instances():
 #: f32 instances, 256 threads a block, take 255 registers)
 _FIGURES = {"ring": (64, 0), "flash_fwd": (168, 0), "flash_bwd": (168, 0),
             "stencil_temporal": (218, 0), "stencil_pipeline": (128, 0),
-            "stencil_sweep": (16, 0), "roll_chain": (150, 0)}
+            "stencil_sweep": (16, 0), "roll_chain": (150, 0),
+            "attn_glue": (40, 8192)}
 
 
 def fake_log(source, registers=None, smem=None):
@@ -111,7 +121,8 @@ def test_cases_are_the_jax_surface(topology):
     else:
         px, py = aot.grid2d(aot.topology_ranks(topology))
         assert extra == [f"port_stencil_pipeline_8192_{px}x{py}",
-                         "port_roll_chain_surface"]
+                         "port_roll_chain_surface",
+                         "port_afmoe_attention_glue"]
 
 
 @pytest.mark.parametrize("topology,ranks", [
@@ -206,6 +217,12 @@ def test_log_parser_reads_ptxas_figures():
      ("flash_bwd_dkdv", {"dt": "bf16", "d": "128"})),
     (f"{_NS}17roll_chain_kernelILb0ELi64EEEvv",
      ("roll_chain", {"rotate": "0", "regs": "64"})),
+    (f"{_NS}20attn_prologue_kernelILi128EEEvNS_8PrologueE",
+     ("attn_prologue", {"d": "128"})),
+    (f"{_NS}16norm_grad_kernelILi64EEEvPKfiPfS3_",
+     ("attn_prologue_bwd", {"d": "64"})),
+    (f"{_NS}24attn_epilogue_bwd_kernelILi256EEEvNS_8EpilogueE",
+     ("attn_epilogue_bwd", {"d": "256"})),
     ("_Z6helperv", None),
 ])
 def test_instance_names(mangled, want):

@@ -105,8 +105,8 @@ def test_package_lists_its_kernel_sources_as_package_data():
     text = (ROOT / "pyproject.toml").read_text()
     assert '"smi_tpu_torch" = ["kernels/csrc/*.cu"]' in text
     assert sorted(p.name for p in (PACKAGE / "kernels" / "csrc").glob("*.cu")
-                  ) == ["flash_bwd.cu", "flash_fwd.cu", "ring.cu",
-                        "roll_chain.cu", "stencil_pipeline.cu",
+                  ) == ["attn_glue.cu", "flash_bwd.cu", "flash_fwd.cu",
+                        "ring.cu", "roll_chain.cu", "stencil_pipeline.cu",
                         "stencil_sweep.cu", "stencil_temporal.cu"]
 
 

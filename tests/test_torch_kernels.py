@@ -468,7 +468,9 @@ def test_cpu_calls_launch_nothing():
                            "flash_bwd_dq", "flash_bwd_dkdv",
                            "ring_neighbour_stream", "ring_all_gather",
                            "ring_all_reduce", "ring_reduce_scatter",
-                           "ring_all_reduce_chunked", "roll_chain"}
+                           "ring_all_reduce_chunked", "roll_chain",
+                           "attn_prologue", "attn_prologue_bwd",
+                           "attn_epilogue", "attn_epilogue_bwd"}
 
 
 # --------------------------------------------------------------- loader --
@@ -484,16 +486,17 @@ def test_nvcc_command_targets_sm90a_without_fast_math(tmp_path):
 
 
 def test_only_the_flash_source_contracts_fma(tmp_path):
-    """The stencil sources and the ring source (a reduction is held bit
-    for bit) keep ``-fmad=false``; the flash sources' (forward and
-    backward) bar is a tolerance, so they build with FMA."""
+    """The stencil sources, the ring source (a reduction is held bit
+    for bit) and the attention glue keep ``-fmad=false``; the flash
+    sources' (forward and backward) bar is a tolerance, so they build
+    with FMA."""
     for name in _build.SOURCES:
         cmd = _build.nvcc_command("nvcc", tmp_path / f"{name}.cu",
                                   tmp_path / "k.so")
         assert ("-fmad=false" in cmd) == (not name.startswith("flash_")), \
             name
         assert "-gencode" in cmd and "fast_math" not in " ".join(cmd)
-    assert _build.SOURCES == ["flash_bwd", "flash_fwd", "ring",
+    assert _build.SOURCES == ["attn_glue", "flash_bwd", "flash_fwd", "ring",
                               "roll_chain", "stencil_pipeline",
                               "stencil_sweep", "stencil_temporal"]
 
@@ -560,6 +563,11 @@ def test_build_dir_is_ignored_by_git():
     assert _build.BUILD_DIR == root / "build" / "torch_kernels"
 
 
+#: sources with no TPU counterpart (the afmoe block's glue: the JAX
+#: package has no afmoe block); every other source names its TPU kernel
+NO_TPU_KERNEL = {"attn_glue"}
+
+
 @pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
 def test_sources_declare_the_bound_entry_points(name):
     source = (_build.CSRC / f"{_build.source_of(name)}.cu").read_text()
@@ -568,10 +576,14 @@ def test_sources_declare_the_bound_entry_points(name):
     assert match, f"{symbol} not exported by {_build.source_of(name)}.cu"
     assert len(match.group(1).split(",")) == len(argtypes)
     assert "return static_cast<int>(cudaGetLastError());" in source
-    # the note names the TPU kernel it replaces and what bounds it
+    # the note names the TPU kernel it replaces (a source with none says
+    # so and why it was added) and what bounds it
     head = source[:source.index("#include")]
     # (the roll-chain probe's TPU kernel lives in the JAX surface)
-    assert "Replaces" in head and re.search(r"smi_tpu/(kernels|benchmarks)/",
-                                            head)
+    if _build.source_of(name) in NO_TPU_KERNEL:
+        assert re.search(r"Replaces no TPU kernel: \w", head)
+    else:
+        assert "Replaces" in head and re.search(
+            r"smi_tpu/(kernels|benchmarks)/", head)
     assert "Bound on the H100" in head and "Design" in head
     assert "use_fast_math" not in source
