@@ -51,8 +51,8 @@ kernels then carry ``earlier_ms``, else null. The phases:
    ``stencil_temporal.cu`` its time in turns with the tree's; and the
    k-sweep kernel's ms a sweep at k = 8, 16 and 32 on both shapes, the
    depth picker's order, each with its form (level groups, columns a
-   thread) and warps an SM; then the k-sweep launches counted by form
-   (``stencil_temporal.FORM_LAUNCHES``).
+   thread) and warps an SM; then the form of each depth it ran
+   (``stencil_temporal.form``).
 
 Then ring attention's forward (``smi_tpu_torch/kernels/csrc/flash_fwd.cu``,
 built in phase 2 with the stencil sources), with TF32 off throughout:
@@ -456,7 +456,6 @@ per-kernel JSON record; the last line is the device JSON.
 """
 
 import contextlib
-import ctypes
 import dataclasses
 import functools
 import io
@@ -798,8 +797,9 @@ def main(argv=None) -> int:
             log(f"  depth {k} at {h}x{w}: {ms:.4f} ms per pass, "
                 f"{ms / k:.5f} ms per sweep; {plan_note(h, w, k)}")
     del x, xt, args
-    log(f"  launches by form (depth, level groups, columns a thread): "
-        f"{dict(sorted(ktemporal.FORM_LAUNCHES.items()))}")
+    log("  forms by depth (level groups x columns a thread): " + ", ".join(
+        f"k={k} {ktemporal.form(k).groups}x{ktemporal.form(k).columns}"
+        for k in sorted({TABLE_DEPTH, 8, 16, 32})))
 
     records += flash_phases(dev, gen, max_err, earlier.get("flash_fwd"))
     records += backward_phases(dev, gen, max_err, earlier.get("flash_bwd"))
@@ -1227,9 +1227,12 @@ def earlier_temporal_plan(h, w, depth):
     """The plan of the first, shared-memory ``stencil_temporal.cu``: the
     largest square tile of 64, 32, 16 or 8 (cut to the block) whose two
     ``(tile + 2k)``-edged f32 windows fit a block's shared memory."""
+    from smi_tpu_torch.kernels import _build
+
     for edge in (64, 32, 16, 8):
         th, tw = min(edge, h), min(edge, w)
-        if 2 * 4 * (th + 2 * depth) * (tw + 2 * depth) <= 232_448:
+        if (2 * 4 * (th + 2 * depth) * (tw + 2 * depth)
+                <= _build.SMEM_BYTES_LIMIT):
             return th, tw
     return None
 
@@ -1243,6 +1246,8 @@ def earlier_pipeline_plan(h, w, depth, buffering=3, stripe=None):
     window cells per output cell, then the taller stripe."""
     from fractions import Fraction
 
+    from smi_tpu_torch.kernels import _build
+
     if depth < 8 or depth % 8 or w < 128 or w % 128 or h < 8:
         return None
     best = None
@@ -1254,7 +1259,8 @@ def earlier_pipeline_plan(h, w, depth, buffering=3, stripe=None):
             if band > w or band + 2 * depth > 256:
                 break
             window = 4 * (t + 2 * depth) * (band + 2 * depth)
-            if (buffering + 1) * (-(-window // 128) * 128) + 152 > 232_448:
+            if ((buffering + 1) * (-(-window // 128) * 128) + 152
+                    > _build.SMEM_BYTES_LIMIT):
                 continue
             key = (Fraction((t + 2 * depth) * (band + 2 * depth), t * band),
                    -t)
@@ -2493,17 +2499,12 @@ def pipeline_phases(dev, gen, earlier=None):
             band, int(cd == "bfloat16"), buffering,
             torch.cuda.current_stream().cuda_stream))
 
-    blocks_per_sm = _build.library(kpipe.KERNEL).\
-        smi_stencil_pipeline_blocks_per_sm
-    blocks_per_sm.argtypes = [ctypes.c_int] * 5
-    blocks_per_sm.restype = ctypes.c_int
-
     def plan_note(k, cd, buffering):
         stripe, band = kpipe._plan(N, N, k, buffering)
-        held = blocks_per_sm(k, stripe, band, int(cd == "bfloat16"),
-                             buffering)
+        held = _build.runtime_blocks_per_sm(
+            kpipe.KERNEL, k, stripe, band, int(cd == "bfloat16"), buffering)
         return (f"plan (stripe {stripe}, band {band}), "
-                f"{ktemporal.window_threads(band, k)} threads, "
+                f"{kpipe.window_threads(band, k)} threads, "
                 f"{kpipe.pipeline_smem_bytes(stripe, band, k, buffering)} B "
                 f"of shared memory, {held} blocks an SM")
 
@@ -3690,7 +3691,6 @@ SURFACE_RUNS = 1
 SURFACE_MIN_DELTA = 0.1
 SMEM_BYTES_PER_CLK = 128   # a Hopper SM: 32 banks of 4 B
 SHFL_PER_CLK = 32          # shuffle results a clock an SM (CC 9.0)
-SMS = 132
 
 
 def roll_instance(name):
@@ -3855,7 +3855,7 @@ def surface_phases(dev, gen, earlier=None):
     rows, cols = surface.CARD_SHAPES.roll
     length = surface.CARD_SHAPES.roll_lengths[1]
     elems = rows * cols
-    clocks_per_ms = SMS * clock_mhz * 1e3
+    clocks_per_ms = _build.SMS * clock_mhz * 1e3
     smem_ms = 8 * elems * length / SMEM_BYTES_PER_CLK / clocks_per_ms
     shfl_ms = elems * length / SHFL_PER_CLK / clocks_per_ms
     records = []
@@ -5742,7 +5742,7 @@ def cli_phase(dev, smi_line):
         log(f"  aot-verify {topo} ({entry['devices']} ranks): "
             f"{len(programs)} cases fit, {len(launches)} distinct launches, "
             f"the most shared memory a block {most} B of "
-            f"{232448} B")
+            f"{_build.SMEM_BYTES_LIMIT} B")
     for (kernel, dtype, op), (regs, ptxas, runtime, resident) in sorted(
             occupancy.items(), key=str):
         held = ("warps an SM" if kernel == "stencil_temporal"

@@ -1,4 +1,4 @@
-"""Build and load the package's CUDA kernels.
+"""Build, load and launch the package's CUDA kernels; the card they run on.
 
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded with ``ctypes``. The
@@ -19,7 +19,12 @@ missing ``nvcc`` raises; there is no fallback to the plain versions.
 Every C entry point returns ``cudaGetLastError()`` after its launch, and
 :func:`check` raises when it is not 0 — a launch the driver refused (too
 much shared memory, a bad grid) never runs and no later synchronise
-would report it.
+would report it. Every wrapper launches through :func:`launch`, which
+checks and then counts.
+
+The H100's limits (:data:`SMS`, :data:`SMEM_BYTES_LIMIT`, ...) and the
+one occupancy model (:func:`blocks_per_sm`) live here too: the plans
+and the ahead-of-card check read them.
 """
 
 from __future__ import annotations
@@ -33,7 +38,9 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, NamedTuple, Optional
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -177,128 +184,145 @@ def library(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
+class Entry(NamedTuple):
+    """A C entry point: the ``csrc/`` source (without ``.cu``) that
+    exports it, its symbol and its argument types."""
+
+    source: str
+    symbol: str
+    argtypes: list
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 
-#: C signature of each kernel's entry point: (symbol, argument types)
+#: each kernel's C entry point
 SIGNATURES = {
-    "stencil_sweep": (
-        "smi_stencil_sweep",
+    "stencil_sweep": Entry(
+        "stencil_sweep", "smi_stencil_sweep",
         # x, top, bottom, left, right, out, h, w, row0, col0, gh, gw, stream
         [_P] * 6 + [_I] * 6 + [_P],
     ),
-    "stencil_temporal": (
-        "smi_stencil_temporal",
+    "stencil_temporal": Entry(
+        "stencil_temporal", "smi_stencil_temporal",
         # x, top, bottom, left, right, out, h, w, row0, col0, gh, gw,
         # depth, tile_h, tile_w, stream
         [_P] * 6 + [_I] * 9 + [_P],
     ),
-    "stencil_pipeline": (
-        "smi_stencil_pipeline",
+    "stencil_pipeline": Entry(
+        "stencil_pipeline", "smi_stencil_pipeline",
         # ext, out, h, w, row0, col0, gh, gw, depth, stripe, band, bf16,
         # buffering, stream
         [_P] * 2 + [_I] * 11 + [_P],
     ),
-    "flash_fused": (
-        "smi_flash_fused",
+    "flash_fused": Entry(
+        "flash_fwd", "smi_flash_fused",
         # q, k, v, out, m, l, dtype, h, h_kv, s_q, s_k, d, q_off, k_off,
         # causal, window, scale, block_q, block_k, stream
         [_P] * 6 + [_I] * 10 + [_F] + [_I] * 2 + [_P],
     ),
-    "flash_block": (
-        "smi_flash_block",
+    "flash_block": Entry(
+        "flash_fwd", "smi_flash_block",
         # q, k, v, m_in, l_in, acc_in, m_out, l_out, acc_out, dtype, h,
         # h_kv, s_q, s_k, d, q_off, k_off, causal, window, scale, block_q,
         # block_k, stream
         [_P] * 9 + [_I] * 10 + [_F] + [_I] * 2 + [_P],
     ),
-    "flash_bwd_dq": (
-        "smi_flash_bwd_dq",
+    "flash_bwd_dq": Entry(
+        "flash_bwd", "smi_flash_bwd_dq",
         # q, k, v, dout, m, linv, delta, dq, dtype, h, h_kv, s_q, s_k, d,
         # q_off, k_off, causal, window, scale, block_q, block_k, stream
         [_P] * 8 + [_I] * 10 + [_F] + [_I] * 2 + [_P],
     ),
-    "flash_bwd_dkdv": (
-        "smi_flash_bwd_dkdv",
+    "flash_bwd_dkdv": Entry(
+        "flash_bwd", "smi_flash_bwd_dkdv",
         # q, k, v, dout, m, linv, delta, dk, dv, dtype, h, h_kv, s_q, s_k,
         # d, q_off, k_off, causal, window, scale, block_q, block_k, stream
         [_P] * 9 + [_I] * 10 + [_F] + [_I] * 2 + [_P],
     ),
     # the ring kernels share: table, ranks, n, elems, slot_stride,
     # dtype ... flow_control, blocks, stream
-    "ring_neighbour_stream": (
-        "smi_ring_neighbour_stream",
+    "ring_neighbour_stream": Entry(
+        "ring", "smi_ring_neighbour_stream",
         # ... dtype, chunks, direction, flow_control, blocks, stream
         [_P] + [_I] * 2 + [_L] * 2 + [_I] * 5 + [_P],
     ),
-    "ring_all_gather": (
-        "smi_ring_all_gather",
+    "ring_all_gather": Entry(
+        "ring", "smi_ring_all_gather",
         [_P] + [_I] * 2 + [_L] * 2 + [_I] * 3 + [_P],
     ),
-    "ring_all_reduce": (
-        "smi_ring_all_reduce",
+    "ring_all_reduce": Entry(
+        "ring", "smi_ring_all_reduce",
         # ... dtype, op, flow_control, blocks, stream
         [_P] + [_I] * 2 + [_L] * 2 + [_I] * 4 + [_P],
     ),
-    "ring_reduce_scatter": (
-        "smi_ring_reduce_scatter",
+    "ring_reduce_scatter": Entry(
+        "ring", "smi_ring_reduce_scatter",
         [_P] + [_I] * 2 + [_L] * 2 + [_I] * 4 + [_P],
     ),
-    "ring_all_reduce_chunked": (
-        "smi_ring_all_reduce_chunked",
+    "ring_all_reduce_chunked": Entry(
+        "ring", "smi_ring_all_reduce_chunked",
         # ... dtype, op, chunks, flow_control, blocks, stream
         [_P] + [_I] * 2 + [_L] * 2 + [_I] * 5 + [_P],
     ),
-    "roll_chain": (
-        "smi_roll_chain",
+    "roll_chain": Entry(
+        "roll_chain", "smi_roll_chain",
         # ins, outs, chains, rows, cols, length, body, regs, warps,
         # stream
         [_P] * 2 + [_I] * 7 + [_P],
     ),
-    "attn_prologue": (
-        "smi_attn_prologue",
+    "attn_prologue": Entry(
+        "attn_glue", "smi_attn_prologue",
         # qkv, q_w, k_w, cos, sin, q, k, v, batch, seq, heads, kv_heads,
         # head_dim, eps, stream
         [_P] * 8 + [_I] * 5 + [_F] + [_P],
     ),
-    "attn_prologue_bwd": (
-        "smi_attn_prologue_bwd",
+    "attn_prologue_bwd": Entry(
+        "attn_glue", "smi_attn_prologue_bwd",
         # qkv, q_w, k_w, cos, sin, dq, dk, dv, dqkv, partial, dq_w, dk_w,
         # batch, seq, heads, kv_heads, head_dim, blocks, eps, stream
         [_P] * 12 + [_I] * 6 + [_F] + [_P],
     ),
-    "attn_epilogue": (
-        "smi_attn_epilogue",
+    "attn_epilogue": Entry(
+        "attn_glue", "smi_attn_epilogue",
         # attn, gate, out, batch, seq, heads, head_dim, stream
         [_P] * 3 + [_I] * 4 + [_P],
     ),
-    "attn_epilogue_bwd": (
-        "smi_attn_epilogue_bwd",
+    "attn_epilogue_bwd": Entry(
+        "attn_glue", "smi_attn_epilogue_bwd",
         # attn, gate, dout, dattn, dgate, batch, seq, heads, head_dim,
         # stream
         [_P] * 5 + [_I] * 4 + [_P],
     ),
 }
 
-#: kernels whose entry point lives in a source of another name
-_SOURCE_OF = {"flash_fused": "flash_fwd", "flash_block": "flash_fwd",
-              "flash_bwd_dq": "flash_bwd", "flash_bwd_dkdv": "flash_bwd",
-              "ring_neighbour_stream": "ring", "ring_all_gather": "ring",
-              "ring_all_reduce": "ring", "ring_reduce_scatter": "ring",
-              "ring_all_reduce_chunked": "ring",
-              "attn_prologue": "attn_glue", "attn_prologue_bwd": "attn_glue",
-              "attn_epilogue": "attn_glue", "attn_epilogue_bwd": "attn_glue"}
+#: the runtime's occupancy queries
+#: (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), by the source
+#: they ask about: the stencil queries return the blocks an SM holds or
+#: minus a CUDA error; the ring's returns the error and writes the count
+#: through its last argument
+QUERIES = {
+    # depth, band
+    "stencil_temporal": Entry(
+        "stencil_temporal", "smi_stencil_temporal_blocks_per_sm", [_I] * 2),
+    # depth, stripe, band, bf16, buffering
+    "stencil_pipeline": Entry(
+        "stencil_pipeline", "smi_stencil_pipeline_blocks_per_sm", [_I] * 5),
+    # kernel code, dtype code, op, out
+    "ring": Entry("ring", "smi_ring_blocks_per_sm",
+                  [_I] * 3 + [ctypes.POINTER(_I)]),
+}
 
 
 def source_of(kernel: str) -> str:
     """The ``csrc/`` source (without ``.cu``) that exports ``kernel``."""
-    return _SOURCE_OF.get(kernel, kernel)
+    return SIGNATURES[kernel].source
 
 
 #: every source, each built into one library
-SOURCES = sorted({source_of(k) for k in SIGNATURES})
+SOURCES = sorted({e.source for e in SIGNATURES.values()})
 
 #: kernel name -> launches made through its wrapper (the plain CPU
 #: versions launch nothing and count nothing)
@@ -306,17 +330,17 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}
 
 
 def _declare(source: str, lib: ctypes.CDLL) -> ctypes.CDLL:
-    for kernel, (symbol, argtypes) in SIGNATURES.items():
-        if source_of(kernel) == source:
-            fn = getattr(lib, symbol)
-            fn.argtypes = argtypes
+    for e in (*SIGNATURES.values(), *QUERIES.values()):
+        if e.source == source:
+            fn = getattr(lib, e.symbol)
+            fn.argtypes = e.argtypes
             fn.restype = ctypes.c_int
     return lib
 
 
 def entry(kernel: str):
     """The declared C entry point of ``kernel``."""
-    return getattr(library(source_of(kernel)), SIGNATURES[kernel][0])
+    return getattr(library(source_of(kernel)), SIGNATURES[kernel].symbol)
 
 
 def check(name: str, status: int) -> None:
@@ -325,3 +349,74 @@ def check(name: str, status: int) -> None:
         raise RuntimeError(
             f"{name} kernel launch failed with cudaError {status}"
         )
+
+
+def launch(kernel: str, device, *args, stream: Optional[int] = None) -> None:
+    """One launch of ``kernel`` on ``device``: its entry point on
+    ``args`` and ``stream`` (a ``cudaStream_t``; the device's current
+    stream when None), then :func:`check`, then :func:`count_launch`."""
+    with torch.cuda.device(device):
+        if stream is None:
+            stream = torch.cuda.current_stream().cuda_stream
+        status = entry(kernel)(*args, stream)
+    check(kernel, status)
+    count_launch(kernel)
+
+
+def runtime_blocks_per_sm(source: str, *args) -> int:
+    """The runtime's count of blocks an SM holds at once, asked through
+    ``source``'s query in :data:`QUERIES` (needs a card); raises on a
+    CUDA error."""
+    query = QUERIES[source]
+    fn = getattr(library(source), query.symbol)
+    if len(args) < len(query.argtypes):   # the count comes back by pointer
+        out = ctypes.c_int(0)
+        check(f"{source} occupancy", fn(*args, ctypes.byref(out)))
+        return out.value
+    blocks = fn(*args)
+    check(f"{source} occupancy", max(0, -blocks))
+    return blocks
+
+
+# ---------------------------------------------------------------------------
+# The card: the H100 SXM's limits, which the plans and the checks read
+# ---------------------------------------------------------------------------
+
+#: streaming multiprocessors; where a card is there, its own count is asked
+SMS = 132
+#: shared memory (dynamic and static) one block may use (227 KB), an SM's,
+#: and what the runtime reserves a block
+SMEM_BYTES_LIMIT = 232_448
+SM_SMEM_BYTES = 233_472
+BLOCK_RESERVED_SMEM = 1024
+#: registers of a partition (four an SM, a warp's all in one), of an SM,
+#: and of one thread at most
+PARTITION_REGISTERS = 16_384
+SM_PARTITIONS = 4
+SM_REGISTERS = SM_PARTITIONS * PARTITION_REGISTERS
+MAX_THREAD_REGISTERS = 255
+MAX_BLOCK_THREADS = 1024
+MAX_SM_WARPS = 64
+MAX_SM_BLOCKS = 32
+
+
+def warp_registers(registers: int) -> int:
+    """Registers a warp is allocated: 32 threads' worth, in units of
+    256."""
+    return -(-registers * 32 // 256) * 256
+
+
+def blocks_per_sm(registers: int, threads: int, smem: int) -> int:
+    """Blocks of ``threads`` threads using ``registers`` a thread and
+    ``smem`` bytes of shared memory (static and dynamic) that one SM
+    holds at once (0 when none fits): a warp's registers come from one
+    partition, shared memory is the SM's less what is reserved a block,
+    and an SM holds at most :data:`MAX_SM_WARPS` warps and
+    :data:`MAX_SM_BLOCKS` blocks."""
+    warps = -(-threads // 32)
+    by_regs = SM_PARTITIONS * (PARTITION_REGISTERS
+                               // warp_registers(max(1, registers)))
+    by_regs //= warps
+    by_smem = SM_SMEM_BYTES // (smem + BLOCK_RESERVED_SMEM)
+    return max(0, min(by_regs, by_smem, MAX_SM_WARPS // warps,
+                      MAX_SM_BLOCKS))

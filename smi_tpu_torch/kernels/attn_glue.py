@@ -125,13 +125,9 @@ def _head_dim(what: str, d: int, device) -> None:
 
 
 def _launch(kernel: str, device, pointers, ints, *floats) -> None:
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = _build.entry(kernel)(
-            *(None if t is None else t.data_ptr() for t in pointers), *ints,
-            *floats, stream)
-    _build.check(kernel, status)
-    _build.count_launch(kernel)
+    _build.launch(kernel, device,
+                  *(None if t is None else t.data_ptr() for t in pointers),
+                  *ints, *floats)
 
 
 class _Prologue(torch.autograd.Function):

@@ -58,9 +58,6 @@ KERNEL_BLOCK = "flash_block"
 KERNEL_BWD_DQ = "flash_bwd_dq"
 KERNEL_BWD_DKDV = "flash_bwd_dkdv"
 
-#: dynamic shared memory one H100 block may use (227 KB)
-SMEM_BYTES_LIMIT = 232_448
-
 #: head dims the kernels are instantiated for
 HEAD_DIMS = (64, 128, 256)
 
@@ -120,7 +117,7 @@ def _plan(d: int, dtype) -> Optional[Tuple[int, int]]:
     memory."""
     if dtype not in _DTYPE_CODE or d not in HEAD_DIMS:
         return None
-    if smem_bytes(d, dtype) > SMEM_BYTES_LIMIT:
+    if smem_bytes(d, dtype) > _build.SMEM_BYTES_LIMIT:
         return None
     return BLOCK_Q, _block_k(d, dtype)
 
@@ -158,9 +155,6 @@ def fwd_plan_explained(d: int, dtype,
 #: idle.
 BWD_BLOCK_Q = 128
 BWD_BLOCK_K = 128
-
-#: SMs of the H100; the wrappers ask the card for its own count
-H100_SMS = 132
 
 
 def _bwd_tiles(kernel: str, d: int, dtype,
@@ -213,7 +207,7 @@ def bwd_blocks(kernel: str, plan: Tuple[int, int], h: int, h_kv: int,
 
 def _bwd_plan(kernel: str, d: int, dtype, s_k: Optional[int] = None,
               h_kv: Optional[int] = None,
-              sms: int = H100_SMS) -> Optional[Tuple[int, int]]:
+              sms: int = _build.SMS) -> Optional[Tuple[int, int]]:
     """``(block_q, block_k)`` of a backward kernel for head dim ``d``, or
     None where it has no instantiation or would not fit shared memory.
     Given ``s_k`` and ``h_kv``, bf16 dkdv takes its 64-key form where
@@ -226,7 +220,7 @@ def _bwd_plan(kernel: str, d: int, dtype, s_k: Optional[int] = None,
              and s_k is not None
              and 2 * bwd_blocks(kernel, _bwd_tiles(kernel, d, dtype),
                                 h_kv, h_kv, 0, s_k, d) <= sms)
-    if bwd_smem_bytes(kernel, d, dtype, split) > SMEM_BYTES_LIMIT:
+    if bwd_smem_bytes(kernel, d, dtype, split) > _build.SMEM_BYTES_LIMIT:
         return None
     return _bwd_tiles(kernel, d, dtype, split)
 
@@ -374,15 +368,8 @@ def flash_attend_fused_plain(q, k, v, q_off, k_off, causal: bool,
 
 
 def _launch(kernel: str, q, pointers, ints, scale: float, plan) -> None:
-    block_q, block_k = plan
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = _build.entry(kernel)(
-            *(t.data_ptr() for t in pointers), _DTYPE_CODE[q.dtype], *ints,
-            float(scale), block_q, block_k, stream,
-        )
-    _build.check(kernel, status)
-    _build.count_launch(kernel)
+    _build.launch(kernel, q.device, *(t.data_ptr() for t in pointers),
+                  _DTYPE_CODE[q.dtype], *ints, float(scale), *plan)
 
 
 def _int32(what: str, name: str, x) -> int:

@@ -340,15 +340,13 @@ def _launch(kernel: str, world, axis_name, stream: int, xs, outs,
     # host a few microseconds
     queue = torch.cuda.current_stream(world.device)
     begin.record(queue)
-    with torch.cuda.device(world.device), annotate("smi.ring.launch"):
-        status = _build.entry(kernel)(
-            state["table"].data_ptr(), n_world, n, unit_elems, stride,
-            DTYPE_CODES[dtype], *extra,
+    with annotate("smi.ring.launch"):
+        _build.launch(
+            kernel, world.device, state["table"].data_ptr(), n_world, n,
+            unit_elems, stride, DTYPE_CODES[dtype], *extra,
             *((chunks,) if kernel == "ring_all_reduce_chunked" else ()),
-            int(flow_control), blocks, queue.cuda_stream,
+            int(flow_control), blocks, stream=queue.cuda_stream,
         )
-        _build.check(kernel, status)
-    _build.count_launch(kernel)
     end.record(queue)
     # the rendezvous waits for the world's stream before it releases the
     # ranks: a trapped spin is raised there
@@ -416,7 +414,8 @@ def require_world(comm: Communicator):
             "local): ranks that are threads of one process on one card. "
             "The launch form for ranks in other processes or on other "
             "cards (CUDA IPC, NVLink peer access) is not built yet "
-            "(ROADMAP.md Queue 2, the peer launch form)"
+            "(ROADMAP.md Queue C: the peer launch form, not runnable on "
+            "one H100)"
         )
     return comm.world
 

@@ -138,12 +138,6 @@ def roll_chain(xs: Sequence[torch.Tensor], length: int,
     outs = tuple(torch.empty_like(x) for x in xs)
     ins = (ctypes.c_void_p * len(xs))(*(x.data_ptr() for x in xs))
     outp = (ctypes.c_void_p * len(xs))(*(o.data_ptr() for o in outs))
-    with torch.cuda.device(xs[0].device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = _build.entry(KERNEL)(
-            ins, outp, len(xs), rows, cols, int(length), BODIES[body],
-            *p["args"], stream,
-        )
-    _build.check(KERNEL, status)
-    _build.count_launch(KERNEL)
+    _build.launch(KERNEL, xs[0].device, ins, outp, len(xs), rows, cols,
+                  int(length), BODIES[body], *p["args"])
     return outs

@@ -1,11 +1,12 @@
 """Fused Jacobi sweep: one kernel launch per iteration.
 
-PyTorch counterpart of :mod:`smi_tpu.kernels.stencil`. The plain sweep in
-:mod:`smi_tpu_torch.models.stencil` assembles a padded tile and makes
-several passes over memory per iteration; the hand-written CUDA kernel
-``csrc/stencil_sweep.cu`` does the whole sweep in one read and one write
-of the block, with the 1-deep halo slabs patched in at the block's edges
-and the Dirichlet mask computed from global coordinates.
+PyTorch counterpart of :mod:`smi_tpu.kernels.stencil`. The stencil
+model's plain sweep (``models/stencil.py``) assembles a padded tile and
+makes several passes over memory per iteration; the hand-written CUDA
+kernel ``csrc/stencil_sweep.cu`` does the whole sweep in one read and one
+write of the block, with the 1-deep halo slabs patched in at the block's
+edges and the Dirichlet mask computed from global coordinates
+(:func:`global_boundary_mask`, which the model reads from here).
 
 :func:`fused_sweep` launches that kernel for a CUDA tensor and calls
 :func:`fused_sweep_plain`, the same function in PyTorch ops, only for a
@@ -14,15 +15,35 @@ CPU tensor. Halo exchange stays outside the kernel.
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from smi_tpu_torch.kernels import _build
-from smi_tpu_torch.models.stencil import block_origin, global_boundary_mask
 from smi_tpu_torch.parallel.halo import halo_exchange_2d
 from smi_tpu_torch.parallel.mesh import Communicator
 from smi_tpu_torch.utils.tracing import annotate
 
 KERNEL = "stencil_sweep"
+
+
+def global_boundary_mask(shape: Tuple[int, int], row0: int, col0: int,
+                         gh: int, gw: int, device) -> torch.Tensor:
+    """True where a cell of the ``shape`` window whose top-left cell is
+    global ``(row0, col0)`` lies on the global ``(gh, gw)`` boundary."""
+    h, w = shape
+    gi = torch.arange(row0, row0 + h, device=device).unsqueeze(1)
+    gj = torch.arange(col0, col0 + w, device=device).unsqueeze(0)
+    return (gi == 0) | (gi == gh - 1) | (gj == 0) | (gj == gw - 1)
+
+
+def block_origin(block: torch.Tensor, comm: Communicator):
+    """``(row0, col0, gh, gw)``: this block's global offset and the
+    global grid's extent."""
+    h, w = block.shape
+    rx, cy = comm.coords
+    nrow, ncol = comm.axis_sizes
+    return rx * h, cy * w, nrow * h, ncol * w
 
 
 def check_operands(block: torch.Tensor, slabs, shapes, what: str) -> None:
@@ -81,16 +102,10 @@ def fused_sweep(block, top, bottom, left, right, row0: int, col0: int,
     if block.device.type != "cuda":
         raise ValueError(f"fused_sweep: no kernel for {block.device}")
     out = torch.empty_like(block)
-    with torch.cuda.device(block.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        with annotate("smi.stencil.launch"):
-            status = _build.entry(KERNEL)(
-                block.data_ptr(), top.data_ptr(), bottom.data_ptr(),
-                left.data_ptr(), right.data_ptr(), out.data_ptr(),
-                h, w, row0, col0, gh, gw, stream,
-            )
-            _build.check(KERNEL, status)
-    _build.count_launch(KERNEL)
+    with annotate("smi.stencil.launch"):
+        _build.launch(KERNEL, block.device, block.data_ptr(), top.data_ptr(),
+                      bottom.data_ptr(), left.data_ptr(), right.data_ptr(),
+                      out.data_ptr(), h, w, row0, col0, gh, gw)
     return out
 
 

@@ -43,7 +43,7 @@ import torch
 from smi_tpu_torch.kernels import _build
 from smi_tpu_torch.kernels import stencil as kstencil
 from smi_tpu_torch.kernels import stencil_temporal as ktemporal
-from smi_tpu_torch.models.stencil import block_origin, global_boundary_mask
+from smi_tpu_torch.kernels.stencil import block_origin, global_boundary_mask
 from smi_tpu_torch.parallel.halo import (
     halo_exchange_2d_corners_finish,
     halo_exchange_2d_corners_start,
@@ -59,9 +59,6 @@ PIPELINE_SLOTS = 3
 #: compute dtypes of the sweep arithmetic; the state is always f32
 COMPUTE_DTYPES = ("float32", "bfloat16")
 
-#: dynamic shared memory one H100 block may use (227 KB)
-SMEM_BYTES_LIMIT = 232_448
-
 #: the longest edge of a TMA box, in elements
 TMA_BOX_MAX = 256
 
@@ -70,6 +67,11 @@ MIN_BAND = 32
 
 #: the kernel's launch bound (``kMaxThreads`` in the C entry)
 MAX_THREADS = 256
+
+#: columns a thread owns at the register depths (``columns`` in
+#: ``csrc/stencil_wavefront.cuh``'s one-group form: every level in each
+#: thread); any other depth runs the generic loop, one column a thread
+REGISTER_COLUMNS = {8: 4, 16: 4, 32: 2}
 
 #: the rows a copy carries when the caller names no stripe: the least
 #: shared memory a slot can take, and still two copies ahead of the sweeps
@@ -86,6 +88,17 @@ SLOT_ALIGN = 128
 KEEP_RING = 128
 
 
+def columns(depth: int) -> int:
+    """Columns a thread owns at ``depth``."""
+    return REGISTER_COLUMNS.get(depth, 1)
+
+
+def window_threads(band: int, depth: int) -> int:
+    """Threads of a block: one level group covering the window of
+    ``band`` columns and its aprons, :func:`columns` a thread."""
+    return ktemporal.window_threads(band, depth, columns(depth))
+
+
 def _aligned(floats: int) -> int:
     return -(-4 * floats // SLOT_ALIGN) * SLOT_ALIGN
 
@@ -98,11 +111,12 @@ def pipeline_smem_bytes(stripe: int, band: int, depth: int,
     mbarriers, the sweeps' scratch and the bf16 holds' input values, plus
     the slack to align the first. The counterpart of the JAX package's
     ``pipeline_vmem_bytes``; the CUDA launcher computes the same."""
-    width = ktemporal.window_threads(band, depth) * ktemporal.columns(depth)
+    width = window_threads(band, depth) * columns(depth)
     return (_aligned(buffering * stripe * width)
             + _aligned(2 * stripe * band)
             + _aligned(2 * PIPELINE_SLOTS)
-            + _aligned(ktemporal.scratch_floats(band, depth))
+            + _aligned(ktemporal.scratch_floats(band, depth, 1,
+                                                columns(depth)))
             + _aligned(2 * width + 2 * KEEP_RING)
             + SLOT_ALIGN)
 
@@ -117,7 +131,7 @@ def _band_fits(band: int, depth: int) -> bool:
     """The C entry's rules for a band: its window within the launch
     bound, and equal store boxes of whole 16-byte rows."""
     boxes = _stores(band)
-    return (ktemporal.window_threads(band, depth) <= MAX_THREADS
+    return (window_threads(band, depth) <= MAX_THREADS
             and band % boxes == 0 and band // boxes % 4 == 0)
 
 
@@ -125,7 +139,7 @@ def _area_ratio(h: int, w: int, depth: int, band: int) -> Fraction:
     """Window cells swept per output cell: every band's window (a warp of
     columns at a time) over the rows plus a 2k-row apron for each run of
     at most :data:`RUN_ROWS` rows, the fewest runs the C entry cuts."""
-    width = ktemporal.window_threads(band, depth) * ktemporal.columns(depth)
+    width = window_threads(band, depth) * columns(depth)
     runs = -(-h // RUN_ROWS)
     return Fraction(-(-w // band) * width * (h + runs * 2 * depth), h * w)
 
@@ -148,7 +162,7 @@ def _plan(h: int, w: int, depth: int, buffering: int = PIPELINE_SLOTS,
     t = DEFAULT_STRIPE if stripe is None else stripe
     if t < 8 or t % 8 or h % t or t > TMA_BOX_MAX:
         return None
-    c = ktemporal.columns(depth)
+    c = columns(depth)
     best = None
     for n in range(32, min(MAX_THREADS, ktemporal.MAX_WIDTH // c) + 1, 32):
         widest = n * c - 2 * depth
@@ -158,7 +172,7 @@ def _plan(h: int, w: int, depth: int, buffering: int = PIPELINE_SLOTS,
         band = -(-band // (4 * _stores(band))) * 4 * _stores(band)
         if (band > widest or not _band_fits(band, depth)
                 or pipeline_smem_bytes(t, band, depth,
-                                       buffering) > SMEM_BYTES_LIMIT):
+                                       buffering) > _build.SMEM_BYTES_LIMIT):
             continue
         key = (_area_ratio(h, w, depth, band), count)
         if best is None or key < best[0]:
@@ -193,7 +207,7 @@ def pick_pipeline_stripe_explained(
             f"no window of a {MIN_BAND}-column band or wider at depth "
             f"{depth} fits {buffering} slot(s) of {DEFAULT_STRIPE} rows, "
             f"two staging buffers and the sweeps' scratch in the "
-            f"{SMEM_BYTES_LIMIT} B of shared memory a block may use"
+            f"{_build.SMEM_BYTES_LIMIT} B of shared memory a block may use"
         )
     t, band = plan
     slots = f"{buffering} slot{'s' if buffering > 1 else ''}"
@@ -317,15 +331,9 @@ def pipeline_sweeps(ext: torch.Tensor, row0: int, col0: int, gh: int,
         interior.copy_(pipeline_sweeps_plain(ext, row0, col0, gh, gw, k,
                                              compute_dtype))
         return interior
-    with torch.cuda.device(ext.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = _build.entry(KERNEL)(
-            ext.data_ptr(), out.data_ptr(), h, w, row0, col0, gh, gw, k,
-            stripe, band, int(compute_dtype == "bfloat16"), buffering,
-            stream,
-        )
-    _build.check(KERNEL, status)
-    _build.count_launch(KERNEL)
+    _build.launch(KERNEL, ext.device, ext.data_ptr(), out.data_ptr(), h, w,
+                  row0, col0, gh, gw, k, stripe, band,
+                  int(compute_dtype == "bfloat16"), buffering)
     return interior
 
 

@@ -27,14 +27,13 @@ from __future__ import annotations
 
 import functools
 import math
-import threading
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from smi_tpu_torch.kernels import _build
 from smi_tpu_torch.kernels import stencil as kstencil
-from smi_tpu_torch.models.stencil import block_origin, global_boundary_mask
+from smi_tpu_torch.kernels.stencil import block_origin, global_boundary_mask
 from smi_tpu_torch.parallel.halo import (
     halo_exchange_2d_corners_finish,
     halo_exchange_2d_corners_start,
@@ -43,12 +42,6 @@ from smi_tpu_torch.parallel.mesh import Communicator
 from smi_tpu_torch.utils.tracing import annotate
 
 KERNEL = "stencil_temporal"
-
-#: dynamic shared memory one H100 block may use (227 KB)
-SMEM_BYTES_LIMIT = 232_448
-
-#: streaming multiprocessors of the H100 SXM, which the plan fills
-SMS = 132
 
 
 class Form(NamedTuple):
@@ -72,11 +65,6 @@ FORMS = {8: Form(1, 4, 128, 4), 16: Form(2, 4, 256, 2),
 #: the generic loop: one column a thread, every level in shared memory
 GENERIC = Form(1, 1, 256, 1)
 
-#: columns a thread owns in the wavefront's one-group form at the register
-#: depths (``columns`` in ``csrc/stencil_wavefront.cuh``): the pipeline
-#: kernel's, which carries every level in each thread
-REGISTER_COLUMNS = {8: 4, 16: 4, 32: 2}
-
 #: the widest window the planner gives a block at the register depths:
 #: wide enough for a 1.2x apron at k=32, narrow enough that an SM holds
 #: several blocks
@@ -94,24 +82,13 @@ REGISTERS = {8: 119, 16: 125, 32: 128, None: 48}
 #: twice the stripe
 MIN_STRIPE_DEPTHS = 2
 
-#: the plan's model of a pass on the card: blocks run in waves of SMS x
-#: blocks_per_sm; a wave counts as full past this share of it, and the
-#: last wave costs this many waves more (its blocks' spread in time).
+#: the plan's model of a pass on the card: blocks run in waves of
+#: ``_build.SMS`` x blocks_per_sm; a wave counts as full past this share
+#: of it, and the last wave costs this many waves more (its blocks'
+#: spread in time).
 #: Fitted to the stripe sweeps at the main shapes (PERF.md, PR 24)
 WAVE_FILL = 0.98
 TAIL_WAVES = 0.3
-
-#: launches CUDA accepted, by form: (depth, level groups, columns a
-#: thread) -> count, since the process started (the plain CPU version
-#: counts nothing); beside ``_build.LAUNCHES``, which counts them all
-FORM_LAUNCHES: Dict[Tuple[int, int, int], int] = {}
-
-_form_lock = threading.Lock()
-
-
-def columns(depth: int) -> int:
-    """Columns a thread owns in the one-group wavefront at ``depth``."""
-    return REGISTER_COLUMNS.get(depth, 1)
 
 
 def form(depth: int) -> Form:
@@ -119,12 +96,11 @@ def form(depth: int) -> Form:
     return FORMS.get(depth, GENERIC)
 
 
-def window_threads(band: int, depth: int, cols: Optional[int] = None) -> int:
+def window_threads(band: int, depth: int, cols: int) -> int:
     """Threads that cover a window of ``band`` output columns plus a
-    ``depth``-column apron each side, ``cols`` columns a thread (the
-    one-group form's by default), a warp at a time: one level group."""
-    per_warp = 32 * (columns(depth) if cols is None else cols)
-    return -(-(band + 2 * depth) // per_warp) * 32
+    ``depth``-column apron each side, ``cols`` columns a thread, a warp
+    at a time: one level group."""
+    return -(-(band + 2 * depth) // (32 * cols)) * 32
 
 
 def threads(band: int, depth: int) -> int:
@@ -141,15 +117,14 @@ def window_width(band: int, depth: int) -> int:
     return window_threads(band, depth, f.columns) * f.columns
 
 
-def scratch_floats(band: int, depth: int, groups: int = 1,
-                   cols: Optional[int] = None) -> int:
+def scratch_floats(band: int, depth: int, groups: int, cols: int) -> int:
     """Shared memory the sweeps use beside the input, in floats: each
     level group's edge slabs (two parities, a slab a warp and one each
     side of the window) and the hand-off rows between groups (two
     parities a seam), or the generic loop's three rows of every level."""
     n = window_threads(band, depth, cols)
-    width = n * (columns(depth) if cols is None else cols)
-    if depth in REGISTER_COLUMNS:
+    width = n * cols
+    if depth in FORMS:
         return 2 * (n // 32 + 2) * 2 * depth + 2 * (groups - 1) * width
     return 3 * depth * (n + 2)
 
@@ -163,28 +138,18 @@ def window_bytes(band: int, depth: int) -> int:
 
 
 def blocks_per_sm(band: int, depth: int) -> int:
-    """Blocks of this shape an H100 SM holds at once, by registers (four
-    partitions of 16384, a warp's registers in one) and shared memory."""
-    warps = threads(band, depth) // 32
+    """Blocks of this shape an H100 SM holds at once:
+    :func:`_build.blocks_per_sm` of its registers, threads and shared
+    memory."""
     regs = REGISTERS[depth if depth in FORMS else None]
-    warp_regs = -(-regs // 8) * 8 * 32
-    by_regs = 4 * (16_384 // warp_regs) // warps
-    by_smem = 233_472 // (window_bytes(band, depth) + 1024)
-    return max(1, min(by_regs, by_smem, 64 // warps, 32))
+    return _build.blocks_per_sm(regs, threads(band, depth),
+                                window_bytes(band, depth))
 
 
 def runtime_blocks_per_sm(band: int, depth: int) -> int:
     """The runtime's count of blocks of this shape an SM holds at once
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` through the C
-    entry); needs a card."""
-    import ctypes
-
-    fn = _build.library(KERNEL).smi_stencil_temporal_blocks_per_sm
-    fn.argtypes = [ctypes.c_int, ctypes.c_int]
-    fn.restype = ctypes.c_int
-    blocks = fn(depth, band)
-    _build.check(f"{KERNEL} occupancy", max(0, -blocks))
-    return blocks
+    (the C entry's occupancy query); needs a card."""
+    return _build.runtime_blocks_per_sm(KERNEL, depth, band)
 
 
 def even_bands(w: int, widest: int, unit: int = 8) -> Tuple[int, int]:
@@ -205,7 +170,7 @@ def _plan(h: int, w: int, depth: int) -> Optional[Tuple[int, int]]:
     columns (output plus apron, a warp of columns at a time, at most
     :data:`MAX_WIDTH`) and fits shared memory; on a tie, the fewer bands.
     The stripes are ``h`` evenly cut in the count that the card runs
-    soonest: :func:`waves` of :data:`SMS` x :func:`blocks_per_sm` blocks
+    soonest: :func:`waves` of ``_build.SMS`` x :func:`blocks_per_sm` blocks
     times a block's row steps, none shorter than
     :data:`MIN_STRIPE_DEPTHS` depths (nor than the block); on a tie, the
     fewer stripes.
@@ -221,7 +186,7 @@ def _plan(h: int, w: int, depth: int) -> Optional[Tuple[int, int]]:
         if widest < 1:
             continue
         count, band = even_bands(w, widest)
-        if window_bytes(band, k) > SMEM_BYTES_LIMIT:
+        if window_bytes(band, k) > _build.SMEM_BYTES_LIMIT:
             continue
         key = (count * threads(band, k), count)
         if best is None or key < best[0]:
@@ -230,7 +195,7 @@ def _plan(h: int, w: int, depth: int) -> Optional[Tuple[int, int]]:
         return None
     _, count, band = best
     shortest = min(h, MIN_STRIPE_DEPTHS * k)
-    slots = SMS * blocks_per_sm(band, k)
+    slots = _build.SMS * blocks_per_sm(band, k)
     apron = 2 * k + f.groups - 1   # a block's row steps past its stripe
     stripes = {-(-h // n) for n in range(1, h // shortest + 1)}
     stripe = min(stripes, key=lambda s: (
@@ -332,20 +297,11 @@ def temporal_sweeps(block, top, bottom, left, right, row0: int, col0: int,
         raise ValueError(f"temporal_sweeps: no kernel for {block.device}")
     stripe, band = _plan(h, w, k)
     out = torch.empty_like(block)
-    with torch.cuda.device(block.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        with annotate("smi.stencil.launch"):
-            status = _build.entry(KERNEL)(
-                block.data_ptr(), top.data_ptr(), bottom.data_ptr(),
-                left.data_ptr(), right.data_ptr(), out.data_ptr(),
-                h, w, row0, col0, gh, gw, k, stripe, band, stream,
-            )
-            _build.check(KERNEL, status)
-    _build.count_launch(KERNEL)
-    f = form(k)
-    with _form_lock:
-        key = (k, f.groups, f.columns)
-        FORM_LAUNCHES[key] = FORM_LAUNCHES.get(key, 0) + 1
+    with annotate("smi.stencil.launch"):
+        _build.launch(KERNEL, block.device, block.data_ptr(), top.data_ptr(),
+                      bottom.data_ptr(), left.data_ptr(), right.data_ptr(),
+                      out.data_ptr(), h, w, row0, col0, gh, gw, k, stripe,
+                      band)
     return out
 
 

@@ -15,11 +15,13 @@ are held against. Every function takes and returns this rank's block;
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional
 
 import numpy as np
 import torch
 
+# the kernels' global coordinates, under this module's names too
+from smi_tpu_torch.kernels.stencil import block_origin, global_boundary_mask
 from smi_tpu_torch.parallel.halo import (
     halo_exchange_2d,
     halo_exchange_finish,
@@ -27,25 +29,6 @@ from smi_tpu_torch.parallel.halo import (
     pad_with_halos,
 )
 from smi_tpu_torch.parallel.mesh import Communicator, make_communicator
-
-
-def global_boundary_mask(shape: Tuple[int, int], row0: int, col0: int,
-                         gh: int, gw: int, device) -> torch.Tensor:
-    """True where a cell of the ``shape`` window whose top-left cell is
-    global ``(row0, col0)`` lies on the global ``(gh, gw)`` boundary."""
-    h, w = shape
-    gi = torch.arange(row0, row0 + h, device=device).unsqueeze(1)
-    gj = torch.arange(col0, col0 + w, device=device).unsqueeze(0)
-    return (gi == 0) | (gi == gh - 1) | (gj == 0) | (gj == gw - 1)
-
-
-def block_origin(block: torch.Tensor, comm: Communicator):
-    """``(row0, col0, gh, gw)``: this block's global offset and the
-    global grid's extent."""
-    h, w = block.shape
-    rx, cy = comm.coords
-    nrow, ncol = comm.axis_sizes
-    return rx * h, cy * w, nrow * h, ncol * w
 
 
 def _dirichlet_mask(block: torch.Tensor, comm: Communicator) -> torch.Tensor:

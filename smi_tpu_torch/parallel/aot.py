@@ -25,7 +25,8 @@ cooperative grid larger than the blocks it holds at once. So here:
    to run here, are planned by the kernels' own pure plan functions
    (``flash._plan``/``_bwd_plan``, ``stencil_temporal._plan``,
    ``stencil_pipeline._plan``, ``roll.plan``, ``ring.launch_plan``);
-3. :func:`check_surface` holds each launch to the card's limits: 227 KB
+3. :func:`check_surface` holds each launch to the card's limits and
+   occupancy model, both :mod:`~smi_tpu_torch.kernels._build`'s: 227 KB
    of shared memory a block, 64 K registers an SM (255 a thread), 1024
    threads a block, at least one resident block, and for the ring
    tier's cooperative grid no more blocks than are resident at once
@@ -42,28 +43,14 @@ rate) appears here. ``python -m smi_tpu_torch aot-verify`` drives it.
 from __future__ import annotations
 
 import contextlib
-import ctypes
 import math
 import re
 from typing import Callable, Dict, List, Optional, Tuple
 
+from smi_tpu_torch.kernels import _build
+
 #: the JAX module's default topology name; read here as 8 ranks on (2, 4)
 DEFAULT_TOPOLOGY = "v5e:2x4"
-
-#: dynamic + static shared memory one H100 block may use (227 KB)
-SMEM_BYTES_LIMIT = 232_448
-#: shared memory of an SM, and what the runtime reserves a block
-SM_SMEM_BYTES = 233_472
-BLOCK_RESERVED_SMEM = 1024
-#: registers of an SM (four partitions of 16 K) and of one thread
-SM_REGISTERS = 65_536
-PARTITION_REGISTERS = 16_384
-MAX_THREAD_REGISTERS = 255
-MAX_BLOCK_THREADS = 1024
-MAX_SM_WARPS = 64
-MAX_SM_BLOCKS = 32
-#: SMs of the H100 SXM; a card's own count is asked where there is one
-H100_SMS = 132
 
 
 class NvccNotFound(RuntimeError):
@@ -135,8 +122,6 @@ def build_sources(names=None) -> Dict[str, float]:
     """Build every named source (default: all) for ``sm_90a`` without
     loading it; raises :class:`NvccNotFound` without ``nvcc``. Returns
     the wall seconds each new build waited for."""
-    from smi_tpu_torch.kernels import _build
-
     try:
         _build.find_nvcc()
     except RuntimeError as e:
@@ -226,36 +211,13 @@ def kernel_resources(log_text: str) -> Dict[str, dict]:
 
 def source_resources(names=None) -> Dict[str, Dict[str, dict]]:
     """:func:`kernel_resources` of each built source's log."""
-    from smi_tpu_torch.kernels import _build
-
     names = list(_build.SOURCES) if names is None else list(names)
     return {n: kernel_resources(_build.build_log(n)) for n in names}
 
 
 # ---------------------------------------------------------------------------
-# Occupancy
+# Occupancy (the model is ``_build.blocks_per_sm``)
 # ---------------------------------------------------------------------------
-
-
-def warp_registers(registers: int) -> int:
-    """Registers a warp is allocated: 32 threads' worth, in units of
-    256."""
-    return -(-registers * 32 // 256) * 256
-
-
-def blocks_per_sm(registers: int, threads: int, smem: int) -> int:
-    """Blocks of ``threads`` threads using ``registers`` a thread and
-    ``smem`` bytes of shared memory (static and dynamic) that one H100
-    SM holds at once: a warp's registers come from one partition of
-    16 K, shared memory is the SM's less 1 KB reserved a block, and an
-    SM holds at most 64 warps and 32 blocks."""
-    warps = -(-threads // 32)
-    by_regs = 4 * (PARTITION_REGISTERS // warp_registers(max(1, registers)))
-    by_regs //= warps
-    by_smem = SM_SMEM_BYTES // (smem + BLOCK_RESERVED_SMEM)
-    return max(0, min(by_regs, by_smem, MAX_SM_WARPS // warps,
-                      MAX_SM_BLOCKS))
-
 
 #: the C entry's kernel codes of :func:`runtime_blocks_per_sm`
 _RING_CODES = {"ring_neighbour_stream": 0, "ring_all_gather": 1,
@@ -268,23 +230,12 @@ def runtime_blocks_per_sm(kernel: str, dtype: str = "float32",
     """The runtime's count of ``kernel``'s blocks an SM holds at once
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, asked of the card
     through ``ring.cu``); needs a card."""
-    import torch
-
-    from smi_tpu_torch.kernels import _build
     from smi_tpu_torch.kernels import ring as kring
 
     codes = {str(t).replace("torch.", ""): c
              for t, c in kring.DTYPE_CODES.items()}
-    fn = _build.library("ring").smi_ring_blocks_per_sm
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
-    out = ctypes.c_int(0)
-    with torch.cuda.device(torch.cuda.current_device()):
-        status = fn(_RING_CODES[kernel], codes[dtype], op,
-                    ctypes.byref(out))
-    _build.check(f"{kernel} occupancy", status)
-    return out.value
+    return _build.runtime_blocks_per_sm("ring", _RING_CODES[kernel],
+                                        codes[dtype], op)
 
 
 # ---------------------------------------------------------------------------
@@ -588,7 +539,6 @@ def _port_cases(topology: str):
     ``afmoe`` attention glue."""
     from smi_tpu_torch.kernels import roll
     from smi_tpu_torch.kernels import stencil_pipeline as kp
-    from smi_tpu_torch.kernels import stencil_temporal as kt
 
     px, py = grid2d(topology_ranks(topology))
     h, w = 8192 // px, 8192 // py
@@ -603,7 +553,7 @@ def _port_cases(topology: str):
             for bf16 in ("0", "1"):
                 out.append({"kernel": "stencil_pipeline", "k": depth,
                             "bf16": bf16,
-                            "threads": kt.window_threads(band, depth),
+                            "threads": kp.window_threads(band, depth),
                             "blocks": None,
                             "dynamic_smem": kp.pipeline_smem_bytes(
                                 stripe, band, depth),
@@ -695,12 +645,10 @@ def _matches(launch: dict, kernel: str, params: dict) -> bool:
 
 
 def check_launch(launch: dict, resources: Dict[str, Dict[str, dict]],
-                 sms: int = H100_SMS, runtime: bool = False) -> dict:
+                 sms: int = _build.SMS, runtime: bool = False) -> dict:
     """``launch`` with the figures of the instances that serve it (the
     largest where several do); raises :class:`LaunchDoesNotFit` naming
     the limit it breaks."""
-    from smi_tpu_torch.kernels import _build
-
     source = _build.source_of(launch["kernel"])
     found = []
     for mangled, figs in resources.get(source, {}).items():
@@ -718,22 +666,25 @@ def check_launch(launch: dict, resources: Dict[str, Dict[str, dict]],
     smem = static + launch["dynamic_smem"]
     threads = launch["threads"]
     warps = -(-threads // 32)
-    per_sm = blocks_per_sm(regs, threads, smem)
+    per_sm = _build.blocks_per_sm(regs, threads, smem)
     out = dict(launch, source=f"{source}.cu",
                instances=sorted(m for m, _ in found), registers=regs,
                static_smem=static, spill_bytes=spill, smem=smem,
-               block_registers=warps * warp_registers(regs),
+               block_registers=warps * _build.warp_registers(regs),
                blocks_per_sm=per_sm)
     problems = []
-    if smem > SMEM_BYTES_LIMIT:
-        problems.append(f"{smem} B of shared memory > {SMEM_BYTES_LIMIT}")
-    if regs > MAX_THREAD_REGISTERS:
-        problems.append(f"{regs} registers a thread > {MAX_THREAD_REGISTERS}")
-    if out["block_registers"] > SM_REGISTERS:
+    if smem > _build.SMEM_BYTES_LIMIT:
+        problems.append(f"{smem} B of shared memory > "
+                        f"{_build.SMEM_BYTES_LIMIT}")
+    if regs > _build.MAX_THREAD_REGISTERS:
+        problems.append(f"{regs} registers a thread > "
+                        f"{_build.MAX_THREAD_REGISTERS}")
+    if out["block_registers"] > _build.SM_REGISTERS:
         problems.append(f"{out['block_registers']} registers a block > "
-                        f"{SM_REGISTERS}")
-    if threads > MAX_BLOCK_THREADS:
-        problems.append(f"{threads} threads a block > {MAX_BLOCK_THREADS}")
+                        f"{_build.SM_REGISTERS}")
+    if threads > _build.MAX_BLOCK_THREADS:
+        problems.append(f"{threads} threads a block > "
+                        f"{_build.MAX_BLOCK_THREADS}")
     if per_sm < 1:
         problems.append("no block of it fits an SM")
     if runtime and launch["kernel"] == "stencil_temporal":
@@ -761,7 +712,7 @@ def check_launch(launch: dict, resources: Dict[str, Dict[str, dict]],
     return out
 
 
-def check_case(launches: List[dict], resources, sms: int = H100_SMS,
+def check_case(launches: List[dict], resources, sms: int = _build.SMS,
                runtime: bool = False) -> dict:
     """One case's report: its checked launches and their totals."""
     checked = [check_launch(l, resources, sms, runtime) for l in launches]
@@ -798,7 +749,7 @@ def check_surface(
     import torch
 
     cases = cases_for(topology) if cases is None else cases
-    sms = H100_SMS
+    sms = _build.SMS
     if torch.cuda.is_available():
         sms = torch.cuda.get_device_properties(
             torch.cuda.current_device()).multi_processor_count

@@ -312,7 +312,7 @@ def test_tile_plan_fits_hopper_shared_memory():
     assert tflash.smem_bytes(256, f32) == 224_256
     for d in tflash.HEAD_DIMS:
         for dt in (f32, bf16):
-            assert tflash.smem_bytes(d, dt) <= tflash.SMEM_BYTES_LIMIT
+            assert tflash.smem_bytes(d, dt) <= _build.SMEM_BYTES_LIMIT
     assert tflash._plan(128, f32) == (128, 64)
     assert tflash._plan(128, bf16) == (128, 128)
     assert tflash._plan(96, f32) is None
@@ -335,7 +335,7 @@ def test_tile_plan_takes_the_kernels_shapes(d, dtype):
     if dtype == torch.bfloat16:
         assert block_q <= 256 and block_k <= 256
         assert tflash.smem_bytes(d, dtype) % 8 == 0   # mbarriers: 8 bytes
-    assert tflash.smem_bytes(d, dtype) <= tflash.SMEM_BYTES_LIMIT
+    assert tflash.smem_bytes(d, dtype) <= _build.SMEM_BYTES_LIMIT
 
 
 def _chip_smoke():

@@ -258,7 +258,7 @@ def test_backward_tile_plan_fits_hopper_shared_memory():
             for kernel in (dq, dkdv):
                 for split in (False, True):
                     assert tflash.bwd_smem_bytes(kernel, d, dt, split) <= \
-                        tflash.SMEM_BYTES_LIMIT
+                        _build.SMEM_BYTES_LIMIT
                 assert tflash._bwd_plan(kernel, d, dt) is not None
     assert tflash._bwd_plan(dq, 128, bf16) == (128, 64)
     assert tflash._bwd_plan(dq, 256, bf16) == (128, 32)

@@ -98,18 +98,16 @@ TEMPORAL_BLOCKS = [
 @pytest.mark.parametrize("depth", [1, 2, 7, 8, 16, 32])
 def test_temporal_kernel_equals_its_plain_version(cuda_comm, depth, block,
                                                   at, grid):
-    """The wavefront kernel, one launch in its depth's form (counted by
-    form), torch.equal to its plain version at every register depth and
-    on the generic loop."""
+    """The wavefront kernel, one launch in its depth's form (within that
+    form's launch bound), torch.equal to its plain version at every
+    register depth and on the generic loop."""
     args = _temporal_case(depth, block, at, grid, seed=depth)
-    form = ktemporal.form(depth)
-    key = (depth, form.groups, form.columns)
-    forms = ktemporal.FORM_LAUNCHES
-    before = _build.LAUNCHES["stencil_temporal"], forms.get(key, 0)
+    _, band = ktemporal._plan(*block, depth)
+    assert ktemporal.threads(band, depth) <= ktemporal.form(depth).max_threads
+    before = _build.LAUNCHES["stencil_temporal"]
     got = st.temporal_sweeps(*args)
     torch.cuda.synchronize()
-    assert (_build.LAUNCHES["stencil_temporal"], forms[key]) == (
-        before[0] + 1, before[1] + 1)
+    assert _build.LAUNCHES["stencil_temporal"] == before + 1
     assert torch.equal(got, st.temporal_sweeps_plain(*args))
 
 

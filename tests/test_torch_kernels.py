@@ -14,12 +14,14 @@ The kernels themselves run only on the card, where ``chip_smoke.py``
 holds each against its plain version.
 """
 
+import contextlib
 import importlib.util
 import math
 import re
 import shutil
 import sys
 import threading
+import types
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -254,7 +256,7 @@ def test_plan_fits_shared_memory():
     assert ktemporal._plan(16, 40, 8) == (16, 40)   # cut to the block
     for k in (1, 8, 16, 32, 50):
         stripe, band = ktemporal._plan(8192, 8192, k)
-        assert ktemporal.window_bytes(band, k) <= ktemporal.SMEM_BYTES_LIMIT
+        assert ktemporal.window_bytes(band, k) <= _build.SMEM_BYTES_LIMIT
     assert ktemporal._plan(8192, 8192, 200) is None
 
 
@@ -332,7 +334,7 @@ def test_the_main_shapes_fill_the_card(shape, depth):
     h, w = shape
     stripe, band = ktemporal._plan(h, w, depth)
     blocks = -(-h // stripe) * -(-w // band)
-    waves = blocks / (ktemporal.SMS * ktemporal.blocks_per_sm(band, depth))
+    waves = blocks / (_build.SMS * ktemporal.blocks_per_sm(band, depth))
     assert waves - math.ceil(waves) + 1 >= 0.85
 
 
@@ -458,11 +460,9 @@ def test_temporal_wrapper_refuses_an_unsupported_depth():
 
 def test_cpu_calls_launch_nothing():
     before = dict(_build.LAUNCHES)
-    forms = dict(ktemporal.FORM_LAUNCHES)
     st.fused_sweep(*_sweep_args())
     st.temporal_sweeps(*_temporal_args())
     assert _build.LAUNCHES == before
-    assert ktemporal.FORM_LAUNCHES == forms
     assert set(before) == {"stencil_sweep", "stencil_temporal",
                            "stencil_pipeline", "flash_fused", "flash_block",
                            "flash_bwd_dq", "flash_bwd_dkdv",
@@ -523,6 +523,50 @@ def test_launch_counts_add_up_across_threads():
         _build.LAUNCHES[name] = before
 
 
+def test_launch_checks_then_counts_on_the_given_stream(monkeypatch):
+    """``_build.launch`` (a fake entry, device and stream patched in): a
+    refused launch raises naming the kernel and counts nothing; an
+    accepted one counts once; the device's current stream is passed
+    unless a stream is named."""
+    name, calls, status = "roll_chain", [], [0]
+    entered = []
+
+    def fake_entry(kernel):
+        assert kernel == name
+        return lambda *args: calls.append(args) or status[0]
+
+    monkeypatch.setattr(_build, "entry", fake_entry)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: (
+        entered.append(d) or contextlib.nullcontext()))
+    stream = types.SimpleNamespace(cuda_stream=7)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: stream)
+    monkeypatch.setitem(_build.LAUNCHES, name, 0)
+    status[0] = 700
+    with pytest.raises(RuntimeError, match=f"{name} .*cudaError 700"):
+        _build.launch(name, "cuda:1", 1, 2)
+    assert _build.LAUNCHES[name] == 0 and calls == [(1, 2, 7)]
+    status[0] = 0
+    _build.launch(name, "cuda:1", 3)
+    assert _build.LAUNCHES[name] == 1 and calls[-1] == (3, 7)
+    _build.launch(name, "cuda:1", 4, stream=99)
+    assert _build.LAUNCHES[name] == 2 and calls[-1] == (4, 99)
+    assert entered == ["cuda:1"] * 3
+
+
+@pytest.mark.parametrize("source", sorted(_build.QUERIES))
+def test_sources_declare_their_occupancy_queries(source):
+    """Each occupancy query is exported by its source with the declared
+    arguments, beside the kernels the source launches."""
+    query = _build.QUERIES[source]
+    assert query.source == source
+    assert source in _build.SOURCES
+    text = (_build.CSRC / f"{source}.cu").read_text()
+    match = re.search(r'extern "C" int ' + query.symbol + r"\(([^)]*)\)",
+                      text)
+    assert match, f"{query.symbol} not exported by {source}.cu"
+    assert len(match.group(1).split(",")) == len(query.argtypes)
+
+
 def test_missing_nvcc_raises_and_never_falls_back(monkeypatch, tmp_path):
     monkeypatch.setattr(_build.shutil, "which", lambda _name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -571,7 +615,7 @@ NO_TPU_KERNEL = {"attn_glue"}
 @pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
 def test_sources_declare_the_bound_entry_points(name):
     source = (_build.CSRC / f"{_build.source_of(name)}.cu").read_text()
-    symbol, argtypes = _build.SIGNATURES[name]
+    _, symbol, argtypes = _build.SIGNATURES[name]
     match = re.search(r'extern "C" int ' + symbol + r"\(([^)]*)\)", source)
     assert match, f"{symbol} not exported by {_build.source_of(name)}.cu"
     assert len(match.group(1).split(",")) == len(argtypes)

@@ -30,7 +30,6 @@ from smi_tpu.kernels import stencil_pipeline as jpipe
 from smi_tpu.models import stencil
 from smi_tpu_torch.kernels import _build
 from smi_tpu_torch.kernels import stencil_pipeline as kpipe
-from smi_tpu_torch.kernels import stencil_temporal as ktemporal
 
 # spawned children import the worker by module name through this path
 sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -187,13 +186,13 @@ def test_supported_shapes(h, w, depth, stripe, compute_dtype, buffering):
     assert h % t == 0 and t % 8 == 0 and t <= kpipe.TMA_BOX_MAX
     # the C entry's rules: the window within the launch bound, equal
     # store boxes of whole 16-byte rows, each 128-byte aligned
-    assert ktemporal.window_threads(band, depth) <= kpipe.MAX_THREADS
+    assert kpipe.window_threads(band, depth) <= kpipe.MAX_THREADS
     boxes = -(-band // kpipe.TMA_BOX_MAX)
     assert band % boxes == 0 and band // boxes % 4 == 0
     assert t * (band // boxes) % 32 == 0
     assert kpipe.MIN_BAND <= band <= max(w, kpipe.MIN_BAND)
     assert (kpipe.pipeline_smem_bytes(t, band, depth, buffering)
-            <= kpipe.SMEM_BYTES_LIMIT)
+            <= _build.SMEM_BYTES_LIMIT)
 
 
 @pytest.mark.parametrize("depth,band", [(8, 488), (16, 456), (32, 432)])
@@ -203,9 +202,9 @@ def test_the_pipeline_keeps_one_level_group(depth, band):
     its 8192^2 plan, block and shared memory are unchanged."""
     assert kpipe._plan(8192, 8192, depth) == (8, band)
     assert kpipe._plan(8192, 8192, depth, 1) == (8, band)
-    threads = ktemporal.window_threads(band, depth)
+    threads = kpipe.window_threads(band, depth)
     assert threads == -(-(band + 2 * depth)
-                        // (32 * ktemporal.columns(depth))) * 32
+                        // (32 * kpipe.columns(depth))) * 32
     assert threads <= kpipe.MAX_THREADS == 256
     assert kpipe.pipeline_smem_bytes(8, band, depth) == {
         8: 86528, 16: 85248, 32: 87296}[depth]
@@ -241,7 +240,7 @@ PIPE_SWEPT = {8: (1.07, 1.2), 16: (1.13, 1.41), 32: (1.19, 1.79)}
 def test_the_pipeline_plan_sweeps_a_small_apron(depth):
     n = 8192
     _, band = kpipe._plan(n, n, depth)
-    width = ktemporal.window_threads(band, depth) * ktemporal.columns(depth)
+    width = kpipe.window_threads(band, depth) * kpipe.columns(depth)
     columns, area = PIPE_SWEPT[depth]
     assert -(-n // band) * width / n <= columns
     assert kpipe._area_ratio(n, n, depth, band) <= area
@@ -255,7 +254,7 @@ def test_the_pipeline_fills_the_card(shape, depth):
     h, w = shape
     stripe, band = kpipe._plan(h, w, depth)
     runs = min(h // stripe, -(-h // kpipe.RUN_ROWS))
-    assert -(-w // band) * runs >= ktemporal.SMS
+    assert -(-w // band) * runs >= _build.SMS
 
 
 def test_the_pipeline_takes_every_shape_its_first_form_took():
