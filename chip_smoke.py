@@ -428,13 +428,33 @@ Then the afmoe training step's attention glue:
    gradients within 1e-3 (relative, by norm), each backward twice bit for
    bit, and a control (the plain version with the norm weights swapped,
    or the gate negated) that must land outside the bar; the launch counts
-   of the four kernels set to 0 before one step of a 32-layer afmoe model
-   (``GLUE_STEP_MODEL``: Trinity-Mini's layer pattern at a small width,
-   heads of 64) and read after it (64, 64, 32, 32); each kernel's time
-   (CUDA events, 50 calls back to back; a backward called on this
-   thread, held equal to autograd's) beside its byte bound (each operand
-   read once and each result written once over the memory rate) and its
-   plain version's (``plain_ms`` and ``library_ms``).
+   of the four kernels and of phase 40's two set to 0 before one step of
+   a 32-layer afmoe model (``GLUE_STEP_MODEL``: Trinity-Mini's layer
+   pattern, two dense layers and 30 expert layers, at a small width,
+   heads of 64) and read after it (64, 64, 32, 32; 193, 97); each
+   kernel's time (CUDA events, 50 calls back to back; a backward called
+   on this thread, held equal to autograd's) beside its byte bound (each
+   operand read once and each result written once over the memory rate)
+   and its plain version's (``plain_ms`` and ``library_ms``).
+
+Then the afmoe block's residual junctions:
+
+40. the fused kernels (``smi_tpu_torch/kernels/csrc/residual_norm.cu``)
+   at ``trinity-train-2x8k``'s shape (``JUNCTION_CELL``: 2 x 8192 tokens
+   of 2048), each form through its wrapper (the entry, the middle with
+   its yn in bf16 and in f32, the exit) against its plain version: each
+   bf16 output within one bf16 step (or 1e-5 where ``h`` cancels), each
+   f32 one within 1e-6 (relative, by norm); ``d x`` within 1e-5, ``d
+   out`` within 2^-8 (bf16) or 1e-5 (f32), the norm weights' gradients
+   within 1e-3; each backward twice bit for bit; and a control (the plain
+   version with the norm weights swapped, or the one weight reversed)
+   whose every normed output and some gradient must land outside the
+   bar. Phase 39's step gives the launches. Then each form's time each
+   way (CUDA events, 50 launches back to back after 5, the backward with
+   its weight-gradient sum) beside its byte bound and its plain
+   version's (forward; autograd's backward), and the junctions' time in
+   one step of the cell (each form times its launches in a step of
+   Trinity-Mini's layer pattern) against their bound.
 
 Bars: f32 out/acc/gradients within 2e-5 (``rtol = atol``); m and l within
 1e-5 in either dtype (both sides add exact products in f32); bf16
@@ -830,7 +850,9 @@ def main(argv=None) -> int:
             if record["replaces"] == RING_REPLACES[kernel]:
                 record["launches"] += surface_launches[kernel]
         record["launches"] += later.pop(record["replaces"], 0)
-    records += glue_phase(dev)
+    glue_records, step_launches = glue_phase(dev)
+    records += glue_records
+    records += junction_phase(dev, step_launches)
     log(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -5774,10 +5796,11 @@ GLUE_CELL = dict(b=2, s=8192, h=32, kv=4, d=128)
 GLUE_EPS = 1e-5
 GLUE_THETA = 10000.0
 #: phase 39: the step whose launches are read, Trinity-Mini's layer
-#: pattern (three windowed layers, then a full one) at a small width,
-#: every layer dense: heads of 64, GQA 4:1, 2 x 256 tokens
+#: pattern (three windowed layers, then a full one; two dense layers,
+#: then expert layers) at a small width: heads of 64, GQA 4:1, 2 x 256
+#: tokens
 GLUE_STEP_MODEL = {
-    "num_hidden_layers": 32, "num_dense_layers": 32, "hidden_size": 256,
+    "num_hidden_layers": 32, "num_dense_layers": 2, "hidden_size": 256,
     "num_attention_heads": 4, "num_key_value_heads": 1, "head_dim": 64,
     "layer_types": (["sliding_attention"] * 3 + ["full_attention"]) * 8,
     "sliding_window": 64, "intermediate_size": 384,
@@ -5788,16 +5811,20 @@ GLUE_STEP_MODEL = {
     "tie_word_embeddings": False,
 }
 #: phase 39: a 32-layer step's launches: each forward kernel in the
-#: forward and in its recompute, each backward kernel once a layer
+#: forward and in its recompute, each backward kernel once a layer; the
+#: residual junctions three a layer, and the head's final norm once
 GLUE_STEP_LAUNCHES = {"attn_prologue": 64, "attn_epilogue": 64,
-                      "attn_prologue_bwd": 32, "attn_epilogue_bwd": 32}
+                      "attn_prologue_bwd": 32, "attn_epilogue_bwd": 32,
+                      "residual_norm": 3 * 32 * 2 + 1,
+                      "residual_norm_bwd": 3 * 32 + 1}
 
 
 def glue_phase(dev):
     """Phase 39: the afmoe attention glue kernels against their plain
     versions at ``GLUE_CELL``, their launches in one step of
-    ``GLUE_STEP_MODEL`` and their times beside their byte bounds. Returns
-    their records for the kernels line."""
+    ``GLUE_STEP_MODEL`` (with the residual junctions') and their times
+    beside their byte bounds. Returns their records for the kernels line
+    and the step's launches."""
     import torch
 
     import smi_tpu_torch as st
@@ -5999,6 +6026,211 @@ def glue_phase(dev):
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": "bytes",
             "library_ms": plain_ms, "earlier_ms": None,
         })
+    return records, launches
+
+
+JUNCTION_SRC = "smi_tpu_torch/kernels/csrc/residual_norm.cu"
+#: phase 40: trinity-train-2x8k's residual stream, 2 x 8192 tokens of 2048
+JUNCTION_CELL = dict(t=2 * 8192, e=2048)
+
+
+def junction_phase(dev, step_launches):
+    """Phase 40: the afmoe residual junction kernels against their plain
+    versions at ``JUNCTION_CELL``, each form each way, and their times
+    beside their byte bounds; ``step_launches``: the launches of phase
+    39's step. Returns their records for the kernels line."""
+    import torch
+
+    from smi_tpu_torch.kernels import _build
+    from smi_tpu_torch.kernels import residual_norm as rn
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    t, e = JUNCTION_CELL["t"], JUNCTION_CELL["e"]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(dtype, scale=1.0, shift=0.0):
+        return (torch.randn(t, e, generator=gen, device=dev) * scale
+                + shift).to(dtype)
+
+    def rel(got, want):
+        return float((got.double() - want.double()).norm()
+                     / want.double().norm())
+
+    def apart(got, want):
+        """Whether ``got`` is off ``want`` by the outputs' bar: for bf16
+        more than one bf16 step and 1e-5, for f32 1e-6 by norm; the
+        largest abs error and the share of elements off."""
+        err = (got.float() - want.float()).abs()
+        if got.dtype != bf16:
+            return rel(got, want) > 1e-6, float(err.max()), 0.0
+
+        def ordered(v):
+            i = v.contiguous().view(torch.int16).int()
+            return torch.where(i < 0, -(i & 0x7FFF), i)
+
+        ulps = (ordered(got) - ordered(want)).abs()
+        off = bool(((ulps > 1) & (err > 1e-5)).any())
+        return off, float(err.max()), float((ulps > 0).double().mean())
+
+    def call(fused, form, ins, dtype):
+        a, o, p0, p1 = ins
+        if form == rn.ENTRY:
+            fn = rn.entry_norm if fused else rn.entry_norm_plain
+            return fn(a, p0, GLUE_EPS, dtype)
+        if form == rn.MIDDLE:
+            fn = rn.middle_norm if fused else rn.middle_norm_plain
+            return fn(a, o, p0, p1, GLUE_EPS, dtype)
+        fn = rn.exit_norm if fused else rn.exit_norm_plain
+        return (fn(a, o, p0, GLUE_EPS),)
+
+    log(f"[40 afmoe residual junctions vs plain] T={t} E={e}: entry, "
+        f"middle (yn bf16, f32), exit, each way")
+    _build.build_kernels(["residual_norm"])
+    x, h = randn(f32, 2.0), randn(f32, 2.0)
+    out_bf16, out_f32 = randn(bf16, 0.3, 0.1), randn(f32, 0.3, 0.1)
+    w0 = torch.rand(e, generator=gen, device=dev) + 0.5
+    w1 = torch.rand(e, generator=gen, device=dev) + 0.5
+    #: (name, form, stream, sublayer output, yn dtype, bytes each way):
+    #: each operand read once, each result written once (the rows' 1/rms
+    #: and the weights' partial sums left out: < 1 %)
+    n = t * e
+    forms = (("entry", rn.ENTRY, x, None, bf16, 6 * n, 14 * n),
+             ("middle yn bf16", rn.MIDDLE, x, out_bf16, bf16, 12 * n,
+              18 * n),
+             ("middle yn f32", rn.MIDDLE, x, out_bf16, f32, 14 * n, 20 * n),
+             ("exit", rn.EXIT, h, out_f32, f32, 12 * n, 12 * n))
+    errs, times = {}, {}
+    for name, form, stream, out, dtype, _, _ in forms:
+        weights = (w0, w1 if form == rn.MIDDLE else None)
+        # the control: the weights swapped, or the one weight reversed
+        wrong = ((w1, w0) if form == rn.MIDDLE else (w0.flip(0), None))
+        got_in, want_in = ([None if v is None else
+                            v.detach().clone().requires_grad_()
+                            for v in (stream, out, *weights)]
+                           for _ in "ab")
+        got = call(True, form, got_in, dtype)
+        want = call(False, form, want_in, dtype)
+        control = call(False, form, (stream, out, *wrong), dtype)
+        worst = 0.0
+        # the entry's first output is x passed on, which nothing norms
+        normed = range(1 if form == rn.ENTRY else 0, len(got))
+        for i, (g, w) in enumerate(zip(got, want)):
+            off, err, share = apart(g.detach(), w.detach())
+            if off:
+                raise AssertionError(f"{name} output {i}: off the plain "
+                                     f"version (max abs {err:.3e})")
+            if i in normed and not apart(control[i].detach(),
+                                         w.detach())[0]:
+                raise AssertionError(f"{name} output {i}: the control "
+                                     f"passes the bar")
+            worst = max(worst, err)
+            log(f"  {name} output {i} ({g.dtype}): max abs {err:.3e}, "
+                f"{100 * share:.4f} % of elements a bf16 step apart")
+        errs[(rn.KERNEL, name)] = worst
+        gen_cot = torch.Generator(device=dev).manual_seed(SEED + form)
+        cot = [torch.randn(o.shape, generator=gen_cot, device=dev).to(
+            o.dtype) for o in want]
+        leaves = [v for v in got_in if v is not None]
+        grads = torch.autograd.grad(got, leaves, cot, retain_graph=True)
+        again = torch.autograd.grad(got, leaves, cot, retain_graph=True)
+        wants = torch.autograd.grad(
+            want, [v for v in want_in if v is not None], cot,
+            retain_graph=True)
+        bad_in = [None if v is None else v.detach().clone().requires_grad_()
+                  for v in (stream, out, *wrong)]
+        controls = torch.autograd.grad(
+            call(False, form, bad_in, dtype),
+            [v for v in bad_in if v is not None], cot)
+        names = [k for k, v in zip(("d x", "d out", "d w0", "d w1"), got_in)
+                 if v is not None]
+        caught, worst = False, 0.0
+        for k, g, g2, w, c in zip(names, grads, again, wants, controls):
+            if not torch.equal(g, g2):
+                raise AssertionError(f"{name} {k}: two backward runs "
+                                     f"differ")
+            bar = {"d out": 2.0 ** -8 if g.dtype == bf16 else 1e-5,
+                   "d x": 1e-5}.get(k, 1e-3)
+            r = rel(g, w)
+            if r > bar:
+                raise AssertionError(f"{name} {k}: relative error {r} "
+                                     f"above {bar}")
+            caught |= rel(c, w) > bar
+            worst = max(worst, float((g.float() - w.float()).abs().max()))
+            log(f"  {name} {k}: relative error {r:.3e} (bar {bar:g}; "
+                f"control {rel(c, w):.3e}), twice bit for bit")
+        if not caught:
+            raise AssertionError(f"{name}: every gradient of the control "
+                                 f"passes its bar")
+        errs[(rn.KERNEL_BWD, name)] = worst
+        with torch.no_grad():
+            plain_fwd = timed(lambda: call(False, form, want_in, dtype))
+        plain_bwd = timed(lambda: torch.autograd.grad(
+            want, [v for v in want_in if v is not None], cot,
+            retain_graph=True))
+        times[name] = (plain_fwd, plain_bwd)
+        del got, want, control, grads, again, wants, controls, cot
+
+    # each kernel alone: its launches back to back, as the wrappers make
+    # them (the backward with its weight-gradient sum)
+    rstd = torch.empty(2, t, device=dev)
+    blocks = rn.launch_blocks(rn.KERNEL_BWD, t)
+    partial = torch.empty(blocks, 2, e, device=dev)
+    dw = torch.empty(2, e, device=dev)
+    dres, dx = randn(f32), torch.empty(t, e, device=dev)
+    records = []
+    for name, form, stream, out, dtype, fwd_bytes, bwd_bytes in forms:
+        yn_bf16 = int(dtype == bf16)
+        w1_ = w1 if form == rn.MIDDLE else None
+        y0 = torch.empty(t, e, device=dev,
+                         dtype=bf16 if form == rn.ENTRY else f32)
+        y1 = (torch.empty(t, e, device=dev, dtype=dtype)
+              if form == rn.MIDDLE else None)
+        dy = None if form == rn.EXIT else randn(dtype)
+        dout = None if form == rn.ENTRY else torch.empty_like(out)
+
+        def fwd():
+            _build.launch(rn.KERNEL, dev, stream, out, w0, w1_, y0, y1,
+                          rstd, form, yn_bf16, t, e, GLUE_EPS)
+
+        def bwd():
+            _build.launch(rn.KERNEL_BWD, dev,
+                          None if form == rn.EXIT else stream, out, w0, w1_,
+                          rstd, dres, dy, None if form == rn.EXIT else dx,
+                          dout, partial, dw, form, yn_bf16, t, e, blocks)
+
+        for kernel, fn, nbytes, plain_ms in (
+                (rn.KERNEL, fwd, fwd_bytes, times[name][0]),
+                (rn.KERNEL_BWD, bwd, bwd_bytes, times[name][1])):
+            ms = time_ms(fn, 50)
+            b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            label = (f"{kernel} {name} T={t} E={e} [32-layer afmoe step]")
+            log(f"  {label}: {ms:.4f} ms, bound {b_ms:.4f} ms "
+                f"({nbytes / 1e6:.1f} MB; {100 * b_ms / ms:.1f} %), plain "
+                f"{plain_ms:.4f} ms")
+            records.append({
+                "name": label, "route": "cuda", "source": JUNCTION_SRC,
+                "replaces": None, "launches": step_launches[kernel],
+                "max_abs_err": errs[(kernel, name)], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": "bytes",
+                "library_ms": None, "earlier_ms": None,
+            })
+    # a step of the cell: each form's launches in Trinity-Mini's pattern
+    layers = GLUE_STEP_MODEL["num_hidden_layers"]
+    dense = GLUE_STEP_MODEL["num_dense_layers"]
+    each = {"entry": (2 * layers + 1, layers + 1),
+            "middle yn bf16": (2 * dense, dense),
+            "middle yn f32": (2 * (layers - dense), layers - dense),
+            "exit": (2 * layers, layers)}
+    step_ms = step_bound = 0.0
+    for i, (name, *_rest) in enumerate(forms):
+        for way in (0, 1):
+            record = records[2 * i + way]
+            step_ms += each[name][way] * record["ms"]
+            step_bound += each[name][way] * record["bound_ms"]
+    log(f"  the junctions in one step of the cell ({layers} layers, "
+        f"{dense} dense): {step_ms:.2f} ms against a bound of "
+        f"{step_bound:.2f} ms; launches {sum(w for w, _ in each.values())} "
+        f"and {sum(b for _, b in each.values())}")
     return records
 
 

@@ -11,7 +11,8 @@ exports the fused and the carried flash forward); each kernel has its
 own launch count (``flash_bwd.cu`` exports the two backward kernels,
 ``ring.cu`` the five ring kernels, ``roll_chain.cu`` the surface's
 roll-chain probe, ``attn_glue.cu`` the afmoe attention glue's two
-forward and two backward kernels).
+forward and two backward kernels, ``residual_norm.cu`` the afmoe
+residual junction's forward and backward).
 
 Nothing here runs on import: the first :func:`library` call builds. A
 missing ``nvcc`` raises; there is no fallback to the plain versions.
@@ -281,9 +282,9 @@ SIGNATURES = {
     ),
     "attn_prologue_bwd": Entry(
         "attn_glue", "smi_attn_prologue_bwd",
-        # qkv, q_w, k_w, cos, sin, dq, dk, dv, dqkv, partial, dq_w, dk_w,
-        # batch, seq, heads, kv_heads, head_dim, blocks, eps, stream
-        [_P] * 12 + [_I] * 6 + [_F] + [_P],
+        # qkv, q_w, k_w, cos, sin, dq, dk, dv, dqkv, partial, dw, batch,
+        # seq, heads, kv_heads, head_dim, blocks, eps, stream
+        [_P] * 11 + [_I] * 6 + [_F] + [_P],
     ),
     "attn_epilogue": Entry(
         "attn_glue", "smi_attn_epilogue",
@@ -295,6 +296,18 @@ SIGNATURES = {
         # attn, gate, dout, dattn, dgate, batch, seq, heads, head_dim,
         # stream
         [_P] * 5 + [_I] * 4 + [_P],
+    ),
+    "residual_norm": Entry(
+        "residual_norm", "smi_residual_norm",
+        # x, out, w0, w1, y0, y1, rstd, form, yn_bf16, rows, width, eps,
+        # stream
+        [_P] * 7 + [_I] * 4 + [_F] + [_P],
+    ),
+    "residual_norm_bwd": Entry(
+        "residual_norm", "smi_residual_norm_bwd",
+        # x, out, w0, w1, rstd, dres, dy, dx, dout, partial, dw, form,
+        # yn_bf16, rows, width, blocks, stream
+        [_P] * 11 + [_I] * 5 + [_P],
     ),
 }
 
@@ -353,14 +366,52 @@ def check(name: str, status: int) -> None:
 
 def launch(kernel: str, device, *args, stream: Optional[int] = None) -> None:
     """One launch of ``kernel`` on ``device``: its entry point on
-    ``args`` and ``stream`` (a ``cudaStream_t``; the device's current
-    stream when None), then :func:`check`, then :func:`count_launch`."""
+    ``args`` (a tensor passes its data pointer) and ``stream`` (a
+    ``cudaStream_t``; the device's current stream when None), then
+    :func:`check`, then :func:`count_launch`."""
+    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+            for a in args]
     with torch.cuda.device(device):
         if stream is None:
             stream = torch.cuda.current_stream().cuda_stream
         status = entry(kernel)(*args, stream)
     check(kernel, status)
     count_launch(kernel)
+
+
+def check_operand(what: str, name: str, t, dtype, shape) -> None:
+    """Raise unless ``t`` is a ``dtype`` tensor of ``shape``, contiguous
+    and, on a card, 16-byte aligned: what a kernel reading it in 16-byte
+    vectors takes."""
+    if t.dtype != dtype:
+        raise TypeError(f"{what}: {name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what}: {name} must have shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: {name} must be contiguous")
+    if t.device.type == "cuda" and t.data_ptr() % 16:
+        raise ValueError(f"{what}: {name} must be 16-byte aligned")
+
+
+def check_device(what: str, device, has_instance: bool, wanted: str) -> None:
+    """Raise unless ``device`` is the CPU (where the plain versions run)
+    or a card on which the kernel has an instance for the operands
+    (``has_instance``; ``wanted`` names what was asked for)."""
+    if device.type == "cuda" and not has_instance:
+        raise ValueError(f"{what}: no kernel for {wanted}")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{what}: no kernel for {device}")
+
+
+def fixed_grid(units: int, blocks_per_sm: int) -> int:
+    """Blocks of a backward that sums its norm weights' gradients without
+    atomics (``csrc/row_glue.cuh``): ``blocks_per_sm`` on each of the
+    :data:`SMS` SMs, or one a unit of work where there are fewer. The
+    blocks stride over the units, so which rows each block sums, and the
+    order of every sum, are fixed by the row count: a step repeats bit
+    for bit."""
+    return min(units, blocks_per_sm * SMS)
 
 
 def runtime_blocks_per_sm(source: str, *args) -> int:

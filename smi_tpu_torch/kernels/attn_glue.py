@@ -45,18 +45,19 @@ HEAD_DIMS = (64, 128, 256)
 #: rows (one token's head) a block: 8 warps of 256 threads
 BLOCK_ROWS = 8
 
-#: blocks of the prologue's backward: 8 of 256 threads on each of the
-#: H100's 132 SMs, a fixed count, so the norm weights' gradients sum the
-#: same rows in the same order on every run
-BWD_BLOCKS = 1056
+#: blocks of 256 threads an SM in the prologue's backward
+BWD_BLOCKS_PER_SM = 8
 
 
 def launch_blocks(kernel: str, rows: int) -> int:
     """Blocks of one launch over ``rows`` (token, head) rows: a warp a
-    row, except the prologue's backward, a fixed grid (at most
-    :data:`BWD_BLOCKS`) whose warps stride over the rows."""
+    row, except the prologue's backward, a fixed grid
+    (:func:`~smi_tpu_torch.kernels._build.fixed_grid`) whose warps stride
+    over the rows."""
     blocks = -(-rows // BLOCK_ROWS)
-    return min(blocks, BWD_BLOCKS) if kernel == KERNEL_PROLOGUE_BWD else blocks
+    if kernel == KERNEL_PROLOGUE_BWD:
+        return _build.fixed_grid(blocks, BWD_BLOCKS_PER_SM)
+    return blocks
 
 
 def _rotate(t, cos, sin):
@@ -104,30 +105,9 @@ def attn_epilogue_plain(attn, gate, batch: int, heads: int):
             * torch.sigmoid(gate.float())).to(torch.bfloat16)
 
 
-def _check(what: str, name: str, t, dtype, shape) -> None:
-    if t.dtype != dtype:
-        raise TypeError(f"{what}: {name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{what}: {name} must have shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{what}: {name} must be contiguous")
-    if t.device.type == "cuda" and t.data_ptr() % 16:
-        raise ValueError(f"{what}: {name} must be 16-byte aligned")
-
-
 def _head_dim(what: str, d: int, device) -> None:
-    if device.type == "cuda" and d not in HEAD_DIMS:
-        raise ValueError(f"{what}: no kernel for head dim {d} (head dims "
-                         f"{HEAD_DIMS})")
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"{what}: no kernel for {device}")
-
-
-def _launch(kernel: str, device, pointers, ints, *floats) -> None:
-    _build.launch(kernel, device,
-                  *(None if t is None else t.data_ptr() for t in pointers),
-                  *ints, *floats)
+    _build.check_device(what, device, d in HEAD_DIMS,
+                        f"head dim {d} (head dims {HEAD_DIMS})")
 
 
 class _Prologue(torch.autograd.Function):
@@ -146,9 +126,9 @@ class _Prologue(torch.autograd.Function):
         k = torch.empty((batch * kv_heads, s, d), dtype=qkv.dtype,
                         device=qkv.device)
         v = torch.empty_like(k)
-        _launch(KERNEL_PROLOGUE, qkv.device,
-                (qkv, q_norm, k_norm, cos, sin, q, k, v),
-                (batch, s, heads, kv_heads, d), float(eps))
+        _build.launch(KERNEL_PROLOGUE, qkv.device,
+                      qkv, q_norm, k_norm, cos, sin, q, k, v,
+                      batch, s, heads, kv_heads, d, float(eps))
         return q, k, v
 
     @staticmethod
@@ -170,19 +150,19 @@ class _Prologue(torch.autograd.Function):
         for name, t, h in (("dq", grads_in[0], heads),
                            ("dk", grads_in[1], kv_heads),
                            ("dv", grads_in[2], kv_heads)):
-            _check("attn_prologue backward", name, t, qkv.dtype,
-                   (batch * h, s, d))
+            _build.check_operand("attn_prologue backward", name, t,
+                                 qkv.dtype, (batch * h, s, d))
         rows = qkv.shape[0] * (heads + 2 * kv_heads)
         blocks = launch_blocks(KERNEL_PROLOGUE_BWD, rows)
         dqkv = torch.empty_like(qkv)
         partial = torch.empty((blocks, 2, d), dtype=torch.float32,
                               device=qkv.device)
-        dq_norm, dk_norm = torch.empty_like(q_norm), torch.empty_like(k_norm)
-        _launch(KERNEL_PROLOGUE_BWD, qkv.device,
-                (qkv, q_norm, k_norm, cos, sin, *grads_in, dqkv, partial,
-                 dq_norm, dk_norm),
-                (batch, s, heads, kv_heads, d, blocks), float(eps))
-        return dqkv, dq_norm, dk_norm, None, None, None, None, None, None
+        dw = torch.empty((2, d), dtype=torch.float32, device=qkv.device)
+        _build.launch(KERNEL_PROLOGUE_BWD, qkv.device,
+                      qkv, q_norm, k_norm, cos, sin, *grads_in, dqkv,
+                      partial, dw,
+                      batch, s, heads, kv_heads, d, blocks, float(eps))
+        return dqkv, dw[0], dw[1], None, None, None, None, None, None
 
 
 def attn_prologue(qkv, q_norm, k_norm, batch: int, heads: int,
@@ -203,14 +183,15 @@ def attn_prologue(qkv, q_norm, k_norm, batch: int, heads: int,
         raise ValueError(f"{what}: qkv {tuple(qkv.shape)} is not ({batch} * "
                          f"S, ({heads} + 2 * {kv_heads}) * {d})")
     _head_dim(what, d, qkv.device)
-    _check(what, "qkv", qkv, torch.bfloat16, (rows, cols))
+    _build.check_operand(what, "qkv", qkv, torch.bfloat16, (rows, cols))
     q_norm, k_norm = q_norm.contiguous(), k_norm.contiguous()
     for name, t in (("q_norm", q_norm), ("k_norm", k_norm)):
-        _check(what, name, t, torch.float32, (d,))
+        _build.check_operand(what, name, t, torch.float32, (d,))
     cos, sin = (None, None) if rope is None else rope
     if rope is not None:
         for name, t in (("cos", cos), ("sin", sin)):
-            _check(what, name, t, torch.float32, (rows // batch, d))
+            _build.check_operand(what, name, t, torch.float32,
+                                 (rows // batch, d))
     return _Prologue.apply(qkv, q_norm, k_norm, cos, sin, batch, heads,
                            kv_heads, eps)
 
@@ -224,11 +205,11 @@ class _Epilogue(torch.autograd.Function):
         if gate.device.type == "cpu":
             return attn_epilogue_plain(attn, gate, batch, heads)
         s, _, d = attn.shape
-        _check("attn_epilogue", "attn", heads_major, gate.dtype,
-               (batch * heads, s, d))
+        _build.check_operand("attn_epilogue", "attn", heads_major,
+                             gate.dtype, (batch * heads, s, d))
         out = torch.empty_like(gate)
-        _launch(KERNEL_EPILOGUE, gate.device, (heads_major, gate, out),
-                (batch, s, heads, d))
+        _build.launch(KERNEL_EPILOGUE, gate.device, heads_major, gate, out,
+                      batch, s, heads, d)
         return out
 
     @staticmethod
@@ -245,14 +226,14 @@ class _Epilogue(torch.autograd.Function):
                 dattn, dgate = torch.autograd.grad(out, leaves, dout)
             return dattn.transpose(0, 1), dgate, None, None
         dout = dout.contiguous()
-        _check("attn_epilogue backward", "dout", dout, gate.dtype,
-               gate.shape)
+        _build.check_operand("attn_epilogue backward", "dout", dout,
+                             gate.dtype, gate.shape)
         _, s, d = heads_major.shape
         dattn = torch.empty_like(heads_major)
         dgate = torch.empty_like(gate)
-        _launch(KERNEL_EPILOGUE_BWD, gate.device,
-                (heads_major, gate, dout, dattn, dgate),
-                (batch, s, heads, d))
+        _build.launch(KERNEL_EPILOGUE_BWD, gate.device,
+                      heads_major, gate, dout, dattn, dgate,
+                      batch, s, heads, d)
         return dattn.transpose(0, 1), dgate, None, None
 
 
@@ -271,5 +252,6 @@ def attn_epilogue(attn, gate, batch: int, heads: int):
     if attn.dtype != torch.bfloat16 or attn.device != gate.device:
         raise TypeError(f"{what}: attn must be bfloat16 on {gate.device}, "
                         f"got {attn.dtype} on {attn.device}")
-    _check(what, "gate", gate, torch.bfloat16, (batch * s, heads * d))
+    _build.check_operand(what, "gate", gate, torch.bfloat16,
+                         (batch * s, heads * d))
     return _Epilogue.apply(attn, gate, batch, heads)

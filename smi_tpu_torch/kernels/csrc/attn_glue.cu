@@ -39,18 +39,15 @@
 //
 // No atomics: the weight gradients of the QK norms are summed per warp
 // over a fixed set of rows, the warps of a block in order into one
-// partial a block, and the partials in order by a second kernel, so a
-// step repeats bit for bit.
+// partial a block, and the partials in order by row_glue.cuh's
+// weight_grad_kernel, so a step repeats bit for bit.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "row_glue.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
-constexpr unsigned kFull = 0xffffffffu;
 
 // E bf16 values a lane, in one load
 template <int E> struct Bits;
@@ -64,15 +61,7 @@ __device__ __forceinline__ void load_row(const uint16_t* p, float (&x)[E]) {
       *reinterpret_cast<const typename Bits<E>::T*>(p);
   const uint32_t* w = reinterpret_cast<const uint32_t*>(&raw);
 #pragma unroll
-  for (int i = 0; i < E / 2; ++i) {
-    // widening bf16 is exact: its bits are the high half of the f32
-    x[2 * i] = __uint_as_float(w[i] << 16);
-    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
-__device__ __forceinline__ uint32_t bf16_bits(float f) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(f));
+  for (int i = 0; i < E / 2; ++i) widen_bf16x2(w[i], x + 2 * i);
 }
 
 template <int E>
@@ -80,18 +69,8 @@ __device__ __forceinline__ void store_row(uint16_t* p, const float (&x)[E]) {
   typename Bits<E>::T raw;
   uint32_t* w = reinterpret_cast<uint32_t*>(&raw);
 #pragma unroll
-  for (int i = 0; i < E / 2; ++i) {
-    w[i] = bf16_bits(x[2 * i]) | (bf16_bits(x[2 * i + 1]) << 16);
-  }
+  for (int i = 0; i < E / 2; ++i) w[i] = pack_bf16x2(x[2 * i], x[2 * i + 1]);
   *reinterpret_cast<typename Bits<E>::T*>(p) = raw;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    v += __shfl_xor_sync(kFull, v, off);
-  }
-  return v;
 }
 
 // rsqrt(mean(x^2) + eps) of the warp's row
@@ -266,33 +245,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// d q_norm and d k_norm: the blocks' partials summed in order; a block a
-// 32 columns of the (2, D) result
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    norm_grad_kernel(const float* __restrict__ partial, int blocks,
-                     float* __restrict__ dq_w, float* __restrict__ dk_w) {
-  __shared__ float part[kWarps][32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int col = blockIdx.x * 32 + lane;
-  float t = 0.0f;
-  for (int i = warp; i < blocks; i += kWarps) {
-    t += partial[static_cast<long long>(i) * 2 * D + col];
-  }
-  part[warp][lane] = t;
-  __syncthreads();
-  if (warp != 0) return;
-  float total = 0.0f;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) total += part[w][lane];
-  if (col < D) {
-    dq_w[col] = total;
-  } else {
-    dk_w[col - D] = total;
-  }
-}
-
 struct Epilogue {
   const uint16_t* attn;  // (B*H, S, D) bf16, the flash output
   const uint16_t* gate;  // (B*S, H*D) bf16, the gate product
@@ -389,9 +341,8 @@ extern "C" int smi_attn_prologue(const void* qkv, const float* q_w,
 extern "C" int smi_attn_prologue_bwd(
     const void* qkv, const float* q_w, const float* k_w, const float* cos,
     const float* sin, const void* dq, const void* dk, const void* dv,
-    void* dqkv, float* partial, float* dq_w, float* dk_w, int batch, int seq,
-    int heads, int kv_heads, int head_dim, int blocks, float eps,
-    void* stream) {
+    void* dqkv, float* partial, float* dw, int batch, int seq, int heads,
+    int kv_heads, int head_dim, int blocks, float eps, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const PrologueBwd p{static_cast<const uint16_t*>(qkv),
                       q_w, k_w, cos, sin,
@@ -403,9 +354,8 @@ extern "C" int smi_attn_prologue_bwd(
   SMI_GLUE_DISPATCH(attn_prologue_bwd_kernel, blocks, p)
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  SMI_GLUE_DISPATCH(norm_grad_kernel, 2 * head_dim / 32, partial, blocks,
-                    dq_w, dk_w)
-  return static_cast<int>(cudaGetLastError());
+  // dw: (2, D), d q_norm then d k_norm
+  return sum_weight_grads(partial, blocks, 2 * head_dim, dw, st);
 }
 
 extern "C" int smi_attn_epilogue(const void* attn, const void* gate,

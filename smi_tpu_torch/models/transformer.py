@@ -42,12 +42,15 @@ rows held here and a cross-entropy), built from a ``config.json``'s keys
 by :meth:`LanguageModel.from_config`; :func:`make_train_step` trains it
 as it trains a block.
 
-On a CUDA tensor in bf16, an ``afmoe`` block's attention glue (the QK
-norm, the rotation and the fold into the flash kernels' layout; the
-gate on their output) runs as the fused kernels of
-:mod:`~smi_tpu_torch.kernels.attn_glue`, with the products' outputs kept
-in bf16; elsewhere the plain composition runs, and the two round at the
-same places.
+On a CUDA tensor in bf16, an ``afmoe`` block's glue runs as fused
+kernels, with the products' outputs kept in bf16: the attention's (the
+QK norm, the rotation and the fold into the flash kernels' layout; the
+gate on their output) as those of
+:mod:`~smi_tpu_torch.kernels.attn_glue`, its residual junctions (the
+sandwich norms, the residual adds and the casts around them; the final
+norm before the head) as those of
+:mod:`~smi_tpu_torch.kernels.residual_norm`. Elsewhere the plain
+composition runs, and the two round at the same places.
 
 Spans (``utils/tracing.annotate``): ``smi.train.step`` with its children
 ``smi.train.forward``, ``.backward`` and ``.update``; ``smi.attn.sliding``
@@ -61,7 +64,8 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+from typing import (Callable, Dict, Mapping, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -71,6 +75,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from smi_tpu_torch.kernels import attn_glue as glue
+from smi_tpu_torch.kernels import residual_norm as rn
 from smi_tpu_torch.models import moe
 from smi_tpu_torch.models import ring_attention as ra
 from smi_tpu_torch.parallel.mesh import Communicator, resolve_device
@@ -220,12 +225,6 @@ def _layernorm(x, eps=1e-6):
     return (x - mu) * torch.rsqrt(var + eps)
 
 
-def _rmsnorm(x, weight, eps):
-    """``x / rms(x) * weight`` over the last dim, in f32 (one fused
-    kernel each way on CUDA)."""
-    return F.rms_norm(x, weight.shape, weight, eps)
-
-
 @functools.lru_cache(maxsize=16)
 def _rope_tables(s: int, d: int, offset: int, theta: float, device):
     """Rotary positions' ``(cos, sin)`` tables, ``(S, D)`` f32, at
@@ -249,13 +248,19 @@ def _rope(config: BlockConfig, comm, sp_axis: str, s: int, device):
                         device)
 
 
+def _product(a, w, dtype):
+    """``a @ w`` in the compute dtype ``dtype``, rounded to it, then
+    widened; autograd carries the casts, so gradients land in f32."""
+    return (a.to(dtype) @ w.to(dtype)).float()
+
+
 def _gate(attn, xn, wg, mm):
     """The attention output ``attn`` times ``sigmoid(xn Wg)``."""
     return attn * torch.sigmoid(mm(xn, wg))
 
 
 def _plain_attention(params, xn, comm, config: BlockConfig, b: int, s: int,
-                     sp_axis: str, use_flash: Optional[bool], mm):
+                     sp_axis: str, use_flash: Optional[bool]):
     """The attention sublayer from the normed input ``xn`` ``(B*S, E)`` to
     the ``wo`` product's input ``(B*S, H*D)`` f32, in torch ops: the
     ``wqkv`` product; for ``afmoe`` the fused kernels' plain version of
@@ -263,6 +268,7 @@ def _plain_attention(params, xn, comm, config: BlockConfig, b: int, s: int,
     the fold alone; the ring; the output widened in token order, and for
     ``afmoe`` gated."""
     h, kv, d, cd = config.heads, config._kv, config.head_dim, config._cdtype
+    mm = functools.partial(_product, dtype=cd)
     qkv = mm(xn, params["wqkv"])
     if config.family == "afmoe":
         # head-major, handed to the ring as (S, B*Hx, D) views
@@ -289,11 +295,12 @@ def _plain_attention(params, xn, comm, config: BlockConfig, b: int, s: int,
     return attn
 
 
-def _fuses_attention_glue(config: BlockConfig, x: torch.Tensor) -> bool:
-    """Whether the attention sublayer's glue runs as the fused kernels of
-    :mod:`~smi_tpu_torch.kernels.attn_glue`: an ``afmoe`` block in bf16 on
-    a CUDA tensor. Elsewhere (the CPU, the JAX package's block, f32) the
-    plain composition runs."""
+def _fuses_glue(config: BlockConfig, x: torch.Tensor) -> bool:
+    """Whether the block's glue runs as fused kernels (the attention's,
+    :mod:`~smi_tpu_torch.kernels.attn_glue`; the residual junctions',
+    :mod:`~smi_tpu_torch.kernels.residual_norm`): an ``afmoe`` block in
+    bf16 on a CUDA tensor. Elsewhere (the CPU, the JAX package's block,
+    f32) the plain composition runs."""
     return (config.family == "afmoe" and config._cdtype == torch.bfloat16
             and x.is_cuda)
 
@@ -318,6 +325,51 @@ def _fused_attention(params, xn, comm, config: BlockConfig, b: int, s: int,
     return glue.attn_epilogue(attn, xn @ params["wg"].to(cd), b, h)
 
 
+def _layernorm_entry(x, w, eps, dtype):
+    """The JAX package's block at its start: ``x`` passed on and its
+    layernorm without affine (``w`` is None) in the compute dtype."""
+    return x, _layernorm(x, eps).to(dtype)
+
+
+def _layernorm_middle(x, out, w_post, w_pre, eps, dtype):
+    """``(h, yn)`` of the JAX package's block: the residual add of the
+    widened product, then a layernorm without affine in ``dtype``."""
+    h = x + out.float()
+    return h, _layernorm(h, eps).to(dtype)
+
+
+def _layernorm_exit(h, out, w, eps):
+    """The JAX package's block at its end: the plain residual add."""
+    return h + out
+
+
+class _Glue(NamedTuple):
+    """A block's glue around its products, chosen once a call by
+    :func:`_block_glue`: the attention sublayer from the normed input to
+    ``wo``'s input, and the three residual junctions with the signatures
+    of :mod:`~smi_tpu_torch.kernels.residual_norm`'s ``entry_norm``,
+    ``middle_norm`` and ``exit_norm``."""
+
+    attention: Callable
+    entry: Callable
+    middle: Callable
+    exit: Callable
+
+
+def _block_glue(config: BlockConfig, x: torch.Tensor) -> _Glue:
+    """The fused kernels where :func:`_fuses_glue`; else the plain
+    composition: the ``afmoe`` block's RMSNorms with weights, or the JAX
+    package's layernorms without affine and its plain residual adds."""
+    if _fuses_glue(config, x):
+        return _Glue(_fused_attention, rn.entry_norm, rn.middle_norm,
+                     rn.exit_norm)
+    if config.family == "afmoe":
+        return _Glue(_plain_attention, rn.entry_norm_plain,
+                     rn.middle_norm_plain, rn.exit_norm_plain)
+    return _Glue(_plain_attention, _layernorm_entry, _layernorm_middle,
+                 _layernorm_exit)
+
+
 def block_shard(
     params: Mapping[str, torch.Tensor],
     x: torch.Tensor,               # (B_local, S_local, E)
@@ -331,37 +383,22 @@ def block_shard(
     ``route_cache``: an expert layer's routing, kept from its first call
     for a later one (:func:`moe.expert_layer`)."""
     b, s, e = x.shape
-    cd = config._cdtype
-
-    def mm(a, w):
-        """A product in the compute dtype, rounded to it, then widened;
-        autograd carries the casts, so gradients land in f32."""
-        return (a.to(cd) @ w.to(cd)).float()
-
-    afmoe = config.family == "afmoe"
-
-    def norm(t, name):
-        if afmoe:
-            return _rmsnorm(t, params[name], config.norm_eps)
-        return _layernorm(t, config.norm_eps)
+    cd, eps = config._cdtype, config.norm_eps
+    mm = functools.partial(_product, dtype=cd)
+    parts = _block_glue(config, x)
+    x = x.reshape(b * s, e)
 
     kind = "full" if config.window is None else "sliding"
     with annotate(f"smi.attn.{kind}"):
-        xn = norm(x, "input_norm").reshape(b * s, e).to(cd)
-        if _fuses_attention_glue(config, x):
-            attn = _fused_attention(params, xn, comm, config, b, s,
-                                    sp_axis, use_flash)
-        else:
-            attn = _plain_attention(params, xn, comm, config, b, s,
-                                    sp_axis, use_flash, mm)
-    out = mm(attn, params["wo"]).reshape(b, s, e)
-    if afmoe:
-        out = norm(out, "post_attn_norm")
-    x = x + out
-
-    yn = norm(x, "pre_mlp_norm").reshape(b * s, e)
-    if config.mlp != "experts":
-        yn = yn.to(cd)
+        x, xn = parts.entry(x, params.get("input_norm"), eps, cd)
+        attn = parts.attention(params, xn, comm, config, b, s, sp_axis,
+                               use_flash)
+    # the wo product stays in the compute dtype: the junction widens it;
+    # an expert layer's router reads its input in f32
+    x, yn = parts.middle(x, attn.to(cd) @ params["wo"].to(cd),
+                         params.get("post_attn_norm"),
+                         params.get("pre_mlp_norm"), eps,
+                         torch.float32 if config.mlp == "experts" else cd)
     if config.mlp == "gelu":
         out = mm(F.gelu(mm(yn, params["w1"]), approximate="tanh"),
                  params["w2"])
@@ -370,10 +407,8 @@ def block_shard(
     else:
         out = moe.expert_layer(params, yn, config.experts, mm, cd,
                                route_cache)
-    out = out.reshape(b, s, e)
-    if afmoe:
-        out = norm(out, "post_mlp_norm")
-    return x + out
+    return parts.exit(x, out, params.get("post_mlp_norm"), eps).reshape(
+        b, s, e)
 
 
 def stack_shard(
@@ -626,9 +661,10 @@ class LanguageModel(nn.Module):
     def _logits(self, h):
         cd = self.config._cdtype
         b, s, e = h.shape
-        hn = _rmsnorm(h, self.final_norm, self.config.norm_eps)
-        return (hn.reshape(b * s, e).to(cd) @ self.head.to(cd)).float(
-        ).reshape(b, s, self.vocab)
+        # the final norm is an afmoe block's entry, chosen as its are
+        _, hn = _block_glue(self.config, h).entry(
+            h.reshape(b * s, e), self.final_norm, self.config.norm_eps, cd)
+        return (hn @ self.head.to(cd)).float().reshape(b, s, self.vocab)
 
     def loss(self, ids, labels, comm: Communicator, sp_axis: str = "sp",
              use_flash: Optional[bool] = None):

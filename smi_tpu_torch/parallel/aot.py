@@ -147,12 +147,22 @@ _INSTANCE_PATTERNS = (
     (re.compile(r"roll_chain_kernelILb(?P<rotate>[01])ELi(?P<regs>\d+)E"),
      "roll_chain"),
     (re.compile(r"attn_prologue_kernelILi(?P<d>\d+)E"), "attn_prologue"),
-    (re.compile(r"(attn_prologue_bwd|norm_grad)_kernelILi(?P<d>\d+)E"),
+    (re.compile(r"attn_prologue_bwd_kernelILi(?P<d>\d+)E"),
      "attn_prologue_bwd"),
     (re.compile(r"attn_epilogue_kernelILi(?P<d>\d+)E"), "attn_epilogue"),
     (re.compile(r"attn_epilogue_bwd_kernelILi(?P<d>\d+)E"),
      "attn_epilogue_bwd"),
+    (re.compile(r"residual_norm_kernelILi(?P<form>\d)ELb(?P<yn>[01])E"),
+     "residual_norm"),
+    (re.compile(r"residual_norm_bwd_kernelILi(?P<form>\d)ELb(?P<yn>[01])E"),
+     "residual_norm_bwd"),
+    (re.compile(r"weight_grad_kernel"), "weight_grad"),
 )
+
+#: the launches whose C entry runs ``csrc/row_glue.cuh``'s
+#: ``weight_grad_kernel`` after its own kernel (each source that
+#: includes the header holds its own instance)
+_WEIGHT_GRAD_LAUNCHES = frozenset({"attn_prologue_bwd", "residual_norm_bwd"})
 
 #: mangled element types of the ring's reduce instances
 _RING_TYPE = {"i": "int32", "f": "float32", "d": "float64", "a": "int8",
@@ -162,7 +172,8 @@ _RING_TYPE = {"i": "int32", "f": "float32", "d": "float64", "a": "int8",
 def instance_kernel(mangled: str) -> Optional[Tuple[str, dict]]:
     """``(kernel, params)`` of one ``__global__`` instance, or None.
     ``kernel`` is a ``_build.LAUNCHES`` name (``ring_reduce`` stands for
-    the all-reduce, its chunked form and the reduce-scatter)."""
+    the all-reduce, its chunked form and the reduce-scatter;
+    ``weight_grad`` for the launches of :data:`_WEIGHT_GRAD_LAUNCHES`)."""
     for pattern, kernel in _INSTANCE_PATTERNS:
         m = pattern.search(mangled)
         if m is None:
@@ -595,6 +606,22 @@ def _port_cases(topology: str):
 
     yield "port_afmoe_attention_glue", glue
 
+    def junctions():
+        from smi_tpu_torch.kernels import residual_norm as rn
+
+        # the afmoe block's residual junctions at Trinity-Mini's width, 2
+        # x 8192 tokens of 2048: each form each way, the middle's yn in
+        # bf16 (before a dense MLP) and in f32 (before an expert layer)
+        return [{"kernel": kernel, "form": str(form), "yn": str(yn),
+                 "threads": rn.BLOCK_THREADS,
+                 "blocks": rn.launch_blocks(kernel, 2 * 8192),
+                 "dynamic_smem": 0, "cooperative": False}
+                for kernel in (rn.KERNEL, rn.KERNEL_BWD)
+                for form, yn in ((rn.ENTRY, 1), (rn.MIDDLE, 1),
+                                 (rn.MIDDLE, 0), (rn.EXIT, 0))]
+
+    yield "port_afmoe_residual_norm", junctions
+
 
 def surface_cases(topology: str = DEFAULT_TOPOLOGY):
     """All (name, plan) pairs of the multi-chip surface: each plan
@@ -633,12 +660,14 @@ def _matches(launch: dict, kernel: str, params: dict) -> bool:
                                  else "0")
                 and params["t"] == launch["dtype"]
                 and int(params["op"]) == launch["op"])
+    if kernel == "weight_grad":
+        return want in _WEIGHT_GRAD_LAUNCHES
     if kernel != want:
         return False
     if "dt" in params and params["dt"] != (
             "bf16" if launch["dtype"] == "bfloat16" else "f32"):
         return False
-    for key in ("d", "k", "bf16", "regs", "rotate"):
+    for key in ("d", "k", "bf16", "regs", "rotate", "form", "yn"):
         if key in params and key in launch and str(launch[key]) != params[key]:
             return False
     return True

@@ -203,7 +203,7 @@ def test_fused_block_wiring_matches_the_plain_block(comm11, monkeypatch,
     cfg = _block(kind, h, kv)
     params, x = _block_case(cfg, b, seed=h + b)
     want = _block_step(cfg, params, x, comm11)
-    monkeypatch.setattr(ttf, "_fuses_attention_glue", lambda c, t: True)
+    monkeypatch.setattr(ttf, "_fuses_glue", lambda c, t: True)
     got = _block_step(cfg, params, x, comm11)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert set(got[2]) == set(want[2])
@@ -219,7 +219,7 @@ def test_block_takes_the_plain_path_off_the_card(comm11, monkeypatch,
     plain composition: no wrapper of the fused kernels is called."""
     cfg = _block("sliding", 4, 2, family=family, dtype=dtype)
     params, x = _block_case(cfg, 1, seed=2)
-    assert not ttf._fuses_attention_glue(cfg, x)
+    assert not ttf._fuses_glue(cfg, x)
 
     def refuse(*args, **kwargs):
         raise AssertionError("the fused glue ran")
@@ -260,7 +260,7 @@ def test_fused_glue_takes_every_head_dim_on_the_card():
     for d in (16, 96, 128):
         cfg = ttf.BlockConfig(embed=64, heads=4, head_dim=d, family="afmoe",
                               compute_dtype="bfloat16")
-        assert ttf._fuses_attention_glue(cfg, card)
+        assert ttf._fuses_glue(cfg, card)
     with pytest.raises(ValueError, match="no kernel for head dim 96"):
         glue._head_dim("attn_prologue", 96, torch.device("cuda", 0))
     glue._head_dim("attn_prologue", 96, torch.device("cpu"))
@@ -319,7 +319,7 @@ def test_backward_grid_is_fixed_by_the_rows():
     rows = 2 * 8192 * 40
     assert glue.launch_blocks(glue.KERNEL_PROLOGUE, rows) == rows // 8
     assert glue.launch_blocks(glue.KERNEL_PROLOGUE_BWD, rows) == \
-        glue.BWD_BLOCKS
+        glue.BWD_BLOCKS_PER_SM * _build.SMS == 1056
     assert glue.launch_blocks(glue.KERNEL_PROLOGUE_BWD, 100) == 13
 
 
@@ -458,7 +458,7 @@ def test_card_step_fused_against_unfused(card, monkeypatch):
     rounds to 8 bits of mantissa)."""
     cfg = _small_trinity(layers=8)
     loss, fused = _card_step(cfg, card)
-    monkeypatch.setattr(ttf, "_fuses_attention_glue", lambda c, t: False)
+    monkeypatch.setattr(ttf, "_fuses_glue", lambda c, t: False)
     before = dict(_build.LAUNCHES)
     want_loss, plain = _card_step(cfg, card)
     assert all(_build.LAUNCHES[k] == before[k] for k in before

@@ -61,8 +61,13 @@ def _instances():
                                    ("attn_epilogue_kernel", "8Epilogue"),
                                    ("attn_epilogue_bwd_kernel", "8Epilogue"))
                       for d in (64, 128, 256)]
-        + [f"{_NS}16norm_grad_kernelILi{d}EEEvPKfiPfS3_"
-           for d in (64, 128, 256)],
+        + [f"{_NS}18weight_grad_kernelEPKfiiPf"],
+        "residual_norm": [f"{_NS}{len(n)}{n}ILi{f}ELb{y}EEEvNS_{p}E"
+                          for n, p in (("residual_norm_kernel", "3Fwd"),
+                                       ("residual_norm_bwd_kernel",
+                                        "3Bwd"))
+                          for f, y in ((0, 1), (1, 0), (1, 1), (2, 0))]
+        + [f"{_NS}18weight_grad_kernelEPKfiiPf"],
     }
     return out
 
@@ -72,7 +77,7 @@ def _instances():
 _FIGURES = {"ring": (64, 0), "flash_fwd": (168, 0), "flash_bwd": (168, 0),
             "stencil_temporal": (218, 0), "stencil_pipeline": (128, 0),
             "stencil_sweep": (16, 0), "roll_chain": (150, 0),
-            "attn_glue": (40, 8192)}
+            "attn_glue": (40, 8192), "residual_norm": (96, 16)}
 
 
 def fake_log(source, registers=None, smem=None):
@@ -122,7 +127,8 @@ def test_cases_are_the_jax_surface(topology):
         px, py = aot.grid2d(aot.topology_ranks(topology))
         assert extra == [f"port_stencil_pipeline_8192_{px}x{py}",
                          "port_roll_chain_surface",
-                         "port_afmoe_attention_glue"]
+                         "port_afmoe_attention_glue",
+                         "port_afmoe_residual_norm"]
 
 
 @pytest.mark.parametrize("topology,ranks", [
@@ -219,10 +225,14 @@ def test_log_parser_reads_ptxas_figures():
      ("roll_chain", {"rotate": "0", "regs": "64"})),
     (f"{_NS}20attn_prologue_kernelILi128EEEvNS_8PrologueE",
      ("attn_prologue", {"d": "128"})),
-    (f"{_NS}16norm_grad_kernelILi64EEEvPKfiPfS3_",
+    (f"{_NS}24attn_prologue_bwd_kernelILi64EEEvNS_11PrologueBwdE",
      ("attn_prologue_bwd", {"d": "64"})),
     (f"{_NS}24attn_epilogue_bwd_kernelILi256EEEvNS_8EpilogueE",
      ("attn_epilogue_bwd", {"d": "256"})),
+    (f"{_NS}20residual_norm_kernelILi1ELb0EEEvNS_3FwdE",
+     ("residual_norm", {"form": "1", "yn": "0"})),
+    (f"{_NS}18weight_grad_kernelEPKfiiPf",
+     ("weight_grad", {})),
     ("_Z6helperv", None),
 ])
 def test_instance_names(mangled, want):

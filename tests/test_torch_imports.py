@@ -106,8 +106,9 @@ def test_package_lists_its_kernel_sources_as_package_data():
     assert '"smi_tpu_torch" = ["kernels/csrc/*.cu"]' in text
     assert sorted(p.name for p in (PACKAGE / "kernels" / "csrc").glob("*.cu")
                   ) == ["attn_glue.cu", "flash_bwd.cu", "flash_fwd.cu",
-                        "ring.cu", "roll_chain.cu", "stencil_pipeline.cu",
-                        "stencil_sweep.cu", "stencil_temporal.cu"]
+                        "residual_norm.cu", "ring.cu", "roll_chain.cu",
+                        "stencil_pipeline.cu", "stencil_sweep.cu",
+                        "stencil_temporal.cu"]
 
 
 def test_chip_smoke_defines_every_phase_before_it_runs():

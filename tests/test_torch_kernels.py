@@ -470,7 +470,8 @@ def test_cpu_calls_launch_nothing():
                            "ring_all_reduce", "ring_reduce_scatter",
                            "ring_all_reduce_chunked", "roll_chain",
                            "attn_prologue", "attn_prologue_bwd",
-                           "attn_epilogue", "attn_epilogue_bwd"}
+                           "attn_epilogue", "attn_epilogue_bwd",
+                           "residual_norm", "residual_norm_bwd"}
 
 
 # --------------------------------------------------------------- loader --
@@ -487,18 +488,19 @@ def test_nvcc_command_targets_sm90a_without_fast_math(tmp_path):
 
 def test_only_the_flash_source_contracts_fma(tmp_path):
     """The stencil sources, the ring source (a reduction is held bit
-    for bit) and the attention glue keep ``-fmad=false``; the flash
-    sources' (forward and backward) bar is a tolerance, so they build
-    with FMA."""
+    for bit), the attention glue and the residual junctions keep
+    ``-fmad=false``; the flash sources' (forward and backward) bar is a
+    tolerance, so they build with FMA."""
     for name in _build.SOURCES:
         cmd = _build.nvcc_command("nvcc", tmp_path / f"{name}.cu",
                                   tmp_path / "k.so")
         assert ("-fmad=false" in cmd) == (not name.startswith("flash_")), \
             name
         assert "-gencode" in cmd and "fast_math" not in " ".join(cmd)
-    assert _build.SOURCES == ["attn_glue", "flash_bwd", "flash_fwd", "ring",
-                              "roll_chain", "stencil_pipeline",
-                              "stencil_sweep", "stencil_temporal"]
+    assert _build.SOURCES == ["attn_glue", "flash_bwd", "flash_fwd",
+                              "residual_norm", "ring", "roll_chain",
+                              "stencil_pipeline", "stencil_sweep",
+                              "stencil_temporal"]
 
 
 def test_launch_counts_add_up_across_threads():
@@ -607,9 +609,10 @@ def test_build_dir_is_ignored_by_git():
     assert _build.BUILD_DIR == root / "build" / "torch_kernels"
 
 
-#: sources with no TPU counterpart (the afmoe block's glue: the JAX
-#: package has no afmoe block); every other source names its TPU kernel
-NO_TPU_KERNEL = {"attn_glue"}
+#: sources with no TPU counterpart (the afmoe block's glue and residual
+#: junctions: the JAX package has no afmoe block); every other source
+#: names its TPU kernel
+NO_TPU_KERNEL = {"attn_glue", "residual_norm"}
 
 
 @pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
