@@ -456,6 +456,22 @@ Then the afmoe block's residual junctions:
    one step of the cell (each form times its launches in a step of
    Trinity-Mini's layer pattern) against their bound.
 
+Then DeepSeek-V3's latent attention (MLA) on the flash kernels:
+
+41. the split form of the flash kernels (queries and keys 192 wide,
+   values 128: ``flash_fwd.cu`` and ``flash_bwd.cu``, bf16) at
+   ``moonlight-train-2x8k``'s shape (``MLA_CELL``: S=8192 causal, 2 x 16
+   heads folded): each instance's registers and spills from the build
+   log; the fused forward, dq and dk/dv against their plain versions at
+   the bf16 bars; each one's time (CUDA events) beside its operations
+   bound (2 (192 + 128), 4·192 + 2·128 and 4·192 + 4·128 operations a
+   live pair and head) and ``scaled_dot_product_attention``'s forward
+   and backward at the same shape; then, every flash count set to 0,
+   one step of the cell's own model (``MLA_STEP_MODEL``: 27 layers at
+   published widths, 8 held experts, 20,480 vocabulary rows, 2 x 8192
+   tokens), whose launches must be 54 split forwards, 27 of each split
+   backward and no other flash form.
+
 Bars: f32 out/acc/gradients within 2e-5 (``rtol = atol``); m and l within
 1e-5 in either dtype (both sides add exact products in f32); bf16
 out/acc/gradients by the worst row's relative error ``||got - want|| /
@@ -853,6 +869,7 @@ def main(argv=None) -> int:
     glue_records, step_launches = glue_phase(dev)
     records += glue_records
     records += junction_phase(dev, step_launches)
+    records += mla_flash_phase(dev)
     log(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -5800,7 +5817,8 @@ GLUE_THETA = 10000.0
 #: then expert layers) at a small width: heads of 64, GQA 4:1, 2 x 256
 #: tokens
 GLUE_STEP_MODEL = {
-    "num_hidden_layers": 32, "num_dense_layers": 2, "hidden_size": 256,
+    "model_type": "afmoe", "num_hidden_layers": 32, "num_dense_layers": 2,
+    "hidden_size": 256,
     "num_attention_heads": 4, "num_key_value_heads": 1, "head_dim": 64,
     "layer_types": (["sliding_attention"] * 3 + ["full_attention"]) * 8,
     "sliding_window": 64, "intermediate_size": 384,
@@ -6231,6 +6249,158 @@ def junction_phase(dev, step_launches):
         f"{dense} dense): {step_ms:.2f} ms against a bound of "
         f"{step_bound:.2f} ms; launches {sum(w for w, _ in each.values())} "
         f"and {sum(b for _, b in each.values())}")
+    return records
+
+
+#: phase 41: moonlight-train-2x8k's attention, 2 sequences of 8192 with 16
+#: heads each, queries and keys 192 wide, values 128, causal
+MLA_CELL = dict(s=8192, h=32, d=192, dv=128)
+#: phase 41: the model of moonlight-train-2x8k as the cell runs it: all 27
+#: layers at Moonlight-16B-A3B's published widths, 8 of the router's 64
+#: experts and 20,480 rows of the vocabulary held, a step of 2 x 8192
+#: tokens
+MLA_STEP_MODEL = {
+    "model_type": "deepseek_v3", "num_hidden_layers": 27,
+    "first_k_dense_replace": 1, "hidden_size": 2048,
+    "num_attention_heads": 16, "num_key_value_heads": 16,
+    "kv_lora_rank": 512, "qk_nope_head_dim": 128, "qk_rope_head_dim": 64,
+    "v_head_dim": 128, "intermediate_size": 11264,
+    "moe_intermediate_size": 1408, "n_routed_experts": 8,
+    "router_experts": 64, "num_experts_per_tok": 6, "n_shared_experts": 2,
+    "routed_scaling_factor": 2.446, "norm_topk_prob": True,
+    "scoring_func": "sigmoid", "rms_norm_eps": 1e-5, "rope_theta": 50000,
+    "vocab_size": 20480, "tie_word_embeddings": False,
+}
+MLA_STEP_TOKENS = (2, 8192)
+#: phase 41: the flash launches of one step of MLA_STEP_MODEL: each forward
+#: in the forward and in its recompute, each backward once a layer, all of
+#: the split form; every other flash count stays 0
+MLA_STEP_LAUNCHES = {"flash_fused_192x128": 54, "flash_bwd_dq_192x128": 27,
+                     "flash_bwd_dkdv_192x128": 27}
+
+
+def mla_flash_phase(dev):
+    """Phase 41: the flash kernels' split form at ``MLA_CELL`` against
+    their plain versions, their times beside their operations bounds and
+    SDPA's, and their launches in one step of ``MLA_STEP_MODEL`` counted
+    from 0. Returns
+    their records for the kernels line."""
+    import torch
+
+    import smi_tpu_torch as st
+    from smi_tpu_torch.kernels import _build
+    from smi_tpu_torch.kernels import flash as kflash
+
+    log("[41 flash split form (192, 128), MLA]")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for source in ("flash_fwd", "flash_bwd"):
+        current = ""
+        for line in _build.build_log(source).splitlines():
+            named = re.search(r"(?:entry function|Function properties for)"
+                              r"\s+'?([\w$]+)", line)
+            if named:
+                current = named.group(1)
+            elif "192ELi128E" in current and ("registers" in line
+                                              or "spill" in line):
+                log(f"  {source} {current}: {line.strip()}")
+
+    s, h, d, dv = (MLA_CELL[k] for k in ("s", "h", "d", "dv"))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def heads(width):
+        return torch.randn((h, s, width), generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    q, k, dout = heads(d), heads(d), heads(dv)
+    v = heads(dv)
+    scale = d ** -0.5
+    pairs = live_pairs(s, s, 0, 0, True)
+    fwd = kflash.flash_attend_fused(q, k, v, 0, 0, True, scale)
+    want = kflash.flash_attend_fused_plain(q, k, v, 0, 0, True, scale)
+    row_rel = Bars.row_rel
+    errs = {"flash_fused": row_rel(fwd[0], want[0])[0]}
+    for part, a, b in zip(("m", "l"), fwd[1:], want[1:]):
+        if not torch.allclose(a, b, rtol=STAT_TOL, atol=STAT_TOL):
+            raise AssertionError(f"split forward {part} off the bar")
+    out, m, l = fwd
+    del want
+    linv, delta = kflash.backward_rows(out, l, dout)
+    args = (q, k, v, dout, m, linv, delta, 0, 0, True, scale)
+    dq = kflash.flash_block_backward_dq(*args)
+    errs["flash_bwd_dq"] = row_rel(
+        dq, kflash.flash_block_backward_dq_plain(*args), GRAD_FLOOR)[0]
+    dk, dv_ = kflash.flash_block_backward_dkdv(*args)
+    want_k, want_v = kflash.flash_block_backward_dkdv_plain(*args)
+    errs["flash_bwd_dkdv"] = max(row_rel(dk, want_k, GRAD_FLOOR)[0],
+                                 row_rel(dv_, want_v, GRAD_FLOOR)[0])
+    del dq, dk, dv_, want_k, want_v
+    log(f"  worst row errors {errs} (bar {BF16_ROW_REL})")
+    if max(errs.values()) > BF16_ROW_REL:
+        raise AssertionError(f"split form off the bf16 bar: {errs}")
+
+    per_pair = {"flash_fused": 2 * (d + dv), "flash_bwd_dq": 4 * d + 2 * dv,
+                "flash_bwd_dkdv": 4 * d + 4 * dv}
+    calls = {
+        "flash_fused": lambda: kflash.flash_attend_fused(q, k, v, 0, 0, True,
+                                                         scale),
+        "flash_bwd_dq": lambda: kflash.flash_block_backward_dq(*args),
+        "flash_bwd_dkdv": lambda: kflash.flash_block_backward_dkdv(*args),
+    }
+    times = {name: timed(call) for name, call in calls.items()}
+    sdpa = {"flash_fused": sdpa_forward(q, k, v, True, None),
+            "flash_bwd_dq": sdpa_backward(q, k, v, dout, True, None)}
+    sdpa["flash_bwd_dkdv"] = sdpa["flash_bwd_dq"]
+
+    # ---- the launches of one 27-layer step ----------------------------
+    from smi_tpu_torch.models import transformer as ttf
+
+    comm = st.make_communicator(shape=(1, 1), axis_names=("dp", "sp"),
+                                device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = ttf.LanguageModel.from_config(MLA_STEP_MODEL, device=dev,
+                                          seed=SEED)
+    step = ttf.make_train_step(comm, model.config, layers=len(model.blocks))
+    cpu_gen = torch.Generator().manual_seed(SEED)
+    ids, labels = (torch.randint(0, MLA_STEP_MODEL["vocab_size"],
+                                 MLA_STEP_TOKENS, generator=cpu_gen).to(dev)
+                   for _ in "ab")
+    step(model, ids, labels)
+    torch.cuda.synchronize()
+    flash_keys = [n for n in _build.LAUNCHES if n.startswith("flash_")]
+    for n in flash_keys:
+        _build.LAUNCHES[n] = 0
+    loss = float(step(model, ids, labels))
+    torch.cuda.synchronize()
+    launches = {n: _build.LAUNCHES[n] for n in flash_keys
+                if _build.LAUNCHES[n]}
+    log(f"  one step of moonlight-train-2x8k's model, "
+        f"{MLA_STEP_TOKENS[0]} x {MLA_STEP_TOKENS[1]} tokens (loss "
+        f"{loss:.4f}, peak {torch.cuda.max_memory_allocated(dev) / 1e9:.2f}"
+        f" GB): launches {launches}")
+    if launches != MLA_STEP_LAUNCHES:
+        raise AssertionError(f"the step launched {launches}, expected "
+                             f"{MLA_STEP_LAUNCHES} and no other flash form")
+    del model, step, ids, labels
+    torch.cuda.empty_cache()
+
+    records = []
+    for name, ms in times.items():
+        b_ms = pairs * h * per_pair[name] / BF16_FLOPS * 1e3
+        lib_ms, lib_op = sdpa[name]
+        label = (f"{name} split S={s} H={h} D={d} Dv={dv} causal bf16 "
+                 f"[MLA]")
+        log(f"  {label}: {ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({100 * b_ms / ms:.1f} %), SDPA "
+            f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'} ({lib_op})")
+        records.append({
+            "name": label, "route": "cuda",
+            "source": FLASH_SRC if name == "flash_fused" else BWD_SRC,
+            "replaces": None,
+            "launches": launches.get(kflash.launch_name(name, d, dv), 0),
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": None,
+            "bound_ms": b_ms, "bound_by": "operations", "library_ms": lib_ms,
+            "earlier_ms": None,
+        })
     return records
 
 

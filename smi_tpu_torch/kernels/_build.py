@@ -220,28 +220,30 @@ SIGNATURES = {
     ),
     "flash_fused": Entry(
         "flash_fwd", "smi_flash_fused",
-        # q, k, v, out, m, l, dtype, h, h_kv, s_q, s_k, d, q_off, k_off,
-        # causal, window, scale, block_q, block_k, stream
-        [_P] * 6 + [_I] * 10 + [_F] + [_I] * 2 + [_P],
+        # q, k, v, out, m, l, dtype, h, h_kv, s_q, s_k, d, d_v, q_off,
+        # k_off, causal, window, scale, block_q, block_k, stream
+        [_P] * 6 + [_I] * 11 + [_F] + [_I] * 2 + [_P],
     ),
     "flash_block": Entry(
         "flash_fwd", "smi_flash_block",
         # q, k, v, m_in, l_in, acc_in, m_out, l_out, acc_out, dtype, h,
-        # h_kv, s_q, s_k, d, q_off, k_off, causal, window, scale, block_q,
-        # block_k, stream
-        [_P] * 9 + [_I] * 10 + [_F] + [_I] * 2 + [_P],
+        # h_kv, s_q, s_k, d, d_v, q_off, k_off, causal, window, scale,
+        # block_q, block_k, stream
+        [_P] * 9 + [_I] * 11 + [_F] + [_I] * 2 + [_P],
     ),
     "flash_bwd_dq": Entry(
         "flash_bwd", "smi_flash_bwd_dq",
         # q, k, v, dout, m, linv, delta, dq, dtype, h, h_kv, s_q, s_k, d,
-        # q_off, k_off, causal, window, scale, block_q, block_k, stream
-        [_P] * 8 + [_I] * 10 + [_F] + [_I] * 2 + [_P],
+        # d_v, q_off, k_off, causal, window, scale, block_q, block_k,
+        # stream
+        [_P] * 8 + [_I] * 11 + [_F] + [_I] * 2 + [_P],
     ),
     "flash_bwd_dkdv": Entry(
         "flash_bwd", "smi_flash_bwd_dkdv",
         # q, k, v, dout, m, linv, delta, dk, dv, dtype, h, h_kv, s_q, s_k,
-        # d, q_off, k_off, causal, window, scale, block_q, block_k, stream
-        [_P] * 9 + [_I] * 10 + [_F] + [_I] * 2 + [_P],
+        # d, d_v, q_off, k_off, causal, window, scale, block_q, block_k,
+        # stream
+        [_P] * 9 + [_I] * 11 + [_F] + [_I] * 2 + [_P],
     ),
     # the ring kernels share: table, ranks, n, elems, slot_stride,
     # dtype ... flow_control, blocks, stream
@@ -310,6 +312,12 @@ SIGNATURES = {
         [_P] * 11 + [_I] * 5 + [_P],
     ),
 }
+
+#: the flash kernels' split form (queries and keys 192 wide, values
+#: 128: ``kernels/flash.py``'s ``SPLIT_HEAD_DIMS``): the same entries,
+#: each with a launch count of its own
+SIGNATURES.update({f"{name}_192x128": SIGNATURES[name] for name in (
+    "flash_fused", "flash_block", "flash_bwd_dq", "flash_bwd_dkdv")})
 
 #: the runtime's occupancy queries
 #: (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), by the source

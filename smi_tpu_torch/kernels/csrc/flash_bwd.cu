@@ -60,6 +60,12 @@
 // - D=256: dq key tiles of 32; dkdv query tiles of 32 (64 in the
 //   64-key form) and the output columns split in halves over gridDim.y,
 //   each block recomputing the full-D scores.
+// - Q and K may be wider than V and dO (DQK, DV): bf16 takes (192, 128),
+//   DeepSeek-V3's latent attention, where dq is 192 wide (wgmma
+//   m64n192k16 over three boxes) and dkdv keeps dK (192 columns) and dV
+//   (128) whole in registers, on query tiles of 32 (the 128-key form
+//   only: its blocks fill the card at every shape the model runs). Per
+//   live pair dq does 4*DQK + 2*DV operations, dkdv 4*DQK + 4*DV.
 //
 // Design, f32 (no wgmma form; TF32 would miss the 2e-5 bar): the
 // forward's register-tiled FFMA. 256 threads; thread (ty, tx) holds the
@@ -420,6 +426,51 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[16][4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_rs(float (&d)[24][4],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95 "
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]),
+        "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]),
+        "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]),
+        "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]),
+        "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]),
+        "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]),
+        "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]),
+        "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]),
+        "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ void wgmma_rs(float (&d)[32][4],
                                          const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
@@ -523,19 +574,22 @@ __device__ __forceinline__ void pack_fragment(const float (&x)[NT][4],
   a[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
 }
 
-template <int D>
+template <int DQK, int DV>
 struct DqBf16 {
   static constexpr int kThreads = 384;  // two consumer warpgroups, one producer
   static constexpr int BQ = 128;        // 64 query rows per consumer warpgroup
-  static constexpr int BK = D == 256 ? 32 : 64;  // keys per tile
+  static constexpr int BK = DQK == 256 ? 32 : 64;  // keys per tile
   static constexpr int kStages = 2;
   static constexpr int NT = BK / 8;     // score accumulator tiles
-  static constexpr int DT = D / 8;      // dq accumulator tiles
-  static constexpr int kChunks = D / 64;  // boxes of 64 columns (128 bytes)
-  static constexpr uint32_t kRowsBytes = BQ * D * 2;  // Q or dO
-  static constexpr uint32_t kTileBytes = BK * D * 2;  // one K or V tile
-  static constexpr uint32_t kStageBytes = 2 * kTileBytes;
-  static constexpr uint32_t kBarOffset = 2 * kRowsBytes + kStages * kStageBytes;
+  static constexpr int DT = DQK / 8;    // dq accumulator tiles
+  static constexpr int kQKChunks = DQK / 64;  // boxes of 64 columns (128 bytes)
+  static constexpr int kVChunks = DV / 64;
+  static constexpr uint32_t kQBytes = BQ * DQK * 2;   // Q
+  static constexpr uint32_t kOBytes = BQ * DV * 2;    // dO
+  static constexpr uint32_t kKBytes = BK * DQK * 2;   // one K tile
+  static constexpr uint32_t kVBytes = BK * DV * 2;    // one V tile
+  static constexpr uint32_t kStageBytes = kKBytes + kVBytes;
+  static constexpr uint32_t kBarOffset = kQBytes + kOBytes + kStages * kStageBytes;
   // 1024: slack to align the base to the swizzle's 1024-byte period
   static constexpr size_t kSmem = 1024 + kBarOffset + 64;
 };
@@ -543,14 +597,14 @@ struct DqBf16 {
 // One (64, BK) tile into this warpgroup's dq. Qw/dOw: the warpgroup's
 // 64 rows of Q and dO; Ks/Vs: the stage's tiles. ml, li, dl: the rows'
 // m * log2(e), linv and delta.
-template <int D, bool kMask>
+template <int DQK, int DV, bool kMask>
 __device__ __forceinline__ void dq_tile_bf16(
     const unsigned char* Qw, const unsigned char* dOw,
     const unsigned char* Ks, const unsigned char* Vs,
-    float (&o)[DqBf16<D>::DT][4], const float (&ml)[2], const float (&li)[2],
-    const float (&dl)[2], float scale_log2, const TileMask& mask, int warp,
-    int lane) {
-  using L = DqBf16<D>;
+    float (&o)[DqBf16<DQK, DV>::DT][4], const float (&ml)[2],
+    const float (&li)[2], const float (&dl)[2], float scale_log2,
+    const TileMask& mask, int warp, int lane) {
+  using L = DqBf16<DQK, DV>;
   const int g = lane >> 2, t = lane & 3;
   float s[L::NT][4], dp[L::NT][4];
 #pragma unroll
@@ -561,9 +615,9 @@ __device__ __forceinline__ void dq_tile_bf16(
   fence_operands(s);
   fence_operands(dp);
   wgmma_fence();
-  issue_dots<D>(s, Qw, L::BQ * 128, Ks, L::BK * 128);
+  issue_dots<DQK>(s, Qw, L::BQ * 128, Ks, L::BK * 128);
   wgmma_commit();
-  issue_dots<D>(dp, dOw, L::BQ * 128, Vs, L::BK * 128);
+  issue_dots<DV>(dp, dOw, L::BQ * 128, Vs, L::BK * 128);
   wgmma_commit();
   wgmma_wait<1>();
   fence_operands(s);
@@ -598,19 +652,21 @@ __device__ __forceinline__ void dq_tile_bf16(
   fence_operands(o);
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(384, 1)
     flash_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tdo,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, const Params p) {
-  using L = DqBf16<D>;
+  using L = DqBf16<DQK, DV>;
+  constexpr int kChunks =
+      L::kQKChunks > L::kVChunks ? L::kQKChunks : L::kVChunks;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   unsigned char* Qs = smem;
-  unsigned char* dOs = smem + L::kRowsBytes;
-  unsigned char* stages = smem + 2 * L::kRowsBytes;
+  unsigned char* dOs = smem + L::kQBytes;
+  unsigned char* stages = dOs + L::kOBytes;
   uint64_t* rows_full = reinterpret_cast<uint64_t*>(smem + L::kBarOffset);
   uint64_t* full = rows_full + 1;
   uint64_t* empty = full + L::kStages;
@@ -638,10 +694,14 @@ __global__ void __launch_bounds__(384, 1)
     // producer: one thread issues every load
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 256 && n_tiles > 0) {
-      barrier_expect(rows_full, 2 * L::kRowsBytes);
-      for (int c = 0; c < L::kChunks; ++c) {
-        tma_load(Qs + c * L::BQ * 128, &tq, rows_full, c * 64, q0, hh);
-        tma_load(dOs + c * L::BQ * 128, &tdo, rows_full, c * 64, q0, hh);
+      barrier_expect(rows_full, L::kQBytes + L::kOBytes);
+      for (int c = 0; c < kChunks; ++c) {
+        if (c < L::kQKChunks) {
+          tma_load(Qs + c * L::BQ * 128, &tq, rows_full, c * 64, q0, hh);
+        }
+        if (c < L::kVChunks) {
+          tma_load(dOs + c * L::BQ * 128, &tdo, rows_full, c * 64, q0, hh);
+        }
       }
       for (int i = 0; i < n_tiles; ++i) {
         const int stage = i % L::kStages;
@@ -649,12 +709,18 @@ __global__ void __launch_bounds__(384, 1)
           barrier_wait(&empty[stage], (i / L::kStages - 1) & 1);
         }
         unsigned char* Kb = stages + stage * L::kStageBytes;
-        unsigned char* Vb = Kb + L::kTileBytes;
+        unsigned char* Vb = Kb + L::kKBytes;
         const int kt = static_cast<int>(kt0) + i * L::BK;
         barrier_expect(&full[stage], L::kStageBytes);
-        for (int c = 0; c < L::kChunks; ++c) {
-          tma_load(Kb + c * L::BK * 128, &tk, &full[stage], c * 64, kt, kvh);
-          tma_load(Vb + c * L::BK * 128, &tv, &full[stage], c * 64, kt, kvh);
+        for (int c = 0; c < kChunks; ++c) {
+          if (c < L::kQKChunks) {
+            tma_load(Kb + c * L::BK * 128, &tk, &full[stage], c * 64, kt,
+                     kvh);
+          }
+          if (c < L::kVChunks) {
+            tma_load(Vb + c * L::BK * 128, &tv, &full[stage], c * 64, kt,
+                     kvh);
+          }
         }
       }
     }
@@ -696,11 +762,11 @@ __global__ void __launch_bounds__(384, 1)
         const TileMask mask = tile_mask(p, wq_first, rows_left, kg, p.s_k - kt);
         if (rows_left >= 64 && keys == L::BK &&
             span_full(p, wq_first, 64, kg, L::BK)) {
-          dq_tile_bf16<D, false>(Qw, dOw, Kb, Kb + L::kTileBytes, o, ml, li,
-                                 dl, scale_log2, mask, warp, lane);
+          dq_tile_bf16<DQK, DV, false>(Qw, dOw, Kb, Kb + L::kKBytes, o, ml,
+                                       li, dl, scale_log2, mask, warp, lane);
         } else {
-          dq_tile_bf16<D, true>(Qw, dOw, Kb, Kb + L::kTileBytes, o, ml, li,
-                                dl, scale_log2, mask, warp, lane);
+          dq_tile_bf16<DQK, DV, true>(Qw, dOw, Kb, Kb + L::kKBytes, o, ml,
+                                      li, dl, scale_log2, mask, warp, lane);
         }
       }
       __syncwarp();
@@ -710,7 +776,7 @@ __global__ void __launch_bounds__(384, 1)
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       if (rows[hr] >= p.s_q) continue;
-      float* a = p.dq + (row0 + rows[hr]) * D + 2 * t;
+      float* a = p.dq + (row0 + rows[hr]) * DQK + 2 * t;
 #pragma unroll
       for (int dt = 0; dt < L::DT; ++dt) {
         *reinterpret_cast<float2*>(a + dt * 8) =
@@ -721,22 +787,33 @@ __global__ void __launch_bounds__(384, 1)
 }
 
 // kSplit: the 64-key form, both consumer warpgroups on the block's 64
-// keys, each on one half of a query tile twice as tall
-template <int D, bool kSplit>
+// keys, each on one half of a query tile twice as tall. At DQK = 256 the
+// output columns are split in halves over gridDim.y (kColSplit). At
+// (DQK, DV) = (192, 128) a warpgroup takes query tiles of 32: dK (192
+// columns) and dV (128) stay in 160 registers a thread across the loop.
+template <int DQK, int DV, bool kSplit>
 struct DkdvBf16 {
   static constexpr int kThreads = 384;
-  static constexpr int QN = D == 256 ? 32 : 64;  // queries a warpgroup a tile
+  // queries a warpgroup a tile
+  static constexpr int QN = DQK == 256 || DQK != DV ? 32 : 64;
   static constexpr int KB = kSplit ? 64 : 128;   // keys a block
   static constexpr int QT = kSplit ? 2 * QN : QN;  // query rows a tile
-  static constexpr int DO = D < 128 ? D : 128;   // output columns a block
+  static constexpr int kColSplit = DQK == 256 ? 2 : 1;
+  static constexpr int DOK = DQK / kColSplit;  // dK columns a block
+  static constexpr int DOV = DV / kColSplit;   // dV columns a block
   static constexpr int kStages = 2;
-  static constexpr int NT = QN / 8;   // score accumulator tiles
-  static constexpr int DT = DO / 8;   // dK and dV accumulator tiles
-  static constexpr int kChunks = D / 64;
-  static constexpr uint32_t kKVBytes = KB * D * 2;   // K or V
-  static constexpr uint32_t kTileBytes = QT * D * 2;  // one Q or dO tile
-  static constexpr uint32_t kStageBytes = 2 * kTileBytes;
-  static constexpr uint32_t kStatOffset = 2 * kKVBytes + kStages * kStageBytes;
+  static constexpr int NT = QN / 8;    // score accumulator tiles
+  static constexpr int DTK = DOK / 8;  // dK accumulator tiles
+  static constexpr int DTV = DOV / 8;  // dV accumulator tiles
+  static constexpr int kQKChunks = DQK / 64;
+  static constexpr int kVChunks = DV / 64;
+  static constexpr uint32_t kKBytes = KB * DQK * 2;  // K
+  static constexpr uint32_t kVBytes = KB * DV * 2;   // V
+  static constexpr uint32_t kQBytes = QT * DQK * 2;  // one Q tile
+  static constexpr uint32_t kOBytes = QT * DV * 2;   // one dO tile
+  static constexpr uint32_t kStageBytes = kQBytes + kOBytes;
+  static constexpr uint32_t kStatOffset =
+      kKBytes + kVBytes + kStages * kStageBytes;
   static constexpr int kStatFloats = 3 * QT;  // m * log2(e), linv, delta
   static constexpr uint32_t kBarOffset =
       kStatOffset + kStages * kStatFloats * 4;
@@ -746,15 +823,15 @@ struct DkdvBf16 {
 // One (64 keys, QN queries) tile into this warpgroup's dK and dV. Kw/Vw:
 // the warpgroup's 64 keys (boxes KB rows apart); Qw/dOw: its QN rows of
 // the stage's tiles (boxes QT rows apart); st: the stage's statistics
-// from its first row; c0: the block's first output column.
-template <int D, bool kSplit, bool kMask>
+// from its first row; c0k/c0v: the block's first dK and dV columns.
+template <int DQK, int DV, bool kSplit, bool kMask>
 __device__ __forceinline__ void dkdv_tile_bf16(
     const unsigned char* Kw, const unsigned char* Vw,
     const unsigned char* Qw, const unsigned char* dOw, const float* st,
-    float (&dk)[DkdvBf16<D, kSplit>::DT][4],
-    float (&dv)[DkdvBf16<D, kSplit>::DT][4], float scale_log2, int c0,
-    const TileMask& mask, int warp, int lane) {
-  using L = DkdvBf16<D, kSplit>;
+    float (&dk)[DkdvBf16<DQK, DV, kSplit>::DTK][4],
+    float (&dv)[DkdvBf16<DQK, DV, kSplit>::DTV][4], float scale_log2,
+    int c0k, int c0v, const TileMask& mask, int warp, int lane) {
+  using L = DkdvBf16<DQK, DV, kSplit>;
   const int g = lane >> 2, t = lane & 3;
   float s[L::NT][4], dp[L::NT][4];
 #pragma unroll
@@ -765,9 +842,9 @@ __device__ __forceinline__ void dkdv_tile_bf16(
   fence_operands(s);
   fence_operands(dp);
   wgmma_fence();
-  issue_dots<D>(s, Kw, L::KB * 128, Qw, L::QT * 128);
+  issue_dots<DQK>(s, Kw, L::KB * 128, Qw, L::QT * 128);
   wgmma_commit();
-  issue_dots<D>(dp, Vw, L::KB * 128, dOw, L::QT * 128);
+  issue_dots<DV>(dp, Vw, L::KB * 128, dOw, L::QT * 128);
   wgmma_commit();
   wgmma_wait<1>();
   fence_operands(s);
@@ -805,31 +882,35 @@ __device__ __forceinline__ void dkdv_tile_bf16(
     pack_fragment(s, kk, ap[kk]);
     pack_fragment(dp, kk, as[kk]);
   }
-  const uint32_t cb = (c0 / 64) * L::QT * 128;  // the first output box
+  // the first output boxes
+  const uint32_t cbk = (c0k / 64) * L::QT * 128;
+  const uint32_t cbv = (c0v / 64) * L::QT * 128;
   fence_operands(dv);
   fence_operands(dk);
   wgmma_fence();
-  issue_products(dv, ap, dOw + cb, L::QT * 128);
-  issue_products(dk, as, Qw + cb, L::QT * 128);
+  issue_products(dv, ap, dOw + cbv, L::QT * 128);
+  issue_products(dk, as, Qw + cbk, L::QT * 128);
   wgmma_commit();
   wgmma_wait<0>();
   fence_operands(dv);
   fence_operands(dk);
 }
 
-template <int D, bool kSplit>
+template <int DQK, int DV, bool kSplit>
 __global__ void __launch_bounds__(384, 1)
     flash_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tdo,
                      const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv, const Params p) {
-  using L = DkdvBf16<D, kSplit>;
+  using L = DkdvBf16<DQK, DV, kSplit>;
+  constexpr int kChunks =
+      L::kQKChunks > L::kVChunks ? L::kQKChunks : L::kVChunks;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   unsigned char* Ks = smem;
-  unsigned char* Vs = smem + L::kKVBytes;
-  unsigned char* stages = smem + 2 * L::kKVBytes;
+  unsigned char* Vs = smem + L::kKBytes;
+  unsigned char* stages = Vs + L::kVBytes;
   float* stats = reinterpret_cast<float*>(smem + L::kStatOffset);
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::kBarOffset);
   uint64_t* full = kv_full + 1;
@@ -837,7 +918,7 @@ __global__ void __launch_bounds__(384, 1)
 
   const int kvh = blockIdx.x % p.h_kv;
   const int k0 = (blockIdx.x / p.h_kv) * L::KB;
-  const int c0 = blockIdx.y * L::DO;
+  const int c0k = blockIdx.y * L::DOK, c0v = blockIdx.y * L::DOV;
   const int group = p.h / p.h_kv;
   long long qt0;
   const int n_qt = live_query_tiles(p, (long long)p.k_off + k0,
@@ -863,10 +944,14 @@ __global__ void __launch_bounds__(384, 1)
     const int lane = threadIdx.x & 31;
     if (threadIdx.x < 288 && n_tiles > 0) {
       if (lane == 0) {
-        barrier_expect(kv_full, 2 * L::kKVBytes);
-        for (int c = 0; c < L::kChunks; ++c) {
-          tma_load(Ks + c * L::KB * 128, &tk, kv_full, c * 64, k0, kvh);
-          tma_load(Vs + c * L::KB * 128, &tv, kv_full, c * 64, k0, kvh);
+        barrier_expect(kv_full, L::kKBytes + L::kVBytes);
+        for (int c = 0; c < kChunks; ++c) {
+          if (c < L::kQKChunks) {
+            tma_load(Ks + c * L::KB * 128, &tk, kv_full, c * 64, k0, kvh);
+          }
+          if (c < L::kVChunks) {
+            tma_load(Vs + c * L::KB * 128, &tv, kv_full, c * 64, k0, kvh);
+          }
         }
       }
       for (int i = 0; i < n_tiles; ++i) {
@@ -878,12 +963,17 @@ __global__ void __launch_bounds__(384, 1)
         const int qt = static_cast<int>(qt0) + (i % n_qt) * L::QT;
         if (lane == 0) {
           unsigned char* Qb = stages + stage * L::kStageBytes;
-          unsigned char* dOb = Qb + L::kTileBytes;
+          unsigned char* dOb = Qb + L::kQBytes;
           barrier_expect(&full[stage], L::kStageBytes);
-          for (int c = 0; c < L::kChunks; ++c) {
-            tma_load(Qb + c * L::QT * 128, &tq, &full[stage], c * 64, qt, hh);
-            tma_load(dOb + c * L::QT * 128, &tdo, &full[stage], c * 64, qt,
-                     hh);
+          for (int c = 0; c < kChunks; ++c) {
+            if (c < L::kQKChunks) {
+              tma_load(Qb + c * L::QT * 128, &tq, &full[stage], c * 64, qt,
+                       hh);
+            }
+            if (c < L::kVChunks) {
+              tma_load(dOb + c * L::QT * 128, &tdo, &full[stage], c * 64, qt,
+                       hh);
+            }
           }
         }
         float* st = stats + stage * L::kStatFloats;
@@ -908,11 +998,16 @@ __global__ void __launch_bounds__(384, 1)
     const long long kg = (long long)p.k_off + wk0;
     const float scale_log2 = p.scale * kLog2e;
 
-    float dk[L::DT][4], dv[L::DT][4];
+    float dk[L::DTK][4], dv[L::DTV][4];
 #pragma unroll
-    for (int dt = 0; dt < L::DT; ++dt) {
+    for (int dt = 0; dt < L::DTK; ++dt) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) dk[dt][e] = dv[dt][e] = 0.f;
+      for (int e = 0; e < 4; ++e) dk[dt][e] = 0.f;
+    }
+#pragma unroll
+    for (int dt = 0; dt < L::DTV; ++dt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dv[dt][e] = 0.f;
     }
 
     if (n_tiles > 0) barrier_wait(kv_full, 0);
@@ -928,15 +1023,17 @@ __global__ void __launch_bounds__(384, 1)
       if (!span_dead(p, qg, nq, kg, wkeys)) {
         const unsigned char* Qw =
             stages + stage * L::kStageBytes + q_row0 * 128;
-        const unsigned char* dOw = Qw + L::kTileBytes;
+        const unsigned char* dOw = Qw + L::kQBytes;
         const float* st = stats + stage * L::kStatFloats + q_row0;
         const TileMask mask = tile_mask(p, qg, rows_left, kg, p.s_k - wk0);
         if (nq == L::QN && wkeys == 64 && span_full(p, qg, L::QN, kg, 64)) {
-          dkdv_tile_bf16<D, kSplit, false>(Kw, Vw, Qw, dOw, st, dk, dv,
-                                           scale_log2, c0, mask, warp, lane);
+          dkdv_tile_bf16<DQK, DV, kSplit, false>(Kw, Vw, Qw, dOw, st, dk, dv,
+                                                 scale_log2, c0k, c0v, mask,
+                                                 warp, lane);
         } else {
-          dkdv_tile_bf16<D, kSplit, true>(Kw, Vw, Qw, dOw, st, dk, dv,
-                                          scale_log2, c0, mask, warp, lane);
+          dkdv_tile_bf16<DQK, DV, kSplit, true>(Kw, Vw, Qw, dOw, st, dk, dv,
+                                                scale_log2, c0k, c0v, mask,
+                                                warp, lane);
         }
       }
       __syncwarp();
@@ -952,22 +1049,30 @@ __global__ void __launch_bounds__(384, 1)
       asm volatile("bar.sync 1, 256;\n" ::: "memory");
       if (wg == 1) {
 #pragma unroll
-        for (int dt = 0; dt < L::DT; ++dt) {
+        for (int dt = 0; dt < L::DTK; ++dt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) red[(dt * 4 + e) * 128 + lt] = dk[dt][e];
+        }
+#pragma unroll
+        for (int dt = 0; dt < L::DTV; ++dt) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            red[(dt * 4 + e) * 128 + lt] = dk[dt][e];
-            red[((L::DT + dt) * 4 + e) * 128 + lt] = dv[dt][e];
+            red[((L::DTK + dt) * 4 + e) * 128 + lt] = dv[dt][e];
           }
         }
       }
       asm volatile("bar.sync 1, 256;\n" ::: "memory");
       if (wg == 1) return;
 #pragma unroll
-      for (int dt = 0; dt < L::DT; ++dt) {
+      for (int dt = 0; dt < L::DTK; ++dt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dk[dt][e] += red[(dt * 4 + e) * 128 + lt];
+      }
+#pragma unroll
+      for (int dt = 0; dt < L::DTV; ++dt) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          dk[dt][e] += red[(dt * 4 + e) * 128 + lt];
-          dv[dt][e] += red[((L::DT + dt) * 4 + e) * 128 + lt];
+          dv[dt][e] += red[((L::DTK + dt) * 4 + e) * 128 + lt];
         }
       }
     }
@@ -977,13 +1082,16 @@ __global__ void __launch_bounds__(384, 1)
       const int key = wk0 + warp * 16 + g + 8 * hr;
       if (key >= p.s_k) continue;
       const size_t r = size_t(kvh) * p.s_k + key;
-      float* a = p.dk + r * D + c0 + 2 * t;
-      float* b = p.dv + r * D + c0 + 2 * t;
+      float* a = p.dk + r * DQK + c0k + 2 * t;
+      float* b = p.dv + r * DV + c0v + 2 * t;
 #pragma unroll
-      for (int dt = 0; dt < L::DT; ++dt) {
+      for (int dt = 0; dt < L::DTK; ++dt) {
         *reinterpret_cast<float2*>(a + dt * 8) =
             make_float2(dk[dt][2 * hr] * p.scale,
                         dk[dt][2 * hr + 1] * p.scale);
+      }
+#pragma unroll
+      for (int dt = 0; dt < L::DTV; ++dt) {
         *reinterpret_cast<float2*>(b + dt * 8) =
             make_float2(dv[dt][2 * hr], dv[dt][2 * hr + 1]);
       }
@@ -1449,13 +1557,13 @@ int encode(CUtensorMap* map, const void* base, int d, int rows, int heads,
 }
 
 // The four maps of a bf16 launch: q and dout in boxes of q_rows rows, k
-// and v in boxes of k_rows rows.
-int encode_all(CUtensorMap (&maps)[4], const Params& p, int d, int q_rows,
-               int k_rows) {
-  int err = encode(&maps[0], p.q, d, p.s_q, p.h, q_rows);
-  if (err == 0) err = encode(&maps[1], p.dout, d, p.s_q, p.h, q_rows);
-  if (err == 0) err = encode(&maps[2], p.k, d, p.s_k, p.h_kv, k_rows);
-  if (err == 0) err = encode(&maps[3], p.v, d, p.s_k, p.h_kv, k_rows);
+// and v in boxes of k_rows rows; q and k d_qk wide, dout and v d_v.
+int encode_all(CUtensorMap (&maps)[4], const Params& p, int d_qk, int d_v,
+               int q_rows, int k_rows) {
+  int err = encode(&maps[0], p.q, d_qk, p.s_q, p.h, q_rows);
+  if (err == 0) err = encode(&maps[1], p.dout, d_v, p.s_q, p.h, q_rows);
+  if (err == 0) err = encode(&maps[2], p.k, d_qk, p.s_k, p.h_kv, k_rows);
+  if (err == 0) err = encode(&maps[3], p.v, d_v, p.s_k, p.h_kv, k_rows);
   return err;
 }
 
@@ -1477,22 +1585,27 @@ int blocks(int n, int tile) { return (n + tile - 1) / tile; }
 
 // block_q, block_k: the tile plan the caller assumed, checked here. dq:
 // query rows a block, keys a tile; dkdv: query rows a tile, keys a block
-// (bf16 takes either of its two forms).
+// (bf16 takes either of its two forms where DQK = DV, the 128-key form
+// alone at (192, 128)).
+template <int DQK, int DV>
+int launch_dq_bf16(const Params& p, int block_q, int block_k,
+                   cudaStream_t s) {
+  using L = DqBf16<DQK, DV>;
+  if (block_q != L::BQ || block_k != L::BK) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUtensorMap m[4];
+  const int err = encode_all(m, p, DQK, DV, L::BQ, L::BK);
+  if (err != 0) return err;
+  return launch_with(flash_dq_bf16_kernel<DQK, DV>,
+                     dim3(blocks(p.s_q, L::BQ) * p.h), L::kThreads, L::kSmem,
+                     s, m[0], m[1], m[2], m[3], p);
+}
+
 template <int D>
 int launch_dq(const Params& p, bool bf16, int block_q, int block_k,
               cudaStream_t s) {
-  if (bf16) {
-    using L = DqBf16<D>;
-    if (block_q != L::BQ || block_k != L::BK) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    CUtensorMap m[4];
-    const int err = encode_all(m, p, D, L::BQ, L::BK);
-    if (err != 0) return err;
-    return launch_with(flash_dq_bf16_kernel<D>,
-                       dim3(blocks(p.s_q, L::BQ) * p.h), L::kThreads,
-                       L::kSmem, s, m[0], m[1], m[2], m[3], p);
-  }
+  if (bf16) return launch_dq_bf16<D, D>(p, block_q, block_k, s);
   using L = DqF32<D>;
   if (block_q != L::BQ || block_k != L::BK) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1502,31 +1615,37 @@ int launch_dq(const Params& p, bool bf16, int block_q, int block_k,
                      L::kSmem, s, p);
 }
 
-template <int D, bool kSplit>
-int launch_dkdv_bf16(const Params& p, cudaStream_t s) {
-  using L = DkdvBf16<D, kSplit>;
+template <int DQK, int DV, bool kSplit>
+int launch_dkdv_form(const Params& p, cudaStream_t s) {
+  using L = DkdvBf16<DQK, DV, kSplit>;
   CUtensorMap m[4];
-  const int err = encode_all(m, p, D, L::QT, L::KB);
+  const int err = encode_all(m, p, DQK, DV, L::QT, L::KB);
   if (err != 0) return err;
-  return launch_with(flash_dkdv_bf16_kernel<D, kSplit>,
-                     dim3(blocks(p.s_k, L::KB) * p.h_kv, D / L::DO),
+  return launch_with(flash_dkdv_bf16_kernel<DQK, DV, kSplit>,
+                     dim3(blocks(p.s_k, L::KB) * p.h_kv, L::kColSplit),
                      L::kThreads, L::kSmem, s, m[0], m[1], m[2], m[3], p);
+}
+
+template <int DQK, int DV>
+int launch_dkdv_bf16(const Params& p, int block_q, int block_k,
+                     cudaStream_t s) {
+  using N = DkdvBf16<DQK, DV, false>;
+  if (block_q == N::QT && block_k == N::KB) {
+    return launch_dkdv_form<DQK, DV, false>(p, s);
+  }
+  if constexpr (DQK == DV) {
+    using S = DkdvBf16<DQK, DV, true>;
+    if (block_q == S::QT && block_k == S::KB) {
+      return launch_dkdv_form<DQK, DV, true>(p, s);
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <int D>
 int launch_dkdv(const Params& p, bool bf16, int block_q, int block_k,
                 cudaStream_t s) {
-  if (bf16) {
-    using N = DkdvBf16<D, false>;
-    using S = DkdvBf16<D, true>;
-    if (block_q == N::QT && block_k == N::KB) {
-      return launch_dkdv_bf16<D, false>(p, s);
-    }
-    if (block_q == S::QT && block_k == S::KB) {
-      return launch_dkdv_bf16<D, true>(p, s);
-    }
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (bf16) return launch_dkdv_bf16<D, D>(p, block_q, block_k, s);
   using L = DkdvF32<D>;
   if (block_q != L::QT || block_k != L::KB) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1536,16 +1655,22 @@ int launch_dkdv(const Params& p, bool bf16, int block_q, int block_k,
                      kF32Threads, L::kSmem, s, p);
 }
 
-// dtype 0: f32, 1: bf16; head dims 64, 128 and 256
+// dtype 0: f32, 1: bf16; head dims (d, d_v): d = d_v in 64, 128 and
+// 256, and in bf16 (192, 128)
 template <bool kDq>
-int dispatch(const Params& p, int dtype, int d, int block_q, int block_k,
-             void* stream) {
+int dispatch(const Params& p, int dtype, int d, int d_v, int block_q,
+             int block_k, void* stream) {
   if (p.s_q < 1 || p.s_k < 1 || p.h_kv < 1 || p.h % p.h_kv != 0 ||
       (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const bool bf16 = dtype == 1;
   const auto s = static_cast<cudaStream_t>(stream);
+  if (bf16 && d == 192 && d_v == 128) {
+    return kDq ? launch_dq_bf16<192, 128>(p, block_q, block_k, s)
+               : launch_dkdv_bf16<192, 128>(p, block_q, block_k, s);
+  }
+  if (d != d_v) return static_cast<int>(cudaErrorInvalidValue);
   switch (d) {
     case 64:
       return kDq ? launch_dq<64>(p, bf16, block_q, block_k, s)
@@ -1569,25 +1694,26 @@ extern "C" int smi_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const float* m,
                                 const float* linv, const float* delta,
                                 float* dq, int dtype, int h, int h_kv,
-                                int s_q, int s_k, int d, int q_off, int k_off,
-                                int causal, int window, float scale,
-                                int block_q, int block_k, void* stream) {
+                                int s_q, int s_k, int d, int d_v, int q_off,
+                                int k_off, int causal, int window,
+                                float scale, int block_q, int block_k,
+                                void* stream) {
   const Params p{q,  k,       v,       dout, m,     linv,  delta,
                  dq, nullptr, nullptr, h,    h_kv,  s_q,   s_k,
                  q_off, k_off, causal, window, scale};
-  return dispatch<true>(p, dtype, d, block_q, block_k, stream);
+  return dispatch<true>(p, dtype, d, d_v, block_q, block_k, stream);
 }
 
 extern "C" int smi_flash_bwd_dkdv(const void* q, const void* k, const void* v,
                                   const void* dout, const float* m,
                                   const float* linv, const float* delta,
                                   float* dk, float* dv, int dtype, int h,
-                                  int h_kv, int s_q, int s_k, int d,
+                                  int h_kv, int s_q, int s_k, int d, int d_v,
                                   int q_off, int k_off, int causal,
                                   int window, float scale, int block_q,
                                   int block_k, void* stream) {
   const Params p{q,       k,  v,  dout, m,    linv, delta,
                  nullptr, dk, dv, h,    h_kv, s_q,  s_k,
                  q_off,   k_off, causal, window, scale};
-  return dispatch<false>(p, dtype, d, block_q, block_k, stream);
+  return dispatch<false>(p, dtype, d, d_v, block_q, block_k, stream);
 }

@@ -49,6 +49,13 @@
 // its own buffer: the next K streams in during the softmax and P V, the
 // next V during Q K^T.
 //
+// Head dims: Q and K share one (DQK), V and the output have their own
+// (DV). f32 and bf16 take DQK = DV in 64, 128 and 256; bf16 also takes
+// (DQK, DV) = (192, 128), DeepSeek-V3's latent attention (MLA: 128 dims
+// without positions and 64 rotated ones against 128-wide values). That
+// form is the D=128 design with 12 k16 steps in Q K^T: 128-key tiles, two
+// stages of a 192-wide K and a 128-wide V tile (214 KB of shared memory).
+//
 // Both: p is ex2.approx of one FMA with log2(e) folded in, m kept in
 // scaled-score units (the backward reads m and 1/l as the JAX package
 // defines them); a tile body is compiled with and without the mask, so
@@ -468,19 +475,21 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-template <int D>
+template <int DQK, int DV>
 struct Bf16Plan {
   static constexpr int kThreads = 384;  // two consumer warpgroups, one producer
   static constexpr int BQ = 128;        // 64 query rows per consumer warpgroup
-  static constexpr int BK = D == 256 ? 64 : 128;  // keys per tile
+  static constexpr int BK = DQK == 256 ? 64 : 128;  // keys per tile
   static constexpr int kStages = 2;
   static constexpr int NT = BK / 8;     // score accumulator tiles
-  static constexpr int DT = D / 8;      // output accumulator tiles
+  static constexpr int DT = DV / 8;     // output accumulator tiles
   static constexpr int kBox = 64;       // a box row: 64 bf16, 128 bytes
-  static constexpr int kChunks = D / kBox;
-  static constexpr uint32_t kQBytes = BQ * D * 2;
-  static constexpr uint32_t kTileBytes = BK * D * 2;  // one K or V tile
-  static constexpr uint32_t kStageBytes = 2 * kTileBytes;
+  static constexpr int kQKChunks = DQK / kBox;  // boxes of a Q or K row
+  static constexpr int kVChunks = DV / kBox;    // boxes of a V row
+  static constexpr uint32_t kQBytes = BQ * DQK * 2;
+  static constexpr uint32_t kKBytes = BK * DQK * 2;  // one K tile
+  static constexpr uint32_t kVBytes = BK * DV * 2;   // one V tile
+  static constexpr uint32_t kStageBytes = kKBytes + kVBytes;
   static constexpr uint32_t kBarOffset = kQBytes + kStages * kStageBytes;
   // 1024: slack to align the base to the swizzle's 1024-byte period
   static constexpr size_t kSmem = 1024 + kBarOffset + 64;
@@ -488,23 +497,24 @@ struct Bf16Plan {
 
 // Fold one (64, BK) tile into this warpgroup's state. Qw: the
 // warpgroup's 64 rows of the Q tile; Ks/Vs: the stage's K and V tiles,
-// each kChunks boxes of (rows x 128 bytes).
-template <int D, bool kMask>
+// kQKChunks and kVChunks boxes of (rows x 128 bytes).
+template <int DQK, int DV, bool kMask>
 __device__ __forceinline__ void bf16_tile(
     const unsigned char* Qw, const unsigned char* Ks,
-    const unsigned char* Vs, float (&o)[Bf16Plan<D>::DT][4], float (&m)[2],
-    float (&l)[2], float scale, const TileMask& mask, int warp, int lane) {
-  using L = Bf16Plan<D>;
+    const unsigned char* Vs, float (&o)[Bf16Plan<DQK, DV>::DT][4],
+    float (&m)[2], float (&l)[2], float scale, const TileMask& mask,
+    int warp, int lane) {
+  using L = Bf16Plan<DQK, DV>;
   const int g = lane >> 2, t = lane & 3;
   float s[L::NT][4];
 #pragma unroll
   for (int j = 0; j < L::NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 
-  // S = Q K^T: D/16 steps of k16, 32 bytes apart inside a 128-byte row
+  // S = Q K^T: DQK/16 steps of k16, 32 bytes apart inside a 128-byte row
   fence_operands(s);
   wgmma_fence();
 #pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
+  for (int kc = 0; kc < DQK / 16; ++kc) {
     const int c = kc / 4, w = (kc % 4) * 32;
     wgmma_ss(s, descriptor(Qw + c * L::BQ * 128 + w, 16, 1024),
              descriptor(Ks + c * L::BK * 128 + w, 16, 1024), 1);
@@ -557,7 +567,7 @@ __device__ __forceinline__ void bf16_tile(
   }
 
   // O += P V: BK/16 steps of k16 (16 keys, 2048 bytes of each V box);
-  // N = D spans kChunks boxes BK * 128 bytes apart. P is packed whole
+  // N = DV spans kVChunks boxes BK * 128 bytes apart. P is packed whole
   // before the fence, so no register of a wgmma's A is written between
   // the issues.
   uint32_t a[L::BK / 16][4];
@@ -579,13 +589,13 @@ __device__ __forceinline__ void bf16_tile(
   fence_operands(o);
 }
 
-template <int D, bool kCarried>
+template <int DQK, int DV, bool kCarried>
 __global__ void __launch_bounds__(384, 1)
     flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
                       const Params p) {
-  using L = Bf16Plan<D>;
+  using L = Bf16Plan<DQK, DV>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -620,7 +630,7 @@ __global__ void __launch_bounds__(384, 1)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 256 && n_tiles > 0) {
       barrier_expect(q_full, L::kQBytes);
-      for (int c = 0; c < L::kChunks; ++c) {
+      for (int c = 0; c < L::kQKChunks; ++c) {
         tma_load(Qs + c * L::BQ * 128, &tq, q_full, c * L::kBox, q0, hh);
       }
       for (int i = 0; i < n_tiles; ++i) {
@@ -629,14 +639,14 @@ __global__ void __launch_bounds__(384, 1)
           barrier_wait(&empty[stage], (i / L::kStages - 1) & 1);
         }
         unsigned char* Kb = smem + L::kQBytes + stage * L::kStageBytes;
-        unsigned char* Vb = Kb + L::kTileBytes;
+        unsigned char* Vb = Kb + L::kKBytes;
         const int kt = static_cast<int>(kt0) + i * L::BK;
         barrier_expect(&full[stage], L::kStageBytes);
-        for (int c = 0; c < L::kChunks; ++c) {
+        for (int c = 0; c < L::kQKChunks; ++c) {
           tma_load(Kb + c * L::BK * 128, &tk, &full[stage], c * L::kBox, kt,
                    kvh);
         }
-        for (int c = 0; c < L::kChunks; ++c) {
+        for (int c = 0; c < L::kVChunks; ++c) {
           tma_load(Vb + c * L::BK * 128, &tv, &full[stage], c * L::kBox, kt,
                    kvh);
         }
@@ -665,7 +675,7 @@ __global__ void __launch_bounds__(384, 1)
         const size_t r = row0 + rows[hr];
         m[hr] = p.m_in[r];
         l[hr] = p.l_in[r];
-        const float* a = p.acc_in + r * D + 2 * t;
+        const float* a = p.acc_in + r * DV + 2 * t;
 #pragma unroll
         for (int dt = 0; dt < L::DT; ++dt) {
           const float2 x = *reinterpret_cast<const float2*>(a + dt * 8);
@@ -685,11 +695,11 @@ __global__ void __launch_bounds__(384, 1)
         const unsigned char* Kb = smem + L::kQBytes + stage * L::kStageBytes;
         const TileMask mask = tile_mask(p, kt, wq_first);
         if (tile_full(p, kt, L::BK, wq_first, 64)) {
-          bf16_tile<D, false>(Qw, Kb, Kb + L::kTileBytes, o, m, l, p.scale,
-                              mask, warp, lane);
+          bf16_tile<DQK, DV, false>(Qw, Kb, Kb + L::kKBytes, o, m, l,
+                                    p.scale, mask, warp, lane);
         } else {
-          bf16_tile<D, true>(Qw, Kb, Kb + L::kTileBytes, o, m, l, p.scale,
-                             mask, warp, lane);
+          bf16_tile<DQK, DV, true>(Qw, Kb, Kb + L::kKBytes, o, m, l,
+                                   p.scale, mask, warp, lane);
         }
       }
       __syncwarp();
@@ -705,7 +715,7 @@ __global__ void __launch_bounds__(384, 1)
         p.l_out[r] = l[hr];
       }
       if constexpr (kCarried) {
-        float* a = static_cast<float*>(p.out) + r * D + 2 * t;
+        float* a = static_cast<float*>(p.out) + r * DV + 2 * t;
 #pragma unroll
         for (int dt = 0; dt < L::DT; ++dt) {
           *reinterpret_cast<float2*>(a + dt * 8) =
@@ -714,7 +724,7 @@ __global__ void __launch_bounds__(384, 1)
       } else {
         const float safe_l = l[hr] == 0.f ? 1.f : l[hr];
         __nv_bfloat16* out =
-            static_cast<__nv_bfloat16*>(p.out) + r * D + 2 * t;
+            static_cast<__nv_bfloat16*>(p.out) + r * DV + 2 * t;
 #pragma unroll
         for (int dt = 0; dt < L::DT; ++dt) {
           *reinterpret_cast<__nv_bfloat162*>(out + dt * 8) =
@@ -1054,19 +1064,19 @@ dim3 grid_of(const Params& p, int bq) {
   return dim3(static_cast<unsigned>((p.s_q + bq - 1) / bq) * p.h);
 }
 
-template <int D, bool kCarried>
+template <int DQK, int DV, bool kCarried>
 int launch_bf16(const Params& p, int block_q, int block_k,
                 cudaStream_t stream) {
-  using L = Bf16Plan<D>;
+  using L = Bf16Plan<DQK, DV>;
   if (block_q != L::BQ || block_k != L::BK) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   CUtensorMap tq, tk, tv;
-  int err = encode(&tq, p.q, D, p.s_q, p.h, L::BQ);
-  if (err == 0) err = encode(&tk, p.k, D, p.s_k, p.h_kv, L::BK);
-  if (err == 0) err = encode(&tv, p.v, D, p.s_k, p.h_kv, L::BK);
+  int err = encode(&tq, p.q, DQK, p.s_q, p.h, L::BQ);
+  if (err == 0) err = encode(&tk, p.k, DQK, p.s_k, p.h_kv, L::BK);
+  if (err == 0) err = encode(&tv, p.v, DV, p.s_k, p.h_kv, L::BK);
   if (err != 0) return err;
-  auto kernel = flash_bf16_kernel<D, kCarried>;
+  auto kernel = flash_bf16_kernel<DQK, DV, kCarried>;
   const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(L::kSmem));
@@ -1098,14 +1108,19 @@ int launch_f32(const Params& p, int block_q, int block_k,
   return static_cast<int>(cudaGetLastError());
 }
 
-// dtype 0: f32, 1: bf16; head dims 64, 128 and 256
+// dtype 0: f32, 1: bf16; head dims (d, d_v): d = d_v in 64, 128 and
+// 256, and in bf16 (192, 128)
 template <bool kCarried>
-int dispatch(const Params& p, int dtype, int d, int block_q, int block_k,
-             void* stream) {
+int dispatch(const Params& p, int dtype, int d, int d_v, int block_q,
+             int block_k, void* stream) {
   if (p.s_q < 1 || p.s_k < 1 || p.h_kv < 1 || p.h % p.h_kv != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && d == 192 && d_v == 128) {
+    return launch_bf16<192, 128, kCarried>(p, block_q, block_k, s);
+  }
+  if (d != d_v) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0) {
     switch (d) {
       case 64: return launch_f32<64, kCarried>(p, block_q, block_k, s);
@@ -1114,9 +1129,11 @@ int dispatch(const Params& p, int dtype, int d, int block_q, int block_k,
     }
   } else if (dtype == 1) {
     switch (d) {
-      case 64: return launch_bf16<64, kCarried>(p, block_q, block_k, s);
-      case 128: return launch_bf16<128, kCarried>(p, block_q, block_k, s);
-      case 256: return launch_bf16<256, kCarried>(p, block_q, block_k, s);
+      case 64: return launch_bf16<64, 64, kCarried>(p, block_q, block_k, s);
+      case 128:
+        return launch_bf16<128, 128, kCarried>(p, block_q, block_k, s);
+      case 256:
+        return launch_bf16<256, 256, kCarried>(p, block_q, block_k, s);
     }
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -1130,22 +1147,23 @@ int dispatch(const Params& p, int dtype, int d, int block_q, int block_k,
 extern "C" int smi_flash_fused(const void* q, const void* k, const void* v,
                                void* out, float* m_out, float* l_out,
                                int dtype, int h, int h_kv, int s_q, int s_k,
-                               int d, int q_off, int k_off, int causal,
-                               int window, float scale, int block_q,
-                               int block_k, void* stream) {
+                               int d, int d_v, int q_off, int k_off,
+                               int causal, int window, float scale,
+                               int block_q, int block_k, void* stream) {
   const Params p{q, k, v, nullptr, nullptr, nullptr, out, m_out, l_out,
                  h, h_kv, s_q, s_k, q_off, k_off, causal, window, scale};
-  return dispatch<false>(p, dtype, d, block_q, block_k, stream);
+  return dispatch<false>(p, dtype, d, d_v, block_q, block_k, stream);
 }
 
 extern "C" int smi_flash_block(const void* q, const void* k, const void* v,
                                const float* m_in, const float* l_in,
                                const float* acc_in, float* m_out,
                                float* l_out, float* acc_out, int dtype, int h,
-                               int h_kv, int s_q, int s_k, int d, int q_off,
-                               int k_off, int causal, int window, float scale,
-                               int block_q, int block_k, void* stream) {
+                               int h_kv, int s_q, int s_k, int d, int d_v,
+                               int q_off, int k_off, int causal, int window,
+                               float scale, int block_q, int block_k,
+                               void* stream) {
   const Params p{q, k, v, m_in, l_in, acc_in, acc_out, m_out, l_out,
                  h, h_kv, s_q, s_k, q_off, k_off, causal, window, scale};
-  return dispatch<true>(p, dtype, d, block_q, block_k, stream);
+  return dispatch<true>(p, dtype, d, d_v, block_q, block_k, stream);
 }

@@ -19,9 +19,14 @@ the JAX package's contracts and layouts:
 The forward pair launches ``csrc/flash_fwd.cu``, the backward pair
 ``csrc/flash_bwd.cu``, for CUDA tensors; each runs its plain PyTorch
 version (the ``*_plain`` functions) only for CPU tensors. Layouts are
-head-major: q and dout ``(H, Sq, D)``, k/v ``(H_kv, Sk, D)`` with ``H_kv``
-dividing ``H`` (grouped-query attention), acc, dq ``(H, Sq, D)`` f32, dk
-and dv ``(H_kv, Sk, D)`` f32.
+head-major: q ``(H, Sq, D)``, k ``(H_kv, Sk, D)`` and v ``(H_kv, Sk,
+Dv)`` with ``H_kv`` dividing ``H`` (grouped-query attention); out, acc
+and dout ``(H, Sq, Dv)``, dq ``(H, Sq, D)`` f32, dk ``(H_kv, Sk, D)`` and
+dv ``(H_kv, Sk, Dv)`` f32. Q and K share a head dim, V may have its own:
+the kernels take ``D = Dv`` in :data:`HEAD_DIMS` and, in bf16, the forms
+of :data:`SPLIT_HEAD_DIMS` (DeepSeek-V3's latent attention, 192 against
+128); a launch of such a form counts under its own name
+(:func:`launch_name`).
 
 Masked scores count as ``-inf`` in both the kernel and its plain
 version, so a masked key adds exactly nothing: a row with no live key
@@ -58,8 +63,13 @@ KERNEL_BLOCK = "flash_block"
 KERNEL_BWD_DQ = "flash_bwd_dq"
 KERNEL_BWD_DKDV = "flash_bwd_dkdv"
 
-#: head dims the kernels are instantiated for
+#: head dims the kernels are instantiated for, Q, K and V alike
 HEAD_DIMS = (64, 128, 256)
+
+#: ``(D, Dv)`` forms with V narrower than Q and K, instantiated in bf16
+#: alone: DeepSeek-V3's latent attention (128 dims without positions and
+#: 64 rotated ones against 128-wide values)
+SPLIT_HEAD_DIMS = ((192, 128),)
 
 #: query rows per forward block (``BQ`` of ``Bf16Plan``/``F32Plan`` in
 #: ``csrc/flash_fwd.cu``): two consumer warpgroups of 64 rows in bf16,
@@ -90,6 +100,24 @@ def _validate_window(causal: bool, window) -> None:
         raise ValueError(f"window must be >= 1, got {window}")
 
 
+def has_form(d: int, dtype, d_v: Optional[int] = None) -> bool:
+    """Whether the kernels are instantiated for head dims ``(d, d_v)``
+    (``d_v`` None: ``d``) in ``dtype``."""
+    d_v = d if d_v is None else d_v
+    if dtype not in _DTYPE_CODE:
+        return False
+    if d == d_v:
+        return d in HEAD_DIMS
+    return dtype == torch.bfloat16 and (d, d_v) in SPLIT_HEAD_DIMS
+
+
+def launch_name(kernel: str, d: int, d_v: int) -> str:
+    """The ``_build.LAUNCHES`` name of a launch of ``kernel`` at head dims
+    ``(d, d_v)``: the kernel's own where they agree, else
+    ``<kernel>_<d>x<d_v>`` (a split form, counted apart)."""
+    return kernel if d == d_v else f"{kernel}_{d}x{d_v}"
+
+
 def _block_k(d: int, dtype) -> int:
     """Keys per forward tile: bf16 128 (64 at D=256), f32 64 (32 at
     D=256), as ``BK`` in ``csrc/flash_fwd.cu``."""
@@ -97,42 +125,49 @@ def _block_k(d: int, dtype) -> int:
     return full // 2 if d == 256 else full
 
 
-def smem_bytes(d: int, dtype) -> int:
+def smem_bytes(d: int, dtype, d_v: Optional[int] = None) -> int:
     """Dynamic shared memory of one forward block, as ``kSmem`` in
     ``csrc/flash_fwd.cu`` sums it. bf16: 1024 bytes to align the base to
     the 128-byte swizzle's period, the Q tile, two stages of one K and
     one V tile (unpadded: TMA swizzles) and 64 bytes of mbarriers. f32:
     the Q tile and one K and one V tile, rows padded by 16 bytes, and the
     ``BLOCK_Q x (block_k + 16)`` probability tile."""
+    d_v = d if d_v is None else d_v
     block_k = _block_k(d, dtype)
     if dtype == torch.bfloat16:
-        return 1024 + BLOCK_Q * d * 2 + 2 * 2 * block_k * d * 2 + 64
+        return 1024 + BLOCK_Q * d * 2 + 2 * block_k * (d + d_v) * 2 + 64
     return 4 * ((BLOCK_Q + 2 * block_k) * (d + 4)
                 + BLOCK_Q * (block_k + 16))
 
 
-def _plan(d: int, dtype) -> Optional[Tuple[int, int]]:
-    """``(block_q, block_k)`` of the forward kernel for head dim ``d``, or
-    None where it has no instantiation or its tiles would not fit shared
-    memory."""
-    if dtype not in _DTYPE_CODE or d not in HEAD_DIMS:
+def _plan(d: int, dtype, d_v: Optional[int] = None
+          ) -> Optional[Tuple[int, int]]:
+    """``(block_q, block_k)`` of the forward kernel for head dims ``(d,
+    d_v)``, or None where it has no instantiation or its tiles would not
+    fit shared memory. The (192, 128) form tiles as D=128 does: 128-key
+    tiles, two stages of a 192-wide K and a 128-wide V tile."""
+    if not has_form(d, dtype, d_v):
         return None
-    if smem_bytes(d, dtype) > _build.SMEM_BYTES_LIMIT:
+    if smem_bytes(d, dtype, d_v) > _build.SMEM_BYTES_LIMIT:
         return None
     return BLOCK_Q, _block_k(d, dtype)
 
 
 def fwd_plan_explained(d: int, dtype,
-                       window: Optional[int] = None
+                       window: Optional[int] = None,
+                       d_v: Optional[int] = None,
                        ) -> Tuple[Optional[Tuple[int, int]], str]:
     """``(plan, layer)`` of the forward kernels: the plan engine's tile
     pair (``planned_flash_blocks``, layer ``"cache"``) where its cache
     entry names the pair the kernel compiles for this dtype and head dim,
     else :func:`_plan` (layer ``"heuristic"``). The kernels compile one
-    pair a dtype and head dim, so an entry naming any other pair, the
+    pair a dtype and head dims, so an entry naming any other pair, the
     v5e's seeded (1024, 1024) among them, leaves the plan as it is,
-    without an error."""
-    plan = _plan(d, dtype)
+    without an error. A split form ``(d, d_v)`` has no cache entry: its
+    plan is :func:`_plan`'s."""
+    plan = _plan(d, dtype, d_v)
+    if d_v is not None and d_v != d:
+        return plan, "heuristic"
     try:
         from smi_tpu_torch.tuning.engine import (
             dtype_name,
@@ -152,40 +187,47 @@ def fwd_plan_explained(d: int, dtype,
 #: query rows and walks key tiles of ``block_k`` rows; dkdv: a block owns
 #: ``block_k`` keys and walks query tiles of ``block_q`` rows. bf16 dkdv
 #: has a 64-key form (``kSplit``) for launches that would leave most SMs
-#: idle.
+#: idle, where ``D = Dv``.
 BWD_BLOCK_Q = 128
 BWD_BLOCK_K = 128
 
 
-def _bwd_tiles(kernel: str, d: int, dtype,
-               split: bool = False) -> Tuple[int, int]:
-    """``(block_q, block_k)`` of a backward kernel's tiles."""
+def _bwd_tiles(kernel: str, d: int, dtype, split: bool = False,
+               d_v: Optional[int] = None) -> Tuple[int, int]:
+    """``(block_q, block_k)`` of a backward kernel's tiles. bf16 dkdv at
+    D=256 and at a split form walks query tiles of 32 a warpgroup: at
+    (192, 128) dK and dV take 160 registers a thread across the loop."""
+    d_v = d if d_v is None else d_v
     if dtype == torch.bfloat16:
         if kernel == KERNEL_BWD_DQ:
             return BWD_BLOCK_Q, 32 if d == 256 else 64
-        qn = 32 if d == 256 else 64          # queries a warpgroup a tile
+        qn = 32 if d == 256 or d != d_v else 64   # queries a warpgroup a tile
         return (2 * qn, 64) if split else (qn, BWD_BLOCK_K)
     if kernel == KERNEL_BWD_DQ:
         return (64 if d == 256 else BWD_BLOCK_Q), 32
     return 32, (32 if d == 256 else BWD_BLOCK_K)
 
 
-def bwd_smem_bytes(kernel: str, d: int, dtype, split: bool = False) -> int:
+def bwd_smem_bytes(kernel: str, d: int, dtype, split: bool = False,
+                   d_v: Optional[int] = None) -> int:
     """Dynamic shared memory of one backward block, as ``kSmem`` in
     ``csrc/flash_bwd.cu`` sums it. bf16 (tiles unpadded: TMA swizzles):
     1024 bytes to align the base to the 128-byte swizzle's period, the
     block's own rows (dq: Q and dO; dkdv: K and V), two stages of the
     streamed tiles (dq: K and V; dkdv: Q and dO, with their three f32
-    statistic rows) and 64 bytes of mbarriers. f32 (rows padded by 16
-    bytes): dq holds Q and dO, one K and one V tile and the dS tile;
-    dkdv holds K and V, one Q and one dO tile with their statistics, and
-    the P^T and dS^T tiles (rows of ``block_q + 16`` floats)."""
-    block_q, block_k = _bwd_tiles(kernel, d, dtype, split)
+    statistic rows) and 64 bytes of mbarriers; Q and K rows are ``d``
+    wide, V and dO rows ``d_v``. f32 (rows padded by 16 bytes): dq holds
+    Q and dO, one K and one V tile and the dS tile; dkdv holds K and V,
+    one Q and one dO tile with their statistics, and the P^T and dS^T
+    tiles (rows of ``block_q + 16`` floats)."""
+    d_v = d if d_v is None else d_v
+    block_q, block_k = _bwd_tiles(kernel, d, dtype, split, d_v)
     dq = kernel == KERNEL_BWD_DQ
     if dtype == torch.bfloat16:
         own, streamed = (block_q, block_k) if dq else (block_k, block_q)
         stats = 0 if dq else 2 * 3 * block_q * 4
-        return 1024 + 2 * own * d * 2 + 2 * 2 * streamed * d * 2 + stats + 64
+        return (1024 + own * (d + d_v) * 2 + 2 * streamed * (d + d_v) * 2
+                + stats + 64)
     ld = d + 4
     if dq:
         return 4 * (2 * block_q * ld + 2 * block_k * ld
@@ -207,44 +249,50 @@ def bwd_blocks(kernel: str, plan: Tuple[int, int], h: int, h_kv: int,
 
 def _bwd_plan(kernel: str, d: int, dtype, s_k: Optional[int] = None,
               h_kv: Optional[int] = None,
-              sms: int = _build.SMS) -> Optional[Tuple[int, int]]:
-    """``(block_q, block_k)`` of a backward kernel for head dim ``d``, or
-    None where it has no instantiation or would not fit shared memory.
-    Given ``s_k`` and ``h_kv``, bf16 dkdv takes its 64-key form where
-    twice its 128-key blocks still fit one wave of ``sms`` (the 64-key
-    form halves each block's work and doubles the blocks, which helps
-    only where the doubled grid leaves no SM a second block)."""
-    if dtype not in _DTYPE_CODE or d not in HEAD_DIMS:
+              sms: int = _build.SMS,
+              d_v: Optional[int] = None) -> Optional[Tuple[int, int]]:
+    """``(block_q, block_k)`` of a backward kernel for head dims ``(d,
+    d_v)``, or None where it has no instantiation or would not fit shared
+    memory. Given ``s_k`` and ``h_kv``, bf16 dkdv with ``d = d_v`` takes
+    its 64-key form where twice its 128-key blocks still fit one wave of
+    ``sms`` (the 64-key form halves each block's work and doubles the
+    blocks, which helps only where the doubled grid leaves no SM a second
+    block). A split form takes the 128-key form alone: dq 128 query rows
+    a block and 64-key tiles, dkdv 128 keys a block and 32-row query
+    tiles."""
+    if not has_form(d, dtype, d_v):
         return None
     split = (kernel == KERNEL_BWD_DKDV and dtype == torch.bfloat16
-             and s_k is not None
+             and d_v in (None, d) and s_k is not None
              and 2 * bwd_blocks(kernel, _bwd_tiles(kernel, d, dtype),
                                 h_kv, h_kv, 0, s_k, d) <= sms)
-    if bwd_smem_bytes(kernel, d, dtype, split) > _build.SMEM_BYTES_LIMIT:
+    if bwd_smem_bytes(kernel, d, dtype, split, d_v) > \
+            _build.SMEM_BYTES_LIMIT:
         return None
-    return _bwd_tiles(kernel, d, dtype, split)
+    return _bwd_tiles(kernel, d, dtype, split, d_v)
 
 
 def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def flash_supported(s_q: int, s_k: int, d: int, dtype) -> bool:
+def flash_supported(s_q: int, s_k: int, d: int, dtype,
+                    d_v: Optional[int] = None) -> bool:
     """Whether the CUDA kernels, forward and backward, take these shapes:
-    f32 or bf16, a head dim they are instantiated for, and non-empty
-    extents (ragged tiles are masked in the kernels, so any length
-    goes)."""
-    return (s_q >= 1 and s_k >= 1 and _plan(d, dtype) is not None
-            and _bwd_plan(KERNEL_BWD_DQ, d, dtype) is not None
-            and _bwd_plan(KERNEL_BWD_DKDV, d, dtype) is not None)
+    f32 or bf16, head dims ``(d, d_v)`` they are instantiated for
+    (:func:`has_form`), and non-empty extents (ragged tiles are masked in
+    the kernels, so any length goes)."""
+    return (s_q >= 1 and s_k >= 1 and _plan(d, dtype, d_v) is not None
+            and _bwd_plan(KERNEL_BWD_DQ, d, dtype, d_v=d_v) is not None
+            and _bwd_plan(KERNEL_BWD_DKDV, d, dtype, d_v=d_v) is not None)
 
 
 def check_operands(what: str, q, k, v, state=(),
                    dout=None) -> Tuple[int, int, int, int]:
-    """Raise unless q/k/v (with ``dout`` in q's dtype and layout, and the
-    f32 ``state``, name-tensor pairs: the carry or the saved statistics)
-    are contiguous tensors of the kernels' dtypes and layouts on one
-    device. Returns ``(h, h_kv, s_q, s_k)``."""
+    """Raise unless q/k/v (with ``dout`` in q's dtype and v's layout, and
+    the f32 ``state``, name-tensor pairs: the carry or the saved
+    statistics) are contiguous tensors of the kernels' dtypes and layouts
+    on one device. Returns ``(h, h_kv, s_q, s_k)``."""
     grads = () if dout is None else (("dout", dout),)
     named = (("q", q), ("k", k), ("v", v), *grads, *state)
     for name, t in named:
@@ -265,25 +313,28 @@ def check_operands(what: str, q, k, v, state=(),
     for name, t in state:
         if t.dtype != torch.float32:
             raise TypeError(f"{what}: {name} must be float32, got {t.dtype}")
-    if q.dim() != 3 or k.dim() != 3:
-        raise ValueError(f"{what}: q and k must be 3-D (heads, rows, dim), "
-                         f"got {tuple(q.shape)} and {tuple(k.shape)}")
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError(f"{what}: q, k and v must be 3-D (heads, rows, "
+                         f"dim), got {tuple(q.shape)}, {tuple(k.shape)} and "
+                         f"{tuple(v.shape)}")
     h, s_q, d = q.shape
     h_kv, s_k, _ = k.shape
+    d_v = v.shape[2]
     _gqa_group(h, h_kv)
     row = (h, 1, s_q)
-    shapes = {"k": (h_kv, s_k, d), "v": (h_kv, s_k, d), "dout": (h, s_q, d),
-              "m": row, "l": row, "linv": row, "delta": row,
-              "acc": (h, s_q, d)}
+    shapes = {"k": (h_kv, s_k, d), "v": (h_kv, s_k, d_v),
+              "dout": (h, s_q, d_v), "m": row, "l": row, "linv": row,
+              "delta": row, "acc": (h, s_q, d_v)}
     for name, t in named[1:]:
         if tuple(t.shape) != shapes[name]:
             raise ValueError(f"{what}: {name} must have shape "
                              f"{shapes[name]}, got {tuple(t.shape)}")
     if q.device.type == "cuda":
-        if not flash_supported(s_q, s_k, d, q.dtype):
+        if not flash_supported(s_q, s_k, d, q.dtype, d_v):
             raise ValueError(
                 f"{what}: the CUDA kernel does not take Sq={s_q}, Sk={s_k}, "
-                f"head dim {d} (head dims {HEAD_DIMS})"
+                f"head dims ({d}, {d_v}) in {q.dtype} (head dims "
+                f"{HEAD_DIMS}; bf16 also {SPLIT_HEAD_DIMS})"
             )
         for name, t in named:
             if t.data_ptr() % 16:
@@ -336,7 +387,7 @@ def _fold_plain(q, k, v, m, l, acc, q_off, k_off, causal, scale, window):
 
 def fresh_state(h: int, s_q: int, d: int, device):
     """``(m, l, acc)`` before any fold: ``(NEG_INF, 0, 0)``, in f32
-    whatever the inputs' dtype."""
+    whatever the inputs' dtype; ``d`` is V's head dim (acc's width)."""
     return (torch.full((h, 1, s_q), NEG_INF, dtype=torch.float32,
                        device=device),
             torch.zeros((h, 1, s_q), dtype=torch.float32, device=device),
@@ -359,17 +410,19 @@ def flash_attend_fused_plain(q, k, v, q_off, k_off, causal: bool,
     """:func:`flash_attend_fused` in PyTorch ops: the kernel's plain
     version. Returns ``(out, m, l)``."""
     _validate_window(causal, window)
-    h, s_q, d = q.shape
-    m, l, acc = _fold_plain(q, k, v, *fresh_state(h, s_q, d, q.device),
+    h, s_q, _ = q.shape
+    m, l, acc = _fold_plain(q, k, v,
+                            *fresh_state(h, s_q, v.shape[2], q.device),
                             int(q_off), int(k_off), causal, scale, window)
     safe_l = torch.where(l == 0.0, torch.ones_like(l), l)
     out = (acc / safe_l.transpose(1, 2)).to(q.dtype)
     return out, m, l
 
 
-def _launch(kernel: str, q, pointers, ints, scale: float, plan) -> None:
-    _build.launch(kernel, q.device, *(t.data_ptr() for t in pointers),
-                  _DTYPE_CODE[q.dtype], *ints, float(scale), *plan)
+def _launch(kernel: str, q, v, pointers, ints, scale: float, plan) -> None:
+    _build.launch(launch_name(kernel, q.shape[2], v.shape[2]), q.device,
+                  *(t.data_ptr() for t in pointers), _DTYPE_CODE[q.dtype],
+                  *ints, float(scale), *plan)
 
 
 def _int32(what: str, name: str, x) -> int:
@@ -379,12 +432,12 @@ def _int32(what: str, name: str, x) -> int:
     return x
 
 
-def _shape_ints(what, q, k, q_off, k_off, causal, window):
-    """The C entry points' ``h, h_kv, s_q, s_k, d, q_off, k_off, causal,
-    window`` (window 0: none)."""
+def _shape_ints(what, q, k, v, q_off, k_off, causal, window):
+    """The C entry points' ``h, h_kv, s_q, s_k, d, d_v, q_off, k_off,
+    causal, window`` (window 0: none)."""
     h, s_q, d = q.shape
     h_kv, s_k, _ = k.shape
-    return (h, h_kv, s_q, s_k, d, _int32(what, "q_off", q_off),
+    return (h, h_kv, s_q, s_k, d, v.shape[2], _int32(what, "q_off", q_off),
             _int32(what, "k_off", k_off), int(causal),
             _int32(what, "window", window or 0))
 
@@ -393,7 +446,7 @@ def flash_attend_fused(q, k, v, q_off, k_off, causal: bool, scale: float,
                        precision=None, window: Optional[int] = None):
     """Whole-extent attention in one launch: ``(out, m, l)``.
 
-    ``out`` is normalised and in ``q.dtype``; ``m``/``l`` are
+    ``out`` ``(H, Sq, Dv)`` is normalised and in ``q.dtype``; ``m``/``l`` are
     ``(H, 1, Sq)`` f32 rows. Launches ``csrc/flash_fwd.cu`` for CUDA
     tensors and raises on shapes or dtypes it does not take."""
     _validate_window(causal, window)
@@ -402,12 +455,12 @@ def flash_attend_fused(q, k, v, q_off, k_off, causal: bool, scale: float,
     if q.device.type == "cpu":
         return flash_attend_fused_plain(q, k, v, q_off, k_off, causal, scale,
                                         precision, window)
-    out = torch.empty_like(q)
+    out = torch.empty((h, s_q, v.shape[2]), dtype=q.dtype, device=q.device)
     m = torch.empty((h, 1, s_q), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
-    _launch(KERNEL_FUSED, q, (q, k, v, out, m, l),
-            _shape_ints(what, q, k, q_off, k_off, causal, window), scale,
-            fwd_plan_explained(q.shape[2], q.dtype, window)[0])
+    _launch(KERNEL_FUSED, q, v, (q, k, v, out, m, l),
+            _shape_ints(what, q, k, v, q_off, k_off, causal, window), scale,
+            fwd_plan_explained(q.shape[2], q.dtype, window, v.shape[2])[0])
     return out, m, l
 
 
@@ -416,7 +469,7 @@ def flash_block_attend(q, k, v, m, l, acc, q_off, k_off, causal: bool,
                        window: Optional[int] = None):
     """Fold one K/V block into the online-softmax carry: ``(m, l, acc)``.
 
-    ``m``/``l`` are ``(H, 1, Sq)`` f32 rows, ``acc`` ``(H, Sq, D)`` f32;
+    ``m``/``l`` are ``(H, 1, Sq)`` f32 rows, ``acc`` ``(H, Sq, Dv)`` f32;
     the results are new tensors. Launches ``csrc/flash_fwd.cu`` for CUDA
     tensors and raises on shapes or dtypes it does not take."""
     _validate_window(causal, window)
@@ -427,9 +480,9 @@ def flash_block_attend(q, k, v, m, l, acc, q_off, k_off, causal: bool,
                                         causal, scale, precision, window)
     m_out, l_out, acc_out = (torch.empty_like(m), torch.empty_like(l),
                              torch.empty_like(acc))
-    _launch(KERNEL_BLOCK, q, (q, k, v, m, l, acc, m_out, l_out, acc_out),
-            _shape_ints(what, q, k, q_off, k_off, causal, window), scale,
-            fwd_plan_explained(q.shape[2], q.dtype, window)[0])
+    _launch(KERNEL_BLOCK, q, v, (q, k, v, m, l, acc, m_out, l_out, acc_out),
+            _shape_ints(what, q, k, v, q_off, k_off, causal, window), scale,
+            fwd_plan_explained(q.shape[2], q.dtype, window, v.shape[2])[0])
     return m_out, l_out, acc_out
 
 
@@ -501,16 +554,18 @@ def flash_block_backward_dkdv_plain(q, k, v, dout, m, linv, delta, q_off,
                                     precision=None,
                                     window: Optional[int] = None):
     """:func:`flash_block_backward_dkdv` in PyTorch ops: the kernel's
-    plain version. Returns ``(dk, dv)``, ``(H_kv, Sk, D)`` f32, summed
-    over each K/V head's group of query heads; P^T is rounded to dout's
-    dtype before ``P^T dout`` and dS^T to q's before ``dS^T Q``."""
+    plain version. Returns ``(dk, dv)``, ``(H_kv, Sk, D)`` and ``(H_kv,
+    Sk, Dv)`` f32, summed over each K/V head's group of query heads; P^T
+    is rounded to dout's dtype before ``P^T dout`` and dS^T to q's before
+    ``dS^T Q``."""
     _validate_window(causal, window)
     h, _, d = q.shape
     h_kv, s_k, _ = k.shape
+    d_v = v.shape[2]
     group = h // h_kv
     kf, vf = _repeat_kv(k, v, group)
     dk = torch.zeros((h, s_k, d), dtype=torch.float32, device=q.device)
-    dv = torch.zeros_like(dk)
+    dv = torch.zeros((h, s_k, d_v), dtype=torch.float32, device=q.device)
     for r0, r1, p, ds in _bwd_chunks(q, kf, vf, dout, m, linv, delta,
                                      int(q_off), int(k_off), causal, scale,
                                      window):
@@ -519,7 +574,7 @@ def flash_block_backward_dkdv_plain(q, k, v, dout, m, linv, delta, q_off,
         dk += torch.matmul(ds.to(q.dtype).float().transpose(1, 2),
                            q[:, r0:r1].float())
     return ((dk * scale).view(h_kv, group, s_k, d).sum(1).contiguous(),
-            dv.view(h_kv, group, s_k, d).sum(1).contiguous())
+            dv.view(h_kv, group, s_k, d_v).sum(1).contiguous())
 
 
 def _bwd_operands(what, q, k, v, dout, m, linv, delta, causal, window):
@@ -534,7 +589,7 @@ def flash_block_backward_dq(q, k, v, dout, m, linv, delta, q_off, k_off,
                             window: Optional[int] = None):
     """dq contribution of one K/V block: ``(H, Sq, D)`` f32.
 
-    ``dout`` is ``(H, Sq, D)`` in q's dtype; ``m``, ``linv = 1/l`` (rows
+    ``dout`` is ``(H, Sq, Dv)`` in q's dtype; ``m``, ``linv = 1/l`` (rows
     no key reached map to 1) and ``delta = rowsum(dout * out)`` are the
     saved ``(H, 1, Sq)`` f32 rows. ``k``/``v`` may carry fewer (grouped)
     heads. Launches ``csrc/flash_bwd.cu`` for CUDA tensors and raises on
@@ -546,17 +601,18 @@ def flash_block_backward_dq(q, k, v, dout, m, linv, delta, q_off, k_off,
                                              q_off, k_off, causal, scale,
                                              precision, window)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    _launch(KERNEL_BWD_DQ, q, (q, k, v, dout, m, linv, delta, dq),
-            _shape_ints(what, q, k, q_off, k_off, causal, window), scale,
-            _bwd_plan(KERNEL_BWD_DQ, q.shape[2], q.dtype))
+    _launch(KERNEL_BWD_DQ, q, v, (q, k, v, dout, m, linv, delta, dq),
+            _shape_ints(what, q, k, v, q_off, k_off, causal, window), scale,
+            _bwd_plan(KERNEL_BWD_DQ, q.shape[2], q.dtype, d_v=v.shape[2]))
     return dq
 
 
 def flash_block_backward_dkdv(q, k, v, dout, m, linv, delta, q_off, k_off,
                               causal: bool, scale: float, precision=None,
                               window: Optional[int] = None):
-    """``(dk, dv)`` of one K/V block from this rank's queries, each
-    ``(H_kv, Sk, D)`` f32: the GQA group is reduced in the kernel.
+    """``(dk, dv)`` of one K/V block from this rank's queries, ``(H_kv,
+    Sk, D)`` and ``(H_kv, Sk, Dv)`` f32: the GQA group is reduced in the
+    kernel.
 
     Operands as :func:`flash_block_backward_dq`. Launches
     ``csrc/flash_bwd.cu`` for CUDA tensors and raises on shapes or dtypes
@@ -568,10 +624,11 @@ def flash_block_backward_dkdv(q, k, v, dout, m, linv, delta, q_off, k_off,
                                                q_off, k_off, causal, scale,
                                                precision, window)
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
-    dv = torch.empty_like(dk)
-    _launch(KERNEL_BWD_DKDV, q, (q, k, v, dout, m, linv, delta, dk, dv),
-            _shape_ints(what, q, k, q_off, k_off, causal, window), scale,
+    dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
+    _launch(KERNEL_BWD_DKDV, q, v, (q, k, v, dout, m, linv, delta, dk, dv),
+            _shape_ints(what, q, k, v, q_off, k_off, causal, window), scale,
             _bwd_plan(KERNEL_BWD_DKDV, q.shape[2], q.dtype, s_k=k.shape[1],
-                      h_kv=k.shape[0], sms=_sm_count(q.device)))
+                      h_kv=k.shape[0], sms=_sm_count(q.device),
+                      d_v=v.shape[2]))
     return dk, dv
 

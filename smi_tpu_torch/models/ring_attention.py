@@ -12,9 +12,11 @@ Two tiers, as in the JAX package:
 
 - the flash tier (``kernels/flash.py``): on a one-rank ring the fused
   kernel attends the whole extent in one launch; on a longer ring each
-  step is one launch of the carried kernel. Head dims the kernel has no
-  instantiation for are zero-padded up to one it has, with the scale of
-  the original head dim. Its backward is a ``torch.autograd.Function``
+  step is one launch of the carried kernel. V may be narrower than Q and
+  K (DeepSeek-V3's 192 against 128, a form the bf16 kernels take as it
+  is). Head dims the kernel has no instantiation for are zero-padded up
+  to one it has, with the scale of the original query and key head dim.
+  Its backward is a ``torch.autograd.Function``
   over the FlashAttention-2 kernels: the probabilities are recomputed
   from the saved ``(m, l)``, K/V make one more ring circuit carrying
   their ``(dk, dv)`` home, and dq accumulates locally; one launch of
@@ -88,17 +90,30 @@ def _padded_head_dim(d: int) -> int:
     return next((hd for hd in HEAD_DIMS if hd >= d), d)
 
 
-def _use_flash_default(comm: Communicator, s_local, h, d, dtype) -> bool:
+def _flash_head_dims(s_local, d, d_v, dtype):
+    """The head dims the flash kernels run ``(d, d_v)`` at: as they are
+    where the kernels have that form, else both zero-padded to one head
+    dim they have."""
+    if flash_supported(s_local, s_local, d, dtype, d_v):
+        return d, d_v
+    dp = _padded_head_dim(max(d, d_v))
+    return dp, dp
+
+
+def _use_flash_default(comm: Communicator, s_local, h, d, dtype,
+                       d_v=None) -> bool:
     """The flash tier on a CUDA communicator, the plain tier elsewhere
     (as the JAX package picks Pallas only on a TPU). A CUDA shape the
     kernel cannot take raises rather than falling back."""
     if comm.device.type != "cuda":
         return False
-    if not flash_supported(s_local, s_local, _padded_head_dim(d), dtype):
+    d_v = d if d_v is None else d_v
+    dp, dvp = _flash_head_dims(s_local, d, d_v, dtype)
+    if not flash_supported(s_local, s_local, dp, dtype, dvp):
         raise ValueError(
-            f"the flash kernel does not take S_local={s_local}, head dim "
-            f"{d}, {dtype} on {comm.device}: pass use_flash=False to run "
-            f"the plain tier"
+            f"the flash kernel does not take S_local={s_local}, head dims "
+            f"({d}, {d_v}), {dtype} on {comm.device}: pass use_flash=False "
+            f"to run the plain tier"
         )
     return True
 
@@ -117,7 +132,7 @@ def _ring_forward(fold_block: Callable, q, k, v, comm, causal, axis,
     the plain tier), the block's offset from its origin rank. Returns
     ``(out, m, l)``; only the smaller grouped K/V circulate."""
     a = comm._axis(axis)
-    s_local, h, d = q.shape
+    s_local, h, _ = q.shape
     q_off = comm.coords[a] * s_local
     qT, kT, vT = (x.transpose(0, 1).contiguous() for x in (q, k, v))
 
@@ -126,7 +141,7 @@ def _ring_forward(fold_block: Callable, q, k, v, comm, causal, axis,
                           causal, scale, window=window)
 
     m, l, acc = _ring_schedule(fold, comm, axis, kT, vT,
-                               fresh_state(h, s_local, d, q.device))
+                               fresh_state(h, s_local, v.shape[2], q.device))
     return _flash_finalize(acc, l, q.dtype).transpose(0, 1), m, l
 
 
@@ -184,9 +199,9 @@ def _flash_ring_backward(q, k, v, out, m, l, dout, comm, causal, axis,
         return (shift(dk + dk_c), shift(dv + dv_c),
                 dq_c if dq is None else dq + dq_c)
 
-    zeros = torch.zeros(kT.shape, dtype=torch.float32, device=q.device)
-    dk, dv, dq = _ring_schedule(fold, comm, axis, kT, vT,
-                                (zeros, zeros, None))
+    dk, dv, dq = _ring_schedule(fold, comm, axis, kT, vT, tuple(
+        torch.zeros(x.shape, dtype=torch.float32, device=q.device)
+        for x in (kT, vT)) + (None,))
     return (dq.transpose(0, 1).to(q.dtype), dk.transpose(0, 1).to(k.dtype),
             dv.transpose(0, 1).to(v.dtype))
 
@@ -224,9 +239,10 @@ def ring_attention_shard(
 ) -> torch.Tensor:
     """Ring attention over this rank's shard.
 
-    ``q`` is this rank's ``(S_local, H, D)`` sequence shard; ``k``/``v``
-    are ``(S_local, H_kv, D)`` with ``H_kv`` dividing ``H``
-    (grouped-query attention). ``window`` (requires ``causal``)
+    ``q`` is this rank's ``(S_local, H, D)`` sequence shard; ``k`` is
+    ``(S_local, H_kv, D)`` and ``v`` ``(S_local, H_kv, Dv)`` with ``H_kv``
+    dividing ``H`` (grouped-query attention); the output is ``(S_local,
+    H, Dv)``, at scale ``1/sqrt(D)``. ``window`` (requires ``causal``)
     restricts each query to its ``window`` most recent positions.
     ``precision`` is accepted for the JAX signature; f32 is always full
     f32 in the flash tier.
@@ -237,25 +253,25 @@ def ring_attention_shard(
         )
     axis = axis_name or comm.axis_names[0]
     s_local, h, d = q.shape
-    h_kv = k.shape[1]
+    h_kv, d_v = k.shape[1], v.shape[2]
     if h % h_kv or v.shape[1] != h_kv:
         raise ValueError(
             f"kv heads {k.shape[1]}/{v.shape[1]} must agree and divide "
             f"query heads {h}"
         )
     if use_flash is None:
-        use_flash = _use_flash_default(comm, s_local, h, d, q.dtype)
+        use_flash = _use_flash_default(comm, s_local, h, d, q.dtype, d_v)
     if use_flash:
-        dp = _padded_head_dim(d)
-        if dp != d:
-            # zero-pad the head dim: padded lanes add 0 to every dot
+        dp, dvp = _flash_head_dims(s_local, d, d_v, q.dtype)
+        if (dp, dvp) != (d, d_v):
+            # zero-pad the head dims: padded lanes add 0 to every dot
             # product, so scores and outputs are exact; the explicit
             # scale keeps 1/sqrt(d) of the original head dim
-            pad = (0, dp - d)
             out = _FlashRingAttention.apply(
-                F.pad(q, pad), F.pad(k, pad), F.pad(v, pad), comm, causal,
-                axis, window, 1.0 / math.sqrt(d))
-            return out[..., :d]
+                F.pad(q, (0, dp - d)), F.pad(k, (0, dp - d)),
+                F.pad(v, (0, dvp - d_v)), comm, causal, axis, window,
+                1.0 / math.sqrt(d))
+            return out[..., :d_v]
         return _FlashRingAttention.apply(q, k, v, comm, causal, axis, window,
                                          None)
     out, _, _ = _ring_forward(flash_block_attend_plain, q, k, v, comm,

@@ -34,7 +34,16 @@ today's outputs bit for bit), which the ``afmoe`` family needs:
 - ``mlp`` ``"swiglu"`` (of ``mlp_width``) or ``"experts"`` (an expert
   layer that holds some of a router's experts, :mod:`.moe`);
 - per layer of a stack, ``layer_types`` (``"sliding"``: windowed to
-  ``window``; ``"full"``) and ``layer_mlps``.
+  ``window``; ``"full"``) and ``layer_mlps``;
+- ``family="mla"``: DeepSeek-V3's block, pre-norm with RMSNorms that
+  have weights, and latent attention (MLA): ``q = x Wq`` split per head
+  into ``head_dim`` dims without positions and ``rope_dim`` rotated
+  ones; ``[c | k_pe] = x Wkv_a`` with the latent ``c`` (``latent`` wide)
+  RMS-normed; ``[k_nope | v] = c Wkv_b`` per head; rotary positions on
+  ``q_pe`` and on ``k_pe`` (one head, shared by all); causal attention of
+  ``[q_nope | q_pe]`` against ``[k_nope | k_pe]`` at scale
+  ``(head_dim + rope_dim)^-1/2`` over ``v_head_dim``-wide values, then
+  ``Wo``. Its glue runs as torch ops around the products.
 
 :class:`LanguageModel` wraps a stack of such layers as a language model
 (an embedding, the stack, a final RMSNorm, the head over the vocabulary
@@ -53,10 +62,13 @@ norm before the head) as those of
 composition runs, and the two round at the same places.
 
 Spans (``utils/tracing.annotate``): ``smi.train.step`` with its children
-``smi.train.forward``, ``.backward`` and ``.update``; ``smi.attn.sliding``
-and ``smi.attn.full`` (a layer's attention from its norm to its gate,
-by the layer's kind); ``smi.lm.head`` (the final norm, the head and the
-loss); the expert layer's ``smi.moe.*`` (:mod:`.moe`).
+``smi.train.forward``, ``.backward`` and ``.update``; ``smi.attn.sliding``,
+``smi.attn.full`` and ``smi.attn.mla`` (a layer's attention from its norm
+through ``Wo``, by the layer's kind), inside the last the siblings
+``smi.mla.latent`` (the ``Wkv_a`` product, the latent norm and the
+``Wkv_b`` product) and ``smi.mla.keys`` (the rotations and the assembly
+of q and k); ``smi.lm.head`` (the final norm, the head and the loss); the
+expert layer's ``smi.moe.*`` (:mod:`.moe`).
 """
 
 from __future__ import annotations
@@ -105,7 +117,9 @@ class BlockConfig:
     #: positions); "afmoe": an RMSNorm with a weight before and after
     #: each sublayer, an RMSNorm of each query and key head, rotary
     #: positions on windowed layers, the attention output times
-    #: ``sigmoid(x Wg)`` before ``Wo``
+    #: ``sigmoid(x Wg)`` before ``Wo``; "mla": DeepSeek-V3's pre-norm
+    #: block with latent attention (``latent``, ``rope_dim``,
+    #: ``v_head_dim``)
     family: str = "jax"
     #: added to the variance (layernorm) or mean square (RMSNorm) inside
     #: the reciprocal square root
@@ -122,10 +136,21 @@ class BlockConfig:
     layer_types: Optional[Tuple[str, ...]] = None
     #: per layer of a stack: its ``mlp``; None: every layer takes ``mlp``
     layer_mlps: Optional[Tuple[str, ...]] = None
+    #: "mla": the width of the keys' and values' latent (``kv_lora_rank``),
+    #: the rotated dims of each query and key head beside its
+    #: ``head_dim`` without positions (``qk_rope_head_dim``), and V's
+    #: head dim (None: ``head_dim``)
+    latent: Optional[int] = None
+    rope_dim: int = 0
+    v_head_dim: Optional[int] = None
 
     def __post_init__(self):
-        if self.family not in ("jax", "afmoe"):
+        if self.family not in ("jax", "afmoe", "mla"):
             raise ValueError(f"unknown family {self.family!r}")
+        if self.family == "mla" and (self.latent is None or self.rope_dim < 2
+                                     or self.rope_dim % 2):
+            raise ValueError("an mla block needs a latent width and an "
+                             "even, positive rope_dim")
         for mlp in (self.mlp,) + tuple(self.layer_mlps or ()):
             if mlp not in ("gelu", "swiglu", "experts"):
                 raise ValueError(f"unknown mlp {mlp!r}")
@@ -159,6 +184,10 @@ class BlockConfig:
     @property
     def _cdtype(self) -> torch.dtype:
         return _DTYPES[self.compute_dtype]
+
+    @property
+    def _v_dim(self) -> int:
+        return self.v_head_dim or self.head_dim
 
     @property
     def _kv(self) -> int:
@@ -203,7 +232,14 @@ def param_shapes(config: BlockConfig) -> Dict[str, tuple]:
     always; the rest as the options ask."""
     e, h, d, kv = config.embed, config.heads, config.head_dim, config._kv
     f = config._width
-    shapes = {"wqkv": (e, (h + 2 * kv) * d), "wo": (h * d, e)}
+    if config.family == "mla":
+        r, c, dv = config.rope_dim, config.latent, config._v_dim
+        shapes = {"wq": (e, h * (d + r)), "wkv_a": (e, c + r),
+                  "kv_norm": (c,), "wkv_b": (c, h * (d + dv)),
+                  "wo": (h * dv, e), "input_norm": (e,),
+                  "pre_mlp_norm": (e,)}
+    else:
+        shapes = {"wqkv": (e, (h + 2 * kv) * d), "wo": (h * d, e)}
     if config.family == "afmoe":
         shapes.update(wg=(e, h * d), input_norm=(e,), pre_mlp_norm=(e,),
                       post_attn_norm=(e,), post_mlp_norm=(e,),
@@ -248,6 +284,62 @@ def _rope(config: BlockConfig, comm, sp_axis: str, s: int, device):
                         device)
 
 
+def _mla_attention(params, xn, comm, config: BlockConfig, b: int, s: int,
+                   sp_axis: str, use_flash: Optional[bool]):
+    """The ``mla`` attention sublayer from the normed input ``xn`` ``(B*S,
+    E)`` to the ``wo`` product's input ``(B*S, H*Dv)`` f32, in torch ops
+    around the products (each rounded to the compute dtype and widened):
+    the query product; the latent (``Wkv_a``, its RMSNorm, ``Wkv_b``);
+    the rotary positions of ``q_pe`` and ``k_pe`` at this rank's ``sp``
+    offset, each head's pairs ``(x_2i, x_2i+1)`` rotated by position times
+    ``rope_theta ** (-2i / rope_dim)`` and laid out halves first (the
+    DeepSeek-V3 modeling code's ``rope_interleave``); q and k assembled
+    ``head_dim + rope_dim`` wide, rounded once to the compute dtype; the
+    ring at scale ``(head_dim + rope_dim)^-1/2``."""
+    h, d, r, dv = config.heads, config.head_dim, config.rope_dim, \
+        config._v_dim
+    cd, c = config._cdtype, config.latent
+    mm = functools.partial(_product, dtype=cd)
+    q = mm(xn, params["wq"]).view(b, s, h, d + r)
+    with annotate("smi.mla.latent"):
+        ckv = mm(xn, params["wkv_a"])
+        latent = F.rms_norm(ckv[:, :c], (c,), params["kv_norm"],
+                            config.norm_eps)
+        kv = mm(latent, params["wkv_b"]).view(b, s, h, d + dv)
+    with annotate("smi.mla.keys"):
+        cos, sin = _rope_tables(s, r, comm.coords[comm._axis(sp_axis)] * s,
+                                config.rope_theta, xn.device)
+
+        def rotated(t):
+            return glue._rotate(_pairs_to_halves(t), cos, sin)
+
+        q = torch.cat((q[..., :d], rotated(q[..., d:])), dim=-1)
+        k_pe = rotated(ckv[:, c:].view(b, s, 1, r)).expand(b, s, h, r)
+        k = torch.cat((kv[..., :d], k_pe), dim=-1)
+        q, k = (_fold_heads(t, cd) for t in (q, k))
+    attn = ra.ring_attention_shard(
+        q, k, _fold_heads(kv[..., d:], cd), comm, causal=config.causal,
+        axis_name=sp_axis, use_flash=use_flash)          # (S, B*H, Dv)
+    return glue.token_order(attn, b, h)                   # (B*S, H*Dv) f32
+
+
+def _pairs_to_halves(t):
+    """The last dim's pairs ``(x_2i, x_2i+1)`` laid out halves first,
+    ``[x_0, x_2, ..., x_1, x_3, ...]``, so that rotating halves
+    (``glue._rotate``) rotates each pair: DeepSeek-V3's
+    ``rope_interleave``."""
+    return t.unflatten(-1, (t.shape[-1] // 2, 2)).transpose(-1, -2).flatten(
+        -2)
+
+
+def _fold_heads(t, dtype):
+    """``(B, S, H, D)`` in token order to the ring's ``(S, B*H, D)`` in
+    ``dtype``: the batch folded into the heads, each batch's heads
+    adjacent."""
+    b, s, h, d = t.shape
+    return t.to(dtype).transpose(0, 1).reshape(s, b * h, d)
+
+
 def _product(a, w, dtype):
     """``a @ w`` in the compute dtype ``dtype``, rounded to it, then
     widened; autograd carries the casts, so gradients land in f32."""
@@ -277,14 +369,11 @@ def _plain_attention(params, xn, comm, config: BlockConfig, b: int, s: int,
             config.norm_eps, _rope(config, comm, sp_axis, s, xn.device),
             dtype=cd))
     else:
-        # fold the batch into the heads: (B, S, Hx, D) -> (S, B*Hx, D);
-        # each batch's heads stay contiguous, so the GQA map hh // (H/KV)
-        # holds
+        # each batch's heads stay contiguous in the fold, so the GQA map
+        # hh // (H/KV) holds
         qkv = qkv.reshape(b, s, h + 2 * kv, d)
-        q, k, v = (t.to(cd).transpose(0, 1).reshape(s, b * hx, d)
-                   for t, hx in ((qkv[:, :, :h], h),
-                                 (qkv[:, :, h:h + kv], kv),
-                                 (qkv[:, :, h + kv:], kv)))
+        q, k, v = (_fold_heads(t, cd) for t in (
+            qkv[:, :, :h], qkv[:, :, h:h + kv], qkv[:, :, h + kv:]))
     attn = ra.ring_attention_shard(
         q, k, v, comm, causal=config.causal, axis_name=sp_axis,
         use_flash=use_flash, window=config.window,
@@ -338,36 +427,51 @@ def _layernorm_middle(x, out, w_post, w_pre, eps, dtype):
     return h, _layernorm(h, eps).to(dtype)
 
 
-def _layernorm_exit(h, out, w, eps):
-    """The JAX package's block at its end: the plain residual add."""
+def _rms_middle(x, out, w_post, w_pre, eps, dtype):
+    """``(h, yn)`` of a pre-norm block with RMSNorms (``mla``): the
+    residual add of the widened product (no norm after the sublayer:
+    ``w_post`` is None), then the next sublayer's RMSNorm in ``dtype``."""
+    h = x + out.float()
+    return h, F.rms_norm(h, w_pre.shape, w_pre, eps).to(dtype)
+
+
+def _plain_exit(h, out, w, eps):
+    """A pre-norm block at its end (the JAX package's, ``mla``): the plain
+    residual add."""
     return h + out
 
 
 class _Glue(NamedTuple):
     """A block's glue around its products, chosen once a call by
     :func:`_block_glue`: the attention sublayer from the normed input to
-    ``wo``'s input, and the three residual junctions with the signatures
-    of :mod:`~smi_tpu_torch.kernels.residual_norm`'s ``entry_norm``,
-    ``middle_norm`` and ``exit_norm``."""
+    ``wo``'s input, the three residual junctions with the signatures of
+    :mod:`~smi_tpu_torch.kernels.residual_norm`'s ``entry_norm``,
+    ``middle_norm`` and ``exit_norm``, and the attention's span."""
 
     attention: Callable
     entry: Callable
     middle: Callable
     exit: Callable
+    span: str
 
 
 def _block_glue(config: BlockConfig, x: torch.Tensor) -> _Glue:
     """The fused kernels where :func:`_fuses_glue`; else the plain
-    composition: the ``afmoe`` block's RMSNorms with weights, or the JAX
+    composition: the ``mla`` block's latent attention and pre-norm
+    RMSNorms, the ``afmoe`` block's RMSNorms with weights, or the JAX
     package's layernorms without affine and its plain residual adds."""
+    span = f"smi.attn.{'full' if config.window is None else 'sliding'}"
     if _fuses_glue(config, x):
         return _Glue(_fused_attention, rn.entry_norm, rn.middle_norm,
-                     rn.exit_norm)
+                     rn.exit_norm, span)
+    if config.family == "mla":
+        return _Glue(_mla_attention, rn.entry_norm_plain, _rms_middle,
+                     _plain_exit, "smi.attn.mla")
     if config.family == "afmoe":
         return _Glue(_plain_attention, rn.entry_norm_plain,
-                     rn.middle_norm_plain, rn.exit_norm_plain)
+                     rn.middle_norm_plain, rn.exit_norm_plain, span)
     return _Glue(_plain_attention, _layernorm_entry, _layernorm_middle,
-                 _layernorm_exit)
+                 _plain_exit, span)
 
 
 def block_shard(
@@ -388,15 +492,15 @@ def block_shard(
     parts = _block_glue(config, x)
     x = x.reshape(b * s, e)
 
-    kind = "full" if config.window is None else "sliding"
-    with annotate(f"smi.attn.{kind}"):
+    with annotate(parts.span):
         x, xn = parts.entry(x, params.get("input_norm"), eps, cd)
         attn = parts.attention(params, xn, comm, config, b, s, sp_axis,
                                use_flash)
-    # the wo product stays in the compute dtype: the junction widens it;
+        # the wo product stays in the compute dtype: the junction widens
+        # it
+        out = attn.to(cd) @ params["wo"].to(cd)
     # an expert layer's router reads its input in f32
-    x, yn = parts.middle(x, attn.to(cd) @ params["wo"].to(cd),
-                         params.get("post_attn_norm"),
+    x, yn = parts.middle(x, out, params.get("post_attn_norm"),
                          params.get("pre_mlp_norm"), eps,
                          torch.float32 if config.mlp == "experts" else cd)
     if config.mlp == "gelu":
@@ -536,6 +640,58 @@ def afmoe_block_config(cfg: Mapping, held: Optional[Sequence[int]] = None,
         layer_mlps=("swiglu",) * dense + ("experts",) * (layers - dense))
 
 
+#: keys of a ``deepseek_v3`` ``config.json`` this port fixes: other values
+#: describe a model it does not run (a low-rank query, YaRN, grouped
+#: routing, multi-token prediction)
+_DEEPSEEK_V3_FIXED = {"hidden_act": "silu", "scoring_func": "sigmoid",
+                      "topk_method": "noaux_tc", "n_group": 1,
+                      "topk_group": 1, "q_lora_rank": None,
+                      "rope_scaling": None, "attention_bias": False,
+                      "moe_layer_freq": 1, "num_nextn_predict_layers": 0,
+                      "tie_word_embeddings": False}
+
+
+def deepseek_v3_block_config(cfg: Mapping,
+                             held: Optional[Sequence[int]] = None,
+                             compute_dtype: str = "bfloat16") -> BlockConfig:
+    """The stack's :class:`BlockConfig` from a ``deepseek_v3``
+    ``config.json``'s keys: ``first_k_dense_replace`` dense SwiGLU layers,
+    then expert layers of ``n_routed_experts`` (the count held here:
+    experts ``0 .. n_routed_experts - 1`` unless ``held`` names them;
+    ``router_experts``, where given, the router's width) and
+    ``n_shared_experts`` shared ones, every layer with latent attention.
+    The router's choice bias (``e_score_correction_bias``) is held at 0."""
+    for key, want in _DEEPSEEK_V3_FIXED.items():
+        if cfg.get(key, want) != want:
+            raise ValueError(f"{key} = {cfg[key]!r}: the port runs "
+                             f"{want!r}")
+    layers = cfg["num_hidden_layers"]
+    dense = cfg["first_k_dense_replace"]
+    held = tuple(range(cfg["n_routed_experts"])) if held is None else held
+    experts = moe.ExpertConfig(
+        router=cfg.get("router_experts", cfg["n_routed_experts"]),
+        topk=cfg["num_experts_per_tok"], width=cfg["moe_intermediate_size"],
+        held=tuple(held), shared=cfg["n_shared_experts"],
+        route_scale=cfg["routed_scaling_factor"],
+        route_norm=cfg["norm_topk_prob"])
+    return BlockConfig(
+        embed=cfg["hidden_size"], heads=cfg["num_attention_heads"],
+        head_dim=cfg["qk_nope_head_dim"], compute_dtype=compute_dtype,
+        family="mla", norm_eps=cfg["rms_norm_eps"],
+        rope_theta=cfg["rope_theta"], mlp="swiglu",
+        mlp_width=cfg["intermediate_size"], experts=experts,
+        layer_mlps=("swiglu",) * dense + ("experts",) * (layers - dense),
+        latent=cfg["kv_lora_rank"], rope_dim=cfg["qk_rope_head_dim"],
+        v_head_dim=cfg["v_head_dim"])
+
+
+#: ``config.json``'s ``model_type`` -> the stack's config from its keys,
+#: and the key whose truth scales the embedding by sqrt(hidden) (None:
+#: the type never scales it)
+MODEL_TYPES = {"afmoe": (afmoe_block_config, "mup_enabled"),
+               "deepseek_v3": (deepseek_v3_block_config, None)}
+
+
 class LanguageModel(nn.Module):
     """A language model over a stack of blocks: ``h = embed[ids]`` (times
     ``sqrt(embed)`` where ``embed_scale``), the stack (layer ``i`` runs
@@ -545,9 +701,9 @@ class LanguageModel(nn.Module):
 
     Every weight is an f32 parameter in the ``(in, out)`` layout; the
     embedding is ``(vocab, embed)``. ``weights`` are by the names of
-    :meth:`reference_names` (``wq``, ``wk`` and ``wv`` apart; the blocks
-    hold them as one ``wqkv``); None draws matrices normal with std 0.02
-    and norm weights of 1 from ``seed``."""
+    :meth:`reference_names` (``wq``, ``wk`` and ``wv`` apart where the
+    blocks hold them as one ``wqkv``); None draws matrices normal with
+    std 0.02 and norm weights of 1 from ``seed``."""
 
     def __init__(self, config: BlockConfig, layers: int, vocab: int,
                  weights: Optional[Mapping[str, torch.Tensor]] = None,
@@ -598,8 +754,8 @@ class LanguageModel(nn.Module):
         shapes = {"embed": (vocab, e)}
         for i in range(layers):
             block = param_shapes(config.layer(i))
-            del block["wqkv"]
-            block.update(wq=(e, h * d), wk=(e, kv * d), wv=(e, kv * d))
+            if block.pop("wqkv", None) is not None:
+                block.update(wq=(e, h * d), wk=(e, kv * d), wv=(e, kv * d))
             shapes.update({f"layers.{i}.{n}": v for n, v in block.items()})
         shapes.update(final_norm=(e,), head=(e, vocab))
         return shapes
@@ -609,19 +765,25 @@ class LanguageModel(nn.Module):
                     held: Optional[Sequence[int]] = None,
                     compute_dtype: str = "bfloat16", device=None,
                     seed: int = 0) -> "LanguageModel":
-        """The model of an ``afmoe`` ``config.json``'s keys
-        (:func:`afmoe_block_config`; ``mup_enabled`` scales the
-        embedding)."""
-        return cls(afmoe_block_config(cfg, held, compute_dtype),
+        """The model of a ``config.json``'s keys, by its ``model_type``
+        (:data:`MODEL_TYPES`). A config without ``model_type``, or with
+        one the port does not run, is refused by name."""
+        kind = cfg.get("model_type")
+        if kind not in MODEL_TYPES:
+            raise ValueError(f"model_type {kind!r}: the port runs "
+                             f"{sorted(MODEL_TYPES)}")
+        block_config, scale_key = MODEL_TYPES[kind]
+        return cls(block_config(cfg, held, compute_dtype),
                    cfg["num_hidden_layers"], cfg["vocab_size"],
-                   weights=weights, embed_scale=bool(cfg["mup_enabled"]),
+                   weights=weights,
+                   embed_scale=scale_key is not None and bool(cfg[scale_key]),
                    device=device, seed=seed)
 
     def reference_names(self, grads: bool = False
                         ) -> Dict[str, torch.Tensor]:
         """Every weight (or, with ``grads``, its gradient) by the names
         the constructor takes: ``wq``, ``wk`` and ``wv`` are views of a
-        block's ``wqkv``."""
+        block's ``wqkv`` where it has one."""
         h, d, kv = self.config.heads, self.config.head_dim, self.config._kv
 
         def get(p):

@@ -137,9 +137,9 @@ _INSTANCE_PATTERNS = (
     (re.compile(r"reduce_kernelI(?P<t>[a-z]|13__nv_bfloat16)"
                 r"Li(?P<op>\d)ELb(?P<rs>[01])E"), "ring_reduce"),
     (re.compile(r"flash_(?P<dt>bf16|f32)_kernelILi(?P<d>\d+)"
-                r"ELb(?P<carried>[01])E"), "flash_fwd"),
+                r"E(?:Li(?P<dv>\d+)E)?Lb(?P<carried>[01])E"), "flash_fwd"),
     (re.compile(r"flash_(?P<which>dq|dkdv)_(?P<dt>bf16|f32)_kernelILi"
-                r"(?P<d>\d+)E"), "flash_bwd"),
+                r"(?P<d>\d+)E(?:Li(?P<dv>\d+)E)?"), "flash_bwd"),
     (re.compile(r"temporal_kernelILi(?P<k>\d+)E"), "stencil_temporal"),
     (re.compile(r"pipeline_kernelILi(?P<k>\d+)ELb(?P<bf16>[01])E"),
      "stencil_pipeline"),
@@ -178,7 +178,9 @@ def instance_kernel(mangled: str) -> Optional[Tuple[str, dict]]:
         m = pattern.search(mangled)
         if m is None:
             continue
-        params = m.groupdict()
+        # a parameter the instance's name does not hold is left out (the
+        # f32 flash kernels take one head dim, bf16 two)
+        params = {k: v for k, v in m.groupdict().items() if v is not None}
         if kernel == "ring_reduce":
             params["t"] = _RING_TYPE[params["t"]]
         if kernel == "flash_fwd":
@@ -390,39 +392,43 @@ def _subset_ring_cases(topology: str):
 
 
 def _flash_launches(heads: int, kv_heads: int, s: int, d: int,
-                    dtype: str) -> List[dict]:
+                    dtype: str, d_v: Optional[int] = None) -> List[dict]:
     """The forward and backward flash launches of one ring fold on
-    ``s`` local tokens (every fold of the ring has this shape)."""
+    ``s`` local tokens (every fold of the ring has this shape); ``d_v``
+    is V's head dim where it differs from Q's and K's ``d``."""
     import torch
 
     from smi_tpu_torch.kernels import flash as kflash
 
     dt = getattr(torch, dtype)
     threads = 384 if dt == torch.bfloat16 else 256
-    plan = kflash._plan(d, dt)
+    dims = {"d": d} if d_v in (None, d) else {"d": d, "dv": d_v}
+    plan = kflash._plan(d, dt, d_v)
     if plan is None:
-        raise LaunchDoesNotFit(f"flash forward has no plan for head dim {d} "
-                               f"{dtype}")
+        raise LaunchDoesNotFit(f"flash forward has no plan for head dims "
+                               f"{dims} {dtype}")
     out = []
     blocks = -(-s // plan[0]) * heads
     for kernel in (kflash.KERNEL_FUSED, kflash.KERNEL_BLOCK):
-        out.append({"kernel": kernel, "dtype": dtype, "d": d,
-                    "threads": threads, "blocks": blocks,
-                    "dynamic_smem": kflash.smem_bytes(d, dt),
+        out.append({"kernel": kflash.launch_name(kernel, d, d_v or d),
+                    "dtype": dtype, **dims, "threads": threads,
+                    "blocks": blocks,
+                    "dynamic_smem": kflash.smem_bytes(d, dt, d_v),
                     "cooperative": False})
     for kernel in (kflash.KERNEL_BWD_DQ, kflash.KERNEL_BWD_DKDV):
-        bplan = kflash._bwd_plan(kernel, d, dt, s_k=s, h_kv=kv_heads)
+        bplan = kflash._bwd_plan(kernel, d, dt, s_k=s, h_kv=kv_heads,
+                                 d_v=d_v)
         if bplan is None:
-            raise LaunchDoesNotFit(f"{kernel} has no plan for head dim {d} "
-                                   f"{dtype}")
+            raise LaunchDoesNotFit(f"{kernel} has no plan for head dims "
+                                   f"{dims} {dtype}")
         split = (kernel == kflash.KERNEL_BWD_DKDV
-                 and bplan != kflash._bwd_tiles(kernel, d, dt))
-        out.append({"kernel": kernel, "dtype": dtype, "d": d,
-                    "threads": threads,
+                 and bplan != kflash._bwd_tiles(kernel, d, dt, d_v=d_v))
+        out.append({"kernel": kflash.launch_name(kernel, d, d_v or d),
+                    "dtype": dtype, **dims, "threads": threads,
                     "blocks": kflash.bwd_blocks(kernel, bplan, heads,
                                                 kv_heads, s, s, d),
                     "dynamic_smem": kflash.bwd_smem_bytes(kernel, d, dt,
-                                                          split),
+                                                          split, d_v),
                     "cooperative": False})
     return out
 
@@ -546,8 +552,9 @@ def _app_cases(topology: str):
 def _port_cases(topology: str):
     """Launches of the port's kernels that the JAX surface has no case
     for: the stencil pipeline at the 8192² block of the process grid
-    (f32 and bf16 compute), the surface's roll-chain probe and the
-    ``afmoe`` attention glue."""
+    (f32 and bf16 compute), the surface's roll-chain probe, the ``afmoe``
+    attention glue and residual junctions, and the flash kernels' split
+    form (DeepSeek-V3's latent attention)."""
     from smi_tpu_torch.kernels import roll
     from smi_tpu_torch.kernels import stencil_pipeline as kp
 
@@ -622,6 +629,12 @@ def _port_cases(topology: str):
 
     yield "port_afmoe_residual_norm", junctions
 
+    # DeepSeek-V3's latent attention at Moonlight-16B-A3B's shapes: the
+    # split flash form, 2 x 16 heads, queries and keys 192 wide, values
+    # 128, 8192 tokens
+    yield "port_mla_flash", lambda: _flash_launches(32, 32, 8192, 192,
+                                                    "bfloat16", d_v=128)
+
 
 def surface_cases(topology: str = DEFAULT_TOPOLOGY):
     """All (name, plan) pairs of the multi-chip surface: each plan
@@ -662,12 +675,12 @@ def _matches(launch: dict, kernel: str, params: dict) -> bool:
                 and int(params["op"]) == launch["op"])
     if kernel == "weight_grad":
         return want in _WEIGHT_GRAD_LAUNCHES
-    if kernel != want:
-        return False
+    if _build.SIGNATURES.get(kernel) != _build.SIGNATURES.get(want):
+        return False   # a kernel, or a form of it counted apart
     if "dt" in params and params["dt"] != (
             "bf16" if launch["dtype"] == "bfloat16" else "f32"):
         return False
-    for key in ("d", "k", "bf16", "regs", "rotate", "form", "yn"):
+    for key in ("d", "dv", "k", "bf16", "regs", "rotate", "form", "yn"):
         if key in params and key in launch and str(launch[key]) != params[key]:
             return False
     return True

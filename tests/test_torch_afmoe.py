@@ -29,7 +29,7 @@ ROOT = Path(__file__).resolve().parents[1]
 ref = spec.load_module("references", "trinity_mini-ep16")
 
 SMALL = {
-    "num_hidden_layers": 8, "num_dense_layers": 2, "hidden_size": 64,
+    "model_type": "afmoe", "num_hidden_layers": 8, "num_dense_layers": 2, "hidden_size": 64,
     "num_attention_heads": 4, "num_key_value_heads": 2, "head_dim": 16,
     "layer_types": (["sliding_attention"] * 3 + ["full_attention"]) * 2,
     "sliding_window": 16, "intermediate_size": 96,

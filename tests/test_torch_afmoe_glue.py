@@ -411,8 +411,8 @@ def _small_trinity(layers=32):
     """Trinity-Mini's layer pattern (three windowed layers, then a full
     one) at a small width, every layer dense: heads of 64, GQA 4:1."""
     return {
-        "num_hidden_layers": layers, "num_dense_layers": layers,
-        "hidden_size": 256, "num_attention_heads": 4,
+        "model_type": "afmoe", "num_hidden_layers": layers,
+        "num_dense_layers": layers, "hidden_size": 256, "num_attention_heads": 4,
         "num_key_value_heads": 1, "head_dim": 64,
         "layer_types": (["sliding_attention"] * 3
                         + ["full_attention"]) * (layers // 4),

@@ -39,13 +39,17 @@ def _instances():
            for op in range(3) for rs in (0, 1)],
         "flash_fwd": [f"{_NS}17flash_{dt}_kernelILi{d}ELb{c}EEEvNS_6ParamsE"
                       for dt in ("bf16", "f32") for d in (64, 128, 256)
-                      for c in (0, 1)],
+                      for c in (0, 1)]
+        + [f"{_NS}17flash_bf16_kernelILi192ELi128ELb{c}EEEvNS_6ParamsE"
+           for c in (0, 1)],
         "flash_bwd": [f"{_NS}{len(n)}{n}ILi{d}EEEvNS_6ParamsE"
                       for n in ("flash_dq_bf16_kernel",
                                 "flash_dkdv_bf16_kernel",
                                 "flash_dq_f32_kernel",
                                 "flash_dkdv_f32_kernel")
-                      for d in (64, 128, 256)],
+                      for d in (64, 128, 256)]
+        + [f"{_NS}{len(n)}{n}ILi192ELi128EEEvNS_6ParamsE"
+           for n in ("flash_dq_bf16_kernel", "flash_dkdv_bf16_kernel")],
         "stencil_temporal": [f"{_NS}15temporal_kernelILi{k}EEEvNS_4ArgsE"
                              for k in (0, 8, 16, 32)],
         "stencil_pipeline": [f"{_NS}15pipeline_kernelILi{k}ELb{b}EEEvv"
@@ -128,7 +132,8 @@ def test_cases_are_the_jax_surface(topology):
         assert extra == [f"port_stencil_pipeline_8192_{px}x{py}",
                          "port_roll_chain_surface",
                          "port_afmoe_attention_glue",
-                         "port_afmoe_residual_norm"]
+                         "port_afmoe_residual_norm",
+                         "port_mla_flash"]
 
 
 @pytest.mark.parametrize("topology,ranks", [
@@ -221,6 +226,12 @@ def test_log_parser_reads_ptxas_figures():
      ("flash_fused", {"dt": "f32", "d": "64"})),
     (f"{_NS}22flash_dkdv_bf16_kernelILi128ELb1EEEvv",
      ("flash_bwd_dkdv", {"dt": "bf16", "d": "128"})),
+    (f"{_NS}17flash_bf16_kernelILi192ELi128ELb0EEEvv",
+     ("flash_fused", {"dt": "bf16", "d": "192", "dv": "128"})),
+    (f"{_NS}22flash_dkdv_bf16_kernelILi128ELi128ELb1EEEvv",
+     ("flash_bwd_dkdv", {"dt": "bf16", "d": "128", "dv": "128"})),
+    (f"{_NS}20flash_dq_bf16_kernelILi192ELi128EEEvv",
+     ("flash_bwd_dq", {"dt": "bf16", "d": "192", "dv": "128"})),
     (f"{_NS}17roll_chain_kernelILb0ELi64EEEvv",
      ("roll_chain", {"rotate": "0", "regs": "64"})),
     (f"{_NS}20attn_prologue_kernelILi128EEEvNS_8PrologueE",

@@ -495,6 +495,209 @@ def test_train_step_on_the_card_matches_the_plain_tier(cuda_grid,
         assert ((g - want).norm() / want.norm()).item() <= bar, n
 
 
+# ------------------------------------- flash split form (192, 128) --
+
+#: DeepSeek-V3's latent attention: queries and keys 192 wide, values 128
+D_QK, D_V = 192, 128
+
+
+def _split_operands(dev, h, h_kv, s, s_k=None, seed=21):
+    s_k = s if s_k is None else s_k
+    q = _heads(seed, h, s, D_QK, torch.bfloat16, dev)
+    k = _heads(seed + 1, h_kv, s_k, D_QK, torch.bfloat16, dev)
+    v = _heads(seed + 2, h_kv, s_k, D_V, torch.bfloat16, dev)
+    return q, k, v, D_QK ** -0.5
+
+
+def _split_bars(parts, got, want):
+    for part, a, b in zip(parts, got, want):
+        if part in ("m", "l"):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+        else:
+            assert _worst_row_rel(a, b) <= 1e-2, part
+
+
+def test_split_forward_at_the_cell_shape(cuda_sp):
+    """The fused (192, 128) forward at S=8192, 16 heads, bf16 causal
+    against its plain version at the bf16 bars, one launch counted under
+    its own name and none of the (d, d) forms."""
+    q, k, v, scale = _split_operands(cuda_sp.device, 16, 16, 8192)
+    before = dict(_build.LAUNCHES)
+    got = kflash.flash_attend_fused(q, k, v, 0, 0, True, scale)
+    torch.cuda.synchronize()
+    made = {n: _build.LAUNCHES[n] - before[n] for n in before}
+    assert {n: c for n, c in made.items() if c} == {"flash_fused_192x128": 1}
+    assert got[0].shape == (16, 8192, D_V)
+    want = kflash.flash_attend_fused_plain(q, k, v, 0, 0, True, scale)
+    _split_bars(("out", "m", "l"), got, want)
+
+
+@pytest.mark.parametrize("s,s_k,h,h_kv,q_off,k_off,causal,window", [
+    (200, 200, 4, 4, 200, 100, True, None),   # ragged tiles, a past block
+    (333, 333, 2, 1, 0, 0, False, None),      # GQA, no mask
+    (256, 77, 4, 2, 77, 0, True, 100),        # s_k ragged, a window
+    (200, 200, 4, 4, 0, 400, True, None),     # a future block: the carry
+])
+def test_split_carried_fold_equals_its_plain_version(
+        cuda_sp, s, s_k, h, h_kv, q_off, k_off, causal, window):
+    """The carried (192, 128) fold from a carry of an earlier plain fold:
+    acc ``Dv`` wide; a block wholly in the future returns the carry bit
+    for bit."""
+    q, k, v, scale = _split_operands(cuda_sp.device, h, h_kv, s, s_k)
+    carry = kflash.flash_block_attend_plain(
+        q, k, v, *kflash.fresh_state(h, s, D_V, cuda_sp.device), q_off, 0,
+        causal, scale, window=window)
+    args = (q, k, v, *carry, q_off, k_off, causal, scale)
+    before = _build.LAUNCHES["flash_block_192x128"]
+    got = kflash.flash_block_attend(*args, window=window)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_block_192x128"] == before + 1
+    if k_off > q_off + s:
+        for a, b in zip(got, carry):
+            assert torch.equal(a, b)
+        return
+    _split_bars(("m", "l", "acc"), got,
+                kflash.flash_block_attend_plain(*args, window=window))
+
+
+def _split_bwd_args(dev, h, h_kv, s, q_off=0, k_off=0, causal=True,
+                    window=None):
+    q, k_all, v_all, scale = _split_operands(dev, h, h_kv, s, q_off + s)
+    dout = _heads(31, h, s, D_V, torch.bfloat16, dev)
+    out, m, l = kflash.flash_attend_fused(q, k_all, v_all, q_off, 0, causal,
+                                          scale, window=window)
+    k, v = (x[:, k_off:k_off + s].contiguous() for x in (k_all, v_all))
+    return (q, k, v, dout, m, *kflash.backward_rows(out, l, dout), q_off,
+            k_off, causal, scale)
+
+
+@pytest.mark.parametrize("h,h_kv,s,q_off,k_off,causal,window", [
+    (16, 16, 8192, 0, 0, True, None),    # the cell's shape
+    (4, 4, 200, 0, 0, True, None),       # ragged tiles
+    (4, 2, 160, 100, 37, True, None),    # offsets off the tiles' grid, GQA
+    (2, 1, 150, 90, 30, True, 70),       # and a window
+    (2, 2, 129, 0, 0, False, None),      # no mask
+])
+def test_split_backward_equals_its_plain_version(cuda_sp, h, h_kv, s, q_off,
+                                                 k_off, causal, window):
+    """dq ``(H, S, 192)``, dk ``(H_kv, S, 192)`` and dv ``(H_kv, S, 128)``
+    against the plain versions by the worst row's relative error, 1e-2
+    (rows at the floor left out); one launch of each split form."""
+    args = _split_bwd_args(cuda_sp.device, h, h_kv, s, q_off, k_off, causal,
+                           window)
+    before = dict(_build.LAUNCHES)
+    got, want = _bwd_both(args, window)
+    for name in ("flash_bwd_dq_192x128", "flash_bwd_dkdv_192x128"):
+        assert _build.LAUNCHES[name] == before[name] + 1
+    assert [t.shape[-1] for t in got] == [D_QK, D_QK, D_V]
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert bool(torch.isfinite(a).all()), name
+        assert _worst_row_above_floor(a, b) <= 1e-2, name
+
+
+def test_split_backward_gives_the_same_bits_twice(cuda_sp):
+    args = _split_bwd_args(cuda_sp.device, 4, 2, 300)
+    runs = [(kflash.flash_block_backward_dq(*args),
+             *kflash.flash_block_backward_dkdv(*args)) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_split_backward_bar_sees_one_dropped_tile(cuda_sp):
+    """The plain versions with one live 64-row tile left out read above
+    the bar where the kernels read within it, at the split dims."""
+    args = _split_bwd_args(cuda_sp.device, 4, 4, 256)
+    q, k, v, dout, m, linv, delta, q_off, k_off, causal, scale = args
+    got, want = _bwd_both(args, None)
+    lo, hi = slice(0, 128), slice(192, 256)
+    dq = sum(kflash.flash_block_backward_dq_plain(
+        q, k[:, r], v[:, r], dout, m, linv, delta, q_off, k_off + r.start,
+        causal, scale) for r in (lo, hi))
+    dk, dv = (sum(parts) for parts in zip(*(
+        kflash.flash_block_backward_dkdv_plain(
+            q[:, r], k, v, dout[:, r], m[..., r], linv[..., r],
+            delta[..., r], q_off + r.start, k_off, causal, scale)
+        for r in (lo, hi))))
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, want, (dq, dk, dv)):
+        assert _worst_row_above_floor(a, b) <= 1e-2, name
+        assert _worst_row_above_floor(c, b) > 1e-2, name
+
+
+#: a 27-layer ``deepseek_v3`` model at a small width with Moonlight's
+#: head dims (128 without positions, 64 rotated, values of 128)
+MLA_STEP_MODEL = {
+    "model_type": "deepseek_v3", "num_hidden_layers": 27,
+    "first_k_dense_replace": 1, "hidden_size": 256,
+    "num_attention_heads": 2, "num_key_value_heads": 2, "kv_lora_rank": 64,
+    "qk_nope_head_dim": 128, "qk_rope_head_dim": 64, "v_head_dim": 128,
+    "intermediate_size": 384, "moe_intermediate_size": 64,
+    "n_routed_experts": 4, "num_experts_per_tok": 2, "n_shared_experts": 2,
+    "routed_scaling_factor": 2.446, "norm_topk_prob": True,
+    "scoring_func": "sigmoid", "rms_norm_eps": 1e-5, "rope_theta": 50000,
+    "vocab_size": 512, "tie_word_embeddings": False,
+}
+
+
+#: the model of ``moonlight-train-2x8k`` as the cell runs it: 27 layers at
+#: Moonlight-16B-A3B's published widths, 8 of the router's 64 experts and
+#: 20,480 vocabulary rows held
+MOONLIGHT_STEP_MODEL = dict(
+    MLA_STEP_MODEL, hidden_size=2048, num_attention_heads=16,
+    num_key_value_heads=16, kv_lora_rank=512, intermediate_size=11264,
+    moe_intermediate_size=1408, n_routed_experts=8, router_experts=64,
+    num_experts_per_tok=6, vocab_size=20480)
+
+
+def test_mla_step_launches_the_split_form_alone(cuda_grid):
+    """One step of the cell's model over 2 x 8192 tokens, every flash
+    count set to 0 first: 27 forward launches and 27 in the recompute, 27
+    dq and 27 dk/dv, each of the (192, 128) form, and no launch of a
+    padded (d, d) form."""
+    from smi_tpu_torch.models import transformer as ttf
+
+    model = ttf.LanguageModel.from_config(MOONLIGHT_STEP_MODEL,
+                                          device="cuda", seed=5)
+    step = ttf.make_train_step(cuda_grid, model.config, layers=27)
+    gen = torch.Generator().manual_seed(6)
+    ids, labels = (torch.randint(0, MOONLIGHT_STEP_MODEL["vocab_size"],
+                                 (2, 8192), generator=gen).cuda()
+                   for _ in "ab")
+    step(model, ids, labels)
+    flash_keys = [n for n in _build.LAUNCHES if n.startswith("flash_")]
+    for n in flash_keys:
+        _build.LAUNCHES[n] = 0
+    loss = step(model, ids, labels)
+    torch.cuda.synchronize()
+    made = {n: _build.LAUNCHES[n] for n in flash_keys if _build.LAUNCHES[n]}
+    assert made == {"flash_fused_192x128": 54, "flash_bwd_dq_192x128": 27,
+                    "flash_bwd_dkdv_192x128": 27}
+    assert math.isfinite(float(loss))
+    del model, step
+    torch.cuda.empty_cache()
+
+
+def test_mla_step_on_the_card_matches_the_plain_tier(cuda_grid):
+    """Dense layers only (an expert choice near a tie flips under
+    rounding): each gradient within 1e-2 of the plain tier's by ``||g -
+    g'|| / ||g'||``, as the block's bf16 bar."""
+    from smi_tpu_torch.models import transformer as ttf
+
+    cfg = dict(MLA_STEP_MODEL, num_hidden_layers=2, first_k_dense_replace=2)
+    gen = torch.Generator().manual_seed(7)
+    ids, labels = (torch.randint(0, 512, (2, 192), generator=gen).cuda()
+                   for _ in "ab")
+    grads = {}
+    for use_flash in (None, False):
+        model = ttf.LanguageModel.from_config(cfg, device="cuda", seed=8)
+        ttf.make_train_step(cuda_grid, model.config, use_flash=use_flash,
+                            layers=2)(model, ids, labels)
+        grads[use_flash] = model.reference_names(grads=True)
+    for n, g in grads[None].items():
+        want = grads[False][n]
+        assert ((g - want).norm() / want.norm()).item() <= 1e-2, n
+
+
 # ------------------------------------------------ stencil pipeline --
 
 

@@ -466,6 +466,8 @@ def test_cpu_calls_launch_nothing():
     assert set(before) == {"stencil_sweep", "stencil_temporal",
                            "stencil_pipeline", "flash_fused", "flash_block",
                            "flash_bwd_dq", "flash_bwd_dkdv",
+                           "flash_fused_192x128", "flash_block_192x128",
+                           "flash_bwd_dq_192x128", "flash_bwd_dkdv_192x128",
                            "ring_neighbour_stream", "ring_all_gather",
                            "ring_all_reduce", "ring_reduce_scatter",
                            "ring_all_reduce_chunked", "roll_chain",

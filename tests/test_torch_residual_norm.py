@@ -208,7 +208,8 @@ def test_fused_block_wiring_matches_the_plain_block(comm11, monkeypatch,
 
 def _small_lm_config(layers=2, dense=1):
     return {
-        "num_hidden_layers": layers, "num_dense_layers": dense,
+        "model_type": "afmoe", "num_hidden_layers": layers,
+        "num_dense_layers": dense,
         "hidden_size": 64, "num_attention_heads": 4,
         "num_key_value_heads": 2, "head_dim": 16,
         "layer_types": (["sliding_attention", "full_attention"]
@@ -436,7 +437,8 @@ def _small_trinity(layers, dense=2):
     one) at a small width: heads of 64, GQA 4:1; the first ``dense``
     layers dense, the rest expert layers."""
     return {
-        "num_hidden_layers": layers, "num_dense_layers": dense,
+        "model_type": "afmoe", "num_hidden_layers": layers,
+        "num_dense_layers": dense,
         "hidden_size": 256, "num_attention_heads": 4,
         "num_key_value_heads": 1, "head_dim": 64,
         "layer_types": (["sliding_attention"] * 3
